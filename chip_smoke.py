@@ -26,6 +26,20 @@ line is printed):
 5. Times (CUDA events, median, L2 flushed before each launch): each
    kernel, its plain version and one PyTorch library call computing the
    same function, beside the bound computed from bytes; epochs/s.
+6. KMeans kernels vs plain versions on the card at the headline (2^20
+   points x 64 dims, k = 256, numpy seed 0 N(0,1) points, centroids the
+   midpoints of seeded-permutation pairs of points): the stats kernel
+   under the three tie policies (one Lloyd step each) and on zero-padded
+   rows against duplicated centroids; the assign kernel; the workset
+   kernel with about half of the rows active and a tenth masked out.
+7. KMeans main paths with launch counters: ``KMeans(device="cuda")`` fit
+   of 10 rounds on the 2^20 x 64 table (the kernel plan, 10 launches);
+   the workset fit of up to 20 rounds (launches = rounds); each against
+   the same fit through the plain versions on the card; ``transform`` of
+   2^16 held-out rows (one launch) against a numpy float64 argmin.
+8. KMeans times: each kernel, its plain version and ``torch.addmm`` of the
+   score product alone, beside the bound from operations; BSP
+   iterations/s through the kernels and through the plain versions.
 
 The last lines are the kernel table as one JSON object, the card line
 from nvidia-smi, and ``{"ok": true, "device": {...}}``.  The script
@@ -53,6 +67,24 @@ D_PAIR = 128 * 1001         # 1001 table rows: not a multiple of 8
 PAIR_ROWS, PAIR_BATCH = 1 << 14, 1 << 12
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12      # H100 SXM fp32 on the CUDA cores (data sheet)
+
+# KMeans headline (the JAX package's bench.py:54): N(0,1) f32 points
+N_KM, D_KM, K_KM = 1 << 20, 64, 256
+KM_ITERS, WS_ITERS = 10, 20
+KM_HELD = 1 << 16           # held-out rows for transform
+KM_RATE_ITERS = 50          # Lloyd rounds timed for iterations/s
+KM_SOURCE = "flink_ml_tpu_torch/kernels/csrc/kmeans.cu"
+KM_REPLACES = {
+    "kmeans_update_stats": "flink_ml_tpu/ops/kmeans_pallas.py:300",
+    "kmeans_assign_reduce": "flink_ml_tpu/ops/kmeans_pallas.py:340",
+    "kmeans_workset_update": "flink_ml_tpu/ops/kmeans_pallas.py:507",
+}
+# The JAX benchmark's gate for the same near-tie rounding
+# (bench.py:889-897): a point whose two best scores round apart flips,
+# and one flip among ~4096 points of a cluster moves its centroid ~1e-3.
+KM_GATE = dict(rtol=5e-3, atol=5e-3)
+NEAR_TIE = 1e-5             # relative gap of the best two plain scores
 
 SOURCE = "flink_ml_tpu_torch/kernels/csrc/ell_scatter.cu"
 REPLACES = {
@@ -125,6 +157,325 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def near_tie_rows(torch, scores):
+    """Rows whose best two scores lie within NEAR_TIE (1 + |best|): there
+    the kernel's dot order may pick the other centroid."""
+    two = torch.topk(scores, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) <= NEAR_TIE * (1 + two[:, 0].abs())
+
+
+def kmeans_phases(torch, dev, card, timer):
+    """Phases 6-8 (KMeans); returns the three kernels' JSON entries."""
+    from flink_ml_tpu_torch import KMeans, Table
+    from flink_ml_tpu_torch.distance import DistanceMeasure
+    from flink_ml_tpu_torch.models.clustering import kmeans as KM
+    from flink_ml_tpu_torch.ops import kmeans as K
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("f32 matrix products must run in full f32 (TF32 is on)")
+    n, d, k = N_KM, D_KM, K_KM
+    host = np.random.default_rng(0).normal(size=(n, d)).astype(np.float32)
+    pts = torch.from_numpy(host).to(dev)
+    perm = np.random.default_rng(1).permutation(n)
+    cents = torch.from_numpy(
+        0.5 * (host[perm[:k]] + host[perm[k:2 * k]])).to(dev)
+    ones = torch.ones(n, device=dev)
+    err = {}
+
+    def gate(name, got, want, what):
+        e = float((got - want).abs().max())
+        err[name] = max(err.get(name, 0.0), e)
+        ok = torch.allclose(got, want, **KM_GATE)
+        log(f"check {name} ({what}): max |kernel - plain| = {e:.3e} "
+            f"(allclose rtol {KM_GATE['rtol']}, atol {KM_GATE['atol']})")
+        if not ok:
+            fail(f"{name} ({what}) disagrees with its plain version")
+
+    def own_stats(name, a, s, c, weight):
+        """Counts exactly, sums within 1e-5 of the cluster's sum of |p|
+        (the scale of f32 summation error, whatever the cancellation), both
+        against the plain stats of the kernel's own assignments."""
+        want_s, want_c = K.stats_from_assign(k, pts, weight, a)
+        abs_s, _ = K.stats_from_assign(k, pts.abs(), weight, a)
+        ds = (s - want_s).abs()
+        log(f"check {name}: counts max |diff| "
+            f"{float((c - want_c).abs().max()):.1f} (exact), sums max "
+            f"|diff| {float(ds.max()):.3e}, max |diff| / sum|p| "
+            f"{float((ds / abs_s.clamp_min(1e-30)).max()):.3e} (1e-5)")
+        if not torch.equal(c, want_c):
+            fail(f"{name}: counts differ from its own assignments' counts")
+        if not bool((ds <= 1e-5 * abs_s).all()):
+            fail(f"{name}: sums differ from its own assignments' sums")
+        err[name] = max(err.get(name, 0.0), float(ds.max()))
+
+    def assignments(name, got, want, near):
+        bad = int((got != want)[~near].sum())
+        log(f"check {name}: {int(near.sum())} near-tie rows (best two "
+            f"plain scores within {NEAR_TIE:g}(1+|best|)); {bad} differing "
+            f"assignments elsewhere; {int((got != want).sum())} in all")
+        if bad:
+            fail(f"{name}: assignments differ off near-tie rows")
+
+    def inertia(c):
+        """Mean squared distance of the points to their nearest centroid."""
+        sc = -2.0 * (pts @ c.T) + (c * c).sum(1)[None, :]
+        return float(((pts * pts).sum(1) + sc.min(1).values).mean())
+
+    def replay(name, fitted, plain_fit, state, rounds, body, plain_body):
+        """A fit's rounds hold against the plain versions one round at a
+        time: from the kernel fit's own state at every round, the kernel's
+        step and the plain versions' step agree within KM_GATE, and the
+        replay ends bit for bit on the fitted centroids (the kernels are
+        deterministic).  Whole fits are not compared element-wise: on
+        structureless N(0,1) data a near-tie flip in one round moves
+        other points' ties in the next, so the two trajectories drift
+        apart; they are held to the same objective (inertia within 1e-3
+        relative) instead."""
+        worst = 0.0
+        for r in range(rounds):
+            args = (*state, r, (pts, ones)) if isinstance(state, tuple) \
+                else (state, r, (pts, ones))
+            nxt = body(*args).feedback
+            ref = plain_body(*args).feedback
+            ck, cp = (nxt[0], ref[0]) if isinstance(state, tuple) \
+                else (nxt, ref)
+            worst = max(worst, float((ck - cp).abs().max()))
+            if not torch.allclose(ck, cp, **KM_GATE):
+                fail(f"{name}: round {r} of the fit disagrees with the "
+                     f"plain versions' step (max {worst:.3e})")
+            state = nxt
+        final = state[0] if isinstance(state, tuple) else state
+        err[name] = max(err.get(name, 0.0), worst)
+        ik, ip = inertia(fitted), inertia(plain_fit)
+        log(f"check {name} ({rounds}-round fit): per-round max |kernel "
+            f"step - plain step| {worst:.3e} (allclose rtol "
+            f"{KM_GATE['rtol']}, atol {KM_GATE['atol']}); replay equals "
+            f"the fit: {bool(torch.equal(final, fitted))}; whole fits differ "
+            f"by max {float((fitted - plain_fit).abs().max()):.3e}; inertia "
+            f"kernels {ik:.6f}, plain versions {ip:.6f}")
+        if not torch.equal(final, fitted):
+            fail(f"{name}: the fit is not reproduced by its replay")
+        if not abs(ik - ip) <= 1e-3 * ip:
+            fail(f"{name}: the fit's objective is off the plain fit's")
+
+    # -- 6. kernels vs plain versions at the headline ----------------------
+    scores = -2.0 * (pts @ cents.T) + (cents * cents).sum(1)[None, :]
+    near = near_tie_rows(torch, scores)
+    del scores
+    for tie in ("first", "fast", "split"):
+        args = (cents, 0, (pts, ones))
+        gate("kmeans_update_stats",
+             KM.kmeans_epoch_step_kernel(k, tie_policy=tie)(*args).feedback,
+             KM.kmeans_epoch_step_kernel(k, tie_policy=tie, plain=True)(
+                 *args).feedback, f"one Lloyd step, tie {tie}")
+    # zero pad rows against duplicated centroids (exact ties)
+    n_pad = 1000
+    pad_pts = pts.clone()
+    pad_pts[-n_pad:] = 0.0
+    pad_mask = ones.clone()
+    pad_mask[-n_pad:] = 0.0
+    dup = cents.clone()
+    dup[0] *= 0.05
+    dup[k - 1] = dup[0]                     # least norm, twice
+    dup[k - 2] = dup[1]
+    for tie in ("first", "fast", "split"):
+        args = (dup, 0, (pad_pts, pad_mask))
+        gate("kmeans_update_stats",
+             KM.kmeans_epoch_step_kernel(k, tie_policy=tie)(*args).feedback,
+             KM.kmeans_epoch_step_kernel(k, tie_policy=tie, plain=True)(
+                 *args).feedback, f"zero pad rows, duplicated centroids, "
+                                  f"tie {tie}")
+        _, c = K.kmeans_update_stats(pad_pts, dup, tie_policy=tie)
+        c = K.pad_correction(c, dup, n_pad, tie_policy=tie)
+        if tie != "first" and not (c[0] == c[k - 1] and c[1] == c[k - 2]):
+            fail(f"tie {tie}: duplicated centroids got unequal counts")
+        if float(c.min()) < 0:
+            fail(f"tie {tie}: pad correction left a negative count")
+
+    a, s, c = K.kmeans_assign_reduce(pts, cents)
+    want_a, _, _ = K.kmeans_assign_reduce_plain(pts, cents)
+    assignments("kmeans_assign_reduce", a, want_a, near)
+    own_stats("kmeans_assign_reduce", a, s, c, ones)
+
+    rng = np.random.default_rng(3)
+    prev = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).to(dev)
+    active = torch.from_numpy((rng.random(n) < 0.5).astype(np.float32)
+                              ).to(dev)
+    ws_pad = torch.from_numpy((rng.random(n) < 0.9).astype(np.float32)
+                              ).to(dev)
+    ws_args = (pts, cents, prev, active, ws_pad)
+    wa, wb, wsec, ws_s, ws_c = K.kmeans_workset_update(*ws_args)
+    pa, pb, psec, _, _ = K.kmeans_workset_update_plain(*ws_args)
+    assignments("kmeans_workset_update", wa, pa, near)
+    db = max(float((wb - pb).abs().max()), float((wsec - psec).abs().max()))
+    log(f"check kmeans_workset_update: max |d_best|, |d_second| error "
+        f"{db:.3e} (tolerance 1e-4)")
+    if not db <= 1e-4:
+        fail("kmeans_workset_update: distances disagree")
+    err["kmeans_workset_update"] = db
+    own_stats("kmeans_workset_update", wa, ws_s, ws_c, ws_pad)
+    if not torch.equal(wa[active == 0], prev[active == 0]):
+        fail("kmeans_workset_update: a settled row lost its cached "
+             "assignment")
+    del pad_pts, pa, pb, psec, want_a
+
+    # -- 7. main paths -----------------------------------------------------
+    table = Table({"features": host})
+    est = KMeans(device=DEVICE).set_k(k).set_max_iter(KM_ITERS)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = est.fit(table)
+    torch.cuda.synchronize()
+    bsp_s = time.perf_counter() - t0
+    bsp_launches = dict(K.LAUNCHES)
+    log(f"KMeans fit: {bsp_s:.3f} s for {KM_ITERS} rounds of {n} x {d}, "
+        f"k {k} (host->device copy included); plan {est.planned_impl}; "
+        f"launches {bsp_launches}")
+    if est.planned_impl != "kernel":
+        fail(f"KMeans planned {est.planned_impl!r}, expected 'kernel'")
+    if bsp_launches != {"kmeans_update_stats": KM_ITERS,
+                        "kmeans_assign_reduce": 0,
+                        "kmeans_workset_update": 0}:
+        fail(f"KMeans fit launches {bsp_launches}")
+    measure = DistanceMeasure.get_instance("euclidean")
+    init = torch.from_numpy(KM.select_random_centroids(host, k, 0)).to(dev)
+    plan = KM._fit_plan(n, d, k, measure)
+    got = torch.from_numpy(model.get_model_data()[0]["centroids"][0]).to(dev)
+    want = KM.fit_centroids(pts, ones, init, plan, measure=measure,
+                            max_iter=KM_ITERS, plain=True).state
+    replay("kmeans_update_stats", got, want, init, KM_ITERS,
+           KM.kmeans_epoch_step_kernel(k),
+           KM.kmeans_epoch_step_kernel(k, plain=True))
+
+    ws_est = (KMeans(device=DEVICE).set_k(k).set_max_iter(WS_ITERS)
+              .set_workset(True))
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ws_model = ws_est.fit(table)
+    torch.cuda.synchronize()
+    ws_s_wall = time.perf_counter() - t0
+    ws_launches = dict(K.LAUNCHES)
+    rep = ws_est.last_workset_report
+    log(f"KMeans workset fit: {ws_s_wall:.3f} s, {rep['rounds']} rounds "
+        f"(max {WS_ITERS}); plan {ws_est.planned_impl}; launches "
+        f"{ws_launches}; active fraction per round "
+        f"{np.round(rep['active_fraction'], 4).tolist()}")
+    if ws_est.planned_impl != "kernel_ws":
+        fail(f"workset fit planned {ws_est.planned_impl!r}")
+    if ws_launches["kmeans_workset_update"] != rep["rounds"] or \
+            ws_launches["kmeans_update_stats"] != 0:
+        fail(f"workset fit launches {ws_launches}, rounds {rep['rounds']}")
+    if rep["rounds"] != len(rep["active_fraction"]) or \
+            rep["points_scored"][0] != n or not 0 < rep["rounds"] <= WS_ITERS:
+        fail(f"inconsistent workset report {rep}")
+    ws_plan = KM._fit_plan(n, d, k, measure, workset=True)
+    got = torch.from_numpy(ws_model.get_model_data()[0]["centroids"][0]
+                           ).to(dev)
+    want = KM.fit_centroids(pts, ones, init, ws_plan, measure=measure,
+                            max_iter=WS_ITERS, workset=True, plain=True)
+    log(f"plain workset fit on the card: {want.num_epochs} rounds")
+    replay("kmeans_workset_update", got, want.state,
+           (init, ws_plan.init_workset(ones)), rep["rounds"],
+           KM.kmeans_workset_epoch_step(measure, k, kernel=True),
+           KM.kmeans_workset_epoch_step(measure, k))
+
+    held = np.random.default_rng(9).normal(size=(KM_HELD, d)).astype(
+        np.float32)
+    K.reset_launch_counts()
+    (out,) = model.transform(Table({"features": held}))
+    torch.cuda.synchronize()
+    tr_launches = dict(K.LAUNCHES)
+    if tr_launches["kmeans_assign_reduce"] != 1 or \
+            sum(tr_launches.values()) != 1:
+        fail(f"transform launches {tr_launches}")
+    fitted = model.get_model_data()[0]["centroids"][0].astype(np.float64)
+    h64 = held.astype(np.float64)
+    d2 = ((h64 * h64).sum(1)[:, None] - 2.0 * h64 @ fitted.T
+          + (fitted * fitted).sum(1)[None, :])
+    two = np.sort(d2, axis=1)[:, :2]
+    near64 = two[:, 1] - two[:, 0] <= 1e-5 * two[:, 1]
+    pred = out["prediction"]
+    off = int(np.sum((pred != d2.argmin(1)) & ~near64))
+    log(f"transform: {KM_HELD} rows, launches {tr_launches}, "
+        f"{int(near64.sum())} rows within 1e-5 relative of a tie in f64, "
+        f"{off} other rows off the float64 argmin")
+    if pred.shape != (KM_HELD,) or pred.dtype != np.int64 or off:
+        fail("transform disagrees with the float64 argmin")
+
+    # -- 8. times ----------------------------------------------------------
+    c2 = (cents * cents).sum(1)[None, :]
+    yard = lambda: torch.addmm(c2, pts, cents.T, alpha=-2.0)  # noqa: E731
+    ops = 2.0 * n * k * d
+    f4 = 4
+    bytes_moved = {
+        # points and centroids read; sums and counts written
+        "kmeans_update_stats": (n * d + 2 * k * d + k) * f4,
+        # + the (n,) assignment written
+        "kmeans_assign_reduce": (n * d + 2 * k * d + k + n) * f4,
+        # + prev, active, pad_mask read; assign, d_best, d_second written
+        "kmeans_workset_update": (n * d + 2 * k * d + k + 6 * n) * f4,
+    }
+    runs = {
+        "kmeans_update_stats": (
+            lambda: K.kmeans_update_stats(pts, cents, tie_policy="first"),
+            lambda: K.kmeans_update_stats_plain(pts, cents,
+                                                tie_policy="first")),
+        "kmeans_assign_reduce": (
+            lambda: K.kmeans_assign_reduce(pts, cents),
+            lambda: K.kmeans_assign_reduce_plain(pts, cents)),
+        "kmeans_workset_update": (
+            lambda: K.kmeans_workset_update(*ws_args),
+            lambda: K.kmeans_workset_update_plain(*ws_args)),
+    }
+    count = {"kmeans_update_stats": bsp_launches["kmeans_update_stats"],
+             "kmeans_assign_reduce": tr_launches["kmeans_assign_reduce"],
+             "kmeans_workset_update": ws_launches["kmeans_workset_update"]}
+    lib_ms = timer.ms(yard)
+    entries = []
+    for name, (kern, plain) in runs.items():
+        ms, plain_ms = timer.ms(kern), timer.ms(plain, reps=10)
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        bytes_ms = bytes_moved[name] / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        log(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"addmm (score product only) {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; bytes alone {bytes_ms:.4f} "
+            f"ms) [{card}]")
+        entries.append({
+            "name": name, "route": "cuda", "source": KM_SOURCE,
+            "replaces": KM_REPLACES[name], "launches": count[name],
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms,
+        })
+    for tie in ("fast", "split"):
+        ms = timer.ms(lambda: K.kmeans_update_stats(pts, cents,
+                                                    tie_policy=tie))
+        log(f"time kmeans_update_stats tie {tie}: kernel {ms:.4f} ms "
+            f"[{card}]")
+
+    rates = {}
+    for label, plain in (("kernels", False), ("plain", True)):
+        body = KM.kmeans_epoch_step_kernel(k, plain=plain)
+        iters = KM_RATE_ITERS if not plain else KM_RATE_ITERS // 5
+        c = body(cents, 0, (pts, ones)).feedback
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            c = body(c, i, (pts, ones)).feedback
+        torch.cuda.synchronize()
+        rates[label] = iters / (time.perf_counter() - t0)
+    log(f"KMeans BSP iterations/s at {n} x {d}, k {k}, device-resident "
+        f"points: kernels {rates['kernels']:.3f}, plain versions "
+        f"{rates['plain']:.3f}; workset fit {ws_s_wall:.3f} s for "
+        f"{rep['rounds']} rounds [{card}]")
+    return entries
+
+
 def main():
     import torch
 
@@ -152,7 +503,8 @@ def main():
     # -- 2. build ----------------------------------------------------------
     secs = build.build_all()
     log(f"build: {secs:.2f} s (0 = already built)")
-    log("nvcc report:\n" + (build.build_log("ell_scatter") or "(none)"))
+    for name in ("ell_scatter", "kmeans"):
+        log(f"nvcc report ({name}):\n" + (build.build_log(name) or "(none)"))
 
     # -- 3. kernels vs plain versions at the main path's shapes ------------
     dense1, cat1, _ = criteo_rows(BATCH, D_MAIN, seed=1)
@@ -388,6 +740,8 @@ def main():
         f"kernels {rates['kernels']:.3f}, plain versions "
         f"{rates['plain']:.3f}; fit() wall {fit_s:.3f} s for {EPOCHS} "
         f"epochs incl. layout build [{card}]")
+
+    kernels += kmeans_phases(torch, dev, card, timer)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

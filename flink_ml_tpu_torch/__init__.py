@@ -5,7 +5,8 @@ directory save/load as the JAX package, with PyTorch tensors inside and
 hand-written CUDA kernels for Hopper (``kernels/csrc``) where the JAX
 package wrote Pallas kernels for the TPU.  Ported so far: the linear
 family's ``fit``/``transform`` on the Criteo-shaped mixed layout, with the
-three ELL kernels.  Entry points run on the card unless the caller passes
+three ELL kernels; KMeans ``fit`` (BSP and workset) and ``transform``, with
+the three KMeans kernels.  Entry points run on the card unless the caller passes
 ``device="cpu"``.  This package imports neither JAX nor ``flink_ml_tpu``.
 """
 
@@ -14,6 +15,8 @@ from .api.stage import AlgoOperator, Estimator, Model, Stage, Transformer
 from .data.table import Table
 from .linalg import DenseVector, SparseVector, Vectors
 from .models import (
+    KMeans,
+    KMeansModel,
     LinearRegression,
     LinearRegressionModel,
     LinearSVC,
@@ -46,6 +49,7 @@ __all__ = [
     "LogisticRegression", "LogisticRegressionModel",
     "LinearRegression", "LinearRegressionModel",
     "LinearSVC", "LinearSVCModel",
+    "KMeans", "KMeansModel",
     "Param", "ParamValidators", "WithParams", "InvalidParamError",
     "BoolParam", "IntParam", "LongParam", "FloatParam", "DoubleParam",
     "StringParam", "IntArrayParam", "FloatArrayParam", "DoubleArrayParam",

@@ -1,5 +1,5 @@
 """Algorithm library (ported so far: the linear family on the mixed
-layout)."""
+layout, and KMeans)."""
 
 from .classification import (  # noqa: F401
     LinearSVC,
@@ -7,4 +7,5 @@ from .classification import (  # noqa: F401
     LogisticRegression,
     LogisticRegressionModel,
 )
+from .clustering import KMeans, KMeansModel  # noqa: F401
 from .regression import LinearRegression, LinearRegressionModel  # noqa: F401

@@ -1,0 +1,471 @@
+"""KMeans: Lloyd's algorithm with the points on the device.
+
+Capability mirror of ``flink-ml-lib/.../clustering/kmeans/KMeans.java:79-337``
++ ``KMeansModel.java:62-214`` + ``KMeansParams.java``/``KMeansModelParams``.
+
+One Lloyd's round is the reference's broadcast-assign-reduce subgraph
+(``KMeans.java:172-315``); here it is one kernel launch over
+device-resident points (``ops/kmeans.py``), and the centroids stay on the
+device between rounds.  The epoch loop is :func:`..iteration.iterate`;
+the BSP fit never waits for the device inside it, the workset fit reads
+one scalar per round to decide its exit.
+
+A port of the JAX package's ``models/clustering/kmeans.py``, single
+device.  The fit plans by shape and measure only: the kernel path for
+n >= 65536 rows and the euclidean measure, else the plain body; only the
+kernel wrappers branch on the tensors' device.  Not ported, each raising
+``NotImplementedError`` naming its ROADMAP queue: ``initMode="k-means++"``
+(A4), the out-of-core fit (A3), the multi-device stats (A10) and the chain
+transform (A7).  Every stage runs on ``device`` (default ``"cuda"``;
+raises without a card unless ``"cpu"`` is asked for).  The device is a
+runtime choice, not a param, so it is not saved.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ...api.stage import Estimator, Model
+from ...data.table import Table
+from ...distance import DistanceMeasure
+from ...iteration import IterationBodyResult, Workset, iterate
+from ...linalg import stack_vectors
+from ...ops.kmeans import (
+    kmeans_assign_reduce,
+    kmeans_update_stats,
+    kmeans_update_stats_plain,
+    kmeans_workset_update,
+    kmeans_workset_update_plain,
+    pad_correction,
+    stats_from_assign as _stats_from_assign,
+)
+from ...params.param import BoolParam, IntParam, ParamValidators, StringParam
+from ...params.shared import (
+    HasDistanceMeasure,
+    HasFeaturesCol,
+    HasMaxIter,
+    HasPredictionCol,
+    HasSeed,
+)
+from ...utils import persist
+from ...utils.device import resolve_device
+
+__all__ = ["KMeans", "KMeansModel", "KMeansParams", "KMeansModelParams",
+           "FitPlan", "select_random_centroids", "kmeans_epoch_step",
+           "kmeans_epoch_step_kernel", "kmeans_workset_epoch_step",
+           "workset_points_scored", "fit_centroids"]
+
+
+def _not_ported(what: str, queue: str):
+    return NotImplementedError(
+        f"{what} is not ported to flink_ml_tpu_torch yet (ROADMAP queue "
+        f"{queue})")
+
+
+class KMeansModelParams(HasDistanceMeasure, HasFeaturesCol, HasPredictionCol):
+    """``KMeansModelParams.java`` mixin set."""
+
+
+class KMeansParams(KMeansModelParams, HasSeed, HasMaxIter):
+    """``KMeansParams.java``: adds K (>= 2) and the training-only params.
+
+    ``tiePolicy`` picks the fit kernel's handling of exactly tied
+    distances: ``"first"`` (default) the first-index argmin, the
+    reference's semantics; ``"split"`` a fractional share to each tied
+    centroid; ``"fast"`` a full count to each.  The plain body (below the
+    kernel threshold, or a non-euclidean measure) always takes the
+    first-index argmin and ignores it."""
+
+    K = IntParam("k", "Number of clusters.", default=2,
+                 validator=ParamValidators.gt_eq(2))
+    INIT_MODE = StringParam(
+        "initMode",
+        "Initial centroid selection: 'random' (the reference's "
+        "shuffle-take-k) or 'k-means++' (distance-weighted seeding).",
+        default="random",
+        validator=ParamValidators.in_array(["random", "k-means++"]))
+    TIE_POLICY = StringParam(
+        "tiePolicy",
+        "Fit-kernel handling of exactly-tied distances: 'first' "
+        "(reference argmin semantics), 'fast', or 'split'.",
+        default="first",
+        validator=ParamValidators.in_array(["first", "fast", "split"]))
+    WORKSET = BoolParam(
+        "workset",
+        "Delta/workset iteration mode: carry Hamerly center-movement "
+        "bounds through the fit and stop at Lloyd's fixed point instead "
+        "of always running maxIter rounds.  Settled points keep their "
+        "cached assignment.  On the plain body the final centroids are "
+        "bit-identical to the BSP fit's.  The fit records a per-round "
+        "report in estimator.last_workset_report.",
+        default=False)
+
+    def get_workset(self) -> bool:
+        return self.get(KMeansParams.WORKSET)
+
+    def set_workset(self, value: bool):
+        return self.set(KMeansParams.WORKSET, value)
+
+    def get_k(self) -> int:
+        return self.get(KMeansParams.K)
+
+    def set_k(self, value: int):
+        return self.set(KMeansParams.K, value)
+
+    def get_tie_policy(self) -> str:
+        return self.get(KMeansParams.TIE_POLICY)
+
+    def set_tie_policy(self, value: str):
+        return self.set(KMeansParams.TIE_POLICY, value)
+
+    def get_init_mode(self) -> str:
+        return self.get(KMeansParams.INIT_MODE)
+
+    def set_init_mode(self, value: str):
+        return self.set(KMeansParams.INIT_MODE, value)
+
+
+def select_random_centroids(points: np.ndarray, k: int, seed: int) -> np.ndarray:
+    """Semantics of ``KMeans.selectRandomCentroids`` (``KMeans.java:317-336``):
+    shuffle all points with the seed, take k.  numpy, so both packages
+    pick the same init from the same seed."""
+    n = points.shape[0]
+    if n < k:
+        raise ValueError(f"Need at least k={k} points, got {n}")
+    idx = np.random.default_rng(seed).permutation(n)[:k]
+    return points[idx]
+
+
+def select_kmeanspp_centroids(points: np.ndarray, k: int, seed: int):
+    raise _not_ported("initMode='k-means++' (its JAX stream cannot be "
+                      "reproduced; it needs a distribution-level test)", "A4")
+
+
+_INIT_MODES = {"random": select_random_centroids,
+               "k-means++": select_kmeanspp_centroids}
+
+
+def _assign_stats(measure: DistanceMeasure, k: int, points, mask, centroids):
+    """The Lloyd's statistics of the plain body: ``(sums, counts)`` of the
+    masked points by first-index nearest centroid."""
+    assign = torch.argmin(measure.pairwise(points, centroids), dim=1)
+    return _stats_from_assign(k, points, mask, assign)
+
+
+def _update_centroids(centroids, sums, counts):
+    """Empty clusters keep their previous centroid."""
+    counts = counts[:, None]
+    return torch.where(counts > 0, sums / torch.clamp_min(counts, 1.0),
+                       centroids)
+
+
+def kmeans_epoch_step(measure: DistanceMeasure, k: int):
+    """One Lloyd's round, the plain body (``data`` = ``(points, mask)``)."""
+
+    def body(centroids, epoch, data):
+        points, mask = data
+        sums, counts = _assign_stats(measure, k, points, mask, centroids)
+        return IterationBodyResult(
+            feedback=_update_centroids(centroids, sums, counts))
+
+    return body
+
+
+def kmeans_epoch_step_kernel(k: int, *, tie_policy: str = "first",
+                             plain: bool = False):
+    """One Lloyd's round on the stats kernel (``ops/kmeans.py``), the
+    counterpart of the JAX package's ``kmeans_epoch_step_pallas``.  Zero
+    pad rows (mask 0) are removed by :func:`pad_correction`.  ``plain``
+    runs the kernel's plain version instead (for comparisons on the
+    card)."""
+    stats = kmeans_update_stats_plain if plain else kmeans_update_stats
+
+    def body(centroids, epoch, data):
+        points, mask = data
+        sums, counts = stats(points, centroids, tie_policy=tie_policy)
+        n_pad = points.shape[0] - torch.sum(mask)
+        counts = pad_correction(counts, centroids, n_pad,
+                                tie_policy=tie_policy)[:, None]
+        # no clamp to 1: "split" ties give fractional counts in (0, 1)
+        safe = torch.where(counts > 0, counts, 1.0)
+        new_centroids = torch.where(counts > 0, sums / safe, centroids)
+        return IterationBodyResult(feedback=new_centroids)
+
+    return body
+
+
+def workset_points_scored(active_fraction, n_real: int,
+                          n_padded: int) -> np.ndarray:
+    """Points scored per round, from the post-round active-fraction trace:
+    round 0 scores every real point, round ``e`` scores round ``e-1``'s
+    survivors (the fraction is over padded rows)."""
+    frac = np.asarray(active_fraction, np.float64)
+    if not frac.size:
+        return np.zeros((0,))
+    return np.concatenate([[float(n_real)], frac[:-1] * n_padded])
+
+
+#: relative slack on the Hamerly bound decay: f32 rounding of
+#: ``upper + drift`` / ``lower - drift`` may land below the true bound, so
+#: every decayed bound is nudged outward — a loose bound only keeps a
+#: settled point active one more round, never freezes one that could flip.
+_WS_BOUND_SLACK = 1e-5
+
+
+def kmeans_workset_epoch_step(measure: DistanceMeasure, k: int, *,
+                              kernel: bool = False):
+    """One bound-filtered Lloyd's round as a workset body (Hamerly 2010 on a
+    device-resident mask).  ``kernel`` scores through the fused
+    ``kmeans_workset_update`` kernel, else through its plain version; the
+    bound decay, settle rule and centroid update are shared.
+
+    ``workset.bounds`` carries the cached assignment, an upper bound on the
+    distance to the assigned centroid and a lower bound on the distance to
+    every other one.  A point is settled when ``upper < lower`` after both
+    decay by the centroids' movement: its argmin cannot have flipped, so
+    its cached assignment feeds the stats and the result is bit-identical
+    to the BSP body.  A round with no flip and no drift drains the
+    workset, so the loop exits at Lloyd's fixed point.
+
+    Euclidean only: the decay leans on the triangle inequality in root
+    distance space."""
+    if measure.name != "euclidean":
+        raise ValueError(
+            "workset KMeans requires the euclidean measure (Hamerly "
+            f"bounds need the triangle inequality), got {measure.name!r}")
+    update = kmeans_workset_update if kernel else kmeans_workset_update_plain
+
+    def body(centroids, ws, epoch, data):
+        points, pad_mask = data
+        active = ws.mask
+        prev_assign = ws.bounds["assign"]
+        assign, d_best, d_second, sums, counts = update(
+            points, centroids, prev_assign, active, pad_mask)
+        on = active > 0
+        # settled points keep their cached bounds; assign is merged
+        upper = torch.where(on, d_best, ws.bounds["upper"])
+        lower = torch.where(on, d_second, ws.bounds["lower"])
+        changed = torch.sum(active * (assign != prev_assign))
+        new_centroids = _update_centroids(centroids, sums, counts)
+
+        drift = torch.sqrt(torch.clamp_min(
+            torch.sum(torch.square(new_centroids - centroids), dim=1), 0.0))
+        drift_max = torch.max(drift)
+        # conservative f32 decay (see _WS_BOUND_SLACK)
+        upper = upper + drift[assign.long()]
+        upper = upper + torch.abs(upper) * _WS_BOUND_SLACK
+        lower = lower - drift_max
+        lower = lower - torch.abs(lower) * _WS_BOUND_SLACK
+        # fixed point: nothing moved and nothing flipped
+        settled = torch.logical_and(drift_max == 0.0, changed == 0.0)
+        next_active = torch.logical_and(upper >= lower,
+                                        torch.logical_not(settled))
+        new_mask = torch.where(pad_mask > 0, next_active.to(torch.float32),
+                               0.0)
+        new_ws = Workset(new_mask, {"assign": assign, "upper": upper,
+                                    "lower": lower})
+        return IterationBodyResult(feedback=(new_centroids, new_ws))
+
+    return body
+
+
+# The kernels take over from this row count; below it the plain body is as
+# fast and keeps the reference's exact semantics.
+_KERNEL_MIN_ROWS = 65536
+
+
+@dataclass(frozen=True)
+class FitPlan:
+    """The per-fit implementation contract, shared by the BSP and the
+    workset fit.  ``impl``: ``"kernel"`` (stats kernel), ``"kernel_ws"``
+    (workset kernel) or ``"plain"``.  Unlike the JAX package's plan it
+    carries no padding rule: the kernels take any row count."""
+
+    impl: str
+    k: int
+    d: int
+
+    def init_workset(self, pad_mask: torch.Tensor) -> Workset:
+        """Every real point starts active with vacuous bounds (+inf upper,
+        -inf lower: a full first-round rescore, exactly BSP round 0); pad
+        rows are born settled."""
+        mask = pad_mask.to(torch.float32)
+        return Workset(
+            mask=mask,
+            bounds={"assign": torch.zeros_like(mask, dtype=torch.int32),
+                    "upper": torch.full_like(mask, float("inf")),
+                    "lower": torch.full_like(mask, float("-inf"))})
+
+
+def _fit_plan(n: int, d: int, k: int, measure: DistanceMeasure, *,
+              workset: bool = False) -> FitPlan:
+    """Plan by shape and measure only: the kernel path for n >= 65536 and
+    the euclidean measure, else the plain body."""
+    kernel = measure.name == "euclidean" and n >= _KERNEL_MIN_ROWS
+    if not kernel:
+        return FitPlan("plain", k, d)
+    return FitPlan("kernel_ws" if workset else "kernel", k, d)
+
+
+def fit_centroids(points: torch.Tensor, mask: torch.Tensor,
+                  init: torch.Tensor, plan: FitPlan, *,
+                  measure: DistanceMeasure, max_iter: int,
+                  workset: bool = False, tie_policy: str = "first",
+                  plain: bool = False):
+    """Lloyd's rounds from ``init`` over device-resident ``(points, mask)``
+    under ``plan`` (BSP, or bound-filtered with ``workset``); returns the
+    :class:`IterationResult`.  ``plain`` swaps the kernels for their plain
+    versions (for comparisons on the card)."""
+    k = plan.k
+    if workset:
+        body = kmeans_workset_epoch_step(
+            measure, k, kernel=plan.impl == "kernel_ws" and not plain)
+        return iterate(body, init, (points, mask), max_epochs=max_iter,
+                       workset=plan.init_workset(mask))
+    body = (kmeans_epoch_step_kernel(k, tie_policy=tie_policy, plain=plain)
+            if plan.impl == "kernel" else kmeans_epoch_step(measure, k))
+    return iterate(body, init, (points, mask), max_epochs=max_iter)
+
+
+class KMeans(KMeansParams, Estimator["KMeansModel"]):
+    """Estimator: Lloyd's algorithm for ``maxIter`` rounds (termination
+    parity with ``TerminateOnMaxIterationNum``), or until the workset
+    drains with ``set_workset(True)``."""
+
+    def __init__(self, device="cuda"):
+        super().__init__()
+        self.device = device
+        self.planned_impl: Optional[str] = None
+        self.last_workset_report: Optional[dict] = None
+
+    def fit(self, *inputs) -> "KMeansModel":
+        (table,) = inputs
+        # the report describes this fit only
+        self.last_workset_report = None
+        dev = resolve_device(self.device)
+        k = self.get_k()
+        measure = DistanceMeasure.get_instance(self.get_distance_measure())
+        host_points = stack_vectors(table[self.get_features_col()]).astype(
+            np.float32)
+        n, d = host_points.shape
+        workset = self.get_workset()
+        plan = _fit_plan(n, d, k, measure, workset=workset)
+        self.planned_impl = plan.impl
+        init = _INIT_MODES[self.get_init_mode()](host_points, k,
+                                                 self.get_seed())
+        points_t = torch.from_numpy(np.ascontiguousarray(host_points)).to(
+            dev)
+        mask_t = torch.ones(n, dtype=torch.float32, device=dev)
+        init_t = torch.from_numpy(np.ascontiguousarray(init)).to(dev)
+        result = fit_centroids(points_t, mask_t, init_t, plan,
+                               measure=measure, max_iter=self.get_max_iter(),
+                               workset=workset,
+                               tie_policy=self.get_tie_policy())
+        if workset:
+            self.last_workset_report = self._workset_report(
+                result, n_real=n, n_padded=int(points_t.shape[0]))
+        centroids = result.state.cpu().numpy()
+
+        model = KMeansModel(device=self.device)
+        model.copy_params_from(self)
+        model.set_model_data(Table({"centroids": centroids[None, :, :]}))
+        model.planned_impl = plan.impl
+        return model
+
+    def _workset_report(self, result, *, n_real: int, n_padded: int) -> dict:
+        """Convergence report of a workset fit: ``active_fraction[e]`` is the
+        fraction left active after round ``e`` (over padded rows);
+        ``points_scored`` the points each round scored."""
+        trace = result.side.get("epoch_trace", {})
+        frac = np.asarray(trace.get("active_fraction", ()), np.float64)
+        return {
+            "rounds": result.num_epochs,
+            "max_epochs": self.get_max_iter(),
+            "n_points": int(n_real),
+            "active_fraction": frac,
+            "points_scored": workset_points_scored(frac, n_real, n_padded),
+        }
+
+    def fit_outofcore(self, make_reader, **kwargs) -> "KMeansModel":
+        raise _not_ported("the out-of-core KMeans fit", "A3")
+
+    def save(self, path: str) -> None:
+        persist.save_metadata(self, path)
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "KMeans":
+        stage = persist.load_stage_param(path)
+        stage.device = device
+        return stage
+
+
+class KMeansModel(KMeansModelParams, Model):
+    """Batch prediction: the nearest centroid of each row, appended as the
+    prediction column (int64)."""
+
+    def __init__(self, device="cuda"):
+        super().__init__()
+        self.device = device
+        self.planned_impl: Optional[str] = None
+        self._centroids: Optional[np.ndarray] = None
+
+    # -- model data ---------------------------------------------------------
+    def set_model_data(self, *inputs) -> "KMeansModel":
+        (table,) = inputs
+        self._centroids = np.asarray(table["centroids"][0], dtype=np.float32)
+        return self
+
+    def get_model_data(self) -> List[Table]:
+        self._require_model()
+        return [Table({"centroids": self._centroids[None, :, :]})]
+
+    def _require_model(self):
+        if self._centroids is None:
+            raise RuntimeError(
+                "KMeansModel has no model data; fit a KMeans or call "
+                "set_model_data first")
+
+    def transform_kernel(self, schema):
+        raise _not_ported("the chain-fused KMeans transform", "A7")
+
+    # -- inference ----------------------------------------------------------
+    def transform(self, *inputs) -> List[Table]:
+        """Euclidean on the card: the ``kmeans_assign_reduce`` kernel, of
+        which only the assignments are kept.  Otherwise ``argmin`` of the
+        measure's pairwise distances."""
+        (table,) = inputs
+        self._require_model()
+        dev = resolve_device(self.device)
+        measure = DistanceMeasure.get_instance(self.get_distance_measure())
+        points = torch.from_numpy(np.ascontiguousarray(stack_vectors(
+            table[self.get_features_col()]).astype(np.float32))).to(dev)
+        centroids = torch.from_numpy(self._centroids).to(dev)
+        if dev.type == "cuda" and measure.name == "euclidean":
+            assign = kmeans_assign_reduce(points, centroids)[0]
+        else:
+            assign = torch.argmin(measure.pairwise(points, centroids), dim=1)
+        return [table.with_column(self.get_prediction_col(),
+                                  assign.cpu().numpy().astype(np.int64))]
+
+    # -- persistence --------------------------------------------------------
+    def save(self, path: str) -> None:
+        self._require_model()
+        persist.save_metadata(self, path)
+        persist.save_model_arrays(path, "model",
+                                  {"centroids": self._centroids})
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "KMeansModel":
+        """Load a model saved by this package or by the JAX package."""
+        model = persist.load_stage_param(path)
+        if not isinstance(model, cls):
+            raise IOError(f"Stage at {path} is a {type(model).__name__}, "
+                          f"not a {cls.__name__}")
+        model.device = device
+        data = persist.load_model_arrays(path, "model")
+        model._centroids = data["centroids"].astype(np.float32)
+        return model

@@ -1,0 +1,322 @@
+"""KMeans kernels: one Lloyd's round fused over the points, with their plain
+PyTorch versions.
+
+The plain expansion of a round (score product -> argmin -> one-hot ->
+product) writes two ``(n, k)`` intermediates to device memory: 1 GB each
+at the headline shape (n = 2^20, d = 64, k = 256, f32).  The kernels
+(CUDA C++ for Hopper, ``kernels/csrc/kmeans.cu``; its header note says
+what bounds them on the H100 and how they are built) keep scores and
+one-hot on chip and read the points once:
+
+- :func:`kmeans_update_stats` — the fit's ``(sums, counts)`` under a tie
+  policy (``first``, ``fast``, ``split``);
+- :func:`kmeans_assign_reduce` — the first-index argmin assignment, plus
+  sums and counts (the transform path);
+- :func:`kmeans_workset_update` — one bound-filtered workset round: root
+  distances, merged assignment, best and second-best distance, and the
+  pad-masked stats.
+
+The kernels mask their ragged edge and take any row count.  They take
+zero pad rows too, as the JAX package's maskless contract has it: a zero
+row lands on the centroid(s) of least norm and adds nothing to ``sums``,
+and :func:`pad_correction` removes it from ``counts``.
+
+Each wrapper takes its plain version (``*_plain``) for tensors on the
+CPU, and launches its kernel for CUDA tensors or raises: it never falls
+back.  A launch adds one to :data:`LAUNCHES`.
+
+A port of the JAX package's ``ops/kmeans_pallas.py``.  The TPU block
+planning (``pick_block_n*``, ``supported``) has no counterpart: the
+kernels plan their own shared memory.  ``update_stats_sharded`` is not
+ported (ROADMAP queue A10), nor a ``compute_dtype`` other than f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from ..distance import DistanceMeasure
+
+__all__ = ["kmeans_update_stats", "kmeans_update_stats_plain",
+           "kmeans_assign_reduce", "kmeans_assign_reduce_plain",
+           "kmeans_workset_update", "kmeans_workset_update_plain",
+           "stats_from_assign", "pad_correction", "TIE_POLICIES",
+           "LAUNCHES", "reset_launch_counts"]
+
+TIE_POLICIES = ("first", "fast", "split")
+
+#: Launches of each kernel since the last :func:`reset_launch_counts`.
+#: Only a launch of the CUDA kernel counts, never a plain version.
+LAUNCHES: Dict[str, int] = {"kmeans_update_stats": 0,
+                            "kmeans_assign_reduce": 0,
+                            "kmeans_workset_update": 0}
+
+# kernel modes of kmeans.cu
+_MODES = {"first": 0, "fast": 1, "split": 2, "assign": 3, "workset": 4}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _scores(points: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """``-2 p·cᵀ + |c|²`` (n, k): ``|p|²`` shifts a row uniformly and
+    cannot change which centroids attain its minimum."""
+    c2 = torch.sum(centroids * centroids, dim=1)[None, :]
+    return -2.0 * (points @ centroids.T) + c2
+
+
+def _onehot(assign: torch.Tensor, k: int, dtype) -> torch.Tensor:
+    iota = torch.arange(k, device=assign.device, dtype=assign.dtype)
+    return (assign[:, None] == iota[None, :]).to(dtype)
+
+
+def stats_from_assign(k: int, points: torch.Tensor, mask: torch.Tensor,
+                      assign: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sums (k, d), counts (k,))`` of the points weighted by ``mask``,
+    keyed by ``assign`` (an out-of-range index counts nowhere, as a JAX
+    one-hot)."""
+    onehot = _onehot(assign, k, points.dtype) * mask[:, None]
+    return onehot.T @ points, torch.sum(onehot, dim=0)
+
+
+def kmeans_update_stats_plain(points: torch.Tensor, centroids: torch.Tensor,
+                              *, tie_policy: str = "fast"
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sums, counts)`` of every row under ``tie_policy``: ``first`` the
+    first-index argmin, ``fast`` every index equal to the row minimum,
+    ``split`` 1/#ties to each."""
+    _check_policy(tie_policy)
+    k = centroids.shape[0]
+    scores = _scores(points, centroids)
+    if tie_policy == "first":
+        onehot = _onehot(torch.argmin(scores, dim=1), k, points.dtype)
+    else:
+        onehot = (scores <= torch.min(scores, dim=1, keepdim=True).values
+                  ).to(points.dtype)
+        if tie_policy == "split":
+            onehot = onehot / torch.sum(onehot, dim=1, keepdim=True)
+    del scores
+    return onehot.T @ points, torch.sum(onehot, dim=0)
+
+
+def kmeans_assign_reduce_plain(points: torch.Tensor, centroids: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """``(assign (n,) int32, sums, counts)``: first-index argmin of the
+    scores, and the stats of every row."""
+    assign = torch.argmin(_scores(points, centroids), dim=1).to(torch.int32)
+    ones = torch.ones(points.shape[0], dtype=points.dtype,
+                      device=points.device)
+    sums, counts = stats_from_assign(centroids.shape[0], points, ones, assign)
+    return assign, sums, counts
+
+
+def kmeans_workset_update_plain(points: torch.Tensor, centroids: torch.Tensor,
+                                prev_assign: torch.Tensor,
+                                active: torch.Tensor, pad_mask: torch.Tensor):
+    """One workset round's scoring and stats, the expression of the JAX
+    package's ``kmeans_workset_update_xla``: ``(assign, d_best, d_second,
+    sums, counts)`` with ``assign`` merged (fresh where ``active``, the
+    cached ``prev_assign`` elsewhere) and the fresh root distances."""
+    k = centroids.shape[0]
+    dists = DistanceMeasure.get_instance("euclidean").pairwise(points,
+                                                               centroids)
+    fresh = torch.argmin(dists, dim=1).to(torch.int32)
+    is_min = _onehot(fresh, k, torch.bool)
+    d_best = torch.min(dists, dim=1).values
+    d_second = torch.min(torch.where(is_min, torch.inf, dists), dim=1).values
+    del dists, is_min
+    assign = torch.where(active > 0, fresh, prev_assign).to(torch.int32)
+    sums, counts = stats_from_assign(k, points, pad_mask, assign)
+    return assign, d_best, d_second, sums, counts
+
+
+def pad_correction(counts: torch.Tensor, centroids: torch.Tensor, n_pad,
+                   tie_policy: str = "fast") -> torch.Tensor:
+    """Remove ``n_pad`` all-zero pad rows from ``counts``: they landed on
+    the centroid(s) of least norm and added nothing to ``sums``.
+    ``tie_policy`` names the policy of the kernel that counted them
+    (``"argmin"`` for :func:`kmeans_assign_reduce`), so the fix stays exact
+    when several centroids tie for least norm."""
+    c2 = torch.sum(centroids * centroids, dim=1)
+    if tie_policy in ("argmin", "first"):
+        tied = _onehot(torch.argmin(c2)[None], counts.shape[0],
+                       counts.dtype)[0]
+    elif tie_policy in ("fast", "split"):
+        tied = (c2 <= torch.min(c2)).to(counts.dtype)
+        if tie_policy == "split":
+            tied = tied / torch.sum(tied)
+    else:
+        raise ValueError(
+            f"tie_policy must be 'first', 'fast', 'split' or 'argmin', "
+            f"got {tie_policy!r}")
+    return counts - n_pad * tied
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+_LIB = None
+
+
+def _kernels():
+    """The built ``kmeans`` library with its C signatures declared (built
+    on first use)."""
+    global _LIB
+    if _LIB is None:
+        from ..kernels.build import load_library
+
+        lib = load_library("kmeans")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.kmeans_grid.argtypes = [ci, ci, ci, ci,
+                                    ctypes.POINTER(ctypes.c_int),
+                                    ctypes.POINTER(ctypes.c_int64)]
+        lib.kmeans_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                      vp, vp, ci, ci, ci, ci, vp]
+        lib.kmeans_grid.restype = ctypes.c_int
+        lib.kmeans_launch.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check_policy(tie_policy: str) -> None:
+    if tie_policy not in TIE_POLICIES:
+        raise ValueError(f"tie_policy must be 'first', 'fast' or 'split', "
+                         f"got {tie_policy!r}")
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_problem(points: torch.Tensor, centroids: torch.Tensor,
+                   compute_dtype=torch.float32) -> Tuple[int, int, int]:
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(
+            "only compute_dtype=torch.float32 is ported (a bf16 score "
+            "product is ROADMAP queue A4)")
+    if points.dim() != 2 or centroids.dim() != 2:
+        raise ValueError("points and centroids must be 2-D")
+    n, d = points.shape
+    k = centroids.shape[0]
+    if k < 1 or d < 1:
+        raise ValueError(f"need k >= 1 and d >= 1, got k={k}, d={d}")
+    dev = points.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    _check("points", points, torch.float32, (n, d), dev)
+    _check("centroids", centroids, torch.float32, (k, d), dev)
+    return n, d, k
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(name: str, mode: str, points: torch.Tensor,
+            centroids: torch.Tensor, *, prev=None, active=None, pad_mask=None,
+            assign=None, d_best=None, d_second=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``kmeans.cu`` in ``mode``; returns ``(sums, counts)`` and
+    fills the given per-row outputs."""
+    n, d = points.shape
+    k = centroids.shape[0]
+    dev = points.device
+    lib = _kernels()
+    with torch.cuda.device(dev):
+        grid, size = ctypes.c_int(0), ctypes.c_int64(0)
+        rc = lib.kmeans_grid(_MODES[mode], n, k, d, ctypes.byref(grid),
+                             ctypes.byref(size))
+        if rc != 0:
+            raise RuntimeError(f"{name}: kernel planning failed: CUDA error "
+                               f"{rc}")
+        scratch = torch.empty(size.value, dtype=torch.float32, device=dev)
+        sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+        counts = torch.empty(k, dtype=torch.float32, device=dev)
+        rc = lib.kmeans_launch(
+            _MODES[mode], _ptr(points), _ptr(centroids), _ptr(prev),
+            _ptr(active), _ptr(pad_mask), _ptr(assign), _ptr(d_best),
+            _ptr(d_second), _ptr(scratch), _ptr(sums), _ptr(counts), n, k, d,
+            grid.value, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return sums, counts
+
+
+def kmeans_update_stats(points: torch.Tensor, centroids: torch.Tensor, *,
+                        tie_policy: str = "fast",
+                        compute_dtype=torch.float32
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fit hot path: ``(points (n, d), centroids (k, d)) -> (sums (k, d),
+    counts (k,))``, f32.  Replaces the JAX package's
+    ``kmeans_update_stats``.  Zero pad rows are counted; remove them with
+    :func:`pad_correction`.  Deterministic."""
+    _check_policy(tie_policy)
+    _check_problem(points, centroids, compute_dtype)
+    if points.device.type == "cpu":
+        return kmeans_update_stats_plain(points, centroids,
+                                         tie_policy=tie_policy)
+    return _launch("kmeans_update_stats", tie_policy, points, centroids)
+
+
+def kmeans_assign_reduce(points: torch.Tensor, centroids: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Transform path: ``(assign (n,) int32, sums (k, d), counts (k,))``,
+    first-index argmin.  Replaces the JAX package's
+    ``kmeans_assign_reduce``.  Deterministic."""
+    n, _, _ = _check_problem(points, centroids)
+    if points.device.type == "cpu":
+        return kmeans_assign_reduce_plain(points, centroids)
+    assign = torch.empty(n, dtype=torch.int32, device=points.device)
+    sums, counts = _launch("kmeans_assign_reduce", "assign", points,
+                           centroids, assign=assign)
+    return assign, sums, counts
+
+
+def kmeans_workset_update(points: torch.Tensor, centroids: torch.Tensor,
+                          prev_assign: torch.Tensor, active: torch.Tensor,
+                          pad_mask: torch.Tensor):
+    """One workset round: ``(points (n, d), centroids (k, d), prev_assign
+    (n,) int32, active (n,) f32 0/1, pad_mask (n,) f32 0/1) -> (assign,
+    d_best, d_second, sums, counts)``.  ``assign`` is merged (fresh where
+    active, cached elsewhere); ``d_best``/``d_second`` are the fresh root
+    distances; the stats are weighted by ``pad_mask``.  Replaces the JAX
+    package's ``kmeans_workset_update``.  Euclidean only.
+    Deterministic."""
+    n, _, _ = _check_problem(points, centroids)
+    dev = points.device
+    _check("prev_assign", prev_assign, torch.int32, (n,), dev)
+    _check("active", active, torch.float32, (n,), dev)
+    _check("pad_mask", pad_mask, torch.float32, (n,), dev)
+    if dev.type == "cpu":
+        return kmeans_workset_update_plain(points, centroids, prev_assign,
+                                           active, pad_mask)
+    assign = torch.empty(n, dtype=torch.int32, device=dev)
+    d_best = torch.empty(n, dtype=torch.float32, device=dev)
+    d_second = torch.empty(n, dtype=torch.float32, device=dev)
+    sums, counts = _launch("kmeans_workset_update", "workset", points,
+                           centroids, prev=prev_assign, active=active,
+                           pad_mask=pad_mask, assign=assign, d_best=d_best,
+                           d_second=d_second)
+    return assign, d_best, d_second, sums, counts

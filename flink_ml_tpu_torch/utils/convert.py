@@ -13,7 +13,7 @@ import torch
 from ..models.common.sgd import LinearState
 from .device import resolve_device
 
-__all__ = ["params_from_jax", "model_from_jax_state"]
+__all__ = ["params_from_jax", "model_from_jax_state", "kmeans_model_from_jax"]
 
 
 def params_from_jax(params: Dict[str, np.ndarray], device="cuda"
@@ -32,4 +32,18 @@ def model_from_jax_state(coefficients: np.ndarray, intercept: float, cls,
     model._state = LinearState(
         coefficients=np.asarray(coefficients, np.float64),
         intercept=float(intercept))
+    return model
+
+
+def kmeans_model_from_jax(centroids: np.ndarray, device="cuda"):
+    """A fitted port ``KMeansModel`` holding the JAX model's ``(k, d)``
+    centroids (``get_model_data()[0]["centroids"][0]`` of the JAX model)."""
+    from ..models.clustering.kmeans import KMeansModel
+
+    resolve_device(device)
+    cents = np.asarray(centroids, np.float32)
+    if cents.ndim != 2:
+        raise ValueError(f"centroids must be (k, d), got shape {cents.shape}")
+    model = KMeansModel(device=device)
+    model._centroids = cents
     return model

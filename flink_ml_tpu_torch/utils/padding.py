@@ -1,13 +1,87 @@
-"""Row padding for fixed-shape batches (the one helper the port needs from
-the JAX package's ``utils/padding.py``)."""
+"""Row padding for fixed-shape batches: the helpers the port needs from the
+JAX package's ``utils/padding.py`` (numpy only).
+
+The port's CUDA kernels mask their ragged edge themselves and take any row
+count; the block contracts stay for callers that pad on purpose (zero rows
+the KMeans stats kernels tolerate, power-of-two predict buckets)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["pad_rows_with_mask"]
+__all__ = ["pad_rows_with_mask", "bucket_rows", "pad_rows_to_bucket",
+           "pad_rows_to_block", "require_block_rows", "DEFAULT_MIN_BUCKET"]
+
+#: Smallest row bucket the predict paths pad to.
+DEFAULT_MIN_BUCKET = 8
+
+#: Largest batch the predict paths bucket-pad; larger batches keep their
+#: exact shape (padding them to the next power of two could double the
+#: work and the peak memory).
+DEFAULT_BUCKET_CAP = 1 << 16
+
+
+def bucket_rows(n: int, *, min_bucket: int = DEFAULT_MIN_BUCKET) -> int:
+    """The power-of-two row bucket ``n`` rows pad to (floored at
+    ``min_bucket``)."""
+    if min_bucket <= 0:
+        raise ValueError("min_bucket must be positive")
+    if n <= min_bucket:
+        return min_bucket
+    return 1 << (int(n) - 1).bit_length()
+
+
+def pad_rows_to_bucket(arrays: Sequence[np.ndarray], *,
+                       min_bucket: int = DEFAULT_MIN_BUCKET,
+                       max_bucket_rows: Optional[int] = DEFAULT_BUCKET_CAP
+                       ) -> Tuple[Tuple[np.ndarray, ...], int]:
+    """Zero-pad every array's leading dim to its power-of-two bucket;
+    returns ``(padded_arrays, n_real_rows)``.  Safe for row-independent
+    computations (per-row argmin, margins): pad rows never touch real
+    rows, and the caller slices results back to ``[:n]``.  Batches above
+    ``max_bucket_rows`` (None = unlimited) keep their exact shape."""
+    n = int(arrays[0].shape[0])
+    if max_bucket_rows is not None and n > max_bucket_rows:
+        return tuple(np.asarray(a) for a in arrays), n
+    bucket = bucket_rows(n, min_bucket=min_bucket)
+    if n == bucket:
+        return tuple(np.asarray(a) for a in arrays), n
+    return tuple(
+        np.concatenate(
+            [a, np.zeros((bucket - n,) + a.shape[1:], a.dtype)])
+        for a in arrays), n
+
+
+def require_block_rows(n: int, block: int, *, op: str = "kernel") -> None:
+    """The block invariant of a blocked kernel: its row count must be an
+    exact multiple of its block."""
+    if block <= 0:
+        raise ValueError(f"{op}: block must be positive, got {block}")
+    if n % block:
+        raise ValueError(
+            f"{op}: n={n} must be a multiple of block={block} — pad rows "
+            "with pad_rows_to_block (maskless zero-fill contract) or "
+            "pad_rows_with_mask(multiple=block) (masked contract)")
+
+
+def pad_rows_to_block(arrays: Sequence[np.ndarray], block: int,
+                      ) -> Tuple[Tuple[np.ndarray, ...], int]:
+    """The MASKLESS padding contract: zero-pad every array's leading dim up
+    to a multiple of ``block``; returns ``(padded, n_real_rows)``.  Pad
+    rows are exact zeros, whose effect on the KMeans stats is removed
+    analytically (``ops/kmeans.py::pad_correction``)."""
+    if block <= 0:
+        raise ValueError("block must be positive")
+    n = int(arrays[0].shape[0])
+    pad = (-n) % block
+    if pad == 0:
+        return tuple(np.asarray(a) for a in arrays), n
+    return tuple(
+        np.concatenate(
+            [a, np.zeros((pad,) + a.shape[1:], a.dtype)])
+        for a in arrays), n
 
 
 def pad_rows_with_mask(arr, multiple: int,

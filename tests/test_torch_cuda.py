@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+import flink_ml_tpu_torch as T
 from flink_ml_tpu_torch.models.common import sgd as TS
 from flink_ml_tpu_torch.models.common.losses import LOSSES
 from flink_ml_tpu_torch.ops import ell_scatter as TE
+from flink_ml_tpu_torch.ops import kmeans as TK
 
 D = 128 * 128
 
@@ -111,3 +113,140 @@ def test_fit_matches_plain_versions(cuda_device, d, kernel):
     np.testing.assert_allclose(got.coefficients, want.coefficients,
                                rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(got_log, want_log, rtol=1e-4)
+
+
+# -- KMeans kernels ----------------------------------------------------------
+
+def _kmeans_problem(n, d, k, seed, duplicated=False, n_pad=0):
+    """Seeded points (``n_pad`` trailing zero rows) and centroids drawn
+    from them; ``duplicated`` repeats a centroid (exact ties) and the
+    least-norm one (the zero rows tie on it)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(n, d)).astype(np.float32)
+    if n_pad:
+        pts[-n_pad:] = 0.0
+    cents = pts[rng.permutation(n - n_pad)[:k]].copy()
+    if duplicated:
+        cents[0] *= 0.05
+        cents[k - 1] = cents[0]
+        cents[k - 2] = cents[1]
+    return pts, cents
+
+
+def _near_tie_rows(scores, rel=1e-5):
+    """Rows whose best two plain scores lie within ``rel`` (1 + |best|):
+    there the kernel's dot order may pick the other centroid."""
+    two = torch.topk(scores, 2, dim=1, largest=False).values
+    return (two[:, 1] - two[:, 0]) <= rel * (1 + two[:, 0].abs())
+
+
+def _plain_scores(pts, cents):
+    return -2.0 * (pts @ cents.T) + (cents * cents).sum(1)[None, :]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tie", ["first", "fast", "split"])
+@pytest.mark.parametrize("n,d,k,dup", [(1000, 16, 37, False),
+                                       (4099, 64, 256, True),
+                                       (300, 9, 40, True)])
+def test_kmeans_update_stats_matches_plain(cuda_device, tie, n, d, k, dup):
+    """Ragged n, k not a power of two, duplicated centroids (exact ties in
+    both versions).  With no row near a tie the assignments agree, so
+    counts are exact and sums within 1e-4 (summation order); a near-tie
+    row may move one count from one cluster to another."""
+    pts, cents = _kmeans_problem(n, d, k, seed=n, duplicated=dup, n_pad=7)
+    p = torch.from_numpy(pts).to(cuda_device)
+    c = torch.from_numpy(cents).to(cuda_device)
+    near = int(_near_tie_rows(_plain_scores(p, torch.unique(c, dim=0)))
+               .sum())
+    TK.reset_launch_counts()
+    got_s, got_c = TK.kmeans_update_stats(p, c, tie_policy=tie)
+    want_s, want_c = TK.kmeans_update_stats_plain(p, c, tie_policy=tie)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["kmeans_update_stats"] == 1
+    if near:
+        assert float((got_c - want_c).abs().sum()) <= 4 * near
+    else:
+        torch.testing.assert_close(got_c, want_c, atol=0, rtol=0)
+        torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(1000, 16, 37), (5000, 64, 256),
+                                   (777, 3, 5), (5000, 16, 4096),
+                                   (2050, 300, 600)])
+def test_kmeans_assign_reduce_matches_plain(cuda_device, n, d, k):
+    """Assignments equal off near-tie rows; the kernel's sums and counts
+    equal the plain stats of its own assignments (counts exactly, sums
+    within 1e-5 relative).  The last two shapes do not fit shared memory
+    whole: their centroids are staged per tile, their partial sums live in
+    device memory, and the last one reads its points from device memory."""
+    pts, cents = _kmeans_problem(n, d, k, seed=d)
+    p = torch.from_numpy(pts).to(cuda_device)
+    c = torch.from_numpy(cents).to(cuda_device)
+    near = _near_tie_rows(_plain_scores(p, torch.unique(c, dim=0)))
+    a, s, cnt = TK.kmeans_assign_reduce(p, c)
+    want_a, _, _ = TK.kmeans_assign_reduce_plain(p, c)
+    assert a.dtype == torch.int32
+    assert torch.equal(a[~near], want_a[~near])
+    ones = torch.ones(n, device=cuda_device)
+    own_s, own_c = TK.stats_from_assign(k, p, ones, a)
+    torch.testing.assert_close(cnt, own_c, atol=0, rtol=0)
+    torch.testing.assert_close(s, own_s, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(1000, 16, 37), (3001, 64, 256)])
+def test_kmeans_workset_update_matches_plain(cuda_device, n, d, k):
+    pts, _ = _kmeans_problem(n, d, k, seed=k)
+    rng = np.random.default_rng(k + 1)
+    cents = rng.normal(size=(k, d)).astype(np.float32)
+    prev = rng.integers(0, k, size=n).astype(np.int32)
+    active = (rng.random(n) < 0.5).astype(np.float32)
+    pad = (rng.random(n) < 0.9).astype(np.float32)
+    args = [torch.from_numpy(x).to(cuda_device)
+            for x in (pts, cents, prev, active, pad)]
+    near = _near_tie_rows(_plain_scores(args[0], args[1]))
+    a, db, ds, s, cnt = TK.kmeans_workset_update(*args)
+    wa, wdb, wds, _, _ = TK.kmeans_workset_update_plain(*args)
+    assert torch.equal(a[~near], wa[~near])
+    torch.testing.assert_close(db, wdb, atol=1e-4, rtol=0)
+    torch.testing.assert_close(ds, wds, atol=1e-4, rtol=0)
+    own_s, own_c = TK.stats_from_assign(k, args[0], args[4], a)
+    torch.testing.assert_close(cnt, own_c, atol=0, rtol=0)
+    torch.testing.assert_close(s, own_s, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kmeans_fit_and_transform_through_the_kernels(cuda_device):
+    """A small fit on the kernel plan (65536 rows), BSP and workset, and a
+    transform, checked by launch counters and against the plain versions
+    on the card."""
+    rng = np.random.default_rng(21)
+    centers = rng.normal(size=(6, 8)) * 6
+    X = (centers[rng.integers(0, 6, 65536)]
+         + rng.normal(size=(65536, 8)) * 0.5).astype(np.float32)
+    table = T.Table({"features": X})
+    TK.reset_launch_counts()
+    est = T.KMeans().set_k(6).set_max_iter(5).set_seed(4)
+    model = est.fit(table)
+    assert est.planned_impl == "kernel"
+    assert TK.LAUNCHES["kmeans_update_stats"] == 5
+    ws = T.KMeans().set_k(6).set_max_iter(30).set_seed(4).set_workset(True)
+    ws_model = ws.fit(table)
+    assert ws.planned_impl == "kernel_ws"
+    assert TK.LAUNCHES["kmeans_workset_update"] == \
+        ws.last_workset_report["rounds"]
+    (out,) = model.transform(T.Table({"features": X[:5000]}))
+    assert TK.LAUNCHES["kmeans_assign_reduce"] == 1
+    cents = model.get_model_data()[0]["centroids"][0]
+    d2 = ((X[:5000, None, :].astype(np.float64) - cents[None]) ** 2).sum(-1)
+    np.testing.assert_array_equal(out["prediction"], d2.argmin(1))
+    plain = T.KMeans(device="cpu").set_k(6).set_max_iter(5).set_seed(4)
+    np.testing.assert_allclose(cents, plain.fit(table).get_model_data()[0][
+        "centroids"][0], rtol=5e-3, atol=5e-3)
+    np.testing.assert_allclose(
+        ws_model.get_model_data()[0]["centroids"][0],
+        T.KMeans(device="cpu").set_k(6).set_max_iter(30).set_seed(4)
+        .fit(table).get_model_data()[0]["centroids"][0], rtol=5e-3,
+        atol=5e-3)
