@@ -40,10 +40,34 @@ line is printed):
 8. KMeans times: each kernel, its plain version and ``torch.addmm`` of the
    score product alone, beside the bound from operations; BSP
    iterations/s through the kernels and through the plain versions.
+9. Wide&Deep fold kernel vs its plain version on the card, bit for bit
+   (tolerance 0), at E = 64 (embeddings) and E = 1 (the squeezed wide
+   table) on: step 0 of the bench route (26 fields x 40329 vocab, batch
+   8192, numpy seed 17, ``bench.py:1094-1112``), the heavy-hitter route
+   (vocab 2^20, field 0 = 7 in half the rows, ``bench.py:2911-2915``), a
+   run past the shared-memory halo (the streaming passes) and a ragged
+   S = 1000 x 26; both placements through the kernel vs the plain fold;
+   a route with fold_passes == 0 launches nothing.
+10. Wide&Deep main path: ``WideDeep(device="cuda")`` fit of 2 epochs at
+    the bench width (26 x 40329 vocab, 13 dense, embedding 64, MLP (1024,
+    512, 256), batch 8192, 16 steps an epoch, 131072 rows, numpy seed 17),
+    then ``transform`` of 4096 held-out rows.  Checks: gather placement,
+    fold launches = 2 x 16 x 2, finite loss falling from epoch 1 to 2, one
+    epoch through the kernel vs ``fit(plain=True)`` within the one-epoch
+    tolerances of ``tests/test_widedeep.py:394-399`` (and bit for bit, as
+    printed), every step of that epoch vs the autograd ``'off'`` step from
+    the routed fit's own state within the same tolerances, a replay ending
+    bit for bit on the fit, the whole ``'off'`` epoch's loss within them,
+    and scores within 1e-5 of a numpy float64 forward.
+11. Wide&Deep times: the fold kernel (bench route at E = 64 and E = 1, the
+    heavy-hitter route) against its plain version, the ``index_add_``
+    scatter-add it replaces and the byte bound; steps/s over
+    device-resident epoch tensors through the kernel, the plain fold and
+    the autograd scatter-add; ``fit()`` wall and the host route build.
 
-The last lines are the kernel table as one JSON object, the card line
-from nvidia-smi, and ``{"ok": true, "device": {...}}``.  The script
-imports neither JAX nor the JAX package.
+The last lines are the kernel table (seven kernels) as one JSON object,
+the card line from nvidia-smi, and ``{"ok": true, "device": {...}}``.  The
+script imports neither JAX nor the JAX package.
 """
 
 import dataclasses
@@ -85,6 +109,19 @@ KM_REPLACES = {
 # and one flip among ~4096 points of a cluster moves its centroid ~1e-3.
 KM_GATE = dict(rtol=5e-3, atol=5e-3)
 NEAR_TIE = 1e-5             # relative gap of the best two plain scores
+
+# Wide&Deep bench width (the JAX package's bench.py:1094-1112)
+WD_FIELDS, WD_DENSE = 26, 13
+WD_VOCAB = (1 << 20) // WD_FIELDS          # 40329 per field
+WD_EMB, WD_HIDDEN = 64, (1024, 512, 256)
+WD_BATCH, WD_STEPS, WD_EPOCHS = 1 << 13, 16, 2
+WD_HELD = 4096
+WD_SOURCE = "flink_ml_tpu_torch/kernels/csrc/emb_grad.cu"
+WD_REPLACES = "flink_ml_tpu/ops/emb_grad_pallas.py:98"
+# one-epoch contract of tests/test_widedeep.py:394-399
+WD_LOSS_TOL = dict(rtol=2e-5, atol=1e-6)
+WD_PARAM_TOL = dict(rtol=1e-3, atol=1e-3)
+WD_TABLE_KEYS = ("emb", "wide_cat", "wide_dense", "wide_b")
 
 SOURCE = "flink_ml_tpu_torch/kernels/csrc/ell_scatter.cu"
 REPLACES = {
@@ -476,6 +513,313 @@ def kmeans_phases(torch, dev, card, timer):
     return entries
 
 
+def widedeep_bench_data(rows_per_step, steps, seed=17):
+    """The JAX package's Wide&Deep bench data (``bench.py:1102-1112``):
+    raw per-field ids uniform in [0, 40329), N(0,1) dense features, random
+    labels, drawn in that order as ``(steps, batch, ...)`` stacks."""
+    rng = np.random.default_rng(seed)
+    cat = rng.integers(0, WD_VOCAB, size=(steps, rows_per_step, WD_FIELDS)
+                       ).astype(np.int32)
+    dense = rng.normal(size=(steps, rows_per_step, WD_DENSE)).astype(
+        np.float32)
+    y = rng.integers(0, 2, size=(steps, rows_per_step)).astype(np.float32)
+    return cat, dense, y
+
+
+def numpy_widedeep_scores(params, dense, ids):
+    """float64 numpy forward of fitted parameters (``ids`` offset)."""
+    p = {k: np.asarray(v, np.float64) for k, v in params.items()
+         if k != "mlp"}
+    d = dense.astype(np.float64)
+    wide = d @ p["wide_dense"] + p["wide_cat"][ids].sum(1) + p["wide_b"]
+    deep = np.concatenate([d, p["emb"][ids].reshape(len(d), -1)], axis=1)
+    for i, layer in enumerate(params["mlp"]):
+        deep = deep @ layer["w"].astype(np.float64) + layer["b"]
+        if i + 1 < len(params["mlp"]):
+            deep = np.maximum(deep, 0.0)
+    return 1.0 / (1.0 + np.exp(-(wide + deep[:, 0])))
+
+
+def widedeep_phases(torch, dev, card, timer):
+    """Phases 9-11 (Wide&Deep); returns the fold kernel's JSON entry."""
+    from flink_ml_tpu_torch import Table, WideDeep
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.recommendation import widedeep as W
+    from flink_ml_tpu_torch.ops import emb_grad as G
+
+    vocab_sizes = [WD_VOCAB] * WD_FIELDS
+    total = WD_VOCAB * WD_FIELDS
+    offs = W._field_offsets(vocab_sizes)
+    cat, dense, y = widedeep_bench_data(WD_BATCH, WD_STEPS)
+    cat_off = cat + offs
+
+    # -- 9. the fold kernel vs its plain version, bit for bit --------------
+    rng = np.random.default_rng(2911)
+    heavy = rng.integers(0, 1 << 20, size=(1, WD_BATCH, WD_FIELDS))
+    heavy[0, :WD_BATCH // 2, 0] = 7
+    deep = rng.integers(0, 1 << 20, size=(1, WD_BATCH, WD_FIELDS))
+    deep[0, :, :2] = 7                  # a run of 2 x 8192: past the halo
+    ragged = rng.integers(0, WD_VOCAB, size=(1, 1000, WD_FIELDS)) + offs
+    unique = rng.permutation(total)[:WD_BATCH * WD_FIELDS].reshape(
+        1, WD_BATCH, WD_FIELDS)
+    routes = {   # name: (route on the card, table rows)
+        "bench": (G.emb_grad_route(cat_off[:1], total).to(dev), total),
+        "heavy": (G.emb_grad_route(heavy, 1 << 20).to(dev), 1 << 20),
+        "deep": (G.emb_grad_route(deep, 1 << 20).to(dev), 1 << 20),
+        "ragged": (G.emb_grad_route(ragged, total, placement="scatter"
+                                    ).to(dev), total),
+    }
+    g_rows = {}
+    err = 0.0
+    for name, (route, _) in routes.items():
+        n_slots = route.order.shape[1]
+        P = route.fold_passes
+        for E in (64, 1):
+            g = torch.from_numpy(np.random.default_rng(E).normal(
+                size=(n_slots, E)).astype(np.float32)).to(dev)
+            g[::9] = -0.0
+            flat = g if E > 1 else g[:, 0].contiguous()
+            sorted_g = torch.index_select(flat, 0, route.order[0])
+            g_rows[name, E] = (sorted_g, flat)
+            got = G.fold_runs(sorted_g, route.sorted_ids[0], P)
+            want = G.fold_runs_plain(sorted_g, route.sorted_ids[0], P)
+            placed = route.apply(flat, *route.step_slice(0))
+            placed_plain = route.apply(flat, *route.step_slice(0),
+                                       plain=True)
+            torch.cuda.synchronize()
+            e = max(float((got - want).abs().max()),
+                    float((placed - placed_plain).abs().max()))
+            err = max(err, e)
+            same = torch.equal(got, want) and torch.equal(placed,
+                                                          placed_plain)
+            log(f"check fold_runs ({name} route, S {n_slots}, E {E}, "
+                f"fold_passes {P}, {route.placement} placement): bitwise "
+                f"equal to the plain fold: {same} (tolerance 0)")
+            if not same:
+                fail(f"fold_runs disagrees with its plain version on the "
+                     f"{name} route at E {E}")
+    # runs of >= batch/2 and >= 2 x batch rows: 12 and 14 passes at 8192
+    if routes["heavy"][0].fold_passes < (WD_BATCH // 2).bit_length() - 1 \
+            or routes["deep"][0].fold_passes < (2 * WD_BATCH).bit_length() - 1:
+        fail("the heavy-hitter routes do not reach their fold depth")
+    route0 = G.emb_grad_route(unique, total).to(dev)
+    G.reset_launch_counts()
+    zero = route0.apply(torch.ones(WD_BATCH * WD_FIELDS, 64, device=dev),
+                        *route0.step_slice(0))
+    torch.cuda.synchronize()
+    log(f"fold_passes {route0.fold_passes} route (every id distinct): fold "
+        f"launches {G.LAUNCHES['fold_runs']}")
+    if route0.fold_passes != 0 or G.LAUNCHES["fold_runs"] != 0 or \
+            float(zero.sum()) != WD_BATCH * WD_FIELDS * 64:
+        fail("a route with fold_passes == 0 launched the fold kernel")
+
+    # -- 10. main path -----------------------------------------------------
+    rows = WD_BATCH * WD_STEPS
+    table = Table({"denseFeatures": dense.reshape(rows, WD_DENSE),
+                   "catFeatures": cat.reshape(rows, WD_FIELDS),
+                   "label": y.reshape(rows)})
+
+    def estimator(epochs):
+        return (WideDeep(device=DEVICE).set_vocab_sizes(vocab_sizes)
+                .set(WideDeep.EMBEDDING_DIM, WD_EMB)
+                .set(WideDeep.HIDDEN_UNITS, WD_HIDDEN)
+                .set_global_batch_size(WD_BATCH).set_max_iter(epochs)
+                .set_seed(0))
+
+    est = estimator(WD_EPOCHS)
+    G.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = est.fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = G.LAUNCHES["fold_runs"]
+    info = est.route_info
+    losses = model.loss_log
+    log(f"Wide&Deep fit: {fit_s:.3f} s for {WD_EPOCHS} epochs of {rows} "
+        f"rows (host route build {info['build_s']:.3f} s, init and copies "
+        f"included); route {info}; fold launches {launches}; loss log "
+        f"{losses}")
+    if info["placement"] != "gather":
+        fail(f"placement {info['placement']!r}, expected 'gather'")
+    if info["fold_passes"] < 1:
+        fail("fold_passes 0 at the bench width: the kernel is not on the "
+             "path")
+    if launches != 2 * WD_STEPS * WD_EPOCHS:
+        fail(f"fold_runs launched {launches} times on the main path, "
+             f"expected {2 * WD_STEPS * WD_EPOCHS}")
+    if len(losses) != WD_EPOCHS or not all(np.isfinite(losses)) or \
+            not losses[1] < losses[0]:
+        fail(f"loss log {losses}")
+
+    def one_epoch_gate(what, a, b):
+        d = {k: float(np.max(np.abs(a._params[k] - b._params[k])))
+             for k in WD_TABLE_KEYS}
+        identical = all(np.array_equal(a._params[k], b._params[k])
+                        for k in WD_TABLE_KEYS) and all(
+            np.array_equal(la["w"], lb["w"]) and np.array_equal(la["b"],
+                                                               lb["b"])
+            for la, lb in zip(a._params["mlp"], b._params["mlp"]))
+        log(f"one epoch, {what}: loss {a.loss_log} vs {b.loss_log}; max "
+            f"|d param| {d}; bit-identical: {identical} (loss rtol "
+            f"{WD_LOSS_TOL['rtol']}, params rtol {WD_PARAM_TOL['rtol']} "
+            f"atol {WD_PARAM_TOL['atol']})")
+        if not np.allclose(a.loss_log, b.loss_log, **WD_LOSS_TOL):
+            fail(f"one epoch, {what}: losses disagree")
+        for k in WD_TABLE_KEYS:
+            if not np.allclose(a._params[k], b._params[k], **WD_PARAM_TOL):
+                fail(f"one epoch, {what}: {k} disagrees")
+
+    # the fit's own epoch layout, route and init draws on the device (seed
+    # 0: the row shuffle; seed + 1: the init), for the replay here and the
+    # step rates of phase 11
+    steps, batch, perm = S.plan_epoch_layout(rows, WD_BATCH, 1, 0)
+    lay = lambda a: torch.from_numpy(np.ascontiguousarray(  # noqa: E731
+        S.prepare_epoch_tensor(a, perm, steps, batch))).to(dev)
+    C = S.prepare_epoch_tensor((cat.reshape(rows, WD_FIELDS) + offs
+                                ).astype(np.int32), perm, steps, batch)
+    t0 = time.perf_counter()
+    fit_route = G.emb_grad_route(C, total)
+    build_s = time.perf_counter() - t0
+    fit_route = fit_route.to(dev)
+    epoch = (lay(dense.reshape(rows, WD_DENSE)), torch.from_numpy(C).to(dev),
+             lay(y.reshape(rows)), lay(np.ones(rows, np.float32)))
+    host_params = W.init_params(np.random.default_rng(1), WD_DENSE,
+                                vocab_sizes, WD_EMB, WD_HIDDEN)
+
+    one_k = estimator(1).fit(table)
+    one_p = estimator(1).fit(table, plain=True)
+    one_epoch_gate("kernel vs plain fold on the card", one_k, one_p)
+    del one_p
+
+    # routed (kernel) vs autograd's scatter-add ('off', atomics on the
+    # card).  From the same state one step differs only in the order of
+    # the table-gradient sums, so every step of the epoch is gated from
+    # the routed fit's own state, and the replay must end bit for bit on
+    # the routed fit.  The whole epochs are held to the loss only: Adam's
+    # update at a rarely touched row is ~sign(g) * lr whatever |g|, so a
+    # ReLU that flips on one sample's ~1e-7 reordering moves that
+    # sample's table rows by up to 2 * lr a step; the two trajectories
+    # part there and nowhere else.
+    params = W.params_to_device(host_params, dev)
+    routed_step, state = W._make_train_ops(params, 1e-2, False,
+                                             route=fit_route)
+    off_step, _ = W._make_train_ops(params, 1e-2, False)
+    worst = {k: 0.0 for k in WD_TABLE_KEYS}
+    for i in range(steps):
+        batch_i = tuple(a[i] for a in epoch)
+        p_r, s_r, l_r = routed_step(params, state, *batch_i,
+                                    *fit_route.step_slice(i))
+        p_o, _, l_o = off_step(params, state, *batch_i)
+        if not np.allclose(float(l_r), float(l_o), **WD_LOSS_TOL):
+            fail(f"step {i}: routed loss {float(l_r)} vs 'off' "
+                 f"{float(l_o)}")
+        for k in WD_TABLE_KEYS:
+            worst[k] = max(worst[k], float((p_r[k] - p_o[k]).abs().max()))
+            if not torch.allclose(p_r[k], p_o[k], **WD_PARAM_TOL):
+                fail(f"step {i}: routed vs 'off' {k} disagree")
+        params, state = p_r, s_r
+        del p_o
+    replayed = all(np.array_equal(params[k].cpu().numpy(), one_k._params[k])
+                   for k in WD_TABLE_KEYS)
+    one_off = estimator(1).set(WideDeep.ROUTED_EMB_GRAD, "off").fit(table)
+    part = {k: int(np.sum(~np.isclose(one_k._params[k], one_off._params[k],
+                                      **WD_PARAM_TOL)))
+            for k in WD_TABLE_KEYS}
+    whole = {k: float(np.max(np.abs(one_k._params[k] - one_off._params[k])))
+             for k in WD_TABLE_KEYS}
+    log(f"one epoch, routed (kernel) vs autograd scatter-add 'off', step "
+        f"by step from the routed state: max |d param| {worst} (loss rtol "
+        f"{WD_LOSS_TOL['rtol']}, params rtol {WD_PARAM_TOL['rtol']} atol "
+        f"{WD_PARAM_TOL['atol']}); replay equals the fit: {replayed}; whole "
+        f"epochs: loss {one_k.loss_log} vs {one_off.loss_log}, max |d "
+        f"param| {whole}, values past the tolerance {part}")
+    if not replayed:
+        fail("the routed fit is not reproduced by its step replay")
+    if not np.allclose(one_k.loss_log, one_off.loss_log, **WD_LOSS_TOL):
+        fail("one epoch, routed vs 'off': losses disagree")
+    del one_off, one_k, params, state, p_r, s_r
+
+    h_cat, h_dense, _ = widedeep_bench_data(WD_HELD, 1, seed=9)
+    h_cat, h_dense = h_cat[0], h_dense[0]
+    (out,) = model.transform(Table({"denseFeatures": h_dense,
+                                    "catFeatures": h_cat}))
+    want = numpy_widedeep_scores(model._params, h_dense, h_cat + offs)
+    perr = float(np.max(np.abs(out["rawPrediction"] - want)))
+    log(f"transform: {WD_HELD} rows, max |score - numpy f64 score| = "
+        f"{perr:.3e} (tolerance 1e-5)")
+    if out["rawPrediction"].shape != (WD_HELD,) or not np.all(
+            np.isfinite(out["rawPrediction"])) or perr > 1e-5:
+        fail("transform disagrees with a numpy forward of the fitted "
+             "parameters")
+
+    # -- 11. times ---------------------------------------------------------
+    f4 = 4
+    results = {}
+    for name, E in (("bench", 64), ("bench", 1), ("heavy", 64)):
+        route, num_rows = routes[name]
+        sorted_g, flat = g_rows[name, E]
+        sid = route.sorted_ids[0]
+        P = route.fold_passes
+        # the slots' ids in batch order: sorted_ids[inverse of order]
+        ids = sid.long()[torch.argsort(route.order[0].long())]
+        ms = timer.ms(lambda: G.fold_runs(sorted_g, sid, P))
+        plain_ms = timer.ms(lambda: G.fold_runs_plain(sorted_g, sid, P),
+                            reps=10)
+        lib_ms = timer.ms(lambda: torch.zeros(
+            (num_rows,) + tuple(flat.shape[1:]), device=dev).index_add_(
+                0, ids, flat))
+        n_slots = sid.shape[0]
+        bound_ms = (2 * n_slots * E * f4 + n_slots * f4) / \
+            HBM_BYTES_PER_S * 1e3
+        results[name, E] = (ms, plain_ms, lib_ms, bound_ms)
+        log(f"time fold_runs ({name} route, S {n_slots}, E {E}, "
+            f"fold_passes {P}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, index_add_ scatter-add into the ({num_rows}, {E}) table "
+            f"(the downstream table gradient, not the fold) {lib_ms:.4f} "
+            f"ms, bound {bound_ms:.4f} ms (bytes) [{card}]")
+
+    rates = {}
+    for label, mode in (("kernel", "kernel"), ("plain", "plain"),
+                        ("off", "off")):
+        params = W.params_to_device(host_params, dev)
+        step, state = W._make_train_ops(
+            params, 1e-2, False,
+            route=None if mode == "off" else fit_route,
+            plain=mode == "plain")
+
+        def run(params, state):
+            for i in range(steps):
+                extra = () if mode == "off" else fit_route.step_slice(i)
+                params, state, _ = step(params, state,
+                                        *(a[i] for a in epoch), *extra)
+            return params, state
+
+        params, state = run(params, state)          # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state = run(params, state)
+        torch.cuda.synchronize()
+        rates[label] = steps / (time.perf_counter() - t0)
+        del params, state
+    log(f"Wide&Deep steps/s at the bench width (batch {WD_BATCH}, "
+        f"{steps} steps, fold_passes {fit_route.fold_passes}), "
+        f"device-resident "
+        f"epoch tensors: kernel {rates['kernel']:.3f}, plain fold "
+        f"{rates['plain']:.3f}, autograd scatter-add 'off' "
+        f"{rates['off']:.3f}; fit() wall {fit_s:.3f} s for {WD_EPOCHS} "
+        f"epochs incl. host route build {info['build_s']:.3f} s (route "
+        f"build alone, this layout: {build_s:.3f} s) [{card}]")
+
+    ms, plain_ms, lib_ms, bound_ms = results["bench", 64]
+    return {
+        "name": "fold_runs", "route": "cuda", "source": WD_SOURCE,
+        "replaces": WD_REPLACES, "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": lib_ms,
+    }
+
+
 def main():
     import torch
 
@@ -503,7 +847,7 @@ def main():
     # -- 2. build ----------------------------------------------------------
     secs = build.build_all()
     log(f"build: {secs:.2f} s (0 = already built)")
-    for name in ("ell_scatter", "kmeans"):
+    for name in ("ell_scatter", "kmeans", "emb_grad"):
         log(f"nvcc report ({name}):\n" + (build.build_log(name) or "(none)"))
 
     # -- 3. kernels vs plain versions at the main path's shapes ------------
@@ -742,6 +1086,7 @@ def main():
         f"epochs incl. layout build [{card}]")
 
     kernels += kmeans_phases(torch, dev, card, timer)
+    kernels.append(widedeep_phases(torch, dev, card, timer))
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -6,8 +6,10 @@ hand-written CUDA kernels for Hopper (``kernels/csrc``) where the JAX
 package wrote Pallas kernels for the TPU.  Ported so far: the linear
 family's ``fit``/``transform`` on the Criteo-shaped mixed layout, with the
 three ELL kernels; KMeans ``fit`` (BSP and workset) and ``transform``, with
-the three KMeans kernels.  Entry points run on the card unless the caller passes
-``device="cpu"``.  This package imports neither JAX nor ``flink_ml_tpu``.
+the three KMeans kernels; Wide&Deep ``fit`` (routed table gradients, dense
+and lazy Adam) and ``transform``, with the routed-gradient fold kernel.
+Entry points run on the card unless the caller passes ``device="cpu"``.
+This package imports neither JAX nor ``flink_ml_tpu``.
 """
 
 from .api.pipeline import Pipeline, PipelineModel
@@ -23,6 +25,8 @@ from .models import (
     LinearSVCModel,
     LogisticRegression,
     LogisticRegressionModel,
+    WideDeep,
+    WideDeepModel,
 )
 from .params.param import (
     BoolParam,
@@ -50,6 +54,7 @@ __all__ = [
     "LinearRegression", "LinearRegressionModel",
     "LinearSVC", "LinearSVCModel",
     "KMeans", "KMeansModel",
+    "WideDeep", "WideDeepModel",
     "Param", "ParamValidators", "WithParams", "InvalidParamError",
     "BoolParam", "IntParam", "LongParam", "FloatParam", "DoubleParam",
     "StringParam", "IntArrayParam", "FloatArrayParam", "DoubleArrayParam",

@@ -1,5 +1,5 @@
 """Algorithm library (ported so far: the linear family on the mixed
-layout, and KMeans)."""
+layout, KMeans, and Wide&Deep)."""
 
 from .classification import (  # noqa: F401
     LinearSVC,
@@ -8,4 +8,5 @@ from .classification import (  # noqa: F401
     LogisticRegressionModel,
 )
 from .clustering import KMeans, KMeansModel  # noqa: F401
+from .recommendation import WideDeep, WideDeepModel  # noqa: F401
 from .regression import LinearRegression, LinearRegressionModel  # noqa: F401

@@ -13,7 +13,8 @@ import torch
 from ..models.common.sgd import LinearState
 from .device import resolve_device
 
-__all__ = ["params_from_jax", "model_from_jax_state", "kmeans_model_from_jax"]
+__all__ = ["params_from_jax", "model_from_jax_state", "kmeans_model_from_jax",
+           "widedeep_params_from_jax", "adam_state_from_jax"]
 
 
 def params_from_jax(params: Dict[str, np.ndarray], device="cuda"
@@ -47,3 +48,33 @@ def kmeans_model_from_jax(centroids: np.ndarray, device="cuda"):
     model = KMeansModel(device=device)
     model._centroids = cents
     return model
+
+
+def widedeep_params_from_jax(params, device="cuda"):
+    """The JAX package's Wide&Deep parameters (a nested dict of numpy
+    arrays, ``mlp`` a list of ``{"w", "b"}``) as f32 tensors on
+    ``device``."""
+    from ..models.recommendation.widedeep import params_to_device
+
+    return params_to_device(params, resolve_device(device))
+
+
+def adam_state_from_jax(opt_state, device="cuda"):
+    """The port's optimizer state for a JAX package Wide&Deep state, as
+    numpy: ``optax.adam``'s ``(ScaleByAdamState(count, mu, nu),
+    EmptyState())`` becomes an :class:`~..models.common.adam.AdamState`;
+    the lazy step's ``{"rest", "m", "v", "t"}`` becomes the port's lazy
+    state."""
+    from ..models.common.adam import AdamState
+    from ..models.recommendation.widedeep import params_to_device
+
+    dev = resolve_device(device)
+    if isinstance(opt_state, dict):
+        return {"rest": adam_state_from_jax(opt_state["rest"], dev),
+                "m": params_to_device(opt_state["m"], dev),
+                "v": params_to_device(opt_state["v"], dev),
+                "t": int(np.asarray(opt_state["t"]))}
+    adam = opt_state[0]
+    return AdamState(count=int(np.asarray(adam.count)),
+                     mu=params_to_device(adam.mu, dev),
+                     nu=params_to_device(adam.nu, dev))

@@ -75,7 +75,9 @@ def main():
     events = [e for e in prof.key_averages()
               if getattr(e, "device_time_total", 0) > 0]
     events.sort(key=lambda e: -e.device_time_total)
-    kernel_us = sum(e.self_device_time_total for e in events)
+    # kernels and copies only: an op's device time repeats its kernels'
+    kernel_us = sum(e.self_device_time_total for e in events
+                    if e.cpu_time_total == 0)
     print(f"card: {card}; {'plain versions' if args.plain else 'kernels'}; "
           f"{args.steps} steps of {BATCH} rows at {D} features")
     print(f"epoch wall {wall * 1e3:.3f} ms (under the profiler); summed "

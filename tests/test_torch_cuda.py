@@ -250,3 +250,121 @@ def test_kmeans_fit_and_transform_through_the_kernels(cuda_device):
         T.KMeans(device="cpu").set_k(6).set_max_iter(30).set_seed(4)
         .fit(table).get_model_data()[0]["centroids"][0], rtol=5e-3,
         atol=5e-3)
+
+
+# -- routed-gradient fold kernel ----------------------------------------------
+
+def _fold_route(kind, seed=0):
+    """(steps, batch, fields) ids: uniform over a small vocabulary, a heavy
+    hitter in half the rows (a ~1K-row halo), a run past the shared-memory
+    halo (the streaming passes), or every id distinct."""
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return rng.integers(0, 3000, size=(2, 300, 26)), 3000
+    if kind == "heavy":
+        cat = rng.integers(0, 1 << 16, size=(1, 2048, 8))
+        cat[0, :1024, 0] = 7
+        return cat, 1 << 16
+    if kind == "deep":                   # a run of 2^14 + 7: 15 passes
+        cat = rng.integers(0, 100, size=(1, (1 << 14) + 7, 2))
+        cat[0, :, 1] = 5
+        return cat, 100
+    return rng.permutation(5000)[:1000].reshape(1, 100, 10), 5000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 3, 64, 100])
+@pytest.mark.parametrize("kind", ["uniform", "heavy", "deep"])
+def test_fold_runs_matches_plain_bitwise(cuda_device, kind, E):
+    """Ragged S (7800, 16391), column counts that do not fill a slice, the
+    squeezed (S,) payload, a -0.0 row: the kernel equals the plain version
+    bit for bit, one counted launch per call."""
+    from flink_ml_tpu_torch.ops import emb_grad as TG
+
+    cat, vocab = _fold_route(kind)
+    route = TG.emb_grad_route(cat, vocab).to(cuda_device)
+    sid = route.sorted_ids[0]
+    g = torch.from_numpy(np.random.default_rng(E).normal(
+        size=(sid.shape[0], E)).astype(np.float32)).to(cuda_device)
+    g[::5] = -0.0
+    if E == 1:
+        g = g[:, 0].contiguous()
+    TG.reset_launch_counts()
+    got = TG.fold_runs(g, sid, route.fold_passes)
+    want = TG.fold_runs_plain(g, sid, route.fold_passes)
+    torch.cuda.synchronize()
+    assert TG.LAUNCHES["fold_runs"] == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", ["gather", "scatter"])
+@pytest.mark.parametrize("kind", ["uniform", "heavy", "unique"])
+def test_routed_grad_kernel_matches_plain(cuda_device, kind, placement):
+    """Both placements through the kernel equal the plain fold bit for bit;
+    a route with fold_passes == 0 launches nothing."""
+    from flink_ml_tpu_torch.ops import emb_grad as TG
+
+    cat, vocab = _fold_route(kind)
+    route = TG.emb_grad_route(cat, vocab, placement=placement).to(
+        cuda_device)
+    S = route.order.shape[1]
+    g = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(S, 16)).astype(np.float32)).to(cuda_device)
+    TG.reset_launch_counts()
+    for s in range(route.steps):
+        for payload in (g, g[:, 0].contiguous()):
+            assert torch.equal(
+                route.apply(payload, *route.step_slice(s)),
+                route.apply(payload, *route.step_slice(s), plain=True))
+    torch.cuda.synchronize()
+    want = 2 * route.steps if route.fold_passes else 0
+    assert TG.LAUNCHES["fold_runs"] == want
+
+
+@pytest.mark.cuda
+def test_widedeep_fit_through_the_kernel(cuda_device):
+    """A small routed fit: two fold launches a step, the one-epoch result
+    of the JAX package's contract against the same fit through the plain
+    fold (rtol 2e-5 loss, 1e-3 parameters), and transform against a numpy
+    float64 forward."""
+    from flink_ml_tpu_torch.ops import emb_grad as TG
+
+    rng = np.random.default_rng(3)
+    n, vocab = 2000, [50, 30, 7]
+    cat = np.stack([rng.integers(0, v, size=n) for v in vocab], 1)
+    dense = rng.normal(size=(n, 5)).astype(np.float32)
+    y = ((cat[:, 0] % 2) ^ (dense[:, 0] > 0)).astype(np.int64)
+    table = T.Table({"denseFeatures": dense, "catFeatures": cat, "label": y})
+
+    def est(epochs):
+        return (T.WideDeep().set_vocab_sizes(vocab).set_max_iter(epochs)
+                .set_global_batch_size(256).set_seed(2))
+
+    TG.reset_launch_counts()
+    e = est(3)
+    model = e.fit(table)
+    torch.cuda.synchronize()
+    assert e.route_info["placement"] == "gather"
+    assert e.route_info["fold_passes"] >= 1
+    assert TG.LAUNCHES["fold_runs"] == 2 * 8 * 3
+    assert model.loss_log[-1] < model.loss_log[0]
+    one = est(1).fit(table)
+    plain = est(1).fit(table, plain=True)
+    np.testing.assert_allclose(one.loss_log, plain.loss_log, rtol=2e-5)
+    for k in ("emb", "wide_cat", "wide_dense", "wide_b"):
+        np.testing.assert_allclose(one._params[k], plain._params[k],
+                                   rtol=1e-3, atol=1e-3)
+    (out,) = model.transform(table)
+    p = model._params
+    ids = cat + np.concatenate([[0], np.cumsum(vocab)[:-1]])[None, :]
+    d = dense.astype(np.float64)
+    deep = np.concatenate([d, p["emb"][ids].reshape(n, -1)], 1)
+    for i, layer in enumerate(p["mlp"]):
+        deep = deep @ layer["w"] + layer["b"]
+        if i + 1 < len(p["mlp"]):
+            deep = np.maximum(deep, 0.0)
+    logit = d @ p["wide_dense"] + p["wide_cat"][ids].sum(1) + p["wide_b"] \
+        + deep[:, 0]
+    np.testing.assert_allclose(out["rawPrediction"],
+                               1.0 / (1.0 + np.exp(-logit)), atol=1e-5)

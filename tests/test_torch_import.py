@@ -30,7 +30,8 @@ def _forbidden(name: str) -> bool:
 
 def test_import_leaves_jax_out():
     code = ("import sys, flink_ml_tpu_torch, flink_ml_tpu_torch.utils.convert,"
-            " flink_ml_tpu_torch.kernels.build; "
+            " flink_ml_tpu_torch.kernels.build,"
+            " flink_ml_tpu_torch.ops.emb_grad; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True, cwd=REPO,
@@ -77,6 +78,16 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
                          128 * 128, TS.SGDConfig())
     with pytest.raises(RuntimeError, match="no GPU"):
         params_from_jax({"w": np.zeros(4), "b": np.zeros(())})
+    wd_table = T.Table({"denseFeatures": table["features_dense"],
+                        "catFeatures": table["features_indices"] % 5,
+                        "label": table["label"]})
+    with pytest.raises(RuntimeError, match="no GPU"):
+        T.WideDeep().set_vocab_sizes([5, 5, 5]).fit(wd_table)
+    wd = (T.WideDeep(device="cpu").set_vocab_sizes([5, 5, 5])
+          .set_max_iter(1).fit(wd_table))
+    wd.device = "cuda"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        wd.transform(wd_table)
     model = T.LogisticRegression(device="cpu").set_num_features(
         128 * 128).set_max_iter(1).fit(table)
     model.device = "cuda"
