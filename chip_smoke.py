@@ -65,9 +65,43 @@ line is printed):
     device-resident epoch tensors through the kernel, the plain fold and
     the autograd scatter-add; ``fit()`` wall and the host route build.
 
-The last lines are the kernel table (seven kernels) as one JSON object,
-the card line from nvidia-smi, and ``{"ok": true, "device": {...}}``.  The
-script imports neither JAX nor the JAX package.
+12. IVF retrieval main path, at the JAX package's retrieval bench
+    (``bench.py:4171-4213``: 131072 x 64 points in 4096 masses of 32,
+    numpy seed 77, 256 queries, nlist 256, k 10): ``IVFIndex.build`` flat
+    and IVF-PQ (m 8, ksub 16) on the card, then ``transform`` and
+    ``search`` at nprobe 1, 2, 4, 8, 16.  Checks: the coarse fits and the
+    8 codebook fits planned the workset kernel and launched it once a
+    round; each search launched its retrieve kernel once; flat recall@10
+    >= 0.95 at nprobe 2 with scan fraction <= 0.25 (``bench.py:4270-4276``);
+    at nprobe = nlist the flat search returns the float64 exact top-10
+    (rows whose 10th and 11th distances lie within 1e-6 (|q|^2 +
+    max|x|^2) excluded and counted); a delta update of 64 inserts and 64
+    deletes serves the inserts and drops the deletes.  Then, with the
+    counts read: each of the 8 codebook fits (the workset kernel at
+    131072 x 8, k 16) replayed with every round within the KMeans gate of
+    the plain step from the same state, ending bit for bit on the index's
+    stored books, its distortion within 1e-3 of the plain fit's; and the
+    same IVF-PQ build on the host CPU (the plain versions throughout),
+    whose recall@10 the card's must meet within 0.03 at every nprobe.
+13. Retrieve kernels vs plain versions on the card, ``search`` against
+    ``search(plain=True)``, ids and distance bits
+    equal (tolerance 0): the phase-12 indexes at nprobe 1, 2, 16 and nlist,
+    b = 1 and b = 257; a duplicated corpus (exact ties); an index with
+    block 8 and k = 20 above the probed rows (-1 at +inf).  (They run after
+    the main path, on the indexes it built.)
+14. Retrieval times: each kernel at b = 256 and nprobe 1, 2, 16 beside
+    its plain version, the bound (distinct probed lists' bytes vs
+    operations) and the brute-force yardstick (``addmm`` + ``topk`` over
+    the whole corpus: exact search, what ``retrieval_ivf_qps_ratio``
+    divides by); the QPS / recall@10 / scan-fraction frontier of brute
+    force, IVF and IVF-PQ over the nprobe sweep and the port's
+    ``retrieval_ivf_qps_ratio``; the builds' wall seconds by part and the
+    device copy.
+
+The last lines are the kernel table (nine kernels: the three ELL kernels,
+the three KMeans kernels, the fold, the two retrieve kernels) as one JSON
+object, the card line from nvidia-smi, and ``{"ok": true, "device":
+{...}}``.  The script imports neither JAX nor the JAX package.
 """
 
 import dataclasses
@@ -122,6 +156,31 @@ WD_REPLACES = "flink_ml_tpu/ops/emb_grad_pallas.py:98"
 WD_LOSS_TOL = dict(rtol=2e-5, atol=1e-6)
 WD_PARAM_TOL = dict(rtol=1e-3, atol=1e-3)
 WD_TABLE_KEYS = ("emb", "wide_cat", "wide_dense", "wide_b")
+
+# IVF retrieval bench (the JAX package's bench.py:4171-4213, full size):
+# 4096 masses of 32 points, centers N(0,1) * 10, noise N(0,1) * 0.3, numpy
+# seed 77; 256 queries near corpus rows
+RT_N, RT_D, RT_PER_MASS = 131072, 64, 32
+RT_NQ, RT_NLIST, RT_K = 256, 256, 10
+RT_NPROBES = (1, 2, 4, 8, 16)
+RT_REF_NPROBE = 2
+RT_TIMED_NPROBES = (1, 2, 16)
+RT_ROUNDS = 50              # timed rounds per frontier point
+RT_PQ = dict(m=8, ksub=16)
+RT_RECALL_FLOOR, RT_SCAN_BUDGET = 0.95, 0.25   # bench.py:4270-4276
+RT_EDITS = 64               # inserts and deletes of the delta update
+# the card's IVF-PQ recall@10 against a build on the CPU: 2560 slots near
+# 0.34 put one standard error at ~0.01, and two builds whose fits part on
+# near ties may land that far apart
+RT_PQ_RECALL_GAP = 0.03
+RT_SOURCE = "flink_ml_tpu_torch/kernels/csrc/retrieve.cu"
+RT_REPLACES = {"retrieve_flat": "flink_ml_tpu/ops/retrieve_pallas.py:187",
+               "retrieve_pq": "flink_ml_tpu/ops/retrieve_pallas.py:227"}
+# the full-probe oracle excludes rows whose 10th and 11th float64
+# distances lie within this share of |q|^2 + max|x|^2: the scale of the
+# f32 rounding of (|q|^2 + |x|^2) - 2 q.x (phase 12 prints the rounding
+# this run's full probe shows, as a share of the same)
+RT_NEAR_TIE = 1e-6
 
 SOURCE = "flink_ml_tpu_torch/kernels/csrc/ell_scatter.cu"
 REPLACES = {
@@ -201,6 +260,26 @@ def near_tie_rows(torch, scores):
     return (two[:, 1] - two[:, 0]) <= NEAR_TIE * (1 + two[:, 0].abs())
 
 
+def hold_rounds(torch, name, state, rounds, data, body, plain_body):
+    """Steps a fit from ``state`` for ``rounds`` rounds through ``body``
+    (the kernels), holding every round against ``plain_body`` (the plain
+    versions) from the same state: the new centroids agree within KM_GATE.
+    Returns the final centroids and the worst round's max |difference|."""
+    worst = 0.0
+    ws = isinstance(state, tuple)
+    for r in range(rounds):
+        args = (*state, r, data) if ws else (state, r, data)
+        nxt = body(*args).feedback
+        ref = plain_body(*args).feedback
+        ck, cp = (nxt[0], ref[0]) if ws else (nxt, ref)
+        worst = max(worst, float((ck - cp).abs().max()))
+        if not torch.allclose(ck, cp, **KM_GATE):
+            fail(f"{name}: round {r} of the fit disagrees with the plain "
+                 f"versions' step (max {worst:.3e})")
+        state = nxt
+    return (state[0] if ws else state), worst
+
+
 def kmeans_phases(torch, dev, card, timer):
     """Phases 6-8 (KMeans); returns the three kernels' JSON entries."""
     from flink_ml_tpu_torch import KMeans, Table
@@ -261,28 +340,14 @@ def kmeans_phases(torch, dev, card, timer):
 
     def replay(name, fitted, plain_fit, state, rounds, body, plain_body):
         """A fit's rounds hold against the plain versions one round at a
-        time: from the kernel fit's own state at every round, the kernel's
-        step and the plain versions' step agree within KM_GATE, and the
-        replay ends bit for bit on the fitted centroids (the kernels are
-        deterministic).  Whole fits are not compared element-wise: on
-        structureless N(0,1) data a near-tie flip in one round moves
-        other points' ties in the next, so the two trajectories drift
-        apart; they are held to the same objective (inertia within 1e-3
-        relative) instead."""
-        worst = 0.0
-        for r in range(rounds):
-            args = (*state, r, (pts, ones)) if isinstance(state, tuple) \
-                else (state, r, (pts, ones))
-            nxt = body(*args).feedback
-            ref = plain_body(*args).feedback
-            ck, cp = (nxt[0], ref[0]) if isinstance(state, tuple) \
-                else (nxt, ref)
-            worst = max(worst, float((ck - cp).abs().max()))
-            if not torch.allclose(ck, cp, **KM_GATE):
-                fail(f"{name}: round {r} of the fit disagrees with the "
-                     f"plain versions' step (max {worst:.3e})")
-            state = nxt
-        final = state[0] if isinstance(state, tuple) else state
+        time (:func:`hold_rounds`), and the replay ends bit for bit on the
+        fitted centroids (the kernels are deterministic).  Whole fits are
+        not compared element-wise: on structureless N(0,1) data a near-tie
+        flip in one round moves other points' ties in the next, so the two
+        trajectories drift apart; they are held to the same objective
+        (inertia within 1e-3 relative) instead."""
+        final, worst = hold_rounds(torch, name, state, rounds, (pts, ones),
+                                   body, plain_body)
         err[name] = max(err.get(name, 0.0), worst)
         ik, ip = inertia(fitted), inertia(plain_fit)
         log(f"check {name} ({rounds}-round fit): per-round max |kernel "
@@ -820,6 +885,384 @@ def widedeep_phases(torch, dev, card, timer):
     }
 
 
+def retrieval_corpus(n, d, nq, per_mass=RT_PER_MASS):
+    """The JAX package's retrieval bench corpus (``bench.py:4208-4213``):
+    ``n // per_mass`` masses, centers N(0,1) * 10, points N(0,1) * 0.3
+    around them, and ``nq`` queries near corpus rows, numpy seed 77."""
+    rng = np.random.default_rng(77)
+    centers = rng.normal(size=(n // per_mass, d)).astype(np.float32) * 10.0
+    X = (np.repeat(centers, per_mass, axis=0)
+         + rng.normal(size=(n, d)) * 0.3).astype(np.float32)
+    queries = (X[rng.choice(n, size=nq, replace=False)]
+               + rng.normal(size=(nq, d)) * 0.05).astype(np.float32)
+    return X, queries
+
+
+def hold_codebook_fits(torch, dev, X, index):
+    """An IVF-PQ build's codebook fits (the workset kernel at (n, d / m),
+    k = ksub) against the plain versions on the card.  Each fit is replayed
+    from its initial centroids with every round held to the plain step from
+    the same state (:func:`hold_rounds`); the replay's books, quantized,
+    equal the index's stored ``cb_q``/``cb_s`` bit for bit, so they are the
+    build's own fits; and each fit's distortion (mean squared distance of
+    the residual subvectors to their nearest entry) lies within 1e-3
+    relative of the same fit through the plain versions."""
+    from flink_ml_tpu_torch.distance import DistanceMeasure
+    from flink_ml_tpu_torch.kernels.quantize import quantize_rows
+    from flink_ml_tpu_torch.models.clustering import kmeans as KM
+    from flink_ml_tpu_torch.retrieval.ivf import _nearest_list
+
+    def distortion(pts, book):
+        p, c = pts.double(), book.double()
+        d2 = ((p * p).sum(1)[:, None] - 2.0 * p @ c.T
+              + (c * c).sum(1)[None, :])
+        return float(d2.min(1).values.mean())
+
+    measure = DistanceMeasure.get_instance("euclidean")
+    cfg, cents = index.pq, index.params["centroids"]
+    n, d = X.shape
+    dsub = d // cfg.m
+    resid = X - cents[_nearest_list(cents, X)]
+    plan = KM._fit_plan(n, dsub, cfg.ksub, measure, workset=True)
+    body = KM.kmeans_workset_epoch_step(measure, cfg.ksub, kernel=True)
+    plain_body = KM.kmeans_workset_epoch_step(measure, cfg.ksub)
+    ones = torch.ones(n, device=dev)
+    worst, held = 0.0, []
+    for s in range(cfg.m):
+        sub = np.ascontiguousarray(resid[:, s * dsub:(s + 1) * dsub])
+        pts = torch.from_numpy(sub).to(dev)
+        init = torch.from_numpy(KM.select_random_centroids(
+            sub, cfg.ksub, index.seed + 1 + s)).to(dev)
+        rounds = index.build_fits[1 + s][2]
+        book, e = hold_rounds(torch, f"codebook fit {s}",
+                              (init, plan.init_workset(ones)), rounds,
+                              (pts, ones), body, plain_body)
+        worst = max(worst, e)
+        q8, scale = quantize_rows(book.cpu().numpy())
+        if not (np.array_equal(q8, index.params["cb_q"][s])
+                and np.array_equal(scale, index.params["cb_s"][s])):
+            fail(f"codebook fit {s}: its replay does not give the index's "
+                 "stored books")
+        plain = KM.fit_centroids(pts, ones, init, plan, measure=measure,
+                                 max_iter=cfg.max_iter, workset=True,
+                                 plain=True).state
+        dk, dp = distortion(pts, book), distortion(pts, plain)
+        held.append((rounds, round(dk, 6), round(dp, 6)))
+        if not abs(dk - dp) <= 1e-3 * dp:
+            fail(f"codebook fit {s}: distortion {dk} off the plain fit's {dp}")
+    log(f"check kmeans_workset_update (the {cfg.m} PQ codebook fits at {n} x "
+        f"{dsub}, k {cfg.ksub}): per-round max |kernel step - plain step| "
+        f"{worst:.3e} (allclose rtol {KM_GATE['rtol']}, atol "
+        f"{KM_GATE['atol']}); each replay equals the index's books; (rounds, "
+        f"distortion kernels, plain versions) {held}")
+
+
+def retrieval_phases(torch, dev, card, timer):
+    """Phases 12-14 (IVF retrieval); returns the two kernels' JSON
+    entries."""
+    from flink_ml_tpu_torch import IVFIndex, PQConfig, Table
+    from flink_ml_tpu_torch.ops import kmeans as K
+    from flink_ml_tpu_torch.ops import retrieve as R
+    from flink_ml_tpu_torch.retrieval import exact_neighbors, recall_at_k
+
+    X, queries = retrieval_corpus(RT_N, RT_D, RT_NQ)
+    n, d = X.shape
+    qd = torch.from_numpy(queries).to(dev)
+    Xd = torch.from_numpy(X).to(dev)
+    # float64 oracle on the card: exact_neighbors' expression, stable sort
+    X64, q64 = Xd.double(), qd.double()
+    d2 = ((q64 * q64).sum(1)[:, None] + (X64 * X64).sum(1)[None, :]
+          - 2.0 * q64 @ X64.T)
+    top_d, top_i = torch.sort(d2, dim=1, stable=True)
+    exact_d = top_d[:, :RT_K + 1].cpu().numpy()
+    exact = top_i[:, :RT_K].cpu().numpy()
+    del d2, top_d, top_i, X64
+    if not np.array_equal(exact_neighbors(queries[:16], X, np.arange(n),
+                                          RT_K), exact[:16]):
+        fail("the float64 oracle on the card disagrees with exact_neighbors")
+    scale = (queries.astype(np.float64) ** 2).sum(1) + float(
+        (X.astype(np.float64) ** 2).sum(1).max())
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def once(name, fn):
+        """fn() launches kernel ``name`` exactly once and nothing else."""
+        before = dict(R.LAUNCHES)
+        out = fn()
+        sync()
+        want = dict(before, **{name: before[name] + 1})
+        if R.LAUNCHES != want:
+            fail(f"a search launched {R.LAUNCHES} after {before}, expected "
+                 f"one {name}")
+        return out
+
+    # -- 12. main path: builds, searches, an update ------------------------
+    K.reset_launch_counts()
+    R.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    flat = IVFIndex.build(X, RT_NLIST, k=RT_K, seed=1, device=DEVICE)
+    sync()
+    t1 = time.perf_counter()
+    pq = IVFIndex.build(X, RT_NLIST, PQConfig(**RT_PQ), k=RT_K, seed=1,
+                        device=DEVICE)
+    sync()
+    build_s = {"ivf": t1 - t0, "ivfpq": time.perf_counter() - t1}
+    km = dict(K.LAUNCHES)
+    fits = flat.build_fits + pq.build_fits
+    log(f"IVF builds at {n} x {d}, nlist {RT_NLIST}: block {flat.block} "
+        f"(PQ {pq.block}); fits (name, plan, rounds) {fits}; KMeans "
+        f"launches {km}")
+    if len(fits) != 2 + RT_PQ["m"] or \
+            any(plan != "kernel_ws" for _, plan, _ in fits):
+        fail(f"a build fit did not plan the workset kernel: {fits}")
+    if km != {"kmeans_update_stats": 0, "kmeans_assign_reduce": 0,
+              "kmeans_workset_update": sum(r for _, _, r in fits)}:
+        fail(f"build launches {km} do not match the fits' rounds")
+    copy_s = {}
+    for variant, index in (("ivf", flat), ("ivfpq", pq)):
+        t0 = time.perf_counter()
+        index.device_params()
+        sync()
+        copy_s[variant] = time.perf_counter() - t0
+
+    found = {}
+    for variant, index, name in (("ivf", flat, "retrieve_flat"),
+                                 ("ivfpq", pq, "retrieve_pq")):
+        (out,) = once(name, lambda: index.transform(
+            Table({"query": queries})))
+        nn, dist = out["neighbors"], out["distances"]
+        if nn.shape != (RT_NQ, RT_K) or nn.dtype != np.int64 or \
+                dist.dtype != np.float32 or not np.all(np.isfinite(dist)) \
+                or nn.min() < 0 or nn.max() >= n or \
+                np.any(np.diff(dist, axis=1) < 0):
+            fail(f"{variant} transform: bad neighbors or distances")
+        for nprobe in RT_NPROBES:
+            found[variant, nprobe] = once(name, lambda: index.search(
+                queries, nprobe=nprobe))[0]
+    rec = {key: recall_at_k(nn, exact) for key, nn in found.items()}
+    scan = {p: flat.scan_fraction(queries, p) for p in RT_NPROBES}
+    log(f"recall@{RT_K} by nprobe {list(RT_NPROBES)}: IVF "
+        f"{[rec['ivf', p] for p in RT_NPROBES]}, IVF-PQ "
+        f"{[rec['ivfpq', p] for p in RT_NPROBES]}; scan fraction "
+        f"{[round(scan[p], 6) for p in RT_NPROBES]}")
+    if not (rec["ivf", RT_REF_NPROBE] >= RT_RECALL_FLOOR
+            and scan[RT_REF_NPROBE] <= RT_SCAN_BUDGET):
+        fail(f"flat recall@{RT_K} {rec['ivf', RT_REF_NPROBE]} at nprobe "
+             f"{RT_REF_NPROBE}, scan {scan[RT_REF_NPROBE]}: below the "
+             "bench's acceptance point")
+
+    full_nn, full_d = once("retrieve_flat", lambda: flat.search(
+        queries, nprobe=RT_NLIST))
+    tol = RT_NEAR_TIE * scale
+    near = (exact_d[:, RT_K] - exact_d[:, RT_K - 1]) <= tol
+    sets_off = [r for r in range(RT_NQ) if not near[r]
+                and set(full_nn[r]) != set(exact[r])]
+    got64 = ((X[full_nn].astype(np.float64)
+              - queries[:, None, :].astype(np.float64)) ** 2).sum(-1)
+    slots_off = int(np.sum(np.abs(got64 - exact_d[:, :RT_K])
+                           > tol[:, None]))
+    rounding = float(np.max(np.abs(full_d - got64) / scale[:, None]))
+    log(f"full probe (nprobe {RT_NLIST}) vs the float64 oracle: "
+        f"f32 distances off their ids' float64 distances by at most "
+        f"{rounding:.3e} (|q|^2 + max|x|^2); "
+        f"{int(near.sum())} rows excluded (10th and 11th distances within "
+        f"{RT_NEAR_TIE:g} (|q|^2 + max|x|^2)); {len(sets_off)} other rows "
+        f"with another top-{RT_K} set; {int(np.sum(full_nn != exact))} "
+        f"slots with another id, {slots_off} of them off the oracle's "
+        f"distance by more than the tolerance")
+    if sets_off or slots_off:
+        fail("the full-probe flat search is not the exact search")
+
+    rng = np.random.default_rng(5)
+    ins = (X[rng.choice(n, RT_EDITS, replace=False)]
+           + rng.normal(size=(RT_EDITS, d)) * 0.3).astype(np.float32)
+    dels = rng.choice(n, RT_EDITS, replace=False)
+    # the bench's publish leg updates with the drift re-anchor off
+    # (bench.py:4370-4372): a fresh build's drift (its member means off
+    # the balanced centroids) is already past the default 0.25
+    pub = flat.with_options()
+    pub.drift_threshold = None
+    mode, nxt = pub.updated(inserts=ins, delete_ids=dels)
+    hit, _ = once("retrieve_flat", lambda: nxt.search(ins, k=1))
+    gone, _ = once("retrieve_flat", lambda: nxt.search(X[dels]))
+    launches = dict(R.LAUNCHES)
+    first = int(np.sum(hit[:, 0] == n + np.arange(RT_EDITS)))
+    log(f"update (built index's centroid drift {flat.centroid_drift():.4f}"
+        f"): {RT_EDITS} inserts, {RT_EDITS} deletes -> {mode!r}; inserted "
+        f"ids found first {first}/{RT_EDITS}; deleted ids returned "
+        f"{int(np.isin(gone, dels).sum())}; retrieve launches on the main "
+        f"path {launches}")
+    if mode != "delta" or not np.array_equal(
+            hit[:, 0], n + np.arange(RT_EDITS)) or np.isin(gone, dels).any():
+        fail("the delta update does not serve its inserts and deletes")
+    if launches != {"retrieve_flat": 2 + len(RT_NPROBES) + 2,
+                    "retrieve_pq": 1 + len(RT_NPROBES)}:
+        fail(f"retrieve launches {launches} on the main path")
+
+    # the PQ build's codebook fits, held to the plain versions; the same PQ
+    # build on the host's CPU (the plain versions throughout) as the
+    # reference of the card's IVF-PQ recall
+    hold_codebook_fits(torch, dev, X, pq)
+    t0 = time.perf_counter()
+    cpu_pq = IVFIndex.build(X, RT_NLIST, PQConfig(**RT_PQ), k=RT_K, seed=1,
+                            device="cpu")
+    cpu_rec = {p: recall_at_k(cpu_pq.search(queries, nprobe=p)[0], exact)
+               for p in RT_NPROBES}
+    gap = max(abs(rec["ivfpq", p] - cpu_rec[p]) for p in RT_NPROBES)
+    same_lists = cpu_pq.block == pq.block and np.array_equal(
+        cpu_pq.params["ids"], pq.params["ids"])
+    log(f"IVF-PQ reference built and searched on the host CPU through the "
+        f"plain versions ({time.perf_counter() - t0:.3f} s): recall@{RT_K} "
+        f"{[cpu_rec[p] for p in RT_NPROBES]} against the card's "
+        f"{[rec['ivfpq', p] for p in RT_NPROBES]} (largest gap {gap:.4f}, "
+        f"gate {RT_PQ_RECALL_GAP}); posting lists equal: {same_lists}; "
+        f"books equal: {np.array_equal(cpu_pq.params['cb_q'], pq.params['cb_q'])}"
+        f"; codes equal: "
+        f"{same_lists and np.array_equal(cpu_pq.params['codes'], pq.params['codes'])}")
+    if gap > RT_PQ_RECALL_GAP:
+        fail("the card's IVF-PQ recall is off the CPU reference build's")
+    del cpu_pq
+
+    # -- 13. kernels vs plain versions, bit for bit ------------------------
+    err = {"retrieve_flat": 0.0, "retrieve_pq": 0.0}
+
+    def same(what, view, q):
+        """``search`` through the kernel and ``search(plain=True)``."""
+        name = "retrieve_pq" if view.pq else "retrieve_flat"
+        nn, dist = view.search(q)
+        pnn, pdist = view.search(q, plain=True)
+        ok = np.array_equal(nn, pnn) and np.array_equal(
+            dist.view(np.int32), pdist.view(np.int32))
+        fin = np.isfinite(pdist)
+        e = float(np.abs(dist[fin] - pdist[fin]).max()) if fin.any() \
+            else 0.0
+        err[name] = max(err[name], e)
+        log(f"check {name} ({what}, b {q.shape[0]}, nprobe {view.nprobe}, "
+            f"k {view.k}, block {view.block}): ids and distance bits equal "
+            f"to the plain version: {ok} (tolerance 0); short slots "
+            f"{int((pnn == -1).sum())}")
+        if not ok or nn.shape != (q.shape[0], view.k):
+            fail(f"{name} disagrees with its plain version ({what})")
+
+    q257 = np.concatenate([queries, queries[:1] * 1.001])
+    for index in (flat, pq):
+        for nprobe in (1, 2, 16, RT_NLIST):
+            same("bench index", index.with_options(nprobe=nprobe), queries)
+        ref = index.with_options(nprobe=RT_REF_NPROBE)
+        same("bench index", ref, queries[:1])
+        same("bench index", ref, q257)
+    dup = np.concatenate([X[:4096], X[:4096]])
+    q_dup = (dup[::64] + np.random.default_rng(6).normal(
+        size=(128, d)).astype(np.float32) * 0.05).astype(np.float32)
+    small = X[::n // 128]                  # 128 rows of 128 masses
+    for pq_cfg in (None, PQConfig(**RT_PQ)):
+        di = IVFIndex.build(dup, 16, pq_cfg, k=RT_K, seed=1, device=DEVICE)
+        for nprobe in (2, 16):
+            same("duplicated rows, exact ties",
+                 di.with_options(nprobe=nprobe), q_dup)
+        si = IVFIndex.build(small, 32, pq_cfg, k=20, seed=1, block=8,
+                            device=DEVICE)
+        for nprobe in (1, 2, 32):
+            same("block 8, k above the probed rows",
+                 si.with_options(nprobe=nprobe), queries[:64])
+
+    # -- 14. times ---------------------------------------------------------
+    f4 = 4
+    x2 = (Xd * Xd).sum(1)[None, :]
+
+    def brute():
+        return torch.topk(torch.addmm(x2, qd, Xd.T, alpha=-2.0), RT_K,
+                          dim=1, largest=False).indices
+
+    lib_ms = timer.ms(brute)
+    kernel_ms = {}
+    for name, index in (("retrieve_flat", flat), ("retrieve_pq", pq)):
+        p = index.device_params()
+        blk = index.block
+        for nprobe in RT_TIMED_NPROBES:
+            view = index.with_options(nprobe=nprobe)
+            ms = timer.ms(lambda: view.search_tensors(qd))
+            # what search(plain=True) runs between its copies
+            plain_ms = timer.ms(lambda: view._scan(
+                qd, R.retrieve_flat_plain, R.retrieve_pq_plain),
+                reps=5, warm=1)
+            lists = int(torch.unique(R.select_probes(
+                qd, p["centroids"], nprobe)).numel())
+            common = (RT_NQ * d + RT_NLIST * d + 2 * RT_NQ * RT_K) * f4
+            ops = 2.0 * RT_NQ * d * RT_NLIST
+            if index.pq is None:
+                moved = lists * blk * (d + 1) * f4 + common
+                ops += 2.0 * RT_NQ * d * nprobe * blk
+            else:
+                m, ksub = RT_PQ["m"], RT_PQ["ksub"]
+                moved = (lists * blk * (m + f4) + common + ksub * d
+                         + m * ksub * f4)
+                ops += RT_NQ * nprobe * (3.0 * ksub * d + blk * m)
+            ops_ms = ops / FP32_OPS_PER_S * 1e3
+            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+            kernel_ms[name, nprobe] = (ms, plain_ms, bound_ms, bound_by)
+            log(f"time {name} (b {RT_NQ}, nprobe {nprobe}, {lists} distinct "
+                f"lists of {blk} rows): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, brute-force addmm + topk over all {n} "
+                f"rows (exact search) {lib_ms:.4f} ms, bound {bound_ms:.4f} "
+                f"ms ({bound_by}; bytes {bytes_ms:.4f}, operations "
+                f"{ops_ms:.4f}) [{card}]")
+
+    def qps(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(RT_ROUNDS):
+            out = fn()
+        sync()
+        return RT_NQ * RT_ROUNDS / (time.perf_counter() - t0), out
+
+    flat_qps, flat_ids = qps(brute)
+    flat_rec = recall_at_k(flat_ids.cpu().numpy(), exact)
+    log(f"frontier: flat brute force {flat_qps:.1f} QPS, recall@{RT_K} "
+        f"{flat_rec:.4f}, scan 1.0 [{card}]")
+    best = None
+    for variant, index in (("ivf", flat), ("ivfpq", pq)):
+        for nprobe in RT_NPROBES:
+            view = index.with_options(nprobe=nprobe)
+            rate, out = qps(lambda: view.search_tensors(qd))
+            r = recall_at_k(out[0].cpu().numpy(), exact)
+            log(f"frontier: {variant} nprobe {nprobe}: {rate:.1f} QPS, "
+                f"recall@{RT_K} {r:.4f}, scan fraction {scan[nprobe]:.6f} "
+                f"[{card}]")
+            if variant == "ivf" and r >= RT_RECALL_FLOOR and \
+                    scan[nprobe] <= RT_SCAN_BUDGET and \
+                    (best is None or rate > best[0]):
+                best = (rate, nprobe)
+    if best is None:
+        fail("no IVF point reaches the acceptance recall within the scan "
+             "budget")
+    log(f"retrieval_ivf_qps_ratio (fastest IVF point with recall@{RT_K} >= "
+        f"{RT_RECALL_FLOOR} and scan <= {RT_SCAN_BUDGET}, nprobe "
+        f"{best[1]}, over flat brute force): {best[0] / flat_qps:.3f} "
+        f"[{card}]")
+    for variant, index in (("ivf", flat), ("ivfpq", pq)):
+        log(f"build {variant}: {build_s[variant]:.3f} s wall; parts "
+            + ", ".join(f"{k} {v:.3f}" for k, v in index.build_times.items())
+            + f"; device copy {copy_s[variant]:.3f} s [{card}]")
+
+    entries = []
+    for name in ("retrieve_flat", "retrieve_pq"):
+        ms, plain_ms, bound_ms, bound_by = kernel_ms[name, RT_REF_NPROBE]
+        entries.append({
+            "name": name, "route": "cuda", "source": RT_SOURCE,
+            "replaces": RT_REPLACES[name], "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms,
+        })
+    return entries
+
+
 def main():
     import torch
 
@@ -847,7 +1290,7 @@ def main():
     # -- 2. build ----------------------------------------------------------
     secs = build.build_all()
     log(f"build: {secs:.2f} s (0 = already built)")
-    for name in ("ell_scatter", "kmeans", "emb_grad"):
+    for name in ("ell_scatter", "kmeans", "emb_grad", "retrieve"):
         log(f"nvcc report ({name}):\n" + (build.build_log(name) or "(none)"))
 
     # -- 3. kernels vs plain versions at the main path's shapes ------------
@@ -1087,6 +1530,7 @@ def main():
 
     kernels += kmeans_phases(torch, dev, card, timer)
     kernels.append(widedeep_phases(torch, dev, card, timer))
+    kernels += retrieval_phases(torch, dev, card, timer)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

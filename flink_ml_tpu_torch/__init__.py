@@ -7,8 +7,10 @@ package wrote Pallas kernels for the TPU.  Ported so far: the linear
 family's ``fit``/``transform`` on the Criteo-shaped mixed layout, with the
 three ELL kernels; KMeans ``fit`` (BSP and workset) and ``transform``, with
 the three KMeans kernels; Wide&Deep ``fit`` (routed table gradients, dense
-and lazy Adam) and ``transform``, with the routed-gradient fold kernel.
-Entry points run on the card unless the caller passes ``device="cpu"``.
+and lazy Adam) and ``transform``, with the routed-gradient fold kernel;
+the IVF / IVF-PQ vector index (``IVFIndex.build``, ``search``,
+``transform``), with the two fused scan+top-k kernels.  Entry points run
+on the card unless the caller passes ``device="cpu"``.
 This package imports neither JAX nor ``flink_ml_tpu``.
 """
 
@@ -45,6 +47,7 @@ from .params.param import (
     VectorParam,
 )
 from .params.with_params import WithParams
+from .retrieval import IVFIndex, PQConfig
 
 __all__ = [
     "AlgoOperator", "Estimator", "Model", "Stage", "Transformer",
@@ -55,6 +58,7 @@ __all__ = [
     "LinearSVC", "LinearSVCModel",
     "KMeans", "KMeansModel",
     "WideDeep", "WideDeepModel",
+    "IVFIndex", "PQConfig",
     "Param", "ParamValidators", "WithParams", "InvalidParamError",
     "BoolParam", "IntParam", "LongParam", "FloatParam", "DoubleParam",
     "StringParam", "IntArrayParam", "FloatArrayParam", "DoubleArrayParam",

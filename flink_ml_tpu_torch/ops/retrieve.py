@@ -1,0 +1,361 @@
+"""IVF retrieve kernels: coarse probe selection, posting-list scan and
+top-k in one launch per search, with their plain PyTorch versions.
+
+A port of the JAX package's ``ops/retrieve_pallas.py`` (the fused Pallas
+kernels) and of the XLA stage ``retrieval/ivf.py::_retrieve_stage_xla``
+that they equal bit for bit.  The kernels are CUDA C++ for Hopper
+(``kernels/csrc/retrieve.cu``; its header note says what bounds them and
+how they are laid out):
+
+- :func:`retrieve_flat`: flat f32 posting lists, squared L2
+  ``|q|^2 + |x|^2 - 2 q.x``;
+- :func:`retrieve_pq`: IVF-PQ, asymmetric distances from a per-probe
+  lookup table over int8 codes.
+
+Both return ``(neighbors (b, k) int32, distances (b, k) f32)``.  Probes are
+taken in ascending (coarse score, list index) order and the top-k runs
+over the ``nprobe * block`` candidates flattened probe-major, ascending
+distance with the lowest flat position first on ties: the order of
+``lax.top_k``, reproduced here by a stable sort (``torch.topk`` leaves the
+order of ties unspecified).  Pad slots (id ``-1``) sit at ``+inf``; when
+fewer than ``k`` real candidates were scanned the result carries id ``-1``
+at ``+inf``, never a fake id.
+
+**Bit for bit.**  The plain versions write every sum as a sequential loop
+(over ``d`` for ``|q|^2``, ``|x|^2``, ``q.x`` and ``|c|^2``; over ``dsub``
+in the lookup table; over ``m`` in the ADC scan) of separately rounded
+elementwise ops, and the kernels do the same adds in the same order with
+``__fmul_rn``/``__fadd_rn``, which the compiler never contracts into an
+FMA.  So on the card each kernel equals its plain version bit for bit:
+ids equal, distance bits equal.  The JAX stage multiplies by a runtime
+1.0 (``runtime_one``) to pin XLA's fusion choices; ``x * 1.0f == x``
+exactly, so both sides here leave it out and no bit changes.
+
+Each wrapper takes its plain version for tensors on the CPU, and launches
+its kernel for CUDA tensors or raises: it never falls back.  A shape the
+kernel cannot take raises with the limit in its message
+(:func:`kernel_plan`).  A launch adds one to :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict, Tuple
+
+import torch
+
+__all__ = ["retrieve_flat", "retrieve_flat_plain", "retrieve_pq",
+           "retrieve_pq_plain", "coarse_distances", "flat_distances",
+           "decode_codebooks", "pq_lut", "adc_distances", "select_probes",
+           "kernel_plan", "K_MAX", "LAUNCHES",
+           "reset_launch_counts"]
+
+#: Launches of each kernel since the last :func:`reset_launch_counts`.
+#: Only a launch of the CUDA kernel counts, never a plain version.
+LAUNCHES: Dict[str, int] = {"retrieve_flat": 0, "retrieve_pq": 0}
+
+#: Longest result list a kernel thread keeps in registers.
+K_MAX = 32
+
+# retrieve.cu's threads a block, its warps' reduce slots and Hopper's
+# per-block opt-in shared memory: kernel_plan sizes the kernels' layout
+# here, and the launchers check only the cap
+_THREADS = 256
+_RED_WORDS = 2 * (_THREADS // 32 + 1)
+_SMEM_LIMIT = 232448
+
+# bytes of gathered posting rows a plain scan holds at once
+_PLAIN_CHUNK_BYTES = 256 << 20
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# shared distance expressions, sums as sequential loops
+# ---------------------------------------------------------------------------
+
+def _seq_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_j a[..., j] * b[..., j]`` (broadcast), added left to right
+    from 0.0, each product and each add rounded."""
+    acc = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]),
+                      dtype=torch.float32, device=a.device)
+    for j in range(a.shape[-1]):
+        acc = acc + a[..., j] * b[..., j]
+    return acc
+
+
+def coarse_distances(q: torch.Tensor, centroids: torch.Tensor
+                     ) -> torch.Tensor:
+    """Selection-only coarse scores ``|c|^2 - 2 q.c`` for ``q`` (..., d)
+    against ``centroids`` (nlist, d) -> (..., nlist); ``|q|^2`` shifts a
+    row uniformly and is left out."""
+    c2 = _seq_dot(centroids, centroids)
+    qc = _seq_dot(q[..., None, :], centroids)
+    return c2 - 2.0 * qc
+
+
+def flat_distances(q: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """Squared L2 ``(|q|^2 + |x|^2) - 2 q.x`` for ``q`` (..., d) against
+    row blocks ``vecs`` (..., L, d) -> (..., L)."""
+    q2 = _seq_dot(q, q)[..., None]
+    x2 = _seq_dot(vecs, vecs)
+    qx = _seq_dot(q[..., None, :], vecs)
+    return q2 + x2 - 2.0 * qx
+
+
+def decode_codebooks(cb_q: torch.Tensor, cb_s: torch.Tensor) -> torch.Tensor:
+    """The stored per-subspace codebooks: int8 codes (m, ksub, dsub) times
+    per-row scales (m, ksub)."""
+    return cb_q.to(torch.float32) * cb_s[..., None]
+
+
+def pq_lut(resid: torch.Tensor, books: torch.Tensor) -> torch.Tensor:
+    """ADC lookup table: squared L2 from residual subvectors (..., m,
+    dsub) to every codebook entry (m, ksub, dsub) -> (..., m, ksub), summed
+    over ``dsub`` left to right."""
+    acc = torch.zeros(resid.shape[:-1] + books.shape[1:2],
+                      dtype=torch.float32, device=resid.device)
+    for t in range(resid.shape[-1]):
+        diff = resid[..., :, None, t] - books[:, :, t]
+        acc = acc + diff * diff
+    return acc
+
+
+def adc_distances(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """Asymmetric distances: each candidate's per-subspace table entries
+    summed over ``m`` left to right.  ``lut`` (..., m, ksub), ``codes``
+    (..., L, m) int8 -> (..., L)."""
+    acc = torch.zeros(codes.shape[:-1], dtype=torch.float32,
+                      device=lut.device)
+    for s in range(codes.shape[-1]):
+        acc = acc + torch.gather(lut[..., s, :], -1, codes[..., s].long())
+    return acc
+
+
+def select_probes(q: torch.Tensor, centroids: torch.Tensor,
+                  nprobe: int) -> torch.Tensor:
+    """(b, nprobe) list indices in ascending (coarse score, index) order."""
+    coarse = coarse_distances(q, centroids)
+    return torch.sort(coarse, dim=1, stable=True).indices[:, :nprobe]
+
+
+def _scan_plain(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
+                *, nprobe: int, k: int, block: int, row_bytes: int,
+                score: Callable[[torch.Tensor], torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Probe, score and take the top-k.  ``score(probes (b, c))`` returns
+    the (b, c, block) candidate distances of a chunk of probes; chunks
+    bound the gathered posting rows to ``_PLAIN_CHUNK_BYTES``."""
+    b = q.shape[0]
+    probes = select_probes(q, centroids, nprobe)
+    chunk = max(1, _PLAIN_CHUNK_BYTES // max(1, b * block * row_bytes))
+    dist = torch.cat([score(probes[:, c:c + chunk])
+                      for c in range(0, nprobe, chunk)], dim=1)
+    pid = ids[probes].reshape(b, -1)                  # probe-major
+    dist = torch.where(pid >= 0, dist.reshape(b, -1), torch.inf)
+    short = k - pid.shape[1]
+    if short > 0:
+        dist = torch.cat([dist, dist.new_full((b, short), torch.inf)], 1)
+        pid = torch.cat([pid, pid.new_full((b, short), -1)], 1)
+    vals, pos = torch.sort(dist, dim=1, stable=True)
+    return (torch.gather(pid, 1, pos[:, :k]).to(torch.int32),
+            vals[:, :k].contiguous())
+
+
+def retrieve_flat_plain(q, centroids, ids, vecs, *, nprobe: int, k: int,
+                        nlist: int, block: int):
+    """Flat f32 search: ``(q (b, d), centroids (nlist, d), ids (nlist,
+    block) i32, vecs (nlist*block, d)) -> (neighbors (b, k) i32, distances
+    (b, k) f32)``."""
+    d = q.shape[1]
+    rows = vecs.view(nlist, block, d)
+
+    def score(pr):
+        return flat_distances(q[:, None, :], rows[pr])
+
+    return _scan_plain(q, centroids, ids, nprobe=nprobe, k=k, block=block,
+                       row_bytes=4 * d, score=score)
+
+
+def retrieve_pq_plain(q, centroids, ids, codes, cb_q, cb_s, *, nprobe: int,
+                      k: int, nlist: int, block: int, m: int):
+    """IVF-PQ search: ``codes (nlist*block, m)`` int8 against the decoded
+    books ``cb_q (m, ksub, d/m)`` int8 times ``cb_s (m, ksub)``; the
+    per-(query, probe) table is built from the residual ``q - c[probe]``."""
+    b, d = q.shape
+    books = decode_codebooks(cb_q, cb_s)
+    blocks = codes.view(nlist, block, m)
+
+    def score(pr):
+        resid = q[:, None, :] - centroids[pr]          # (b, c, d)
+        lut = pq_lut(resid.reshape(b, pr.shape[1], m, d // m), books)
+        return adc_distances(lut, blocks[pr])
+
+    return _scan_plain(q, centroids, ids, nprobe=nprobe, k=k, block=block,
+                       row_bytes=4 * m, score=score)
+
+
+# ---------------------------------------------------------------------------
+# kernel planning and wrappers
+# ---------------------------------------------------------------------------
+
+def kernel_plan(sig: tuple) -> Tuple[int, int]:
+    """``(tile rows, shared bytes)`` of the kernel for a retrieve signature
+    ``(nprobe, k, dim, m, ksub, nlist, block)`` (``m == 0``: flat); raises
+    ``ValueError`` naming the limit a shape passes (the counterpart of the
+    JAX package's ``fused_supported``).  This is the one place that sizes
+    the layout ``retrieve.cu`` carves: the query (and, PQ, its residual),
+    the coarse row, its taken flags and the probe list (one word per list
+    each), the
+    reduce slots, (PQ) the decoded books and the lookup table, then the
+    tile of staged rows (centroids, then flat posting rows), ``dim + 1``
+    words a row."""
+    if len(sig) != 7:
+        raise ValueError(f"a retrieve signature has 7 fields, got {sig!r}")
+    nprobe, k, dim, m, ksub, nlist, block = (int(v) for v in sig)
+    if dim < 1 or nlist < 1 or block < 1:
+        raise ValueError(f"need dim, nlist, block >= 1, got {sig!r}")
+    if not 1 <= nprobe <= nlist:
+        raise ValueError(f"nprobe={nprobe} not in [1, nlist={nlist}]")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"k={k} is past the kernel's per-thread result "
+                         f"list: k must be in [1, {K_MAX}]")
+    if nlist * block >= 2 ** 31:
+        raise ValueError(f"nlist*block={nlist * block} posting slots: the "
+                         "kernel addresses at most 2^31 - 1")
+    fixed = 4 * (dim + 3 * nlist + _RED_WORDS)
+    if m:
+        if dim % m or not 2 <= ksub <= 127:
+            raise ValueError(f"PQ needs m | dim and ksub in [2, 127], got "
+                             f"m={m}, ksub={ksub}, dim={dim}")
+        fixed += 4 * (dim + ksub * dim + m * ksub)
+    tile = min(_THREADS, max(0, _SMEM_LIMIT - fixed) // (4 * (dim + 1)))
+    smem = fixed + 4 * max(tile, 1) * (dim + 1)
+    if tile < 1:
+        raise ValueError(
+            f"nlist={nlist}, dim={dim}" + (f", ksub={ksub}" if m else "")
+            + f" need {smem} bytes of shared memory for the coarse row"
+            + (", books, table" if m else "") + " and one staged row; a "
+            f"block has at most {_SMEM_LIMIT}")
+    return tile, smem
+
+
+_LIB = None
+
+
+def _kernels():
+    """The built ``retrieve`` library with its C signatures declared (built
+    on first use)."""
+    global _LIB
+    if _LIB is None:
+        from ..kernels.build import load_library
+
+        _LIB = declare(load_library("retrieve"))
+    return _LIB
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a built ``retrieve.cu`` library."""
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    lib.retrieve_flat_launch.argtypes = [vp] * 6 + [ci] * 7 + [cl, vp]
+    lib.retrieve_pq_launch.argtypes = [vp] * 8 + [ci] * 9 + [cl, vp]
+    lib.retrieve_flat_launch.restype = ctypes.c_int
+    lib.retrieve_pq_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_common(q, centroids, ids, *, nprobe, k, nlist, block):
+    if q.dim() != 2:
+        raise ValueError("q must be (b, d)")
+    dev = q.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    b, d = q.shape
+    _check("q", q, torch.float32, (b, d), dev)
+    _check("centroids", centroids, torch.float32, (nlist, d), dev)
+    _check("ids", ids, torch.int32, (nlist, block), dev)
+    if not 1 <= nprobe <= nlist or k < 1:
+        raise ValueError(f"need 1 <= nprobe={nprobe} <= nlist={nlist} and "
+                         f"k={k} >= 1")
+    return b, d, dev
+
+
+def _outputs(b: int, k: int, dev):
+    return (torch.empty((b, k), dtype=torch.int32, device=dev),
+            torch.empty((b, k), dtype=torch.float32, device=dev))
+
+
+def retrieve_flat(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
+                  vecs: torch.Tensor, *, nprobe: int, k: int, nlist: int,
+                  block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flat search (see :func:`retrieve_flat_plain`).  Replaces the JAX
+    package's ``retrieve_flat_fused``.  Deterministic."""
+    b, d, dev = _check_common(q, centroids, ids, nprobe=nprobe, k=k,
+                              nlist=nlist, block=block)
+    _check("vecs", vecs, torch.float32, (nlist * block, d), dev)
+    if dev.type == "cpu":
+        return retrieve_flat_plain(q, centroids, ids, vecs, nprobe=nprobe,
+                                   k=k, nlist=nlist, block=block)
+    tile, smem = kernel_plan((nprobe, k, d, 0, 0, nlist, block))
+    nn, dist = _outputs(b, k, dev)
+    with torch.cuda.device(dev):
+        rc = _kernels().retrieve_flat_launch(
+            q.data_ptr(), centroids.data_ptr(), ids.data_ptr(),
+            vecs.data_ptr(), nn.data_ptr(), dist.data_ptr(), b, d, nlist,
+            block, nprobe, k, tile, smem,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"retrieve_flat kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["retrieve_flat"] += 1
+    return nn, dist
+
+
+def retrieve_pq(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
+                codes: torch.Tensor, cb_q: torch.Tensor, cb_s: torch.Tensor,
+                *, nprobe: int, k: int, nlist: int, block: int, m: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF-PQ search (see :func:`retrieve_pq_plain`).  Replaces the JAX
+    package's ``retrieve_pq_fused``.  ``codes`` must hold indices in
+    ``[0, ksub)``, as the index build writes them.  Deterministic."""
+    b, d, dev = _check_common(q, centroids, ids, nprobe=nprobe, k=k,
+                              nlist=nlist, block=block)
+    if m < 1 or cb_q.dim() != 3:
+        raise ValueError("PQ needs m >= 1 and cb_q (m, ksub, d/m)")
+    ksub = cb_q.shape[1]
+    _check("codes", codes, torch.int8, (nlist * block, m), dev)
+    _check("cb_q", cb_q, torch.int8, (m, ksub, d // m), dev)
+    _check("cb_s", cb_s, torch.float32, (m, ksub), dev)
+    if dev.type == "cpu":
+        return retrieve_pq_plain(q, centroids, ids, codes, cb_q, cb_s,
+                                 nprobe=nprobe, k=k, nlist=nlist,
+                                 block=block, m=m)
+    tile, smem = kernel_plan((nprobe, k, d, m, ksub, nlist, block))
+    nn, dist = _outputs(b, k, dev)
+    with torch.cuda.device(dev):
+        rc = _kernels().retrieve_pq_launch(
+            q.data_ptr(), centroids.data_ptr(), ids.data_ptr(),
+            codes.data_ptr(), cb_q.data_ptr(), cb_s.data_ptr(),
+            nn.data_ptr(), dist.data_ptr(), b, d, nlist, block, nprobe, k,
+            m, ksub, tile, smem, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"retrieve_pq kernel launch failed: CUDA error "
+                           f"{rc}")
+    LAUNCHES["retrieve_pq"] += 1
+    return nn, dist

@@ -14,7 +14,8 @@ from ..models.common.sgd import LinearState
 from .device import resolve_device
 
 __all__ = ["params_from_jax", "model_from_jax_state", "kmeans_model_from_jax",
-           "widedeep_params_from_jax", "adam_state_from_jax"]
+           "widedeep_params_from_jax", "adam_state_from_jax",
+           "ivf_index_from_jax"]
 
 
 def params_from_jax(params: Dict[str, np.ndarray], device="cuda"
@@ -78,3 +79,28 @@ def adam_state_from_jax(opt_state, device="cuda"):
     return AdamState(count=int(np.asarray(adam.count)),
                      mu=params_to_device(adam.mu, dev),
                      nu=params_to_device(adam.nu, dev))
+
+
+def ivf_index_from_jax(params, *, nlist: int, block: int, dim: int, k: int,
+                       nprobe: int, pq, seed: int, list_slack: int,
+                       drift_threshold, max_iter: int, stored,
+                       device="cuda"):
+    """A port ``IVFIndex`` with the JAX index's posting lists: ``params``
+    is the JAX index's ``params`` (numpy), ``stored`` its
+    ``stored_vectors()`` ``(ids, vectors)``, ``pq`` its ``PQConfig`` (any
+    object with ``m``, ``ksub`` and ``max_iter``) or None; the other
+    arguments are the JAX index's attributes of the same names."""
+    from ..retrieval.ivf import IVFIndex, PQConfig
+
+    resolve_device(device)
+    ids, vectors = stored
+    return IVFIndex(
+        params={name: np.array(arr) for name, arr in params.items()},
+        nlist=nlist, block=block, dim=dim, k=k, nprobe=nprobe,
+        pq=None if pq is None else PQConfig(m=int(pq.m), ksub=int(pq.ksub),
+                                            max_iter=int(pq.max_iter)),
+        seed=seed, list_slack=list_slack, drift_threshold=drift_threshold,
+        max_iter=max_iter,
+        store={int(i): np.array(v, np.float32)
+               for i, v in zip(np.asarray(ids).tolist(), vectors)},
+        device=device)

@@ -18,6 +18,7 @@ from flink_ml_tpu_torch.models.common import sgd as TS
 from flink_ml_tpu_torch.models.common.losses import LOSSES
 from flink_ml_tpu_torch.ops import ell_scatter as TE
 from flink_ml_tpu_torch.ops import kmeans as TK
+from flink_ml_tpu_torch.ops import retrieve as TR
 
 D = 128 * 128
 
@@ -368,3 +369,85 @@ def test_widedeep_fit_through_the_kernel(cuda_device):
         + deep[:, 0]
     np.testing.assert_allclose(out["rawPrediction"],
                                1.0 / (1.0 + np.exp(-logit)), atol=1e-5)
+
+
+# -- retrieve kernels --------------------------------------------------------
+
+def _retrieve_index(kind, seed=8):
+    """A small seeded index on the CPU: ``flat``/``pq`` (300 x 16, 8
+    lists), ``dup`` (every row twice: exact ties), ``short`` (12 rows,
+    lists shorter than k)."""
+    rng = np.random.default_rng(seed)
+    if kind == "short":
+        X = rng.normal(size=(12, 16)).astype(np.float32)
+        return T.IVFIndex.build(X, 4, k=10, nprobe=1, seed=1, device="cpu")
+    X = rng.normal(size=(150 if kind == "dup" else 300, 16)).astype(
+        np.float32)
+    if kind == "dup":
+        X = np.concatenate([X, X])
+    pq = T.PQConfig(m=4, ksub=8) if kind == "pq" else None
+    return T.IVFIndex.build(X, 8, k=10, nprobe=2, seed=1, pq=pq,
+                            device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 33])
+@pytest.mark.parametrize("nprobe", ["1", "3", "nlist"])
+@pytest.mark.parametrize("kind", ["flat", "pq", "dup", "short"])
+def test_retrieve_kernels_match_plain_bitwise(cuda_device, kind, nprobe, b):
+    """Ids equal and distance bits equal (both sum in one fixed order)."""
+    index = _retrieve_index(kind)
+    index.device = cuda_device
+    nprobe = index.nlist if nprobe == "nlist" else min(int(nprobe),
+                                                       index.nlist)
+    view = index.with_options(nprobe=nprobe)
+    q = np.random.default_rng(b).normal(size=(b, 16)).astype(np.float32)
+    TR.reset_launch_counts()
+    nn, dist = view.search(q)
+    name = "retrieve_pq" if kind == "pq" else "retrieve_flat"
+    assert TR.LAUNCHES[name] == 1 and sum(TR.LAUNCHES.values()) == 1
+    want_nn, want_d = view.search(q, plain=True)
+    assert sum(TR.LAUNCHES.values()) == 1
+    np.testing.assert_array_equal(nn, want_nn)
+    np.testing.assert_array_equal(dist.view(np.int32), want_d.view(np.int32))
+    if kind == "short" and nprobe == 1:      # fewer than k rows scanned
+        assert bool((nn == -1).any())
+
+
+@pytest.mark.cuda
+def test_retrieve_kernel_takes_k_past_the_candidates(cuda_device):
+    index = _retrieve_index("short")
+    index.device = cuda_device
+    p = index.device_params()
+    q = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(5, 16)).astype(np.float32)).to(cuda_device)
+    args = (q, p["centroids"], p["ids"], p["vecs"])
+    shape = dict(nprobe=1, k=index.block + 3, nlist=index.nlist,
+                 block=index.block)
+    got = TR.retrieve_flat(*args, **shape)
+    want = TR.retrieve_flat_plain(*args, **shape)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    with pytest.raises(ValueError, match="k must be in"):
+        TR.retrieve_flat(*args, **dict(shape, k=TR.K_MAX + 1))
+
+
+@pytest.mark.cuda
+def test_index_build_and_search_on_the_card(cuda_device):
+    """Build on the card (the workset fit on its plain body below 65536
+    rows), search through the kernel, an update served at once."""
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(400, 16)).astype(np.float32)
+    index = T.IVFIndex.build(X, 8, k=5, nprobe=8, seed=2)
+    assert index.search_plan().backend == "cuda"
+    TR.reset_launch_counts()
+    nn, _ = index.search(X[:20])
+    assert TR.LAUNCHES["retrieve_flat"] == 1
+    np.testing.assert_array_equal(nn[:, 0], np.arange(20))
+    ins = rng.normal(size=(3, 16)).astype(np.float32) + 5.0
+    mode, nxt = index.updated(inserts=ins, delete_ids=[0, 1])
+    assert mode in ("delta", "reanchor")
+    found, _ = nxt.search(ins, k=1)
+    np.testing.assert_array_equal(found[:, 0], [400, 401, 402])
+    gone, _ = nxt.search(X[:2])
+    assert not np.isin(gone, [0, 1]).any()

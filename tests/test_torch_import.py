@@ -31,7 +31,8 @@ def _forbidden(name: str) -> bool:
 def test_import_leaves_jax_out():
     code = ("import sys, flink_ml_tpu_torch, flink_ml_tpu_torch.utils.convert,"
             " flink_ml_tpu_torch.kernels.build,"
-            " flink_ml_tpu_torch.ops.emb_grad; "
+            " flink_ml_tpu_torch.ops.emb_grad, flink_ml_tpu_torch.retrieval,"
+            " flink_ml_tpu_torch.ops.retrieve; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True, cwd=REPO,
@@ -93,6 +94,15 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
     model.device = "cuda"
     with pytest.raises(RuntimeError, match="no GPU"):
         model.transform(table)
+    X = rng.normal(size=(64, 4)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        T.IVFIndex.build(X, nlist=4)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        T.IVFIndex.build(X, nlist=4, pq=T.PQConfig(m=2, ksub=4))
+    index = T.IVFIndex.build(X, nlist=4, device="cpu")
+    index.device = "cuda"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        index.search(X[:2])
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")

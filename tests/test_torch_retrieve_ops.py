@@ -1,0 +1,310 @@
+"""The port's retrieve ops (``flink_ml_tpu_torch/ops/retrieve.py``, on the
+CPU their plain versions) against the JAX package's fused Pallas kernels
+in interpret mode and its jitted XLA stage, on indexes built by the JAX
+package and carried across with ``ivf_index_from_jax``: the fixtures of
+``tests/test_kernels.py:528-552`` (numpy seed 19) plus a duplicated corpus
+(exact ties) and lists shorter than k.  Also the shared distance helpers,
+the kernel's shape limits and the int8 row quantizer.
+
+Tolerances: ids equal; flat distances within 1e-5 (|q|^2 + max|x|^2) of a
+row (the plain version sums left to right, XLA in its own order: f32
+rounding of the same expression at that scale); PQ distances rtol 1e-5."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flink_ml_tpu.kernels import quantize as JQ
+from flink_ml_tpu.kernels.registry import lookup
+from flink_ml_tpu.ops.retrieve_pallas import (retrieve_flat_fused,
+                                              retrieve_pq_fused)
+from flink_ml_tpu.parallel.mesh import device_mesh, use_mesh
+from flink_ml_tpu.retrieval import IVFIndex as JIVF
+from flink_ml_tpu.retrieval import PQConfig as JPQ
+from flink_ml_tpu.retrieval import ivf as JI
+from flink_ml_tpu_torch.kernels import quantize as TQ
+from flink_ml_tpu_torch.ops import retrieve as TR
+from flink_ml_tpu_torch.utils.convert import ivf_index_from_jax
+
+
+def _one_device():
+    return use_mesh(device_mesh({"data": 1}, devices=jax.devices()[:1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _fixture(kind):
+    """(JAX index, queries) per shape class, built once per worker."""
+    rng = np.random.default_rng(19)
+    with _one_device():
+        if kind in ("flat-small", "pq-small"):
+            X = rng.normal(size=(600, 32)).astype(np.float32)
+            pq = JPQ(m=8, ksub=16) if kind == "pq-small" else None
+            idx = JIVF.build(X, nlist=8, k=10, nprobe=4, seed=1, pq=pq)
+            q = rng.normal(size=(16, 32)).astype(np.float32)
+        elif kind == "clustered":
+            centers = rng.normal(size=(64, 16)).astype(np.float32) * 10.0
+            assign = rng.integers(0, 64, size=2048)
+            X = (centers[assign]
+                 + rng.normal(size=(2048, 16)) * 0.5).astype(np.float32)
+            idx = JIVF.build(X, nlist=64, k=10, nprobe=8, seed=2)
+            pick = rng.choice(2048, size=32, replace=False)
+            q = (X[pick] + rng.normal(size=(32, 16)) * 0.05).astype(
+                np.float32)
+        elif kind in ("dup-flat", "dup-pq"):
+            # every row twice: exact distance ties inside each list
+            base = rng.normal(size=(150, 16)).astype(np.float32)
+            X = np.concatenate([base, base])
+            pq = JPQ(m=4, ksub=8) if kind == "dup-pq" else None
+            idx = JIVF.build(X, nlist=4, k=12, nprobe=2, seed=3, pq=pq)
+            q = (base[:12] + rng.normal(size=(12, 16)) * 0.01).astype(
+                np.float32)
+        elif kind == "short":          # every list shorter than k
+            X = rng.normal(size=(12, 8)).astype(np.float32)
+            idx = JIVF.build(X, nlist=4, k=10, nprobe=1, seed=4)
+            q = rng.normal(size=(6, 8)).astype(np.float32)
+        else:
+            raise AssertionError(kind)
+    return idx, q
+
+
+def _port(jidx):
+    return ivf_index_from_jax(
+        jidx.params, nlist=jidx.nlist, block=jidx.block, dim=jidx.dim,
+        k=jidx.k, nprobe=jidx.nprobe, pq=jidx.pq, seed=jidx.seed,
+        list_slack=jidx.list_slack, drift_threshold=jidx.drift_threshold,
+        max_iter=jidx.max_iter, stored=jidx.stored_vectors(), device="cpu")
+
+
+def _jax_runs(jidx, q, nprobe, pallas=True):
+    """{"pallas": (nn, d), "xla": (nn, d)} of the JAX package at nprobe
+    (the Pallas kernel in interpret mode only where ``pallas``)."""
+    view = jidx.with_options(nprobe=nprobe)
+    p = {k: jnp.asarray(v) for k, v in view.params.items()}
+    qd = jnp.asarray(q)
+    entry = lookup("retrieve", sig=view.sig(), backend="xla")
+    static = view._static()
+    out = jax.jit(lambda pp, c: entry.fn(static, pp, c))(
+        p, {view.query_col: qd})
+    runs = {"xla": (np.asarray(out[JI._NN_STAGE]),
+                    np.asarray(out[JI._DIST_STAGE]))}
+    if not pallas:
+        return runs
+    shape = dict(nprobe=nprobe, k=view.k, nlist=view.nlist, block=view.block)
+    if view.pq is None:
+        fused = retrieve_flat_fused(qd, p["centroids"], p["ids"], p["vecs"],
+                                    interpret=True, **shape)
+    else:
+        fused = retrieve_pq_fused(qd, p["centroids"], p["ids"], p["codes"],
+                                  p["cb_q"], p["cb_s"], m=view.pq.m,
+                                  interpret=True, **shape)
+    runs["pallas"] = tuple(np.asarray(a) for a in fused)
+    return runs
+
+
+def _port_run(tidx, q, nprobe):
+    view = tidx.with_options(nprobe=nprobe)
+    nn, dist = view.search_tensors(torch.from_numpy(q))
+    return nn.numpy(), dist.numpy()
+
+
+def _assert_close(kind, tidx, q, got, want, what):
+    nn, dist = got
+    np.testing.assert_array_equal(nn, want[0], err_msg=f"{kind} {what} ids")
+    assert nn.dtype == np.int32 and dist.dtype == np.float32
+    np.testing.assert_array_equal(np.isinf(dist), np.isinf(want[1]))
+    fin = np.isfinite(want[1])
+    if tidx.pq is None:
+        x2 = np.max(np.sum(tidx.params["vecs"].astype(np.float64) ** 2, 1))
+        scale = np.sum(q.astype(np.float64) ** 2, 1)[:, None] + x2
+        err = np.abs(dist[fin] - want[1][fin])
+        assert np.all(err <= 1e-5 * np.broadcast_to(scale, dist.shape)[fin]), \
+            f"{kind} {what} distances off by {err.max()}"
+    else:
+        np.testing.assert_allclose(dist[fin], want[1][fin], rtol=1e-5,
+                                   atol=0, err_msg=f"{kind} {what}")
+
+
+@pytest.mark.parametrize("kind", ["flat-small", "pq-small", "clustered",
+                                  "dup-flat", "dup-pq", "short"])
+@pytest.mark.parametrize("nprobe", ["1", "4", "nlist"])
+def test_plain_matches_pallas_and_xla(kind, nprobe):
+    jidx, q = _fixture(kind)
+    nprobe = jidx.nlist if nprobe == "nlist" else min(int(nprobe),
+                                                      jidx.nlist)
+    tidx = _port(jidx)
+    got = _port_run(tidx, q, nprobe)
+    # the interpreted Pallas kernel unrolls its merge per probe: at 64
+    # probes it takes a minute, so the clustered full probe holds the port
+    # to the XLA stage alone (the two JAX backends are bit-equal)
+    pallas = not (kind == "clustered" and nprobe == jidx.nlist)
+    for backend, want in _jax_runs(jidx, q, nprobe, pallas).items():
+        _assert_close(kind, tidx, q, got, want, f"nprobe {nprobe} vs "
+                      f"{backend}")
+
+
+def test_short_results_carry_minus_one_at_inf():
+    jidx, q = _fixture("short")
+    nn, dist = _port_run(_port(jidx), q, 1)
+    assert np.any(nn == -1)
+    np.testing.assert_array_equal(nn == -1, np.isinf(dist))
+    # a -1 slot never precedes a real id
+    assert not np.any(np.diff((nn >= 0).astype(int), axis=1) > 0)
+
+
+def test_k_past_every_candidate_pads_the_tail():
+    """k larger than nprobe * block: the tail is -1 at +inf, after every
+    real candidate and every pad slot."""
+    jidx, q = _fixture("short")
+    tidx = _port(jidx)
+    k = tidx.block + 5
+    p = tidx.device_params()
+    nn, dist = TR.retrieve_flat(torch.from_numpy(q), p["centroids"],
+                                p["ids"], p["vecs"], nprobe=1, k=k,
+                                nlist=tidx.nlist, block=tidx.block)
+    assert nn.shape == (q.shape[0], k)
+    assert torch.all(nn[:, tidx.block:] == -1)
+    assert torch.all(torch.isinf(dist[:, tidx.block:]))
+    short, _ = _port_run(tidx, q, 1)
+    np.testing.assert_array_equal(nn[:, :tidx.k].numpy(), short)
+
+
+def test_duplicated_rows_come_out_in_flat_position_order():
+    """Exact ties: the copy at the lower flat position (probe rank, then
+    row) comes first, as lax.top_k orders them."""
+    jidx, q = _fixture("dup-flat")
+    tidx = _port(jidx)
+    nn, dist = _port_run(tidx, q, tidx.nlist)
+    ties = 0
+    pos = {}
+    for lst in range(tidx.nlist):
+        for j, vid in enumerate(tidx.params["ids"][lst]):
+            pos[int(vid)] = (lst, j)
+    for row in range(q.shape[0]):
+        probes = TR.select_probes(torch.from_numpy(q[row:row + 1]),
+                                  torch.from_numpy(
+                                      tidx.params["centroids"]),
+                                  tidx.nlist)[0].tolist()
+        flat = [probes.index(pos[int(i)][0]) * tidx.block + pos[int(i)][1]
+                for i in nn[row]]
+        for a in range(len(flat) - 1):
+            if dist[row, a] == dist[row, a + 1]:
+                ties += 1
+                assert flat[a] < flat[a + 1]
+    assert ties > 0
+
+
+def test_probe_order_is_stable_on_equal_scores():
+    cents = torch.tensor([[1.0, 0.0], [0.0, 1.0], [1.0, 0.0], [-1.0, 0.0]])
+    q = torch.tensor([[0.0, 0.0], [1.0, 0.0]])
+    np.testing.assert_array_equal(
+        TR.select_probes(q, cents, 4).numpy(), [[0, 1, 2, 3], [0, 2, 1, 3]])
+
+
+def test_distance_helpers_match_jax():
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(3, 16)).astype(np.float32)
+    c = rng.normal(size=(7, 16)).astype(np.float32)
+    v = rng.normal(size=(3, 2, 9, 16)).astype(np.float32)
+    np.testing.assert_allclose(
+        TR.coarse_distances(torch.from_numpy(q), torch.from_numpy(c)),
+        np.asarray(JI.coarse_distances(jnp.asarray(q), jnp.asarray(c))),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        TR.flat_distances(torch.from_numpy(q)[:, None, :],
+                          torch.from_numpy(v)),
+        np.asarray(JI.flat_distances(jnp.asarray(q)[:, None, :],
+                                     jnp.asarray(v))),
+        rtol=1e-5, atol=1e-4)
+    cb_q = rng.integers(-127, 128, size=(4, 8, 4)).astype(np.int8)
+    cb_s = rng.random(size=(4, 8)).astype(np.float32)
+    books = TR.decode_codebooks(torch.from_numpy(cb_q), torch.from_numpy(cb_s))
+    np.testing.assert_array_equal(
+        books, np.asarray(JI.decode_codebooks(jnp.asarray(cb_q),
+                                              jnp.asarray(cb_s))))
+    resid = rng.normal(size=(3, 2, 4, 4)).astype(np.float32)
+    lut = TR.pq_lut(torch.from_numpy(resid), books)
+    np.testing.assert_allclose(
+        lut, np.asarray(JI.pq_lut(jnp.asarray(resid), jnp.asarray(books),
+                                  jnp.float32(1.0))), rtol=1e-6)
+    codes = rng.integers(0, 8, size=(3, 2, 5, 4)).astype(np.int8)
+    np.testing.assert_allclose(
+        TR.adc_distances(lut, torch.from_numpy(codes)),
+        np.asarray(JI.adc_distances(jnp.asarray(lut.numpy()),
+                                    jnp.asarray(codes))), rtol=1e-6)
+
+
+def test_sequential_sums_fix_the_float_order():
+    """The plain sums add left to right: 1e8 + 1 - 1e8 loses the 1."""
+    a = torch.tensor([[1e8, 1.0, -1e8]])
+    assert float(TR._seq_dot(a, torch.ones(1, 3))[0]) == 0.0
+
+
+def test_kernel_plan_and_limits():
+    # the bench point: 256 lists of 1016 rows, d 64, tile of 256 rows
+    tile, smem = TR.kernel_plan((2, 10, 64, 0, 0, 256, 1016))
+    assert tile == 256
+    assert smem == 4 * (64 + 3 * 256 + 18 + 256 * 65)
+    assert TR.kernel_plan((2, 10, 64, 8, 16, 256, 1016)) == (
+        256, 4 * (128 + 3 * 256 + 18 + 16 * 64 + 8 * 16 + 256 * 65))
+    with pytest.raises(ValueError, match=f"k must be in \\[1, {TR.K_MAX}\\]"):
+        TR.kernel_plan((2, TR.K_MAX + 1, 64, 0, 0, 256, 1016))
+    with pytest.raises(ValueError, match="shared memory"):
+        TR.kernel_plan((2, 10, 64, 0, 0, 20000, 8))
+    with pytest.raises(ValueError, match="shared memory"):
+        TR.kernel_plan((2, 10, 512, 4, 127, 1024, 8))
+    with pytest.raises(ValueError, match="nprobe"):
+        TR.kernel_plan((9, 10, 64, 0, 0, 8, 16))
+    with pytest.raises(ValueError, match="2\\^31"):
+        TR.kernel_plan((1, 10, 4, 0, 0, 1 << 16, 1 << 16))
+    # a wide row narrows the tile
+    assert TR.kernel_plan((1, 10, 1024, 0, 0, 8, 16))[0] == \
+        (232448 - 4 * (1024 + 24 + 18)) // (4 * 1025)
+    with pytest.raises(ValueError, match="7 fields"):
+        TR.kernel_plan((1, 2, 3))
+
+
+def test_wrappers_take_plain_on_cpu_and_check_inputs():
+    jidx, q = _fixture("flat-small")
+    tidx = _port(jidx)
+    p = tidx.device_params()
+    TR.reset_launch_counts()
+    qt = torch.from_numpy(q)
+    args = dict(nprobe=2, k=5, nlist=tidx.nlist, block=tidx.block)
+    got = TR.retrieve_flat(qt, p["centroids"], p["ids"], p["vecs"], **args)
+    want = TR.retrieve_flat_plain(qt, p["centroids"], p["ids"], p["vecs"],
+                                  **args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert TR.LAUNCHES == {"retrieve_flat": 0, "retrieve_pq": 0}
+    with pytest.raises(TypeError, match="ids must be torch.int32"):
+        TR.retrieve_flat(qt, p["centroids"], p["ids"].long(), p["vecs"],
+                         **args)
+    with pytest.raises(ValueError, match="vecs must have shape"):
+        TR.retrieve_flat(qt, p["centroids"], p["ids"], p["vecs"][:-1],
+                         **args)
+    with pytest.raises(ValueError, match="nprobe"):
+        TR.retrieve_flat(qt, p["centroids"], p["ids"], p["vecs"],
+                         **dict(args, nprobe=tidx.nlist + 1))
+
+
+def test_quantizer_matches_jax():
+    rng = np.random.default_rng(7)
+    w = rng.normal(size=(6, 5)).astype(np.float32)
+    w[2] = 0.0
+    for axis in (None, 0, 1, -1):
+        np.testing.assert_array_equal(TQ.maxabs_scales(w, axis),
+                                      JQ.maxabs_scales(w, axis))
+        for a, b in zip(TQ.quantize_channelwise(w, axis),
+                        JQ.quantize_channelwise(w, axis)):
+            np.testing.assert_array_equal(a, b)
+    codes, scales = TQ.quantize_rows(w)
+    jc, js = JQ.quantize_rows(w)
+    np.testing.assert_array_equal(codes, jc)
+    np.testing.assert_array_equal(scales, js)
+    assert TQ.Q_MAX == JQ.Q_MAX
+    np.testing.assert_array_equal(
+        TQ.dequantize_rows(torch.from_numpy(codes), torch.from_numpy(scales)),
+        np.asarray(JQ.dequantize_rows(codes, scales)))
