@@ -14,8 +14,11 @@ line is printed):
 3. Kernels vs plain versions on the card, at the main path's shapes
    (2^20 features = 8192 table rows, batch 2^15, 26 categorical slots with
    the label marker in slot 0); the pair kernel at 128*1001 features.
-   With and without the per-slot ``val``.  Fails past the stated
-   tolerance.
+   With and without the per-slot ``val``.  The margin reads the layout's
+   sample routing (``sample_routing``); it and the fused scatter must
+   equal their plain versions bit for bit (tolerance 0), and two margin
+   launches on the same inputs must agree bit for bit.  Fails past the
+   stated tolerance.
 4. Main path: ``LogisticRegression(device="cuda")`` fit at 2^20 features,
    batch 2^15, 3 epochs over 2^18 Criteo-shaped rows (numpy seed 0), then
    ``transform``.  Checks: the loss falls every epoch, the plan is "ell",
@@ -25,7 +28,10 @@ line is printed):
    Then a small fit at 128*1001 features, the pair kernel's path.
 5. Times (CUDA events, median, L2 flushed before each launch): each
    kernel, its plain version and one PyTorch library call computing the
-   same function, beside the bound computed from bytes; epochs/s.
+   same function (the margin: ``embedding_bag`` over the routing, and
+   ``index_add_`` of the pre-gathered slot weights beside it), beside the
+   bound computed from bytes; the sample routing's one-time build for
+   the fit's 8 steps; epochs/s.
 6. KMeans kernels vs plain versions on the card at the headline (2^20
    points x 64 dims, k = 256, numpy seed 0 N(0,1) points, centroids the
    midpoints of seeded-permutation pairs of points): the stats kernel
@@ -188,11 +194,11 @@ REPLACES = {
     "ell_scatter_apply_fused": "flink_ml_tpu/ops/ell_scatter.py:617",
     "ell_scatter_apply": "flink_ml_tpu/ops/ell_scatter.py:548",
 }
-# Tolerances of kernel vs plain version.  The margin kernel sums with
-# atomics in a run-dependent order: ~25 f32 terms of |w| <= ~5 per sample
-# reorder to within ~1e-5; the scatters add in a fixed order and are
-# expected to match bit for bit.
-TOL = {"ell_margin": 1e-4, "ell_scatter_apply_fused": 1e-6,
+# Tolerances of kernel vs plain version.  The margin and the fused
+# scatter add in the plain versions' order with rounded f32 operations
+# and must match bit for bit; the pair scatter, the same arithmetic on a
+# precomputed update, is held within 1e-6.
+TOL = {"ell_margin": 0.0, "ell_scatter_apply_fused": 0.0,
        "ell_scatter_apply": 1e-6}
 
 
@@ -1265,6 +1271,7 @@ def retrieval_phases(torch, dev, card, timer):
 
 def main():
     import torch
+    import torch.nn.functional as F
 
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1321,10 +1328,15 @@ def main():
             fail(f"{name} disagrees with its plain version")
 
     for v in (None, val):
-        check("ell_margin",
-              E.ell_margin(w, src, pos, mask, m_len=m_len, val=v)[:BATCH],
-              E.ell_margin_plain(w, src, pos, mask, m_len=m_len,
-                                 val=v)[:BATCH])
+        route_w, route_val = E.sample_routing(src, pos, mask, BATCH, val=v)
+        got = E.ell_margin(w, route_w, m_len=m_len, route_val=route_val)
+        again = E.ell_margin(w, route_w, m_len=m_len, route_val=route_val)
+        check("ell_margin", got,
+              E.ell_margin_plain(w, route_w, m_len, route_val=route_val))
+        if not torch.equal(got, again) or bool(got[BATCH:].any()):
+            fail("ell_margin: two launches differ, or the pad is not 0")
+        log(f"check ell_margin ({'with' if v is not None else 'no'} val, "
+            f"nnz {route_w.shape[0]}): two launches bit-identical")
         check("ell_scatter_apply_fused",
               E.ell_scatter_apply_fused(w, r_ext, src, pos, mask, lr=lr,
                                         val=v),
@@ -1435,6 +1447,14 @@ def main():
 
     # -- 5. times ----------------------------------------------------------
     timer = Timer(torch, dev)
+    route_w, _ = E.sample_routing(src, pos, mask, BATCH)
+    nnz = route_w.shape[0]
+    # embedding_bag's bags: (batch, nnz) rows of weight indices, -1 sent
+    # to an appended zero row
+    bag_idx = torch.where(route_w >= 0, route_w, D_MAIN).t().long() \
+        .contiguous()
+    w_bag = torch.cat([w, torch.zeros(1, device=dev)])[:, None]
+    w_touched = int(torch.unique(route_w[route_w >= 0]).numel())
     lanes, _ = E._slot_lanes(pos, mask)
     kept = src < BATCH
     slot_w = (torch.arange(rows, device=dev)[:, None] * 128 + lanes)[kept]
@@ -1453,8 +1473,9 @@ def main():
     grid = rows * 128
     ext = r_ext.numel()
     bytes_moved = {
-        # src, pos, mask and w read; the margin table written
-        "ell_margin": grid * 16 + m_len * 4,
+        # the routing and the distinct weights it touches read; the margin
+        # table written
+        "ell_margin": nnz * BATCH * 4 + w_touched * 4 + m_len * 4,
         # src, pos, mask, w and r_ext read; the new w written
         "ell_scatter_apply_fused": grid * 20 + ext * 4,
         # upd, pos, mask, w read; the new w written (1001 rows)
@@ -1462,10 +1483,9 @@ def main():
     }
     runs = {
         "ell_margin": (
-            lambda: E.ell_margin(w, src, pos, mask, m_len=m_len),
-            lambda: E.ell_margin_plain(w, src, pos, mask, m_len=m_len),
-            lambda: torch.zeros(m_len, device=dev).index_add_(
-                0, slot_src, slot_g)),
+            lambda: E.ell_margin(w, route_w, m_len=m_len),
+            lambda: E.ell_margin_plain(w, route_w, m_len),
+            lambda: F.embedding_bag(bag_idx, w_bag, mode="sum")),
         "ell_scatter_apply_fused": (
             lambda: E.ell_scatter_apply_fused(w, r_ext, src, pos, mask,
                                               lr=lr),
@@ -1482,13 +1502,25 @@ def main():
     count = {"ell_margin": launches["ell_margin"],
              "ell_scatter_apply_fused": launches["ell_scatter_apply_fused"],
              "ell_scatter_apply": pair_launches["ell_scatter_apply"]}
+    bag = F.embedding_bag(bag_idx, w_bag, mode="sum")[:, 0]
+    if not torch.allclose(bag, E.ell_margin(w, route_w, m_len=m_len)[:BATCH],
+                          rtol=1e-5, atol=1e-4):
+        fail("embedding_bag over the routing is not the margin")
+    index_add_ms = timer.ms(lambda: torch.zeros(m_len, device=dev)
+                            .index_add_(0, slot_src, slot_g))
+    log(f"time ell_margin beside index_add_: {index_add_ms:.4f} ms (a "
+        f"scatter-add of the pre-gathered slot weights into a zeroed "
+        f"table: no gather, so not the margin's function; the margin's "
+        f"library_ms is embedding_bag's per-sample sum over the routing); "
+        f"routing {nnz} x {BATCH}, {w_touched} distinct weights [{card}]")
     kernels = []
     for name, (kern, plain, library) in runs.items():
         ms, plain_ms, lib_ms = (timer.ms(kern), timer.ms(plain),
                                 timer.ms(library))
         bound_ms = bytes_moved[name] / HBM_BYTES_PER_S * 1e3
+        lib_name = "embedding_bag" if name == "ell_margin" else "index_add_"
         log(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"index_add_ {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"{lib_name} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"(bytes) [{card}]")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
@@ -1502,15 +1534,27 @@ def main():
     perm = np.random.default_rng(0).permutation(ROWS)
     epoch_lay = E.ell_layout(S.prepare_epoch_tensor(cat, perm, steps, BATCH),
                              D_MAIN).to(dev)
+    route_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        epoch_route, _ = E.sample_routing(epoch_lay.src, epoch_lay.pos,
+                                          epoch_lay.mask, BATCH)
+        torch.cuda.synchronize()
+        route_s.append(time.perf_counter() - t0)
+    log(f"sample routing build ({steps} steps, {tuple(epoch_route.shape)}) "
+        f"on the card: {route_s[0] * 1e3:.3f} ms first, "
+        f"{min(route_s[1:]) * 1e3:.3f} ms again; once per fit, inside "
+        f"fit() wall [{card}]")
 
     def put(a):
         return torch.from_numpy(S.prepare_epoch_tensor(
             a, perm, steps, BATCH)).to(dev)
 
-    epoch_args = (put(dense), epoch_lay.src, epoch_lay.pos, epoch_lay.mask,
-                  epoch_lay.ovf_idx, epoch_lay.ovf_src, epoch_lay.heavy_idx,
-                  epoch_lay.heavy_cnt, put(y.astype(np.float32)),
-                  put(np.ones(ROWS, np.float32)))
+    epoch_args = (put(dense), epoch_route, epoch_lay.src, epoch_lay.pos,
+                  epoch_lay.mask, epoch_lay.ovf_idx, epoch_lay.ovf_src,
+                  epoch_lay.heavy_idx, epoch_lay.heavy_cnt,
+                  put(y.astype(np.float32)), put(np.ones(ROWS, np.float32)))
     rates = {}
     for label, plain in (("kernels", False), ("plain", True)):
         update = S._mixed_update_ell(LOSSES["logistic"], cfg, plain=plain)

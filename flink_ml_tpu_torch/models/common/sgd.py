@@ -66,6 +66,12 @@ _AUTO_BATCH_CAP = 1 << 15
 # size.  Beyond this budget a many-step fit takes the plain path.
 _ELL_LAYOUT_BUDGET_BYTES = 2 << 30
 
+# The margin's sample routing costs 4 bytes per categorical slot of the
+# epoch (~109 MB for 2^20 rows of 26 slots), whatever the hash space; it
+# has a budget of its own so the layout's (and the batch's) plan stays
+# the JAX package's.
+_ROUTE_BUDGET_BYTES = 1 << 30
+
 _GATHER_LANES = 256
 
 
@@ -220,16 +226,17 @@ def _extended_r(r: torch.Tensor) -> torch.Tensor:
                                      dtype=r.dtype, device=r.device)])
 
 
-def _ell_margin(w, batch, src, pos, mask, ovf_idx, ovf_src, heavy_idx,
-                heavy_cnt, val_ell=None, ovf_val=None, plain=False):
+def _ell_margin(w, batch, route_w, ovf_idx, ovf_src, heavy_idx, heavy_cnt,
+                route_val=None, ovf_val=None, plain=False):
     """Per-sample categorical margin ``sum_j v_j * w[idx_j]`` over the ELL
-    routing: the in-grid slots through the margin kernel, the overflow
-    through a short gather + scatter-add into the extended table (pads
-    carry ``ovf_src == batch`` and land in the discarded pad), heavy
-    hitters through one ``(H,) @ (H, batch)`` matvec.  ``plain`` runs the
-    kernel's plain version whatever the device."""
+    routing: the in-grid slots through the margin kernel over the sample
+    routing (:func:`~flink_ml_tpu_torch.ops.ell_scatter.sample_routing`),
+    the overflow through a short gather + scatter-add into the extended
+    table (pads carry ``ovf_src == batch`` and land in the discarded pad),
+    heavy hitters through one ``(H,) @ (H, batch)`` matvec.  ``plain`` runs
+    the kernel's plain version whatever the device."""
     margin_fn = E.ell_margin_plain if plain else E.ell_margin
-    mext = margin_fn(w, src, pos, mask, m_len=_ext_len(batch), val=val_ell)
+    mext = margin_fn(w, route_w, m_len=_ext_len(batch), route_val=route_val)
     o = w[ovf_idx] if ovf_val is None else ovf_val * w[ovf_idx]
     mext = mext.index_add_(0, ovf_src, o)
     return mext[:batch] + w[heavy_idx] @ heavy_cnt.to(torch.float32)
@@ -265,19 +272,20 @@ def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
     but the forward margin and the backward scatter of the categorical
     slots ride the static ELL routing's kernels.  The batch arguments
     (src, pos, mask, ovf_idx, ovf_src, heavy_idx, heavy_cnt) are the
-    per-step layout stacks of :func:`ell_layout`; the raw index tensor is
-    not an input.  Results differ from :func:`_mixed_update` only in f32
-    summation order.  ``plain`` runs the kernels' plain versions (the
-    oracle on the card)."""
+    per-step layout stacks of :func:`ell_layout`, and ``route_w`` the
+    per-step sample routing the margin reads (:func:`sample_routing`);
+    the raw index tensor is not an input.  Results differ from
+    :func:`_mixed_update` only in f32 summation order.  ``plain`` runs the
+    kernels' plain versions (the oracle on the card)."""
     lr = config.learning_rate
     finish = _finish_sparse_step(config)
 
-    def update(params, dense, src, pos, mask, ovf_idx, ovf_src,
+    def update(params, dense, route_w, src, pos, mask, ovf_idx, ovf_src,
                heavy_idx, heavy_cnt, yb, wb):
         w, b = params["w"], params["b"]
         n_dense = dense.shape[-1]
         margin = (dense @ w[:n_dense]
-                  + _ell_margin(w, dense.shape[0], src, pos, mask, ovf_idx,
+                  + _ell_margin(w, dense.shape[0], route_w, ovf_idx,
                                 ovf_src, heavy_idx, heavy_cnt, plain=plain)
                   + b)
         value, r = _loss_and_r(loss_fn, margin, yb, wb)
@@ -295,17 +303,20 @@ def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
     return update
 
 
-def plan_mixed_impl(num_features: int, steps: int = 1,
+def plan_mixed_impl(num_features: int, steps: int, route_slots: int,
                     layout_bytes_per_slot: int = 12) -> str:
     """Which categorical implementation :func:`sgd_fit_mixed` runs:
     ``"ell"`` (the static-routing kernels) when the weight size tiles into
-    128-lane rows and the ``steps``-deep layout stack fits the budget,
-    else ``"plain"`` (direct gather/scatter).  Planned by shape and budget
+    128-lane rows, the ``steps``-deep layout stack fits its budget and the
+    margin's sample routing (``route_slots`` entries per step: batch x
+    categorical slots per row, 4 bytes each) fits its own, else
+    ``"plain"`` (direct gather/scatter).  Planned by shape and budget
     only, so the CPU and the card run the same code; only the kernel
     wrappers branch on the device."""
     if (E.supported(num_features)
             and steps * num_features * layout_bytes_per_slot
-            <= _ELL_LAYOUT_BUDGET_BYTES):
+            <= _ELL_LAYOUT_BUDGET_BYTES
+            and steps * route_slots * 4 <= _ROUTE_BUDGET_BYTES):
         return "ell"
     return "plain"
 
@@ -330,6 +341,7 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
         raise ValueError(f"n_dense={n_dense} exceeds "
                          f"num_features={num_features}")
     n = dense_features.shape[0]
+    n_cat = cat_indices.shape[1]
     steps, batch, perm = plan_epoch_layout(
         n, resolve_global_batch_size(config, n, num_features), 1,
         config.seed)
@@ -346,14 +358,16 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
     def put(a):
         return torch.from_numpy(a).to(dev)
 
-    impl = plan_mixed_impl(num_features, steps)
+    impl = plan_mixed_impl(num_features, steps, batch * n_cat)
     if impl == "ell":
-        # one-time static routing of every step's categorical slots,
+        # one-time static routing of every step's categorical slots (and
+        # its sample-major inverse for the margin, built on the device),
         # replayed every epoch; the raw index tensor stays on the host
         lay = E.ell_layout(cat, num_features).to(dev)
-        epoch_args = (put(dense), lay.src, lay.pos, lay.mask, lay.ovf_idx,
-                      lay.ovf_src, lay.heavy_idx, lay.heavy_cnt, put(y),
-                      put(sw))
+        route_w, _ = E.sample_routing(lay.src, lay.pos, lay.mask, batch)
+        epoch_args = (put(dense), route_w, lay.src, lay.pos, lay.mask,
+                      lay.ovf_idx, lay.ovf_src, lay.heavy_idx,
+                      lay.heavy_cnt, put(y), put(sw))
         update = _mixed_update_ell(loss_fn, config, plain=plain)
     else:
         epoch_args = (put(dense), put(cat).long(), put(y), put(sw))

@@ -21,10 +21,16 @@ of the slot updates picked at ``P``::
     G     = C[P] * mask
     delta = G - shift(G, 1 lane)
 
+The margin reads the layout the other way round: :func:`sample_routing`
+inverts it once per fit into a sample-major routing (each sample's in-grid
+weight indices, in ascending grid position), so each sample's margin is a
+gather-and-sum in a fixed order, with no atomics.
+
 The three kernels (CUDA C++ for Hopper, ``kernels/csrc/ell_scatter.cu``;
 its header note says what bounds each on the H100 and how each is built):
 
-- :func:`ell_margin` — per-sample margin of the in-grid slots;
+- :func:`ell_margin` — per-sample margin of the in-grid slots, over the
+  sample routing;
 - :func:`ell_scatter_apply_fused` — ``w + scatter(-lr * val * r_ext[src])``;
 - :func:`ell_scatter_apply` — the same scatter of a precomputed ``upd``
   (the pair path, for grids whose row count is not a multiple of 8).
@@ -48,8 +54,9 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["EllLayout", "ell_layout", "supported", "ELL_WIDTH",
-           "HEAVY_THRESHOLD", "ell_margin", "ell_margin_plain",
-           "ell_scatter_apply_fused", "ell_scatter_apply_fused_plain",
+           "HEAVY_THRESHOLD", "sample_routing", "ell_margin",
+           "ell_margin_plain", "ell_scatter_apply_fused",
+           "ell_scatter_apply_fused_plain",
            "ell_scatter_apply", "ell_scatter_apply_plain",
            "gather_weights", "LAUNCHES", "reset_launch_counts",
            "FUSED_BLOCK_ROWS"]
@@ -419,6 +426,63 @@ def gather_weights(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return w[idx]
 
 
+def sample_routing(src: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
+                   batch: int, val: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layout's in-grid slots regrouped by sample, for the margin:
+    ``(route_w, route_val)``, each ``(steps, nnz, batch)``.
+
+    ``route_w[i, t, b]`` is the weight index ``row * 128 + lane`` of
+    sample ``b``'s ``t``-th in-grid slot in step ``i``, the slots taken in
+    ascending grid position ``row * 128 + s``; ``-1`` after the sample's
+    last slot.  ``route_val`` holds the same slots' ``val`` (0 after the
+    last), or is None without ``val``.  ``nnz`` is the most in-grid slots
+    any sample of any step has.  A slot is in-grid when it lies at or
+    before its row's last kept slot and charges a sample ``< batch``.
+
+    Built from ``src``/``pos``/``mask`` (``(steps, rows, 128)`` or one
+    step's ``(rows, 128)``, which gives ``(nnz, batch)``) with torch ops
+    only: one stable sort of the kept slots by (step, sample), on the
+    tensors' device, once per fit."""
+    one_step = src.dim() == 2
+    if one_step:
+        src, pos, mask = src[None], pos[None], mask[None]
+        val = None if val is None else val[None]
+    steps, rows, width = src.shape
+    if width != ELL_WIDTH:
+        raise ValueError(f"layout rows must be {ELL_WIDTH} wide, got {width}")
+    dev = src.device
+    lanes, pos_eff = _slot_lanes(pos.reshape(-1, ELL_WIDTH),
+                                 mask.reshape(-1, ELL_WIDTH))
+    s = torch.arange(ELL_WIDTH, dtype=torch.int32, device=dev)
+    flat_src = src.reshape(-1, ELL_WIDTH)
+    take = ((s[None, :] <= pos_eff[:, -1:]) & (flat_src >= 0)
+            & (flat_src < batch))
+    slot = torch.nonzero(take.reshape(-1)).squeeze(1)     # grid order
+    grid = rows * ELL_WIDTH
+    step = torch.div(slot, grid, rounding_mode="floor")
+    widx = (slot % grid - slot % ELL_WIDTH
+            + lanes.reshape(-1)[slot]).to(torch.int32)
+    key = step * batch + flat_src.reshape(-1)[slot].long()
+    key, order = torch.sort(key, stable=True)
+    counts = torch.bincount(key, minlength=steps * batch)
+    nnz = int(counts.max()) if key.numel() else 0
+    rank = (torch.arange(key.numel(), device=dev)
+            - (torch.cumsum(counts, 0) - counts)[key])
+    at = (torch.div(key, batch, rounding_mode="floor"), rank, key % batch)
+    route_w = torch.full((steps, nnz, batch), -1, dtype=torch.int32,
+                         device=dev)
+    route_w[at] = widx[order]
+    route_val = None
+    if val is not None:
+        route_val = torch.zeros((steps, nnz, batch), dtype=torch.float32,
+                                device=dev)
+        route_val[at] = val.reshape(-1)[slot][order]
+    if one_step:
+        return route_w[0], None if route_val is None else route_val[0]
+    return route_w, route_val
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path, and the oracle on the card)
 # ---------------------------------------------------------------------------
@@ -435,24 +499,29 @@ def _slot_lanes(pos: torch.Tensor, mask: torch.Tensor
     return lanes.clamp_max(ELL_WIDTH - 1), pos_eff
 
 
-def ell_margin_plain(w: torch.Tensor, src: torch.Tensor, pos: torch.Tensor,
-                     mask: torch.Tensor, m_len: int,
-                     val: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """In-grid margin contributions scattered to an ``(m_len,)`` extended
-    per-sample table (callers slice ``[:batch]``).  Slots past a row's
-    last kept slot are pad slots and add nothing, as in the kernel; so
-    only the pad entries of the table differ from the JAX twin
-    ``ell_margin_xla``, which adds them at ``src == batch``."""
-    rows = src.shape[0]
-    lanes, pos_eff = _slot_lanes(pos, mask)
-    g = torch.gather(w.view(rows, _LANES), 1, lanes)
-    if val is not None:
-        g = g * val
-    s = torch.arange(ELL_WIDTH, dtype=torch.int32, device=src.device)
-    take = (s[None, :] <= pos_eff[:, -1:]) & (src < m_len) & (src >= 0)
-    return torch.zeros(m_len, dtype=torch.float32,
-                       device=w.device).index_add_(
-        0, src[take].long(), g[take])
+def ell_margin_plain(w: torch.Tensor, route_w: torch.Tensor, m_len: int,
+                     route_val: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """In-grid margin contributions per sample over one step's routing
+    ``route_w (nnz, batch)`` (:func:`sample_routing`), as an ``(m_len,)``
+    table whose entries ``[batch:]`` are 0 (callers slice ``[:batch]``).
+    ``w[route_w]`` (an entry outside ``[0, w.numel())``, such as the
+    ``-1`` after a sample's last slot, read as 0), times ``route_val``, summed left to
+    right over the ``nnz`` columns from 0.0, one rounded add each: the
+    kernel's order, so the two agree bit for bit.  The JAX twin
+    ``ell_margin_xla`` scatter-adds the same slots in grid order, as this
+    sum does."""
+    nnz, batch = route_w.shape
+    inside = (route_w >= 0) & (route_w < w.numel())
+    g = torch.where(inside, w[torch.where(inside, route_w, 0).long()], 0.0)
+    if route_val is not None:
+        g = g * route_val
+    acc = torch.zeros(batch, dtype=torch.float32, device=w.device)
+    for t in range(nnz):
+        acc = acc + g[t]
+    out = torch.zeros(m_len, dtype=torch.float32, device=w.device)
+    out[:batch] = acc
+    return out
 
 
 def _csum_pick_tail(x: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor,
@@ -503,7 +572,8 @@ def _kernels():
 
         lib = load_library("ell_scatter")
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ell_margin_launch.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, vp]
+        lib.ell_margin_launch.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci,
+                                          vp]
         lib.ell_scatter_fused_launch.argtypes = [vp, vp, ci, vp, vp, vp, vp,
                                                  cf, vp, ci, vp]
         lib.ell_scatter_pair_launch.argtypes = [vp, vp, vp, vp, vp, ci, vp]
@@ -551,22 +621,34 @@ def _launched(name: str, rc: int) -> None:
     LAUNCHES[name] += 1
 
 
-def ell_margin(w: torch.Tensor, src: torch.Tensor, pos: torch.Tensor,
-               mask: torch.Tensor, *, m_len: int,
-               val: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-sample margin contributions of the in-grid slots, as an
-    ``(m_len,)`` f32 table (callers slice ``[:batch]``).  Replaces the JAX
-    package's ``ell_margin_fused``.  The kernel sums with atomics, so its
-    result varies from run to run in f32 rounding."""
-    rows = _check_grid(w, src, pos, mask, val)
-    _check("src", src, torch.int32, (rows, ELL_WIDTH), w.device)
-    if w.device.type == "cpu":
-        return ell_margin_plain(w, src, pos, mask, m_len, val=val)
-    out = torch.zeros(m_len, dtype=torch.float32, device=w.device)
-    with torch.cuda.device(w.device):
+def ell_margin(w: torch.Tensor, route_w: torch.Tensor, *, m_len: int,
+               route_val: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample margin contributions of the in-grid slots over one
+    step's routing ``route_w (nnz, batch)`` (:func:`sample_routing`), as an
+    ``(m_len,)`` f32 table whose entries ``[batch:]`` are 0 (callers slice
+    ``[:batch]``).  Replaces the JAX package's ``ell_margin_fused``.  Sums
+    each sample in a fixed order: deterministic, and bit for bit its plain
+    version.  A route entry outside ``[0, w.numel())`` reads 0 there too:
+    the kernel bounds every gather by ``w``'s size."""
+    dev = w.device
+    if route_w.dim() != 2:
+        raise ValueError(f"route_w must be (nnz, batch), got shape "
+                         f"{tuple(route_w.shape)}")
+    nnz, batch = route_w.shape
+    _check("w", w, torch.float32, (w.numel(),), dev)
+    _check("route_w", route_w, torch.int32, (nnz, batch), dev)
+    _check("route_val", route_val, torch.float32, (nnz, batch), dev)
+    if m_len < batch:
+        raise ValueError(f"m_len {m_len} < batch {batch}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cpu":
+        return ell_margin_plain(w, route_w, m_len, route_val=route_val)
+    out = torch.empty(m_len, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         rc = _kernels().ell_margin_launch(
-            _ptr(w), _ptr(src), _ptr(pos), _ptr(mask), _ptr(val), _ptr(out),
-            rows, m_len, torch.cuda.current_stream().cuda_stream)
+            _ptr(w), w.numel(), _ptr(route_w), _ptr(route_val), _ptr(out),
+            nnz, batch, m_len, torch.cuda.current_stream().cuda_stream)
     _launched("ell_margin", rc)
     return out
 

@@ -57,7 +57,8 @@ def main():
         return torch.from_numpy(a.reshape((args.steps, BATCH)
                                           + a.shape[1:])).to(dev)
 
-    data = (put(dense), lay.src, lay.pos, lay.mask, lay.ovf_idx,
+    route_w, _ = E.sample_routing(lay.src, lay.pos, lay.mask, BATCH)
+    data = (put(dense), route_w, lay.src, lay.pos, lay.mask, lay.ovf_idx,
             lay.ovf_src, lay.heavy_idx, lay.heavy_cnt, put(y),
             put(np.ones(rows, np.float32)))
     cfg = S.SGDConfig(max_epochs=1, tol=0, global_batch_size=BATCH)

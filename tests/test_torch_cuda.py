@@ -53,13 +53,12 @@ def test_kernels_match_plain(cuda_device, with_val):
     wt = torch.from_numpy(w).to(cuda_device)
     rt = torch.from_numpy(r_ext).to(cuda_device)
     val = t.val[0] if with_val else None
+    route_w, route_val = TE.sample_routing(t.src[0], t.pos[0], t.mask[0],
+                                           lay.batch, val=val)
     TE.reset_launch_counts()
-    got = TE.ell_margin(wt, t.src[0], t.pos[0], t.mask[0], m_len=256,
-                        val=val)
-    want = TE.ell_margin_plain(wt, t.src[0], t.pos[0], t.mask[0],
-                               m_len=256, val=val)
-    # atomics reorder at most ~nnz f32 terms per sample
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    got = TE.ell_margin(wt, route_w, m_len=256, route_val=route_val)
+    want = TE.ell_margin_plain(wt, route_w, 256, route_val=route_val)
+    assert torch.equal(got, want)        # fixed order: bit for bit
     got = TE.ell_scatter_apply_fused(wt, rt, t.src[0], t.pos[0], t.mask[0],
                                      lr=0.3, val=val)
     want = TE.ell_scatter_apply_fused_plain(wt, rt, t.src[0], t.pos[0],
@@ -78,10 +77,63 @@ def test_kernels_match_plain(cuda_device, with_val):
 @pytest.mark.cuda
 def test_wrapper_rejects_mixed_devices(cuda_device):
     _, lay, w, _ = _grid(18)
-    t = lay.to(cuda_device)
-    with pytest.raises(ValueError, match="pos is on cpu"):
-        TE.ell_margin(torch.from_numpy(w).to(cuda_device), t.src[0],
-                      torch.from_numpy(lay.pos[0]), t.mask[0], m_len=256)
+    route_w, _ = TE.sample_routing(torch.from_numpy(lay.src[0]),
+                                   torch.from_numpy(lay.pos[0]),
+                                   torch.from_numpy(lay.mask[0]), lay.batch)
+    with pytest.raises(ValueError, match="route_w is on cpu"):
+        TE.ell_margin(torch.from_numpy(w).to(cuda_device), route_w,
+                      m_len=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16008, 16003],
+                         ids=["ragged_waves", "partial_block"])
+@pytest.mark.parametrize("with_val", [False, True])
+def test_margin_and_fused_scatter_bit_equal_on_ragged_grids(
+        cuda_device, rows, with_val):
+    """Grids of 2001 blocks of 8 rows (the last one short of 8 rows in
+    the partial case): about two waves of the fused scatter on 132 SMs,
+    not a whole number of them.  The margin is bit for bit its plain
+    version and repeats bit for bit; so is the fused scatter."""
+    d = 128 * rows
+    rng = np.random.default_rng(23)
+    batch = 4096
+    cat = rng.integers(0, d, size=(1, batch, 26)).astype(np.int32)
+    cat[0, :, 0] = 16                    # the label marker: heavy
+    vals = (rng.normal(size=cat.shape).astype(np.float32) if with_val
+            else None)
+    t = TE.ell_layout(cat, d, values=vals).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=d).astype(np.float32)).to(
+        cuda_device)
+    m_len = TS._ext_len(batch)
+    r_ext = TS._extended_r(torch.from_numpy(
+        rng.normal(size=batch).astype(np.float32)).to(cuda_device))
+    val = None if vals is None else t.val[0]
+    route_w, route_val = TE.sample_routing(t.src[0], t.pos[0], t.mask[0],
+                                           batch, val=val)
+    got = TE.ell_margin(w, route_w, m_len=m_len, route_val=route_val)
+    again = TE.ell_margin(w, route_w, m_len=m_len, route_val=route_val)
+    want = TE.ell_margin_plain(w, route_w, m_len, route_val=route_val)
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert not got[batch:].any()
+    got = TE.ell_scatter_apply_fused(w, r_ext, t.src[0], t.pos[0],
+                                     t.mask[0], lr=0.7, val=val)
+    want = TE.ell_scatter_apply_fused_plain(w, r_ext, t.src[0], t.pos[0],
+                                            t.mask[0], lr=0.7, val=val)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_margin_reads_zero_outside_w(cuda_device):
+    """The kernel bounds every weight gather by ``w``'s size: a route
+    entry past it reads 0, as in the plain version."""
+    w = torch.arange(1, 257, dtype=torch.float32, device=cuda_device)
+    route_w = torch.tensor([[3, -1, 256], [7, 255, 1 << 20]],
+                           dtype=torch.int32, device=cuda_device)
+    got = TE.ell_margin(w, route_w, m_len=4)
+    assert torch.equal(got, TE.ell_margin_plain(w, route_w, 4))
+    assert got.tolist() == [12.0, 256.0, 0.0, 0.0]
 
 
 def _fit_data(n=1200, nd=13, nc=26, d=D, seed=6):

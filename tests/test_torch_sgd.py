@@ -61,10 +61,11 @@ def test_ell_step_matches_jax(d, cfg, loss):
 
     lay = TE.ell_layout(cat, d).to("cpu")
     assert int(lay.need_heavy.max()) >= 1 and int(lay.need_ovf.max()) >= 1
+    route_w, _ = TE.sample_routing(lay.src, lay.pos, lay.mask, lay.batch)
     tupd = TS._mixed_update_ell(TL[loss], TS.SGDConfig(**config))
     got, got_loss = tupd(
         params_from_jax(params, device="cpu"), torch.from_numpy(dense),
-        lay.src[0], lay.pos[0], lay.mask[0], lay.ovf_idx[0],
+        route_w[0], lay.src[0], lay.pos[0], lay.mask[0], lay.ovf_idx[0],
         lay.ovf_src[0], lay.heavy_idx[0], lay.heavy_cnt[0],
         torch.from_numpy(y), torch.from_numpy(wb))
     np.testing.assert_allclose(got_loss.item(), float(want_loss), rtol=1e-6)
@@ -165,8 +166,54 @@ def test_planning_matches_jax():
     jsteps, jbatch, jperm = JS.plan_epoch_layout(1000, 300, 1, 7)
     assert (steps, batch) == (jsteps, jbatch)
     np.testing.assert_array_equal(perm, jperm)
-    assert TS.plan_mixed_impl(1 << 20, 32) == "ell"
-    assert TS.plan_mixed_impl(1 << 20, 1 << 15) == "plain"  # over budget
-    assert TS.plan_mixed_impl(128 * 64) == "plain"          # too few rows
+    assert TS.plan_mixed_impl(1 << 20, 32, 2048 * 26) == "ell"
+    assert TS.plan_mixed_impl(1 << 20, 1 << 15, 32 * 26) == "plain"  # budget
+    assert TS.plan_mixed_impl(128 * 64, 1, 32 * 26) == "plain"  # too few rows
     assert TS._ext_len(400) == JS._ext_len(400) == 512
     assert TS._ext_len(256) == 512
+
+
+def test_planning_counts_the_sample_routing():
+    """The margin's routing (4 bytes per categorical slot of a step) has
+    a budget of its own beside the layout's: a fit at the layout budget's
+    edge still plans the kernels with its routing counted, and only a
+    routing past its own budget plans the plain path."""
+    d, n, n_cat = 1 << 20, 1 << 20, 26
+    batch = TS.resolve_global_batch_size(TS.SGDConfig(), n, d)
+    steps = -(-n // batch)
+    assert steps * d * 12 <= TS._ELL_LAYOUT_BUDGET_BYTES < (
+        (steps + 1) * d * 12)
+    assert TS.plan_mixed_impl(d, steps, batch * n_cat) == "ell"
+    over = TS._ROUTE_BUDGET_BYTES // (4 * steps) + 1
+    assert TS.plan_mixed_impl(d, steps, over - 1) == "ell"
+    assert TS.plan_mixed_impl(d, steps, over) == "plain"
+
+
+def test_fit_auto_batch_matches_jax(monkeypatch):
+    """A default-config fit at n = d = 2^20 with 26 categorical slots runs
+    the JAX package's auto batch and plans the kernels: the fit is
+    stopped once it has planned, before any layout is built."""
+    n, d, n_cat = 1 << 20, 1 << 20, 26
+    seen = {}
+
+    class Planned(Exception):
+        pass
+
+    real_plan = TS.plan_mixed_impl
+
+    def stop(num_features, steps, route_slots):
+        seen["plan"] = (steps, route_slots,
+                        real_plan(num_features, steps, route_slots))
+        raise Planned
+
+    monkeypatch.setattr(TS, "plan_mixed_impl", stop)
+    with pytest.raises(Planned):
+        TS.sgd_fit_mixed(TL["logistic"], np.zeros((n, 1), np.float32),
+                         np.zeros((n, n_cat), np.int32),
+                         np.zeros(n, np.float32), None, d, TS.SGDConfig(),
+                         device="cpu")
+    jbatch = JS.resolve_global_batch_size(JS.SGDConfig(), n, d)
+    steps, route_slots, impl = seen["plan"]
+    assert (steps, route_slots) == (-(-n // jbatch), jbatch * n_cat)
+    assert steps * d * 12 <= JS._ELL_LAYOUT_BUDGET_BYTES
+    assert impl == "ell"
