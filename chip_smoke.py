@@ -15,10 +15,9 @@ line is printed):
    (2^20 features = 8192 table rows, batch 2^15, 26 categorical slots with
    the label marker in slot 0); the pair kernel at 128*1001 features.
    With and without the per-slot ``val``.  The margin reads the layout's
-   sample routing (``sample_routing``); it and the fused scatter must
-   equal their plain versions bit for bit (tolerance 0), and two margin
-   launches on the same inputs must agree bit for bit.  Fails past the
-   stated tolerance.
+   sample routing (``sample_routing``); all three kernels must equal their
+   plain versions bit for bit (tolerance 0), and two margin launches on
+   the same inputs must agree bit for bit.
 4. Main path: ``LogisticRegression(device="cuda")`` fit at 2^20 features,
    batch 2^15, 3 epochs over 2^18 Criteo-shaped rows (numpy seed 0), then
    ``transform``.  Checks: the loss falls every epoch, the plan is "ell",
@@ -29,8 +28,10 @@ line is printed):
 5. Times (CUDA events, median, L2 flushed before each launch): each
    kernel, its plain version and one PyTorch library call computing the
    same function (the margin: ``embedding_bag`` over the routing, and
-   ``index_add_`` of the pre-gathered slot weights beside it), beside the
-   bound computed from bytes; the sample routing's one-time build for
+   ``index_add_`` of the pre-gathered slot weights beside it; the fused
+   scatter: the ``r_ext`` gather plus ``index_add_``, and ``index_add_``
+   of pre-gathered updates beside it; the pair scatter: ``index_add_``),
+   beside the bound computed from bytes; the sample routing's one-time build for
    the fit's 8 steps; epochs/s.
 6. KMeans kernels vs plain versions on the card at the headline (2^20
    points x 64 dims, k = 256, numpy seed 0 N(0,1) points, centroids the
@@ -38,13 +39,18 @@ line is printed):
    under the three tie policies (one Lloyd step each) and on zero-padded
    rows against duplicated centroids; the assign kernel; the workset
    kernel with about half of the rows active and a tenth masked out.
+   (first, assign and workset score on the tensor cores; fast and split
+   on the CUDA cores.)
 7. KMeans main paths with launch counters: ``KMeans(device="cuda")`` fit
    of 10 rounds on the 2^20 x 64 table (the kernel plan, 10 launches);
    the workset fit of up to 20 rounds (launches = rounds); each against
    the same fit through the plain versions on the card; ``transform`` of
-   2^16 held-out rows (one launch) against a numpy float64 argmin.
+   2^16 held-out rows (one launch) against a numpy float64 argmin.  The
+   BSP fit's rounds are also held through the CUDA-core scoring (tie
+   policy fast), and both paths' per-round error margins are printed.
 8. KMeans times: each kernel, its plain version and ``torch.addmm`` of the
-   score product alone, beside the bound from operations; BSP
+   score product alone, beside the bound from operations (3xTF32 on the
+   tensor cores; the fp32 CUDA-core bound of the same work beside it); BSP
    iterations/s through the kernels and through the plain versions.
 9. Wide&Deep fold kernel vs its plain version on the card, bit for bit
    (tolerance 0), at E = 64 (embeddings) and E = 1 (the squeezed wide
@@ -103,6 +109,13 @@ line is printed):
     force, IVF and IVF-PQ over the nprobe sweep and the port's
     ``retrieval_ivf_qps_ratio``; the builds' wall seconds by part and the
     device copy.
+15. The ELL plan where the sample routing outgrows its budget: at 2^17
+    features, 26 slots and 2^24 rows the plan is "ell" (the JAX
+    package's rule); a ``LogisticRegression`` fit at 2^17 features (2^17
+    rows, batch 2^14, 2 epochs) with the routing budget cut to 3 steps
+    builds its routing per chunk every epoch, launches the margin and
+    fused-scatter kernels every step, gives every step's margin bit for
+    bit, and agrees with the whole-routing fit; the rebuild's cost a step.
 
 The last lines are the kernel table (nine kernels: the three ELL kernels,
 the three KMeans kernels, the fold, the two retrieve kernels) as one JSON
@@ -132,6 +145,7 @@ PAIR_ROWS, PAIR_BATCH = 1 << 14, 1 << 12
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 on the CUDA cores (data sheet)
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 on the tensor cores, dense
 
 # KMeans headline (the JAX package's bench.py:54): N(0,1) f32 points
 N_KM, D_KM, K_KM = 1 << 20, 64, 256
@@ -194,12 +208,17 @@ REPLACES = {
     "ell_scatter_apply_fused": "flink_ml_tpu/ops/ell_scatter.py:617",
     "ell_scatter_apply": "flink_ml_tpu/ops/ell_scatter.py:548",
 }
-# Tolerances of kernel vs plain version.  The margin and the fused
-# scatter add in the plain versions' order with rounded f32 operations
-# and must match bit for bit; the pair scatter, the same arithmetic on a
-# precomputed update, is held within 1e-6.
+# Tolerances of kernel vs plain version.  The three kernels add in the
+# plain versions' order with rounded f32 operations and must match bit
+# for bit.
 TOL = {"ell_margin": 0.0, "ell_scatter_apply_fused": 0.0,
-       "ell_scatter_apply": 1e-6}
+       "ell_scatter_apply": 0.0}
+# The routing-chunk phase (15): the JAX package's plan at 2^17 features, 26
+# slots and 2^24 rows puts the whole sample routing past its 1 GiB
+# budget; the fit run there is cut to 2^17 rows in steps of 2^14 and its
+# routing budget to 3 steps, so the fit builds its routing per chunk
+C1_FEATURES, C1_ROWS = 1 << 17, 1 << 24
+C1_FIT_ROWS, C1_FIT_BATCH, C1_CHUNK, C1_EPOCHS = 1 << 17, 1 << 14, 3, 2
 
 
 def fail(msg):
@@ -366,6 +385,7 @@ def kmeans_phases(torch, dev, card, timer):
             fail(f"{name}: the fit is not reproduced by its replay")
         if not abs(ik - ip) <= 1e-3 * ip:
             fail(f"{name}: the fit's objective is off the plain fit's")
+        return worst
 
     # -- 6. kernels vs plain versions at the headline ----------------------
     scores = -2.0 * (pts @ cents.T) + (cents * cents).sum(1)[None, :]
@@ -453,9 +473,19 @@ def kmeans_phases(torch, dev, card, timer):
     got = torch.from_numpy(model.get_model_data()[0]["centroids"][0]).to(dev)
     want = KM.fit_centroids(pts, ones, init, plan, measure=measure,
                             max_iter=KM_ITERS, plain=True).state
-    replay("kmeans_update_stats", got, want, init, KM_ITERS,
-           KM.kmeans_epoch_step_kernel(k),
-           KM.kmeans_epoch_step_kernel(k, plain=True))
+    bsp_worst = replay("kmeans_update_stats", got, want, init, KM_ITERS,
+                       KM.kmeans_epoch_step_kernel(k),
+                       KM.kmeans_epoch_step_kernel(k, plain=True))
+    # the same rounds through the CUDA-core scoring (tie policy fast),
+    # for the per-round error margin of both scoring paths
+    _, fma_worst = hold_rounds(
+        torch, "kmeans_update_stats (fast)", init, KM_ITERS, (pts, ones),
+        KM.kmeans_epoch_step_kernel(k, tie_policy="fast"),
+        KM.kmeans_epoch_step_kernel(k, tie_policy="fast", plain=True))
+    log(f"per-round error margin over the {KM_ITERS}-round fit: tensor-core "
+        f"scoring (first) {bsp_worst:.3e}, CUDA-core "
+        f"scoring (fast) {fma_worst:.3e} (allclose rtol {KM_GATE['rtol']}, "
+        f"atol {KM_GATE['atol']})")
 
     ws_est = (KMeans(device=DEVICE).set_k(k).set_max_iter(WS_ITERS)
               .set_workset(True))
@@ -545,14 +575,17 @@ def kmeans_phases(torch, dev, card, timer):
     entries = []
     for name, (kern, plain) in runs.items():
         ms, plain_ms = timer.ms(kern), timer.ms(plain, reps=10)
-        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        # the timed modes score with 3xTF32 products on the tensor cores
+        ops_ms = 3 * ops / TF32_OPS_PER_S * 1e3
+        fp32_ms = ops / FP32_OPS_PER_S * 1e3
         bytes_ms = bytes_moved[name] / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
         log(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"addmm (score product only) {lib_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}; bytes alone {bytes_ms:.4f} "
-            f"ms) [{card}]")
+            f"{bound_ms:.4f} ms ({bound_by}: 3xTF32 on the tensor cores; "
+            f"the same work in fp32 on the CUDA cores {fp32_ms:.4f} ms; "
+            f"bytes alone {bytes_ms:.4f} ms) [{card}]")
         entries.append({
             "name": name, "route": "cuda", "source": KM_SOURCE,
             "replaces": KM_REPLACES[name], "launches": count[name],
@@ -1269,6 +1302,118 @@ def retrieval_phases(torch, dev, card, timer):
     return entries
 
 
+def routing_chunk_phase(torch, dev, card):
+    """Phase 15: the ELL plan where the sample routing outgrows its budget.
+    At 2^17 features, 26 slots and 2^24 rows (auto batch) the plan is the
+    JAX package's "ell"; a LogisticRegression fit at 2^17 features (2^17
+    Criteo-shaped rows, numpy seed 5, batch 2^14, 2 epochs) with the
+    routing budget cut to 3 steps builds its routing per chunk in every
+    epoch and launches the margin and fused-scatter kernels every step;
+    each step's margin through the chunks equals the margin through the
+    whole routing bit for bit, and the fit agrees with the same fit with
+    the whole routing."""
+    from flink_ml_tpu_torch import LogisticRegression, Table
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.ops import ell_scatter as E
+
+    batch = S.resolve_global_batch_size(S.SGDConfig(), C1_ROWS, C1_FEATURES)
+    steps = -(-C1_ROWS // batch)
+    plan = S.plan_mixed_impl(C1_FEATURES, steps)
+    chunk = S.routing_chunk_steps(steps, batch * N_CAT)
+    route_gb = steps * batch * N_CAT * 4 / 2**30
+    log(f"plan at {C1_FEATURES} features, {N_CAT} slots, {C1_ROWS} rows: "
+        f"batch {batch}, {steps} steps, plan {plan!r}; whole routing "
+        f"{route_gb:.3f} GiB, built {chunk} steps at a time")
+    if plan != "ell" or not chunk < steps:
+        fail(f"plan {plan!r}, routing chunk {chunk} of {steps} steps")
+
+    dense, cat, y = criteo_rows(C1_FIT_ROWS, C1_FEATURES, seed=5)
+    table = Table({"features_dense": dense, "features_indices": cat,
+                   "label": y})
+    fit_steps = C1_FIT_ROWS // C1_FIT_BATCH
+    made = []
+
+    class Counted(S._StepRouting):
+        def __init__(self, *a):
+            super().__init__(*a)
+            made.append(self)
+
+    def fit():
+        return (LogisticRegression(device=DEVICE)
+                .set_num_features(C1_FEATURES)
+                .set_global_batch_size(C1_FIT_BATCH)
+                .set_max_iter(C1_EPOCHS).set_tol(0).fit(table))
+
+    real_routing, real_budget = S._StepRouting, S._ROUTE_BUDGET_BYTES
+    S._StepRouting = Counted
+    try:
+        whole = fit()
+        S._ROUTE_BUDGET_BYTES = C1_CHUNK * C1_FIT_BATCH * N_CAT * 4
+        E.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(E.LAUNCHES)
+    finally:
+        S._StepRouting, S._ROUTE_BUDGET_BYTES = real_routing, real_budget
+    builds = [m.builds for m in made]
+    want_builds = C1_EPOCHS * -(-fit_steps // C1_CHUNK)
+    log(f"routing-chunk fit ({C1_FIT_ROWS} rows, batch {C1_FIT_BATCH}, "
+        f"{C1_EPOCHS} epochs, {C1_CHUNK} steps a chunk): plan "
+        f"{model.planned_impl}, {fit_s:.3f} s, routing builds (whole, "
+        f"chunked) {builds}, launches {launches}, loss log {model.loss_log} "
+        f"[{card}]")
+    if model.planned_impl != "ell" or builds != [1, want_builds]:
+        fail(f"the chunked fit planned {model.planned_impl!r} with routing "
+             f"builds {builds}, expected 'ell' and [1, {want_builds}]")
+    for name in ("ell_margin", "ell_scatter_apply_fused"):
+        if launches[name] != fit_steps * C1_EPOCHS:
+            fail(f"{name} launched {launches[name]} times in the chunked "
+                 f"fit, expected {fit_steps * C1_EPOCHS}")
+    # each step's margin through the chunked routing equals the margin
+    # through the whole routing bit for bit
+    perm = np.random.default_rng(0).permutation(C1_FIT_ROWS)
+    lay = E.ell_layout(S.prepare_epoch_tensor(cat, perm, fit_steps,
+                                              C1_FIT_BATCH),
+                       C1_FEATURES).to(dev)
+    route_all, _ = E.sample_routing(lay.src, lay.pos, lay.mask,
+                                    C1_FIT_BATCH)
+    chunked = S._StepRouting(lay, C1_FIT_BATCH, C1_CHUNK)
+    w = torch.from_numpy(np.random.default_rng(6).normal(
+        size=C1_FEATURES).astype(np.float32)).to(dev)
+    m_len = S._ext_len(C1_FIT_BATCH)
+    same_margin = all(torch.equal(
+        E.ell_margin(w, route_all[i], m_len=m_len),
+        E.ell_margin(w, chunked[i], m_len=m_len)) for i in range(fit_steps))
+    # what rebuilding the chunks costs a step: every chunk built once, as
+    # an epoch of the chunked fit does
+    rebuild = []
+    for _ in range(3):
+        fresh = S._StepRouting(lay, C1_FIT_BATCH, C1_CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(0, fit_steps, C1_CHUNK):
+            fresh[i]
+        torch.cuda.synchronize()
+        rebuild.append((time.perf_counter() - t0) / fit_steps)
+    log(f"routing rebuild per step (chunks of {C1_CHUNK} steps, batch "
+        f"{C1_FIT_BATCH}, {C1_FEATURES} features): {rebuild[0] * 1e3:.3f} ms "
+        f"first, {min(rebuild[1:]) * 1e3:.3f} ms again [{card}]")
+    # the fits' overflow and heavy-hitter legs scatter with index_add_,
+    # whose atomics add in no fixed order on the card: two fits agree
+    # within the main path's one-epoch tolerance, not bit for bit
+    a = whole.get_model_data()[0]["coefficients"][0]
+    b = model.get_model_data()[0]["coefficients"][0]
+    diff = float(np.max(np.abs(a - b)))
+    log(f"routing-chunk fit vs the whole-routing fit: max |dw| {diff:.3e} "
+        f"(allclose rtol 1e-3, atol 1e-4); every step's margin through the "
+        f"chunks bit for bit the whole routing's: {same_margin}")
+    if not same_margin or not np.allclose(a, b, rtol=1e-3, atol=1e-4):
+        fail("the chunked routing changed the fit")
+
+
 def main():
     import torch
     import torch.nn.functional as F
@@ -1460,7 +1605,6 @@ def main():
     slot_w = (torch.arange(rows, device=dev)[:, None] * 128 + lanes)[kept]
     slot_src = src[kept].long()
     slot_g = w[slot_w]
-    slot_u = (-lr) * r_ext[slot_src]
     w_scratch = w.clone()
     upd_p = (-lr) * E.gather_weights(r_ext, lay_p.src[0])
     lanes_p, _ = E._slot_lanes(lay_p.pos[0], lay_p.mask[0])
@@ -1491,7 +1635,8 @@ def main():
                                               lr=lr),
             lambda: E.ell_scatter_apply_fused_plain(w, r_ext, src, pos,
                                                     mask, lr=lr),
-            lambda: w_scratch.index_add_(0, slot_w, slot_u)),
+            lambda: w_scratch.index_add_(0, slot_w, r_ext[slot_src],
+                                         alpha=-lr)),
         "ell_scatter_apply": (
             lambda: E.ell_scatter_apply(w_p, upd_p, lay_p.pos[0],
                                         lay_p.mask[0]),
@@ -1508,6 +1653,13 @@ def main():
         fail("embedding_bag over the routing is not the margin")
     index_add_ms = timer.ms(lambda: torch.zeros(m_len, device=dev)
                             .index_add_(0, slot_src, slot_g))
+    slot_u = (-lr) * r_ext[slot_src]
+    scatter_only_ms = timer.ms(lambda: w_scratch.index_add_(0, slot_w,
+                                                            slot_u))
+    log(f"time ell_scatter_apply_fused beside index_add_ alone: "
+        f"{scatter_only_ms:.4f} ms (pre-gathered updates: no r_ext gather; "
+        f"the fused scatter's library_ms is the r_ext gather plus "
+        f"index_add_) [{card}]")
     log(f"time ell_margin beside index_add_: {index_add_ms:.4f} ms (a "
         f"scatter-add of the pre-gathered slot weights into a zeroed "
         f"table: no gather, so not the margin's function; the margin's "
@@ -1518,7 +1670,9 @@ def main():
         ms, plain_ms, lib_ms = (timer.ms(kern), timer.ms(plain),
                                 timer.ms(library))
         bound_ms = bytes_moved[name] / HBM_BYTES_PER_S * 1e3
-        lib_name = "embedding_bag" if name == "ell_margin" else "index_add_"
+        lib_name = {"ell_margin": "embedding_bag",
+                    "ell_scatter_apply_fused": "r_ext gather + index_add_",
+                    "ell_scatter_apply": "index_add_"}[name]
         log(f"time {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"{lib_name} {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"(bytes) [{card}]")
@@ -1575,6 +1729,7 @@ def main():
     kernels += kmeans_phases(torch, dev, card, timer)
     kernels.append(widedeep_phases(torch, dev, card, timer))
     kernels += retrieval_phases(torch, dev, card, timer)
+    routing_chunk_phase(torch, dev, card)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

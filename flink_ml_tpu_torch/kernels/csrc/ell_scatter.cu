@@ -53,12 +53,17 @@
 //    was built and measured slower at this shape (scripts/
 //    ell_ring_variant.cu, scripts/ell_phase_times.py): it serializes up to
 //    4 row groups a block where this grid has every row in flight.
-// 3. ell_scatter_apply: replaces ::ell_scatter_apply (_kernel), the pair
-//    path for grids whose row count is not a multiple of 8: the same
-//    cumsum/pick/difference on a precomputed per-slot update upd (rows, 128),
-//    one warp per table row, 8 rows per 256-thread block, every operand
-//    read straight from global memory (csum_pick_tail).  Bound: bytes
-//    (~20 MB per step).
+// 3. ell_scatter_apply: replaces ::ell_scatter_apply (_kernel,
+//    _csum_pick_tail), the pair path for grids whose row count is not a
+//    multiple of 8: the same cumsum/pick/difference on a precomputed
+//    per-slot update upd (rows, 128), one warp per table row, kPairRows
+//    rows per block.  Bound: bytes (upd, pos, mask, w read, w written: 20
+//    B a slot, 2.6 MB at 1001 rows, ~0.8 us at 3.35 TB/s); what it meets
+//    is the launch and the memory round trips a warp waits on.  So every
+//    load of the row (upd, pos, mask, w: 16 coalesced 128-byte loads a
+//    warp) is issued at the top and the warp waits on one round trip,
+//    where the first design loaded upd, ran the cumsum, and only then
+//    loaded pos and mask, and then w (three trips in series).
 //
 // Every pointer may be any device address; `out` may alias `w` (a row's w
 // is read before its out is written, and rows are disjoint between
@@ -76,6 +81,7 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPerLane = kWidth / 32;   // elements of a row per thread
 constexpr unsigned kFull = 0xffffffffu;
 
+constexpr int kPairRows = 8;            // table rows per pair block
 constexpr int kMarginThreads = 128;     // samples per margin block
 constexpr int kMarginChunk = 32;        // route columns in flight a thread
 
@@ -109,12 +115,13 @@ __device__ __forceinline__ void row_cumsum(float (&x)[kPerLane], int lane) {
   x[0] += 0.0f;
 }
 
-// The scatter tail of kernel 3, every operand read from global memory:
-// cumsum u, pick at pos, mask, difference against the previous lane, add
-// to w.
-__device__ __forceinline__ void csum_pick_tail(
-    float (&u)[kPerLane], const int* __restrict__ pos,
-    const float* __restrict__ mask, const float* w, float* out,
+// The scatter tail of kernels 2 and 3 on a row held in registers: the
+// cumsum of u, the pick G[l] = C[pos[l]] * mask[l] through the warp's
+// shared row, and out[l] = (w[l] + G[l]) - G[l-1], in the plain version's
+// order of rounded operations.
+__device__ __forceinline__ void scatter_tail(
+    float (&u)[kPerLane], const int (&pos)[kPerLane],
+    const float (&mask)[kPerLane], const float (&w)[kPerLane], float* out,
     int64_t base, int lane, float* csum) {
   row_cumsum(u, lane);
 #pragma unroll
@@ -123,10 +130,8 @@ __device__ __forceinline__ void csum_pick_tail(
   float g[kPerLane];
 #pragma unroll
   for (int j = 0; j < kPerLane; ++j) {
-    const int l = lane + 32 * j;
-    int p = __ldg(pos + base + l);
-    p = min(max(p, 0), kWidth - 1);
-    g[j] = csum[p] * __ldg(mask + base + l);
+    const int p = min(max(pos[j], 0), kWidth - 1);
+    g[j] = __fmul_rn(csum[p], mask[j]);
   }
   float sh[kPerLane];
 #pragma unroll
@@ -134,9 +139,8 @@ __device__ __forceinline__ void csum_pick_tail(
     sh[j] = __shfl_sync(kFull, g[j], (lane - 1) & 31);
 #pragma unroll
   for (int j = 0; j < kPerLane; ++j) {
-    const int l = lane + 32 * j;
     const float gs = lane >= 1 ? sh[j] : (j > 0 ? sh[j - 1] : 0.0f);
-    out[base + l] = (w[base + l] + g[j]) - gs;
+    out[base + lane + 32 * j] = __fsub_rn(__fadd_rn(w[j], g[j]), gs);
   }
 }
 
@@ -220,44 +224,40 @@ ell_scatter_fused_kernel(const float* w, const float* __restrict__ r_ext,
     u[j] = __fmul_rn(neg_lr, u[j]);
     if (kVal) u[j] = __fmul_rn(u[j], s_val[j]);
   }
-  row_cumsum(u, lane);
-  float* csum = csum_rows[warp];
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) csum[lane + 32 * j] = u[j];
-  __syncwarp();
-  float gp[kPerLane];
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) {
-    const int p = min(max(s_pos[j], 0), kWidth - 1);
-    gp[j] = __fmul_rn(csum[p], s_mask[j]);
-  }
-  float sh[kPerLane];
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j)
-    sh[j] = __shfl_sync(kFull, gp[j], (lane - 1) & 31);
-#pragma unroll
-  for (int j = 0; j < kPerLane; ++j) {
-    const float gs = lane >= 1 ? sh[j] : (j > 0 ? sh[j - 1] : 0.0f);
-    out[base + lane + 32 * j] = __fsub_rn(__fadd_rn(s_w[j], gp[j]), gs);
-  }
+  scatter_tail(u, s_pos, s_mask, s_w, out, base, lane, csum_rows[warp]);
 }
 
 
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// 3. the pair scatter: one warp per table row, every row load hoisted
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kPairRows * 32)
 ell_scatter_pair_kernel(const float* w, const float* __restrict__ upd,
                         const int* __restrict__ pos,
                         const float* __restrict__ mask, float* out,
                         int rows) {
-  __shared__ float csum[kWarps][kWidth];
+  __shared__ float csum_rows[kPairRows][kWidth];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= rows) return;
+  const int row = blockIdx.x * kPairRows + warp;
+  if (row >= rows) return;              // the whole warp leaves together
   const int64_t base = static_cast<int64_t>(row) * kWidth;
-  float u[kPerLane];
+  // every load of the row at once.  `out` may alias `w`, so w is not
+  // __restrict__ and the compiler cannot move its load above the stores
+  // itself: loading it here is safe because this warp reads its own row of
+  // w before it writes that row, and no other warp touches the row.
+  float u[kPerLane], s_mask[kPerLane], s_w[kPerLane];
+  int s_pos[kPerLane];
 #pragma unroll
-  for (int j = 0; j < kPerLane; ++j) u[j] = __ldg(upd + base + lane + 32 * j);
-  csum_pick_tail(u, pos, mask, w, out, base, lane, csum[warp]);
+  for (int j = 0; j < kPerLane; ++j) {
+    const int l = lane + 32 * j;
+    u[j] = __ldg(upd + base + l);
+    s_pos[j] = __ldg(pos + base + l);
+    s_mask[j] = __ldg(mask + base + l);
+    s_w[j] = w[base + l];
+  }
+  scatter_tail(u, s_pos, s_mask, s_w, out, base, lane, csum_rows[warp]);
 }
 
 inline int blocks_for(int rows) { return (rows + kWarps - 1) / kWarps; }
@@ -315,7 +315,8 @@ int ell_scatter_pair_launch(const void* w, const void* upd, const void* pos,
                             const void* mask, void* out, int rows,
                             void* stream) {
   if (rows > 0) {
-    ell_scatter_pair_kernel<<<blocks_for(rows), kThreads, 0,
+    ell_scatter_pair_kernel<<<(rows + kPairRows - 1) / kPairRows,
+                              kPairRows * 32, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(w), static_cast<const float*>(upd),
         static_cast<const int*>(pos), static_cast<const float*>(mask),

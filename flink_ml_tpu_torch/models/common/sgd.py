@@ -31,8 +31,8 @@ from ...ops import ell_scatter as E
 from ...utils.device import resolve_device
 
 __all__ = ["SGDConfig", "LinearState", "sgd_fit_mixed", "plan_mixed_impl",
-           "plan_epoch_layout", "prepare_epoch_tensor",
-           "resolve_global_batch_size"]
+           "routing_chunk_steps", "plan_epoch_layout",
+           "prepare_epoch_tensor", "resolve_global_batch_size"]
 
 LossFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -67,9 +67,10 @@ _AUTO_BATCH_CAP = 1 << 15
 _ELL_LAYOUT_BUDGET_BYTES = 2 << 30
 
 # The margin's sample routing costs 4 bytes per categorical slot of the
-# epoch (~109 MB for 2^20 rows of 26 slots), whatever the hash space; it
-# has a budget of its own so the layout's (and the batch's) plan stays
-# the JAX package's.
+# epoch (~109 MB for 2^20 rows of 26 slots), whatever the hash space.  It
+# never changes the plan (the layout's budget alone does, as in the JAX
+# package): past this budget it is built per chunk of steps that fits
+# (:class:`_StepRouting`).
 _ROUTE_BUDGET_BYTES = 1 << 30
 
 _GATHER_LANES = 256
@@ -303,22 +304,58 @@ def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
     return update
 
 
-def plan_mixed_impl(num_features: int, steps: int, route_slots: int,
+def plan_mixed_impl(num_features: int, steps: int,
                     layout_bytes_per_slot: int = 12) -> str:
     """Which categorical implementation :func:`sgd_fit_mixed` runs:
     ``"ell"`` (the static-routing kernels) when the weight size tiles into
-    128-lane rows, the ``steps``-deep layout stack fits its budget and the
-    margin's sample routing (``route_slots`` entries per step: batch x
-    categorical slots per row, 4 bytes each) fits its own, else
-    ``"plain"`` (direct gather/scatter).  Planned by shape and budget
-    only, so the CPU and the card run the same code; only the kernel
-    wrappers branch on the device."""
+    128-lane rows and the ``steps``-deep layout stack fits its budget, else
+    ``"plain"`` (direct gather/scatter): the JAX package's rule on its
+    accelerator.  The margin's sample routing does not enter it (it is
+    built per chunk of steps where it outgrows its own budget).  Planned
+    by shape and budget only, so the CPU and the card run the same code;
+    only the kernel wrappers branch on the device."""
     if (E.supported(num_features)
             and steps * num_features * layout_bytes_per_slot
-            <= _ELL_LAYOUT_BUDGET_BYTES
-            and steps * route_slots * 4 <= _ROUTE_BUDGET_BYTES):
+            <= _ELL_LAYOUT_BUDGET_BYTES):
         return "ell"
     return "plain"
+
+
+def routing_chunk_steps(steps: int, route_slots: int) -> int:
+    """Steps of the sample routing built at once: all ``steps`` where the
+    whole routing (``route_slots`` entries per step, 4 bytes each) fits
+    ``_ROUTE_BUDGET_BYTES``, else as many as fit, at least one."""
+    per_step = max(1, route_slots * 4)
+    return max(1, min(steps, _ROUTE_BUDGET_BYTES // per_step))
+
+
+class _StepRouting:
+    """The margin's sample routing of a layout stack, indexed by step like
+    the epoch tensors: ``routing[i]`` is step ``i``'s ``(nnz, batch)``
+    routing.  Built on the layout's device one chunk of ``chunk`` steps at
+    a time, when a step of the chunk is first asked for, and kept until a
+    step of another chunk is: with one chunk it is built once per fit, with
+    more it is built anew in every epoch.  A step's routing depends only
+    on that step's layout, and columns past a sample's last slot add 0, so
+    the chunking does not change the margin.  ``builds`` counts the
+    chunks built."""
+
+    def __init__(self, lay: "E.EllLayout", batch: int, chunk: int):
+        self.lay, self.batch, self.chunk = lay, batch, chunk
+        self.builds = 0
+        self._lo, self._hi, self._route = 0, 0, None
+
+    def __getitem__(self, i: int) -> torch.Tensor:
+        if not self._lo <= i < self._hi:
+            lo = i - i % self.chunk
+            hi = min(lo + self.chunk, self.lay.src.shape[0])
+            self._route = None              # free the old chunk first
+            self._route, _ = E.sample_routing(
+                self.lay.src[lo:hi], self.lay.pos[lo:hi],
+                self.lay.mask[lo:hi], self.batch)
+            self._lo, self._hi = lo, hi
+            self.builds += 1
+        return self._route[i - self._lo]
 
 
 def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
@@ -358,13 +395,15 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
     def put(a):
         return torch.from_numpy(a).to(dev)
 
-    impl = plan_mixed_impl(num_features, steps, batch * n_cat)
+    impl = plan_mixed_impl(num_features, steps)
     if impl == "ell":
         # one-time static routing of every step's categorical slots (and
-        # its sample-major inverse for the margin, built on the device),
-        # replayed every epoch; the raw index tensor stays on the host
+        # its sample-major inverse for the margin, built on the device
+        # per chunk of steps that fits its budget), replayed every epoch;
+        # the raw index tensor stays on the host
         lay = E.ell_layout(cat, num_features).to(dev)
-        route_w, _ = E.sample_routing(lay.src, lay.pos, lay.mask, batch)
+        route_w = _StepRouting(lay, batch,
+                               routing_chunk_steps(steps, batch * n_cat))
         epoch_args = (put(dense), route_w, lay.src, lay.pos, lay.mask,
                       lay.ovf_idx, lay.ovf_src, lay.heavy_idx,
                       lay.heavy_cnt, put(y), put(sw))

@@ -16,6 +16,11 @@ one-hot on chip and read the points once:
   distances, merged assignment, best and second-best distance, and the
   pad-masked stats.
 
+The fit's ``first`` policy, the assignment and the workset round score
+on the tensor cores (3xTF32: each product within ~1e-6 of its f32 value,
+relative); the ``fast`` and ``split`` policies keep the CUDA cores' f32
+FMAs, whose scores their exact-tie rule recomputes.
+
 The kernels mask their ragged edge and take any row count.  They take
 zero pad rows too, as the JAX package's maskless contract has it: a zero
 row lands on the centroid(s) of least norm and adds nothing to ``sums``,

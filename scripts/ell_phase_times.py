@@ -13,8 +13,10 @@ flushed before each launch (``chip_smoke.Timer``: median of 25):
    memory phase switched off, built into ``kernels/build/phases/``: the
    margin without its weight gathers (the routing loads alone) and the
    fused scatter without its ``r_ext`` gather (the row loads, cumsum, pick
-   and store alone).  A variant computes wrong results; only its time is
-   read.  Beside them the design that was not taken,
+   and store alone); those variants compute wrong results, and only their
+   times are read.  One more variant builds the pair scatter with 4 table
+   rows a block instead of 8; both shapes are held bit for bit to the
+   plain version and timed at 1001 rows.  Beside them the design that was not taken,
    ``scripts/ell_ring_variant.cu`` (a persistent grid over a ring of
    bulk-copied rows), held bit for bit to the plain version and timed.
    Then a near-empty launch (the margin over 0 route columns and 128
@@ -47,6 +49,10 @@ SWITCHES = {
     "fused_no_gather": (
         "? __ldg(r_ext + m) : 0.0f;",
         "? static_cast<float>(m) : 0.0f;"),
+    # the pair scatter's other block shape: 4 table rows a block
+    "pair_rows4": (
+        "constexpr int kPairRows = 8;",
+        "constexpr int kPairRows = 4;"),
 }
 # the fused scatter as a persistent grid over a ring of bulk-copied rows
 RING = os.path.join(HERE, "scripts", "ell_ring_variant.cu")
@@ -156,10 +162,34 @@ def variants(card):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     want = E.ell_scatter_apply_fused_plain(x["w"], x["r_ext"], x["src"],
                                            x["pos"], x["mask"], lr=0.5)
+    want_p = E.ell_scatter_apply_plain(x["w_p"], x["upd_p"], x["pos_p"],
+                                       x["mask_p"])
+    out_p = torch.empty_like(x["w_p"])
     for name, (path, _) in procs.items():
         lib = ctypes.CDLL(path)
         lib.ell_margin_launch.argtypes = [vp, ci, vp, vp, vp, ci, ci, ci,
                                           vp]
+        if name in ("full", "pair_rows4"):
+            lib.ell_scatter_pair_launch.argtypes = [vp, vp, vp, vp, vp, ci,
+                                                    vp]
+
+            def pair():
+                return lib.ell_scatter_pair_launch(
+                    x["w_p"].data_ptr(), x["upd_p"].data_ptr(),
+                    x["pos_p"].data_ptr(), x["mask_p"].data_ptr(),
+                    out_p.data_ptr(), x["pos_p"].shape[0],
+                    torch.cuda.current_stream().cuda_stream)
+
+            if pair():
+                sys.exit(f"{name}: pair launch failed")
+            torch.cuda.synchronize()
+            print(f"variant {name:17s} ell_scatter_apply (1001 rows, "
+                  f"{8 if name == 'full' else 4} rows a block) "
+                  f"{timer.ms(pair):.4f} ms, bit for bit the plain "
+                  f"version: {bool(torch.equal(out_p, want_p))} [{card}]",
+                  flush=True)
+            if name == "pair_rows4":
+                continue
         lib.ell_scatter_fused_launch.argtypes = [vp, vp, ci, vp, vp, vp, vp,
                                                  cf, vp, ci, vp]
         if name == "ring":

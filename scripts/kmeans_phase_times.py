@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """Where the time of the KMeans kernel goes, on the card.
 
-    python3 scripts/kmeans_phase_times.py
+    python3 scripts/kmeans_phase_times.py [--against DIR]
 
 Builds variants of ``flink_ml_tpu_torch/kernels/csrc/kmeans.cu`` with one
-or more of its phases switched off (the tile load, the scoring FMAs, the
-keyed reduce), into ``kernels/build/phases/``, and times each at the
-headline (2^20 x 64 points, k = 256, seeded N(0,1) points, the first 256
+or more of its phases switched off (the tile load, the scoring products of
+both scoring paths, the tensor-core path's fold of its sums into
+candidates, the keyed reduce), into ``kernels/build/phases/``, and
+times each at the headline (2^20 x 64 points, k = 256, seeded N(0,1) points, the first 256
 points as centroids) in the stats mode (``first``) and the workset mode:
-CUDA events over 20 back-to-back launches, warm L2.  A variant computes
+CUDA events over 20 back-to-back launches, warm L2.  Beside them, whole
+kernels with one change each (``SHAPES``): 2 m-tiles' tensor-core products
+interleaved instead of 4, and the hi*hi products alone.  A variant with a phase switched off computes
 wrong results; only its time is read.  Switching the scoring off sends
 every point to one cluster, so the variants without scoring measure a
-reduce that one warp does alone.  Needs one NVIDIA GPU and nvcc.
+reduce that one warp does alone.  With ``--against DIR`` (a checkout of
+another commit) DIR's ``kmeans.cu`` is built as one more variant,
+``against``, and timed in turn with this checkout's (against, full, full,
+against), so the two designs are compared on one card in one call.
+Needs one NVIDIA GPU and nvcc.
 """
 
 import ctypes
@@ -25,21 +32,40 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SWITCHES = [
     ("for (int base = 0; base < rows; base += 32) {",
      "for (int base = 0; base < (REDUCE_ON ? rows : 0); base += 32) {"),
-    ("        if (has) {\n#pragma unroll 2",
-     "        if (has && SCORE_ON) {\n#pragma unroll 2"),
+    ("      if (has) {\n", "      if (has && SCORE_ON) {\n"),
     ("for (int idx = threadIdx.x; idx < kTile * d; idx += kThreads) {",
      "for (int idx = threadIdx.x; idx < (LOAD_ON ? kTile * d : 0); "
      "idx += kThreads) {"),
+    ("    if (!has) continue;\n", "    if (!has || !FOLD_ON) continue;\n"),
 ]
-# name: (score, reduce, load)
-VARIANTS = {"full": (1, 1, 1), "no_reduce": (1, 0, 1), "no_load": (1, 1, 0),
-            "score_only": (1, 0, 0), "load_only": (0, 0, 1)}
+# name: (score, reduce, load, fold); the fold is the tensor-core path's
+# reading of its sums into candidates (off, the products go unused too)
+VARIANTS = {"full": (1, 1, 1, 1), "no_reduce": (1, 0, 1, 1),
+            "no_load": (1, 1, 0, 1), "score_only": (1, 0, 0, 1),
+            "load_only": (0, 0, 1, 0), "fold_only": (0, 0, 0, 1),
+            "nothing": (0, 0, 0, 0)}
+# whole kernels built with the source changed: 2 m-tiles' tensor-core
+# products interleaved instead of kmeans.cu's kMtGroup = 4; the hi*hi
+# products alone (1xTF32: the other two terms' share of the time)
+SHAPES = {
+    "mt2": [("constexpr int kMtGroup = 4;", "constexpr int kMtGroup = 2;")],
+    "hh_only": [
+        ("mma_tf32(acc[m0 + m][nt], al[m], bh[2 * nt], bh[2 * nt + 1]);",
+         ";"),
+        ("mma_tf32(acc[m0 + m][nt], ah[m], bl[2 * nt], bl[2 * nt + 1]);",
+         ";")],
+}
 MODES = {"first": 0, "workset": 4}
 
 
 def main():
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--against", help="a checkout of another commit")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs an NVIDIA GPU")
     sys.path.insert(0, HERE)
@@ -58,14 +84,40 @@ def main():
     os.replace(cu + ".tmp", cu)
     flags = [f for f in build.NVCC_FLAGS if f != "-Xptxas=-v"]
     procs = {}
-    for name, (score, reduce, load) in VARIANTS.items():
+    for name, (score, reduce, load, fold) in VARIANTS.items():
         lib = os.path.join(out_dir, f"lib{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [build.nvcc_path(), *flags, f"-DSCORE_ON={score}",
-             f"-DREDUCE_ON={reduce}", f"-DLOAD_ON={load}", "-o", lib, cu]))
+             f"-DREDUCE_ON={reduce}", f"-DLOAD_ON={load}",
+             f"-DFOLD_ON={fold}", "-o", lib, cu]))
+    base = open(os.path.join(build.CSRC_DIR, "kmeans.cu")).read()
+    for name, edits in SHAPES.items():
+        text = base
+        for plain, changed in edits:
+            if plain not in text:
+                sys.exit(f"kmeans.cu changed; update SHAPES ({plain!r})")
+            text = text.replace(plain, changed)
+        shape_cu = os.path.join(out_dir, f"kmeans_{name}.cu")
+        with open(shape_cu + ".tmp", "w") as f:
+            f.write(text)
+        os.replace(shape_cu + ".tmp", shape_cu)
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [build.nvcc_path(), *flags, "-DSCORE_ON=1", "-DREDUCE_ON=1",
+             "-DLOAD_ON=1", "-DFOLD_ON=1", "-o", lib, shape_cu]))
+    if args.against:
+        lib = os.path.join(out_dir, "libagainst.so")
+        procs["against"] = (lib, subprocess.Popen(
+            [build.nvcc_path(), *flags, "-o", lib, os.path.join(
+                os.path.abspath(args.against), "flink_ml_tpu_torch",
+                "kernels", "csrc", "kmeans.cu")]))
     for name, (_, proc) in procs.items():
         if proc.wait(timeout=600) != 0:
             sys.exit(f"nvcc failed for {name}")
+    order = list(procs)
+    if args.against:
+        order = ["against", "full", "full", "against"] + [
+            v for v in procs if v not in ("against", "full")]
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -82,7 +134,8 @@ def main():
     sums = torch.empty(k, d, device="cuda")
     counts = torch.empty(k, device="cuda")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name, (path, _) in procs.items():
+    for name in order:
+        path = procs[name][0]
         lib = ctypes.CDLL(path)
         lib.kmeans_grid.argtypes = [ci, ci, ci, ci,
                                     ctypes.POINTER(ctypes.c_int),

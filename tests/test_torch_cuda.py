@@ -136,6 +136,38 @@ def test_margin_reads_zero_outside_w(cuda_device):
     assert got.tolist() == [12.0, 256.0, 0.0, 0.0]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 1001, 1025])
+@pytest.mark.parametrize("aliased", [False, True], ids=["out", "in_place"])
+def test_pair_scatter_bit_equal_on_ragged_rows(cuda_device, rows, aliased):
+    """The pair kernel at row counts that leave its last block short, from
+    one row up, is bit for bit its plain version, also when ``out`` is
+    ``w`` itself (each warp loads its row of ``w`` before it writes it)."""
+    rng = np.random.default_rng(rows)
+    d = 128 * rows
+    cat = rng.integers(0, d, size=(1, 64, 26)).astype(np.int32)
+    lay = TE.ell_layout(cat, d).to(cuda_device)
+    w = torch.from_numpy(rng.normal(size=d).astype(np.float32)).to(
+        cuda_device)
+    upd = torch.from_numpy(rng.normal(size=(rows, 128)).astype(np.float32)
+                           ).to(cuda_device)
+    want = TE.ell_scatter_apply_plain(w, upd, lay.pos[0], lay.mask[0])
+    TE.reset_launch_counts()
+    if aliased:
+        lib = TE._kernels()
+        rc = lib.ell_scatter_pair_launch(
+            w.data_ptr(), upd.data_ptr(), lay.pos[0].data_ptr(),
+            lay.mask[0].data_ptr(), w.data_ptr(), rows,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        got = w
+    else:
+        got = TE.ell_scatter_apply(w, upd, lay.pos[0], lay.mask[0])
+        assert TE.LAUNCHES["ell_scatter_apply"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def _fit_data(n=1200, nd=13, nc=26, d=D, seed=6):
     rng = np.random.default_rng(seed)
     dense = rng.normal(size=(n, nd)).astype(np.float32)
@@ -268,6 +300,124 @@ def test_kmeans_workset_update_matches_plain(cuda_device, n, d, k):
     own_s, own_c = TK.stats_from_assign(k, args[0], args[4], a)
     torch.testing.assert_close(cnt, own_c, atol=0, rtol=0)
     torch.testing.assert_close(s, own_s, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["first", "fast", "split", "assign",
+                                  "workset"])
+@pytest.mark.parametrize("n,d,k", [(4099, 64, 1024), (2050, 300, 600)],
+                         ids=["staged_centroids", "no_tile"])
+def test_kmeans_modes_on_the_fallback_plans(cuda_device, mode, n, d, k):
+    """Every mode at a shape whose centroids are staged per tile (k = 1024
+    at d = 64) and one whose point tile does not fit shared memory (d =
+    300; its centroids are staged too): assignments equal off near-tie
+    rows, stats equal the plain stats of the kernel's own assignments
+    (counts exactly, sums within 1e-5 relative), or the plain stats where
+    no row is near a tie.  The workset mode, whose roots magnify the
+    rounding of a distance near 0, gets centroids that are not points, as
+    in :func:`test_kmeans_workset_update_matches_plain`."""
+    pts, cents = _kmeans_problem(n, d, k, seed=k)
+    if mode == "workset":
+        cents = np.random.default_rng(k + 1).normal(size=(k, d)).astype(
+            np.float32)
+    p = torch.from_numpy(pts).to(cuda_device)
+    c = torch.from_numpy(cents).to(cuda_device)
+    near = _near_tie_rows(_plain_scores(p, c))
+    ones = torch.ones(n, device=cuda_device)
+    if mode in TK.TIE_POLICIES:
+        got_s, got_c = TK.kmeans_update_stats(p, c, tie_policy=mode)
+        want_s, want_c = TK.kmeans_update_stats_plain(p, c, tie_policy=mode)
+        if int(near.sum()):
+            assert float((got_c - want_c).abs().sum()) <= 4 * int(near.sum())
+        else:
+            torch.testing.assert_close(got_c, want_c, atol=0, rtol=0)
+            torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-5)
+        return
+    if mode == "assign":
+        a, s, cnt = TK.kmeans_assign_reduce(p, c)
+        want_a, _, _ = TK.kmeans_assign_reduce_plain(p, c)
+        weight = ones
+    else:
+        rng = np.random.default_rng(n)
+        prev = torch.from_numpy(rng.integers(0, k, n).astype(np.int32)).to(
+            cuda_device)
+        active = torch.from_numpy((rng.random(n) < 0.5).astype(np.float32)
+                                  ).to(cuda_device)
+        weight = torch.from_numpy((rng.random(n) < 0.9).astype(np.float32)
+                                  ).to(cuda_device)
+        a, db, ds, s, cnt = TK.kmeans_workset_update(p, c, prev, active,
+                                                     weight)
+        want_a, wdb, wds, _, _ = TK.kmeans_workset_update_plain(
+            p, c, prev, active, weight)
+        torch.testing.assert_close(db, wdb, atol=1e-4, rtol=0)
+        torch.testing.assert_close(ds, wds, atol=1e-4, rtol=0)
+    assert torch.equal(a[~near], want_a[~near])
+    own_s, own_c = TK.stats_from_assign(k, p, weight, a)
+    torch.testing.assert_close(cnt, own_c, atol=0, rtol=0)
+    torch.testing.assert_close(s, own_s, rtol=1e-5, atol=1e-4)
+
+
+def _sum_of_squares(target, d, cap):
+    """Integer coordinates (each below ``cap``) whose squares sum to
+    ``target``: a short depth-first search from the largest square."""
+    if d == 0:
+        return [] if target == 0 else None
+    top = min(int(np.sqrt(target)), cap - 1)
+    for a in range(top, max(top - 40, -1), -1):
+        rest = _sum_of_squares(target - a * a, d - 1, cap)
+        if rest is not None:
+            return [a] + rest
+    return None
+
+
+def _root_tie_problem(d=8, k=48, seed=31):
+    """Centroids whose coordinates are integers below 2048 (exact in TF32
+    and in any f32 sum) and points that are 0 or small integer vectors:
+    every squared distance is an exact integer below 2^24 in both
+    versions.  Centroid 3 lies at squared norm S + 1 and centroid 17 at S,
+    where sqrtf(S) == sqrtf(S + 1): the zero rows see two different squares
+    that round to one root, the later centroid with the smaller square.
+    The other centroids lie at squared norms past S + 40000."""
+    s_val = next(v for v in range(1 << 23, 1 << 24)
+                 if np.sqrt(np.float32(v)) == np.sqrt(np.float32(v + 1)))
+    rng = np.random.default_rng(seed)
+    cents = np.zeros((k, d), np.float32)
+    for c in range(k):
+        while not s_val + 40000 <= int((cents[c].astype(np.int64) ** 2
+                                        ).sum()) < 1 << 24:
+            cents[c] = rng.integers(0, 2048, size=d)
+    cents[3] = _sum_of_squares(s_val + 1, d, 2048)
+    cents[17] = _sum_of_squares(s_val, d, 2048)
+    cents = np.ascontiguousarray(cents[:, rng.permutation(d)])
+    n = 515
+    pts = rng.integers(-2, 3, size=(n, d)).astype(np.float32)
+    pts[::2] = 0.0
+    return pts, cents, s_val
+
+
+@pytest.mark.cuda
+def test_kmeans_workset_first_index_on_roots_that_round_together(
+        cuda_device):
+    """Two different squared distances that round to one root: the
+    workset kernel, which roots only the candidates that can change its
+    result, keeps the reference's first index among equal roots (not the
+    smaller square's), on every row, and its roots equal the plain ones."""
+    pts, cents, s_val = _root_tie_problem()
+    p = torch.from_numpy(pts).to(cuda_device)
+    c = torch.from_numpy(cents).to(cuda_device)
+    n, k = p.shape[0], c.shape[0]
+    assert np.sqrt(np.float32(s_val)) == np.sqrt(np.float32(s_val + 1))
+    prev = torch.zeros(n, dtype=torch.int32, device=cuda_device)
+    ones = torch.ones(n, device=cuda_device)
+    a, db, ds, s, cnt = TK.kmeans_workset_update(p, c, prev, ones, ones)
+    wa, wdb, wds, ws, wcnt = TK.kmeans_workset_update_plain(p, c, prev, ones,
+                                                            ones)
+    torch.cuda.synchronize()
+    assert torch.equal(a, wa)
+    assert bool((a[::2] == 3).all())
+    assert torch.equal(db, wdb) and torch.equal(ds, wds)
+    assert bool((db[::2] == ds[::2]).all())
+    torch.testing.assert_close(cnt, wcnt, atol=0, rtol=0)
 
 
 @pytest.mark.cuda

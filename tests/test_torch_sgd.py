@@ -166,27 +166,114 @@ def test_planning_matches_jax():
     jsteps, jbatch, jperm = JS.plan_epoch_layout(1000, 300, 1, 7)
     assert (steps, batch) == (jsteps, jbatch)
     np.testing.assert_array_equal(perm, jperm)
-    assert TS.plan_mixed_impl(1 << 20, 32, 2048 * 26) == "ell"
-    assert TS.plan_mixed_impl(1 << 20, 1 << 15, 32 * 26) == "plain"  # budget
-    assert TS.plan_mixed_impl(128 * 64, 1, 32 * 26) == "plain"  # too few rows
+    assert TS.plan_mixed_impl(1 << 20, 32) == "ell"
+    assert TS.plan_mixed_impl(1 << 20, 1 << 15) == "plain"  # budget
+    assert TS.plan_mixed_impl(128 * 64, 1) == "plain"  # too few rows
     assert TS._ext_len(400) == JS._ext_len(400) == 512
     assert TS._ext_len(256) == 512
 
 
 def test_planning_counts_the_sample_routing():
-    """The margin's routing (4 bytes per categorical slot of a step) has
-    a budget of its own beside the layout's: a fit at the layout budget's
-    edge still plans the kernels with its routing counted, and only a
-    routing past its own budget plans the plain path."""
+    """The margin's routing (4 bytes per categorical slot of a step) never
+    vetoes the plan: a fit at the layout budget's edge plans the kernels
+    whatever its routing, which is built whole where it fits its budget
+    and per chunk of steps where it does not."""
     d, n, n_cat = 1 << 20, 1 << 20, 26
     batch = TS.resolve_global_batch_size(TS.SGDConfig(), n, d)
     steps = -(-n // batch)
     assert steps * d * 12 <= TS._ELL_LAYOUT_BUDGET_BYTES < (
         (steps + 1) * d * 12)
-    assert TS.plan_mixed_impl(d, steps, batch * n_cat) == "ell"
+    assert TS.plan_mixed_impl(d, steps) == "ell"
+    assert TS.routing_chunk_steps(steps, batch * n_cat) == steps
     over = TS._ROUTE_BUDGET_BYTES // (4 * steps) + 1
-    assert TS.plan_mixed_impl(d, steps, over - 1) == "ell"
-    assert TS.plan_mixed_impl(d, steps, over) == "plain"
+    assert TS.routing_chunk_steps(steps, over - 1) == steps
+    assert TS.routing_chunk_steps(steps, over) == steps - 1
+    assert TS.routing_chunk_steps(steps, TS._ROUTE_BUDGET_BYTES) == 1
+
+
+def _reference_rule(num_features, steps):
+    """The JAX package's ``plan_mixed_impl`` on its accelerator, written
+    out (off a TPU the function itself returns ``"xla"``)."""
+    from flink_ml_tpu.ops.ell_scatter import supported
+
+    return ("ell" if supported(num_features)
+            and steps * num_features * 12 <= JS._ELL_LAYOUT_BUDGET_BYTES
+            else "plain")
+
+
+@pytest.mark.parametrize("n,d,n_cat,gbs", [
+    (1 << 24, 1 << 17, 26, None),    # the routing past its budget
+    (1 << 24, 1 << 20, 26, None),
+    (1 << 20, 1 << 20, 26, None),
+    (1 << 22, 1 << 16, 39, None),
+    (1 << 20, 1 << 20, 26, 32),      # the layout past its budget
+    (5000, 128 * 128, 26, None),
+    (5000, 128 * 127, 26, None),     # too few rows
+    (5000, 1000, 26, None),          # not whole 128-lane rows
+    (1 << 24, 1 << 17, 26, 1 << 14),
+])
+def test_plan_equals_the_reference_rule(n, d, n_cat, gbs):
+    """The port plans the ELL kernels exactly where the JAX package's rule
+    does, at the auto batch or a given one; arithmetic only, nothing is
+    allocated.  Where the whole routing outgrows its budget it is chunked,
+    never vetoed."""
+    cfg = TS.SGDConfig(global_batch_size=gbs)
+    batch = TS.resolve_global_batch_size(cfg, n, d)
+    assert batch == JS.resolve_global_batch_size(
+        JS.SGDConfig(global_batch_size=gbs), n, d)
+    steps = -(-n // batch)
+    assert TS.plan_mixed_impl(d, steps) == _reference_rule(d, steps)
+    chunk = TS.routing_chunk_steps(steps, batch * n_cat)
+    assert 1 <= chunk <= steps
+    assert chunk * batch * n_cat * 4 <= max(TS._ROUTE_BUDGET_BYTES,
+                                            batch * n_cat * 4)
+    if (n, d, n_cat, gbs) == (1 << 24, 1 << 17, 26, None):
+        assert TS.plan_mixed_impl(d, steps) == "ell"
+        assert steps * batch * n_cat * 4 > TS._ROUTE_BUDGET_BYTES
+        assert chunk < steps
+
+
+class _CountedRouting(TS._StepRouting):
+    made = []
+
+    def __init__(self, *a):
+        super().__init__(*a)
+        self.made.append(self)
+
+
+@pytest.mark.parametrize("budget", [4, "two_steps"])
+def test_chunked_routing_fit_is_bit_identical(monkeypatch, budget):
+    """A fit whose routing budget is below one step's routing (chunks of
+    one step), or holds two steps, rebuilds its chunks every epoch and
+    ends bit for bit on the fit with the whole routing, which agrees with
+    the JAX package's fit as the ELL parity test does."""
+    d = 128 * 128
+    dense, cat, y = _fit_data(d=d, seed=7)
+    cfg = dict(learning_rate=0.5, max_epochs=3, global_batch_size=256,
+               tol=0)
+    steps = -(-dense.shape[0] // 256)
+    monkeypatch.setattr(TS, "_StepRouting", _CountedRouting)
+    _CountedRouting.made = []
+    whole, whole_log = TS.sgd_fit_mixed(TL["logistic"], dense, cat, y, None,
+                                        d, TS.SGDConfig(**cfg), device="cpu")
+    assert _CountedRouting.made[-1].builds == 1
+    per_step = 256 * cat.shape[1] * 4
+    monkeypatch.setattr(TS, "_ROUTE_BUDGET_BYTES",
+                        4 if budget == 4 else 2 * per_step)
+    chunk = 1 if budget == 4 else 2
+    got, got_log = TS.sgd_fit_mixed(TL["logistic"], dense, cat, y, None, d,
+                                    TS.SGDConfig(**cfg), device="cpu")
+    assert got.planned_impl == whole.planned_impl == "ell"
+    assert _CountedRouting.made[-1].chunk == chunk
+    assert _CountedRouting.made[-1].builds == 3 * -(-steps // chunk)
+    np.testing.assert_array_equal(got.coefficients, whole.coefficients)
+    assert got.intercept == whole.intercept
+    assert got_log == whole_log
+    want, want_log = _jax_fit(monkeypatch, "ell", dense, cat, y, d, cfg)
+    np.testing.assert_allclose(got.coefficients, want.coefficients,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.intercept, want.intercept, atol=1e-5)
+    np.testing.assert_allclose(got_log, want_log, atol=1e-6)
 
 
 def test_fit_auto_batch_matches_jax(monkeypatch):
@@ -201,9 +288,8 @@ def test_fit_auto_batch_matches_jax(monkeypatch):
 
     real_plan = TS.plan_mixed_impl
 
-    def stop(num_features, steps, route_slots):
-        seen["plan"] = (steps, route_slots,
-                        real_plan(num_features, steps, route_slots))
+    def stop(num_features, steps):
+        seen["plan"] = (steps, real_plan(num_features, steps))
         raise Planned
 
     monkeypatch.setattr(TS, "plan_mixed_impl", stop)
@@ -213,7 +299,7 @@ def test_fit_auto_batch_matches_jax(monkeypatch):
                          np.zeros(n, np.float32), None, d, TS.SGDConfig(),
                          device="cpu")
     jbatch = JS.resolve_global_batch_size(JS.SGDConfig(), n, d)
-    steps, route_slots, impl = seen["plan"]
-    assert (steps, route_slots) == (-(-n // jbatch), jbatch * n_cat)
+    steps, impl = seen["plan"]
+    assert steps == -(-n // jbatch)
     assert steps * d * 12 <= JS._ELL_LAYOUT_BUDGET_BYTES
     assert impl == "ell"
