@@ -56,10 +56,11 @@ line is printed):
    (tolerance 0), at E = 64 (embeddings) and E = 1 (the squeezed wide
    table) on: step 0 of the bench route (26 fields x 40329 vocab, batch
    8192, numpy seed 17, ``bench.py:1094-1112``), the heavy-hitter route
-   (vocab 2^20, field 0 = 7 in half the rows, ``bench.py:2911-2915``), a
-   run past the shared-memory halo (the streaming passes) and a ragged
-   S = 1000 x 26; both placements through the kernel vs the plain fold;
-   a route with fold_passes == 0 launches nothing.
+   (vocab 2^20, field 0 = 7 in half the rows, ``bench.py:2911-2915``:
+   12 passes, two launches of the level-group kernel), the deep route (a
+   run of 2 x 8192: 14 passes, two launches) and a ragged S = 1000 x
+   26; both placements through the kernel vs the plain fold; a route with
+   fold_passes == 0 launches nothing.
 10. Wide&Deep main path: ``WideDeep(device="cuda")`` fit of 2 epochs at
     the bench width (26 x 40329 vocab, 13 dense, embedding 64, MLP (1024,
     512, 256), batch 8192, 16 steps an epoch, 131072 rows, numpy seed 17),
@@ -71,9 +72,9 @@ line is printed):
     the routed fit's own state within the same tolerances, a replay ending
     bit for bit on the fit, the whole ``'off'`` epoch's loss within them,
     and scores within 1e-5 of a numpy float64 forward.
-11. Wide&Deep times: the fold kernel (bench route at E = 64 and E = 1, the
-    heavy-hitter route) against its plain version, the ``index_add_``
-    scatter-add it replaces and the byte bound; steps/s over
+11. Wide&Deep times: the fold kernel (the bench, heavy-hitter and deep
+    routes, each at E = 64 and E = 1) against its plain version, the
+    ``index_add_`` scatter-add it replaces and the byte bound; steps/s over
     device-resident epoch tensors through the kernel, the plain fold and
     the autograd scatter-add; ``fit()`` wall and the host route build.
 
@@ -101,8 +102,9 @@ line is printed):
     b = 1 and b = 257; a duplicated corpus (exact ties); an index with
     block 8 and k = 20 above the probed rows (-1 at +inf).  (They run after
     the main path, on the indexes it built.)
-14. Retrieval times: each kernel at b = 256 and nprobe 1, 2, 16 beside
-    its plain version, the bound (distinct probed lists' bytes vs
+14. Retrieval times: each kernel at b = 256 and nprobe 1, 2, 16 (the
+    flat search also at nprobe = nlist) beside its plain version, the
+    bound (distinct probed lists' bytes vs
     operations) and the brute-force yardstick (``addmm`` + ``topk`` over
     the whole corpus: exact search, what ``retrieval_ivf_qps_ratio``
     divides by); the QPS / recall@10 / scan-fraction frontier of brute
@@ -176,6 +178,9 @@ WD_REPLACES = "flink_ml_tpu/ops/emb_grad_pallas.py:98"
 WD_LOSS_TOL = dict(rtol=2e-5, atol=1e-6)
 WD_PARAM_TOL = dict(rtol=1e-3, atol=1e-3)
 WD_TABLE_KEYS = ("emb", "wide_cat", "wide_dense", "wide_b")
+# the fold's timed routes (phase 11)
+FOLD_TIMED = (("bench", 64), ("bench", 1), ("heavy", 64), ("heavy", 1),
+              ("deep", 64), ("deep", 1))
 
 # IVF retrieval bench (the JAX package's bench.py:4171-4213, full size):
 # 4096 masses of 32 points, centers N(0,1) * 10, noise N(0,1) * 0.3, numpy
@@ -184,7 +189,7 @@ RT_N, RT_D, RT_PER_MASS = 131072, 64, 32
 RT_NQ, RT_NLIST, RT_K = 256, 256, 10
 RT_NPROBES = (1, 2, 4, 8, 16)
 RT_REF_NPROBE = 2
-RT_TIMED_NPROBES = (1, 2, 16)
+RT_TIMED_NPROBES = (1, 2, 16)   # and nlist for the flat search
 RT_ROUNDS = 50              # timed rounds per frontier point
 RT_PQ = dict(m=8, ksub=16)
 RT_RECALL_FLOOR, RT_SCAN_BUDGET = 0.95, 0.25   # bench.py:4270-4276
@@ -644,6 +649,50 @@ def numpy_widedeep_scores(params, dense, ids):
     return 1.0 / (1.0 + np.exp(-(wide + deep[:, 0])))
 
 
+def fold_routes(G, dev):
+    """Phase 9's fold routes on the card, ``name -> (route, table rows)``:
+    step 0 of the bench route; the heavy-hitter route (vocab 2^20, field
+    0 = 7 in half the rows, ``bench.py:2911-2915``: 12 passes); the deep
+    route (a run of 2 x 8192: 14 passes); a ragged S = 1000 x 26 (scatter
+    placement).  Also the every-id-distinct ids of the zero-pass check."""
+    offs = np.arange(WD_FIELDS, dtype=np.int64) * WD_VOCAB
+    total = WD_VOCAB * WD_FIELDS
+    cat, _, _ = widedeep_bench_data(WD_BATCH, 1)
+    rng = np.random.default_rng(2911)
+    heavy = rng.integers(0, 1 << 20, size=(1, WD_BATCH, WD_FIELDS))
+    heavy[0, :WD_BATCH // 2, 0] = 7
+    deep = rng.integers(0, 1 << 20, size=(1, WD_BATCH, WD_FIELDS))
+    deep[0, :, :2] = 7
+    ragged = rng.integers(0, WD_VOCAB, size=(1, 1000, WD_FIELDS)) + offs
+    unique = rng.permutation(total)[:WD_BATCH * WD_FIELDS].reshape(
+        1, WD_BATCH, WD_FIELDS)
+    routes = {
+        "bench": (G.emb_grad_route(cat + offs, total).to(dev), total),
+        "heavy": (G.emb_grad_route(heavy, 1 << 20).to(dev), 1 << 20),
+        "deep": (G.emb_grad_route(deep, 1 << 20).to(dev), 1 << 20),
+        "ragged": (G.emb_grad_route(ragged, total, placement="scatter"
+                                    ).to(dev), total),
+    }
+    return routes, unique
+
+
+def fold_rows(torch, route, E, dev):
+    """Seeded (S, E) gradient rows (every 9th -0.0; E = 1 squeezed) of a
+    phase-9 route: ``(sorted rows, rows in slot order)``."""
+    n_slots = route.order.shape[1]
+    g = torch.from_numpy(np.random.default_rng(E).normal(
+        size=(n_slots, E)).astype(np.float32)).to(dev)
+    g[::9] = -0.0
+    flat = g if E > 1 else g[:, 0].contiguous()
+    return torch.index_select(flat, 0, route.order[0]), flat
+
+
+def fold_bound_ms(n_slots, E):
+    """Bytes the fold must move at 3.35 TB/s: rows read and written once,
+    ids read once."""
+    return (2 * n_slots * E * 4 + n_slots * 4) / HBM_BYTES_PER_S * 1e3
+
+
 def widedeep_phases(torch, dev, card, timer):
     """Phases 9-11 (Wide&Deep); returns the fold kernel's JSON entry."""
     from flink_ml_tpu_torch import Table, WideDeep
@@ -655,35 +704,16 @@ def widedeep_phases(torch, dev, card, timer):
     total = WD_VOCAB * WD_FIELDS
     offs = W._field_offsets(vocab_sizes)
     cat, dense, y = widedeep_bench_data(WD_BATCH, WD_STEPS)
-    cat_off = cat + offs
 
     # -- 9. the fold kernel vs its plain version, bit for bit --------------
-    rng = np.random.default_rng(2911)
-    heavy = rng.integers(0, 1 << 20, size=(1, WD_BATCH, WD_FIELDS))
-    heavy[0, :WD_BATCH // 2, 0] = 7
-    deep = rng.integers(0, 1 << 20, size=(1, WD_BATCH, WD_FIELDS))
-    deep[0, :, :2] = 7                  # a run of 2 x 8192: past the halo
-    ragged = rng.integers(0, WD_VOCAB, size=(1, 1000, WD_FIELDS)) + offs
-    unique = rng.permutation(total)[:WD_BATCH * WD_FIELDS].reshape(
-        1, WD_BATCH, WD_FIELDS)
-    routes = {   # name: (route on the card, table rows)
-        "bench": (G.emb_grad_route(cat_off[:1], total).to(dev), total),
-        "heavy": (G.emb_grad_route(heavy, 1 << 20).to(dev), 1 << 20),
-        "deep": (G.emb_grad_route(deep, 1 << 20).to(dev), 1 << 20),
-        "ragged": (G.emb_grad_route(ragged, total, placement="scatter"
-                                    ).to(dev), total),
-    }
+    routes, unique = fold_routes(G, dev)
     g_rows = {}
     err = 0.0
     for name, (route, _) in routes.items():
         n_slots = route.order.shape[1]
         P = route.fold_passes
         for E in (64, 1):
-            g = torch.from_numpy(np.random.default_rng(E).normal(
-                size=(n_slots, E)).astype(np.float32)).to(dev)
-            g[::9] = -0.0
-            flat = g if E > 1 else g[:, 0].contiguous()
-            sorted_g = torch.index_select(flat, 0, route.order[0])
+            sorted_g, flat = fold_rows(torch, route, E, dev)
             g_rows[name, E] = (sorted_g, flat)
             got = G.fold_runs(sorted_g, route.sorted_ids[0], P)
             want = G.fold_runs_plain(sorted_g, route.sorted_ids[0], P)
@@ -858,9 +888,8 @@ def widedeep_phases(torch, dev, card, timer):
              "parameters")
 
     # -- 11. times ---------------------------------------------------------
-    f4 = 4
     results = {}
-    for name, E in (("bench", 64), ("bench", 1), ("heavy", 64)):
+    for name, E in FOLD_TIMED:
         route, num_rows = routes[name]
         sorted_g, flat = g_rows[name, E]
         sid = route.sorted_ids[0]
@@ -874,14 +903,16 @@ def widedeep_phases(torch, dev, card, timer):
             (num_rows,) + tuple(flat.shape[1:]), device=dev).index_add_(
                 0, ids, flat))
         n_slots = sid.shape[0]
-        bound_ms = (2 * n_slots * E * f4 + n_slots * f4) / \
-            HBM_BYTES_PER_S * 1e3
+        bound_ms = fold_bound_ms(n_slots, E)
         results[name, E] = (ms, plain_ms, lib_ms, bound_ms)
+        levels = G._kernels().emb_fold_group_levels()
         log(f"time fold_runs ({name} route, S {n_slots}, E {E}, "
-            f"fold_passes {P}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, index_add_ scatter-add into the ({num_rows}, {E}) table "
-            f"(the downstream table gradient, not the fold) {lib_ms:.4f} "
-            f"ms, bound {bound_ms:.4f} ms (bytes) [{card}]")
+            f"fold_passes {P}: {-(-P // levels)} level-group launches of "
+            f"up to {levels} levels): kernel {ms:.4f} ms,"
+            f" plain {plain_ms:.4f} ms, index_add_ scatter-add into the "
+            f"({num_rows}, {E}) table (the downstream table gradient, not "
+            f"the fold) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes) "
+            f"[{card}]")
 
     rates = {}
     for label, mode in (("kernel", "kernel"), ("plain", "plain"),
@@ -994,6 +1025,35 @@ def hold_codebook_fits(torch, dev, X, index):
         f"{worst:.3e} (allclose rtol {KM_GATE['rtol']}, atol "
         f"{KM_GATE['atol']}); each replay equals the index's books; (rounds, "
         f"distortion kernels, plain versions) {held}")
+
+
+def retrieve_bound(R, qd, cents, nprobe, block, pq):
+    """The least time of a search of ``qd`` at ``nprobe``: the larger of
+    the bytes it must move (the distinct probed lists, the queries, the
+    centroids, the results) at 3.35 TB/s and its fp32 operations (the
+    coarse product and the scan) at 67 TFLOP/s.  Returns ``(distinct
+    lists, bound ms, "bytes" or "operations", bytes ms, operations
+    ms)``."""
+    import torch
+
+    f4 = 4
+    b, d = qd.shape
+    nlist = cents.shape[0]
+    lists = int(torch.unique(R.select_probes(qd, cents, nprobe)).numel())
+    common = (b * d + nlist * d + 2 * b * RT_K) * f4
+    ops = 2.0 * b * d * nlist
+    if not pq:
+        moved = lists * block * (d + 1) * f4 + common
+        ops += 2.0 * b * d * nprobe * block
+    else:
+        m, ksub = RT_PQ["m"], RT_PQ["ksub"]
+        moved = (lists * block * (m + f4) + common + ksub * d
+                 + m * ksub * f4)
+        ops += b * nprobe * (3.0 * ksub * d + block * m)
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return lists, max(ops_ms, bytes_ms), bound_by, bytes_ms, ops_ms
 
 
 def retrieval_phases(torch, dev, card, timer):
@@ -1208,7 +1268,6 @@ def retrieval_phases(torch, dev, card, timer):
                  si.with_options(nprobe=nprobe), queries[:64])
 
     # -- 14. times ---------------------------------------------------------
-    f4 = 4
     x2 = (Xd * Xd).sum(1)[None, :]
 
     def brute():
@@ -1220,29 +1279,17 @@ def retrieval_phases(torch, dev, card, timer):
     for name, index in (("retrieve_flat", flat), ("retrieve_pq", pq)):
         p = index.device_params()
         blk = index.block
-        for nprobe in RT_TIMED_NPROBES:
+        timed = RT_TIMED_NPROBES + ((RT_NLIST,) if index.pq is None
+                                    else ())
+        for nprobe in timed:
             view = index.with_options(nprobe=nprobe)
             ms = timer.ms(lambda: view.search_tensors(qd))
             # what search(plain=True) runs between its copies
             plain_ms = timer.ms(lambda: view._scan(
                 qd, R.retrieve_flat_plain, R.retrieve_pq_plain),
                 reps=5, warm=1)
-            lists = int(torch.unique(R.select_probes(
-                qd, p["centroids"], nprobe)).numel())
-            common = (RT_NQ * d + RT_NLIST * d + 2 * RT_NQ * RT_K) * f4
-            ops = 2.0 * RT_NQ * d * RT_NLIST
-            if index.pq is None:
-                moved = lists * blk * (d + 1) * f4 + common
-                ops += 2.0 * RT_NQ * d * nprobe * blk
-            else:
-                m, ksub = RT_PQ["m"], RT_PQ["ksub"]
-                moved = (lists * blk * (m + f4) + common + ksub * d
-                         + m * ksub * f4)
-                ops += RT_NQ * nprobe * (3.0 * ksub * d + blk * m)
-            ops_ms = ops / FP32_OPS_PER_S * 1e3
-            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-            bound_ms = max(ops_ms, bytes_ms)
-            bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+            lists, bound_ms, bound_by, bytes_ms, ops_ms = retrieve_bound(
+                R, qd, p["centroids"], nprobe, blk, index.pq is not None)
             kernel_ms[name, nprobe] = (ms, plain_ms, bound_ms, bound_by)
             log(f"time {name} (b {RT_NQ}, nprobe {nprobe}, {lists} distinct "
                 f"lists of {blk} rows): kernel {ms:.4f} ms, plain "

@@ -13,7 +13,8 @@ per fit turns the per-step scatter into streaming stages.
 2. a segmented suffix fold over runs of equal ids: after
    ``ceil(log2(max_run))`` masked shift-adds the slot at each run's start
    holds the run's sum (:func:`fold_runs`, the CUDA kernel of
-   ``kernels/csrc/emb_grad.cu``; ``fold_passes`` is static per fit, 0 when
+   ``kernels/csrc/emb_grad.cu``, one launch per group of up to seven
+   passes; ``fold_passes`` is static per fit, 0 when
    every id of every step is unique, and then nothing launches);
 3. placement of the run sums into the dense table:
 
@@ -235,8 +236,8 @@ def _kernels():
 
         lib = load_library("emb_grad")
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.emb_fold_shared_passes.argtypes = [cl, ci, ci]
-        lib.emb_fold_shared_passes.restype = ci
+        lib.emb_fold_group_levels.argtypes = []
+        lib.emb_fold_group_levels.restype = ci
         lib.emb_fold_launch.argtypes = [vp, vp, vp, vp, cl, ci, ci, vp]
         lib.emb_fold_launch.restype = ci
         _LIB = lib
@@ -280,9 +281,9 @@ def fold_runs(g_sorted: torch.Tensor, sorted_ids: torch.Tensor,
     res = torch.empty_like(g_sorted)
     lib = _kernels()
     with torch.cuda.device(dev):
-        scratch = None
-        if lib.emb_fold_shared_passes(S, E, fold_passes) < fold_passes:
-            scratch = torch.empty_like(g)
+        # the level groups after the first ping-pong through a scratch copy
+        scratch = (torch.empty_like(g)
+                   if fold_passes > lib.emb_fold_group_levels() else None)
         rc = lib.emb_fold_launch(
             g.data_ptr(), sorted_ids.data_ptr(), res.data_ptr(),
             None if scratch is None else scratch.data_ptr(), S, E,

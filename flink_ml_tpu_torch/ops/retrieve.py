@@ -1,5 +1,5 @@
 """IVF retrieve kernels: coarse probe selection, posting-list scan and
-top-k in one launch per search, with their plain PyTorch versions.
+top-k in one kernel call per search, with their plain PyTorch versions.
 
 A port of the JAX package's ``ops/retrieve_pallas.py`` (the fused Pallas
 kernels) and of the XLA stage ``retrieval/ivf.py::_retrieve_stage_xla``
@@ -8,9 +8,13 @@ that they equal bit for bit.  The kernels are CUDA C++ for Hopper
 how they are laid out):
 
 - :func:`retrieve_flat`: flat f32 posting lists, squared L2
-  ``|q|^2 + |x|^2 - 2 q.x``;
+  ``|q|^2 + |x|^2 - 2 q.x``; list-major, two CUDA launches a call (the
+  probes, which write each list's membership; the scan, which reads each
+  probed list once for each span of the queries that probe it, and
+  merges), sized by :func:`flat_plan`;
 - :func:`retrieve_pq`: IVF-PQ, asymmetric distances from a per-probe
-  lookup table over int8 codes.
+  lookup table over int8 codes; one launch, one block a query, sized by
+  :func:`kernel_plan`.
 
 Both return ``(neighbors (b, k) int32, distances (b, k) f32)``.  Probes are
 taken in ascending (coarse score, list index) order and the top-k runs
@@ -34,32 +38,35 @@ exactly, so both sides here leave it out and no bit changes.
 Each wrapper takes its plain version for tensors on the CPU, and launches
 its kernel for CUDA tensors or raises: it never falls back.  A shape the
 kernel cannot take raises with the limit in its message
-(:func:`kernel_plan`).  A launch adds one to :data:`LAUNCHES`.
+(:func:`kernel_plan`, :func:`flat_plan`).  A call on the card adds one to
+:data:`LAUNCHES`, whatever number of CUDA launches it takes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Dict, Tuple
+import functools
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
 __all__ = ["retrieve_flat", "retrieve_flat_plain", "retrieve_pq",
            "retrieve_pq_plain", "coarse_distances", "flat_distances",
            "decode_codebooks", "pq_lut", "adc_distances", "select_probes",
-           "kernel_plan", "K_MAX", "LAUNCHES",
+           "kernel_plan", "flat_plan", "FlatPlan", "K_MAX", "LAUNCHES",
            "reset_launch_counts"]
 
-#: Launches of each kernel since the last :func:`reset_launch_counts`.
-#: Only a launch of the CUDA kernel counts, never a plain version.
+#: Calls of each kernel since the last :func:`reset_launch_counts` (one
+#: per wrapper call on the card, whatever number of CUDA launches it
+#: takes).  Only the CUDA kernel counts, never a plain version.
 LAUNCHES: Dict[str, int] = {"retrieve_flat": 0, "retrieve_pq": 0}
 
 #: Longest result list a kernel thread keeps in registers.
 K_MAX = 32
 
 # retrieve.cu's threads a block, its warps' reduce slots and Hopper's
-# per-block opt-in shared memory: kernel_plan sizes the kernels' layout
-# here, and the launchers check only the cap
+# per-block opt-in shared memory: kernel_plan and flat_plan size the
+# kernels' layouts here, and the launchers check only the cap
 _THREADS = 256
 _RED_WORDS = 2 * (_THREADS // 32 + 1)
 _SMEM_LIMIT = 232448
@@ -202,20 +209,24 @@ def retrieve_pq_plain(q, centroids, ids, codes, cb_q, cb_s, *, nprobe: int,
 # kernel planning and wrappers
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=64)
 def kernel_plan(sig: tuple) -> Tuple[int, int]:
-    """``(tile rows, shared bytes)`` of the kernel for a retrieve signature
-    ``(nprobe, k, dim, m, ksub, nlist, block)`` (``m == 0``: flat); raises
+    """``(tile rows, shared bytes)`` of the IVF-PQ kernel for a retrieve
+    signature ``(nprobe, k, dim, m, ksub, nlist, block)``; raises
     ``ValueError`` naming the limit a shape passes (the counterpart of the
-    JAX package's ``fused_supported``).  This is the one place that sizes
-    the layout ``retrieve.cu`` carves: the query (and, PQ, its residual),
-    the coarse row, its taken flags and the probe list (one word per list
-    each), the
-    reduce slots, (PQ) the decoded books and the lookup table, then the
-    tile of staged rows (centroids, then flat posting rows), ``dim + 1``
-    words a row."""
+    JAX package's ``fused_supported``; ``m == 0``, the flat search, is
+    planned by :func:`flat_plan`).  This is the one place that sizes the
+    layout ``retrieve.cu``'s ``pq_kernel`` carves: the query and its
+    residual, the coarse row, its taken flags and the probe list (one word
+    per list each), the reduce slots, the decoded books and the lookup
+    table, then the tile of staged centroid rows, ``dim + 1`` words a
+    row."""
     if len(sig) != 7:
         raise ValueError(f"a retrieve signature has 7 fields, got {sig!r}")
     nprobe, k, dim, m, ksub, nlist, block = (int(v) for v in sig)
+    if m == 0:
+        raise ValueError("m == 0 is the flat search: flat_plan sizes its "
+                         "launches")
     if dim < 1 or nlist < 1 or block < 1:
         raise ValueError(f"need dim, nlist, block >= 1, got {sig!r}")
     if not 1 <= nprobe <= nlist:
@@ -226,21 +237,96 @@ def kernel_plan(sig: tuple) -> Tuple[int, int]:
     if nlist * block >= 2 ** 31:
         raise ValueError(f"nlist*block={nlist * block} posting slots: the "
                          "kernel addresses at most 2^31 - 1")
-    fixed = 4 * (dim + 3 * nlist + _RED_WORDS)
-    if m:
-        if dim % m or not 2 <= ksub <= 127:
-            raise ValueError(f"PQ needs m | dim and ksub in [2, 127], got "
-                             f"m={m}, ksub={ksub}, dim={dim}")
-        fixed += 4 * (dim + ksub * dim + m * ksub)
+    if m < 1 or dim % m or not 2 <= ksub <= 127:
+        raise ValueError(f"PQ needs m | dim and ksub in [2, 127], got "
+                         f"m={m}, ksub={ksub}, dim={dim}")
+    fixed = 4 * (2 * dim + 3 * nlist + _RED_WORDS + ksub * dim + m * ksub)
     tile = min(_THREADS, max(0, _SMEM_LIMIT - fixed) // (4 * (dim + 1)))
     smem = fixed + 4 * max(tile, 1) * (dim + 1)
     if tile < 1:
         raise ValueError(
-            f"nlist={nlist}, dim={dim}" + (f", ksub={ksub}" if m else "")
-            + f" need {smem} bytes of shared memory for the coarse row"
-            + (", books, table" if m else "") + " and one staged row; a "
-            f"block has at most {_SMEM_LIMIT}")
+            f"nlist={nlist}, dim={dim}, ksub={ksub} need {smem} bytes of "
+            "shared memory for the coarse row, books, table and one staged "
+            f"row; a block has at most {_SMEM_LIMIT}")
     return tile, smem
+
+
+# retrieve.cu's list-major flat search: queries a scan round (one a warp),
+# rows a scan block, centroid rows a probe tile
+_SCAN_QUERIES = _THREADS // 32
+_SCAN_ROWS = 256
+_PROBE_ROWS = 256
+# probe blocks: a search of b queries puts ceil(b / 64) of them in a
+# block, up to the plan's count (4 at the bench's b = 256: fewer blocks
+# than SMs, each staging the centroids once for more queries, measured
+# faster than 1, 2 and 8 by scripts/retrieve_phase_times.py)
+_PROBE_BLOCKS = 64
+# the scan's static shared bytes (a count a warp)
+_SCAN_STATIC = 4 * (_THREADS // 32)
+
+
+class FlatPlan(NamedTuple):
+    """Launch sizes of the list-major flat search (:func:`flat_plan`)."""
+
+    probe_queries: int   # queries a probe block (at most)
+    probe_rows: int      # centroid rows a probe tile
+    probe_smem: int      # probe shared bytes
+    scan_rows: int       # rows a scan block
+    scan_smem: int       # scan shared bytes
+
+
+@functools.lru_cache(maxsize=64)
+def flat_plan(dim: int, k: int, nlist: int, block: int) -> FlatPlan:
+    """The launch sizes of the flat search's two list-major launches
+    (``retrieve.cu``) for lists of ``block`` rows of ``dim`` floats;
+    raises ``ValueError`` naming the limit a shape passes (the counterpart
+    of the JAX package's ``fused_supported``; the counts that grow with a
+    call's batch are checked by :func:`retrieve_flat`).  The one place
+    that sizes their layouts, rows of ``dim + 4`` words where
+    ``dim % 4 == 0`` (16-byte copies), else ``dim + 1``:
+
+    - probe: per query its row and its coarse scores and taken flags (one
+      word per list each), then the tile's ``|c|^2`` and a tile of up to
+      256 centroid rows (a multiple of 4; fewer where the rows are wide);
+      up to 8 queries a block, fewer where the scores would not fit;
+    - scan: a round's 8 queries, a window's 256 selected (query, rank)
+      pairs, and a chunk of up to 256 rows (a multiple of 4; fewer where
+      the rows are wide) with their ``|x|^2`` and ids.
+
+    Cached, as :func:`kernel_plan` is: a search asks every call."""
+    dim, k, nlist, block = int(dim), int(k), int(nlist), int(block)
+    if dim < 1 or nlist < 1 or block < 1:
+        raise ValueError(f"need dim, nlist, block >= 1, got dim={dim}, "
+                         f"nlist={nlist}, block={block}")
+    if not 1 <= k <= K_MAX:
+        raise ValueError(f"k={k} is past the kernel's per-lane result "
+                         f"list: k must be in [1, {K_MAX}]")
+    if nlist * block >= 2 ** 31:
+        raise ValueError(f"nlist*block={nlist * block} posting slots: the "
+                         "kernel addresses at most 2^31 - 1")
+    row = dim + 4 if dim % 4 == 0 else dim + 1
+    per_query = 4 * (dim + 2 * nlist)
+    prow = min(_PROBE_ROWS, max(0, _SMEM_LIMIT - per_query)
+               // (4 * (1 + row)) // 4 * 4)
+    tile = 4 * max(prow, 4) * (1 + row)
+    nq = min(_SCAN_QUERIES, max(0, _SMEM_LIMIT - tile) // per_query)
+    probe = tile + per_query * max(nq, 1)
+    if nq < 1 or prow < 4:
+        raise ValueError(
+            f"nlist={nlist}, dim={dim} need {probe} bytes of shared memory "
+            "for one query's coarse row and a tile of centroids; a block "
+            f"has at most {_SMEM_LIMIT}")
+    limit = _SMEM_LIMIT - _SCAN_STATIC
+    fixed = 4 * (_SCAN_QUERIES * dim + _THREADS)
+    rows = min(_SCAN_ROWS, max(0, limit - fixed) // (4 * (row + 2))
+               // 4 * 4)
+    scan = fixed + 4 * max(rows, 4) * (row + 2)
+    if rows < 4:
+        raise ValueError(
+            f"dim={dim} needs {scan} bytes of shared memory for the scan's "
+            f"{_SCAN_QUERIES} queries and 4 rows; a block has at most "
+            f"{limit}")
+    return FlatPlan(nq, prow, probe, rows, scan)
 
 
 _LIB = None
@@ -260,7 +346,10 @@ def _kernels():
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a built ``retrieve.cu`` library."""
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    lib.retrieve_flat_launch.argtypes = [vp] * 6 + [ci] * 7 + [cl, vp]
+    lib.retrieve_flat_launch.argtypes = ([vp] * 7 + [ci] * 8
+                                         + [cl, ci, cl, vp])
+    lib.flat_scratch_words.argtypes = [ci] * 6
+    lib.flat_scratch_words.restype = cl
     lib.retrieve_pq_launch.argtypes = [vp] * 8 + [ci] * 9 + [cl, vp]
     lib.retrieve_flat_launch.restype = ctypes.c_int
     lib.retrieve_pq_launch.restype = ctypes.c_int
@@ -312,14 +401,27 @@ def retrieve_flat(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
     if dev.type == "cpu":
         return retrieve_flat_plain(q, centroids, ids, vecs, nprobe=nprobe,
                                    k=k, nlist=nlist, block=block)
-    tile, smem = kernel_plan((nprobe, k, d, 0, 0, nlist, block))
+    plan = flat_plan(d, k, nlist, block)
+    parts = b * nprobe * -(-block // plan.scan_rows) * k
+    if max(nlist * b, parts) >= 2 ** 31:
+        raise ValueError(f"nlist * b = {nlist * b} memberships and {parts} "
+                         "partial results (b * nprobe * ceil(block / "
+                         f"{plan.scan_rows}) * k): the kernel addresses at "
+                         "most 2^31 - 1 of each")
     nn, dist = _outputs(b, k, dev)
+    lib = _kernels()
+    # partial top-k, probes, the lists' membership, merge counters
+    scratch = torch.empty(
+        lib.flat_scratch_words(b, nlist, block, nprobe, k, plan.scan_rows),
+        dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = _kernels().retrieve_flat_launch(
+        rc = lib.retrieve_flat_launch(
             q.data_ptr(), centroids.data_ptr(), ids.data_ptr(),
-            vecs.data_ptr(), nn.data_ptr(), dist.data_ptr(), b, d, nlist,
-            block, nprobe, k, tile, smem,
-            torch.cuda.current_stream().cuda_stream)
+            vecs.data_ptr(), nn.data_ptr(), dist.data_ptr(),
+            scratch.data_ptr(), b, d, nlist, block, nprobe, k,
+            min(plan.probe_queries, -(-b // _PROBE_BLOCKS)),
+            plan.probe_rows, plan.probe_smem, plan.scan_rows,
+            plan.scan_smem, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"retrieve_flat kernel launch failed: CUDA error "
                            f"{rc}")

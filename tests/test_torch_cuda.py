@@ -653,3 +653,189 @@ def test_index_build_and_search_on_the_card(cuda_device):
     np.testing.assert_array_equal(found[:, 0], [400, 401, 402])
     gone, _ = nxt.search(X[:2])
     assert not np.isin(gone, [0, 1]).any()
+
+
+# -- the fold in strided level groups; the list-major flat search ------------
+
+def _run_ids(rng, S, longest):
+    """Sorted ids of S slots: one run of ``longest`` (placed at a ragged
+    offset) among random runs of 1-300."""
+    lens = [int(longest)]
+    while sum(lens) < S:
+        lens.append(int(rng.integers(1, 300)))
+    rng.shuffle(lens)
+    ids = np.repeat(np.arange(len(lens), dtype=np.int32) * 3, lens)[:S]
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 3, 64, 100])
+@pytest.mark.parametrize("P", list(range(1, 16)))
+def test_fold_groups_match_plain_at_every_depth(cuda_device, P, E):
+    """P = 1 .. 15 (L, L + 1, 2L, 2L + 1 among them), S not a multiple of
+    anything, runs straddling tiles and blocks, -0.0 rows: bit for bit,
+    one counted launch per call."""
+    from flink_ml_tpu_torch.ops import emb_grad as TG
+
+    rng = np.random.default_rng(100 * P + E)
+    longest = (1 << (P - 1)) + 1 if P > 1 else 2
+    S = max(3 * longest, 7919) + int(rng.integers(0, 97))
+    ids = _run_ids(rng, S, longest)
+    sid = torch.from_numpy(ids).to(cuda_device)
+    g = torch.from_numpy(rng.normal(size=(S, E)).astype(np.float32)).to(
+        cuda_device)
+    g[::11] = -0.0
+    if E == 1:
+        g = g[:, 0].contiguous()
+    TG.reset_launch_counts()
+    got = TG.fold_runs(g, sid, P)
+    want = TG.fold_runs_plain(g, sid, P)
+    torch.cuda.synchronize()
+    assert TG.LAUNCHES["fold_runs"] == 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 3, 64])
+@pytest.mark.parametrize("P", [3, 7, 12])
+def test_fold_signed_zeros_match_plain(cuda_device, P, E):
+    """Rows of mostly -0.0 (and +0.0 and ones): the sign of every zero sum
+    is the plain version's, whichever levels matched on the way."""
+    from flink_ml_tpu_torch.ops import emb_grad as TG
+
+    rng = np.random.default_rng(P * E)
+    S = 3 * (1 << (P - 1)) + 101
+    ids = _run_ids(rng, S, (1 << (P - 1)) + 1)
+    pick = np.minimum(rng.integers(0, 8, size=(S, E)), 2)
+    rows = np.choose(pick, [np.float32(0.0), np.float32(1.0),
+                            np.float32(-0.0)]).astype(np.float32)
+    g = torch.from_numpy(rows).to(cuda_device)
+    sid = torch.from_numpy(ids).to(cuda_device)
+    if E == 1:
+        g = g[:, 0].contiguous()
+    got = TG.fold_runs(g, sid, P)
+    want = TG.fold_runs_plain(g, sid, P)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 64])
+def test_fold_one_run_across_every_tile(cuda_device, E):
+    """A single run over all S = 100003 rows (17 passes: three groups) and
+    an unaligned payload (a view one float in)."""
+    from flink_ml_tpu_torch.ops import emb_grad as TG
+
+    S = 100003
+    rng = np.random.default_rng(E)
+    sid = torch.full((S,), 4, dtype=torch.int32, device=cuda_device)
+    base = torch.from_numpy(rng.normal(size=S * E + 1).astype(np.float32)
+                            ).to(cuda_device)
+    g = base[1:].view(S, E) if E > 1 else base[1:]
+    got = TG.fold_runs(g, sid, 17)
+    want = TG.fold_runs_plain(g, sid, 17)
+    assert torch.equal(got, want)
+
+
+def _flat_index(rng, n=600, d=16, nlist=8):
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    index = T.IVFIndex.build(X, nlist, k=10, nprobe=2, seed=1, device="cpu")
+    return X, index
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one-list", "unprobed", "full", "ties",
+                                  "k-past"])
+@pytest.mark.parametrize("b", [1, 257])
+def test_list_major_flat_search_matches_plain(cuda_device, case, b):
+    """Every query on one list; lists probed by none; nprobe = nlist;
+    exact ties across lists; k past the candidates: ids and distance bits
+    equal to the plain version, one counted launch per call."""
+    rng = np.random.default_rng(b)
+    X, index = _flat_index(rng)
+    p = {name: torch.from_numpy(np.array(v)) for name, v in
+         index.params.items()}
+    nlist, block, d = index.nlist, index.block, X.shape[1]
+    k, nprobe = 10, 2
+    if case == "one-list":
+        q = p["centroids"][3][None].repeat(b, 1) + torch.from_numpy(
+            rng.normal(size=(b, d)).astype(np.float32)) * 1e-3
+        nprobe = 1
+    elif case == "unprobed":
+        q = p["centroids"][:2].repeat((b + 1) // 2, 1)[:b].clone()
+        nprobe = 1
+    else:
+        q = torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32))
+    if case in ("full", "ties"):
+        nprobe = nlist
+    if case == "ties":
+        vecs = p["vecs"].view(nlist, block, d)
+        vecs[1] = vecs[0]
+        p["ids"][1] = torch.where(p["ids"][0] >= 0, p["ids"][0] + 10000, -1)
+        q = vecs[0, :b].clone() if b <= block else q
+    if case == "k-past":
+        k, nprobe = TR.K_MAX, 1
+        keep = torch.arange(block) < 5        # 5 live rows a list
+        p["ids"] = torch.where(keep[None, :], p["ids"], -1)
+    dev = {name: t.to(cuda_device) for name, t in p.items()}
+    qd = q.contiguous().to(cuda_device)
+    args = (qd, dev["centroids"], dev["ids"], dev["vecs"])
+    shape = dict(nprobe=nprobe, k=k, nlist=nlist, block=block)
+    TR.reset_launch_counts()
+    got = TR.retrieve_flat(*args, **shape)
+    want = TR.retrieve_flat_plain(*args, **shape)
+    torch.cuda.synchronize()
+    assert TR.LAUNCHES == {"retrieve_flat": 1, "retrieve_pq": 0}
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    if case == "k-past":
+        assert bool((got[0] == -1).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [30, 300])
+def test_flat_search_odd_and_wide_rows(cuda_device, d):
+    """Rows of d = 30 floats (4-byte copies, rows of d + 1 words) and d =
+    300 (scan chunks of fewer than 256 rows, each row guarded): ids and
+    distance bits equal to the plain version."""
+    rng = np.random.default_rng(d)
+    X = rng.normal(size=(700, d)).astype(np.float32)
+    index = T.IVFIndex.build(X, 4, k=10, nprobe=2, seed=1, device="cpu")
+    p = {name: torch.from_numpy(np.array(v)).to(cuda_device)
+         for name, v in index.params.items()}
+    assert (TR.flat_plan(d, 10, 4, index.block).scan_rows == 256) == (
+        d == 30)
+    q = torch.from_numpy(rng.normal(size=(33, d)).astype(np.float32)).to(
+        cuda_device)
+    for nprobe in (1, 2, 4):
+        shape = dict(nprobe=nprobe, k=10, nlist=4, block=index.block)
+        args = (q, p["centroids"], p["ids"], p["vecs"])
+        got = TR.retrieve_flat(*args, **shape)
+        want = TR.retrieve_flat_plain(*args, **shape)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, nlist, nprobe", [(2000, 64, 1), (3000, 8, 8),
+                                              (700, 16, 3)])
+def test_list_major_spans_windows_and_rounds(cuda_device, b, nlist,
+                                             nprobe):
+    """The list-major scan where a block walks several 256-query windows
+    of its span (b 2000 over 64 lists: one span) and scores its queries in
+    many rounds of 8, and where the queries split into many spans (3000
+    queries at nprobe = nlist = 8): bit for bit the plain version."""
+    rng = np.random.default_rng(b)
+    X = rng.normal(size=(40 * nlist, 16)).astype(np.float32)
+    index = T.IVFIndex.build(X, nlist, k=10, nprobe=nprobe, seed=1,
+                             device="cpu")
+    p = {name: torch.from_numpy(np.array(v)).to(cuda_device)
+         for name, v in index.params.items()}
+    q = torch.from_numpy(rng.normal(size=(b, 16)).astype(np.float32)).to(
+        cuda_device)
+    shape = dict(nprobe=nprobe, k=10, nlist=nlist, block=index.block)
+    args = (q, p["centroids"], p["ids"], p["vecs"])
+    got = TR.retrieve_flat(*args, **shape)
+    want = TR.retrieve_flat_plain(*args, **shape)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))

@@ -192,3 +192,120 @@ def test_route_to_moves_every_tensor():
         assert moved.fold_passes == r.fold_passes
         for a, b in zip(moved.stacked_arrays(), r.stacked_arrays()):
             assert torch.equal(a, b)
+
+
+def _fold_grouped_numpy(g, sid, passes, group_levels, tile, in_place):
+    """The fold as the kernel runs it, in numpy f32: levels in groups of
+    ``group_levels``; group ``i`` folds over super-rows of stride
+    ``2^(i*L)`` (row ``j = s * stride + r``), cut into tiles of ``tile``
+    super-rows that each stage the following ``2^levels - 1`` super-rows
+    and compute, at each level, only the rows the later levels read.
+
+    ``in_place``: a level writes only the rows that match, and the "+ 0.0"
+    of a row that does not match (which turns -0.0 into +0.0) is applied
+    when the row is next read: at its next match (as a row or a partner)
+    or at the output, wherever the previous level did not match it."""
+    def canon(x):
+        return x + np.float32(0.0)
+
+    S = g.shape[0]
+    cur = g.copy()
+    for base in range(0, passes, group_levels):
+        levels = min(group_levels, passes - base)
+        stride = 1 << base
+        sup = -(-S // stride)
+        pad = sup * stride - S
+        vals = np.concatenate([cur, np.zeros((pad,) + cur.shape[1:],
+                                             np.float32)])
+        vals = vals.reshape((sup, stride) + cur.shape[1:])
+        ids = np.concatenate([sid, np.zeros(pad, sid.dtype)]).reshape(
+            sup, stride)
+        live = (np.arange(sup * stride) < S).reshape(sup, stride)
+        halo = (1 << levels) - 1
+        out = np.empty_like(vals)
+        for s0 in range(0, sup, tile):
+            win = np.arange(s0, s0 + tile + halo)
+            inside = win < sup
+            w = np.where(inside[:, None, None] if vals.ndim == 3
+                         else inside[:, None],
+                         vals[np.minimum(win, sup - 1)], 0.0).astype(
+                             np.float32)
+            wid = ids[np.minimum(win, sup - 1)]
+            wlive = live[np.minimum(win, sup - 1)] & inside[:, None]
+            prev = None               # the previous level's match bits
+            for k in range(levels):
+                off = 1 << k
+                limit = tile + (1 << levels) - (2 << k)
+                same = wlive[off:off + limit] & (wid[off:off + limit]
+                                                 == wid[:limit])
+                bc = same[..., None] if w.ndim == 3 else same
+                nxt = w.copy()
+                if not in_place:
+                    nxt[:limit] = w[:limit] + np.where(
+                        bc, w[off:off + limit], np.float32(0.0))
+                else:
+                    a, b = w[:limit], w[off:off + limit]
+                    if prev is not None:
+                        pa = prev[:limit, ..., None] if w.ndim == 3 \
+                            else prev[:limit]
+                        pb = prev[off:off + limit, ..., None] \
+                            if w.ndim == 3 else prev[off:off + limit]
+                        a = np.where(pa, a, canon(a))
+                        b = np.where(pb, b, canon(b))
+                    nxt[:limit] = np.where(bc, a + b, w[:limit])
+                    prev = np.zeros(wid.shape, bool)
+                    prev[:limit] = same
+                w = nxt
+            if in_place:
+                pw = prev[..., None] if w.ndim == 3 else prev
+                w = np.where(pw, w, canon(w))
+            n = min(tile, sup - s0)
+            out[s0:s0 + n] = w[:n]
+        cur = out.reshape((sup * stride,) + cur.shape[1:])[:S]
+    return cur
+
+
+def _deep_case(kind, E, seed=3):
+    """Sorted ids and rows with runs deep enough for the heavy-hitter (P =
+    12) and deep (P = 14) routes, and a ragged S."""
+    rng = np.random.default_rng(seed)
+    if kind == "heavy":               # a run of 2100: 12 passes
+        cat = np.concatenate([np.full(2100, 7), rng.integers(0, 900, 2901)])
+    elif kind == "deep":              # a run of 9000: 14 passes
+        cat = np.concatenate([np.full(9000, 5), rng.integers(0, 50, 1003)])
+    else:                             # ragged: S = 1000 x 26 / 13 + 3
+        cat = rng.integers(0, 300, size=2003)
+        cat[:77] = 42
+    route = TG.emb_grad_route(cat.reshape(1, -1, 1), int(cat.max()) + 1)
+    S = route.order.shape[1]
+    g = rng.normal(size=(S, E)).astype(np.float32)
+    g[::7] = -0.0
+    return (route.sorted_ids[0].numpy(), g[route.order[0].numpy()],
+            route.fold_passes)
+
+
+@pytest.mark.parametrize("group_levels", [1, 3, 7])
+@pytest.mark.parametrize("E", [1, 64])
+@pytest.mark.parametrize("kind", ["heavy", "deep", "ragged"])
+def test_fold_in_strided_level_groups_is_bitwise_the_plain_fold(
+        kind, E, group_levels):
+    """The identity the fold kernel rests on: the P levels run as groups
+    of L levels, the later ones over super-rows of stride 2^(gL) in tiles
+    with a halo, give the plain fold bit for bit."""
+    sid, g, P = _deep_case(kind, E)
+    assert P == {"heavy": 12, "deep": 14, "ragged": 7}[kind]
+    # the seeded rows, and rows of signed zeros and ones, where the sign of
+    # a zero sum depends on every "+ 0.0" on its way
+    pick = np.random.default_rng(5).integers(0, 8, size=g.shape)
+    zeros = np.choose(np.minimum(pick, 2), [np.float32(0.0),
+                                            np.float32(1.0),
+                                            np.float32(-0.0)])
+    for rows in (g, zeros.astype(np.float32)):
+        want = TG.fold_runs_plain(torch.from_numpy(rows),
+                                  torch.from_numpy(sid), P).numpy()
+        for tile in (5, 37):
+            for in_place in (False, True):
+                got = _fold_grouped_numpy(rows, sid, P, group_levels, tile,
+                                          in_place)
+                np.testing.assert_array_equal(got.view(np.int32),
+                                              want.view(np.int32))

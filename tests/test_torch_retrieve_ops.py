@@ -244,25 +244,26 @@ def test_sequential_sums_fix_the_float_order():
 
 
 def test_kernel_plan_and_limits():
-    # the bench point: 256 lists of 1016 rows, d 64, tile of 256 rows
-    tile, smem = TR.kernel_plan((2, 10, 64, 0, 0, 256, 1016))
-    assert tile == 256
-    assert smem == 4 * (64 + 3 * 256 + 18 + 256 * 65)
+    # the bench point, IVF-PQ: 256 lists of 1016 rows, d 64, m 8, ksub 16,
+    # tile of 256 centroid rows; the flat search is flat_plan's
     assert TR.kernel_plan((2, 10, 64, 8, 16, 256, 1016)) == (
         256, 4 * (128 + 3 * 256 + 18 + 16 * 64 + 8 * 16 + 256 * 65))
+    with pytest.raises(ValueError, match="flat_plan"):
+        TR.kernel_plan((2, 10, 64, 0, 0, 256, 1016))
     with pytest.raises(ValueError, match=f"k must be in \\[1, {TR.K_MAX}\\]"):
-        TR.kernel_plan((2, TR.K_MAX + 1, 64, 0, 0, 256, 1016))
+        TR.kernel_plan((2, TR.K_MAX + 1, 64, 8, 16, 256, 1016))
     with pytest.raises(ValueError, match="shared memory"):
-        TR.kernel_plan((2, 10, 64, 0, 0, 20000, 8))
+        TR.kernel_plan((2, 10, 64, 8, 16, 20000, 8))
     with pytest.raises(ValueError, match="shared memory"):
         TR.kernel_plan((2, 10, 512, 4, 127, 1024, 8))
     with pytest.raises(ValueError, match="nprobe"):
-        TR.kernel_plan((9, 10, 64, 0, 0, 8, 16))
+        TR.kernel_plan((9, 10, 64, 8, 16, 8, 16))
     with pytest.raises(ValueError, match="2\\^31"):
-        TR.kernel_plan((1, 10, 4, 0, 0, 1 << 16, 1 << 16))
+        TR.kernel_plan((1, 10, 4, 4, 16, 1 << 16, 1 << 16))
     # a wide row narrows the tile
-    assert TR.kernel_plan((1, 10, 1024, 0, 0, 8, 16))[0] == \
-        (232448 - 4 * (1024 + 24 + 18)) // (4 * 1025)
+    assert TR.kernel_plan((1, 10, 1024, 8, 16, 8, 16))[0] == \
+        (232448 - 4 * (2 * 1024 + 24 + 18 + 16 * 1024 + 8 * 16)) // (
+            4 * 1025) == 38
     with pytest.raises(ValueError, match="7 fields"):
         TR.kernel_plan((1, 2, 3))
 
@@ -308,3 +309,120 @@ def test_quantizer_matches_jax():
     np.testing.assert_array_equal(
         TQ.dequantize_rows(torch.from_numpy(codes), torch.from_numpy(scales)),
         np.asarray(JQ.dequantize_rows(codes, scales)))
+
+
+_NO_POS = 2 ** 31 - 1
+
+
+def _lexsort_k(dist, pos, k):
+    """The k first of (dist, pos) pairs ascending, padded with (+inf, no
+    position)."""
+    order = np.lexsort((pos, dist))[:k]
+    d, p = dist[order], pos[order]
+    short = k - d.shape[0]
+    return (np.concatenate([d, np.full(short, np.inf, np.float32)]),
+            np.concatenate([p, np.full(short, _NO_POS, np.int64)]))
+
+
+def _list_major_flat(q, cents, ids, vecs, *, nprobe, k, nlist, block,
+                     chunk):
+    """The flat search as the list-major kernel runs it: probes per query;
+    for every list, each query that probes it (ascending) scores each
+    chunk of ``chunk`` rows of the list once with the plain distance
+    helpers and keeps its k best (distance, position = rank * block +
+    row); a query's nprobe * chunks partials are merged by (distance,
+    position)."""
+    qt = torch.from_numpy(q)
+    probes = TR.select_probes(qt, torch.from_numpy(cents), nprobe).numpy()
+    b, d = q.shape
+    rows = vecs.reshape(nlist, block, d)
+    part = {}
+    for lst in range(nlist):
+        for qi, rank in zip(*np.nonzero(probes == lst)):
+            dist = TR.flat_distances(qt[qi], torch.from_numpy(
+                rows[lst])).numpy()
+            dist = np.where(ids[lst] >= 0, dist, np.float32(np.inf))
+            pos = rank * block + np.arange(block)
+            part[qi, rank] = [
+                _lexsort_k(dist[c:c + chunk].astype(np.float32),
+                           pos[c:c + chunk], k)
+                for c in range(0, block, chunk)]
+    nn = np.empty((b, k), np.int32)
+    out = np.empty((b, k), np.float32)
+    for qi in range(b):
+        dist = np.concatenate([c[0] for r in range(nprobe)
+                               for c in part[qi, r]])
+        pos = np.concatenate([c[1] for r in range(nprobe)
+                              for c in part[qi, r]])
+        out[qi], best = _lexsort_k(dist, pos, k)
+        nn[qi] = [-1 if p == _NO_POS else
+                  ids[probes[qi, p // block], p % block] for p in best]
+    return nn, out
+
+
+@pytest.mark.parametrize("kind", ["flat-small", "clustered", "dup-flat",
+                                  "cross-ties", "short"])
+@pytest.mark.parametrize("nprobe", ["1", "2", "nlist"])
+def test_list_major_partials_merge_to_the_plain_search(kind, nprobe):
+    """The identity the list-major flat kernel rests on: per-(query,
+    list, chunk of rows) partial top-k from the plain distance helpers,
+    merged by (distance, position), gives the plain search's ids and
+    distance bits
+    (duplicated rows: exact ties across and within lists; short: k past
+    the candidates)."""
+    jidx, q = _fixture("dup-flat" if kind == "cross-ties" else kind)
+    tidx = _port(jidx)
+    nprobe = tidx.nlist if nprobe == "nlist" else int(nprobe)
+    p = {name: np.array(v) for name, v in tidx.params.items()}
+    if kind == "cross-ties":          # list 1 holds list 0's rows again
+        vecs = p["vecs"].reshape(tidx.nlist, tidx.block, -1)
+        vecs[1] = vecs[0]
+        p["ids"][1] = np.where(p["ids"][0] >= 0, p["ids"][0] + 1000, -1)
+    shape = dict(nprobe=nprobe, k=tidx.k, nlist=tidx.nlist,
+                 block=tidx.block)
+    want_nn, want_d = TR.retrieve_flat_plain(
+        torch.from_numpy(q), *(torch.from_numpy(p[n]) for n in
+                               ("centroids", "ids", "vecs")), **shape)
+    for chunk in (tidx.block, 4):      # whole lists; chunks of 4 rows
+        nn, dist = _list_major_flat(q, p["centroids"], p["ids"],
+                                    p["vecs"], chunk=chunk, **shape)
+        np.testing.assert_array_equal(nn, want_nn.numpy())
+        np.testing.assert_array_equal(dist.view(np.int32),
+                                      want_d.numpy().view(np.int32))
+
+
+def test_flat_plan_and_limits():
+    # the bench point: d 64, nlist 256, k 10: 8 queries a probe block over
+    # 256-row centroid tiles; a scan block holds a round's 8 queries, a
+    # window's 256 pairs and 256 rows of 68 words
+    assert TR.flat_plan(64, 10, 256, 1016) == (
+        8, 256, 4 * (256 * 69 + 8 * (64 + 2 * 256)), 256,
+        4 * (8 * 64 + 256 + 256 * 70))
+    # d not a multiple of 4: rows of d + 1 words (4-byte copies)
+    plan = TR.flat_plan(30, 10, 16, 64)
+    assert (plan.scan_rows, plan.scan_smem) == (256, 4 * (8 * 30 + 256
+                                                         + 256 * 33))
+    # many lists: fewer queries a probe block
+    plan = TR.flat_plan(64, 10, 8000, 64)
+    assert plan.probe_queries == (232448 - 4 * 256 * 69) // (
+        4 * (64 + 16000)) == 2
+    assert plan.probe_smem == 4 * (256 * 69 + 2 * (64 + 16000)) <= 232448
+    # wide rows: fewer rows a scan block and a probe tile, multiples of 4
+    plan = TR.flat_plan(1024, 10, 16, 64)
+    assert plan.scan_rows == (232448 - 32 - 4 * (8 * 1024 + 256)) // (
+        4 * 1030) // 4 * 4 == 48
+    assert plan.probe_rows == (232448 - 4 * 1056) // (4 * 1029) // 4 * 4 \
+        == 52
+    assert plan.probe_queries == (232448 - 4 * 52 * 1029) // (
+        4 * 1056) == 4
+    assert plan.scan_smem <= 232448 - 32 and plan.probe_smem <= 232448
+    with pytest.raises(ValueError, match="coarse row"):
+        TR.flat_plan(64, 10, 40000, 8)
+    with pytest.raises(ValueError, match="scan"):
+        TR.flat_plan(8192, 10, 16, 8)
+    with pytest.raises(ValueError, match="2\\^31"):
+        TR.flat_plan(4, 10, 1 << 16, 1 << 16)
+    with pytest.raises(ValueError, match=f"k must be in \\[1, {TR.K_MAX}\\]"):
+        TR.flat_plan(64, TR.K_MAX + 1, 16, 8)
+    with pytest.raises(ValueError, match="dim, nlist, block >= 1"):
+        TR.flat_plan(0, 10, 16, 8)
