@@ -84,7 +84,8 @@ line is printed):
     and IVF-PQ (m 8, ksub 16) on the card, then ``transform`` and
     ``search`` at nprobe 1, 2, 4, 8, 16.  Checks: the coarse fits and the
     8 codebook fits planned the workset kernel and launched it once a
-    round; each search launched its retrieve kernel once; flat recall@10
+    round; each search called its retrieve kernel once (two CUDA
+    launches: the probes, then the list-major scan); flat recall@10
     >= 0.95 at nprobe 2 with scan fraction <= 0.25 (``bench.py:4270-4276``);
     at nprobe = nlist the flat search returns the float64 exact top-10
     (rows whose 10th and 11th distances lie within 1e-6 (|q|^2 +
@@ -98,12 +99,13 @@ line is printed):
     whose recall@10 the card's must meet within 0.03 at every nprobe.
 13. Retrieve kernels vs plain versions on the card, ``search`` against
     ``search(plain=True)``, ids and distance bits
-    equal (tolerance 0): the phase-12 indexes at nprobe 1, 2, 16 and nlist,
-    b = 1 and b = 257; a duplicated corpus (exact ties); an index with
+    equal (tolerance 0): the phase-12 indexes at nprobe 1, 2, 4, 8, 16 and
+    nlist, and b = 1 and b = 257 at nprobe 2 and nlist; a duplicated
+    corpus (exact ties); an index with
     block 8 and k = 20 above the probed rows (-1 at +inf).  (They run after
     the main path, on the indexes it built.)
-14. Retrieval times: each kernel at b = 256 and nprobe 1, 2, 16 (the
-    flat search also at nprobe = nlist) beside its plain version, the
+14. Retrieval times: each kernel at b = 256 and nprobe 1, 2, 16 and
+    nlist beside its plain version, the
     bound (distinct probed lists' bytes vs
     operations) and the brute-force yardstick (``addmm`` + ``topk`` over
     the whole corpus: exact search, what ``retrieval_ivf_qps_ratio``
@@ -189,7 +191,7 @@ RT_N, RT_D, RT_PER_MASS = 131072, 64, 32
 RT_NQ, RT_NLIST, RT_K = 256, 256, 10
 RT_NPROBES = (1, 2, 4, 8, 16)
 RT_REF_NPROBE = 2
-RT_TIMED_NPROBES = (1, 2, 16)   # and nlist for the flat search
+RT_TIMED_NPROBES = (1, 2, 16)   # and nlist
 RT_ROUNDS = 50              # timed rounds per frontier point
 RT_PQ = dict(m=8, ksub=16)
 RT_RECALL_FLOOR, RT_SCAN_BUDGET = 0.95, 0.25   # bench.py:4270-4276
@@ -1191,8 +1193,8 @@ def retrieval_phases(torch, dev, card, timer):
     log(f"update (built index's centroid drift {flat.centroid_drift():.4f}"
         f"): {RT_EDITS} inserts, {RT_EDITS} deletes -> {mode!r}; inserted "
         f"ids found first {first}/{RT_EDITS}; deleted ids returned "
-        f"{int(np.isin(gone, dels).sum())}; retrieve launches on the main "
-        f"path {launches}")
+        f"{int(np.isin(gone, dels).sum())}; retrieve calls on the main "
+        f"path {launches}, each 2 CUDA launches (probes, scan)")
     if mode != "delta" or not np.array_equal(
             hit[:, 0], n + np.arange(RT_EDITS)) or np.isin(gone, dels).any():
         fail("the delta update does not serve its inserts and deletes")
@@ -1247,11 +1249,12 @@ def retrieval_phases(torch, dev, card, timer):
 
     q257 = np.concatenate([queries, queries[:1] * 1.001])
     for index in (flat, pq):
-        for nprobe in (1, 2, 16, RT_NLIST):
+        for nprobe in RT_NPROBES + (RT_NLIST,):
             same("bench index", index.with_options(nprobe=nprobe), queries)
-        ref = index.with_options(nprobe=RT_REF_NPROBE)
-        same("bench index", ref, queries[:1])
-        same("bench index", ref, q257)
+        for nprobe in (RT_REF_NPROBE, RT_NLIST):
+            view = index.with_options(nprobe=nprobe)
+            same("bench index", view, queries[:1])
+            same("bench index", view, q257)
     dup = np.concatenate([X[:4096], X[:4096]])
     q_dup = (dup[::64] + np.random.default_rng(6).normal(
         size=(128, d)).astype(np.float32) * 0.05).astype(np.float32)
@@ -1279,9 +1282,7 @@ def retrieval_phases(torch, dev, card, timer):
     for name, index in (("retrieve_flat", flat), ("retrieve_pq", pq)):
         p = index.device_params()
         blk = index.block
-        timed = RT_TIMED_NPROBES + ((RT_NLIST,) if index.pq is None
-                                    else ())
-        for nprobe in timed:
+        for nprobe in RT_TIMED_NPROBES + (RT_NLIST,):
             view = index.with_options(nprobe=nprobe)
             ms = timer.ms(lambda: view.search_tensors(qd))
             # what search(plain=True) runs between its copies
@@ -1292,7 +1293,8 @@ def retrieval_phases(torch, dev, card, timer):
                 R, qd, p["centroids"], nprobe, blk, index.pq is not None)
             kernel_ms[name, nprobe] = (ms, plain_ms, bound_ms, bound_by)
             log(f"time {name} (b {RT_NQ}, nprobe {nprobe}, {lists} distinct "
-                f"lists of {blk} rows): kernel {ms:.4f} ms, plain "
+                f"lists of {blk} rows): kernel {ms:.4f} ms (2 CUDA "
+                f"launches: probes, scan), plain "
                 f"{plain_ms:.4f} ms, brute-force addmm + topk over all {n} "
                 f"rows (exact search) {lib_ms:.4f} ms, bound {bound_ms:.4f} "
                 f"ms ({bound_by}; bytes {bytes_ms:.4f}, operations "

@@ -8,13 +8,14 @@ that they equal bit for bit.  The kernels are CUDA C++ for Hopper
 how they are laid out):
 
 - :func:`retrieve_flat`: flat f32 posting lists, squared L2
-  ``|q|^2 + |x|^2 - 2 q.x``; list-major, two CUDA launches a call (the
-  probes, which write each list's membership; the scan, which reads each
-  probed list once for each span of the queries that probe it, and
-  merges), sized by :func:`flat_plan`;
-- :func:`retrieve_pq`: IVF-PQ, asymmetric distances from a per-probe
-  lookup table over int8 codes; one launch, one block a query, sized by
-  :func:`kernel_plan`.
+  ``|q|^2 + |x|^2 - 2 q.x``, sized by :func:`flat_plan`;
+- :func:`retrieve_pq`: IVF-PQ, asymmetric distances from a per-(query,
+  probe) lookup table over int8 codes, sized by :func:`pq_plan`.
+
+Both are list-major, two CUDA launches a call: the probes (one kernel for
+both), which write each list's membership; the scan (one kernel template
+over the two scorers), which reads each probed list once for each span of
+the queries that probe it, and merges each query's partial results.
 
 Both return ``(neighbors (b, k) int32, distances (b, k) f32)``.  Probes are
 taken in ascending (coarse score, list index) order and the top-k runs
@@ -38,7 +39,7 @@ exactly, so both sides here leave it out and no bit changes.
 Each wrapper takes its plain version for tensors on the CPU, and launches
 its kernel for CUDA tensors or raises: it never falls back.  A shape the
 kernel cannot take raises with the limit in its message
-(:func:`kernel_plan`, :func:`flat_plan`).  A call on the card adds one to
+(:func:`flat_plan`, :func:`pq_plan`).  A call on the card adds one to
 :data:`LAUNCHES`, whatever number of CUDA launches it takes.
 """
 
@@ -53,7 +54,7 @@ import torch
 __all__ = ["retrieve_flat", "retrieve_flat_plain", "retrieve_pq",
            "retrieve_pq_plain", "coarse_distances", "flat_distances",
            "decode_codebooks", "pq_lut", "adc_distances", "select_probes",
-           "kernel_plan", "flat_plan", "FlatPlan", "K_MAX", "LAUNCHES",
+           "flat_plan", "pq_plan", "FlatPlan", "PQPlan", "K_MAX", "LAUNCHES",
            "reset_launch_counts"]
 
 #: Calls of each kernel since the last :func:`reset_launch_counts` (one
@@ -61,14 +62,14 @@ __all__ = ["retrieve_flat", "retrieve_flat_plain", "retrieve_pq",
 #: takes).  Only the CUDA kernel counts, never a plain version.
 LAUNCHES: Dict[str, int] = {"retrieve_flat": 0, "retrieve_pq": 0}
 
-#: Longest result list a kernel thread keeps in registers.
+#: Most results a query: the kernels hold a query's k best one a lane of
+#: a warp.
 K_MAX = 32
 
-# retrieve.cu's threads a block, its warps' reduce slots and Hopper's
-# per-block opt-in shared memory: kernel_plan and flat_plan size the
-# kernels' layouts here, and the launchers check only the cap
+# retrieve.cu's threads a block and Hopper's per-block opt-in shared
+# memory: flat_plan and pq_plan size the kernels' layouts here, and the
+# launchers check only the cap
 _THREADS = 256
-_RED_WORDS = 2 * (_THREADS // 32 + 1)
 _SMEM_LIMIT = 232448
 
 # bytes of gathered posting rows a plain scan holds at once
@@ -209,52 +210,11 @@ def retrieve_pq_plain(q, centroids, ids, codes, cb_q, cb_s, *, nprobe: int,
 # kernel planning and wrappers
 # ---------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=64)
-def kernel_plan(sig: tuple) -> Tuple[int, int]:
-    """``(tile rows, shared bytes)`` of the IVF-PQ kernel for a retrieve
-    signature ``(nprobe, k, dim, m, ksub, nlist, block)``; raises
-    ``ValueError`` naming the limit a shape passes (the counterpart of the
-    JAX package's ``fused_supported``; ``m == 0``, the flat search, is
-    planned by :func:`flat_plan`).  This is the one place that sizes the
-    layout ``retrieve.cu``'s ``pq_kernel`` carves: the query and its
-    residual, the coarse row, its taken flags and the probe list (one word
-    per list each), the reduce slots, the decoded books and the lookup
-    table, then the tile of staged centroid rows, ``dim + 1`` words a
-    row."""
-    if len(sig) != 7:
-        raise ValueError(f"a retrieve signature has 7 fields, got {sig!r}")
-    nprobe, k, dim, m, ksub, nlist, block = (int(v) for v in sig)
-    if m == 0:
-        raise ValueError("m == 0 is the flat search: flat_plan sizes its "
-                         "launches")
-    if dim < 1 or nlist < 1 or block < 1:
-        raise ValueError(f"need dim, nlist, block >= 1, got {sig!r}")
-    if not 1 <= nprobe <= nlist:
-        raise ValueError(f"nprobe={nprobe} not in [1, nlist={nlist}]")
-    if not 1 <= k <= K_MAX:
-        raise ValueError(f"k={k} is past the kernel's per-thread result "
-                         f"list: k must be in [1, {K_MAX}]")
-    if nlist * block >= 2 ** 31:
-        raise ValueError(f"nlist*block={nlist * block} posting slots: the "
-                         "kernel addresses at most 2^31 - 1")
-    if m < 1 or dim % m or not 2 <= ksub <= 127:
-        raise ValueError(f"PQ needs m | dim and ksub in [2, 127], got "
-                         f"m={m}, ksub={ksub}, dim={dim}")
-    fixed = 4 * (2 * dim + 3 * nlist + _RED_WORDS + ksub * dim + m * ksub)
-    tile = min(_THREADS, max(0, _SMEM_LIMIT - fixed) // (4 * (dim + 1)))
-    smem = fixed + 4 * max(tile, 1) * (dim + 1)
-    if tile < 1:
-        raise ValueError(
-            f"nlist={nlist}, dim={dim}, ksub={ksub} need {smem} bytes of "
-            "shared memory for the coarse row, books, table and one staged "
-            f"row; a block has at most {_SMEM_LIMIT}")
-    return tile, smem
-
-
-# retrieve.cu's list-major flat search: queries a scan round (one a warp),
-# rows a scan block, centroid rows a probe tile
+# retrieve.cu's list-major search: most queries a scan round (one a warp),
+# rows a scan block (flat; IVF-PQ), centroid rows a probe tile
 _SCAN_QUERIES = _THREADS // 32
 _SCAN_ROWS = 256
+_PQ_SCAN_ROWS = 1024
 _PROBE_ROWS = 256
 # probe blocks: a search of b queries puts ceil(b / 64) of them in a
 # block, up to the plan's count (4 at the bench's b = 256: fewer blocks
@@ -275,26 +235,18 @@ class FlatPlan(NamedTuple):
     scan_smem: int       # scan shared bytes
 
 
-@functools.lru_cache(maxsize=64)
-def flat_plan(dim: int, k: int, nlist: int, block: int) -> FlatPlan:
-    """The launch sizes of the flat search's two list-major launches
-    (``retrieve.cu``) for lists of ``block`` rows of ``dim`` floats;
-    raises ``ValueError`` naming the limit a shape passes (the counterpart
-    of the JAX package's ``fused_supported``; the counts that grow with a
-    call's batch are checked by :func:`retrieve_flat`).  The one place
-    that sizes their layouts, rows of ``dim + 4`` words where
-    ``dim % 4 == 0`` (16-byte copies), else ``dim + 1``:
+class PQPlan(NamedTuple):
+    """Launch sizes of the list-major IVF-PQ search (:func:`pq_plan`)."""
 
-    - probe: per query its row and its coarse scores and taken flags (one
-      word per list each), then the tile's ``|c|^2`` and a tile of up to
-      256 centroid rows (a multiple of 4; fewer where the rows are wide);
-      up to 8 queries a block, fewer where the scores would not fit;
-    - scan: a round's 8 queries, a window's 256 selected (query, rank)
-      pairs, and a chunk of up to 256 rows (a multiple of 4; fewer where
-      the rows are wide) with their ``|x|^2`` and ids.
+    probe_queries: int   # queries a probe block (at most)
+    probe_rows: int      # centroid rows a probe tile
+    probe_smem: int      # probe shared bytes
+    scan_rows: int       # rows a scan block
+    scan_smem: int       # scan shared bytes
+    scan_queries: int    # queries a scan round (one a warp)
 
-    Cached, as :func:`kernel_plan` is: a search asks every call."""
-    dim, k, nlist, block = int(dim), int(k), int(nlist), int(block)
+
+def _common_limits(dim: int, k: int, nlist: int, block: int) -> None:
     if dim < 1 or nlist < 1 or block < 1:
         raise ValueError(f"need dim, nlist, block >= 1, got dim={dim}, "
                          f"nlist={nlist}, block={block}")
@@ -304,6 +256,15 @@ def flat_plan(dim: int, k: int, nlist: int, block: int) -> FlatPlan:
     if nlist * block >= 2 ** 31:
         raise ValueError(f"nlist*block={nlist * block} posting slots: the "
                          "kernel addresses at most 2^31 - 1")
+
+
+def _probe_plan(dim: int, nlist: int) -> Tuple[int, int, int]:
+    """``(queries a block, centroid rows a tile, shared bytes)`` of the
+    probe launch both searches share: per query its row and its coarse
+    scores and taken flags (one word per list each), then the tile's
+    ``|c|^2`` and a tile of up to 256 centroid rows (a multiple of 4; fewer
+    where the rows are wide); up to 8 queries a block, fewer where the
+    scores would not fit."""
     row = dim + 4 if dim % 4 == 0 else dim + 1
     per_query = 4 * (dim + 2 * nlist)
     prow = min(_PROBE_ROWS, max(0, _SMEM_LIMIT - per_query)
@@ -316,6 +277,29 @@ def flat_plan(dim: int, k: int, nlist: int, block: int) -> FlatPlan:
             f"nlist={nlist}, dim={dim} need {probe} bytes of shared memory "
             "for one query's coarse row and a tile of centroids; a block "
             f"has at most {_SMEM_LIMIT}")
+    return nq, prow, probe
+
+
+@functools.lru_cache(maxsize=64)
+def flat_plan(dim: int, k: int, nlist: int, block: int) -> FlatPlan:
+    """The launch sizes of the flat search's two list-major launches
+    (``retrieve.cu``) for lists of ``block`` rows of ``dim`` floats;
+    raises ``ValueError`` naming the limit a shape passes (the counterpart
+    of the JAX package's ``fused_supported``; the counts that grow with a
+    call's batch are checked by :func:`retrieve_flat`).  The one place
+    that sizes their layouts, rows of ``dim + 4`` words where
+    ``dim % 4 == 0`` (16-byte copies), else ``dim + 1``:
+
+    - probe: :func:`_probe_plan`;
+    - scan: a window's 256 selected (query, rank) pairs, the ids and
+      ``|x|^2`` of a chunk of up to 256 rows (a multiple of 4; fewer where
+      the rows are wide), a round's 8 queries and the chunk's rows.
+
+    Cached, as :func:`pq_plan` is: a search asks every call."""
+    dim, k, nlist, block = int(dim), int(k), int(nlist), int(block)
+    _common_limits(dim, k, nlist, block)
+    nq, prow, probe = _probe_plan(dim, nlist)
+    row = dim + 4 if dim % 4 == 0 else dim + 1
     limit = _SMEM_LIMIT - _SCAN_STATIC
     fixed = 4 * (_SCAN_QUERIES * dim + _THREADS)
     rows = min(_SCAN_ROWS, max(0, limit - fixed) // (4 * (row + 2))
@@ -327,6 +311,55 @@ def flat_plan(dim: int, k: int, nlist: int, block: int) -> FlatPlan:
             f"{_SCAN_QUERIES} queries and 4 rows; a block has at most "
             f"{limit}")
     return FlatPlan(nq, prow, probe, rows, scan)
+
+
+@functools.lru_cache(maxsize=64)
+def pq_plan(dim: int, k: int, nlist: int, block: int, m: int,
+            ksub: int) -> PQPlan:
+    """The launch sizes of the IVF-PQ search's two list-major launches
+    (``retrieve.cu``): the probe launch of the flat search, then the scan
+    with its PQ scorer; raises ``ValueError`` naming the limit a shape
+    passes (the counterpart of the JAX package's ``fused_supported``;
+    ``m == 0``, the flat search, is :func:`flat_plan`'s).  The one place
+    that sizes the scan's layout: a window's 256 selected (query, rank)
+    pairs and a chunk's ids (a word each), per query of a round its table
+    (``m * ksub`` words) and residual (``dim``), the decoded books (``ksub
+    * dim``) and the chunk's codes (``m`` bytes a row).  A list is split
+    into equal chunks of at most 1024 rows (the whole list at the bench),
+    and the scan takes as many queries a round, up to 8, as fit beside one;
+    where not one fits, a single query and fewer rows.  It accepts every
+    shape the one-block-a-query design before it did."""
+    dim, k, nlist, block, m, ksub = (int(v) for v in
+                                     (dim, k, nlist, block, m, ksub))
+    if m == 0:
+        raise ValueError("m == 0 is the flat search: flat_plan sizes its "
+                         "launches")
+    _common_limits(dim, k, nlist, block)
+    if m < 1 or dim % m or not 2 <= ksub <= 127:
+        raise ValueError(f"PQ needs m | dim and ksub in [2, 127], got "
+                         f"m={m}, ksub={ksub}, dim={dim}")
+    nq, prow, probe = _probe_plan(dim, nlist)
+    limit = _SMEM_LIMIT - _SCAN_STATIC
+    books = 4 * ksub * dim
+    warp = 4 * (m * ksub + dim)
+
+    def need(rows: int, queries: int) -> int:
+        return (4 * (_THREADS + rows) + queries * warp + books
+                + -(-rows * m // 4) * 4)
+
+    chunks = -(-block // _PQ_SCAN_ROWS)
+    rows = -(-block // chunks)
+    queries = min(_SCAN_QUERIES, max(0, limit - need(rows, 0)) // warp)
+    if queries < 1:
+        queries = 1
+        rows = min(rows, max(0, limit - need(0, 1)) // (4 + m))
+    scan = need(max(rows, 1), queries)
+    if rows < 1:
+        raise ValueError(
+            f"dim={dim}, m={m}, ksub={ksub} need {scan} bytes of shared "
+            "memory for the scan's decoded books, one query's table and "
+            f"one row; a block has at most {limit}")
+    return PQPlan(nq, prow, probe, rows, scan, queries)
 
 
 _LIB = None
@@ -348,9 +381,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     lib.retrieve_flat_launch.argtypes = ([vp] * 7 + [ci] * 8
                                          + [cl, ci, cl, vp])
-    lib.flat_scratch_words.argtypes = [ci] * 6
-    lib.flat_scratch_words.restype = cl
-    lib.retrieve_pq_launch.argtypes = [vp] * 8 + [ci] * 9 + [cl, vp]
+    lib.scan_scratch_words.argtypes = [ci] * 6
+    lib.scan_scratch_words.restype = cl
+    lib.retrieve_pq_launch.argtypes = ([vp] * 9 + [ci] * 10
+                                       + [cl, ci, ci, cl, vp])
     lib.retrieve_flat_launch.restype = ctypes.c_int
     lib.retrieve_pq_launch.restype = ctypes.c_int
     return lib
@@ -390,6 +424,40 @@ def _outputs(b: int, k: int, dev):
             torch.empty((b, k), dtype=torch.float32, device=dev))
 
 
+def _search(name: str, launch: Callable[..., int], pointers: tuple,
+            sizes: tuple, plan, *, b: int, nprobe: int, k: int, nlist: int,
+            block: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Checks the counts that grow with the batch, allocates the outputs
+    and the scratch, and calls ``launch(*pointers, nn, dist, scratch,
+    *sizes, stream)`` on the current stream; raises on a non-zero
+    return."""
+    parts = b * nprobe * -(-block // plan.scan_rows) * k
+    if max(nlist * b, parts) >= 2 ** 31:
+        raise ValueError(f"nlist * b = {nlist * b} memberships and {parts} "
+                         "partial results (b * nprobe * ceil(block / "
+                         f"{plan.scan_rows}) * k): the kernel addresses at "
+                         "most 2^31 - 1 of each")
+    nn, dist = _outputs(b, k, dev)
+    # partial top-k, probes, the lists' membership, merge counters
+    scratch = torch.empty(
+        _kernels().scan_scratch_words(b, nlist, block, nprobe, k,
+                                      plan.scan_rows),
+        dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = launch(*pointers, nn.data_ptr(), dist.data_ptr(),
+                    scratch.data_ptr(), *sizes,
+                    torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
+    return nn, dist
+
+
+def _probe_sizes(plan, b: int) -> tuple:
+    return (min(plan.probe_queries, -(-b // _PROBE_BLOCKS)),
+            plan.probe_rows, plan.probe_smem)
+
+
 def retrieve_flat(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
                   vecs: torch.Tensor, *, nprobe: int, k: int, nlist: int,
                   block: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -402,31 +470,12 @@ def retrieve_flat(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
         return retrieve_flat_plain(q, centroids, ids, vecs, nprobe=nprobe,
                                    k=k, nlist=nlist, block=block)
     plan = flat_plan(d, k, nlist, block)
-    parts = b * nprobe * -(-block // plan.scan_rows) * k
-    if max(nlist * b, parts) >= 2 ** 31:
-        raise ValueError(f"nlist * b = {nlist * b} memberships and {parts} "
-                         "partial results (b * nprobe * ceil(block / "
-                         f"{plan.scan_rows}) * k): the kernel addresses at "
-                         "most 2^31 - 1 of each")
-    nn, dist = _outputs(b, k, dev)
-    lib = _kernels()
-    # partial top-k, probes, the lists' membership, merge counters
-    scratch = torch.empty(
-        lib.flat_scratch_words(b, nlist, block, nprobe, k, plan.scan_rows),
-        dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.retrieve_flat_launch(
-            q.data_ptr(), centroids.data_ptr(), ids.data_ptr(),
-            vecs.data_ptr(), nn.data_ptr(), dist.data_ptr(),
-            scratch.data_ptr(), b, d, nlist, block, nprobe, k,
-            min(plan.probe_queries, -(-b // _PROBE_BLOCKS)),
-            plan.probe_rows, plan.probe_smem, plan.scan_rows,
-            plan.scan_smem, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"retrieve_flat kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES["retrieve_flat"] += 1
-    return nn, dist
+    return _search(
+        "retrieve_flat", _kernels().retrieve_flat_launch,
+        tuple(t.data_ptr() for t in (q, centroids, ids, vecs)),
+        (b, d, nlist, block, nprobe, k, *_probe_sizes(plan, b),
+         plan.scan_rows, plan.scan_smem),
+        plan, b=b, nprobe=nprobe, k=k, nlist=nlist, block=block, dev=dev)
 
 
 def retrieve_pq(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
@@ -448,16 +497,10 @@ def retrieve_pq(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
         return retrieve_pq_plain(q, centroids, ids, codes, cb_q, cb_s,
                                  nprobe=nprobe, k=k, nlist=nlist,
                                  block=block, m=m)
-    tile, smem = kernel_plan((nprobe, k, d, m, ksub, nlist, block))
-    nn, dist = _outputs(b, k, dev)
-    with torch.cuda.device(dev):
-        rc = _kernels().retrieve_pq_launch(
-            q.data_ptr(), centroids.data_ptr(), ids.data_ptr(),
-            codes.data_ptr(), cb_q.data_ptr(), cb_s.data_ptr(),
-            nn.data_ptr(), dist.data_ptr(), b, d, nlist, block, nprobe, k,
-            m, ksub, tile, smem, torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"retrieve_pq kernel launch failed: CUDA error "
-                           f"{rc}")
-    LAUNCHES["retrieve_pq"] += 1
-    return nn, dist
+    plan = pq_plan(d, k, nlist, block, m, ksub)
+    return _search(
+        "retrieve_pq", _kernels().retrieve_pq_launch,
+        tuple(t.data_ptr() for t in (q, centroids, ids, codes, cb_q, cb_s)),
+        (b, d, nlist, block, nprobe, k, m, ksub, *_probe_sizes(plan, b),
+         plan.scan_rows, plan.scan_queries, plan.scan_smem),
+        plan, b=b, nprobe=nprobe, k=k, nlist=nlist, block=block, dev=dev)

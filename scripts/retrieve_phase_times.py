@@ -1,34 +1,39 @@
 #!/usr/bin/env python3
-"""Times of the flat IVF search kernels on the card, by launch, by design
+"""Times of the IVF search kernels on the card, by launch, by design
 choice and against an earlier design.
 
     python3 scripts/retrieve_phase_times.py [--against DIR]
 
 On ``chip_smoke.py``'s retrieval bench (131072 x 64 points in 4096 masses
-of 32, numpy seed 77, nlist 256, k 10, build seed 1; the flat index built
-on the card; b queries near corpus rows, numpy seed 77), with the L2
-flushed before each call (``chip_smoke.Timer``: median of 25):
+of 32, numpy seed 77, nlist 256, k 10, build seed 1; the flat and IVF-PQ
+(m 8, ksub 16) indexes built on the card; b queries near corpus rows,
+numpy seed 77), with the L2 flushed before each call
+(``chip_smoke.Timer``: median of 25):
 
-1. This checkout's flat search (``flink_ml_tpu_torch/kernels/csrc/
-   retrieve.cu``) at b = 256 and nprobe 1, 2, 16 and nlist, and at b =
-   4096 and nprobe 2 and 16, whole and as variants of the source built
-   into ``kernels/build/phases/`` (``SWITCHES``): with work switched off
-   (the probe launch alone; the scan's blocks loading their rows and
-   stopping: wrong results, only their times are read), and with a design
-   choice undone (no programmatic dependent launch; spans of 1 or 4
-   rounds a block instead of 2; 1, 2, 4 and 8 queries a probe block);
-   and the wall time a call of 200 calls
-   in a row, whole and without the dependent launch.
+1. This checkout's flat and IVF-PQ searches (``flink_ml_tpu_torch/
+   kernels/csrc/retrieve.cu``) at b = 256 and nprobe 1, 2, 16 and nlist,
+   and at b = 4096 and nprobe 2 and 16, with the queries a probed list
+   draws (mean and most), whole and as variants of the source built into
+   ``kernels/build/phases/`` (``SWITCHES``): with work switched off (the
+   probe launch alone; the scan's blocks loading their chunk and
+   stopping; the selections' k rounds; the merge: wrong results, only
+   their times are read), and with a design choice undone (no
+   programmatic dependent launch; the flat spans at 1 or 4 rounds a block
+   instead of 2, the PQ spans at 2 instead of 1, without the split of busy
+   lists (kFill 0), with it up to 2048 blocks, or sized for 3 times the
+   average draw instead of 5; warp_select on every pass instead of the
+   insertion of few keys); the IVF-PQ search also in chunks of 256 rows
+   instead of whole lists; the flat search also at 1, 2, 4 and 8 queries
+   a probe block, and the wall time a call of 200 calls in a row, whole
+   and without the dependent launch.
 2. With ``--against DIR`` (a checkout of another commit, e.g. one unpacked
-   with ``git archive``): ``retrieve_flat`` of the package at DIR and of
-   this checkout at b = 64, 256, 1024 and 4096 and nprobe 1, 2, 4 and 16
-   (and nlist at b = 256), beside the bound
-   (``chip_smoke.retrieve_bound``); ``retrieve_pq`` at b = 256 and nprobe
-   2; and the flat search's QPS by the host clock (50 calls of
-   ``search_tensors`` at b = 256) and its wall time a call of 200 in a
-   row, each package in its own process, in
-   the order DIR, this, this, DIR, so both designs are timed in one call
-   on one card.
+   with ``git archive``): ``retrieve_flat`` and ``retrieve_pq`` of the
+   package at DIR and of this checkout at b = 64, 256, 1024 and 4096 and
+   nprobe 1, 2, 4 and 16 (and nlist at b = 256), each beside its bound
+   (``chip_smoke.retrieve_bound``); and both searches' QPS by the host
+   clock (50 calls of ``search_tensors`` at b = 256) and wall time a call
+   of 200 in a row, each package in its own process, in the order DIR,
+   this, this, DIR, so both designs are timed in one call on one card.
 
 Prints the card's name and power limit beside every time.  Needs one
 NVIDIA GPU and nvcc.
@@ -45,11 +50,8 @@ import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# variants of the source: (text in the source, replacement).  Work
-# switched off (wrong results; only the time is read): the probe launch
-# alone, and the scan's blocks loading their rows and stopping.  Design
-# choices undone: no programmatic dependent launch, and spans sized for 1
-# and 4 rounds a block instead of 2.
+# variants of the source: (text in the source, replacement), each for
+# both searches where it applies (item 1 of the docstring).
 PDL = "programmaticStreamSerializationAllowed = 1;"
 ROUNDS = "constexpr int kRounds = 2;"
 SWITCHES = {
@@ -61,6 +63,22 @@ SWITCHES = {
     "no_pdl": [(PDL, "programmaticStreamSerializationAllowed = 0;")],
     "rounds_1": [(ROUNDS, "constexpr int kRounds = 1;")],
     "rounds_4": [(ROUNDS, "constexpr int kRounds = 4;")],
+    "select_off": [("  Key mine = kNoKey;\n  for (int i = 0; i < k; ++i) {",
+                    "  Key mine = kNoKey;\n"
+                    "  if (k > 0) return lane < k ? key[0] : kNoKey;\n"
+                    "  for (int i = 0; i < k; ++i) {")],
+    "merge_off": [("  if (__shfl_sync(kFull, last, 0))\n    merge_query(",
+                   "  if (false && __shfl_sync(kFull, last, 0))\n"
+                   "    merge_query(")],
+    "pq_rounds_2": [("static constexpr int kRounds = 1;",
+                     "static constexpr int kRounds = 2;")],
+    "pq_fill_off": [("static constexpr int kFill = 1024;",
+                     "static constexpr int kFill = 0;")],
+    "pq_fill_2048": [("static constexpr int kFill = 1024;",
+                      "static constexpr int kFill = 2048;")],
+    "skew_3": [("constexpr long kSkew = 5;", "constexpr long kSkew = 3;")],
+    "insert_off": [("constexpr int kInsertMost = 16;",
+                    "constexpr int kInsertMost = -1;")],
 }
 # (b, nprobe) of the variants' times
 VARIANT_CASES = ((256, 1), (256, 2), (256, 16), (256, 256), (4096, 2),
@@ -103,33 +121,34 @@ def worker(root):
     cs = smoke()
     build.build_all(["kmeans", "retrieve"])
     flat, pqi, qd = indexes(torch, cs, pq=True)
-    p = flat.device_params()
     timer = cs.Timer(torch, torch.device("cuda"))
     got = {}
     for b in GRID_B:
         _, queries = cs.retrieval_corpus(cs.RT_N, cs.RT_D, b)
         qb = torch.from_numpy(queries).to("cuda")
         nprobes = GRID_NPROBE + ((cs.RT_NLIST,) if b == cs.RT_NQ else ())
-        for nprobe in nprobes:
-            view = flat.with_options(nprobe=nprobe)
-            got[f"flat b {b} nprobe {nprobe}"] = timer.ms(
-                lambda: view.search_tensors(qb))
-            got[f"bound b {b} nprobe {nprobe}"] = cs.retrieve_bound(
-                R, qb, p["centroids"], nprobe, flat.block, False)[1]
-    for nprobe in (1, 2, 16):
-        view = flat.with_options(nprobe=nprobe)
-        view.search_tensors(qd)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(cs.RT_ROUNDS):
+        for variant, index in (("flat", flat), ("pq", pqi)):
+            cents = index.device_params()["centroids"]
+            for nprobe in nprobes:
+                view = index.with_options(nprobe=nprobe)
+                got[f"{variant} b {b} nprobe {nprobe}"] = timer.ms(
+                    lambda: view.search_tensors(qb))
+                got[f"{variant} bound b {b} nprobe {nprobe}"] = \
+                    cs.retrieve_bound(R, qb, cents, nprobe, index.block,
+                                      variant == "pq")[1]
+    for variant, index in (("flat", flat), ("pq", pqi)):
+        for nprobe in (1, 2, 16):
+            view = index.with_options(nprobe=nprobe)
             view.search_tensors(qd)
-        torch.cuda.synchronize()
-        got[f"flat QPS nprobe {nprobe}"] = (
-            cs.RT_NQ * cs.RT_ROUNDS / (time.perf_counter() - t0))
-        got[f"flat host us a call nprobe {nprobe}"] = host_us(
-            torch, lambda: view.search_tensors(qd))
-    view = pqi.with_options(nprobe=2)
-    got["pq nprobe 2"] = timer.ms(lambda: view.search_tensors(qd))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(cs.RT_ROUNDS):
+                view.search_tensors(qd)
+            torch.cuda.synchronize()
+            got[f"{variant} QPS nprobe {nprobe}"] = (
+                cs.RT_NQ * cs.RT_ROUNDS / (time.perf_counter() - t0))
+            got[f"{variant} host us a call nprobe {nprobe}"] = host_us(
+                torch, lambda: view.search_tensors(qd))
     print(json.dumps({"root": root, **got}), flush=True)
 
 
@@ -178,7 +197,8 @@ def build_variants():
 
 
 def variants(card):
-    """This checkout's flat search, whole and as each of SWITCHES."""
+    """This checkout's flat and IVF-PQ searches, whole and as each of
+    SWITCHES."""
     import torch
 
     sys.path.insert(0, HERE)
@@ -186,8 +206,9 @@ def variants(card):
 
     cs = smoke()
     paths = build_variants()
-    flat, _, _ = indexes(torch, cs, pq=False, nq=1)
+    flat, pqi, _ = indexes(torch, cs, pq=True, nq=1)
     p = flat.device_params()
+    pp = pqi.device_params()
     timer = cs.Timer(torch, torch.device("cuda"))
     libs = {"whole": R._kernels()}
     libs.update({name: R.declare(ctypes.CDLL(path))
@@ -197,28 +218,55 @@ def variants(card):
         qd = torch.from_numpy(queries).to("cuda")
         shape = dict(nprobe=nprobe, k=cs.RT_K, nlist=flat.nlist,
                      block=flat.block)
+        pq_shape = dict(shape, block=pqi.block, m=pqi.pq.m)
+
+        def flat_call():
+            return R.retrieve_flat(qd, p["centroids"], p["ids"], p["vecs"],
+                                   **shape)
+
+        def pq_call():
+            return R.retrieve_pq(qd, pp["centroids"], pp["ids"],
+                                 pp["codes"], pp["cb_q"], pp["cb_s"],
+                                 **pq_shape)
+
         times = {}
+        pq_times = {}
         for name, lib in libs.items():
-            R._LIB = lib             # the wrapper launches through it
-            times[name] = timer.ms(lambda: R.retrieve_flat(
-                qd, p["centroids"], p["ids"], p["vecs"], **shape))
+            R._LIB = lib             # the wrappers launch through it
+            times[name] = timer.ms(flat_call)
+            pq_times[name] = timer.ms(pq_call)
+        R._LIB = libs["whole"]
+        # IVF-PQ chunks of 256 rows (a whole list is one chunk at the bench)
+        keep, R._PQ_SCAN_ROWS = R._PQ_SCAN_ROWS, 256
+        R.pq_plan.cache_clear()
+        pq_times["rows_256"] = timer.ms(pq_call)
+        R._PQ_SCAN_ROWS = keep
+        R.pq_plan.cache_clear()
         # 1, 2, 4 and 8 queries a probe block (the wrapper's: ceil(b /
         # 64), up to the plan's 8)
         for nq in (1, 2, 4, 8):
             keep, R._PROBE_BLOCKS = R._PROBE_BLOCKS, b // nq
-            times[f"probe_{nq}q"] = timer.ms(lambda: R.retrieve_flat(
-                qd, p["centroids"], p["ids"], p["vecs"], **shape))
+            times[f"probe_{nq}q"] = timer.ms(flat_call)
             R._PROBE_BLOCKS = keep
         host = {}
         for name in ("whole", "no_pdl"):
             R._LIB = libs[name]
-            host[name] = host_us(torch, lambda: R.retrieve_flat(
-                qd, p["centroids"], p["ids"], p["vecs"], **shape))
+            host[name] = host_us(torch, flat_call)
         R._LIB = libs["whole"]
+        counts = torch.bincount(R.select_probes(qd, p["centroids"], nprobe)
+                                .flatten(), minlength=flat.nlist)
+        counts = counts[counts > 0].float()
+        print(f"probes (b {b}, nprobe {nprobe}): {counts.numel()} lists "
+              f"probed, queries a probed list: mean {counts.mean():.1f}, "
+              f"most {counts.max():.0f}", flush=True)
         print(f"retrieve_flat (b {b}, nprobe {nprobe}): "
               + ", ".join(f"{name} {ms:.4f} ms" for name, ms in times.items())
               + "; wall us a call, 200 in a row: "
               + ", ".join(f"{name} {us:.1f}" for name, us in host.items())
+              + f" [{card}]", flush=True)
+        print(f"retrieve_pq (b {b}, nprobe {nprobe}): "
+              + ", ".join(f"{name} {ms:.4f} ms"
+                          for name, ms in pq_times.items())
               + f" [{card}]", flush=True)
 
 

@@ -736,25 +736,47 @@ def test_fold_one_run_across_every_tile(cuda_device, E):
     assert torch.equal(got, want)
 
 
-def _flat_index(rng, n=600, d=16, nlist=8):
+def _flat_index(rng, n=600, d=16, nlist=8, pq=None):
     X = rng.normal(size=(n, d)).astype(np.float32)
-    index = T.IVFIndex.build(X, nlist, k=10, nprobe=2, seed=1, device="cpu")
+    index = T.IVFIndex.build(X, nlist, k=10, nprobe=2, seed=1, pq=pq,
+                             device="cpu")
     return X, index
 
 
+def _search_args(kind, q, p, index):
+    """(kernel wrapper, plain version, inputs, keywords) of a flat or PQ
+    search on the tensors ``p``."""
+    if kind == "flat":
+        return (TR.retrieve_flat, TR.retrieve_flat_plain,
+                (q, p["centroids"], p["ids"], p["vecs"]), {})
+    return (TR.retrieve_pq, TR.retrieve_pq_plain,
+            (q, p["centroids"], p["ids"], p["codes"], p["cb_q"], p["cb_s"]),
+            {"m": index.pq.m})
+
+
+_CASES = ["one-list", "unprobed", "full", "ties", "k-past", "odd-d"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["one-list", "unprobed", "full", "ties",
-                                  "k-past"])
+@pytest.mark.parametrize("kind, case", [("flat", c) for c in _CASES]
+                         + [("pq", c) for c in _CASES + ["dsub-1"]])
 @pytest.mark.parametrize("b", [1, 257])
-def test_list_major_flat_search_matches_plain(cuda_device, case, b):
-    """Every query on one list; lists probed by none; nprobe = nlist;
-    exact ties across lists; k past the candidates: ids and distance bits
-    equal to the plain version, one counted launch per call."""
+def test_list_major_flat_search_matches_plain(cuda_device, kind, case, b):
+    """The list-major search, flat and IVF-PQ: every query on one list;
+    lists probed by none; nprobe = nlist; exact ties across lists (PQ:
+    list 1 holds list 0's codes and centroid); k = K_MAX past the
+    candidates; d = 30 (PQ with m = 5: codes read a byte at a time); PQ
+    with m = d (dsub 1): ids and distance bits equal to the plain
+    version, one counted launch per call."""
     rng = np.random.default_rng(b)
-    X, index = _flat_index(rng)
+    d = 30 if case == "odd-d" else 16
+    pq = None
+    if kind == "pq":
+        pq = T.PQConfig(m={"odd-d": 5, "dsub-1": d}.get(case, 4), ksub=8)
+    X, index = _flat_index(rng, d=d, pq=pq)
     p = {name: torch.from_numpy(np.array(v)) for name, v in
          index.params.items()}
-    nlist, block, d = index.nlist, index.block, X.shape[1]
+    nlist, block = index.nlist, index.block
     k, nprobe = 10, 2
     if case == "one-list":
         q = p["centroids"][3][None].repeat(b, 1) + torch.from_numpy(
@@ -768,27 +790,75 @@ def test_list_major_flat_search_matches_plain(cuda_device, case, b):
     if case in ("full", "ties"):
         nprobe = nlist
     if case == "ties":
-        vecs = p["vecs"].view(nlist, block, d)
-        vecs[1] = vecs[0]
+        if kind == "flat":
+            vecs = p["vecs"].view(nlist, block, d)
+            vecs[1] = vecs[0]
+            q = vecs[0, :b].clone() if b <= block else q
+        else:
+            codes = p["codes"].view(nlist, block, -1)
+            codes[1] = codes[0]
+            p["centroids"][1] = p["centroids"][0]
         p["ids"][1] = torch.where(p["ids"][0] >= 0, p["ids"][0] + 10000, -1)
-        q = vecs[0, :b].clone() if b <= block else q
     if case == "k-past":
         k, nprobe = TR.K_MAX, 1
         keep = torch.arange(block) < 5        # 5 live rows a list
         p["ids"] = torch.where(keep[None, :], p["ids"], -1)
     dev = {name: t.to(cuda_device) for name, t in p.items()}
-    qd = q.contiguous().to(cuda_device)
-    args = (qd, dev["centroids"], dev["ids"], dev["vecs"])
-    shape = dict(nprobe=nprobe, k=k, nlist=nlist, block=block)
+    fn, plain, args, extra = _search_args(
+        kind, q.contiguous().to(cuda_device), dev, index)
+    shape = dict(nprobe=nprobe, k=k, nlist=nlist, block=block, **extra)
     TR.reset_launch_counts()
-    got = TR.retrieve_flat(*args, **shape)
-    want = TR.retrieve_flat_plain(*args, **shape)
+    got = fn(*args, **shape)
+    want = plain(*args, **shape)
     torch.cuda.synchronize()
-    assert TR.LAUNCHES == {"retrieve_flat": 1, "retrieve_pq": 0}
+    assert TR.LAUNCHES == {"retrieve_flat": int(kind == "flat"),
+                           "retrieve_pq": int(kind == "pq")}
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
     if case == "k-past":
         assert bool((got[0] == -1).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, m, ksub, nlist, block",
+                         [(64, 8, 16, 16, 300), (64, 64, 127, 8, 50),
+                          (226, 226, 127, 2, 9), (12, 3, 2, 4, 33),
+                          (16, 4, 8, 4, 2500)])
+def test_pq_scan_rounds_and_chunks(cuda_device, d, m, ksub, nlist, block):
+    """IVF-PQ on seeded random books and codes, at plans off the bench:
+    8 queries a round over a whole list of 300 rows (two passes of 256
+    rows a warp); 5 a round (tables of 64 x 127 words); one query and
+    chunks of 3 rows (the tightest shape the plan takes); ksub 2 with m =
+    3 (codes read a byte at a time); lists of 2500 rows in 3 chunks: bit
+    for bit the plain version at nprobe 1, 3 and nlist."""
+    plan = TR.pq_plan(d, 10, nlist, block, m, ksub)
+    assert (plan.scan_queries, plan.scan_rows) == {
+        300: (8, 300), 50: (5, 50), 9: (1, 3), 33: (8, 33),
+        2500: (8, 834)}[block]
+    rng = np.random.default_rng(d + m + ksub)
+    ids = np.arange(nlist * block, dtype=np.int32).reshape(nlist, block)
+    ids[:, ::7] = -1
+    host = {
+        "centroids": rng.normal(size=(nlist, d)).astype(np.float32),
+        "ids": ids,
+        "codes": rng.integers(0, ksub, size=(nlist * block, m)).astype(
+            np.int8),
+        "cb_q": rng.integers(-127, 128, size=(m, ksub, d // m)).astype(
+            np.int8),
+        "cb_s": (rng.random(size=(m, ksub)) / 127).astype(np.float32),
+    }
+    t = {name: torch.from_numpy(v).to(cuda_device) for name, v in
+         host.items()}
+    q = torch.from_numpy(rng.normal(size=(300, d)).astype(np.float32)).to(
+        cuda_device)
+    args = (q, t["centroids"], t["ids"], t["codes"], t["cb_q"], t["cb_s"])
+    for nprobe in sorted({1, min(3, nlist), nlist}):
+        shape = dict(nprobe=nprobe, k=10, nlist=nlist, block=block, m=m)
+        got = TR.retrieve_pq(*args, **shape)
+        want = TR.retrieve_pq_plain(*args, **shape)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32))
 
 
 @pytest.mark.cuda

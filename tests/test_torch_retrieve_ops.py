@@ -62,10 +62,16 @@ def _fixture(kind):
             idx = JIVF.build(X, nlist=4, k=12, nprobe=2, seed=3, pq=pq)
             q = (base[:12] + rng.normal(size=(12, 16)) * 0.01).astype(
                 np.float32)
-        elif kind == "short":          # every list shorter than k
+        elif kind in ("short", "pq-short"):   # every list shorter than k
             X = rng.normal(size=(12, 8)).astype(np.float32)
-            idx = JIVF.build(X, nlist=4, k=10, nprobe=1, seed=4)
+            pq = JPQ(m=2, ksub=4) if kind == "pq-short" else None
+            idx = JIVF.build(X, nlist=4, k=10, nprobe=1, seed=4, pq=pq)
             q = rng.normal(size=(6, 8)).astype(np.float32)
+        elif kind == "pq-ksub2":       # two entries a subspace: many ties
+            X = rng.normal(size=(400, 16)).astype(np.float32)
+            idx = JIVF.build(X, nlist=8, k=10, nprobe=2, seed=5,
+                             pq=JPQ(m=4, ksub=2))
+            q = rng.normal(size=(16, 16)).astype(np.float32)
         else:
             raise AssertionError(kind)
     return idx, q
@@ -243,29 +249,72 @@ def test_sequential_sums_fix_the_float_order():
     assert float(TR._seq_dot(a, torch.ones(1, 3))[0]) == 0.0
 
 
+def _one_block_a_query_fits(dim, m, ksub, nlist):
+    """The shared-memory rule of the IVF-PQ plan before the list-major
+    search (one block a query): the query and its residual, the coarse
+    row, taken flags and probes, 18 reduce words, the books, the table and
+    one staged centroid row of dim + 1 words."""
+    return 4 * (2 * dim + 3 * nlist + 18 + ksub * dim + m * ksub) \
+        + 4 * (dim + 1) <= 232448
+
+
 def test_kernel_plan_and_limits():
-    # the bench point, IVF-PQ: 256 lists of 1016 rows, d 64, m 8, ksub 16,
-    # tile of 256 centroid rows; the flat search is flat_plan's
-    assert TR.kernel_plan((2, 10, 64, 8, 16, 256, 1016)) == (
-        256, 4 * (128 + 3 * 256 + 18 + 16 * 64 + 8 * 16 + 256 * 65))
+    """The IVF-PQ search's plan (``pq_plan``): the bench point, the limit
+    cases the plan of the one-block-a-query design had, and every shape
+    that plan accepted."""
+    # the bench point, IVF-PQ: 256 lists of 1016 rows, d 64, m 8, ksub 16:
+    # the flat search's probe launch; a scan block of a whole list and 8
+    # queries a round: a window's 256 pairs, the chunk's ids, per query a
+    # table of 128 words and a residual of 64, the books, 8 code bytes a row
+    assert TR.pq_plan(64, 10, 256, 1016, 8, 16) == (
+        *TR.flat_plan(64, 10, 256, 1016)[:3], 1016,
+        4 * (256 + 1016 + 8 * (128 + 64) + 16 * 64) + 1016 * 8, 8)
+    # longer lists: equal chunks of at most 1024 rows
+    assert TR.pq_plan(64, 10, 256, 2500, 8, 16).scan_rows == 834
     with pytest.raises(ValueError, match="flat_plan"):
-        TR.kernel_plan((2, 10, 64, 0, 0, 256, 1016))
+        TR.pq_plan(64, 10, 256, 1016, 0, 0)
     with pytest.raises(ValueError, match=f"k must be in \\[1, {TR.K_MAX}\\]"):
-        TR.kernel_plan((2, TR.K_MAX + 1, 64, 8, 16, 256, 1016))
-    with pytest.raises(ValueError, match="shared memory"):
-        TR.kernel_plan((2, 10, 64, 8, 16, 20000, 8))
-    with pytest.raises(ValueError, match="shared memory"):
-        TR.kernel_plan((2, 10, 512, 4, 127, 1024, 8))
-    with pytest.raises(ValueError, match="nprobe"):
-        TR.kernel_plan((9, 10, 64, 8, 16, 8, 16))
+        TR.pq_plan(64, TR.K_MAX + 1, 256, 1016, 8, 16)
+    with pytest.raises(ValueError, match="shared memory"):   # coarse row
+        TR.pq_plan(64, 10, 40000, 8, 8, 16)
+    with pytest.raises(ValueError, match="shared memory"):   # the books
+        TR.pq_plan(512, 10, 1024, 8, 4, 127)
     with pytest.raises(ValueError, match="2\\^31"):
-        TR.kernel_plan((1, 10, 4, 4, 16, 1 << 16, 1 << 16))
-    # a wide row narrows the tile
-    assert TR.kernel_plan((1, 10, 1024, 8, 16, 8, 16))[0] == \
-        (232448 - 4 * (2 * 1024 + 24 + 18 + 16 * 1024 + 8 * 16)) // (
-            4 * 1025) == 38
-    with pytest.raises(ValueError, match="7 fields"):
-        TR.kernel_plan((1, 2, 3))
+        TR.pq_plan(4, 10, 1 << 16, 1 << 16, 4, 16)
+    for m, ksub in ((5, 16), (8, 1), (8, 128)):
+        with pytest.raises(ValueError, match="m \\| dim and ksub"):
+            TR.pq_plan(64, 10, 8, 16, m, ksub)
+    jidx, q = _fixture("pq-small")
+    tidx = _port(jidx)
+    p = tidx.device_params()
+    with pytest.raises(ValueError, match="nprobe"):
+        TR.retrieve_pq(torch.from_numpy(q), p["centroids"], p["ids"],
+                       p["codes"], p["cb_q"], p["cb_s"],
+                       nprobe=tidx.nlist + 1, k=10, nlist=tidx.nlist,
+                       block=tidx.block, m=tidx.pq.m)
+    # a wide row narrows the probe tile, as in the flat search
+    plan = TR.pq_plan(1024, 10, 8, 16, 8, 16)
+    assert plan.probe_rows == (232448 - 4 * (1024 + 16)) // (
+        4 * 1029) // 4 * 4 == 52
+    assert (plan.scan_rows, plan.scan_queries) == (16, 8)
+    # big tables: fewer queries a round
+    plan = TR.pq_plan(256, 10, 8, 16, 64, 127)
+    assert plan.scan_queries == (232448 - 32 - 4 * (256 + 16 + 127 * 256)
+                                 - 16 * 64) // (4 * (64 * 127 + 256)) == 2
+    # where not one query fits beside the list: one query, fewer rows (a
+    # shape the old plan took with 32 bytes to spare)
+    assert _one_block_a_query_fits(226, 226, 127, 1)
+    plan = TR.pq_plan(226, 10, 1, 8, 226, 127)
+    assert (plan.scan_queries, plan.scan_rows) == (1, 3)
+    assert plan.scan_smem <= 232448 - 32
+    # every shape the old plan accepted, at the largest ksub it took
+    for dim in list(range(1, 300)) + list(range(300, 2100, 37)):
+        for m in {1, dim} | {dim // f for f in (2, 4, 8) if dim % f == 0}:
+            for nlist in (1, 3, 256, 5000):
+                fits = [ksub for ksub in range(2, 128)
+                        if _one_block_a_query_fits(dim, m, ksub, nlist)]
+                if fits:
+                    TR.pq_plan(dim, 10, nlist, 8, m, fits[-1])
 
 
 def test_wrappers_take_plain_on_cpu_and_check_inputs():
@@ -324,24 +373,37 @@ def _lexsort_k(dist, pos, k):
             np.concatenate([p, np.full(short, _NO_POS, np.int64)]))
 
 
-def _list_major_flat(q, cents, ids, vecs, *, nprobe, k, nlist, block,
-                     chunk):
-    """The flat search as the list-major kernel runs it: probes per query;
-    for every list, each query that probes it (ascending) scores each
-    chunk of ``chunk`` rows of the list once with the plain distance
-    helpers and keeps its k best (distance, position = rank * block +
-    row); a query's nprobe * chunks partials are merged by (distance,
-    position)."""
+def _list_major(q, p, *, nprobe, k, nlist, block, chunk, m=0):
+    """The search as the list-major kernel runs it: probes per query; for
+    every list, each query that probes it (ascending) scores each chunk of
+    ``chunk`` rows of the list once with the plain distance helpers (flat
+    rows; for PQ, ``m > 0``, the codes against the table of the query's
+    residual to the list's centroid) and keeps its k best (distance,
+    position = rank * block + row); a query's nprobe * chunks partials are
+    merged by (distance, position)."""
     qt = torch.from_numpy(q)
-    probes = TR.select_probes(qt, torch.from_numpy(cents), nprobe).numpy()
+    cents = torch.from_numpy(p["centroids"])
+    ids = p["ids"]
+    probes = TR.select_probes(qt, cents, nprobe).numpy()
     b, d = q.shape
-    rows = vecs.reshape(nlist, block, d)
+    if m:
+        books = TR.decode_codebooks(torch.from_numpy(p["cb_q"]),
+                                    torch.from_numpy(p["cb_s"]))
+        codes = torch.from_numpy(p["codes"]).view(nlist, block, m)
+    else:
+        rows = torch.from_numpy(p["vecs"]).view(nlist, block, d)
+
+    def distances(qi, lst):
+        if not m:
+            return TR.flat_distances(qt[qi], rows[lst]).numpy()
+        lut = TR.pq_lut((qt[qi] - cents[lst]).view(m, d // m), books)
+        return TR.adc_distances(lut, codes[lst]).numpy()
+
     part = {}
     for lst in range(nlist):
         for qi, rank in zip(*np.nonzero(probes == lst)):
-            dist = TR.flat_distances(qt[qi], torch.from_numpy(
-                rows[lst])).numpy()
-            dist = np.where(ids[lst] >= 0, dist, np.float32(np.inf))
+            dist = np.where(ids[lst] >= 0, distances(qi, lst),
+                            np.float32(np.inf))
             pos = rank * block + np.arange(block)
             part[qi, rank] = [
                 _lexsort_k(dist[c:c + chunk].astype(np.float32),
@@ -361,34 +423,49 @@ def _list_major_flat(q, cents, ids, vecs, *, nprobe, k, nlist, block,
 
 
 @pytest.mark.parametrize("kind", ["flat-small", "clustered", "dup-flat",
-                                  "cross-ties", "short"])
+                                  "cross-ties", "short", "pq-small",
+                                  "pq-ksub2", "pq-cross-ties", "pq-short"])
 @pytest.mark.parametrize("nprobe", ["1", "2", "nlist"])
 def test_list_major_partials_merge_to_the_plain_search(kind, nprobe):
-    """The identity the list-major flat kernel rests on: per-(query,
-    list, chunk of rows) partial top-k from the plain distance helpers,
-    merged by (distance, position), gives the plain search's ids and
-    distance bits
-    (duplicated rows: exact ties across and within lists; short: k past
-    the candidates)."""
-    jidx, q = _fixture("dup-flat" if kind == "cross-ties" else kind)
+    """The identity the list-major kernels rest on: per-(query, list,
+    chunk of rows) partial top-k from the plain distance helpers, merged
+    by (distance, position), gives the plain search's ids and distance
+    bits, flat and IVF-PQ (duplicated rows: exact ties across and within
+    lists; ksub = 2: quantised distances tie throughout; short: k past the
+    candidates)."""
+    base = {"cross-ties": "dup-flat", "pq-cross-ties": "dup-pq"}
+    jidx, q = _fixture(base.get(kind, kind))
     tidx = _port(jidx)
     nprobe = tidx.nlist if nprobe == "nlist" else int(nprobe)
     p = {name: np.array(v) for name, v in tidx.params.items()}
+    m = tidx.pq.m if tidx.pq else 0
     if kind == "cross-ties":          # list 1 holds list 0's rows again
         vecs = p["vecs"].reshape(tidx.nlist, tidx.block, -1)
         vecs[1] = vecs[0]
+    if kind == "pq-cross-ties":       # list 1: list 0's codes and centroid
+        codes = p["codes"].reshape(tidx.nlist, tidx.block, m)
+        codes[1] = codes[0]
+        p["centroids"][1] = p["centroids"][0]
+    if kind in base:
         p["ids"][1] = np.where(p["ids"][0] >= 0, p["ids"][0] + 1000, -1)
     shape = dict(nprobe=nprobe, k=tidx.k, nlist=tidx.nlist,
                  block=tidx.block)
-    want_nn, want_d = TR.retrieve_flat_plain(
-        torch.from_numpy(q), *(torch.from_numpy(p[n]) for n in
-                               ("centroids", "ids", "vecs")), **shape)
+    t = {name: torch.from_numpy(v) for name, v in p.items()}
+    if m:
+        want_nn, want_d = TR.retrieve_pq_plain(
+            torch.from_numpy(q), t["centroids"], t["ids"], t["codes"],
+            t["cb_q"], t["cb_s"], m=m, **shape)
+    else:
+        want_nn, want_d = TR.retrieve_flat_plain(
+            torch.from_numpy(q), t["centroids"], t["ids"], t["vecs"],
+            **shape)
     for chunk in (tidx.block, 4):      # whole lists; chunks of 4 rows
-        nn, dist = _list_major_flat(q, p["centroids"], p["ids"],
-                                    p["vecs"], chunk=chunk, **shape)
+        nn, dist = _list_major(q, p, chunk=chunk, m=m, **shape)
         np.testing.assert_array_equal(nn, want_nn.numpy())
         np.testing.assert_array_equal(dist.view(np.int32),
                                       want_d.numpy().view(np.int32))
+    if kind in ("pq-ksub2", "pq-cross-ties"):   # the ties are there
+        assert np.any(want_d.numpy()[:, 1:] == want_d.numpy()[:, :-1])
 
 
 def test_flat_plan_and_limits():
