@@ -120,11 +120,49 @@ line is printed):
     builds its routing per chunk every epoch, launches the margin and
     fused-scatter kernels every step, gives every step's margin bit for
     bit, and agrees with the whole-routing fit; the rebuild's cost a step.
+16. Sparse LR at the Criteo width: phase 4's rows in the pair encoding
+    (``bench.py:100-115``: indices 0-12 carry the dense values, the 26
+    hashed slots 1.0; nnz 39), ``LogisticRegression(device="cuda")`` on
+    the ``features_indices``/``features_values`` columns, 3 epochs at
+    batch 2^15.  Checks: the plan is "ell"; the margin and fused-scatter
+    kernels (their value variants) launch steps x epochs times; the loss
+    falls every epoch; one epoch equals the same fit through the plain
+    versions on the card, the fit equals phase 4's mixed fit of the same
+    rows and the same fit from an ``ell_layout_device`` layout (heavy_cap
+    24, ``bench.py:297-301``), each within allclose rtol 1e-3, atol 1e-4
+    (``bench.py:266, 316``: the overflow and heavy legs' ``index_add_``
+    adds in no fixed order on the card); ``transform`` equals numpy f64
+    scoring; ``BinaryClassificationEvaluator`` gives the same
+    areaUnderROC on the card as on the CPU.  Both value variants equal
+    their plain versions bit for bit on the fit's step 0 and are timed
+    there beside the plain versions, their byte bounds and
+    ``embedding_bag(per_sample_weights=)`` (the margin) or the ``r_ext``
+    gather x val plus ``index_add_`` (the fused scatter); the routing
+    build and sparse epochs/s.
+17. A small sparse fit at 128*1001 features with N(0,1) values on every
+    slot: the pair kernel carries every step, the fit agrees with the
+    plain versions on the card, and the pair kernel on the value updates
+    equals its plain version bit for bit and is timed beside its bound
+    and ``index_add_``.
+18. Dense fits at the pipeline bench's width (``bench.py:1991-1994``:
+    2^17 rows x 64 N(0,1) features, numpy seed 23), 2 epochs at the auto
+    batch each: LinearRegression, LinearSVC, LogisticRegression and
+    SoftmaxRegression (10 classes).  Checks: the loss falls; the card's
+    fit equals the same fit on the CPU within allclose rtol 1e-3, atol
+    1e-4; transforms equal numpy f64 scoring; the regression and
+    multiclass evaluators' metrics of the card's fit equal the CPU fit's.
+19. A Criteo TSV (``bench.py:611``'s format, 2^17 rows) through
+    ``CriteoTSVReader`` (the native parser, required) into a Table and a
+    mixed ``LogisticRegression`` fit at 2^20 features (hash_space 2^20 -
+    13): the batches equal ``parse_chunk`` of the whole file, the fit
+    plans "ell" and launches the margin and fused-scatter kernels; parse
+    rows/s.
 
 The last lines are the kernel table (nine kernels: the three ELL kernels,
-the three KMeans kernels, the fold, the two retrieve kernels) as one JSON
-object, the card line from nvidia-smi, and ``{"ok": true, "device":
-{...}}``.  The script imports neither JAX nor the JAX package.
+each with its value variant's launches, error, times and bound under
+``values``, the three KMeans kernels, the fold, the two retrieve kernels)
+as one JSON object, the card line from nvidia-smi, and ``{"ok": true,
+"device": {...}}``.  The script imports neither JAX nor the JAX package.
 """
 
 import dataclasses
@@ -226,6 +264,11 @@ TOL = {"ell_margin": 0.0, "ell_scatter_apply_fused": 0.0,
 # routing budget to 3 steps, so the fit builds its routing per chunk
 C1_FEATURES, C1_ROWS = 1 << 17, 1 << 24
 C1_FIT_ROWS, C1_FIT_BATCH, C1_CHUNK, C1_EPOCHS = 1 << 17, 1 << 14, 3, 2
+# Dense fits (phase 18) at the pipeline bench's width (bench.py:1991-1994)
+DN_ROWS, DN_DIM, DN_EPOCHS, DN_CLASSES = 1 << 17, 64, 2, 10
+DN_HELD = 4096
+# Criteo TSV ingest (phase 19): hash_space 2^20 - 13 gives 2^20 features
+CT_ROWS = 1 << 17
 
 
 def fail(msg):
@@ -1351,6 +1394,482 @@ def retrieval_phases(torch, dev, card, timer):
     return entries
 
 
+def pair_encoding(dense, cat):
+    """The generic (indices, values) encoding of Criteo-shaped rows
+    (``bench.py:100-115`` ``_as_sparse_pair``): indices 0-12 carry the 13
+    dense values, the 26 hashed slots carry 1.0 (nnz 39)."""
+    n = dense.shape[0]
+    idx = np.concatenate([np.broadcast_to(
+        np.arange(N_DENSE, dtype=np.int32), (n, N_DENSE)), cat], axis=1)
+    vals = np.concatenate([dense, np.ones((n, N_CAT), np.float32)], axis=1)
+    return idx, vals
+
+
+def allclose_fit(what, got, want):
+    """Weights of two fits within the bench's one-epoch tolerance
+    (``bench.py:266, 316``): allclose rtol 1e-3, atol 1e-4."""
+    diff = float(np.max(np.abs(got - want)))
+    log(f"{what}: max |dw| = {diff:.3e} (allclose rtol 1e-3, atol 1e-4)")
+    if not np.allclose(got, want, rtol=1e-3, atol=1e-4):
+        fail(f"{what}: the weights disagree")
+
+
+def sparse_phases(torch, dev, card, timer, dense, cat, y, mixed_model):
+    """Phases 16-17: the generic sparse (indices, values) fit through the
+    value variants of the ELL kernels.  Returns, for each of the three
+    ELL kernels, its value variant's entry (launches, error, times,
+    bound) for the kernel JSON line."""
+    import torch.nn.functional as F
+
+    from flink_ml_tpu_torch import LogisticRegression, Table
+    from flink_ml_tpu_torch.models import BinaryClassificationEvaluator
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.common.losses import LOSSES
+    from flink_ml_tpu_torch.ops import ell_scatter as E
+
+    # -- 16. sparse LR at the Criteo width ---------------------------------
+    idx, vals = pair_encoding(dense, cat)
+    steps = ROWS // BATCH
+    table = Table({"features_indices": idx, "features_values": vals,
+                   "label": y})
+
+    def estimator(epochs):
+        return (LogisticRegression(device=DEVICE).set_num_features(D_MAIN)
+                .set_global_batch_size(BATCH).set_max_iter(epochs)
+                .set_tol(0))
+
+    E.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = estimator(EPOCHS).fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(E.LAUNCHES)
+    losses = model.loss_log
+    log(f"sparse path (pair encoding, nnz {idx.shape[1]}): fit {fit_s:.3f} "
+        f"s, loss log {losses}, plan {model.planned_impl}, launches "
+        f"{launches} [{card}]")
+    if model.planned_impl != "ell":
+        fail(f"the sparse fit planned {model.planned_impl!r}, expected 'ell'")
+    if len(losses) != EPOCHS or not all(np.isfinite(losses)) or \
+            not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"sparse loss log {losses}")
+    for name in ("ell_margin", "ell_scatter_apply_fused"):
+        if launches[name] != steps * EPOCHS:
+            fail(f"{name} launched {launches[name]} times in the sparse "
+                 f"fit, expected {steps * EPOCHS}")
+    if launches["ell_scatter_apply"] != 0:
+        fail("the pair kernel ran on a grid of 8192 rows")
+    coef = model.get_model_data()[0]["coefficients"][0]
+    cfg = estimator(1)._sgd_config()
+    one_k, _ = S.sgd_fit_sparse(LOSSES["logistic"], idx, vals, y, None,
+                                D_MAIN, cfg, device=dev)
+    one_p, _ = S.sgd_fit_sparse(LOSSES["logistic"], idx, vals, y, None,
+                                D_MAIN, cfg, device=dev, plain=True)
+    allclose_fit("sparse, one epoch, kernels vs plain versions on the card",
+                 one_k.coefficients, one_p.coefficients)
+    allclose_fit(f"sparse fit vs the mixed fit of the same rows ({EPOCHS} "
+                 f"epochs: same algebra, another f32 order)", coef,
+                 mixed_model.get_model_data()[0]["coefficients"][0])
+
+    # the same fit from a layout built on the card (ell_layout_device,
+    # the bench's caps: bench.py:297-301)
+    perm = np.random.default_rng(0).permutation(ROWS)
+
+    def put(a):
+        return torch.from_numpy(S.prepare_epoch_tensor(a, perm, steps,
+                                                       BATCH)).to(dev)
+
+    idx_t, vals_t = put(idx), put(vals)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lay = E.ell_layout_device(idx_t, D_MAIN, ovf_cap=1 << 13, heavy_cap=24,
+                              values=vals_t).assert_capacities(
+                              ).trim_overflow()
+    torch.cuda.synchronize()
+    layout_ms = (time.perf_counter() - t0) * 1e3
+    route_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        route = S._StepRouting(lay, BATCH, steps)
+        route[0]
+        torch.cuda.synchronize()
+        route_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"ell_layout_device ({steps} steps, heavy_cap 24, ovf_cap 2^13): "
+        f"{layout_ms:.3f} ms (first call); need_heavy "
+        f"{lay.need_heavy.tolist()}, need_ovf {lay.need_ovf.tolist()}; "
+        f"sample routing with values ({steps} steps, "
+        f"{tuple(route._route.shape)}): {route_ms[0]:.3f} ms first, "
+        f"{min(route_ms[1:]):.3f} ms again [{card}]")
+    epoch_args = (route, lay.src, lay.pos, lay.mask, lay.val, lay.ovf_idx,
+                  lay.ovf_src, lay.ovf_val, lay.heavy_idx, lay.heavy_cnt,
+                  put(y.astype(np.float32)), put(np.ones(ROWS, np.float32)))
+    run_cfg = dataclasses.replace(cfg, max_epochs=EPOCHS)
+    params, dev_log = S._run_minibatch_epochs(
+        S._sparse_update_ell(LOSSES["logistic"], run_cfg), epoch_args,
+        S._zero_params(D_MAIN, dev), steps, run_cfg)
+    allclose_fit("sparse fit from ell_layout_device vs the estimator's fit",
+                 params["w"].cpu().numpy(), coef)
+
+    t_dense, t_cat, t_y = criteo_rows(4096, D_MAIN, seed=9)
+    t_idx, t_vals = pair_encoding(t_dense, t_cat)
+    (out,) = model.transform(Table({"features_indices": t_idx,
+                                    "features_values": t_vals}))
+    icpt = float(model.get_model_data()[0]["intercept"][0])
+    margin = (t_vals.astype(np.float64) * coef[t_idx]).sum(1) + icpt
+    perr = float(np.max(np.abs(out["rawPrediction"]
+                               - 1.0 / (1.0 + np.exp(-margin)))))
+    scored = Table({"label": t_y, "rawPrediction": out["rawPrediction"]})
+    auc = {d: float(BinaryClassificationEvaluator(device=d).transform(
+        scored)[0]["areaUnderROC"][0]) for d in (DEVICE, "cpu")}
+    log(f"sparse transform: 4096 rows, max |p - numpy f64 p| = {perr:.3e} "
+        f"(tolerance 1e-5); areaUnderROC card {auc[DEVICE]!r}, CPU "
+        f"{auc['cpu']!r} (tolerance 1e-12)")
+    if out["rawPrediction"].shape != (4096,) or perr > 1e-5:
+        fail("sparse transform disagrees with numpy scoring")
+    if abs(auc[DEVICE] - auc["cpu"]) > 1e-12 or not auc[DEVICE] > 0.99:
+        fail("areaUnderROC differs between the card and the CPU, or the "
+             "fit did not learn the marker")
+
+    # value variants at this shape: step 0 of the card-built layout
+    w = torch.from_numpy(np.random.default_rng(2).normal(
+        size=D_MAIN).astype(np.float32)).to(dev)
+    r_ext = S._extended_r(torch.from_numpy(np.random.default_rng(3).normal(
+        size=BATCH).astype(np.float32) / BATCH).to(dev))
+    m_len = S._ext_len(BATCH)
+    lr = 0.5
+    src, pos, mask, val = lay.src[0], lay.pos[0], lay.mask[0], lay.val[0]
+    route_w, route_val = route[0]
+    nnz = route_w.shape[0]
+    err = {}
+    for name, got, want in (
+            ("ell_margin",
+             E.ell_margin(w, route_w, m_len=m_len, route_val=route_val),
+             E.ell_margin_plain(w, route_w, m_len, route_val=route_val)),
+            ("ell_scatter_apply_fused",
+             E.ell_scatter_apply_fused(w, r_ext, src, pos, mask, lr=lr,
+                                       val=val),
+             E.ell_scatter_apply_fused_plain(w, r_ext, src, pos, mask, lr=lr,
+                                             val=val))):
+        torch.cuda.synchronize()
+        err[name] = float((got - want).abs().max())
+        log(f"check {name} (values, the sparse fit's step 0): max |kernel - "
+            f"plain| = {err[name]:.3e} (tolerance 0)")
+        if err[name] != 0.0:
+            fail(f"{name} with values disagrees with its plain version")
+    bag_idx = torch.where(route_w >= 0, route_w, D_MAIN).t().long() \
+        .contiguous()
+    bag_val = route_val.t().contiguous()
+    w_bag = torch.cat([w, torch.zeros(1, device=dev)])[:, None]
+    bag = F.embedding_bag(bag_idx, w_bag, mode="sum",
+                          per_sample_weights=bag_val)[:, 0]
+    if not torch.allclose(bag, E.ell_margin(w, route_w, m_len=m_len,
+                                            route_val=route_val)[:BATCH],
+                          rtol=1e-5, atol=1e-4):
+        fail("embedding_bag with per-sample weights is not the margin")
+    lanes, _ = E._slot_lanes(pos, mask)
+    kept = src < BATCH
+    slot_w = (torch.arange(D_MAIN // 128, device=dev)[:, None] * 128
+              + lanes)[kept]
+    slot_src, slot_val = src[kept].long(), val[kept]
+    w_scratch = w.clone()
+    w_touched = int(torch.unique(route_w[route_w >= 0]).numel())
+    grid = D_MAIN
+    runs = {
+        "ell_margin": (
+            lambda: E.ell_margin(w, route_w, m_len=m_len,
+                                 route_val=route_val),
+            lambda: E.ell_margin_plain(w, route_w, m_len,
+                                       route_val=route_val),
+            lambda: F.embedding_bag(bag_idx, w_bag, mode="sum",
+                                    per_sample_weights=bag_val),
+            # route_w and route_val, the distinct weights read; the table
+            # written
+            nnz * BATCH * 8 + w_touched * 4 + m_len * 4,
+            "embedding_bag(per_sample_weights=route_val)"),
+        "ell_scatter_apply_fused": (
+            lambda: E.ell_scatter_apply_fused(w, r_ext, src, pos, mask,
+                                              lr=lr, val=val),
+            lambda: E.ell_scatter_apply_fused_plain(w, r_ext, src, pos, mask,
+                                                    lr=lr, val=val),
+            lambda: w_scratch.index_add_(0, slot_w,
+                                         r_ext[slot_src] * slot_val,
+                                         alpha=-lr),
+            # src, pos, mask, val, w and r_ext read; the new w written
+            grid * 24 + r_ext.numel() * 4,
+            "r_ext gather x val + index_add_"),
+    }
+    variants = {}
+    for name, (kern, plain, library, moved, lib_name) in runs.items():
+        ms, plain_ms, lib_ms = (timer.ms(kern), timer.ms(plain),
+                                timer.ms(library))
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        log(f"time {name} (values, sparse step 0: routing {nnz} x {BATCH}, "
+            f"{w_touched} distinct weights): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms (bytes) [{card}]")
+        variants[name] = {
+            "launches": launches[name], "max_abs_err": err[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms}
+
+    rates = {}
+    for label, plain in (("kernels", False), ("plain", True)):
+        update = S._sparse_update_ell(LOSSES["logistic"], run_cfg,
+                                      plain=plain)
+        S._run_minibatch_epochs(update, epoch_args,
+                                S._zero_params(D_MAIN, dev), steps, run_cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S._run_minibatch_epochs(update, epoch_args,
+                                S._zero_params(D_MAIN, dev), steps, run_cfg)
+        torch.cuda.synchronize()
+        rates[label] = EPOCHS / (time.perf_counter() - t0)
+    log(f"sparse epochs/s at {D_MAIN} features, batch {BATCH}, nnz "
+        f"{idx.shape[1]}, {steps} steps/epoch, device-resident layout: "
+        f"kernels "
+        f"{rates['kernels']:.3f}, plain versions {rates['plain']:.3f}; fit() "
+        f"wall {fit_s:.3f} s for {EPOCHS} epochs incl. host layout build "
+        f"[{card}]")
+    del lay, route, epoch_args, idx_t, vals_t
+
+    # -- 17. small sparse fit on the pair kernel's grid --------------------
+    p_dense, p_cat, p_y = criteo_rows(PAIR_ROWS, D_PAIR, seed=4)
+    p_idx, _ = pair_encoding(p_dense, p_cat)
+    p_vals = np.random.default_rng(7).normal(size=p_idx.shape).astype(
+        np.float32)
+    p_est = (LogisticRegression(device=DEVICE).set_num_features(D_PAIR)
+             .set_global_batch_size(PAIR_BATCH).set_max_iter(2).set_tol(0))
+    E.reset_launch_counts()
+    p_model = p_est.fit(Table({"features_indices": p_idx,
+                               "features_values": p_vals, "label": p_y}))
+    torch.cuda.synchronize()
+    p_launches = dict(E.LAUNCHES)
+    p_steps = PAIR_ROWS // PAIR_BATCH * 2
+    log(f"sparse pair path ({D_PAIR // 128} table rows, N(0,1) values): "
+        f"plan {p_model.planned_impl}, loss log {p_model.loss_log}, "
+        f"launches {p_launches}")
+    if p_launches != {"ell_margin": p_steps, "ell_scatter_apply": p_steps,
+                      "ell_scatter_apply_fused": 0}:
+        fail("the pair kernel did not carry the 1001-row sparse fit")
+    p_plain, _ = S.sgd_fit_sparse(LOSSES["logistic"], p_idx, p_vals, p_y,
+                                  None, D_PAIR, p_est._sgd_config(),
+                                  device=dev, plain=True)
+    allclose_fit("sparse pair path, kernels vs plain versions on the card",
+                 p_model.get_model_data()[0]["coefficients"][0],
+                 p_plain.coefficients)
+    p_perm = np.random.default_rng(0).permutation(PAIR_ROWS)
+    p_lay = E.ell_layout(
+        S.prepare_epoch_tensor(p_idx, p_perm, PAIR_ROWS // PAIR_BATCH,
+                               PAIR_BATCH)[:1], D_PAIR,
+        values=S.prepare_epoch_tensor(p_vals, p_perm,
+                                      PAIR_ROWS // PAIR_BATCH,
+                                      PAIR_BATCH)[:1]).to(dev)
+    rows_p = D_PAIR // 128
+    w_p = torch.from_numpy(np.random.default_rng(8).normal(
+        size=D_PAIR).astype(np.float32)).to(dev)
+    r_p = S._extended_r(torch.from_numpy(np.random.default_rng(9).normal(
+        size=PAIR_BATCH).astype(np.float32)).to(dev))
+    src_p, pos_p, mask_p = p_lay.src[0], p_lay.pos[0], p_lay.mask[0]
+    upd = (-lr) * (p_lay.val[0] * E.gather_weights(r_p, src_p))
+    got = E.ell_scatter_apply(w_p, upd, pos_p, mask_p)
+    torch.cuda.synchronize()
+    err_p = float((got - E.ell_scatter_apply_plain(w_p, upd, pos_p, mask_p)
+                   ).abs().max())
+    lanes_p, _ = E._slot_lanes(pos_p, mask_p)
+    kept_p = src_p < PAIR_BATCH
+    slot_wp = (torch.arange(rows_p, device=dev)[:, None] * 128
+               + lanes_p)[kept_p]
+    slot_up = upd[kept_p]
+    wp_scratch = w_p.clone()
+    ms = timer.ms(lambda: E.ell_scatter_apply(w_p, upd, pos_p, mask_p))
+    plain_ms = timer.ms(lambda: E.ell_scatter_apply_plain(w_p, upd, pos_p,
+                                                          mask_p))
+    lib_ms = timer.ms(lambda: wp_scratch.index_add_(0, slot_wp, slot_up))
+    bound_ms = rows_p * 128 * 20 / HBM_BYTES_PER_S * 1e3
+    log(f"check ell_scatter_apply (values, the sparse pair fit's step 0): "
+        f"max |kernel - plain| = {err_p:.3e} (tolerance 0)")
+    log(f"time ell_scatter_apply (values, {rows_p} rows): kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms (bytes) [{card}]")
+    if err_p != 0.0:
+        fail("ell_scatter_apply with values disagrees with its plain version")
+    variants["ell_scatter_apply"] = {
+        "launches": p_launches["ell_scatter_apply"], "max_abs_err": err_p,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes", "library_ms": lib_ms}
+    return variants
+
+
+def dense_rows(rows, d, seed=23):
+    """The pipeline bench's dense table (``bench.py:1991-1994``): (rows,
+    d) N(0,1) f32 features from numpy ``seed``, the binary label
+    ``x0 > 0``; then a regression target ``x @ beta + 0.1 noise`` and a
+    10-class label ``argmax(x[:, :10])`` drawn from the same generator.
+    Callers split held-out rows off the end."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(rows, d)).astype(np.float32)
+    y_bin = (X[:, 0] > 0).astype(np.float64)
+    beta = rng.normal(size=d) / 8.0
+    y_reg = X.astype(np.float64) @ beta + 0.1 * rng.normal(size=rows)
+    y_cls = np.argmax(X[:, :DN_CLASSES], axis=1)
+    return X, y_bin, y_reg, y_cls
+
+
+def dense_phase(torch, dev, card):
+    """Phase 18: the dense fits at the pipeline bench's width, each on the
+    card and on the CPU."""
+    import flink_ml_tpu_torch as T
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.evaluation import (
+        MulticlassClassificationEvaluator, RegressionEvaluator)
+
+    batch = S.resolve_global_batch_size(S.SGDConfig(), DN_ROWS)
+    X, y_bin, y_reg, y_cls = dense_rows(DN_ROWS + DN_HELD, DN_DIM)
+    X, Xt = X[:DN_ROWS], X[DN_ROWS:]
+    x64 = Xt.astype(np.float64)
+    for name, yy in (("LinearRegression", y_reg), ("LinearSVC", y_bin),
+                     ("LogisticRegression", y_bin),
+                     ("SoftmaxRegression", y_cls)):
+        y, yt = yy[:DN_ROWS], yy[DN_ROWS:]
+        models, secs = {}, {}
+        for where in (DEVICE, "cpu"):
+            est = getattr(T, name)(device=where).set_max_iter(
+                DN_EPOCHS).set_tol(0)
+            if where == DEVICE:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            models[where] = est.fit(T.Table({"features": X, "label": y}))
+            if where == DEVICE:
+                torch.cuda.synchronize()
+            secs[where] = time.perf_counter() - t0
+        card_m, cpu_m = models[DEVICE], models["cpu"]
+        losses = card_m.loss_log
+        data = card_m.get_model_data()[0]
+        (out,) = card_m.transform(T.Table({"features": Xt, "label": yt}))
+        (cpu_out,) = cpu_m.transform(T.Table({"features": Xt, "label": yt}))
+        if name == "SoftmaxRegression":
+            scores = x64 @ data["coefficients"][0] + data["intercepts"][0]
+            scores = np.exp(scores - scores.max(1, keepdims=True))
+            want = scores / scores.sum(1, keepdims=True)
+            got = out["rawPrediction"]
+            ev = MulticlassClassificationEvaluator().set_metrics(
+                "accuracy", "weightedFMeasure")
+            metric_tol = dict(rtol=0.0, atol=2e-3)
+        else:
+            margin = x64 @ data["coefficients"][0] + data["intercept"][0]
+            want = (1.0 / (1.0 + np.exp(-margin))
+                    if name == "LogisticRegression" else margin)
+            got = out["rawPrediction"]
+            ev = (RegressionEvaluator().set_metrics("rmse", "r2")
+                  if name == "LinearRegression" else
+                  MulticlassClassificationEvaluator().set_metrics(
+                      "accuracy"))
+            metric_tol = dict(rtol=1e-3, atol=2e-3)
+        metrics = {w: {k: float(v[0]) for k, v in ev.transform(
+            o)[0].to_dict().items()} for w, o in ((DEVICE, out),
+                                                  ("cpu", cpu_out))}
+        key = "coefficients"
+        dw = float(np.max(np.abs(data[key] - cpu_m.get_model_data()[0][key])))
+        perr = float(np.max(np.abs(got - want)))
+        log(f"dense {name} ({DN_ROWS} x {DN_DIM}, {DN_EPOCHS} epochs, "
+            f"auto batch {batch}): loss log "
+            f"{losses}; card vs CPU fit max |dw| {dw:.3e} (allclose rtol "
+            f"1e-3, atol 1e-4); transform max |score - numpy f64| "
+            f"{perr:.3e} (rtol 1e-5, atol 1e-5); metrics card "
+            f"{metrics[DEVICE]}, CPU {metrics['cpu']} ({metric_tol}); "
+            f"epochs/s card {DN_EPOCHS / secs[DEVICE]:.3f}, CPU "
+            f"{DN_EPOCHS / secs['cpu']:.3f} (fit() wall) [{card}]")
+        if len(losses) != DN_EPOCHS or not losses[1] < losses[0]:
+            fail(f"dense {name}: loss log {losses}")
+        if not np.allclose(data[key], cpu_m.get_model_data()[0][key],
+                           rtol=1e-3, atol=1e-4):
+            fail(f"dense {name}: the card's fit is off the CPU's")
+        if not np.allclose(got, want, rtol=1e-5, atol=1e-5):
+            fail(f"dense {name}: transform disagrees with numpy scoring")
+        for k, v in metrics[DEVICE].items():
+            if not np.isclose(v, metrics["cpu"][k], **metric_tol):
+                fail(f"dense {name}: {k} of the card's fit is off the "
+                     "CPU fit's")
+
+
+def write_synth_tsv(path, rows, seed):
+    """Criteo-format lines as the JAX package's bench writes them
+    (``bench.py:611`` ``_synth_tsv``): label ``i & 1``, 13 integers in
+    [0, 1000), 26 8-hex-digit tokens, from numpy ``seed``."""
+    rng = np.random.default_rng(seed)
+    ints = rng.integers(0, 1000, size=(rows, 13))
+    toks = rng.integers(0, 1 << 32, size=(rows, 26))
+    with open(path, "wb") as f:
+        f.write(b"".join(
+            b"%d\t%s\t%s\n" % (
+                i & 1, b"\t".join(b"%d" % v for v in ints[i]),
+                b"\t".join(b"%08x" % v for v in toks[i]))
+            for i in range(rows)))
+
+
+def criteo_phase(torch, dev, card):
+    """Phase 19: a Criteo TSV through ``CriteoTSVReader`` into a Table and
+    a mixed LogisticRegression fit through the ELL kernels."""
+    import tempfile
+
+    from flink_ml_tpu_torch import LogisticRegression, Table
+    from flink_ml_tpu_torch.data import criteo
+    from flink_ml_tpu_torch.ops import ell_scatter as E
+
+    parser = criteo.parser_name()
+    log(f"Criteo parser: {parser}")
+    if parser != "native":
+        fail("the native Criteo parser (native/criteo.cpp) did not load")
+    hash_space = D_MAIN - criteo.N_DENSE
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "day_0.tsv")
+        write_synth_tsv(path, CT_ROWS, seed=611)
+        size = os.path.getsize(path)
+        reader = criteo.CriteoTSVReader(path, batch_rows=BATCH,
+                                        hash_space=hash_space)
+        t0 = time.perf_counter()
+        batches = list(reader)
+        parse_s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            whole = criteo.parse_chunk(f.read(), CT_ROWS + 1, hash_space)
+    cols = {k: np.concatenate([b[k] for b in batches])
+            for k in batches[0]}
+    log(f"CriteoTSVReader: {CT_ROWS} rows ({size} bytes) in "
+        f"{len(batches)} batches of {BATCH}, {reader.workers} parse "
+        f"workers: {CT_ROWS / parse_s:.1f} rows/s ({parse_s:.3f} s, host "
+        f"CPU) [{card}]")
+    if [len(b["label"]) for b in batches] != [BATCH] * (CT_ROWS // BATCH):
+        fail("the reader's batches are not whole batches")
+    for key, want in zip(("features_dense", "features_indices", "label"),
+                         whole[:3]):
+        if not np.array_equal(cols[key], want):
+            fail(f"the reader's {key} differ from parse_chunk of the file")
+    if reader.num_features != D_MAIN:
+        fail(f"num_features {reader.num_features}")
+    est = (LogisticRegression(device=DEVICE).set_num_features(D_MAIN)
+           .set_global_batch_size(BATCH).set_max_iter(1).set_tol(0))
+    # the integer counts log-transformed before training (the usual
+    # Criteo preprocessing); the hashed slots as the reader gives them
+    cols["features_dense"] = np.log1p(cols["features_dense"])
+    E.reset_launch_counts()
+    model = est.fit(Table(cols))
+    torch.cuda.synchronize()
+    launches = dict(E.LAUNCHES)
+    steps = CT_ROWS // BATCH
+    log(f"Criteo TSV -> Table -> LogisticRegression: plan "
+        f"{model.planned_impl}, loss log {model.loss_log}, launches "
+        f"{launches}")
+    if model.planned_impl != "ell" or not np.all(np.isfinite(
+            model.loss_log)):
+        fail("the Criteo fit did not plan 'ell' or its loss is not finite")
+    for name in ("ell_margin", "ell_scatter_apply_fused"):
+        if launches[name] != steps:
+            fail(f"{name} launched {launches[name]} times in the Criteo "
+                 f"fit, expected {steps}")
+
+
 def routing_chunk_phase(torch, dev, card):
     """Phase 15: the ELL plan where the sample routing outgrows its budget.
     At 2^17 features, 26 slots and 2^24 rows (auto batch) the plan is the
@@ -1779,6 +2298,13 @@ def main():
     kernels.append(widedeep_phases(torch, dev, card, timer))
     kernels += retrieval_phases(torch, dev, card, timer)
     routing_chunk_phase(torch, dev, card)
+    # rows 1-3 carry their value variants' numbers beside the implicit-1.0
+    # ones
+    variants = sparse_phases(torch, dev, card, timer, dense, cat, y, model)
+    for entry in kernels[:3]:
+        entry["values"] = variants[entry["name"]]
+    dense_phase(torch, dev, card)
+    criteo_phase(torch, dev, card)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

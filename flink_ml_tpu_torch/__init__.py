@@ -4,10 +4,15 @@ The same Estimator/Transformer/Model/Pipeline API, typed params and
 directory save/load as the JAX package, with PyTorch tensors inside and
 hand-written CUDA kernels for Hopper (``kernels/csrc``) where the JAX
 package wrote Pallas kernels for the TPU.  Ported so far: the linear
-family's ``fit``/``transform`` on the Criteo-shaped mixed layout, with the
-three ELL kernels; KMeans ``fit`` (BSP and workset) and ``transform``, with
-the three KMeans kernels; Wide&Deep ``fit`` (routed table gradients, dense
-and lazy Adam) and ``transform``, with the routed-gradient fold kernel;
+family's ``fit``/``transform`` (LogisticRegression, LinearRegression,
+LinearSVC) on dense matrices, sparse ``(indices, values)`` pairs and the
+Criteo-shaped mixed layout, with the three ELL kernels (the sparse layout
+drives their value variants), and SoftmaxRegression on dense matrices;
+the Criteo TSV reader (``data.criteo``); the binary, multiclass,
+regression and clustering evaluators; KMeans ``fit`` (BSP and workset)
+and ``transform``, with the three KMeans kernels; Wide&Deep ``fit``
+(routed table gradients, dense and lazy Adam) and ``transform``, with the
+routed-gradient fold kernel;
 the IVF / IVF-PQ vector index (``IVFIndex.build``, ``search``,
 ``transform``), with the two fused scan+top-k kernels.  Entry points run
 on the card unless the caller passes ``device="cpu"``.
@@ -27,6 +32,8 @@ from .models import (
     LinearSVCModel,
     LogisticRegression,
     LogisticRegressionModel,
+    SoftmaxRegression,
+    SoftmaxRegressionModel,
     WideDeep,
     WideDeepModel,
 )
@@ -56,6 +63,7 @@ __all__ = [
     "LogisticRegression", "LogisticRegressionModel",
     "LinearRegression", "LinearRegressionModel",
     "LinearSVC", "LinearSVCModel",
+    "SoftmaxRegression", "SoftmaxRegressionModel",
     "KMeans", "KMeansModel",
     "WideDeep", "WideDeepModel",
     "IVFIndex", "PQConfig",

@@ -1,12 +1,19 @@
-"""Algorithm library (ported so far: the linear family on the mixed
-layout, KMeans, and Wide&Deep)."""
+"""Algorithm library (ported so far: the linear family on every feature
+layout with SoftmaxRegression, KMeans, Wide&Deep, and the evaluators of
+those families)."""
 
 from .classification import (  # noqa: F401
     LinearSVC,
     LinearSVCModel,
     LogisticRegression,
     LogisticRegressionModel,
+    SoftmaxRegression,
+    SoftmaxRegressionModel,
 )
 from .clustering import KMeans, KMeansModel  # noqa: F401
+from .evaluation import (  # noqa: F401
+    BinaryClassificationEvaluator,
+    MulticlassClassificationEvaluator,
+)
 from .recommendation import WideDeep, WideDeepModel  # noqa: F401
 from .regression import LinearRegression, LinearRegressionModel  # noqa: F401

@@ -1,12 +1,14 @@
 """Shared Estimator/Model bases for the linear family (LogisticRegression,
 LinearRegression, LinearSVC) — one SGD skeleton, per-model loss + link.
 
-A port of the JAX package's ``models/common/linear.py`` for the mixed
-dense + hashed-categorical layout (``{col}_dense`` + ``{col}_indices``).
-The dense and sparse feature layouts raise ``NotImplementedError`` until
-they are ported (ROADMAP queue A2).  Every stage runs on ``device``
-(default ``"cuda"``; raises without a card unless ``"cpu"`` is asked
-for).  The device is a runtime choice, not a param, so it is not saved.
+A port of the JAX package's ``models/common/linear.py`` on every feature
+layout: dense matrices, sparse ``(indices, values)`` pairs (a column of
+:class:`SparseVector` or the ``{col}_indices`` + ``{col}_values`` pair
+columns) and the mixed dense + hashed-categorical layout
+(``{col}_dense`` + ``{col}_indices``).  The out-of-core fit is not ported
+(ROADMAP queue A3).  Every stage runs on ``device`` (default ``"cuda"``;
+raises without a card unless ``"cpu"`` is asked for).  The device is a
+runtime choice, not a param, so it is not saved.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from ...params.shared import (
 from ...utils import persist
 from ...utils.device import resolve_device
 from .losses import LOSSES
-from .sgd import LinearState, SGDConfig, sgd_fit_mixed
+from .sgd import (LinearState, SGDConfig, sgd_fit, sgd_fit_mixed,
+                  sgd_fit_sparse)
 
 __all__ = ["LinearEstimatorParams", "LinearModelBase", "LinearEstimatorBase",
            "resolve_features", "check_sparse_indices"]
@@ -90,14 +93,6 @@ def resolve_features(table: Table, col: str):
             and isinstance(column[0], SparseVector):
         return "sparse", stack_sparse_vectors(column)
     return "dense", stack_vectors(column)
-
-
-def _require_mixed(kind: str, col: str) -> None:
-    if kind != "mixed":
-        raise NotImplementedError(
-            f"the {kind!r} feature layout is not ported to "
-            "flink_ml_tpu_torch yet (ROADMAP queue A2); use the mixed "
-            f"layout ({col}_dense + {col}_indices)")
 
 
 class LinearModelParams(HasFeaturesCol, HasPredictionCol, HasRawPredictionCol):
@@ -157,23 +152,36 @@ class LinearModelBase(LinearModelParams, Model):
 
     # -- inference ----------------------------------------------------------
     def _margins(self, table: Table) -> np.ndarray:
-        """``dense @ w[:nd] + sum(w[cat]) + b`` in f32 on the device (the
-        JAX package's ``_jit_mixed_margins``), returned as f64 numpy."""
+        """Margins in f32 on the device, returned as f64 numpy: ``X @ w +
+        b`` for dense features, ``sum(vals * w[idx]) + b`` for sparse
+        pairs, ``dense @ w[:nd] + sum(w[cat]) + b`` for the mixed layout
+        (the JAX package's ``_jit_margins``, ``_jit_sparse_margins`` and
+        ``_jit_mixed_margins``; its zero-column trick for a context-stable
+        XLA contraction has no counterpart here)."""
         self._require_model()
-        col = self.get_features_col()
-        kind, feats = resolve_features(table, col)
-        _require_mixed(kind, col)
-        dense, cat = feats
-        check_sparse_indices(cat, self._state.coefficients.shape[0])
+        kind, feats = resolve_features(table, self.get_features_col())
         dev = resolve_device(self.device)
         w = torch.as_tensor(self._state.coefficients, dtype=torch.float32,
                             device=dev)
         b = torch.as_tensor(self._state.intercept, dtype=torch.float32,
                             device=dev)
-        dense_t = torch.from_numpy(dense).to(dev)
-        cat_t = torch.from_numpy(cat).to(dev).long()
-        m = (dense_t @ w[:dense.shape[-1]]
-             + torch.sum(w[cat_t], dim=-1) + b)
+
+        def put(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=dev)
+
+        if kind == "sparse":
+            idx, vals, _ = feats
+            check_sparse_indices(idx, self._state.coefficients.shape[0])
+            m = torch.sum(put(vals, torch.float32)
+                          * w[put(idx, torch.int64)], dim=-1) + b
+        elif kind == "mixed":
+            dense, cat = feats
+            check_sparse_indices(cat, self._state.coefficients.shape[0])
+            m = (put(dense, torch.float32) @ w[:dense.shape[-1]]
+                 + torch.sum(w[put(cat, torch.int64)], dim=-1) + b)
+        else:
+            m = put(feats, torch.float32) @ w + b
         return m.cpu().numpy().astype(np.float64)
 
     def _decision(self, margins: np.ndarray) -> np.ndarray:
@@ -231,28 +239,50 @@ class LinearEstimatorBase(LinearEstimatorParams, Estimator):
 
     def fit(self, *inputs):
         (table,) = inputs
-        col = self.get_features_col()
-        kind, feats = resolve_features(table, col)
-        _require_mixed(kind, col)
+        kind, feats = resolve_features(table, self.get_features_col())
         y = self._labels(table)
         weight_col = self.get_weight_col()
         weights = (np.asarray(table[weight_col], np.float64)
                    if weight_col else None)
-        dense, cat = feats
-        num_features = self.get_num_features()
-        if not num_features:
-            raise ValueError(
-                "mixed dense+hashed input needs numFeatures (the hash-"
-                "space size); call set_num_features")
-        state, loss_log = sgd_fit_mixed(
-            LOSSES[self.loss_name], dense, cat, y, weights,
-            num_features, self._sgd_config(), device=self.device)
+        loss = LOSSES[self.loss_name]
+        if kind == "sparse":
+            idx, vals, dim = feats
+            num_features = self.get_num_features() or dim
+            if not num_features:
+                raise ValueError(
+                    "hashed pair-column input needs numFeatures (the hash-"
+                    "space size); call set_num_features")
+            state, loss_log = sgd_fit_sparse(
+                loss, idx, vals, y, weights, num_features,
+                self._sgd_config(), device=self.device)
+        elif kind == "mixed":
+            dense, cat = feats
+            num_features = self.get_num_features()
+            if not num_features:
+                raise ValueError(
+                    "mixed dense+hashed input needs numFeatures (the hash-"
+                    "space size); call set_num_features")
+            state, loss_log = sgd_fit_mixed(
+                loss, dense, cat, y, weights, num_features,
+                self._sgd_config(), device=self.device)
+        else:
+            state, loss_log = sgd_fit(loss, feats, y, weights,
+                                      self._sgd_config(), device=self.device)
 
         model = self.model_cls(device=self.device)
         model.copy_params_from(self)
         model._state = state
         model._loss_log = loss_log
         return model
+
+    def fit_outofcore(self, make_reader, **kwargs):
+        """The JAX package's streaming fit over a reader of host batches
+        (the Criteo-scale input path) is not ported yet: ROADMAP queue
+        A3."""
+        raise NotImplementedError(
+            "fit_outofcore (the streaming fit) is not ported to "
+            "flink_ml_tpu_torch yet (ROADMAP queue A3); fit a Table in "
+            "memory with fit()")
 
     def _sgd_config(self) -> SGDConfig:
         return SGDConfig(

@@ -7,22 +7,33 @@ steps with the JAX package's termination rule: stop after the first epoch
 whose mean step loss moved by no more than ``tol`` (``tol <= 0``
 disables it).
 
-The mixed dense + hashed-categorical layout (the Criteo shape) trains
-through the static ELL routing of :mod:`flink_ml_tpu_torch.ops.ell_scatter`:
-its margin and scatter kernels replace the per-slot gather and scatter.
-``dloss/dmargin`` comes from ``torch.autograd.grad`` over the margin alone,
-so any loss of :mod:`.losses` plugs in; the weight update itself is
-applied by hand (no dense gradient of ``w`` is ever built).
+Three feature layouts train here:
+
+- dense ``(n, d)`` features (:func:`sgd_fit`, :func:`sgd_fit_params`):
+  autograd of ``loss + l2/2 ||w||^2`` over ``x @ w + b``, then the l1
+  proximal step; ``w`` is a vector or a ``(d, classes)`` matrix;
+- the generic sparse ``(indices, values)`` pairs (:func:`sgd_fit_sparse`)
+  and the mixed dense + hashed-categorical layout, the Criteo shape
+  (:func:`sgd_fit_mixed`).  Both train through the static ELL routing of
+  :mod:`flink_ml_tpu_torch.ops.ell_scatter` where the weight tiles into
+  128-lane rows and the layout fits its budget: its margin and scatter
+  kernels replace the per-slot gather and scatter (the sparse layout
+  drives their value variants).  ``dloss/dmargin`` comes from
+  ``torch.autograd.grad`` over the margin alone, so any loss of
+  :mod:`.losses` plugs in; the weight update itself is applied by hand
+  (no dense gradient of ``w`` is ever built), with the l2 term as a decay
+  before the step.
 
 A port of the single-device subset of the JAX package's
-``models/common/sgd.py``; its multi-device, out-of-core, dense and
-sparse-kind paths are not ported yet.
+``models/common/sgd.py``.  Its meshes, its compressed gradient reduction
+(``SGDConfig.grad_reduce``, which this ``SGDConfig`` does not have) and
+its out-of-core fit (ROADMAP queue A3) are not ported.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +41,8 @@ import torch
 from ...ops import ell_scatter as E
 from ...utils.device import resolve_device
 
-__all__ = ["SGDConfig", "LinearState", "sgd_fit_mixed", "plan_mixed_impl",
+__all__ = ["SGDConfig", "LinearState", "sgd_fit", "sgd_fit_params",
+           "sgd_fit_sparse", "sgd_fit_mixed", "plan_mixed_impl",
            "routing_chunk_steps", "plan_epoch_layout",
            "prepare_epoch_tensor", "resolve_global_batch_size"]
 
@@ -98,8 +110,8 @@ def resolve_global_batch_size(config: SGDConfig, n: int,
 class LinearState:
     coefficients: np.ndarray    # (d,)
     intercept: float
-    #: which update implementation the fit planned ("ell" / "plain");
-    #: not part of persisted model data
+    #: which update implementation the fit planned ("ell" / "plain" for
+    #: the hashed layouts, "dense"); not part of persisted model data
     planned_impl: Optional[str] = None
 
 
@@ -160,6 +172,34 @@ def _loss_and_r(loss_fn: LossFn, margin: torch.Tensor, yb: torch.Tensor,
     return value.detach(), r
 
 
+def _linear_update(loss_fn: LossFn, config: SGDConfig):
+    """THE dense single-batch update: the autograd gradient of ``loss +
+    l2/2 ||w||^2`` over ``xb @ w + b`` (vector or matrix ``w``), a plain
+    step, then the l1 proximal soft-threshold.  The l2 term lives in the
+    gradient here, not in :func:`_finish_sparse_step`'s decay before the
+    step; the two are the same algebra in another f32 order."""
+    lr = config.learning_rate
+    reg, alpha = config.reg, config.elastic_net
+    l2 = reg * (1.0 - alpha)
+    l1 = reg * alpha
+
+    def update(params, xb, yb, wb):
+        with torch.enable_grad():
+            w = params["w"].detach().requires_grad_(True)
+            b = params["b"].detach().requires_grad_(True)
+            value = loss_fn(xb @ w + b, yb, wb) + 0.5 * l2 * torch.sum(
+                torch.square(w))
+            gw, gb = torch.autograd.grad(value, (w, b))
+        new_w = params["w"] - lr * gw
+        if l1 > 0:
+            new_w = torch.sign(new_w) * torch.clamp(
+                torch.abs(new_w) - lr * l1, min=0.0)
+        new_b = params["b"] - (lr * gb if config.fit_intercept else 0.0)
+        return {"w": new_w, "b": new_b}, value.detach()
+
+    return update
+
+
 def _finish_sparse_step(config: SGDConfig):
     """Shared l2/apply/l1-prox/bias tail of the manual-gradient updates
     (l2 decay = ``w*(1-lr*l2)`` before the sparse gradient, exactly
@@ -183,6 +223,26 @@ def _finish_sparse_step(config: SGDConfig):
         return {"w": w, "b": b}, value
 
     return finish
+
+
+def _sparse_update(loss_fn: LossFn, config: SGDConfig):
+    """Single-batch update for the generic ``(indices, values)`` layout
+    without the ELL routing: the margin is ``sum(values * w[indices])``
+    and the gradient a direct scatter-add of ``-lr * values * r`` into the
+    weight (``index_add``, in place of the JAX package's lane-blocked
+    scatter, which is the same sum).  The path for widths the kernels
+    reject or layouts over budget."""
+    lr = config.learning_rate
+    finish = _finish_sparse_step(config)
+
+    def update(params, idx, vals, yb, wb):
+        w, b = params["w"], params["b"]
+        margin = torch.sum(vals * E.gather_weights(w, idx), dim=-1) + b
+        value, r = _loss_and_r(loss_fn, margin, yb, wb)
+        return finish(w, b, value, r, lambda w: w.index_add(
+            0, idx.reshape(-1), (-lr * (vals * r[:, None])).reshape(-1)))
+
+    return update
 
 
 def _mixed_update(loss_fn: LossFn, config: SGDConfig):
@@ -304,6 +364,34 @@ def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
     return update
 
 
+def _sparse_update_ell(loss_fn: LossFn, config: SGDConfig,
+                       plain: bool = False):
+    """ELL twin of :func:`_sparse_update` for the generic ``(indices,
+    values)`` layout: per-slot updates are ``-lr * value * r``, carried by
+    the layout's value arrays (``val``, ``ovf_val`` and value-sum
+    ``heavy_cnt``); ``route`` is the step's ``(route_w, route_val)`` pair
+    of the sample routing.  The value variants of the ELL kernels carry
+    the in-grid slots.  Same algebra as :func:`_sparse_update` up to f32
+    summation order.  ``plain`` runs the kernels' plain versions."""
+    lr = config.learning_rate
+    finish = _finish_sparse_step(config)
+
+    def update(params, route, src, pos, mask, val_ell, ovf_idx, ovf_src,
+               ovf_val, heavy_idx, heavy_cnt, yb, wb):
+        w, b = params["w"], params["b"]
+        route_w, route_val = route
+        margin = _ell_margin(w, yb.shape[0], route_w, ovf_idx, ovf_src,
+                             heavy_idx, heavy_cnt, route_val=route_val,
+                             ovf_val=ovf_val, plain=plain) + b
+        value, r = _loss_and_r(loss_fn, margin, yb, wb)
+        r_ext = _extended_r(r)
+        return finish(w, b, value, r, lambda w: _apply_ell_categorical(
+            lr, w, r, r_ext, src, pos, mask, ovf_idx, ovf_src, heavy_idx,
+            heavy_cnt, val_ell=val_ell, ovf_val=ovf_val, plain=plain))
+
+    return update
+
+
 def plan_mixed_impl(num_features: int, steps: int,
                     layout_bytes_per_slot: int = 12) -> str:
     """Which categorical implementation :func:`sgd_fit_mixed` runs:
@@ -321,41 +409,166 @@ def plan_mixed_impl(num_features: int, steps: int,
     return "plain"
 
 
-def routing_chunk_steps(steps: int, route_slots: int) -> int:
+def routing_chunk_steps(steps: int, route_slots: int,
+                        entry_bytes: int = 4) -> int:
     """Steps of the sample routing built at once: all ``steps`` where the
-    whole routing (``route_slots`` entries per step, 4 bytes each) fits
+    whole routing (``route_slots`` entries per step, ``entry_bytes`` each:
+    4 for the weight index, 8 with the slot's value) fits
     ``_ROUTE_BUDGET_BYTES``, else as many as fit, at least one."""
-    per_step = max(1, route_slots * 4)
+    per_step = max(1, route_slots * entry_bytes)
     return max(1, min(steps, _ROUTE_BUDGET_BYTES // per_step))
 
 
 class _StepRouting:
     """The margin's sample routing of a layout stack, indexed by step like
     the epoch tensors: ``routing[i]`` is step ``i``'s ``(nnz, batch)``
-    routing.  Built on the layout's device one chunk of ``chunk`` steps at
-    a time, when a step of the chunk is first asked for, and kept until a
-    step of another chunk is: with one chunk it is built once per fit, with
-    more it is built anew in every epoch.  A step's routing depends only
-    on that step's layout, and columns past a sample's last slot add 0, so
-    the chunking does not change the margin.  ``builds`` counts the
-    chunks built."""
+    ``route_w``, or the pair ``(route_w, route_val)`` where the layout
+    carries values (``lay.val``).  Built on the layout's device one chunk
+    of ``chunk`` steps at a time, when a step of the chunk is first asked
+    for, and kept until a step of another chunk is: with one chunk it is
+    built once per fit, with more it is built anew in every epoch.  A
+    step's routing depends only on that step's layout, and columns past a
+    sample's last slot add 0, so the chunking does not change the margin.
+    ``builds`` counts the chunks built."""
 
     def __init__(self, lay: "E.EllLayout", batch: int, chunk: int):
         self.lay, self.batch, self.chunk = lay, batch, chunk
         self.builds = 0
-        self._lo, self._hi, self._route = 0, 0, None
+        self._lo, self._hi = 0, 0
+        self._route = self._val = None
 
-    def __getitem__(self, i: int) -> torch.Tensor:
+    def __getitem__(self, i: int):
         if not self._lo <= i < self._hi:
             lo = i - i % self.chunk
             hi = min(lo + self.chunk, self.lay.src.shape[0])
-            self._route = None              # free the old chunk first
-            self._route, _ = E.sample_routing(
-                self.lay.src[lo:hi], self.lay.pos[lo:hi],
-                self.lay.mask[lo:hi], self.batch)
+            self._route = self._val = None      # free the old chunk first
+            lay = self.lay
+            self._route, self._val = E.sample_routing(
+                lay.src[lo:hi], lay.pos[lo:hi], lay.mask[lo:hi], self.batch,
+                val=None if lay.val is None else lay.val[lo:hi])
             self._lo, self._hi = lo, hi
             self.builds += 1
-        return self._route[i - self._lo]
+        if self._val is None:
+            return self._route[i - self._lo]
+        return self._route[i - self._lo], self._val[i - self._lo]
+
+
+def _epoch_targets(labels: np.ndarray, weights: Optional[np.ndarray],
+                   perm: np.ndarray, steps: int, batch: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The f32 label and sample-weight epoch tensors; padding rows carry
+    weight 0."""
+    y = prepare_epoch_tensor(labels.astype(np.float32), perm, steps, batch)
+    sw_host = (weights.astype(np.float32) if weights is not None
+               else np.ones((labels.shape[0],), np.float32))
+    return y, prepare_epoch_tensor(sw_host, perm, steps, batch,
+                                   pad_value=0.0)
+
+
+def _zero_params(num_features: int, dev: torch.device) -> dict:
+    return {"w": torch.zeros(num_features, dtype=torch.float32, device=dev),
+            "b": torch.zeros((), dtype=torch.float32, device=dev)}
+
+
+def _linear_state(params: dict, impl: str) -> LinearState:
+    return LinearState(params["w"].cpu().numpy().astype(np.float64),
+                       float(params["b"]), planned_impl=impl)
+
+
+def sgd_fit(loss_fn: LossFn, features: np.ndarray, labels: np.ndarray,
+            weights: Optional[np.ndarray], config: SGDConfig,
+            device="cuda") -> Tuple[LinearState, list]:
+    """Train ``(w, b)`` on dense ``(n, d)`` features, minimizing
+    ``loss_fn(margin, labels, weights) + reg * ((1-alpha)/2 ||w||^2 +
+    alpha ||w||_1)`` (the l1 part by proximal soft-threshold after each
+    step).  Returns the fitted state (planned "dense") and the per-epoch
+    loss log.  Runs on ``device`` (default the card; raises without
+    one)."""
+    d = features.shape[1]
+    params, loss_log = sgd_fit_params(
+        loss_fn, features, labels, weights, config, device,
+        init_params={"w": np.zeros((d,), np.float32),
+                     "b": np.zeros((), np.float32)})
+    return LinearState(np.asarray(params["w"], np.float64),
+                       float(params["b"]), planned_impl="dense"), loss_log
+
+
+def sgd_fit_params(loss_fn: LossFn, features: np.ndarray, labels: np.ndarray,
+                   weights: Optional[np.ndarray], config: SGDConfig,
+                   device="cuda", *, init_params: dict
+                   ) -> Tuple[Dict[str, np.ndarray], list]:
+    """The core behind :func:`sgd_fit`: trains any ``{"w", "b"}`` whose
+    score is ``x @ w + b`` (vector ``w`` for the binary and regression
+    models, a ``(d, classes)`` matrix for softmax), from ``init_params``
+    (numpy or tensors).  ``loss_fn(scores, labels, weights)`` defines the
+    objective; labels ride the epoch tensor as f32 (exact for class ids
+    below 2^24: cast back inside the loss).  Returns the fitted parameters
+    as f32 numpy and the per-epoch loss log."""
+    dev = resolve_device(device)
+    n = features.shape[0]
+    steps, batch, perm = plan_epoch_layout(
+        n, resolve_global_batch_size(config, n), 1, config.seed)
+    X = prepare_epoch_tensor(features.astype(np.float32), perm, steps, batch)
+    y, sw = _epoch_targets(labels, weights, perm, steps, batch)
+    init = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for k, v in init_params.items()}
+    params, loss_log = _run_minibatch_epochs(
+        _linear_update(loss_fn, config),
+        tuple(torch.from_numpy(a).to(dev) for a in (X, y, sw)), init, steps,
+        config)
+    return {k: v.cpu().numpy() for k, v in params.items()}, loss_log
+
+
+def sgd_fit_sparse(loss_fn: LossFn, indices: np.ndarray, values: np.ndarray,
+                   labels: np.ndarray, weights: Optional[np.ndarray],
+                   num_features: int, config: SGDConfig, device="cuda",
+                   plain: bool = False) -> Tuple[LinearState, list]:
+    """Train ``(w, b)`` on the generic sparse layout: rows are ``(indices
+    (n, nnz) int, values (n, nnz) float)`` pairs (what
+    :func:`~flink_ml_tpu_torch.linalg.stack_sparse_vectors` and a hashing
+    featurizer's pair columns give) scored against a dense
+    ``(num_features,)`` weight.  The ELL plan builds the values-aware host
+    layout (``ell_layout(idx, d, values=vals)``: a fourth f32 grid, so 16
+    bytes a slot a step in the batch and plan budgets) and the sample
+    routing with the slots' values; the margin and scatter kernels run
+    their value variants.  Returns the fitted state and the per-epoch loss
+    log.  Runs on ``device`` (default the card; raises without one).
+    ``plain`` runs the ELL kernels' plain versions (the oracle on the
+    card)."""
+    from .linear import check_sparse_indices
+
+    dev = resolve_device(device)
+    check_sparse_indices(indices, num_features)
+    n, nnz = indices.shape
+    steps, batch, perm = plan_epoch_layout(
+        n, resolve_global_batch_size(config, n, num_features,
+                                     layout_bytes_per_slot=16), 1,
+        config.seed)
+    idx = prepare_epoch_tensor(indices.astype(np.int32), perm, steps, batch)
+    vals = prepare_epoch_tensor(values.astype(np.float32), perm, steps,
+                                batch)
+    y, sw = _epoch_targets(labels, weights, perm, steps, batch)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    impl = plan_mixed_impl(num_features, steps, layout_bytes_per_slot=16)
+    if impl == "ell":
+        # the raw (steps, batch, nnz) idx/vals stay on the host: margins
+        # and scatters both ride the layout
+        lay = E.ell_layout(idx, num_features, values=vals).to(dev)
+        route = _StepRouting(lay, batch, routing_chunk_steps(
+            steps, batch * nnz, entry_bytes=8))
+        epoch_args = (route, lay.src, lay.pos, lay.mask, lay.val,
+                      lay.ovf_idx, lay.ovf_src, lay.ovf_val, lay.heavy_idx,
+                      lay.heavy_cnt, put(y), put(sw))
+        update = _sparse_update_ell(loss_fn, config, plain=plain)
+    else:
+        epoch_args = (put(idx).long(), put(vals), put(y), put(sw))
+        update = _sparse_update(loss_fn, config)
+    params, loss_log = _run_minibatch_epochs(
+        update, epoch_args, _zero_params(num_features, dev), steps, config)
+    return _linear_state(params, impl), loss_log
 
 
 def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
@@ -387,10 +600,7 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
                                  steps, batch)
     cat = prepare_epoch_tensor(cat_indices.astype(np.int32), perm, steps,
                                batch)
-    y = prepare_epoch_tensor(labels.astype(np.float32), perm, steps, batch)
-    sw_host = (weights.astype(np.float32) if weights is not None
-               else np.ones((n,), np.float32))
-    sw = prepare_epoch_tensor(sw_host, perm, steps, batch, pad_value=0.0)
+    y, sw = _epoch_targets(labels, weights, perm, steps, batch)
 
     def put(a):
         return torch.from_numpy(a).to(dev)
@@ -412,10 +622,6 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
         epoch_args = (put(dense), put(cat).long(), put(y), put(sw))
         update = _mixed_update(loss_fn, config)
 
-    init_params = {"w": torch.zeros(num_features, dtype=torch.float32,
-                                    device=dev),
-                   "b": torch.zeros((), dtype=torch.float32, device=dev)}
-    params, loss_log = _run_minibatch_epochs(update, epoch_args,
-                                             init_params, steps, config)
-    return LinearState(params["w"].cpu().numpy().astype(np.float64),
-                       float(params["b"]), planned_impl=impl), loss_log
+    params, loss_log = _run_minibatch_epochs(
+        update, epoch_args, _zero_params(num_features, dev), steps, config)
+    return _linear_state(params, impl), loss_log

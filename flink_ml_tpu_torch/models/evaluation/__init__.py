@@ -1,0 +1,6 @@
+from .binary_evaluator import BinaryClassificationEvaluator  # noqa: F401
+from .clustering_evaluator import ClusteringEvaluator  # noqa: F401
+from .multiclass_evaluator import (  # noqa: F401
+    MulticlassClassificationEvaluator,
+)
+from .regression_evaluator import RegressionEvaluator  # noqa: F401

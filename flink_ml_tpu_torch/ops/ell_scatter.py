@@ -1,5 +1,7 @@
-"""ELL static routing for the mixed-layout linear trainers: the host layout
-build, and the three ELL kernels with their plain PyTorch versions.
+"""ELL static routing for the hashed-layout linear trainers (the mixed
+layout, and the generic sparse (indices, values) layout, whose slots carry
+values): the host and device layout builds, and the three ELL kernels with
+their plain PyTorch versions.
 
 One SGD step on the Criteo-shaped mixed layout gathers ``w[cat[b, j]]`` for
 the margin and applies ``w[cat[b, j]] += -lr * r[b]`` for ~1M (slot ->
@@ -39,8 +41,8 @@ Each wrapper takes its plain PyTorch version (``*_plain``) for tensors on
 the CPU, and launches its kernel for CUDA tensors or raises: it never falls
 back.  A launch adds one to :data:`LAUNCHES`.
 
-A port of the JAX package's ``ops/ell_scatter.py`` (host layout, kernels
-and their XLA twins).  ``ell_layout_device`` is not ported yet.
+A port of the JAX package's ``ops/ell_scatter.py`` (host layout, the
+device-side layout builder, kernels and their XLA twins).
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["EllLayout", "ell_layout", "supported", "ELL_WIDTH",
+__all__ = ["EllLayout", "ell_layout", "ell_layout_device", "supported",
+           "ELL_WIDTH",
            "HEAVY_THRESHOLD", "sample_routing", "ell_margin",
            "ell_margin_plain", "ell_scatter_apply_fused",
            "ell_scatter_apply_fused_plain",
@@ -417,6 +420,114 @@ def ell_layout(cat_indices: np.ndarray, num_features: int,
         batch=batch, num_features=num_features,
         need_ovf=np.asarray([o[3].size for o in outs], np.int32),
         need_heavy=np.asarray([o[5].size for o in outs], np.int32))
+
+
+def ell_layout_device(cat_indices: torch.Tensor, num_features: int,
+                      ovf_cap: int = 1 << 16, heavy_cap: int = 8,
+                      heavy_threshold: int = HEAVY_THRESHOLD,
+                      values: Optional[torch.Tensor] = None) -> EllLayout:
+    """Device-side layout builder for callers whose ``(steps, batch,
+    nnz)`` epoch tensor already lives on the device: torch ops on its
+    device, one stable sort per step, the same layout as
+    :func:`ell_layout` within the static capacities.  Slots beyond
+    ``ovf_cap`` overflow slots or ``heavy_cap`` heavy indices in a step are
+    DROPPED from the layout; ``need_ovf``/``need_heavy`` (host numpy)
+    record what each step needed, so callers size the caps generously or
+    call :meth:`EllLayout.assert_capacities`, which raises.  With
+    ``values`` (same shape, float) the layout carries the value grids and
+    ``heavy_cnt`` holds f32 value sums.  Indices must lie in ``[0,
+    num_features)``."""
+    _check_heavy_threshold(heavy_threshold)
+    steps, batch, nnz = cat_indices.shape
+    rows = num_features // _LANES
+    dev = cat_indices.device
+    if cat_indices.numel() and (int(cat_indices.min()) < 0 or
+                                int(cat_indices.max()) >= num_features):
+        raise ValueError(f"indices must lie in [0, {num_features})")
+    flat_all = cat_indices.reshape(steps, -1).long()
+    vals_all = (None if values is None
+                else values.reshape(steps, -1).to(torch.float32))
+    b_of = torch.arange(batch, dtype=torch.int32,
+                        device=dev).repeat_interleave(nnz)
+    slot = torch.arange(batch * nnz, device=dev)
+    row_ids = torch.arange(rows, device=dev)
+    out = {k: [] for k in ("src", "pos", "mask", "val", "ovf_idx", "ovf_src",
+                           "ovf_val", "heavy_idx", "heavy_cnt", "n_ovf",
+                           "n_heavy")}
+
+    def dropped(keep, rank, cap):
+        """Destination ``rank`` where ``keep`` and within ``cap``, else the
+        dump slot ``cap`` (sliced off)."""
+        return torch.where(keep & (rank < cap), rank, cap)
+
+    for s in range(steps):
+        sidx, order = torch.sort(flat_all[s], stable=True)
+        ssrc = b_of[order]
+        svals = None if vals_all is None else vals_all[s][order]
+        row = sidx >> 7
+        starts = torch.searchsorted(row, row_ids)
+        pos = slot - starts[row]
+        run_start = torch.searchsorted(sidx, sidx, side="left")
+        run_end = torch.searchsorted(sidx, sidx, side="right")
+        heavy_slot = (run_end - run_start) > heavy_threshold
+        keep = (pos < ELL_WIDTH) & ~heavy_slot
+        src = torch.full((rows, ELL_WIDTH), batch, dtype=torch.int32,
+                         device=dev)
+        src[row[keep], pos[keep]] = ssrc[keep]
+        if svals is not None:
+            val = torch.zeros((rows, ELL_WIDTH), dtype=torch.float32,
+                              device=dev)
+            val[row[keep], pos[keep]] = svals[keep]
+            out["val"].append(val)
+        hist = torch.bincount(sidx[keep], minlength=rows * _LANES).view(
+            rows, _LANES)
+        P = torch.cumsum(hist, dim=1) - 1
+        out["src"].append(src)
+        out["mask"].append((P >= 0).to(torch.float32))
+        out["pos"].append(P.clamp_min(0).to(torch.int32))
+
+        spill = ~keep & ~heavy_slot
+        at = dropped(spill, torch.cumsum(spill, 0) - 1, ovf_cap)
+        ovf_i = torch.zeros(ovf_cap + 1, dtype=torch.int32, device=dev)
+        ovf_s = torch.full((ovf_cap + 1,), batch, dtype=torch.int32,
+                           device=dev)
+        ovf_i[at] = torch.where(spill, sidx, 0).to(torch.int32)
+        ovf_s[at] = torch.where(spill, ssrc, batch)
+        out["ovf_idx"].append(ovf_i[:ovf_cap])
+        out["ovf_src"].append(ovf_s[:ovf_cap])
+        if svals is not None:
+            ovf_v = torch.zeros(ovf_cap + 1, dtype=torch.float32, device=dev)
+            ovf_v[at] = torch.where(spill, svals, 0.0)
+            out["ovf_val"].append(ovf_v[:ovf_cap])
+
+        # heavy runs, compacted by first occurrence: a slot's rank is the
+        # number of heavy runs starting at or before it, less one
+        first = heavy_slot & (slot == run_start)
+        h_rank = torch.cumsum(first, 0) - 1
+        h_i = torch.zeros(heavy_cap + 1, dtype=torch.int32, device=dev)
+        h_i[dropped(first, h_rank, heavy_cap)] = torch.where(
+            heavy_slot, sidx, 0).to(torch.int32)
+        h_c = torch.zeros((heavy_cap + 1, batch), device=dev,
+                          dtype=torch.int32 if svals is None
+                          else torch.float32)
+        h_c.index_put_((dropped(heavy_slot, h_rank, heavy_cap), ssrc.long()),
+                       torch.ones_like(ssrc) if svals is None else svals,
+                       accumulate=True)
+        out["heavy_idx"].append(h_i[:heavy_cap])
+        out["heavy_cnt"].append(h_c[:heavy_cap].to(
+            torch.int16 if svals is None else torch.float32))
+        out["n_ovf"].append(spill.sum())
+        out["n_heavy"].append(first.sum())
+
+    stack = {k: torch.stack(v) if v else None for k, v in out.items()}
+    return EllLayout(
+        src=stack["src"], pos=stack["pos"], mask=stack["mask"],
+        ovf_idx=stack["ovf_idx"], ovf_src=stack["ovf_src"],
+        heavy_idx=stack["heavy_idx"], heavy_cnt=stack["heavy_cnt"],
+        val=stack["val"], ovf_val=stack["ovf_val"], batch=batch,
+        num_features=num_features,
+        need_ovf=stack["n_ovf"].cpu().numpy().astype(np.int32),
+        need_heavy=stack["n_heavy"].cpu().numpy().astype(np.int32))
 
 
 def gather_weights(w: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ import torch
 from ..models.common.sgd import LinearState
 from .device import resolve_device
 
-__all__ = ["params_from_jax", "model_from_jax_state", "kmeans_model_from_jax",
+__all__ = ["params_from_jax", "model_from_jax_state", "softmax_model_from_jax",
+           "kmeans_model_from_jax",
            "widedeep_params_from_jax", "adam_state_from_jax",
            "ivf_index_from_jax"]
 
@@ -35,6 +36,26 @@ def model_from_jax_state(coefficients: np.ndarray, intercept: float, cls,
         coefficients=np.asarray(coefficients, np.float64),
         intercept=float(intercept))
     return model
+
+
+def softmax_model_from_jax(coefficients: np.ndarray, intercepts: np.ndarray,
+                           labels: np.ndarray, device="cuda"):
+    """A fitted port ``SoftmaxRegressionModel`` holding the JAX model's
+    ``(d, classes)`` coefficients, ``(classes,)`` intercepts and original
+    label values (its ``get_model_data()[0]`` columns, row 0)."""
+    from ..data.table import Table
+    from ..models.classification.softmaxregression import (
+        SoftmaxRegressionModel)
+
+    resolve_device(device)
+    coef = np.asarray(coefficients, np.float64)
+    bias = np.asarray(intercepts, np.float64)
+    if coef.ndim != 2 or bias.shape != coef.shape[1:]:
+        raise ValueError(f"coefficients must be (d, classes) and intercepts "
+                         f"(classes,), got {coef.shape} and {bias.shape}")
+    return SoftmaxRegressionModel(device=device).set_model_data(Table({
+        "coefficients": coef[None], "intercepts": bias[None],
+        "labels": np.asarray(labels)[None]}))
 
 
 def kmeans_model_from_jax(centroids: np.ndarray, device="cuda"):

@@ -200,6 +200,75 @@ def test_fit_matches_plain_versions(cuda_device, d, kernel):
     np.testing.assert_allclose(got_log, want_log, rtol=1e-4)
 
 
+def _pair_rows(d, n=1200, seed=5):
+    """Criteo-shaped rows in the pair encoding: indices 0-12 carry N(0,1)
+    dense values, the 26 hashed slots 1.0, marker slot 13 drives the
+    label; at batch 600 the dense indices are heavy (f32 value sums)."""
+    dense, cat, y = _fit_data(n=n, d=d, seed=seed)
+    idx = np.concatenate([np.broadcast_to(np.arange(13, dtype=np.int32),
+                                          (n, 13)), cat], axis=1)
+    vals = np.concatenate([dense, np.ones((n, 26), np.float32)], axis=1)
+    return idx, vals, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,kernel", [(D, "ell_scatter_apply_fused"),
+                                      (128 * 1001, "ell_scatter_apply")],
+                         ids=["grid_8", "grid_1001"])
+@pytest.mark.parametrize("rows", ["pair", "normal"])
+def test_sparse_fit_matches_plain_versions(cuda_device, d, kernel, rows):
+    """The sparse (indices, values) fit through the kernels' value
+    variants against the same fit through the plain versions, both on the
+    card: grids of 128 rows (8-row blocks, the fused scatter) and 1001
+    rows (the pair scatter).  The overflow and heavy legs' index_add_ adds
+    in no fixed order on the card, so the fits agree within the bench's
+    tolerance, not bit for bit."""
+    idx, vals, y = _pair_rows(d)
+    if rows == "normal":
+        vals = np.random.default_rng(6).normal(size=vals.shape).astype(
+            np.float32)
+    cfg = TS.SGDConfig(learning_rate=0.3, max_epochs=2,
+                       global_batch_size=600, tol=0, reg=0.01,
+                       elastic_net=0.3)
+    TE.reset_launch_counts()
+    got, got_log = TS.sgd_fit_sparse(LOSSES["logistic"], idx, vals, y, None,
+                                     d, cfg, device=cuda_device)
+    torch.cuda.synchronize()
+    assert got.planned_impl == "ell"
+    assert TE.LAUNCHES["ell_margin"] == 2 * 2
+    assert TE.LAUNCHES[kernel] == 2 * 2
+    want, want_log = TS.sgd_fit_sparse(LOSSES["logistic"], idx, vals, y,
+                                       None, d, cfg, device=cuda_device,
+                                       plain=True)
+    np.testing.assert_allclose(got.coefficients, want.coefficients,
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(got_log, want_log, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_device_layout_matches_host_layout(cuda_device):
+    """``ell_layout_device`` on the card gives the host layout's grids and
+    records, and its value sums within f32 rounding."""
+    idx, vals, _ = _pair_rows(D, n=1200)
+    cat = idx.reshape(2, 600, -1)
+    v = vals.reshape(2, 600, -1)
+    host = TE.ell_layout(cat, D, values=v)
+    dev = TE.ell_layout_device(torch.from_numpy(cat).to(cuda_device), D,
+                               ovf_cap=1 << 13, heavy_cap=24,
+                               values=torch.from_numpy(v).to(cuda_device)
+                               ).assert_capacities().trim_overflow()
+    for f in ("src", "pos", "mask", "val"):
+        assert np.array_equal(getattr(dev, f).cpu().numpy(),
+                              getattr(host, f)), f
+    np.testing.assert_array_equal(dev.need_ovf, host.need_ovf)
+    np.testing.assert_array_equal(dev.need_heavy, host.need_heavy)
+    h = host.heavy_idx.shape[1]
+    np.testing.assert_array_equal(dev.heavy_idx[:, :h].cpu().numpy(),
+                                  host.heavy_idx)
+    np.testing.assert_allclose(dev.heavy_cnt[:, :h].cpu().numpy(),
+                               host.heavy_cnt, atol=1e-6)
+
+
 # -- KMeans kernels ----------------------------------------------------------
 
 def _kmeans_problem(n, d, k, seed, duplicated=False, n_pad=0):

@@ -32,7 +32,8 @@ def test_import_leaves_jax_out():
     code = ("import sys, flink_ml_tpu_torch, flink_ml_tpu_torch.utils.convert,"
             " flink_ml_tpu_torch.kernels.build,"
             " flink_ml_tpu_torch.ops.emb_grad, flink_ml_tpu_torch.retrieval,"
-            " flink_ml_tpu_torch.ops.retrieve; "
+            " flink_ml_tpu_torch.ops.retrieve, flink_ml_tpu_torch.data.criteo,"
+            " flink_ml_tpu_torch.models.evaluation; "
             "print('\\n'.join(sorted(sys.modules)))")
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True, cwd=REPO,
@@ -106,6 +107,52 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_layouts_and_evaluators_need_cuda_unless_cpu_asked(monkeypatch):
+    """The dense and sparse fits, SoftmaxRegression, the device-side
+    evaluators and the carried-over softmax model raise without a card
+    unless the CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from flink_ml_tpu_torch.models.evaluation import (
+        BinaryClassificationEvaluator, ClusteringEvaluator)
+    from flink_ml_tpu_torch.utils.convert import softmax_model_from_jax
+
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(16, 3))
+    y = (X[:, 0] > 0).astype(np.float64)
+    dense = T.Table({"features": X, "label": y})
+    pair = T.Table({"features_indices": rng.integers(0, 128 * 128,
+                                                     size=(16, 4)),
+                    "features_values": rng.normal(size=(16, 4)),
+                    "label": y})
+    with pytest.raises(RuntimeError, match="no GPU"):
+        T.LinearRegression().fit(dense)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        T.LinearSVC().set_num_features(128 * 128).fit(pair)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        T.SoftmaxRegression().fit(dense)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        TS.sgd_fit(LOSSES["squared"], X, y, None, TS.SGDConfig())
+    with pytest.raises(RuntimeError, match="no GPU"):
+        TS.sgd_fit_sparse(LOSSES["logistic"], pair["features_indices"],
+                          pair["features_values"], y, None, 128 * 128,
+                          TS.SGDConfig())
+    scored = T.Table({"label": y, "rawPrediction": X[:, 0],
+                      "features": X, "prediction": y.astype(np.int64)})
+    for ev in (BinaryClassificationEvaluator(), ClusteringEvaluator()):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            ev.transform(scored)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        softmax_model_from_jax(np.zeros((3, 2)), np.zeros(2), np.arange(2))
+    model = T.SoftmaxRegression(device="cpu").set_max_iter(1).fit(dense)
+    model.device = "cuda"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        model.transform(dense)
+    model = T.LinearSVC(device="cpu").set_max_iter(1).fit(dense)
+    model.device = "cuda"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        model.transform(dense)
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

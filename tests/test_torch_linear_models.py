@@ -124,15 +124,16 @@ assert not bad, bad
 
 
 def test_unported_layouts_raise():
-    rng = np.random.default_rng(8)
-    dense_table = T.Table({"features": rng.normal(size=(16, 3)),
-                           "label": np.zeros(16)})
-    with pytest.raises(NotImplementedError, match="queue A2"):
-        T.LogisticRegression(device="cpu").set_num_features(3).fit(
-            dense_table)
-    model = model_from_jax_state(np.zeros(3), 0.0,
-                                 T.LogisticRegressionModel, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A2"):
-        model.transform(dense_table)
+    """Every feature layout is ported; what stays unported (the streaming
+    fit) raises naming its ROADMAP queue, and the hashed layouts still
+    need numFeatures."""
+    est = T.LogisticRegression(device="cpu").set_num_features(D)
+    with pytest.raises(NotImplementedError, match="queue A3"):
+        est.fit_outofcore(lambda: iter(()), num_features=D)
     with pytest.raises(ValueError, match="numFeatures"):
         T.LogisticRegression(device="cpu").fit(T.Table(_columns(n=32)))
+    pair = _columns(n=32)
+    pair = {"features_indices": pair["features_indices"],
+            "features_values": np.ones((32, 26)), "label": pair["label"]}
+    with pytest.raises(ValueError, match="numFeatures"):
+        T.LogisticRegression(device="cpu").fit(T.Table(pair))
