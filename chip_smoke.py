@@ -158,9 +158,35 @@ line is printed):
     plans "ell" and launches the margin and fused-scatter kernels; parse
     rows/s.
 
+20. The iteration runtime on the card: the reference's anchor (4 sources
+    x 1000 records, values 0-999, as device tensors; 5 rounds) sums to
+    exactly 1,998,000 in every round in the fused and the hosted mode; the
+    same with a ``FaultPlan`` crash at ``iterate.epoch`` 3 healed by
+    ``resilient_fit`` from per-epoch checkpoints (every round 1,998,000,
+    the final state equal to the uninterrupted run's bit for bit);
+    ``steps_per_dispatch=4`` equals 1 bit for bit; listeners (at chunk
+    boundaries) and ``per_round`` fire as on the CPU.
+21. The streamed LR fit at the Criteo width: 2^20 Criteo-shaped rows
+    (``criteo_rows``, seed 0) written once with ``DataCacheWriter`` to the
+    gitignored ``scratch_stream/`` (~168 MB, removed at the end) and read
+    by ``DataCacheReader(batch_rows=2^15)``:
+    ``LogisticRegression.fit_outofcore(mixed=True)``, 2 epochs (the first
+    records the decoded replay cache, the second replays it), W 8, 4
+    decode workers.  Checks: B1 and B2 launch 64 times each (32 steps x 2
+    epochs), B3 none; (b) the fit equals ``plain=True`` within
+    allclose(1e-3, 1e-4); (c) W 8 equals W 1 bit for bit; (d) the replayed
+    epoch equals an uncached fit bit for bit; (e) a fit whose reader dies
+    fetching batch 13, resumed by ``resilient_fit`` from a
+    ``checkpoint_every_steps=8`` cut, equals the uninterrupted fit bit for
+    bit; the routing built in the decode workers equals the card's.
+    Prints record and replay epochs/s, fit() wall s, ``PrefetchStats``,
+    the checkpoint cut's host ms, the resume's recovery s and phase 4's
+    in-memory rate beside them, each with the card line.
+
 The last lines are the kernel table (nine kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
-``values``, the three KMeans kernels, the fold, the two retrieve kernels)
+``values`` and the streamed fit's launches under ``stream``, the three
+KMeans kernels, the fold, the two retrieve kernels)
 as one JSON object, the card line from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.  The script imports neither JAX nor the JAX package.
 """
@@ -1981,6 +2007,297 @@ def routing_chunk_phase(torch, dev, card):
     if not same_margin or not np.allclose(a, b, rtol=1e-3, atol=1e-4):
         fail("the chunked routing changed the fit")
 
+# The iteration runtime on the card (phase 20): the reference's bounded
+# all-round anchor (BoundedAllRoundStreamIterationITCase.java:96-101)
+IT_SOURCES, IT_RECORDS, IT_ROUNDS = 4, 1000, 5
+IT_ANCHOR = 1998000.0
+# The streamed LR fit (phase 21): 2^20 Criteo-shaped rows through the data
+# cache, 32 steps of 2^15 an epoch, 2 epochs (record, then replay), W = 8
+ST_ROWS = 1 << 20
+ST_EPOCHS = 2
+ST_W = 8
+ST_WORKERS = 4
+ST_CRASH_PULL = 13          # the reader dies fetching batch 13
+ST_CUT_EVERY = 8
+ST_DIR = os.path.join(HERE, "scratch_stream")
+
+
+def iteration_phase(torch, dev, card):
+    """Phase 20: ``iterate`` on the card.  The 4 x 1000 anchor sums to
+    exactly 1,998,000 in every round, fused and hosted; the same under a
+    crash injected at ``iterate.epoch`` 3 and healed by ``resilient_fit``
+    (the final state equal to the uninterrupted run's); W = 4 equals W = 1
+    bit for bit; listeners and ``per_round`` fire as on the CPU."""
+    import shutil
+    import tempfile
+
+    from flink_ml_tpu_torch.iteration import (CheckpointConfig, FnListener,
+                                              IterationBodyResult,
+                                              IterationConfig, iterate)
+    from flink_ml_tpu_torch.robustness import (FaultPlan, RecoveryReport,
+                                               RetryPolicy, resilient_fit)
+
+    t0 = time.perf_counter()
+    records = torch.arange(IT_RECORDS, dtype=torch.float32,
+                           device=dev).repeat(IT_SOURCES)
+
+    def anchor(state, epoch, d):
+        s = d.sum()
+        return IterationBodyResult(
+            {"rounds": state["rounds"] + 1, "acc": state["acc"] * 0.5 + s},
+            outputs=s)
+
+    def init():
+        return {"rounds": torch.zeros((), dtype=torch.int64, device=dev),
+                "acc": torch.zeros((), device=dev)}
+
+    runs = {}
+    for mode in ("fused", "hosted"):
+        res = iterate(anchor, init(), records, max_epochs=IT_ROUNDS,
+                      config=IterationConfig(mode=mode))
+        sums = [float(o) for o in res.outputs]
+        runs[mode] = res
+        log(f"iterate {mode} on {dev}: per-round sums {sums}")
+        if sums != [IT_ANCHOR] * IT_ROUNDS or res.num_epochs != IT_ROUNDS:
+            fail(f"the {mode} anchor does not sum to {IT_ANCHOR} a round")
+    if not torch.equal(runs["fused"].state["acc"],
+                       runs["hosted"].state["acc"]):
+        fail("fused and hosted anchor states differ")
+
+    seen = []
+    ckdir = tempfile.mkdtemp(prefix="it_ckpt_")
+    try:
+        def run(checkpoint=None, resume=False):
+            return iterate(
+                anchor, init(), records, max_epochs=IT_ROUNDS,
+                listeners=[FnListener(lambda e, ctx: seen.append(
+                    (e, float(ctx.outputs))))],
+                config=IterationConfig(mode="hosted"),
+                checkpoint=checkpoint, resume=resume)
+
+        report = RecoveryReport()
+        with FaultPlan().inject("iterate.epoch", at=3, kind="crash") as plan:
+            healed = resilient_fit(
+                run, checkpoint=CheckpointConfig(ckdir, interval=1),
+                max_restarts=1, report=report,
+                backoff=RetryPolicy(sleep=lambda s: None))
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"iterate under a crash at iterate.epoch 3: fires {plan.fires}, "
+        f"restarts {report.restarts}, rounds seen {seen}")
+    if (report.restarts != 1 or plan.fires != [("iterate.epoch", 3, "crash")]
+            or {v for _, v in seen} != {IT_ANCHOR}
+            or [e for e, _ in seen] != [0, 1, 2, 3, 4]
+            or healed.num_epochs != IT_ROUNDS
+            or int(healed.state["rounds"]) != IT_ROUNDS
+            or not torch.equal(healed.state["acc"],
+                               runs["hosted"].state["acc"])):
+        fail("the healed iteration differs from the uninterrupted one")
+
+    g = torch.Generator(device="cpu").manual_seed(20)
+    w0 = torch.randn(4096, generator=g).to(dev)
+    x = torch.randn(4096, generator=g).to(dev)
+
+    def voting(state, epoch, d):
+        new = state * 0.75 + d * 0.125
+        return IterationBodyResult(new, outputs=new.sum(),
+                                   termination=epoch < 9)
+
+    def sweep(device, w):
+        calls = []
+        res = iterate(voting, w0.to(device), x.to(device), max_epochs=40,
+                      steps_per_dispatch=w,
+                      listeners=[FnListener(lambda e, ctx: calls.append(e))],
+                      config=IterationConfig(mode="hosted"))
+        return res, calls
+
+    (one, calls1), (four, calls4) = sweep(dev, 1), sweep(dev, 4)
+    (cpu4, cpu_calls4) = sweep("cpu", 4)
+    log(f"steps_per_dispatch 4 vs 1 on {dev}: epochs {four.num_epochs} / "
+        f"{one.num_epochs}, listener epochs {calls4} (W 1: {calls1}; the "
+        f"CPU at W 4: {cpu_calls4})")
+    if (not torch.equal(one.state, four.state)
+            or one.num_epochs != 10 or four.num_epochs != 10
+            or calls4 != cpu_calls4 or calls1 != list(range(10))):
+        fail("W = 4 differs from W = 1, or listeners fired otherwise than "
+             "on the CPU")
+
+    def rounds(state, epoch, d):
+        s = state["scratch"] + d.sum() + state["carried"]
+        return IterationBodyResult({"carried": state["carried"] + 1.0,
+                                    "scratch": s}, outputs=s)
+
+    outs = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        res = iterate(rounds, {"carried": torch.zeros((), device=device),
+                               "scratch": torch.zeros((), device=device)},
+                      torch.arange(4.0, device=device), max_epochs=4,
+                      per_round=("scratch",),
+                      config=IterationConfig(mode="hosted"))
+        outs[name] = [float(o) for o in res.outputs]
+    log(f"per_round on {dev}: {outs['card']} (CPU {outs['cpu']})")
+    if outs["card"] != outs["cpu"] or outs["cpu"] != [6.0, 7.0, 8.0, 9.0]:
+        fail("per_round differs from the CPU")
+    log(f"phase 20: {time.perf_counter() - t0:.3f} s")
+
+
+def stream_phase(torch, dev, card, mem_epochs_per_s, mem_fit_s):
+    """Phase 21: the streamed LogisticRegression fit at the Criteo width
+    (``fit_outofcore(mixed=True)`` over a ``DataCacheReader``), B1 and B2
+    on every step; returns the streamed launches of each ELL kernel."""
+    import shutil
+
+    from flink_ml_tpu_torch import LogisticRegression
+    from flink_ml_tpu_torch.data.datacache import (DataCacheReader,
+                                                   DataCacheWriter)
+    from flink_ml_tpu_torch.data.prefetch import PrefetchStats
+    from flink_ml_tpu_torch.iteration import CheckpointConfig
+    from flink_ml_tpu_torch.obs import tracer
+    from flink_ml_tpu_torch.ops import ell_scatter as E
+    from flink_ml_tpu_torch.robustness import (FaultPlan, RecoveryReport,
+                                               RetryPolicy, resilient_fit)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ST_DIR, ignore_errors=True)
+    try:
+        dense, cat, y = criteo_rows(ST_ROWS, D_MAIN, seed=0)
+        t0 = time.perf_counter()
+        w = DataCacheWriter(os.path.join(ST_DIR, "cache"))
+        w.append({"features_dense": dense, "features_indices": cat,
+                  "label": y.astype(np.float32)})
+        w.finish()
+        write_s = time.perf_counter() - t0
+        cache = os.path.join(ST_DIR, "cache")
+        size = sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _, fs in os.walk(cache) for f in fs)
+        del dense, cat, y
+        steps = ST_ROWS // BATCH
+        log(f"stream cache: {ST_ROWS} rows, {size} bytes, written in "
+            f"{write_s:.3f} s; {steps} steps of {BATCH} an epoch")
+
+        def fit(w=ST_W, stats=None, info=None, make_reader=None,
+                supervise=None, **kw):
+            """The user's call; with ``supervise`` (a RecoveryReport)
+            through ``resilient_fit``."""
+            est = (LogisticRegression(device=DEVICE).set_max_iter(ST_EPOCHS)
+                   .set_tol(0))
+            call, pre = est.fit_outofcore, ()
+            if supervise is not None:
+                call, pre = resilient_fit, (est.fit_outofcore,)
+                kw.update(max_restarts=1, report=supervise,
+                          backoff=RetryPolicy(sleep=lambda s: None))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model = call(
+                *pre, make_reader
+                or (lambda: DataCacheReader(cache, batch_rows=BATCH)),
+                num_features=D_MAIN, mixed=True, steps_per_dispatch=w,
+                prefetch_workers=ST_WORKERS, prefetch_stats=stats,
+                stream_info=info, **kw)
+            torch.cuda.synchronize()
+            return model, time.perf_counter() - t
+
+        def coef(model):
+            return model.get_model_data()[0]["coefficients"][0]
+
+        stats, info = PrefetchStats(), {}
+        E.reset_launch_counts()
+        main, fit_s = fit(stats=stats, info=info)
+        launches = dict(E.LAUNCHES)
+        rec_s, rep_s = info["epoch_seconds"]
+        log(f"streamed fit: plan {info['impl']}, loss log {main.loss_log}, "
+            f"launches {launches}, decoded cache "
+            f"{info['decoded_cache_batches']} batches "
+            f"({info.get('decoded_cache_bytes')} bytes), dispatches "
+            f"{info['dispatches_per_epoch']}")
+        if info["impl"] != "ell-stream" or not np.all(
+                np.isfinite(main.loss_log)):
+            fail("the streamed fit did not plan 'ell-stream' or its loss "
+                 "is not finite")
+        if not main.loss_log[1] < main.loss_log[0]:
+            fail(f"the streamed loss did not fall: {main.loss_log}")
+        for name in ("ell_margin", "ell_scatter_apply_fused"):
+            if launches[name] != steps * ST_EPOCHS:
+                fail(f"{name} launched {launches[name]} times on the "
+                     f"streamed path, expected {steps * ST_EPOCHS}")
+        if launches["ell_scatter_apply"] != 0:
+            fail("the pair kernel ran on a grid of 8192 rows")
+        log(f"streamed epochs/s at 2^20 features, batch 2^15, {steps} "
+            f"steps an epoch, W {ST_W}, {ST_WORKERS} decode workers: "
+            f"record epoch {1 / rec_s:.4f} ({rec_s:.4f} s), replay epoch "
+            f"{1 / rep_s:.4f} ({rep_s:.4f} s); fit() wall {fit_s:.3f} s; "
+            f"rows/s record {ST_ROWS / rec_s:.1f}, replay "
+            f"{ST_ROWS / rep_s:.1f} [{card}]")
+        log(f"prefetch stats of the streamed fit: {stats.as_dict()} [{card}]")
+        log(f"beside phase 4 (in memory, 2^18 rows, 8 steps an epoch, "
+            f"device-resident epoch tensors): {mem_epochs_per_s:.3f} "
+            f"epochs/s = {mem_epochs_per_s * ROWS:.1f} rows/s; fit() wall "
+            f"{mem_fit_s:.3f} s for {EPOCHS} epochs [{card}]")
+
+        # the same fit again, warm (the first paid the pinned staging and
+        # the page cache)
+        warm_info = {}
+        warm, warm_s = fit(info=warm_info)
+        w_rec_s, w_rep_s = warm_info["epoch_seconds"]
+        log(f"the streamed fit again, warm: record epoch {w_rec_s:.4f} s, "
+            f"replay epoch {w_rep_s:.4f} s; fit() wall {warm_s:.3f} s; "
+            f"equal to the first {np.array_equal(coef(warm), coef(main))} "
+            f"[{card}]")
+        if not np.array_equal(coef(warm), coef(main)):
+            fail("a second streamed fit differs from the first")
+        plain, _ = fit(plain=True)
+        diff = float(np.max(np.abs(coef(plain) - coef(main))))
+        log(f"(b) streamed fit vs plain=True on the card: max |dw| = "
+            f"{diff:.3e} (allclose rtol 1e-3, atol 1e-4)")
+        if not np.allclose(coef(main), coef(plain), rtol=1e-3, atol=1e-4):
+            fail("the streamed fit diverged from its plain versions")
+        one, _ = fit(w=1)
+        log(f"(c) W 8 vs W 1: equal {np.array_equal(coef(one), coef(main))}")
+        if not (np.array_equal(coef(one), coef(main))
+                and one.loss_log == main.loss_log):
+            fail("W = 8 differs from W = 1")
+        uncached_info = {}
+        uncached, _ = fit(cache_decoded=False, info=uncached_info)
+        log(f"(d) replayed epoch vs an uncached fit: equal "
+            f"{np.array_equal(coef(uncached), coef(main))} (cached "
+            f"batches {uncached_info['decoded_cache_batches']})")
+        if not (np.array_equal(coef(uncached), coef(main))
+                and uncached.loss_log == main.loss_log
+                and uncached_info["decoded_cache_batches"] == 0):
+            fail("the replayed epoch differs from an uncached fit")
+
+        plan = FaultPlan().inject("source.pull", at=ST_CRASH_PULL,
+                                  kind="crash")
+        report = RecoveryReport()
+        tracer.enable()
+        with plan:
+            healed, heal_s = fit(
+                make_reader=lambda: plan.wrap_source(
+                    DataCacheReader(cache, batch_rows=BATCH)),
+                checkpoint=CheckpointConfig(os.path.join(ST_DIR, "ck")),
+                checkpoint_every_steps=ST_CUT_EVERY, supervise=report)
+        tracer.disable()
+        cuts = [s.dur * 1e3 for s in tracer.find("checkpoint_write")]
+        event = report.events[0] if report.events else None
+        log(f"(e) crash at source pull {ST_CRASH_PULL}, resumed from a "
+            f"checkpoint_every_steps={ST_CUT_EVERY} cut: restarts "
+            f"{report.restarts}, restored step "
+            f"{event.restored_step if event else None}, equal "
+            f"{np.array_equal(coef(healed), coef(main))}; recovery "
+            f"{event.mttr_s if event else float('nan'):.4f} s; checkpoint "
+            f"cut host ms: median {statistics.median(cuts):.3f} over "
+            f"{len(cuts)} cuts (max {max(cuts):.3f}); fit() wall with the "
+            f"restart {heal_s:.3f} s [{card}]")
+        if (report.restarts != 1 or event.restored_step != ST_CUT_EVERY
+                or not np.array_equal(coef(healed), coef(main))
+                or healed.loss_log != main.loss_log):
+            fail("the resumed fit differs from the uninterrupted one")
+    finally:
+        shutil.rmtree(ST_DIR, ignore_errors=True)
+    log(f"phase 21: {time.perf_counter() - t_phase:.3f} s")
+    return {name: launches[name] for name in
+            ("ell_margin", "ell_scatter_apply_fused", "ell_scatter_apply")}
+
 
 def main():
     import torch
@@ -2305,6 +2622,10 @@ def main():
         entry["values"] = variants[entry["name"]]
     dense_phase(torch, dev, card)
     criteo_phase(torch, dev, card)
+    iteration_phase(torch, dev, card)
+    streamed = stream_phase(torch, dev, card, rates["kernels"], fit_s)
+    for entry in kernels[:3]:
+        entry["stream"] = {"launches": streamed[entry["name"]]}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -17,10 +17,12 @@ slots can never alias the dense weight slots.  Empty categorical fields
 hash the empty token, giving each field a stable "missing" slot.
 
 A copy of the JAX package's ``data/criteo.py`` (host code; it loads the
-same native library through this package's ``utils/native_lib.py``).  The
-port has no out-of-core fit yet (ROADMAP queue A3): a reader's batches
-concatenate into a :class:`~flink_ml_tpu_torch.data.table.Table` for
-``fit``.
+same native library through this package's ``utils/native_lib.py``).  A
+:class:`CriteoTSVReader` feeds a linear estimator's
+``fit_outofcore(reader_factory, num_features=..., mixed=True)`` batch by
+batch (its batches carry ``{col}_dense`` / ``{col}_indices`` / ``label``),
+or its batches concatenate into a
+:class:`~flink_ml_tpu_torch.data.table.Table` for ``fit``.
 """
 
 from __future__ import annotations

@@ -32,7 +32,8 @@ import torch
 from ...api.stage import Estimator, Model
 from ...data.table import Table
 from ...distance import DistanceMeasure
-from ...iteration import IterationBodyResult, Workset, iterate
+from ...iteration import (IterationBodyResult, IterationConfig, Workset,
+                          iterate)
 from ...linalg import stack_vectors
 from ...ops.kmeans import (
     kmeans_assign_reduce,
@@ -325,10 +326,12 @@ def fit_centroids(points: torch.Tensor, mask: torch.Tensor,
         body = kmeans_workset_epoch_step(
             measure, k, kernel=plan.impl == "kernel_ws" and not plain)
         return iterate(body, init, (points, mask), max_epochs=max_iter,
-                       workset=plan.init_workset(mask))
+                       workset=plan.init_workset(mask),
+                       config=IterationConfig(mode="fused"))
     body = (kmeans_epoch_step_kernel(k, tie_policy=tie_policy, plain=plain)
             if plan.impl == "kernel" else kmeans_epoch_step(measure, k))
-    return iterate(body, init, (points, mask), max_epochs=max_iter)
+    return iterate(body, init, (points, mask), max_epochs=max_iter,
+                   config=IterationConfig(mode="fused"))
 
 
 class KMeans(KMeansParams, Estimator["KMeansModel"]):

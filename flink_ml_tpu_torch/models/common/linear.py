@@ -5,8 +5,9 @@ A port of the JAX package's ``models/common/linear.py`` on every feature
 layout: dense matrices, sparse ``(indices, values)`` pairs (a column of
 :class:`SparseVector` or the ``{col}_indices`` + ``{col}_values`` pair
 columns) and the mixed dense + hashed-categorical layout
-(``{col}_dense`` + ``{col}_indices``).  The out-of-core fit is not ported
-(ROADMAP queue A3).  Every stage runs on ``device`` (default ``"cuda"``;
+(``{col}_dense`` + ``{col}_indices``), in memory (``fit``) or streamed
+from a reader of host batches (``fit_outofcore``).  Every stage runs on
+``device`` (default ``"cuda"``;
 raises without a card unless ``"cpu"`` is asked for).  The device is a
 runtime choice, not a param, so it is not saved.
 """
@@ -40,7 +41,7 @@ from ...utils import persist
 from ...utils.device import resolve_device
 from .losses import LOSSES
 from .sgd import (LinearState, SGDConfig, sgd_fit, sgd_fit_mixed,
-                  sgd_fit_sparse)
+                  sgd_fit_outofcore, sgd_fit_sparse)
 
 __all__ = ["LinearEstimatorParams", "LinearModelBase", "LinearEstimatorBase",
            "resolve_features", "check_sparse_indices"]
@@ -275,14 +276,44 @@ class LinearEstimatorBase(LinearEstimatorParams, Estimator):
         model._loss_log = loss_log
         return model
 
-    def fit_outofcore(self, make_reader, **kwargs):
-        """The JAX package's streaming fit over a reader of host batches
-        (the Criteo-scale input path) is not ported yet: ROADMAP queue
-        A3."""
-        raise NotImplementedError(
-            "fit_outofcore (the streaming fit) is not ported to "
-            "flink_ml_tpu_torch yet (ROADMAP queue A3); fit a Table in "
-            "memory with fit()")
+    def fit_outofcore(self, make_reader, *, num_features: int,
+                      sparse: bool = False, mixed: bool = False,
+                      checkpoint=None, checkpoint_every_steps: int = 0,
+                      resume: bool = False, **stream_kwargs):
+        """Out-of-core ``fit``: the dataset streams from ``make_reader()``
+        (a fresh per-epoch iterator of host batch dicts, e.g. a
+        ``DataCacheReader`` or a ``CriteoTSVReader``) instead of living
+        in host or device memory — the Criteo-scale input path.  Column
+        names follow this estimator's params (featuresCol/labelCol/
+        weightCol); with ``sparse=True`` the reader carries the hashed
+        pair columns ``{featuresCol}_indices`` / ``{featuresCol}_values``,
+        with ``mixed=True`` the Criteo-native ``{featuresCol}_dense`` +
+        ``{featuresCol}_indices`` pair (implicit categorical value 1.0).
+        globalBatchSize and seed are inert: the reader owns batch size
+        and order.  Runs on this estimator's ``device``; extra keyword
+        arguments (``cache_decoded``, ``decoded_ram_budget``,
+        ``stream_info``, ``prefetch_*``, ``steps_per_dispatch``,
+        ``ell_*``, ``retry_policy``, ``plain``, ...) forward to
+        :func:`~.sgd.sgd_fit_outofcore`."""
+        feat = self.get_features_col()
+        stream_kwargs.setdefault("device", self.device)
+        state, loss_log = sgd_fit_outofcore(
+            LOSSES[self.loss_name], make_reader,
+            num_features=num_features, config=self._sgd_config(),
+            features_key=feat,
+            label_key=self.get_label_col(),
+            weight_key=self.get_weight_col() or None,
+            indices_key=f"{feat}_indices" if (sparse or mixed) else None,
+            values_key=f"{feat}_values" if sparse else None,
+            dense_key=f"{feat}_dense" if mixed else None,
+            checkpoint=checkpoint,
+            checkpoint_every_steps=checkpoint_every_steps, resume=resume,
+            **stream_kwargs)
+        model = self.model_cls(device=stream_kwargs["device"])
+        model.copy_params_from(self)
+        model._state = state
+        model._loss_log = loss_log
+        return model
 
     def _sgd_config(self) -> SGDConfig:
         return SGDConfig(

@@ -24,10 +24,16 @@ Three feature layouts train here:
   (no dense gradient of ``w`` is ever built), with the l2 term as a decay
   before the step.
 
+The out-of-core fit (:func:`sgd_fit_outofcore`) streams the same three
+layouts from a reader of host batches: dense and sparse batches train
+through the plain updates, mixed batches through the ELL kernels with
+each batch's layout built in the prefetch decode workers and its sample
+routing on the card.
+
 A port of the single-device subset of the JAX package's
-``models/common/sgd.py``.  Its meshes, its compressed gradient reduction
-(``SGDConfig.grad_reduce``, which this ``SGDConfig`` does not have) and
-its out-of-core fit (ROADMAP queue A3) are not ported.
+``models/common/sgd.py``.  Its meshes, its elastic membership and its
+compressed gradient reduction (``SGDConfig.grad_reduce``) are ROADMAP
+queue A10 and raise.
 """
 
 from __future__ import annotations
@@ -35,16 +41,35 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple
 
+import inspect
+import itertools
+import time
+
 import numpy as np
 import torch
 
+from ...data.prefetch import (
+    PrefetchStats,
+    chunk_consumer_plan,
+    masked_chunk_scan,
+    prefetch_to_device,
+)
+from ...data.replay_cache import (
+    DecodedReplayCache,
+    batch_fingerprint,
+    default_ram_budget,
+)
+from ...iteration.checkpoint import CheckpointConfig, CheckpointManager
+from ...obs.trace import tracer
 from ...ops import ell_scatter as E
 from ...utils.device import resolve_device
+from ...utils.padding import FixedRowBatcher
 
 __all__ = ["SGDConfig", "LinearState", "sgd_fit", "sgd_fit_params",
            "sgd_fit_sparse", "sgd_fit_mixed", "plan_mixed_impl",
            "routing_chunk_steps", "plan_epoch_layout",
-           "prepare_epoch_tensor", "resolve_global_batch_size"]
+           "prepare_epoch_tensor", "resolve_global_batch_size",
+           "sgd_fit_outofcore"]
 
 LossFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -65,6 +90,11 @@ class SGDConfig:
     #: the precision of the TPU kernels' one-hot matrix-unit gathers.  No
     #: effect here: the CUDA kernels gather in exact f32.
     ell_precision: str = "default"
+    #: The JAX package's compressed data-parallel gradient reduction; kept
+    #: so configurations carry over.  Anything but None (or a config whose
+    #: ``mode`` is ``"exact"``) raises: the hashed layouts as in the JAX
+    #: package, the dense layout naming ROADMAP queue A10.
+    grad_reduce: Optional[object] = None
 
 
 #: Classic minibatch default when nothing layout-aware applies.
@@ -225,13 +255,52 @@ def _finish_sparse_step(config: SGDConfig):
     return finish
 
 
-def _sparse_update(loss_fn: LossFn, config: SGDConfig):
+def _scatter_add_(t: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                  fixed_order: bool) -> torch.Tensor:
+    """``t[idx] += vals`` in place.  ``fixed_order`` sums repeated
+    indices in one fixed order on the card too, so a fit gives the same
+    bits run after run (what the streamed fit's W, replay and resume
+    rest on): the sort-based accumulation behind
+    ``index_put_(accumulate=True)``, called through ``_index_put_impl_``
+    with ``unsafe=True`` (the public op checks the index range with two
+    host reads a call; the layouts build every index in range).  Without
+    it, and on the CPU, ``index_add_``: a serial loop on the CPU, atomics
+    in no fixed order on the card, and several times cheaper there
+    (``scripts/scatter_leg_times.py``), which the in-memory fits keep."""
+    if fixed_order and t.is_cuda:
+        return torch.ops.aten._index_put_impl_(t, [idx.long()], vals,
+                                               True, True)
+    return t.index_add_(0, idx, vals)
+
+
+def _overflow_scatter_(t: torch.Tensor, idx: torch.Tensor,
+                       vals: torch.Tensor, ovf_src: torch.Tensor,
+                       batch: int, fixed_order: bool) -> torch.Tensor:
+    """An overflow leg's ``t[idx] += vals`` (:func:`_scatter_add_`).  The
+    layouts pad the overflow lists after their live entries (``ovf_src <
+    batch``), all with one target: in the fixed-order sum that padding
+    would be one run of a repeated index, summed serially (tens of
+    thousands long at the streamed fits' cap of ``max(1024, batch)``).  So
+    with ``fixed_order`` each pad entry goes to a slot of its own (its
+    position modulo ``len(t)``) carrying ``-0.0``, which adds nothing to
+    any value: the live slots get the bits they would get without the
+    spread.  Without it, one ``index_add_`` and nothing else."""
+    if not fixed_order:
+        return t.index_add_(0, idx, vals)
+    live = ovf_src < batch
+    spread = torch.arange(idx.numel(), device=idx.device) % t.numel()
+    return _scatter_add_(t, torch.where(live, idx.long(), spread),
+                         torch.where(live, vals, -0.0), True)
+
+
+def _sparse_update(loss_fn: LossFn, config: SGDConfig,
+                   fixed_order: bool = False):
     """Single-batch update for the generic ``(indices, values)`` layout
     without the ELL routing: the margin is ``sum(values * w[indices])``
     and the gradient a direct scatter-add of ``-lr * values * r`` into the
-    weight (``index_add``, in place of the JAX package's lane-blocked
-    scatter, which is the same sum).  The path for widths the kernels
-    reject or layouts over budget."""
+    weight (:func:`_scatter_add_`, in place of the JAX package's
+    lane-blocked scatter, which is the same sum).  The path for widths the
+    kernels reject or layouts over budget."""
     lr = config.learning_rate
     finish = _finish_sparse_step(config)
 
@@ -239,13 +308,15 @@ def _sparse_update(loss_fn: LossFn, config: SGDConfig):
         w, b = params["w"], params["b"]
         margin = torch.sum(vals * E.gather_weights(w, idx), dim=-1) + b
         value, r = _loss_and_r(loss_fn, margin, yb, wb)
-        return finish(w, b, value, r, lambda w: w.index_add(
-            0, idx.reshape(-1), (-lr * (vals * r[:, None])).reshape(-1)))
+        return finish(w, b, value, r, lambda w: _scatter_add_(
+            w.clone(), idx.reshape(-1),
+            (-lr * (vals * r[:, None])).reshape(-1), fixed_order))
 
     return update
 
 
-def _mixed_update(loss_fn: LossFn, config: SGDConfig):
+def _mixed_update(loss_fn: LossFn, config: SGDConfig,
+                  fixed_order: bool = False):
     """Single-batch update for the mixed layout without the ELL routing:
     ``dense`` features occupy weight slots ``[0, dense.shape[-1])``, hashed
     ``cat`` indices (implicit value 1.0) gather and scatter directly.  The
@@ -262,8 +333,9 @@ def _mixed_update(loss_fn: LossFn, config: SGDConfig):
         value, r = _loss_and_r(loss_fn, margin, yb, wb)
 
         def apply_grad(w):
-            w = w.index_add(0, cat.reshape(-1),
-                            torch.repeat_interleave(-lr * r, n_cat))
+            w = _scatter_add_(w.clone(), cat.reshape(-1),
+                              torch.repeat_interleave(-lr * r, n_cat),
+                              fixed_order)
             w[:n_dense] += -lr * (r @ dense)
             return w
 
@@ -288,7 +360,8 @@ def _extended_r(r: torch.Tensor) -> torch.Tensor:
 
 
 def _ell_margin(w, batch, route_w, ovf_idx, ovf_src, heavy_idx, heavy_cnt,
-                route_val=None, ovf_val=None, plain=False):
+                route_val=None, ovf_val=None, plain=False,
+                fixed_order=False):
     """Per-sample categorical margin ``sum_j v_j * w[idx_j]`` over the ELL
     routing: the in-grid slots through the margin kernel over the sample
     routing (:func:`~flink_ml_tpu_torch.ops.ell_scatter.sample_routing`),
@@ -299,19 +372,20 @@ def _ell_margin(w, batch, route_w, ovf_idx, ovf_src, heavy_idx, heavy_cnt,
     margin_fn = E.ell_margin_plain if plain else E.ell_margin
     mext = margin_fn(w, route_w, m_len=_ext_len(batch), route_val=route_val)
     o = w[ovf_idx] if ovf_val is None else ovf_val * w[ovf_idx]
-    mext = mext.index_add_(0, ovf_src, o)
+    mext = _overflow_scatter_(mext, ovf_src, o, ovf_src, batch,
+                              fixed_order)
     return mext[:batch] + w[heavy_idx] @ heavy_cnt.to(torch.float32)
 
 
 def _apply_ell_categorical(lr, w, r, r_ext, src, pos, mask, ovf_idx,
                            ovf_src, heavy_idx, heavy_cnt, val_ell=None,
-                           ovf_val=None, plain=False):
+                           ovf_val=None, plain=False, fixed_order=False):
     """THE ELL gradient application: in-grid scatter kernel -> overflow
     scatter-add -> heavy-hitter matvec (padding entries carry zero counts
     and add 0 at w[0]).  The fused kernel runs on grids whose row count
     divides into 8-row blocks, the gather + pair kernel otherwise (the JAX
     package's plan).  Returns a new tensor; the overflow and heavy legs
-    update it in place."""
+    update it in place (``fixed_order``: :func:`_overflow_scatter_`)."""
     if src.shape[0] % E.FUSED_BLOCK_ROWS == 0:
         fused = E.ell_scatter_apply_fused_plain if plain \
             else E.ell_scatter_apply_fused
@@ -322,13 +396,16 @@ def _apply_ell_categorical(lr, w, r, r_ext, src, pos, mask, ovf_idx,
         pair = E.ell_scatter_apply_plain if plain else E.ell_scatter_apply
         w = pair(w, upd, pos, mask)
     o = r_ext[ovf_src] if ovf_val is None else ovf_val * r_ext[ovf_src]
-    w.index_add_(0, ovf_idx, (-lr) * o)
+    _overflow_scatter_(w, ovf_idx, (-lr) * o, ovf_src, r.shape[0],
+                       fixed_order)
+    # the heavy indices are distinct and their pads add zeros, so the
+    # atomics' order cannot change a bit here
     return w.index_add_(0, heavy_idx,
                         (-lr) * (heavy_cnt.to(torch.float32) @ r))
 
 
 def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
-                      plain: bool = False):
+                      plain: bool = False, fixed_order: bool = False):
     """ELL twin of :func:`_mixed_update`: same loss/regularization algebra,
     but the forward margin and the backward scatter of the categorical
     slots ride the static ELL routing's kernels.  The batch arguments
@@ -337,7 +414,9 @@ def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
     per-step sample routing the margin reads (:func:`sample_routing`);
     the raw index tensor is not an input.  Results differ from
     :func:`_mixed_update` only in f32 summation order.  ``plain`` runs the
-    kernels' plain versions (the oracle on the card)."""
+    kernels' plain versions (the oracle on the card); ``fixed_order``
+    makes every step's bits the same run after run on the card
+    (:func:`_scatter_add_`)."""
     lr = config.learning_rate
     finish = _finish_sparse_step(config)
 
@@ -347,7 +426,8 @@ def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
         n_dense = dense.shape[-1]
         margin = (dense @ w[:n_dense]
                   + _ell_margin(w, dense.shape[0], route_w, ovf_idx,
-                                ovf_src, heavy_idx, heavy_cnt, plain=plain)
+                                ovf_src, heavy_idx, heavy_cnt, plain=plain,
+                                fixed_order=fixed_order)
                   + b)
         value, r = _loss_and_r(loss_fn, margin, yb, wb)
         r_ext = _extended_r(r)
@@ -355,7 +435,7 @@ def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
         def apply_grad(w):
             w = _apply_ell_categorical(
                 lr, w, r, r_ext, src, pos, mask, ovf_idx, ovf_src,
-                heavy_idx, heavy_cnt, plain=plain)
+                heavy_idx, heavy_cnt, plain=plain, fixed_order=fixed_order)
             w[:n_dense] += -lr * (r @ dense)
             return w
 
@@ -465,6 +545,13 @@ def _epoch_targets(labels: np.ndarray, weights: Optional[np.ndarray],
                                    pad_value=0.0)
 
 
+def _require_no_grad_reduce(config: SGDConfig) -> None:
+    if _active_grad_reduce(config) is not None:
+        raise NotImplementedError(
+            "grad_reduce (compressed data-parallel gradient reduction) is "
+            "not ported to flink_ml_tpu_torch yet (ROADMAP queue A10)")
+
+
 def _zero_params(num_features: int, dev: torch.device) -> dict:
     return {"w": torch.zeros(num_features, dtype=torch.float32, device=dev),
             "b": torch.zeros((), dtype=torch.float32, device=dev)}
@@ -505,6 +592,7 @@ def sgd_fit_params(loss_fn: LossFn, features: np.ndarray, labels: np.ndarray,
     below 2^24: cast back inside the loss).  Returns the fitted parameters
     as f32 numpy and the per-epoch loss log."""
     dev = resolve_device(device)
+    _require_no_grad_reduce(config)
     n = features.shape[0]
     steps, batch, perm = plan_epoch_layout(
         n, resolve_global_batch_size(config, n), 1, config.seed)
@@ -538,6 +626,7 @@ def sgd_fit_sparse(loss_fn: LossFn, indices: np.ndarray, values: np.ndarray,
     from .linear import check_sparse_indices
 
     dev = resolve_device(device)
+    _require_no_grad_reduce(config)
     check_sparse_indices(indices, num_features)
     n, nnz = indices.shape
     steps, batch, perm = plan_epoch_layout(
@@ -585,6 +674,7 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
     from .linear import check_sparse_indices
 
     dev = resolve_device(device)
+    _require_no_grad_reduce(config)
     check_sparse_indices(cat_indices, num_features)
     n_dense = dense_features.shape[1]
     if n_dense > num_features:
@@ -625,3 +715,633 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
     params, loss_log = _run_minibatch_epochs(
         update, epoch_args, _zero_params(num_features, dev), steps, config)
     return _linear_state(params, impl), loss_log
+
+
+# ---------------------------------------------------------------------------
+# the out-of-core (streamed) fit
+# ---------------------------------------------------------------------------
+
+def _active_grad_reduce(config: SGDConfig):
+    """The grad-reduce config IF it changes anything (None and
+    ``mode="exact"`` keep the plain sum)."""
+    gr = getattr(config, "grad_reduce", None)
+    if gr is None or getattr(gr, "mode", None) == "exact":
+        return None
+    return gr
+
+
+def _reader_for_epoch(make_reader: Callable, epoch: int,
+                      retry_policy=None):
+    """Call the per-epoch reader factory, passing ``epoch=`` when the
+    factory accepts it (per-epoch shuffled readers such as
+    ``data.datacache.ShuffledCacheReader`` need the ACTUAL epoch number: a
+    call-counting closure would desynchronize on checkpoint resume).
+    Zero-arg factories keep working unchanged.
+
+    ``retry_policy`` wraps the returned reader so transient pull failures
+    retry with backoff.  The wrap happens HERE, at the raw reader, below
+    the fit's generator adapters: a generator that propagates an
+    exception is dead forever (``robustness.retry.RetryingIterator``)."""
+
+    def build():
+        try:
+            sig = inspect.signature(make_reader)
+        except (TypeError, ValueError):
+            return make_reader()
+        for p in sig.parameters.values():
+            # only an explicitly named, keyword-passable `epoch` opts in
+            if p.name == "epoch" and p.kind in (
+                    inspect.Parameter.POSITIONAL_OR_KEYWORD,
+                    inspect.Parameter.KEYWORD_ONLY):
+                return make_reader(epoch=epoch)
+        return make_reader()
+
+    reader = build()
+    if retry_policy is None:
+        return reader
+    from ...robustness.retry import RetryingIterator
+
+    return RetryingIterator(reader, retry_policy)
+
+
+def _has_cursor(reader) -> bool:
+    """The DataCacheReader cursor protocol: seekable, fixed batch size,
+    known length — what checkpoint fast-forward and decoded-replay
+    eligibility rely on."""
+    return (hasattr(reader, "seek") and hasattr(reader, "batch_rows")
+            and hasattr(reader, "total_rows"))
+
+
+def _seek_or_skip(reader, k: int):
+    """Position a fresh reader ``k`` batches in: seek when it speaks the
+    cursor protocol, else discard batches.  Returns an iterator."""
+    if hasattr(reader, "seek") and hasattr(reader, "batch_rows"):
+        rows = k * reader.batch_rows
+        total = getattr(reader, "total_rows", None)
+        reader.seek(rows if total is None else min(rows, total))
+        return iter(reader)
+    it = iter(reader)
+    for _ in range(k):
+        try:
+            next(it)
+        except StopIteration:
+            break
+    return it
+
+
+def _streamed_ell_update(loss_fn: LossFn, config: SGDConfig, plain: bool):
+    """The mixed ELL update over one streamed batch: the margin's sample
+    routing is built on the card from the step's layout
+    (:func:`~flink_ml_tpu_torch.ops.ell_scatter.sample_routing`) before
+    the kernels run."""
+    update = _mixed_update_ell(loss_fn, config, plain=plain,
+                               fixed_order=True)
+
+    def device_routed(params, dense, src, pos, mask, *rest):
+        route_w, _ = E.sample_routing(src, pos, mask, dense.shape[0])
+        return update(params, dense, route_w, src, pos, mask, *rest)
+
+    return device_routed
+
+
+def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
+                      num_features: int, config: SGDConfig, mesh=None,
+                      features_key: str = "features",
+                      label_key: str = "label",
+                      weight_key: Optional[str] = None,
+                      indices_key: Optional[str] = None,
+                      values_key: Optional[str] = None,
+                      dense_key: Optional[str] = None,
+                      prefetch_depth: int = 2,
+                      prefetch_workers: int = 1,
+                      prefetch_put_workers: int = 1,
+                      prefetch_stats: Optional[PrefetchStats] = None,
+                      steps_per_dispatch: int = 8,
+                      cache_decoded="auto",
+                      decoded_ram_budget: Optional[int] = None,
+                      stream_info: Optional[dict] = None,
+                      ell_ovf_cap: Optional[int] = None,
+                      ell_heavy_cap: int = 16,
+                      checkpoint=None,
+                      checkpoint_every_steps: int = 0,
+                      resume: bool = False,
+                      retry_policy=None,
+                      publish_cb: Optional[Callable] = None,
+                      step_probe: bool = False,
+                      membership=None,
+                      device="cuda",
+                      plain: bool = False
+                      ) -> Tuple[LinearState, list]:
+    """Out-of-core variant of :func:`sgd_fit`: the dataset never has to fit
+    in host RAM or device memory (the Criteo-1TB shape).
+
+    ``make_reader()`` is called once per epoch and must return a fresh
+    iterator of host batch dicts with a fixed row count per batch (e.g.
+    ``DataCacheReader(..., batch_rows=B)``).  Batches are padded to the
+    first batch's row count (padding rows carry weight 0), decoded on
+    ``prefetch_workers`` threads and moved to ``device`` by
+    :func:`~flink_ml_tpu_torch.data.prefetch.prefetch_to_device`, so the
+    host read, decode and transfer of the next chunk overlap the steps on
+    this one.  The reader owns the data layout: ``global_batch_size`` and
+    ``seed`` are inert here.
+
+    Layouts: dense ``features_key`` batches (the autograd update of
+    :func:`sgd_fit`); ``indices_key`` + ``values_key`` **sparse** batches
+    (plain gather and ``index_add``: the JAX package plans this stream
+    ``"xla-stream"`` and so does the port); ``dense_key`` + ``indices_key``
+    **mixed** batches (implicit categorical value 1.0).  The mixed stream
+    plans ``"ell-stream"`` by :func:`plan_mixed_impl` (the JAX package's
+    rule): each batch's ELL layout is built in the decode workers with
+    fixed capacities (``ell_ovf_cap``, default ``max(1024, batch)``;
+    ``ell_heavy_cap``, default 16 — an over-cap batch raises with sizing
+    guidance), and the margin and fused scatter kernels (B1, B2; the pair
+    scatter B3 where the grid does not divide into 8-row blocks) carry
+    every step.  The margin's sample routing is built per batch, on the
+    card at each step from the step's layout.
+    ``plain=True`` runs the kernels' plain versions (the comparison on
+    the card); nothing on the main path sets it.
+
+    **Chunked dispatch** (``steps_per_dispatch=W``, default 8): W
+    consecutive batches are stacked into one staged chunk and moved in
+    one transfer; the consumer runs their W steps and skips the padded
+    steps of the final short chunk, so any two W agree bit for bit.  The
+    pipeline runs ``ceil(prefetch_depth / W)`` chunks deep (at least
+    one).
+
+    **Decoded replay cache** (``cache_decoded="auto"``, the default): the
+    first full epoch tees each decoded batch into host RAM up to
+    ``decoded_ram_budget`` bytes (default 25% of available RAM, capped at
+    32 GiB) and later epochs replay the cached prefix straight into the
+    transfer, re-decoding only the tail that did not fit.  "auto" engages
+    only for readers with the cursor protocol (``seek``/``batch_rows``/
+    ``total_rows``); every replay epoch re-reads the first raw batch (and
+    one power-of-two batch mid-stream) and compares digests with the
+    recorded epoch's, so a reader that varies its stream per epoch drops
+    the cache instead of training on frozen epoch-0 data.  Readers that
+    declare ``epoch_varying`` and are block-addressable (``block_order``,
+    the :class:`~flink_ml_tpu_torch.data.datacache.ShuffledCacheReader`
+    protocol) cache by block id: every epoch serves cached blocks in its
+    own permutation.  ``True`` caches any reader with no probe, ``False``
+    disables.
+
+    **Mid-epoch checkpoints** (``checkpoint`` + ``checkpoint_every_steps``):
+    at the chunk boundaries that cross a multiple of
+    ``checkpoint_every_steps`` batches, the (params, loss accumulator,
+    reader cursor) triple is cut, and at every epoch end; ``resume=True``
+    restarts exactly at the newest valid cut (the reader re-seeked, or
+    batches skipped) and continues bit for bit as if never interrupted.
+    ``robustness.resilient_fit`` wraps this fit to make crash -> restore
+    -> replay automatic.  ``publish_cb(global_step, params_fn)`` is called
+    at every cut point, right AFTER the checkpoint save; ``params_fn`` is
+    a zero-arg thunk returning the cut's host ``{"w", "b"}``.
+
+    ``retry_policy`` wraps each epoch's reader in a ``RetryingIterator``
+    (transient pull failures cost a backoff sleep on the prefetch reader
+    thread).  ``step_probe=True`` records every step's loss in a
+    :class:`~flink_ml_tpu_torch.obs.StepProbe`, fetched once per chunk,
+    into ``stream_info["step_trace"]``.  ``stream_info`` (a dict, filled
+    in place) reports the plan, the decoded cache and the per-epoch wall
+    seconds.
+
+    Not ported (ROADMAP queue A10): ``mesh=`` (multi-device and
+    multi-host streams), ``membership=`` (elastic fleets) and a dense
+    ``grad_reduce``; the mixed and sparse layouts reject ``grad_reduce``
+    as the JAX package does."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sgd_fit_outofcore(mesh=...) (multi-device and multi-host "
+            "streams) is not ported to flink_ml_tpu_torch yet (ROADMAP "
+            "queue A10)")
+    if membership is not None:
+        raise NotImplementedError(
+            "sgd_fit_outofcore(membership=...) (elastic fleets) is not "
+            "ported to flink_ml_tpu_torch yet (ROADMAP queue A10)")
+    dev = resolve_device(device)
+    mixed = dense_key is not None and indices_key is not None
+    sparse = indices_key is not None and not mixed
+    if sparse and values_key is None:
+        raise ValueError("indices_key requires values_key (or dense_key "
+                         "for the mixed layout)")
+    if dense_key is not None and indices_key is None:
+        raise ValueError("dense_key requires indices_key")
+    if _active_grad_reduce(config) is not None:
+        if mixed or sparse:
+            raise ValueError(
+                "grad_reduce compression applies to the dense streaming "
+                "layout; the sparse/mixed paths' gradients are already "
+                "sparse by construction — drop grad_reduce or use the "
+                "dense features layout")
+        raise NotImplementedError(
+            "grad_reduce (compressed data-parallel gradient reduction) is "
+            "not ported to flink_ml_tpu_torch yet (ROADMAP queue A10)")
+    stream_ell = mixed and plan_mixed_impl(num_features, 1) == "ell"
+    stream_impl = ("ell-stream" if stream_ell
+                   else ("xla-stream" if (mixed or sparse)
+                         else "dense-stream"))
+    if stream_ell:
+        update = _streamed_ell_update(loss_fn, config, plain)
+    elif mixed:
+        mixed_update = _mixed_update(loss_fn, config, fixed_order=True)
+
+        def update(params, dense, cat, yb, wb):
+            return mixed_update(params, dense, cat.long(), yb, wb)
+    elif sparse:
+        sparse_update = _sparse_update(loss_fn, config, fixed_order=True)
+
+        def update(params, idx, vals, yb, wb):
+            return sparse_update(params, idx.long(), vals, yb, wb)
+    else:
+        update = _linear_update(loss_fn, config)
+
+    manager: Optional[CheckpointManager] = None
+    if isinstance(checkpoint, CheckpointManager):
+        manager = checkpoint
+    elif isinstance(checkpoint, CheckpointConfig):
+        manager = CheckpointManager(checkpoint)
+
+    W = max(1, int(steps_per_dispatch))
+    _, chunk_depth = chunk_consumer_plan(None, None, W, prefetch_depth)
+    batcher = FixedRowBatcher(1)   # the shared fixed-row protocol
+
+    def to_host_batch(batch):
+        if sparse or mixed:
+            from .linear import check_sparse_indices
+
+            idx = np.asarray(batch[indices_key], np.int32)
+            check_sparse_indices(idx, num_features)
+            if mixed:
+                feats = (np.asarray(batch[dense_key], np.float32), idx)
+            else:
+                feats = (idx, np.asarray(batch[values_key], np.float32))
+        else:
+            feats = (np.asarray(batch[features_key], np.float32),)
+        y = np.asarray(batch[label_key], np.float32)
+        w = (np.asarray(batch[weight_key], np.float32) if weight_key
+             else np.ones((y.shape[0],), np.float32))
+        # final partial batch: pad, weight 0 (the batcher pins thread-safely)
+        padded = batcher.pad(feats + (y, w), have=y.shape[0])
+        if not stream_ell:
+            return padded
+        dense_p, cat_p = padded[0], padded[1]
+        n_valid = y.shape[0]
+        if n_valid < batcher.rows:
+            # padding rows' indices become sentinels the layout drops
+            # (zero pads would fabricate a heavy index 0); their margins
+            # are dense-part-only and carry weight 0
+            cat_p = cat_p.copy()
+            cat_p[n_valid:] = num_features
+        cap = (ell_ovf_cap if ell_ovf_cap is not None
+               else max(1024, batcher.rows))
+        lay = E.ell_layout(cat_p[None], num_features, pad_ovf_cap=cap,
+                           pad_heavy_cap=ell_heavy_cap)
+        return ((dense_p, lay.src[0], lay.pos[0], lay.mask[0])
+                + (lay.ovf_idx[0], lay.ovf_src[0], lay.heavy_idx[0],
+                   lay.heavy_cnt[0]) + padded[2:])
+
+    if cache_decoded not in (True, False, "auto"):
+        raise ValueError('cache_decoded must be True, False, or "auto", '
+                         f"got {cache_decoded!r}")
+    replay_cache: Optional[DecodedReplayCache] = None
+    guard_tripped = False       # replay guard found an epoch-varying reader
+    recorded_epochs = 0
+    _rec_cache: list = [None]   # this epoch's recording target
+    # block-keyed mode (epoch-varying + block-addressable readers):
+    # decided once, at the fit's first reader
+    block_mode: Optional[bool] = None
+    block_cache: Optional[DecodedReplayCache] = None
+
+    def route(item):
+        """Prefetch transform over tagged source items: ``("dec", t)`` is
+        an already-decoded replay batch, ``("blk", id, b)`` a block of a
+        block-addressable reader, ``("rec", i, b)`` decodes + tees into
+        the recording cache, ``("raw", b)`` just decodes."""
+        tag = item[0]
+        if tag == "dec":
+            return item[1]
+        if tag == "blk":
+            bid, raw = item[1], item[2]
+            cached = block_cache.get(bid)
+            if cached is not None:
+                if bid == block_cache.anchor_key:
+                    # per-block-determinism contract check, one block an
+                    # epoch
+                    if batch_fingerprint(raw) != block_cache.fingerprint:
+                        raise ValueError(
+                            f"block-addressable reader violated the "
+                            f"block_order contract: block {bid}'s "
+                            f"content changed between epochs; pass "
+                            f"cache_decoded=False for such readers")
+                return cached
+            host = to_host_batch(raw)
+            if block_cache.anchor_key is None:
+                block_cache.set_anchor(bid, batch_fingerprint(raw))
+            block_cache.offer(bid, host)
+            return host
+        if tag == "rec":
+            if item[1] == 0:
+                # digest the raw batch: the replay guard re-reads batch 0
+                _rec_cache[0].fingerprint = batch_fingerprint(item[2])
+            elif item[1] & (item[1] - 1) == 0:
+                # power-of-two indices: mid-stream anchors for the
+                # seekable replay guard's second probe
+                _rec_cache[0].probe_fingerprints[item[1]] = \
+                    batch_fingerprint(item[2])
+            host = to_host_batch(item[2])
+            _rec_cache[0].offer(item[1], host)
+            return host
+        return to_host_batch(item[1])
+
+    params = _zero_params(num_features, dev)
+    loss_log: list = []
+    prev_loss = float("inf")
+    start_epoch = 0
+    skip_steps = 0          # batches already consumed in start_epoch
+    resume_loss_sum = None  # their accumulated loss
+    resume_n_batches = 0
+    global_step = 0         # checkpoint tick: total batches over all epochs
+
+    if manager is not None and resume:
+        restored = manager.restore_latest()
+        if restored is not None:
+            # restored[0] is the save-slot key, the global step; the
+            # epoch rides under "train_epoch"
+            global_step, saved, meta = restored
+            params = {k: torch.as_tensor(np.asarray(v, np.float32)).to(dev)
+                      for k, v in saved["params"].items()}
+            start_epoch = int(meta["train_epoch"])
+            skip_steps = int(meta["step_in_epoch"])
+            resume_n_batches = int(meta["n_batches"])
+            if resume_n_batches:
+                resume_loss_sum = torch.as_tensor(
+                    np.asarray(saved["loss_sum"], np.float32)).to(dev)
+            prev_loss = float(meta["prev_loss"])
+            loss_log = list(meta["loss_log"])
+            if meta.get("converged"):
+                # the checkpointed run had already hit the tol stop
+                return _linear_state(params, stream_impl), loss_log
+
+    def _publish_params(params):
+        return {k: v.cpu().numpy() for k, v in params.items()}
+
+    def _save(epoch, step_in_epoch, loss_sum, n_batches, converged=False):
+        manager.save(global_step, {
+            "params": params,
+            "loss_sum": (loss_sum if loss_sum is not None
+                         else torch.zeros((), dtype=torch.float32)),
+        }, {
+            "train_epoch": epoch, "step_in_epoch": step_in_epoch,
+            "n_batches": n_batches, "prev_loss": prev_loss,
+            "loss_log": loss_log, "converged": converged,
+        })
+
+    epoch_secs: list = []
+    dispatch_log: list = []   # chunks per epoch
+    probe = None
+    step_trace: Dict[str, list] = {}
+    if step_probe:
+        from ...obs.probe import StepProbe
+
+        probe = StepProbe.create(("loss",), W, device=dev)
+    for epoch in range(start_epoch, config.max_epochs):
+        t_epoch = time.perf_counter()
+        rec_cache = None
+        reader = None
+        if block_mode is None and cache_decoded in (True, "auto") \
+                and config.max_epochs > 1:
+            reader = _reader_for_epoch(make_reader, epoch, retry_policy)
+            block_mode = (getattr(reader, "epoch_varying", False)
+                          and hasattr(reader, "block_order")
+                          and hasattr(reader, "batch_rows"))
+        if block_mode and cache_decoded in (True, "auto"):
+            if reader is None:
+                reader = _reader_for_epoch(make_reader, epoch, retry_policy)
+            if block_cache is None:
+                block_cache = DecodedReplayCache(
+                    decoded_ram_budget if decoded_ram_budget is not None
+                    else default_ram_budget())
+            order = list(reader.block_order)
+            skip = skip_steps if epoch == start_epoch else 0
+            # resume mid-epoch: the factory rebuilds the reader's (seed,
+            # epoch) permutation; trim the visit order to the position
+            trimmed = order[skip:] if skip else order
+            if batcher.rows is None:
+                batcher.pin(int(reader.batch_rows))
+            if hasattr(reader, "seek") and hasattr(reader, "read_batch"):
+                # seekable: cache hits read no disk — only misses and the
+                # once-per-epoch anchor check read raw
+                def block_source(reader=reader, trimmed=trimmed,
+                                 skip=skip):
+                    anchor_checked = False
+                    for i, bid in enumerate(trimmed):
+                        cached = block_cache.get(bid)
+                        if cached is not None:
+                            if (bid == block_cache.anchor_key
+                                    and not anchor_checked):
+                                anchor_checked = True
+                            else:
+                                yield ("dec", cached)
+                                continue
+                        reader.seek((skip + i) * reader.batch_rows)
+                        yield ("blk", bid, reader.read_batch())
+
+                source = block_source()
+            else:
+                # seekless block reader: read + discard for hits; a short
+                # epoch fails loudly instead of training on fewer blocks
+                def counted_blocks(reader=reader, trimmed=trimmed,
+                                   skip=skip):
+                    n = 0
+                    for bid, b in zip(trimmed, _seek_or_skip(reader, skip)):
+                        n += 1
+                        yield ("blk", bid, b)
+                    if n < len(trimmed):
+                        raise ValueError(
+                            f"block-addressable reader yielded {n} "
+                            f"batches but block_order promises "
+                            f"{len(trimmed)}; the epoch would silently "
+                            "train on fewer blocks")
+
+                source = counted_blocks()
+        else:
+            replay_ok = replay_cache is not None and replay_cache.ready
+            if replay_ok and cache_decoded == "auto":
+                # replay guard: the cursor protocol does not promise
+                # epoch-determinism, so re-read the first raw batch (and a
+                # mid-stream one) and compare digests with the recording
+                reader = _reader_for_epoch(make_reader, epoch, retry_policy)
+                probe_it = iter(reader)
+                probe_first = next(probe_it, None)
+                probe_mismatch = False
+                if hasattr(reader, "seek") and hasattr(reader, "batch_rows"):
+                    mid_candidates = [
+                        i for i in replay_cache.probe_fingerprints
+                        if replay_cache.n_batches is None
+                        or i < replay_cache.n_batches]
+                    if mid_candidates:
+                        mid = max(mid_candidates)
+                        reader.seek(mid * int(reader.batch_rows))
+                        probe_mid = next(iter(reader), None)
+                        probe_mismatch = (
+                            probe_mid is None
+                            or batch_fingerprint(probe_mid)
+                            != replay_cache.probe_fingerprints[mid])
+                    reader.seek(0)
+                else:
+                    # generator-shaped reader: re-chain the consumed batch
+                    reader = itertools.chain(
+                        [] if probe_first is None else [probe_first],
+                        probe_it)
+                if (probe_mismatch or probe_first is None
+                        or replay_cache.fingerprint is None
+                        or batch_fingerprint(probe_first)
+                        != replay_cache.fingerprint):
+                    # one-way latch: a varying reader would be dropped
+                    # again every epoch
+                    replay_cache = None
+                    replay_ok = False
+                    guard_tripped = True
+            if replay_ok and \
+                    replay_cache.prefix_batches == replay_cache.n_batches:
+                # the whole epoch is cached: the reader's disk is not read
+                source = (("dec", t) for t in replay_cache.replay())
+            else:
+                if reader is None:
+                    reader = _reader_for_epoch(make_reader, epoch,
+                                               retry_policy)
+                if epoch == start_epoch and skip_steps:
+                    reader = _seek_or_skip(reader, skip_steps)
+                if batcher.rows is None and hasattr(reader, "batch_rows"):
+                    batcher.pin(int(reader.batch_rows))
+                if replay_ok:
+                    # partial prefix: replay what fit, re-decode the tail
+                    tail = _seek_or_skip(reader, replay_cache.prefix_batches)
+                    source = itertools.chain(
+                        (("dec", t) for t in replay_cache.replay()),
+                        (("raw", b) for b in tail))
+                else:
+                    # readers that DECLARE per-epoch variance are never
+                    # recorded under "auto"
+                    record = (config.max_epochs - epoch > 1
+                              and not guard_tripped
+                              and not (epoch == start_epoch and skip_steps)
+                              and (cache_decoded is True
+                                   or (cache_decoded == "auto"
+                                       and _has_cursor(reader)
+                                       and not getattr(
+                                           reader, "epoch_varying",
+                                           False))))
+                    if record:
+                        rec_cache = DecodedReplayCache(
+                            decoded_ram_budget
+                            if decoded_ram_budget is not None
+                            else default_ram_budget())
+                        _rec_cache[0] = rec_cache
+                        source = (("rec", i, b)
+                                  for i, b in enumerate(reader))
+                    else:
+                        source = (("raw", b) for b in reader)
+
+        # a running on-device sum: memory stays flat over the epoch
+        loss_sum = resume_loss_sum
+        n_batches = resume_n_batches
+        step_in_epoch = skip_steps
+        n_dispatches = 0
+        resume_loss_sum, resume_n_batches, skip_steps = None, 0, 0
+        # the pipeline is closed explicitly on every exit: its teardown
+        # joins the reader threads, so a supervised restart never races
+        # a live reader for the shared source
+        pipeline = prefetch_to_device(
+            source, depth=chunk_depth, device=dev, transform=route,
+            workers=prefetch_workers, put_workers=prefetch_put_workers,
+            stats=prefetch_stats, chunks=W)
+        try:
+            for chunk, mask, n_valid in pipeline:
+                if loss_sum is None:
+                    loss_sum = torch.zeros((), dtype=torch.float32,
+                                           device=dev)
+                with tracer.span("train_chunk", cat="train",
+                                 step=global_step + n_valid, epoch=epoch):
+                    # span = host dispatch wall; completion is fenced by
+                    # the probe fetch / the epoch-end loss read
+                    if probe is not None:
+                        params, loss_sum, probe = masked_chunk_scan(
+                            update, params, loss_sum, chunk, mask,
+                            probe=probe, n_valid=n_valid)
+                    else:
+                        params, loss_sum = masked_chunk_scan(
+                            update, params, loss_sum, chunk, mask,
+                            n_valid=n_valid)
+                if probe is not None:
+                    # ONE transfer at the chunk boundary
+                    for k, v in probe.fetch().items():
+                        step_trace.setdefault(k, []).append(v)
+                    probe = probe.reset()
+                n_batches += n_valid
+                step_in_epoch += n_valid
+                global_step += n_valid
+                n_dispatches += 1
+                # mid-epoch cuts land at chunk boundaries that crossed a
+                # checkpoint_every_steps multiple (publish AFTER the save)
+                if (checkpoint_every_steps > 0
+                        and (manager is not None or publish_cb is not None)
+                        and step_in_epoch // checkpoint_every_steps
+                        > (step_in_epoch - n_valid)
+                        // checkpoint_every_steps):
+                    if manager is not None:
+                        _save(epoch, step_in_epoch, loss_sum, n_batches)
+                    if publish_cb is not None:
+                        publish_cb(global_step,
+                                   lambda p=params: _publish_params(p))
+        finally:
+            pipeline.close()
+        if loss_sum is None:
+            raise ValueError("make_reader() returned an empty epoch")
+        dispatch_log.append(n_dispatches)
+        if rec_cache is not None:
+            rec_cache.finish(step_in_epoch)
+            replay_cache = rec_cache
+            recorded_epochs += 1
+            _rec_cache[0] = None
+        epoch_loss = float(loss_sum.item()) / n_batches
+        t_now = time.perf_counter()
+        epoch_secs.append(t_now - t_epoch)
+        if tracer.enabled:
+            tracer.add("train_epoch", t_epoch, t_now, cat="train",
+                       epoch=epoch, step=global_step)
+        loss_log.append(epoch_loss)
+        stop = config.tol > 0 and abs(prev_loss - epoch_loss) <= config.tol
+        if not stop:
+            prev_loss = epoch_loss
+        if manager is not None:
+            _save(epoch + 1, 0, None, 0, converged=stop)  # epoch-boundary cut
+        if publish_cb is not None:
+            publish_cb(global_step, lambda p=params: _publish_params(p))
+        if stop:
+            break
+    if stream_info is not None:
+        stream_info["impl"] = stream_impl
+        stream_info["steps_per_dispatch"] = W
+        stream_info["dispatches_per_epoch"] = dispatch_log
+        if step_probe:
+            stream_info["step_trace"] = {
+                k: (np.concatenate(v) if v else np.zeros((0,), np.float32))
+                for k, v in step_trace.items()}
+        if block_cache is not None:
+            stream_info["decoded_cache_mode"] = "block"
+            stream_info["decoded_cache_batches"] = len(block_cache)
+            stream_info["decoded_cache_bytes"] = block_cache.cached_bytes
+        else:
+            cached = (replay_cache.prefix_batches
+                      if replay_cache is not None and replay_cache.ready
+                      else 0)
+            stream_info["decoded_cache_batches"] = cached
+            stream_info["decoded_cache_recorded_epochs"] = recorded_epochs
+            if guard_tripped:
+                stream_info["decoded_cache_guard_tripped"] = True
+            if cached:
+                stream_info["decoded_cache_bytes"] = \
+                    replay_cache.cached_bytes
+                stream_info["decoded_cache_total_batches"] = \
+                    replay_cache.n_batches
+        stream_info["epoch_seconds"] = [round(s, 4) for s in epoch_secs]
+    return _linear_state(params, stream_impl), loss_log

@@ -37,7 +37,7 @@ import torch
 
 from ...api.stage import Estimator, Model
 from ...data.table import Table
-from ...iteration import IterationBodyResult, iterate
+from ...iteration import IterationBodyResult, IterationConfig, iterate
 from ...ops.emb_grad import emb_grad_route
 from ...params.param import (
     BoolParam,
@@ -440,7 +440,8 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
         max_epochs = self.get_max_iter()
         init_state = (params, opt_state,
                       torch.full((max_epochs,), float("nan"), device=dev))
-        result = iterate(epoch_body, init_state, data, max_epochs=max_epochs)
+        result = iterate(epoch_body, init_state, data, max_epochs=max_epochs,
+                         config=IterationConfig(mode="fused"))
         fitted, _, loss_buf = result.state
 
         model = WideDeepModel(device=self.device)

@@ -318,11 +318,12 @@ def _ell_layout_native(lib, cat_indices: np.ndarray, num_features: int,
     if pad_ovf_cap is not None and need_ovf > pad_ovf_cap:
         raise ValueError(
             f"overflow needs {need_ovf} slots > forced cap "
-            f"{pad_ovf_cap}; raise the cap")
+            f"{pad_ovf_cap}; raise the cap (streaming: ell_ovf_cap)")
     if pad_heavy_cap is not None and need_heavy > pad_heavy_cap:
         raise ValueError(
             f"{need_heavy} heavy indices > forced cap "
-            f"{pad_heavy_cap}; raise the cap")
+            f"{pad_heavy_cap}; raise the cap (streaming: "
+            "ell_heavy_cap)")
     if rc:
         cap0 = max(cap0, need_ovf + (-need_ovf) % 8)
         h0 = max(h0, need_heavy)
@@ -384,11 +385,11 @@ def ell_layout(cat_indices: np.ndarray, num_features: int,
     if pad_ovf_cap is not None and need_ovf > pad_ovf_cap:
         raise ValueError(
             f"overflow needs {need_ovf} slots > forced cap {pad_ovf_cap}; "
-            "raise the cap")
+            "raise the cap (streaming: ell_ovf_cap)")
     if pad_heavy_cap is not None and need_heavy > pad_heavy_cap:
         raise ValueError(
             f"{need_heavy} heavy indices > forced cap {pad_heavy_cap}; "
-            "raise the cap")
+            "raise the cap (streaming: ell_heavy_cap)")
     cap = pad_ovf_cap if pad_ovf_cap is not None else max(8, need_ovf)
     cap += (-cap) % 8
     ovf_idx = np.zeros((steps, cap), np.int32)

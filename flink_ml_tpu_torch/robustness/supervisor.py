@@ -1,0 +1,186 @@
+"""Self-healing training supervision.
+
+:func:`resilient_fit` supervises any checkpointing fit — the streaming
+``sgd_fit_outofcore`` and the hosted ``iterate`` both speak the same
+``(checkpoint=..., resume=...)`` keywords — and turns a recoverable crash
+into an automatic restore-and-continue instead of a dead process:
+
+1. run the fit; on a recoverable failure (injected crash, I/O error),
+2. back off (classified, deterministic schedule — :class:`~.retry
+   .RetryPolicy` arithmetic), then
+3. re-run with ``resume=True``: the fit restores from the newest VALID
+   checkpoint (``CheckpointManager.latest()`` quarantines corrupt or
+   partial cuts and falls back — :mod:`.durability`), re-seeks or
+   replays its source past the cursor, and continues as if never
+   interrupted.
+
+Because restore and replay are deterministic, the supervised run's final
+state is **bit for bit** the uninterrupted run's, also when the newest
+checkpoint is corrupt and the fallback path restores an older one.
+
+The per-restart :class:`RecoveryEvent` records the time to recover
+(detect -> restore complete, which is where training resumes) against
+the manager's restore timestamp.
+
+A port of the JAX package's ``robustness/supervisor.py``.  Its elastic
+fleets (``elastic=``: resizes at chunk boundaries, recovery onto the
+surviving workers) are ROADMAP queue A10 and raise here.
+"""
+
+from __future__ import annotations
+
+import time
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, List, Optional
+
+from ..obs.trace import tracer
+from .faults import InjectedCrash
+from .retry import RetryPolicy
+
+__all__ = ["RecoveryEvent", "RecoveryReport", "resilient_fit",
+           "default_recoverable"]
+
+
+def default_recoverable(exc: BaseException) -> bool:
+    """Can a restore-and-replay heal this?  Crashes and I/O failures
+    yes; logic errors (bad config, schema mismatch, corrupt *input*
+    data raising ValueError) no — re-running those burns restarts on a
+    deterministic failure."""
+    return isinstance(exc, (InjectedCrash, OSError, IOError,
+                            ConnectionError, TimeoutError))
+
+
+@dataclass
+class RecoveryEvent:
+    """One detected failure and the recovery that followed.  ``kind`` is
+    ``"crash"`` here (the JAX package also records planned ``"resize"``
+    events of elastic fleets); ``fleet_size`` stays None on one device."""
+    error: str
+    detected_at: float
+    backoff_s: float = 0.0
+    restored_step: Optional[int] = None
+    mttr_s: Optional[float] = None   # detect -> restore complete
+    kind: str = "crash"
+    fleet_size: Optional[int] = None
+
+
+@dataclass
+class RecoveryReport:
+    """Filled in place by :func:`resilient_fit` (pass ``report=``):
+    ``restarts`` counts recoveries; ``resizes`` stays 0 (elastic fleets
+    are not ported)."""
+    restarts: int = 0
+    resizes: int = 0
+    recovered: bool = False
+    events: List[RecoveryEvent] = field(default_factory=list)
+
+    def as_dict(self) -> dict:
+        return {
+            "restarts": self.restarts,
+            "resizes": self.resizes,
+            "recovered": self.recovered,
+            "events": [{
+                "error": e.error,
+                "kind": e.kind,
+                "fleet_size": e.fleet_size,
+                "backoff_s": round(e.backoff_s, 4),
+                "restored_step": e.restored_step,
+                "mttr_s": (round(e.mttr_s, 4)
+                           if e.mttr_s is not None else None),
+            } for e in self.events],
+        }
+
+
+def resilient_fit(fit: Callable, *args: Any,
+                  checkpoint: Any,
+                  max_restarts: int = 3,
+                  backoff: Optional[RetryPolicy] = None,
+                  recoverable: Callable[[BaseException], bool]
+                  = default_recoverable,
+                  report: Optional[RecoveryReport] = None,
+                  clock: Callable[[], float] = time.perf_counter,
+                  elastic: Any = None,
+                  **kwargs: Any) -> Any:
+    """Run ``fit(*args, checkpoint=manager, resume=..., **kwargs)`` under
+    supervision; returns whatever ``fit`` returns.
+
+    ``fit`` is any callable taking ``checkpoint``/``resume`` keywords —
+    ``sgd_fit_outofcore``, ``iterate``, ``fit_outofcore``, or a closure
+    that rebuilds per-attempt state before delegating.  The first attempt
+    runs with ``resume=kwargs.get("resume", False)``; every restart
+    forces ``resume=True`` so recovery restores from the newest valid cut
+    and replays forward.
+
+    ``checkpoint`` (a ``CheckpointConfig`` or ``CheckpointManager``) is
+    normalized to ONE manager shared across attempts, so quarantine
+    decisions and save-slot history persist through restarts.  Restarts
+    back off on the policy's deterministic schedule (attempt i sleeps
+    ``backoff.delay(i)``); a failure that ``recoverable`` rejects — or
+    restart ``max_restarts + 1`` — re-raises immediately.
+
+    ``elastic=`` (an elastic fleet coordinator) is ROADMAP queue A10 and
+    raises ``NotImplementedError``."""
+    # local import: checkpoint.py imports robustness.durability, so a
+    # top-level import here would cycle through the package __init__
+    from ..iteration.checkpoint import CheckpointConfig, CheckpointManager
+
+    if elastic is not None:
+        raise NotImplementedError(
+            "resilient_fit(elastic=...) (elastic fleets: resizes and "
+            "recovery onto surviving workers) is not ported to "
+            "flink_ml_tpu_torch yet (ROADMAP queue A10)")
+    manager = (CheckpointManager(checkpoint)
+               if isinstance(checkpoint, CheckpointConfig) else checkpoint)
+    if not isinstance(manager, CheckpointManager):
+        raise TypeError(
+            "resilient_fit needs a CheckpointConfig/CheckpointManager "
+            f"(got {type(checkpoint).__name__}): without durable cuts "
+            "there is nothing to recover from")
+    # the time to recover subtracts the manager's restore stamp from this
+    # supervisor's detect stamp: both must come from the SAME clock
+    manager.clock = clock
+    backoff = backoff or RetryPolicy(max_attempts=max_restarts + 1)
+    rep = report if report is not None else RecoveryReport()
+    resume = bool(kwargs.pop("resume", False))
+    restarts = 0
+    while True:
+        event: Optional[RecoveryEvent] = None
+        if rep.events and rep.events[-1].mttr_s is None:
+            event = rep.events[-1]
+        try:
+            result = fit(*args, checkpoint=manager, resume=resume, **kwargs)
+        except Exception as exc:  # noqa: BLE001 — classified below
+            _close_event(event, manager, clock)
+            if restarts >= max_restarts or not recoverable(exc):
+                raise
+            restarts += 1
+            rep.restarts = restarts
+            pause = backoff.delay(restarts - 1)
+            rep.events.append(RecoveryEvent(
+                error=repr(exc)[:200], detected_at=clock(),
+                backoff_s=pause))
+            tracer.instant("recovery_restart", cat="train",
+                           x_error=repr(exc)[:80])
+            backoff.sleep(pause)
+            resume = True
+            continue
+        _close_event(event, manager, clock)
+        rep.recovered = restarts > 0
+        return result
+
+
+def _close_event(event: Optional[RecoveryEvent], manager: Any,
+                 clock: Callable[[], float]) -> None:
+    """Stamp the open recovery event with the restore the just-finished
+    attempt performed (``manager.last_restore_at`` is set by
+    ``latest()``; training resumes the moment it returns)."""
+    if event is None:
+        return
+    restore_at = getattr(manager, "last_restore_at", None)
+    if restore_at is not None and restore_at >= event.detected_at:
+        event.mttr_s = restore_at - event.detected_at
+        event.restored_step = getattr(manager, "last_restored_step", None)
+    else:
+        # no checkpoint existed yet: recovery was a cold re-run
+        event.mttr_s = clock() - event.detected_at

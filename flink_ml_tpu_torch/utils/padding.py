@@ -7,12 +7,15 @@ the KMeans stats kernels tolerate, power-of-two predict buckets)."""
 
 from __future__ import annotations
 
+import threading
+
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["pad_rows_with_mask", "bucket_rows", "pad_rows_to_bucket",
-           "pad_rows_to_block", "require_block_rows", "DEFAULT_MIN_BUCKET"]
+__all__ = ["FixedRowBatcher", "pad_rows_with_mask", "bucket_rows",
+           "pad_rows_to_bucket", "pad_rows_to_block", "require_block_rows",
+           "DEFAULT_MIN_BUCKET"]
 
 #: Smallest row bucket the predict paths pad to.
 DEFAULT_MIN_BUCKET = 8
@@ -21,6 +24,55 @@ DEFAULT_MIN_BUCKET = 8
 #: exact shape (padding them to the next power of two could double the
 #: work and the peak memory).
 DEFAULT_BUCKET_CAP = 1 << 16
+
+
+class FixedRowBatcher:
+    """The out-of-core fixed-row protocol of the streamed fits
+    (``sgd_fit_outofcore``): the FIRST batch pins the row count
+    (rounded up to ``multiple`` for data-axis divisibility), later
+    batches must not grow, and short batches (the ragged tail) zero-pad
+    — callers give padded rows weight/mask 0.
+
+    Thread-safe: with multi-worker prefetch decode two first batches can
+    race; the lock makes exactly one pin win (a mis-sized winner — only
+    possible when a cursorless reader's final partial batch decodes
+    first — still fails loudly as a growing batch)."""
+
+    def __init__(self, multiple: int):
+        if multiple <= 0:
+            raise ValueError("multiple must be positive")
+        self._multiple = multiple
+        self._rows: list = []
+        self._lock = threading.Lock()
+
+    @property
+    def rows(self) -> Optional[int]:
+        return self._rows[0] if self._rows else None
+
+    def pin(self, rows: int) -> None:
+        """Pin the fixed row count (rounded up to the multiple); no-op if
+        already pinned."""
+        with self._lock:
+            if not self._rows:
+                self._rows.append(rows + (-rows) % self._multiple)
+
+    def pad(self, arrays: Sequence[np.ndarray],
+            have: Optional[int] = None) -> Tuple[np.ndarray, ...]:
+        """Zero-pad every array's leading dim to the pinned row count
+        (pinning from this batch if none is pinned yet)."""
+        have = int(arrays[0].shape[0]) if have is None else int(have)
+        self.pin(have)
+        rows = self._rows[0]
+        if have > rows:
+            raise ValueError(
+                f"reader produced a growing batch ({have} rows after "
+                f"{rows}); fixed-size batches are required")
+        if have == rows:
+            return tuple(arrays)
+        return tuple(
+            np.concatenate(
+                [a, np.zeros((rows - have,) + a.shape[1:], a.dtype)])
+            for a in arrays)
 
 
 def bucket_rows(n: int, *, min_bucket: int = DEFAULT_MIN_BUCKET) -> int:

@@ -15,8 +15,9 @@ A copy of the JAX package's ``utils/persist.py`` with one change: a class
 path recorded by the JAX package (``flink_ml_tpu.<module>.<Class>``) maps
 to the port's counterpart (``flink_ml_tpu_torch.<module>.<Class>``) before
 anything is imported, so a directory saved by either package loads here
-without importing JAX.  (The JAX copy's fault-injection hook is not
-ported.)
+without importing JAX.  Model-array saves pass the ``persist.write``
+fault seam (``robustness.faults``) between the write and the rename, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ import zipfile
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+
+from ..robustness.faults import fault_point
 
 __all__ = [
     "save_metadata",
@@ -197,6 +200,9 @@ def save_model_arrays(path: str, name: str, arrays: Dict[str, np.ndarray]) -> st
     with open(tmp, "wb") as f:
         np.savez(f, **{k: np.asarray(v) for k, v in arrays.items()})
         f.flush()
+    # the seam sits before the rename: an injected crash leaves the old
+    # file, a torn/flip fault a damaged one the npz CRCs catch at load
+    fault_point("persist.write", tmp)
     os.replace(tmp, out)
     return out
 

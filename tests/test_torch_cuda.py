@@ -978,3 +978,82 @@ def test_list_major_spans_windows_and_rounds(cuda_device, b, nlist,
     want = TR.retrieve_flat_plain(*args, **shape)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks,workers,put_workers",
+                         [(None, 1, 1), (3, 3, 2), (1, 2, 1)])
+def test_pinned_prefetch_order_values_under_backpressure(
+        cuda_device, chunks, workers, put_workers):
+    """The pinned-staging transfer: a slow consumer (device sleeps before
+    it reads each unit) keeps the pool of staging slots cycling many
+    times; every unit arrives in order with its own values, so no slot
+    was refilled while its copy could still be read."""
+    from flink_ml_tpu_torch.data.prefetch import prefetch_to_device
+
+    n = 40
+    src = [(np.full((256, 512), i, np.float32),
+            np.arange(300, dtype=np.int32) + i) for i in range(n)]
+    seen = []
+    for unit in prefetch_to_device(iter(src), device=cuda_device, depth=1,
+                                   chunks=chunks, workers=workers,
+                                   put_workers=put_workers):
+        torch.cuda._sleep(2_000_000)    # the consumer's stream is busy
+        if chunks is None:
+            seen.append((unit[0].sum(), unit[1].clone()))
+        else:
+            chunk, mask, n_valid = unit
+            for i in range(n_valid):
+                seen.append((chunk[0][i].sum(), chunk[1][i].clone()))
+    torch.cuda.synchronize()
+    assert len(seen) == n
+    for i, (total, ids) in enumerate(seen):
+        assert float(total) == i * 256 * 512
+        assert torch.equal(ids.cpu(), torch.arange(300, dtype=torch.int32)
+                           + i)
+
+
+@pytest.mark.cuda
+def test_streamed_mixed_fit_launches_the_kernels_every_step(cuda_device,
+                                                            tmp_path):
+    """A small streamed mixed fit on the card: the margin (B1) and fused
+    scatter (B2) kernels launch on every step; the fit equals the same
+    stream through the plain versions within allclose(1e-3, 1e-4)
+    (``bench.py:266``); W = 8 equals W = 1, the routing built in the decode
+    workers equals the card's and an uncached fit the cached one, bit for
+    bit."""
+    from flink_ml_tpu_torch.data.datacache import (DataCacheReader,
+                                                   DataCacheWriter)
+
+    rng = np.random.default_rng(6)
+    n = 2600
+    cat = rng.integers(32, D, size=(n, 8)).astype(np.int32)
+    y = rng.integers(0, 2, size=n).astype(np.float32)
+    cat[:, 0] = np.where(y == 1, 16, 17)
+    w = DataCacheWriter(str(tmp_path / "c"), segment_rows=1024)
+    w.append({"d": rng.normal(size=(n, 4)).astype(np.float32), "c": cat,
+              "label": y})
+    w.finish()
+    cfg = TS.SGDConfig(learning_rate=0.4, max_epochs=3, tol=0)
+
+    def fit(**kw):
+        return TS.sgd_fit_outofcore(
+            LOSSES["logistic"],
+            lambda: DataCacheReader(str(tmp_path / "c"), batch_rows=320),
+            num_features=D, config=cfg, dense_key="d", indices_key="c",
+            device=cuda_device, **kw)
+
+    TE.reset_launch_counts()
+    got, log = fit()
+    steps = -(-n // 320) * 3
+    assert TE.LAUNCHES["ell_margin"] == steps
+    assert TE.LAUNCHES["ell_scatter_apply_fused"] == steps
+    assert got.planned_impl == "ell-stream"
+    plain, plain_log = fit(plain=True)
+    np.testing.assert_allclose(got.coefficients, plain.coefficients,
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(log, plain_log, rtol=1e-3, atol=1e-4)
+    for kw in ({"steps_per_dispatch": 1}, {"cache_decoded": False}):
+        other, other_log = fit(**kw)
+        np.testing.assert_array_equal(other.coefficients, got.coefficients)
+        assert other_log == log

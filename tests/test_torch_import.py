@@ -43,6 +43,28 @@ def test_import_leaves_jax_out():
     assert [m for m in out if _forbidden(m)] == []
 
 
+NEW_RUNTIME_MODULES = (
+    "flink_ml_tpu_torch.robustness", "flink_ml_tpu_torch.obs",
+    "flink_ml_tpu_torch.data.prefetch", "flink_ml_tpu_torch.data.datacache",
+    "flink_ml_tpu_torch.data.replay_cache",
+    "flink_ml_tpu_torch.iteration.checkpoint",
+    "flink_ml_tpu_torch.robustness.supervisor",
+    "flink_ml_tpu_torch.obs.probe")
+
+
+def test_runtime_modules_import_without_jax():
+    """The iteration runtime, robustness, observability and out-of-core
+    data modules load neither JAX nor the JAX package."""
+    code = ("import sys, " + ", ".join(NEW_RUNTIME_MODULES) + "; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         timeout=300).stdout.split()
+    assert set(NEW_RUNTIME_MODULES) <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+
+
 def _py_files(root):
     for dirpath, _, files in os.walk(root):
         for f in files:

@@ -17,7 +17,8 @@ from flink_ml_tpu.distance import DistanceMeasure as JDistance
 from flink_ml_tpu.models.clustering import kmeans as JKM
 from flink_ml_tpu.parallel.mesh import device_mesh, use_mesh
 from flink_ml_tpu_torch.distance import DistanceMeasure as TDistance
-from flink_ml_tpu_torch.iteration import IterationBodyResult, iterate
+from flink_ml_tpu_torch.iteration import (FnListener, IterationBodyResult,
+                                          IterationConfig, iterate)
 from flink_ml_tpu_torch.models.clustering import kmeans as TKM
 from flink_ml_tpu_torch.utils.convert import kmeans_model_from_jax
 
@@ -297,8 +298,9 @@ def test_entry_points_need_cuda_unless_cpu_asked(monkeypatch):
 
 
 def test_iterate_loop_semantics():
-    """Fixed epochs stack outputs; a vote ends the loop and leaves a
-    trace; the unported parts of the runtime raise naming queue A3."""
+    """Fixed epochs stack outputs; in the fused mode the KMeans fits use,
+    a vote ends the loop and leaves a trace; the hosted mode (listeners,
+    checkpoints) runs the same epochs."""
     def body(state, epoch):
         return IterationBodyResult(state + 1, outputs=state * 2)
 
@@ -309,12 +311,16 @@ def test_iterate_loop_semantics():
     def voting(state, epoch, data):
         return IterationBodyResult(state + data, termination=state + data < 3)
 
-    res = iterate(voting, torch.zeros(()), torch.ones(()), max_epochs=10)
+    res = iterate(voting, torch.zeros(()), torch.ones(()), max_epochs=10,
+                  config=IterationConfig(mode="fused"))
     assert res.num_epochs == 3 and float(res.state) == 3
     np.testing.assert_array_equal(res.side["epoch_trace"]["termination"],
                                   [1, 1, 0])
     assert np.isnan(res.side["epoch_trace"]["active_fraction"]).all()
-    for kw in ({"listeners": [object()]}, {"checkpoint": object()},
-               {"mode": "hosted"}):
-        with pytest.raises(NotImplementedError, match="A3"):
-            iterate(body, torch.zeros(()), max_epochs=1, **kw)
+    seen = []
+    for kw in ({"listeners": [FnListener(lambda e, ctx: seen.append(e))]},
+               {"config": IterationConfig(mode="hosted")}):
+        res = iterate(body, torch.zeros(()), max_epochs=2, **kw)
+        assert res.num_epochs == 2 and float(res.state) == 2
+        assert [float(o) for o in res.outputs] == [0, 2]
+    assert seen == [0, 1]
