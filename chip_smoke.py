@@ -182,11 +182,57 @@ line is printed):
     Prints record and replay epochs/s, fit() wall s, ``PrefetchStats``,
     the checkpoint cut's host ms, the resume's recovery s and phase 4's
     in-memory rate beside them, each with the card line.
+22. The streamed KMeans fit: the KMeans headline's points (2^20 x 64,
+    N(0,1), seed 0) written once with ``DataCacheWriter`` to
+    ``scratch_stream/`` (~256 MB, removed at the end) and read by
+    ``DataCacheReader(batch_rows=2^17)``: ``KMeans.fit_outofcore``, k 256,
+    10 rounds.  Checks: (a) the stats kernel (B4) launches 80 times (8
+    batches x 10 rounds), B5 and B6 none; (b) each round, from the same
+    centroids, within allclose(5e-3, 5e-3) of the same stream on the plain
+    stats (and the round-by-round chain equals the fit bit for bit); (c)
+    each round within the same gate of the in-memory Lloyd's round on the
+    same rows from the same centroids (the two fits run free from one init
+    are printed, not gated: their f32 sums add in another order, and on
+    N(0,1) points near-tie flips compound over 10 rounds); (d) a second
+    fit bit for bit.  Prints
+    streamed iterations/s beside phase 7's and ``PrefetchStats``.
+23. The streamed Wide&Deep fit at the bench width: 16 batches of 8192
+    (phase 9's data, in the in-memory fit's shuffled order) through a
+    data cache, ``WideDeep.fit_outofcore``, 2 epochs, W 8, dense Adam.
+    Checks: (a) W 8 = W 1 bit for bit; (b) a fit whose reader dies
+    fetching batch 12, healed by ``resilient_fit`` from a
+    ``checkpoint_every_steps=8`` cut, equals the uninterrupted fit bit for
+    bit; (c) a second run bit for bit; (d) every step, from the streamed
+    fit's own state, within loss rtol 1e-5, parameters rtol 1e-4 / atol
+    1e-5 of the in-memory ``routedEmbeddingGrad='off'`` step on the same
+    batch, the replay ending bit for bit on the streamed fit, and the
+    whole fit's loss log within rtol 1e-5 of the in-memory 'off' fit on
+    the same rows (the whole fits' parameters are printed, beside two
+    in-memory 'off' fits against each other: phase 10's rule).
+    Then (a)-(c) with ``lazyEmbeddingOptimizer`` on the first 4 batches
+    (the crash fetching batch 6, cuts every 2 steps at W 2).  Prints
+    streamed steps/s beside phase 11's, the cut's host ms, the recovery s
+    and the streamed step's ms on the two fixed-order table-gradient
+    routes (``scripts/stream_grad_routes.py``: the sort-based scatter-add
+    the fit runs, and a per-batch sort with the fold kernel).
+24. Streaming FTRL at ``bench_online_ftrl``'s shape (d 2^20, 16 windows
+    of 4096 rows x 39 slots, 13 N(0,1) values and 26 unit values, seed
+    13, alpha 0.1, beta 1, l1 = l2 = 1e-4): (a) windows/s of the update
+    with the windows resident on the card; (b) windows/s of
+    ``OnlineLogisticRegression.fit`` over a ``WindowLog`` on local disk
+    (equal bit for bit to (a)'s weights); (c) a fit killed at window 11
+    with ``CheckpointConfig(interval=4)``, resumed with the log replaying
+    the windows past the cursor, equals the uninterrupted fit bit for bit
+    at model version 16; (d) the weights within allclose(1e-4, 1e-6) of a
+    float64 numpy FTRL.  Then ``OnlineKMeans`` (k 256, d 64, 32 windows
+    of 256 rows, a drifting mean) killed at window 20 and resumed from an
+    interval-8 cut, equal bit for bit; windows/s.
 
 The last lines are the kernel table (nine kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
 ``values`` and the streamed fit's launches under ``stream``, the three
-KMeans kernels, the fold, the two retrieve kernels)
+KMeans kernels (the stats kernel with phase 22's launches under
+``stream``), the fold, the two retrieve kernels)
 as one JSON object, the card line from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.  The script imports neither JAX nor the JAX package.
 """
@@ -295,6 +341,10 @@ DN_ROWS, DN_DIM, DN_EPOCHS, DN_CLASSES = 1 << 17, 64, 2, 10
 DN_HELD = 4096
 # Criteo TSV ingest (phase 19): hash_space 2^20 - 13 gives 2^20 features
 CT_ROWS = 1 << 17
+
+
+# in-memory rates of phases 7 and 11, printed beside the streamed ones
+RATES = {}
 
 
 def fail(msg):
@@ -686,6 +736,7 @@ def kmeans_phases(torch, dev, card, timer):
             c = body(c, i, (pts, ones)).feedback
         torch.cuda.synchronize()
         rates[label] = iters / (time.perf_counter() - t0)
+    RATES["kmeans_iters_per_s"] = rates["kernels"]
     log(f"KMeans BSP iterations/s at {n} x {d}, k {k}, device-resident "
         f"points: kernels {rates['kernels']:.3f}, plain versions "
         f"{rates['plain']:.3f}; workset fit {ws_s_wall:.3f} s for "
@@ -1008,6 +1059,7 @@ def widedeep_phases(torch, dev, card, timer):
         torch.cuda.synchronize()
         rates[label] = steps / (time.perf_counter() - t0)
         del params, state
+    RATES["widedeep_steps_per_s"] = dict(rates)
     log(f"Wide&Deep steps/s at the bench width (batch {WD_BATCH}, "
         f"{steps} steps, fold_passes {fit_route.fold_passes}), "
         f"device-resident "
@@ -2299,6 +2351,584 @@ def stream_phase(torch, dev, card, mem_epochs_per_s, mem_fit_s):
             ("ell_margin", "ell_scatter_apply_fused", "ell_scatter_apply")}
 
 
+# The streamed KMeans fit (phase 22): the KMeans headline's points through
+# a data cache, 8 batches of 2^17 rows a round
+SK_BATCH = 1 << 17
+# The streamed Wide&Deep fit (phase 23): 16 bench-width batches, W 8, a
+# crash fetching batch 12 healed from a checkpoint_every_steps=8 cut;
+# lazy Adam on the first 4 batches (a crash fetching batch 6 healed from
+# a checkpoint_every_steps=2 cut at W 2)
+SW_W, SW_CRASH_PULL, SW_CUT_EVERY = 8, 12, 8
+SW_LAZY_BATCHES = 4
+# tests/test_torch_widedeep.py's tolerance of one step from converted
+# state (held here step by step from the streamed fit's state)
+SW_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
+SW_PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
+# Streaming FTRL (phase 24) at bench_online_ftrl's shape (bench.py:1459-1472)
+FT_D, FT_WINDOWS, FT_ROWS, FT_DENSE, FT_UNIT = 1 << 20, 16, 1 << 12, 13, 26
+FT_ALPHA, FT_BETA, FT_L1, FT_L2 = 0.1, 1.0, 1e-4, 1e-4
+FT_KILL_AT, FT_INTERVAL = 11, 4
+FT_TOL = dict(rtol=1e-4, atol=1e-6)
+# OnlineKMeans on a drifting stream: k 256, d 64, 32 windows of 256 rows
+OK_K, OK_D, OK_WINDOWS, OK_ROWS = 256, 64, 32, 256
+OK_KILL_AT, OK_INTERVAL = 20, 8
+
+
+def stream_kmeans_phase(torch, dev, card):
+    """Phase 22: ``KMeans.fit_outofcore`` at the KMeans headline's shape,
+    the stats kernel (B4) on every batch; returns its launches."""
+    import shutil
+
+    from flink_ml_tpu_torch import KMeans
+    from flink_ml_tpu_torch.data.datacache import (DataCacheReader,
+                                                   DataCacheWriter)
+    from flink_ml_tpu_torch.data.prefetch import PrefetchStats
+    from flink_ml_tpu_torch.distance import DistanceMeasure
+    from flink_ml_tpu_torch.models.clustering import kmeans as KM
+    from flink_ml_tpu_torch.ops import kmeans as K
+
+    t_phase = time.perf_counter()
+    cache = os.path.join(ST_DIR, "kmeans")
+    shutil.rmtree(ST_DIR, ignore_errors=True)
+    try:
+        pts = np.random.default_rng(0).normal(size=(N_KM, D_KM)).astype(
+            np.float32)
+        t0 = time.perf_counter()
+        w = DataCacheWriter(cache)
+        w.append({"features": pts})
+        w.finish()
+        log(f"streamed KMeans cache: {N_KM} x {D_KM} f32 written in "
+            f"{time.perf_counter() - t0:.3f} s; {N_KM // SK_BATCH} batches "
+            f"of {SK_BATCH} a round")
+
+        def reader():
+            return DataCacheReader(cache, batch_rows=SK_BATCH)
+
+        def fit(stats=None):
+            est = (KMeans(device=DEVICE).set_k(K_KM).set_max_iter(KM_ITERS)
+                   .set_seed(0))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model = est.fit_outofcore(reader, prefetch_stats=stats)
+            torch.cuda.synchronize()
+            return (est, model.get_model_data()[0]["centroids"][0],
+                    time.perf_counter() - t)
+
+        stats = PrefetchStats()
+        K.reset_launch_counts()
+        est, main, fit_s = fit(stats)
+        launches = dict(K.LAUNCHES)
+        want = -(-N_KM // SK_BATCH) * KM_ITERS
+        log(f"(a) streamed KMeans fit: plan {est.planned_impl}, launches "
+            f"{launches} (expected kmeans_update_stats {want})")
+        if est.planned_impl != "kernel" or launches != {
+                "kmeans_update_stats": want, "kmeans_assign_reduce": 0,
+                "kmeans_workset_update": 0}:
+            fail("the stats kernel did not carry every streamed batch")
+        if main.shape != (K_KM, D_KM) or not np.all(np.isfinite(main)):
+            fail("the streamed centroids are not finite (k, d)")
+        log(f"streamed KMeans iterations/s at {N_KM} x {D_KM}, k {K_KM}, "
+            f"batches of {SK_BATCH}: {KM_ITERS / fit_s:.3f} ({fit_s:.3f} s "
+            f"for {KM_ITERS} rounds, cache read and transfer included); "
+            f"phase 7's device-resident rate "
+            f"{RATES.get('kmeans_iters_per_s', float('nan')):.3f} [{card}]")
+        log(f"prefetch stats of the streamed KMeans fit: {stats.as_dict()} "
+            f"[{card}]")
+
+        # (b) every round from the same centroids: B4 against the plain
+        # stats on the same stream
+        init = KM.select_random_centroids(pts[:SK_BATCH], K_KM, 0)
+        c, worst, chain = init, 0.0, [init]
+        for r in range(KM_ITERS):
+            got = KM.kmeans_fit_outofcore(reader, K_KM, max_iter=1,
+                                          device=dev, init=c)
+            ref = KM.kmeans_fit_outofcore(reader, K_KM, max_iter=1,
+                                          device=dev, init=c, plain=True)
+            e = float(np.max(np.abs(got - ref)))
+            worst = max(worst, e)
+            if not np.allclose(got, ref, **KM_GATE):
+                fail(f"streamed round {r}: B4 vs the plain stats max |d| "
+                     f"{e:.3e} outside allclose(5e-3, 5e-3)")
+            c = got
+            chain.append(got)
+        log(f"(b) {KM_ITERS} streamed rounds, each from the same centroids: "
+            f"B4 vs the plain stats, worst max |d| {worst:.3e} (allclose "
+            f"5e-3, 5e-3); the round-by-round chain equals the fit "
+            f"{np.array_equal(c, main)}")
+        if not np.array_equal(c, main):
+            fail("the round-by-round streamed chain differs from the fit")
+
+        # (c) the in-memory Lloyd's on the same rows, round by round from
+        # the streamed fit's centroids (the two sum in another f32 order;
+        # run free from the same init, near-tie flips compound round over
+        # round on this data, so the free run's distance is printed only)
+        measure = DistanceMeasure.get_instance("euclidean")
+        x = torch.from_numpy(pts).to(dev)
+        ones = torch.ones(N_KM, device=dev)
+        plan = KM._fit_plan(N_KM, D_KM, K_KM, measure)
+
+        def in_memory(start, rounds):
+            return KM.fit_centroids(
+                x, ones, torch.from_numpy(start).to(dev), plan,
+                measure=measure, max_iter=rounds).state.cpu().numpy()
+
+        worst = 0.0
+        for r in range(KM_ITERS):
+            mem = in_memory(chain[r], 1)
+            worst = max(worst, float(np.max(np.abs(chain[r + 1] - mem))))
+            if not np.allclose(chain[r + 1], mem, **KM_GATE):
+                fail(f"streamed round {r} diverged from the in-memory "
+                     "Lloyd's round from the same centroids")
+        free = float(np.max(np.abs(main - in_memory(init, KM_ITERS))))
+        del x
+        log(f"(c) streamed vs in-memory Lloyd's, each round from the same "
+            f"centroids: worst max |d| {worst:.3e} (allclose 5e-3, 5e-3); "
+            f"both run free {KM_ITERS} rounds from the same init: max |d| "
+            f"{free:.3e} (not gated: near-tie flips compound)")
+        _, again, again_s = fit()
+        log(f"(d) a second streamed fit: equal bit for bit "
+            f"{np.array_equal(again, main)} ({again_s:.3f} s) [{card}]")
+        if not np.array_equal(again, main):
+            fail("a second streamed KMeans fit differs from the first")
+    finally:
+        shutil.rmtree(ST_DIR, ignore_errors=True)
+    log(f"phase 22: {time.perf_counter() - t_phase:.3f} s")
+    return launches["kmeans_update_stats"]
+
+
+def _wd_leaves(params):
+    out = {k: params[k] for k in WD_TABLE_KEYS}
+    for i, layer in enumerate(params["mlp"]):
+        out[f"mlp_{i}_w"], out[f"mlp_{i}_b"] = layer["w"], layer["b"]
+    return out
+
+
+def _wd_same(a, b):
+    la, lb = _wd_leaves(a._params), _wd_leaves(b._params)
+    return a.loss_log == b.loss_log and all(
+        np.array_equal(la[k], lb[k]) for k in la)
+
+
+def stream_widedeep_phase(torch, dev, card):
+    """Phase 23: ``WideDeep.fit_outofcore`` at the bench width, dense and
+    lazy Adam, bit for bit across W, resume and reruns."""
+    import importlib.util
+    import shutil
+
+    from flink_ml_tpu_torch import Table, WideDeep
+    from flink_ml_tpu_torch.data.datacache import (DataCacheReader,
+                                                   DataCacheWriter)
+    from flink_ml_tpu_torch.iteration import CheckpointConfig
+    from flink_ml_tpu_torch.models.common.sgd import plan_epoch_layout
+    from flink_ml_tpu_torch.models.recommendation import widedeep as W
+    from flink_ml_tpu_torch.obs import tracer
+    from flink_ml_tpu_torch.robustness import (FaultPlan, RecoveryReport,
+                                               RetryPolicy, resilient_fit)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ST_DIR, ignore_errors=True)
+    vocab = [WD_VOCAB] * WD_FIELDS
+    try:
+        cat, dense, y = widedeep_bench_data(WD_BATCH, WD_STEPS)
+        cols = {"denseFeatures": dense.reshape(-1, WD_DENSE),
+                "catFeatures": cat.reshape(-1, WD_FIELDS),
+                "label": y.reshape(-1)}
+        n = WD_BATCH * WD_STEPS
+        # the cache holds the rows in the in-memory fit's shuffled order,
+        # so both fits take the same batches
+        _, _, perm = plan_epoch_layout(n, WD_BATCH, 1, 17)
+        caches = {}
+        for name, rows in (("dense", n), ("lazy", SW_LAZY_BATCHES
+                                          * WD_BATCH)):
+            caches[name] = os.path.join(ST_DIR, name)
+            w = DataCacheWriter(caches[name])
+            w.append({k: v[perm][:rows] for k, v in cols.items()})
+            w.finish()
+
+        def est(lazy, epochs=WD_EPOCHS):
+            return (WideDeep(device=DEVICE).set_vocab_sizes(vocab)
+                    .set(WideDeep.EMBEDDING_DIM, WD_EMB)
+                    .set(WideDeep.HIDDEN_UNITS, WD_HIDDEN)
+                    .set_global_batch_size(WD_BATCH).set_max_iter(epochs)
+                    .set_seed(17).set(WideDeep.LAZY_EMB_OPT, lazy))
+
+        def fit(lazy, w, crash=None, epochs=WD_EPOCHS, **kw):
+            def reader():
+                r = DataCacheReader(caches["lazy" if lazy else "dense"],
+                                    batch_rows=WD_BATCH)
+                return crash.wrap_source(r) if crash is not None else r
+
+            call, pre = est(lazy, epochs).fit_outofcore, ()
+            if "checkpoint" in kw:
+                call, pre = resilient_fit, (call,)
+                kw.update(max_restarts=1,
+                          backoff=RetryPolicy(sleep=lambda s: None))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model = call(*pre, reader, steps_per_dispatch=w, **kw)
+            torch.cuda.synchronize()
+            return model, time.perf_counter() - t
+
+        for lazy in (False, True):
+            label = "lazy" if lazy else "dense"
+            steps = (SW_LAZY_BATCHES if lazy else WD_STEPS) * WD_EPOCHS
+            main, fit_s = fit(lazy, SW_W)
+            if not (len(main.loss_log) == WD_EPOCHS
+                    and np.all(np.isfinite(main.loss_log))):
+                fail(f"streamed Wide&Deep ({label}): loss log "
+                     f"{main.loss_log}")
+            log(f"streamed Wide&Deep ({label} Adam): loss log "
+                f"{main.loss_log}; {steps / fit_s:.3f} steps/s ({fit_s:.3f} "
+                f"s for {steps} steps, W {SW_W}, cache read and transfer "
+                f"included) [{card}]")
+            one, _ = fit(lazy, 1)
+            log(f"(a) {label}: W {SW_W} vs W 1 bit for bit "
+                f"{_wd_same(one, main)}")
+            if not _wd_same(one, main):
+                fail(f"streamed Wide&Deep ({label}): W {SW_W} differs from "
+                     "W 1")
+            plan = FaultPlan().inject(
+                "source.pull", at=6 if lazy else SW_CRASH_PULL,
+                kind="crash")
+            report = RecoveryReport()
+            every, w = (2, 2) if lazy else (SW_CUT_EVERY, SW_W)
+            tracer.enable()
+            with plan:
+                healed, heal_s = fit(
+                    lazy, w, crash=plan, report=report,
+                    checkpoint=CheckpointConfig(os.path.join(ST_DIR,
+                                                             "ck" + label)),
+                    checkpoint_every_steps=every)
+            tracer.disable()
+            cuts = [sp.dur * 1e3 for sp in tracer.find("checkpoint_write")]
+            tracer.clear()
+            event = report.events[0] if report.events else None
+            ref = main if w == SW_W else one
+            log(f"(b) {label}: crash fetching batch "
+                f"{plan.fires[0][1] if plan.fires else None}, resumed from "
+                f"a checkpoint_every_steps={every} cut (restored step "
+                f"{event.restored_step if event else None}): equal to the "
+                f"uninterrupted fit {_wd_same(healed, ref)}; recovery "
+                f"{event.mttr_s if event else float('nan'):.4f} s; "
+                f"checkpoint cut host ms median "
+                f"{statistics.median(cuts) if cuts else float('nan'):.3f} "
+                f"over {len(cuts)} cuts; fit() wall with the restart "
+                f"{heal_s:.3f} s [{card}]")
+            if report.restarts != 1 or not _wd_same(healed, ref):
+                fail(f"streamed Wide&Deep ({label}): the resumed fit "
+                     "differs from the uninterrupted one")
+            again, again_s = fit(lazy, SW_W)
+            extra = ""
+            if not lazy:
+                # the fit's one-off work (the host init draws, the
+                # parameters' copies in and out) cancels in the difference
+                # of a 3-epoch and a 1-epoch fit (the lazy epoch of 4
+                # steps is too short to read above the noise)
+                _, one_epoch_s = fit(lazy, SW_W, epochs=1)
+                _, three_epoch_s = fit(lazy, SW_W, epochs=3)
+                t0 = time.perf_counter()
+                W.init_params(np.random.default_rng(18), WD_DENSE, vocab,
+                              WD_EMB, WD_HIDDEN)
+                init_s = time.perf_counter() - t0
+                marginal = 2 * WD_STEPS / (three_epoch_s - one_epoch_s)
+                extra = (f"; epochs 2-3 alone (a 3-epoch fit less a "
+                         f"1-epoch fit) {marginal:.3f} steps/s; the host "
+                         f"init draws {init_s:.3f} s of each fit")
+            log(f"(c) {label}: a second run bit for bit "
+                f"{_wd_same(again, main)}; {steps / again_s:.3f} steps/s "
+                f"({again_s:.3f} s){extra} [{card}]")
+            if not _wd_same(again, main):
+                fail(f"streamed Wide&Deep ({label}): a rerun differs")
+            if lazy:
+                break
+            # (d) the in-memory 'off' step (autograd's scatter-add, atomics
+            # on the card) on the same batches, every step from the
+            # streamed fit's own state (phase 10's rule: whole runs part
+            # where Adam's ~sign(g) * lr update meets a reordered ~0
+            # gradient, so whole fits are held to the loss only); the
+            # replay must end bit for bit on the streamed fit
+            params = W.params_to_device(W.init_params(
+                np.random.default_rng(18), WD_DENSE, vocab, WD_EMB,
+                WD_HIDDEN), dev)
+            fixed_step, state = W._make_train_ops(params, 1e-2, False,
+                                                  fixed_order=True)
+            off_step, _ = W._make_train_ops(params, 1e-2, False)
+            offs = W._field_offsets(vocab)
+            worst = {}
+            for i in range(steps):
+                rows_i = perm[(i % WD_STEPS) * WD_BATCH:
+                              (i % WD_STEPS + 1) * WD_BATCH]
+                batch_i = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
+                    dev) for a in (cols["denseFeatures"][rows_i],
+                                   (cols["catFeatures"][rows_i]
+                                    + offs).astype(np.int32),
+                                   cols["label"][rows_i],
+                                   np.ones(WD_BATCH, np.float32)))
+                p_f, s_f, l_f = fixed_step(params, state, *batch_i)
+                p_o, _, l_o = off_step(params, state, *batch_i)
+                if not np.allclose(float(l_f), float(l_o), **SW_LOSS_TOL):
+                    fail(f"step {i}: streamed loss {float(l_f)} vs 'off' "
+                         f"{float(l_o)}")
+                a, b = _wd_leaves(p_f), _wd_leaves(p_o)
+                for k in a:
+                    worst[k] = max(worst.get(k, 0.0),
+                                   float((a[k] - b[k]).abs().max()))
+                    if not torch.allclose(a[k], b[k], **SW_PARAM_TOL):
+                        fail(f"step {i}: the streamed and the 'off' step "
+                             f"disagree on {k}")
+                params, state = p_f, s_f
+                del p_o
+            replayed = all(np.array_equal(v.cpu().numpy(), want) for v, want
+                           in zip(_wd_leaves(params).values(),
+                                  _wd_leaves(main._params).values()))
+            del params, state
+            mem = (est(False).set(WideDeep.ROUTED_EMB_GRAD, "off")
+                   .fit(Table(cols)))
+            mem2 = (est(False).set(WideDeep.ROUTED_EMB_GRAD, "off")
+                    .fit(Table(cols)))
+            a, b, c = (_wd_leaves(m._params) for m in (main, mem, mem2))
+            whole = {k: float(np.max(np.abs(a[k] - b[k]))) for k in a}
+            self_d = {k: float(np.max(np.abs(b[k] - c[k]))) for k in b}
+            log(f"(d) streamed vs in-memory 'off' steps, each from the "
+                f"streamed state: max |d| by leaf {worst} (loss rtol 1e-5, "
+                f"params rtol 1e-4, atol 1e-5); the replay equals the fit "
+                f"{replayed}; whole fits: loss {main.loss_log} vs "
+                f"{mem.loss_log} (rtol 1e-5), max |d| by leaf {whole}; two "
+                f"in-memory 'off' fits against each other: {self_d}")
+            if not replayed:
+                fail("the streamed Wide&Deep fit is not reproduced by its "
+                     "step replay")
+            if not np.allclose(main.loss_log, mem.loss_log, **SW_LOSS_TOL):
+                fail("the streamed Wide&Deep loss left the in-memory fit's")
+            mem_rates = RATES.get("widedeep_steps_per_s", {})
+            log(f"beside phase 11 (in memory, device-resident epoch "
+                f"tensors): kernel {mem_rates.get('kernel', float('nan')):.3f}"
+                f", autograd 'off' {mem_rates.get('off', float('nan')):.3f} "
+                f"steps/s [{card}]")
+
+        spec = importlib.util.spec_from_file_location(
+            "stream_grad_routes",
+            os.path.join(HERE, "scripts", "stream_grad_routes.py"))
+        routes = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(routes)
+
+        def time_fn(fn):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end)
+
+        route_ms = {}
+        for route in ("fixed", "sort_fold", "sort_fold", "fixed"):
+            ms, _ = routes.streamed_step_ms(
+                route, dev, batch=WD_BATCH, vocab=WD_VOCAB, emb=WD_EMB,
+                hidden=WD_HIDDEN, time_fn=time_fn)
+            route_ms.setdefault(route, []).append(ms)
+        log("the fixed-order table-gradient routes, the streamed dense-Adam "
+            "step at the bench width (W 8, device-resident batches): "
+            + ", ".join(f"{k} {min(v):.3f} ms" for k, v in route_ms.items())
+            + f" (the fit runs 'fixed') [{card}]")
+    finally:
+        shutil.rmtree(ST_DIR, ignore_errors=True)
+    log(f"phase 23: {time.perf_counter() - t_phase:.3f} s")
+
+
+def ftrl_windows(seed=13):
+    """``bench_online_ftrl``'s windows (``bench.py:1459-1472``): ids uniform
+    in [0, d) over 39 slots, 13 N(0,1) values then 26 unit values."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, FT_D, size=(FT_WINDOWS, FT_ROWS,
+                                      FT_DENSE + FT_UNIT)).astype(np.int32)
+    vals = np.concatenate(
+        [rng.normal(size=(FT_WINDOWS, FT_ROWS, FT_DENSE)).astype(np.float32),
+         np.ones((FT_WINDOWS, FT_ROWS, FT_UNIT), np.float32)], axis=2)
+    y = rng.integers(0, 2, size=(FT_WINDOWS, FT_ROWS)).astype(np.float32)
+    return idx, vals, y
+
+
+def numpy_ftrl(idx, vals, y):
+    """float64 numpy FTRL-proximal over the windows: the final weights."""
+    w = np.zeros(FT_D)
+    z, n = np.zeros(FT_D), np.zeros(FT_D)
+    for i in range(len(y)):
+        iw, vw, yw = idx[i], vals[i].astype(np.float64), y[i]
+        p = 1.0 / (1.0 + np.exp(-np.sum(vw * w[iw], axis=-1)))
+        r = (p - yw) / len(yw)
+        g = np.zeros(FT_D)
+        np.add.at(g, iw.reshape(-1), (vw * r[:, None]).reshape(-1))
+        sigma = (np.sqrt(n + g * g) - np.sqrt(n)) / FT_ALPHA
+        z += g - sigma * w
+        n += g * g
+        w = np.where(np.abs(z) <= FT_L1, 0.0,
+                     -(z - np.sign(z) * FT_L1)
+                     / ((FT_BETA + np.sqrt(n)) / FT_ALPHA + FT_L2))
+    return w
+
+
+def online_phase(torch, dev, card):
+    """Phase 24: streaming FTRL at ``bench_online_ftrl``'s shape through a
+    write-ahead window log, healed bit for bit; OnlineKMeans likewise."""
+    import shutil
+
+    from flink_ml_tpu_torch import (OnlineKMeans, OnlineLogisticRegression,
+                                    Table)
+    from flink_ml_tpu_torch.data.wal import WindowLog
+    from flink_ml_tpu_torch.iteration import CheckpointConfig
+    from flink_ml_tpu_torch.models.classification import (
+        online_logisticregression as OLR)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ST_DIR, ignore_errors=True)
+    try:
+        idx, vals, y = ftrl_windows()
+        # (a) the update rate with the windows resident on the card
+        d_idx = torch.from_numpy(idx).to(dev).long()
+        d_vals, d_y = (torch.from_numpy(vals).to(dev),
+                       torch.from_numpy(y).to(dev))
+        sw = torch.ones(FT_ROWS, device=dev)
+
+        def run():
+            state = {k: torch.zeros(FT_D, device=dev)
+                     for k in ("w", "z", "n")}
+            for i in range(FT_WINDOWS):
+                state, _ = OLR.sparse_ftrl_step(
+                    state, d_idx[i], d_vals[i], d_y[i], sw, FT_ALPHA,
+                    FT_BETA, FT_L1, FT_L2)
+            return state
+
+        run()
+        trials = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resident = run()
+            torch.cuda.synchronize()
+            trials.append(time.perf_counter() - t0)
+        log(f"(a) FTRL update rate, {FT_WINDOWS} windows of {FT_ROWS} x "
+            f"{FT_DENSE + FT_UNIT} resident on the card, d {FT_D}: "
+            f"{FT_WINDOWS / min(trials):.1f} windows/s [{card}]")
+        del d_idx, d_vals, d_y
+
+        def tables():
+            return [Table({"features_indices": idx[i],
+                           "features_values": vals[i], "label": y[i]})
+                    for i in range(FT_WINDOWS)]
+
+        def est():
+            return (OnlineLogisticRegression(device=DEVICE)
+                    .set_num_features(FT_D).set_alpha(FT_ALPHA)
+                    .set_beta(FT_BETA).set_reg(FT_L1 + FT_L2)
+                    .set_elastic_net(FT_L1 / (FT_L1 + FT_L2)))
+
+        wal = os.path.join(ST_DIR, "wal")
+        t0 = time.perf_counter()
+        oracle = est().fit(WindowLog(iter(tables()), wal))
+        torch.cuda.synchronize()
+        wal_s = time.perf_counter() - t0
+        log(f"(b) OnlineLogisticRegression.fit over a WindowLog on local "
+            f"disk (one file and one directory fsync a window): "
+            f"{FT_WINDOWS / wal_s:.1f} windows/s ({wal_s:.3f} s), model "
+            f"version {oracle.model_version} [{card}]")
+        if not np.array_equal(oracle._state.coefficients,
+                              resident["w"].cpu().numpy().astype(np.float64)):
+            fail("the fit's weights differ from the resident update's")
+
+        class Killed(RuntimeError):
+            pass
+
+        wins = tables()
+        chaos = os.path.join(ST_DIR, "chaos")
+        ckpt = CheckpointConfig(os.path.join(ST_DIR, "ck"),
+                                interval=FT_INTERVAL)
+        try:
+            est().fit(WindowLog(killing_at(wins, FT_KILL_AT, Killed),
+                                chaos), checkpoint=ckpt)
+            fail("the killed FTRL fit did not die")
+        except Killed:
+            pass
+        t0 = time.perf_counter()
+        resumed = est().fit(WindowLog(iter(wins[FT_KILL_AT:]), chaos),
+                            checkpoint=ckpt, resume=True)
+        torch.cuda.synchronize()
+        same = np.array_equal(resumed._state.coefficients,
+                              oracle._state.coefficients)
+        log(f"(c) FTRL killed at window {FT_KILL_AT}, resumed from the "
+            f"interval-{FT_INTERVAL} cut with the log replaying the windows "
+            f"past the cursor: equal bit for bit {same}, model version "
+            f"{resumed.model_version}; resume {time.perf_counter() - t0:.3f} "
+            f"s [{card}]")
+        if not same or resumed.model_version != FT_WINDOWS:
+            fail("the healed FTRL fit differs from the uninterrupted one")
+        want = numpy_ftrl(idx, vals, y)
+        got = oracle._state.coefficients
+        e = float(np.max(np.abs(got - want)))
+        log(f"(d) FTRL weights vs a float64 numpy FTRL: max |d| {e:.3e} "
+            f"(allclose 1e-4, 1e-6); nonzero {int(np.count_nonzero(got))} "
+            f"vs {int(np.count_nonzero(want))}")
+        if not np.allclose(got, want, **FT_TOL):
+            fail("the FTRL weights left the float64 oracle's tolerance")
+
+        # OnlineKMeans on a drifting stream
+        rng = np.random.default_rng(21)
+        centers = rng.normal(size=(OK_K, OK_D)).astype(np.float32) * 4
+        km_wins = [Table({"features": (
+            centers[rng.integers(0, OK_K, OK_ROWS)]
+            + rng.normal(size=(OK_ROWS, OK_D)) + 0.05 * i).astype(
+                np.float32)}) for i in range(OK_WINDOWS)]
+        init = Table({"centroids": centers[None]})
+
+        def km_est():
+            return (OnlineKMeans(device=DEVICE).set_k(OK_K)
+                    .set_decay_factor(0.5).set_initial_model_data(init))
+
+        t0 = time.perf_counter()
+        km_oracle = km_est().fit(WindowLog(iter(km_wins),
+                                           os.path.join(ST_DIR, "kmo")))
+        torch.cuda.synchronize()
+        km_s = time.perf_counter() - t0
+        try:
+            km_est().fit(WindowLog(killing_at(km_wins, OK_KILL_AT, Killed),
+                                   os.path.join(ST_DIR, "kmc")),
+                         checkpoint=CheckpointConfig(
+                             os.path.join(ST_DIR, "kmck"),
+                             interval=OK_INTERVAL))
+            fail("the killed OnlineKMeans fit did not die")
+        except Killed:
+            pass
+        km_resumed = km_est().fit(
+            WindowLog(iter(km_wins[OK_KILL_AT:]), os.path.join(ST_DIR,
+                                                                "kmc")),
+            checkpoint=CheckpointConfig(os.path.join(ST_DIR, "kmck"),
+                                        interval=OK_INTERVAL), resume=True)
+        a = km_oracle.get_model_data()[0]["centroids"]
+        b = km_resumed.get_model_data()[0]["centroids"]
+        log(f"OnlineKMeans (k {OK_K}, d {OK_D}, {OK_WINDOWS} windows of "
+            f"{OK_ROWS}, drifting mean) over a WindowLog: "
+            f"{OK_WINDOWS / km_s:.1f} windows/s; killed at window "
+            f"{OK_KILL_AT}, resumed from the interval-{OK_INTERVAL} cut: "
+            f"equal bit for bit {np.array_equal(a, b)}, model version "
+            f"{km_resumed.model_version} [{card}]")
+        if not (np.array_equal(a, b) and np.all(np.isfinite(a))
+                and km_resumed.model_version == OK_WINDOWS):
+            fail("the healed OnlineKMeans fit differs from the "
+                 "uninterrupted one")
+    finally:
+        shutil.rmtree(ST_DIR, ignore_errors=True)
+    log(f"phase 24: {time.perf_counter() - t_phase:.3f} s")
+
+
+def killing_at(wins, at, exc):
+    """A live feed that dies handing out window ``at``."""
+    for i, w in enumerate(wins):
+        if i == at:
+            raise exc()
+        yield w
+
+
 def main():
     import torch
     import torch.nn.functional as F
@@ -2626,6 +3256,11 @@ def main():
     streamed = stream_phase(torch, dev, card, rates["kernels"], fit_s)
     for entry in kernels[:3]:
         entry["stream"] = {"launches": streamed[entry["name"]]}
+    km_stream = stream_kmeans_phase(torch, dev, card)
+    next(e for e in kernels if e["name"] == "kmeans_update_stats")[
+        "stream"] = {"launches": km_stream}
+    stream_widedeep_phase(torch, dev, card)
+    online_phase(torch, dev, card)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

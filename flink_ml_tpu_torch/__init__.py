@@ -8,6 +8,10 @@ family's ``fit``/``transform`` (LogisticRegression, LinearRegression,
 LinearSVC) on dense matrices, sparse ``(indices, values)`` pairs and the
 Criteo-shaped mixed layout, with the three ELL kernels (the sparse layout
 drives their value variants), and SoftmaxRegression on dense matrices;
+the streamed fits (``fit_outofcore`` of the linear family, KMeans and
+Wide&Deep) and the online learners (OnlineLogisticRegression, streaming
+FTRL, and OnlineKMeans) over windowed streams (``data.stream``) and the
+write-ahead window log (``data.wal``);
 the Criteo TSV reader (``data.criteo``); the binary, multiclass,
 regression and clustering evaluators; KMeans ``fit`` (BSP and workset)
 and ``transform``, with the three KMeans kernels; Wide&Deep ``fit``
@@ -32,6 +36,10 @@ from .models import (
     LinearSVCModel,
     LogisticRegression,
     LogisticRegressionModel,
+    OnlineKMeans,
+    OnlineKMeansModel,
+    OnlineLogisticRegression,
+    OnlineLogisticRegressionModel,
     SoftmaxRegression,
     SoftmaxRegressionModel,
     WideDeep,
@@ -65,6 +73,8 @@ __all__ = [
     "LinearSVC", "LinearSVCModel",
     "SoftmaxRegression", "SoftmaxRegressionModel",
     "KMeans", "KMeansModel",
+    "OnlineLogisticRegression", "OnlineLogisticRegressionModel",
+    "OnlineKMeans", "OnlineKMeansModel",
     "WideDeep", "WideDeepModel",
     "IVFIndex", "PQConfig",
     "Param", "ParamValidators", "WithParams", "InvalidParamError",

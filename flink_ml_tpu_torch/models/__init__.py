@@ -1,16 +1,23 @@
 """Algorithm library (ported so far: the linear family on every feature
-layout with SoftmaxRegression, KMeans, Wide&Deep, and the evaluators of
-those families)."""
+layout with SoftmaxRegression and OnlineLogisticRegression, KMeans and
+OnlineKMeans, Wide&Deep, and the evaluators of those families)."""
 
 from .classification import (  # noqa: F401
     LinearSVC,
     LinearSVCModel,
     LogisticRegression,
     LogisticRegressionModel,
+    OnlineLogisticRegression,
+    OnlineLogisticRegressionModel,
     SoftmaxRegression,
     SoftmaxRegressionModel,
 )
-from .clustering import KMeans, KMeansModel  # noqa: F401
+from .clustering import (  # noqa: F401
+    KMeans,
+    KMeansModel,
+    OnlineKMeans,
+    OnlineKMeansModel,
+)
 from .evaluation import (  # noqa: F401
     BinaryClassificationEvaluator,
     MulticlassClassificationEvaluator,

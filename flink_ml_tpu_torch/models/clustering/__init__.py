@@ -1,1 +1,2 @@
 from .kmeans import KMeans, KMeansModel  # noqa: F401
+from .online_kmeans import OnlineKMeans, OnlineKMeansModel  # noqa: F401

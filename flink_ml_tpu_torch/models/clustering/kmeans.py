@@ -13,15 +13,20 @@ one scalar per round to decide its exit.
 A port of the JAX package's ``models/clustering/kmeans.py``, single
 device.  The fit plans by shape and measure only: the kernel path for
 n >= 65536 rows and the euclidean measure, else the plain body; only the
-kernel wrappers branch on the tensors' device.  Not ported, each raising
-``NotImplementedError`` naming its ROADMAP queue: ``initMode="k-means++"``
-(A4), the out-of-core fit (A3), the multi-device stats (A10) and the chain
-transform (A7).  Every stage runs on ``device`` (default ``"cuda"``;
-raises without a card unless ``"cpu"`` is asked for).  The device is a
+kernel wrappers branch on the tensors' device.  The out-of-core fit
+(:func:`kmeans_fit_outofcore`) applies the same rule to the stream's batch
+rows, so the stats kernel carries every batch of a stream of 65536-row
+batches.  Not ported, each raising ``NotImplementedError`` naming its
+ROADMAP queue: ``initMode="k-means++"`` (A4), the multi-device stats and
+streams (A10) and the chain transform (A7).  Every stage runs on
+``device`` (default ``"cuda"``; raises without a card unless ``"cpu"`` is
+asked for).  The device is a
 runtime choice, not a param, so it is not saved.
 """
 
 from __future__ import annotations
+
+import time
 
 from dataclasses import dataclass
 from typing import List, Optional
@@ -58,7 +63,8 @@ from ...utils.device import resolve_device
 __all__ = ["KMeans", "KMeansModel", "KMeansParams", "KMeansModelParams",
            "FitPlan", "select_random_centroids", "kmeans_epoch_step",
            "kmeans_epoch_step_kernel", "kmeans_workset_epoch_step",
-           "workset_points_scored", "fit_centroids"]
+           "workset_points_scored", "fit_centroids",
+           "kmeans_fit_outofcore"]
 
 
 def _not_ported(what: str, queue: str):
@@ -334,6 +340,140 @@ def fit_centroids(points: torch.Tensor, mask: torch.Tensor,
                    config=IterationConfig(mode="fused"))
 
 
+def kmeans_fit_outofcore(make_reader, k: int, *,
+                         measure_name: str = "euclidean",
+                         max_iter: int = 20, seed: int = 0, mesh=None,
+                         features_key: str = "features",
+                         prefetch_depth: int = 2,
+                         prefetch_stats=None, device="cuda",
+                         plain: bool = False, info: Optional[dict] = None,
+                         init: Optional[np.ndarray] = None) -> np.ndarray:
+    """Out-of-core Lloyd's: the dataset streams from ``make_reader()`` (a
+    fresh per-epoch iterator of host batch dicts, the ``sgd_fit_outofcore``
+    protocol; epoch-aware factories receive ``epoch=``) instead of living
+    on the device; the replay-per-epoch semantics of the reference's
+    ReplayOperator (``operator/ReplayOperator.java:62-311``).
+
+    Each epoch accumulates per-batch ``(sums, counts)`` on the device
+    (batch N+1's read and transfer overlap batch N's stats through
+    :func:`~flink_ml_tpu_torch.data.prefetch.prefetch_to_device`) and
+    applies one centroid update per epoch: exact Lloyd's, the in-memory
+    fit's result on the concatenated rows up to f32 summation order.  The
+    accumulation has two levels: f32 on the device within a window of
+    ``max(1, 2^23 // rows)`` batches (counts stay inside f32's exact
+    integers), folded into a host float64 total; the update runs in
+    float64 on the host.  Initial centroids are the seeded
+    shuffle-take-k of the FIRST batch (:func:`select_random_centroids`,
+    the JAX fit's draw), or ``init`` (host ``(k, d)``) where given.
+
+    The per-batch stats take the in-memory rule (:func:`_fit_plan`) at the
+    stream's batch rows (its first batch's): the stats kernel (tie policy
+    "first") for the euclidean measure and >= 65536 rows a batch, else the
+    plain assign-and-reduce.  The kernel takes any row count, so the
+    ragged final batch runs at its own size, with no pad rows.  ``plain``
+    runs the kernel's plain version instead (for comparisons on the
+    card).  ``info`` (a dict, filled in place) gets the plan and the
+    per-epoch wall seconds.
+
+    Returns the final ``(k, d)`` centroids (host float32).  A mesh raises:
+    multi-device streams are ROADMAP queue A10."""
+    from ...data.prefetch import prefetch_to_device
+    from ..common.sgd import _reader_for_epoch
+
+    if mesh is not None:
+        raise _not_ported("kmeans_fit_outofcore(mesh=...) (multi-device "
+                          "streams)", "A10")
+    dev = resolve_device(device)
+    measure = DistanceMeasure.get_instance(measure_name)
+
+    def to_host_batch(batch):
+        return np.ascontiguousarray(
+            np.asarray(batch[features_key], np.float32))
+
+    stats = None     # (points) -> (sums, counts), planned at batch 0
+    impl = None
+    rows = None      # the stream's batch rows (its first batch's)
+    centroids = (None if init is None else torch.from_numpy(
+        np.ascontiguousarray(init, np.float32)).to(dev))
+    epoch_secs = []
+    for iteration in range(max_iter):
+        t_epoch = time.perf_counter()
+        host_sums = host_counts = None
+        sums = counts = None
+        window_used = 0
+
+        def fold():
+            nonlocal host_sums, host_counts, sums, counts, window_used
+            if sums is None:
+                return
+            s64 = sums.cpu().numpy().astype(np.float64)
+            c64 = counts.cpu().numpy().astype(np.float64)
+            host_sums = s64 if host_sums is None else host_sums + s64
+            host_counts = c64 if host_counts is None else host_counts + c64
+            sums = counts = None
+            window_used = 0
+
+        # Lloyd statistics are order-invariant, so per-epoch reshuffled
+        # readers change the IO pattern only; the init samples epoch 0's
+        # first batch.  The pipeline is closed on every exit, joining its
+        # reader threads.
+        pipeline = prefetch_to_device(
+            _reader_for_epoch(make_reader, iteration), depth=prefetch_depth,
+            device=dev, transform=to_host_batch, stats=prefetch_stats)
+        try:
+            for pts in pipeline:
+                if stats is None:
+                    rows = int(pts.shape[0])
+                    impl = _fit_plan(rows, int(pts.shape[1]), k,
+                                     measure).impl
+                    stats = _batch_stats(measure, k, impl, plain)
+                if centroids is None:
+                    centroids = torch.from_numpy(np.ascontiguousarray(
+                        select_random_centroids(pts.cpu().numpy(), k,
+                                                seed))).to(dev)
+                s, c = stats(pts, centroids)
+                if sums is None:
+                    sums, counts = s, c
+                else:
+                    sums, counts = sums + s, counts + c
+                window_used += 1
+                if window_used >= max(1, (1 << 23) // rows):
+                    fold()
+        finally:
+            pipeline.close()
+        fold()
+        if host_sums is None:
+            raise ValueError("make_reader() returned an empty epoch")
+        prev = centroids.cpu().numpy().astype(np.float64)
+        cnt = host_counts[:, None]
+        new = np.where(cnt > 0, host_sums / np.maximum(cnt, 1.0), prev)
+        centroids = torch.from_numpy(new.astype(np.float32)).to(dev)
+        epoch_secs.append(time.perf_counter() - t_epoch)
+    if info is not None:
+        info["impl"] = impl
+        info["batch_rows"] = rows
+        info["epoch_seconds"] = epoch_secs
+    if centroids is None:
+        raise ValueError("kmeans_fit_outofcore needs max_iter >= 1")
+    return centroids.cpu().numpy()
+
+
+def _batch_stats(measure: DistanceMeasure, k: int, impl: str, plain: bool):
+    """The per-batch ``(sums, counts)`` of the out-of-core fit: the stats
+    kernel (or its plain version) under ``impl == "kernel"``, else the
+    plain assign-and-reduce.  No pad rows, so no correction."""
+    if impl != "kernel":
+        def plain_stats(points, centroids):
+            mask = torch.ones(points.shape[0], dtype=points.dtype,
+                              device=points.device)
+            return _assign_stats(measure, k, points, mask, centroids)
+
+        return plain_stats
+    fn = kmeans_update_stats_plain if plain else kmeans_update_stats
+    return lambda points, centroids: fn(points, centroids,
+                                        tie_policy="first")
+
+
 class KMeans(KMeansParams, Estimator["KMeansModel"]):
     """Estimator: Lloyd's algorithm for ``maxIter`` rounds (termination
     parity with ``TerminateOnMaxIterationNum``), or until the workset
@@ -393,8 +533,27 @@ class KMeans(KMeansParams, Estimator["KMeansModel"]):
             "points_scored": workset_points_scored(frac, n_real, n_padded),
         }
 
-    def fit_outofcore(self, make_reader, **kwargs) -> "KMeansModel":
-        raise _not_ported("the out-of-core KMeans fit", "A3")
+    def fit_outofcore(self, make_reader, *, mesh=None,
+                      features_key: Optional[str] = None,
+                      prefetch_stats=None) -> "KMeansModel":
+        """Out-of-core ``fit`` (:func:`kmeans_fit_outofcore`): the dataset
+        streams from ``make_reader()``, a fresh per-epoch iterator of host
+        batch dicts (e.g. a re-seeked ``DataCacheReader``), instead of
+        living in host memory or on the device.  ``planned_impl`` says
+        which stats carried the batches ("kernel" or "plain")."""
+        info: dict = {}
+        centroids = kmeans_fit_outofcore(
+            make_reader, self.get_k(),
+            measure_name=self.get_distance_measure(),
+            max_iter=self.get_max_iter(), seed=self.get_seed(), mesh=mesh,
+            features_key=features_key or self.get_features_col(),
+            prefetch_stats=prefetch_stats, device=self.device, info=info)
+        self.planned_impl = info["impl"]
+        model = KMeansModel(device=self.device)
+        model.copy_params_from(self)
+        model.set_model_data(Table({"centroids": centroids[None, :, :]}))
+        model.planned_impl = info["impl"]
+        return model
 
     def save(self, path: str) -> None:
         persist.save_metadata(self, path)

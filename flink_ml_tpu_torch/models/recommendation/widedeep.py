@@ -17,10 +17,19 @@ fold is the CUDA kernel of ``kernels/csrc/emb_grad.cu`` on the card whenever
 scatter-add; ``lazyEmbeddingOptimizer`` runs LazyAdam on the tables.  The
 optimizers are written out in ``models/common/adam.py``.
 
+The streamed fit (``fit_outofcore``) gathers the table rows through
+:class:`_FixedOrderRows`, whose backward sums each row's gradient in one
+fixed order on the card too (``sgd._scatter_add_(fixed_order=True)``):
+autograd's own ``index_select`` backward adds with atomics in no fixed
+order there, and the streamed fit promises the same bits for any
+``steps_per_dispatch``, after a resume and run after run.  The in-memory
+fit keeps the routed fold and autograd's scatter-add.
+
 A port of the JAX package's ``models/recommendation/widedeep.py``, single
 device.  Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-queue: ``fit_outofcore`` (A3), ``build_sharded_train_step`` (A10) and the
-chain terminal ``transform_kernel`` (A7).  Every stage runs on ``device``
+queue: the multi-process and elastic branches of ``fit_outofcore`` and
+``build_sharded_train_step`` (A10), and the chain terminal
+``transform_kernel`` (A7).  Every stage runs on ``device``
 (default ``"cuda"``; raises without a card unless ``"cpu"`` is asked for).
 Matrix products run in full f32: the port never turns on
 ``torch.backends.cuda.matmul.allow_tf32`` (off by default), whose ~3
@@ -57,7 +66,9 @@ from ...params.shared import (
 )
 from ...utils import persist
 from ...utils.device import resolve_device
+from ...utils.padding import FixedRowBatcher
 from ..common.adam import (
+    AdamState,
     adam_init,
     adam_update,
     lazy_adam_rows,
@@ -68,6 +79,9 @@ from ..common.adam import (
 from ..common.losses import logistic_loss
 from ..common.sgd import (
     DEFAULT_GLOBAL_BATCH,
+    _reader_for_epoch,
+    _scatter_add_,
+    _seek_or_skip,
     plan_epoch_layout,
     prepare_epoch_tensor,
 )
@@ -185,23 +199,49 @@ def forward_from_rows(params: Dict[str, Any], dense: torch.Tensor,
     return wide + deep[:, 0]
 
 
-def _rows(table: torch.Tensor, cat_ids: torch.Tensor) -> torch.Tensor:
-    """``table[cat_ids]`` for ``cat_ids (b, fields)``."""
-    got = torch.index_select(table, 0, cat_ids.reshape(-1))
+class _FixedOrderRows(torch.autograd.Function):
+    """``table[ids]`` whose backward sums the gradient rows of repeated
+    ids in one fixed order (``sgd._scatter_add_(fixed_order=True)``, the
+    sort-based accumulation on the card; ``index_add_`` on the CPU, the
+    same serial loop as autograd's own backward there)."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.table_shape = table.shape
+        return torch.index_select(table, 0, ids)
+
+    @staticmethod
+    def backward(ctx, grad_rows):
+        (ids,) = ctx.saved_tensors
+        grad = grad_rows.new_zeros(ctx.table_shape)
+        return _scatter_add_(grad, ids, grad_rows.contiguous(), True), None
+
+
+def _rows(table: torch.Tensor, cat_ids: torch.Tensor,
+          fixed_order: bool = False) -> torch.Tensor:
+    """``table[cat_ids]`` for ``cat_ids (b, fields)``; ``fixed_order``
+    gathers through :class:`_FixedOrderRows`."""
+    flat = cat_ids.reshape(-1)
+    got = (_FixedOrderRows.apply(table, flat) if fixed_order
+           else torch.index_select(table, 0, flat))
     return got.reshape(*cat_ids.shape, *table.shape[1:])
 
 
 def forward(params: Dict[str, Any], dense: torch.Tensor,
-            cat_ids: torch.Tensor) -> torch.Tensor:
+            cat_ids: torch.Tensor, fixed_order: bool = False
+            ) -> torch.Tensor:
     """Logits for a batch; ``cat_ids`` are already offset into the stacked
-    vocab (``(batch, n_fields)``)."""
-    return forward_from_rows(params, dense, _rows(params["wide_cat"], cat_ids),
-                             _rows(params["emb"], cat_ids))
+    vocab (``(batch, n_fields)``).  ``fixed_order``: see :func:`_rows`."""
+    return forward_from_rows(
+        params, dense, _rows(params["wide_cat"], cat_ids, fixed_order),
+        _rows(params["emb"], cat_ids, fixed_order))
 
 
-def bce_loss(params, dense, cat_ids, labels, mask):
+def bce_loss(params, dense, cat_ids, labels, mask, fixed_order=False):
     """The linear family's masked binary log-loss of :func:`forward`."""
-    return logistic_loss(forward(params, dense, cat_ids), labels, mask)
+    return logistic_loss(forward(params, dense, cat_ids, fixed_order),
+                         labels, mask)
 
 
 def _validate_cat_ids(cat: np.ndarray, vocab_sizes) -> np.ndarray:
@@ -245,7 +285,7 @@ def _split(tree):
 
 def _make_train_ops(params, lr: float, lazy: bool, route=None,
                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                    plain: bool = False):
+                    plain: bool = False, fixed_order: bool = False):
     """``(batch_step, opt_state0)`` for the Wide&Deep training loop;
     ``batch_step(params, opt_state, dense, cat_ids, labels, mask,
     *route_arrays) -> (params, opt_state, loss)``.
@@ -261,7 +301,10 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
     ``lazy=True``: LazyAdam on the tables (``lazy_adam_rows``, at the rows
     of the batch's unmasked samples; one host read per step to drop the
     masked ones), dense Adam on the rest, with its own step count.  Rows
-    a batch does not touch keep param AND optimizer state exactly."""
+    a batch does not touch keep param AND optimizer state exactly.
+
+    ``fixed_order`` (without ``route``) forms the table gradients through
+    :class:`_FixedOrderRows`: the same bits run after run on the card."""
     if route is not None:
         if lazy:
             raise ValueError(
@@ -297,7 +340,8 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
     if not lazy:
         def batch_step(params, opt_state, dense, cat_ids, labels, mask):
             loss, (grads,) = _value_and_grad(
-                lambda p: bce_loss(p, dense, cat_ids, labels, mask), params)
+                lambda p: bce_loss(p, dense, cat_ids, labels, mask,
+                                   fixed_order), params)
             params, opt_state = adam_update(grads, opt_state, params, lr,
                                             b1, b2, eps)
             return params, opt_state, loss
@@ -314,7 +358,8 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
 
     def batch_step(params, opt_state, dense, cat_ids, labels, mask):
         loss, (grads,) = _value_and_grad(
-            lambda p: bce_loss(p, dense, cat_ids, labels, mask), params)
+            lambda p: bce_loss(p, dense, cat_ids, labels, mask,
+                               fixed_order), params)
         tables, rest = _split(params)
         g_tab, g_rest = _split(grads)
         rest, rest_state = adam_update(g_rest, opt_state["rest"], rest, lr,
@@ -332,6 +377,28 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
         return {**rest, **tables}, new_state, loss
 
     return batch_step, opt_state0
+
+
+def _opt_state_tree(opt_state) -> Dict[str, Any]:
+    """The optimizer state as a checkpoint tree of dicts: dense Adam as
+    ``{"count", "mu", "nu"}`` (``optax.ScaleByAdamState``'s fields), the
+    lazy state as ``{"rest": <dense Adam>, "m", "v", "t"}`` (the JAX
+    package's keys)."""
+    if isinstance(opt_state, AdamState):
+        return {"count": opt_state.count, "mu": opt_state.mu,
+                "nu": opt_state.nu}
+    return {**opt_state, "rest": _opt_state_tree(opt_state["rest"])}
+
+
+def _opt_state_from_tree(tree, device) -> Any:
+    """:func:`_opt_state_tree` read back, its tensors on ``device``."""
+    if "count" in tree:
+        return AdamState(count=int(tree["count"]),
+                         mu=params_to_device(tree["mu"], device),
+                         nu=params_to_device(tree["nu"], device))
+    return {"rest": _opt_state_from_tree(tree["rest"], device),
+            "m": params_to_device(tree["m"], device),
+            "v": params_to_device(tree["v"], device), "t": int(tree["t"])}
 
 
 def build_reference_train_step(d_dense: int, vocab_sizes, emb_dim: int,
@@ -451,8 +518,195 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
         model._loss_log = list(loss_buf.cpu().numpy())
         return model
 
-    def fit_outofcore(self, make_reader, **kwargs) -> "WideDeepModel":
-        raise _not_ported("the out-of-core Wide&Deep fit", "A3")
+    def fit_outofcore(self, make_reader, *, mesh=None,
+                      prefetch_depth: int = 2, prefetch_workers: int = 1,
+                      prefetch_put_workers: int = 1,
+                      prefetch_stats=None,
+                      steps_per_dispatch: int = 8,
+                      checkpoint=None,
+                      checkpoint_every_steps: int = 0,
+                      resume: bool = False,
+                      membership=None) -> "WideDeepModel":
+        """Out-of-core ``fit``: epochs stream from ``make_reader()`` (the
+        ``sgd_fit_outofcore`` reader protocol: a fresh per-epoch iterator
+        of host batch dicts with this estimator's column names;
+        epoch-aware factories receive ``epoch=``) instead of holding the
+        ``(rows, fields)`` epoch tensors on the device.  Batches pad to the
+        first batch's row count (padding rows carry mask 0 and cat id 0,
+        inert in both optimizers: the loss is mask-weighted and the lazy
+        table update drops masked rows' ids), move to the device through
+        :func:`~flink_ml_tpu_torch.data.prefetch.prefetch_to_device`
+        overlapping the Adam steps, and the parameters and optimizer state
+        never leave the device between epochs.  Parameters are drawn at
+        the first batch (``d_dense`` comes from the stream) from the same
+        generator as ``fit``'s.
+
+        **Chunked dispatch** (``steps_per_dispatch=W``, default 8): ``W``
+        consecutive batches move as one staged chunk and the consumer runs
+        their ``W`` Adam steps
+        (:func:`~flink_ml_tpu_torch.data.prefetch.masked_chunk_scan`); the
+        padded steps of the final short chunk are skipped, which freezes
+        the parameters AND the optimizer state, so any two ``W`` agree bit
+        for bit.
+
+        **Determinism**: the table gradients sum in one fixed order
+        (:class:`_FixedOrderRows`), so on the card too any ``W``, a
+        resumed fit and a rerun give the same bits.
+
+        **Checkpoints** (``checkpoint=``, ``checkpoint_every_steps=``,
+        ``resume=``; the ``sgd_fit_outofcore`` protocol): cuts land at the
+        chunk boundaries that cross a multiple of
+        ``checkpoint_every_steps`` batches and at every epoch end,
+        carrying the parameters, the Adam state and the loss
+        accumulators; ``resume=True`` restores the newest valid cut,
+        re-seeks the reader and continues bit for bit.
+
+        ``routedEmbeddingGrad='on'`` raises: a stream's batches are not
+        replayed, so no static route exists.  Not ported (ROADMAP queue
+        A10): ``mesh=`` (process-spanning meshes and the multi-process
+        per-batch loop) and ``membership=`` (elastic fleets)."""
+        from ...data.prefetch import (chunk_consumer_plan,
+                                      masked_chunk_scan, prefetch_to_device)
+        from ...iteration.checkpoint import (CheckpointConfig,
+                                             CheckpointManager)
+
+        vocab_sizes = self.get_vocab_sizes()
+        if vocab_sizes is None:
+            raise ValueError("WideDeep requires vocabSizes to be set")
+        if self.get(WideDeepParams.ROUTED_EMB_GRAD) == "on":
+            raise ValueError(
+                "routedEmbeddingGrad='on' cannot apply to the streaming "
+                "fit: its batches are not replayed, so no static route "
+                "exists — use 'auto' (streams on the fixed-order "
+                "scatter-add) or the in-memory fit()")
+        if mesh is not None:
+            raise _not_ported("WideDeep.fit_outofcore(mesh=...) "
+                              "(process-spanning meshes and the "
+                              "multi-process per-batch loop)", "A10")
+        if membership is not None:
+            raise _not_ported("WideDeep.fit_outofcore(membership=...) "
+                              "(elastic fleets)", "A10")
+        dev = resolve_device(self.device)
+        manager = None
+        if isinstance(checkpoint, CheckpointManager):
+            manager = checkpoint
+        elif isinstance(checkpoint, CheckpointConfig):
+            manager = CheckpointManager(checkpoint)
+
+        batcher = FixedRowBatcher(1)
+        dense_col, cat_col = self.DENSE_FEATURES_COL, self.CAT_FEATURES_COL
+        label_col = self.get_label_col()
+        lr, lazy = self.LEARNING_RATE, bool(self.LAZY_EMB_OPT)
+        rng = np.random.default_rng(self.get_seed() + 1)  # fit()'s stream
+
+        def to_host_batch(b):
+            dense = np.asarray(b[dense_col], np.float32)
+            cat = _validate_cat_ids(np.asarray(b[cat_col], np.int32),
+                                    vocab_sizes)
+            y = np.asarray(b[label_col], np.float32)
+            mask = np.ones((y.shape[0],), np.float32)
+            # padding rows: mask 0 + cat id 0, inert in both optimizers
+            return batcher.pad((dense, cat, y, mask), have=y.shape[0])
+
+        W = max(1, int(steps_per_dispatch))
+        _, chunk_depth = chunk_consumer_plan(None, None, W, prefetch_depth)
+
+        def chunk_step(raw_step):
+            def step(state, *batch):
+                params, opt_state = state
+                params, opt_state, loss = raw_step(params, opt_state, *batch)
+                return (params, opt_state), loss
+
+            return step
+
+        params = opt_state = step = None   # built at the first batch
+        epoch_sums: List = []   # per epoch: (device loss sum, n_batches)
+        global_step = 0         # checkpoint tick: batches over all epochs
+        start_epoch = 0
+        skip_steps = 0          # batches already consumed in start_epoch
+        resume_loss_sum = None
+        resume_n_batches = 0
+        if manager is not None and resume:
+            restored = manager.restore_latest()
+            if restored is not None:
+                global_step, saved, meta = restored
+                params = params_to_device(saved["params"], dev)
+                opt_state = _opt_state_from_tree(saved["opt_state"], dev)
+                raw_step, _ = _make_train_ops(params, lr, lazy,
+                                              fixed_order=True)
+                step = chunk_step(raw_step)
+                start_epoch = int(meta["train_epoch"])
+                skip_steps = int(meta["step_in_epoch"])
+                resume_n_batches = int(meta["n_batches"])
+                if resume_n_batches:
+                    resume_loss_sum = torch.as_tensor(
+                        np.asarray(saved["loss_sum"], np.float32)).to(dev)
+                epoch_sums = [
+                    (torch.as_tensor(np.asarray(s, np.float32)).to(dev),
+                     int(n)) for s, n in saved["epoch_sums"]]
+
+        def save(epoch, step_in_epoch, loss_sum, n_batches):
+            manager.save(global_step, {
+                "params": params, "opt_state": _opt_state_tree(opt_state),
+                "loss_sum": (loss_sum if loss_sum is not None
+                             else torch.zeros((), dtype=torch.float32)),
+                "epoch_sums": [(s, int(n)) for s, n in epoch_sums],
+            }, {"train_epoch": epoch, "step_in_epoch": step_in_epoch,
+                "n_batches": n_batches})
+
+        for epoch in range(start_epoch, self.get_max_iter()):
+            reader = _reader_for_epoch(make_reader, epoch)
+            if epoch == start_epoch and skip_steps:
+                reader = _seek_or_skip(reader, skip_steps)
+            loss_sum = resume_loss_sum
+            n_batches = resume_n_batches
+            step_in_epoch = skip_steps
+            resume_loss_sum, resume_n_batches, skip_steps = None, 0, 0
+            # closed on every exit: a supervised restart must not race a
+            # live reader thread for the shared source
+            pipeline = prefetch_to_device(
+                reader, depth=chunk_depth, device=dev,
+                transform=to_host_batch, workers=prefetch_workers,
+                put_workers=prefetch_put_workers, stats=prefetch_stats,
+                chunks=W)
+            try:
+                for chunk, cmask, n_valid in pipeline:
+                    if step is None:
+                        params = params_to_device(init_params(
+                            rng, int(chunk[0].shape[2]), vocab_sizes,
+                            self.EMBEDDING_DIM, self.HIDDEN_UNITS), dev)
+                        raw_step, opt_state = _make_train_ops(
+                            params, lr, lazy, fixed_order=True)
+                        step = chunk_step(raw_step)
+                    if loss_sum is None:
+                        loss_sum = torch.zeros((), dtype=torch.float32,
+                                               device=dev)
+                    (params, opt_state), loss_sum = masked_chunk_scan(
+                        step, (params, opt_state), loss_sum, chunk, cmask,
+                        n_valid=n_valid)
+                    n_batches += n_valid
+                    step_in_epoch += n_valid
+                    global_step += n_valid
+                    if (manager is not None and checkpoint_every_steps > 0
+                            and step_in_epoch // checkpoint_every_steps
+                            > (step_in_epoch - n_valid)
+                            // checkpoint_every_steps):
+                        save(epoch, step_in_epoch, loss_sum, n_batches)
+            finally:
+                pipeline.close()
+            if loss_sum is None:
+                raise ValueError("make_reader() returned an empty epoch")
+            epoch_sums.append((loss_sum, n_batches))
+            if manager is not None:
+                save(epoch + 1, 0, None, 0)   # epoch-boundary cut
+        if params is None:
+            raise ValueError("WideDeep.fit_outofcore needs maxIter >= 1")
+        model = WideDeepModel(device=self.device)
+        model.copy_params_from(self)
+        model._params = _params_to_host(params)
+        model._vocab_sizes = tuple(int(v) for v in vocab_sizes)
+        model._loss_log = [float(s.item()) / n for s, n in epoch_sums]
+        return model
 
     def save(self, path: str) -> None:
         persist.save_metadata(self, path)

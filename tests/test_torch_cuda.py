@@ -1057,3 +1057,96 @@ def test_streamed_mixed_fit_launches_the_kernels_every_step(cuda_device,
         other, other_log = fit(**kw)
         np.testing.assert_array_equal(other.coefficients, got.coefficients)
         assert other_log == log
+
+
+@pytest.mark.cuda
+def test_streamed_kmeans_launches_the_stats_kernel_every_batch(cuda_device,
+                                                               tmp_path):
+    """A streamed KMeans at 2^16 rows a batch (three full batches and a
+    ragged one of 1000 rows, which runs at its own size): the stats kernel
+    (B4) launches on every batch of every round; the centroids equal the
+    same stream on the plain stats within chip_smoke.py's KMeans gate
+    (allclose 5e-3, 5e-3), and a second fit gives the same bits."""
+    from flink_ml_tpu_torch.data.datacache import (DataCacheReader,
+                                                   DataCacheWriter)
+    from flink_ml_tpu_torch.models.clustering import kmeans as TKM
+
+    rng = np.random.default_rng(8)
+    n = 3 * 65536 + 1000
+    w = DataCacheWriter(str(tmp_path / "km"), segment_rows=65536)
+    w.append({"features": rng.normal(size=(n, 16)).astype(np.float32)})
+    w.finish()
+
+    def fit(**kw):
+        info = {}
+        got = TKM.kmeans_fit_outofcore(
+            lambda: DataCacheReader(str(tmp_path / "km"), batch_rows=65536),
+            8, max_iter=3, seed=1, device=cuda_device, info=info, **kw)
+        assert info["impl"] == "kernel"
+        return got
+
+    TK.reset_launch_counts()
+    got = fit()
+    assert TK.LAUNCHES["kmeans_update_stats"] == 4 * 3
+    again = fit()
+    np.testing.assert_array_equal(got, again)
+    np.testing.assert_allclose(got, fit(plain=True), rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_streamed_widedeep_w3_equals_w1(cuda_device, tmp_path):
+    """A small streamed Wide&Deep on the card (5 batches, the last one
+    padded; dense and lazy Adam): W = 3 equals W = 1 bit for bit, since the
+    table gradients sum in a fixed order."""
+    from flink_ml_tpu_torch.data.datacache import (DataCacheReader,
+                                                   DataCacheWriter)
+
+    rng = np.random.default_rng(9)
+    n = 4 * 512 + 100
+    cat = np.stack([rng.integers(0, 50, n), rng.integers(0, 7, n),
+                    rng.integers(0, 3, n)], axis=1).astype(np.int32)
+    w = DataCacheWriter(str(tmp_path / "wd"), segment_rows=1024)
+    w.append({"denseFeatures": rng.normal(size=(n, 5)).astype(np.float32),
+              "catFeatures": cat,
+              "label": (cat[:, 0] % 2).astype(np.float32)})
+    w.finish()
+    for lazy in (False, True):
+        def fit(W):
+            return (T.WideDeep(device=cuda_device).set_vocab_sizes([50, 7, 3])
+                    .set_max_iter(2).set_seed(3)
+                    .set(T.WideDeep.LAZY_EMB_OPT, lazy)
+                    .fit_outofcore(lambda: DataCacheReader(
+                        str(tmp_path / "wd"), batch_rows=512),
+                        steps_per_dispatch=W))
+
+        one, three = fit(1), fit(3)
+        assert one.loss_log == three.loss_log
+        for k in ("emb", "wide_cat", "wide_dense"):
+            np.testing.assert_array_equal(one._params[k], three._params[k])
+        for a, b in zip(one._params["mlp"], three._params["mlp"]):
+            np.testing.assert_array_equal(a["w"], b["w"])
+
+
+@pytest.mark.cuda
+def test_sparse_ftrl_step_gives_the_same_bits_twice(cuda_device):
+    """The sparse FTRL step on one window with many repeated ids, run
+    twice: the fixed-order gradient sum gives the same bits."""
+    from flink_ml_tpu_torch.models.classification import (
+        online_logisticregression as OLR)
+
+    rng = np.random.default_rng(10)
+    d, b = 1 << 12, 4096
+    idx = torch.from_numpy(rng.integers(0, 64, size=(b, 39))).to(cuda_device)
+    vals = torch.from_numpy(rng.normal(size=(b, 39)).astype(np.float32)
+                            ).to(cuda_device)
+    y = torch.from_numpy(rng.integers(0, 2, size=b).astype(np.float32)
+                         ).to(cuda_device)
+    sw = torch.ones(b, device=cuda_device)
+    state = {k: torch.from_numpy(rng.normal(size=d).astype(np.float32)
+                                 * (k == "w")).abs().to(cuda_device)
+             for k in ("w", "z", "n")}
+    runs = [OLR.sparse_ftrl_step(state, idx, vals, y, sw, 0.1, 1.0, 1e-4,
+                                 1e-4) for _ in range(2)]
+    for k in ("w", "z", "n"):
+        assert torch.equal(runs[0][0][k], runs[1][0][k])
+    assert torch.equal(runs[0][1], runs[1][1])

@@ -65,6 +65,47 @@ def test_runtime_modules_import_without_jax():
     assert [m for m in out if _forbidden(m)] == []
 
 
+STREAM_MODULES = (
+    "flink_ml_tpu_torch.data.stream", "flink_ml_tpu_torch.data.wal",
+    "flink_ml_tpu_torch.models.classification.online_logisticregression",
+    "flink_ml_tpu_torch.models.clustering.online_kmeans")
+
+
+def test_stream_and_online_modules_import_without_jax():
+    """The stream windows, the write-ahead window log and the two online
+    estimators load neither JAX nor the JAX package."""
+    code = ("import sys, " + ", ".join(STREAM_MODULES) + "; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         timeout=300).stdout.split()
+    assert set(STREAM_MODULES) <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_streamed_and_online_fits_need_cuda_unless_cpu_asked(monkeypatch):
+    """The streamed KMeans and Wide&Deep fits and the two online learners
+    raise without a card unless the CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(2)
+    X = rng.normal(size=(16, 2)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        T.KMeans().set_k(2).fit_outofcore(lambda: iter([{"features": X}]))
+    wd = {"denseFeatures": X, "catFeatures": rng.integers(0, 3, (16, 2)),
+          "label": np.zeros(16, np.float32)}
+    with pytest.raises(RuntimeError, match="no GPU"):
+        T.WideDeep().set_vocab_sizes([3, 3]).fit_outofcore(
+            lambda: iter([wd]))
+    stream = [T.Table({"features": X, "label": np.zeros(16)})]
+    with pytest.raises(RuntimeError, match="no GPU"):
+        T.OnlineLogisticRegression().fit(iter(stream))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        T.OnlineKMeans().set_k(2).fit(iter(stream))
+    assert T.OnlineKMeans(device="cpu").set_k(2).fit(
+        iter(stream)).model_version == 1
+
+
 def _py_files(root):
     for dirpath, _, files in os.walk(root):
         for f in files:

@@ -276,8 +276,9 @@ def test_unported_paths_raise():
     est = T.KMeans(device="cpu").set_init_mode("k-means++")
     with pytest.raises(NotImplementedError, match="A4"):
         est.fit(T.Table({"features": X}))
-    with pytest.raises(NotImplementedError, match="A3"):
-        T.KMeans(device="cpu").fit_outofcore(lambda: iter(()))
+    with pytest.raises(NotImplementedError, match="A10"):
+        T.KMeans(device="cpu").fit_outofcore(lambda: iter(()),
+                                             mesh=object())
     with pytest.raises(NotImplementedError, match="A7"):
         kmeans_model_from_jax(X[:2], device="cpu").transform_kernel(None)
     with pytest.raises(ValueError, match="euclidean"):

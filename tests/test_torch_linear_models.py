@@ -125,16 +125,17 @@ assert not bad, bad
 
 def test_unported_layouts_raise():
     """Every feature layout is ported, in memory and streamed; what stays
-    unported (streams over several devices, the out-of-core KMeans fit)
-    raises naming its ROADMAP queue, and the hashed layouts still need
-    numFeatures."""
+    unported (streams over several devices, the linear family's and
+    KMeans') raises naming its ROADMAP queue, and the hashed layouts
+    still need numFeatures."""
     est = T.LogisticRegression(device="cpu").set_num_features(D)
     with pytest.raises(NotImplementedError, match="queue A10"):
         est.fit_outofcore(lambda: iter(()), num_features=D, mesh=object())
     with pytest.raises(ValueError, match="empty epoch"):
         est.fit_outofcore(lambda: iter(()), num_features=D)
-    with pytest.raises(NotImplementedError, match="queue A3"):
-        T.KMeans(device="cpu").fit_outofcore(lambda: iter(()))
+    with pytest.raises(NotImplementedError, match="queue A10"):
+        T.KMeans(device="cpu").fit_outofcore(lambda: iter(()),
+                                             mesh=object())
     with pytest.raises(ValueError, match="numFeatures"):
         T.LogisticRegression(device="cpu").fit(T.Table(_columns(n=32)))
     pair = _columns(n=32)

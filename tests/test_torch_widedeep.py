@@ -325,8 +325,10 @@ def test_validation_errors():
 
 def test_unported_paths_name_their_queue():
     est = T.WideDeep(device="cpu").set_vocab_sizes([4])
-    with pytest.raises(NotImplementedError, match="A3"):
-        est.fit_outofcore(lambda: iter([]))
+    with pytest.raises(NotImplementedError, match="A10"):
+        est.fit_outofcore(lambda: iter([]), mesh=object())
+    with pytest.raises(NotImplementedError, match="A10"):
+        est.fit_outofcore(lambda: iter([]), membership=object())
     with pytest.raises(NotImplementedError, match="A10"):
         TWD.build_sharded_train_step(None, 4, [4], 2, (2,))
     with pytest.raises(NotImplementedError, match="A7"):
