@@ -228,11 +228,44 @@ line is printed):
     of 256 rows, a drifting mean) killed at window 20 and resumed from an
     interval-8 cut, equal bit for bit; windows/s.
 
+25. The pipeline bench (``bench.py:1979-2003``: 2^17 x 64 f32, numpy seed
+    23): StandardScaler -> MinMaxScaler -> MaxAbsScaler -> PCA (k 16) ->
+    LogisticRegression (3 epochs, the dense fit) fitted on the card, as
+    one ``PipelineModel``.  Checks: the plan is one segment of 5 stages;
+    a fused transform adds 1 to ``api.chain.dispatch_count``, a stagewise
+    one (``chain_disabled``) 5; fused equals stagewise bit for bit; the
+    same models on the CPU give the PCA output within allclose(1e-5,
+    1e-6) and the same predictions.  Prints the byte accounting of
+    ``bench.py:2030-2048`` and the median transform ms both ways.
+26. The KMeans terminal: StandardScaler -> KMeans (k 256, 10 rounds
+    through B4) on the KMeans headline's points (phase 7's), then the
+    2^16 held-out rows fused and stagewise.  Checks: B5 launches once a
+    transform (nothing else launches); the assignments bit for bit, and
+    equal to a float64 argmin of the scaled rows off phase 7's near ties.
+27. The IVF terminal: a StandardScaler fitted on the retrieval bench's
+    corpus, the flat and the IVF-PQ index built on the scaled corpus, and
+    [scaler, index] over the 256 queries at nprobe 2.  Checks: one B8 (then
+    B9) call a transform (two CUDA launches); ids and distance bits equal
+    fused and stagewise and to ``scaler.transform`` then ``search``.
+28. The Wide&Deep terminal at the bench width: a StandardScaler on the
+    dense column ahead of a model fitted 1 epoch; 8192 rows fused and
+    stagewise, bit for bit; an out-of-range id raises (the terminal's
+    host ``pre``) on both paths.
+29. Composition: ``CrossValidator`` over phase 4's mixed LR (2^18 rows,
+    2^20 features, batch 2^15, 2 epochs; reg 0 and 0.01; 3 folds;
+    ``BinaryClassificationEvaluator``).  Checks: B1 and B2 launch the
+    7 fits' steps x epochs (88); the same CV on the CPU chooses the same
+    reg, gives every fold's AUC within 1e-4 and refits the winner within
+    allclose(1e-3, 1e-4) (phase 4's marker saturates the AUC).  A ``GraphBuilder`` graph
+    source -> StandardScaler -> KMeans fitted on phase 26's points gives
+    phase 26's fused output bit for bit.
+
 The last lines are the kernel table (nine kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
 ``values`` and the streamed fit's launches under ``stream``, the three
 KMeans kernels (the stats kernel with phase 22's launches under
-``stream``), the fold, the two retrieve kernels)
+``stream``), the fold, the two retrieve kernels; the launches a fused
+transform or phase 29's CV added under ``chain``)
 as one JSON object, the card line from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.  The script imports neither JAX nor the JAX package.
 """
@@ -2921,6 +2954,416 @@ def online_phase(torch, dev, card):
     log(f"phase 24: {time.perf_counter() - t_phase:.3f} s")
 
 
+# the pipeline bench (the JAX package's bench.py:1979-2003): 2^17 x 64 f32,
+# numpy seed 23; std -> minmax -> maxabs -> PCA k 16 -> LR, max_iter 3
+PL_ROWS, PL_DIM, PL_K, PL_ITERS = 1 << 17, 64, 16, 3
+PL_CPU_TOL = dict(rtol=1e-5, atol=1e-6)    # the PCA output, card vs CPU
+PL_REPS = 5                                # transforms timed each way
+WD_TRANSFORM_ROWS = 1 << 13                # phase 28
+CV_REGS, CV_FOLDS, CV_ITERS = (0.0, 0.01), 3, 2
+CV_AUC_TOL = 1e-4                          # per-fold AUC, card vs CPU
+
+
+def same_bits(what, ref, out):
+    """Every column of two tables equal in dtype and bits."""
+    for c in ref.column_names:
+        a, b = np.asarray(ref[c]), np.asarray(out[c])
+        if a.dtype != b.dtype or a.shape != b.shape or \
+                not np.array_equal(a.view(np.uint8), b.view(np.uint8)):
+            fail(f"{what}: column {c!r} differs fused and stagewise")
+
+
+def fused_and_stagewise(torch, pm, table, counter=None):
+    """(fused, stagewise) outputs of one transform each, with the
+    dispatches and (``counter()``) the kernel launches each added."""
+    from flink_ml_tpu_torch.api import chain
+
+    out = {}
+    for label in ("fused", "stagewise"):
+        before = counter() if counter else None
+        d0 = chain.dispatch_count()
+        if label == "fused":
+            (t,) = pm.transform(table)
+        else:
+            with chain.chain_disabled():
+                (t,) = pm.transform(table)
+        torch.cuda.synchronize()
+        out[label] = (t, chain.dispatch_count() - d0,
+                      counter() - before if counter else None)
+    return out["fused"], out["stagewise"]
+
+
+def median_transform_ms(torch, pm, table, reps=PL_REPS):
+    """Median host-clock ms of ``pm.transform(table)``, fused and
+    stagewise (each warmed once)."""
+    from flink_ml_tpu_torch.api import chain
+
+    def run(disabled):
+        times = []
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if disabled:
+                with chain.chain_disabled():
+                    pm.transform(table)
+            else:
+                pm.transform(table)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    return run(False), run(True)
+
+
+def bench_pipeline(torch):
+    """The pipeline bench fitted on ``DEVICE``: ``(pipeline model,
+    features table, the stage tables t1-t4, LR model, fit s)``."""
+    from flink_ml_tpu_torch import LogisticRegression, PipelineModel, Table
+    from flink_ml_tpu_torch.models.feature import (PCA, MaxAbsScaler,
+                                                   MinMaxScaler,
+                                                   StandardScaler)
+
+    X, y, _, _ = dense_rows(PL_ROWS, PL_DIM, seed=23)
+    table = Table({"features": X, "label": y})
+    t0 = time.perf_counter()
+    s1 = StandardScaler(device=DEVICE).set_output_col("std").fit(table)
+    t1 = s1.transform(table)[0]
+    s2 = (MinMaxScaler(device=DEVICE).set_features_col("std")
+          .set_output_col("mm").fit(t1))
+    t2 = s2.transform(t1)[0]
+    s3 = (MaxAbsScaler(device=DEVICE).set_features_col("mm")
+          .set_output_col("ma").fit(t2))
+    t3 = s3.transform(t2)[0]
+    s4 = (PCA(device=DEVICE).set_k(PL_K).set_features_col("ma")
+          .set_output_col("pc").fit(t3))
+    t4 = s4.transform(t3)[0]
+    lr = (LogisticRegression(device=DEVICE).set_features_col("pc")
+          .set_max_iter(PL_ITERS).fit(t4))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    pm = PipelineModel([s1, s2, s3, s4, lr])
+    return pm, table.drop("label"), (t1, t2, t3, t4), lr, fit_s
+
+
+def pipeline_phase(torch, dev, card):
+    """Phase 25: the bench pipeline fitted on the card; its plan, fused
+    against stagewise, the same models on the CPU, bytes and times."""
+    import copy
+
+    from flink_ml_tpu_torch import PipelineModel
+
+    t_phase = time.perf_counter()
+    pm, feats, (t1, t2, t3, t4), lr, fit_s = bench_pipeline(torch)
+    plan = pm._chain_plan([feats])
+    if plan is None or plan.describe() != [("segment", 5)]:
+        fail(f"pipeline: plan {plan.describe() if plan else None}, "
+             "expected one segment of 5 stages")
+    (fused, d_f, _), (ref, d_s, _) = fused_and_stagewise(torch, pm, feats)
+    log(f"pipeline (phase 25): fit {fit_s:.3f} s (LR loss log "
+        f"{lr.loss_log}), plan {plan.describe()}, dispatches fused {d_f}, "
+        f"stagewise {d_s} [{card}]")
+    if (d_f, d_s) != (1, 5):
+        fail(f"pipeline: dispatches fused {d_f}, stagewise {d_s}; "
+             "expected 1 and 5")
+    same_bits("pipeline", ref, fused)
+
+    cpu_pm = PipelineModel([copy.copy(s) for s in pm.stages])
+    for s in cpu_pm.stages:
+        s.device = "cpu"
+    (cpu,) = cpu_pm.transform(feats)
+    pc_err = float(np.max(np.abs(np.asarray(cpu["pc"], np.float64)
+                                 - np.asarray(fused["pc"], np.float64))))
+    flips = int(np.sum(np.asarray(cpu["prediction"])
+                       != np.asarray(fused["prediction"])))
+    log(f"pipeline on the CPU: pc max |card - CPU| = {pc_err:.3e} "
+        f"(allclose rtol {PL_CPU_TOL['rtol']}, atol {PL_CPU_TOL['atol']}), "
+        f"{flips} predictions differ (tolerance 0)")
+    if not np.allclose(fused["pc"], cpu["pc"], **PL_CPU_TOL) or flips:
+        fail("pipeline: the card and the CPU disagree")
+
+    # byte accounting (bench.py:2030-2048): stagewise moves every stage's
+    # consumed and produced columns, fused each segment's entry and fetch
+    widths = {}
+    for t in (feats, t1, t2, t3, t4, fused):
+        for name, (shape, _) in t.schema().items():
+            widths.setdefault(name, int(np.prod(shape)) if shape else 1)
+    bytes_stagewise = sum(
+        4 * PL_ROWS * widths.get(name, 1) for seg in plan.segments
+        for k in seg.kernels for name in k.consumes + k.produces)
+    bytes_fused = sum(sum(seg.transfer_bytes(PL_ROWS))
+                      for seg in plan.segments)
+    fused_ms, stagewise_ms = median_transform_ms(torch, pm, feats)
+    log(f"pipeline bytes a transform: stagewise {bytes_stagewise}, fused "
+        f"{bytes_fused} ({bytes_stagewise / bytes_fused:.3f}x); transform "
+        f"median ms: fused {fused_ms:.3f}, stagewise {stagewise_ms:.3f} "
+        f"({stagewise_ms / fused_ms:.3f}x) over {PL_REPS} runs, "
+        f"{PL_ROWS} x {PL_DIM} [{card}]")
+    log(f"phase 25: {time.perf_counter() - t_phase:.2f} s [{card}]")
+
+
+def kmeans_terminal_phase(torch, dev, card):
+    """Phase 26: StandardScaler -> KMeans (k 256, 10 rounds through B4) on
+    the KMeans headline's points; held-out rows fused and stagewise.
+    Returns what phase 29's Graph is held to."""
+    from flink_ml_tpu_torch import KMeans, PipelineModel, Table
+    from flink_ml_tpu_torch.models.feature import StandardScaler
+    from flink_ml_tpu_torch.ops import kmeans as K
+
+    t_phase = time.perf_counter()
+    host = np.random.default_rng(0).normal(size=(N_KM, D_KM)).astype(
+        np.float32)
+    table = Table({"features": host})
+    sc = StandardScaler(device=DEVICE).set_output_col("scaled").fit(table)
+    K.reset_launch_counts()
+    km = (KMeans(device=DEVICE).set_k(K_KM).set_max_iter(KM_ITERS)
+          .set_features_col("scaled").fit(sc.transform(table)[0]))
+    torch.cuda.synchronize()
+    fit_launches = dict(K.LAUNCHES)
+    if fit_launches["kmeans_update_stats"] != KM_ITERS:
+        fail(f"KMeans terminal: fit launches {fit_launches}")
+    pm = PipelineModel([sc, km])
+    held = Table({"features": np.random.default_rng(9).normal(
+        size=(KM_HELD, D_KM)).astype(np.float32)})
+    plan = pm._chain_plan([held])
+    if plan is None or plan.describe() != [("segment", 2)]:
+        fail(f"KMeans terminal: plan {plan.describe() if plan else None}")
+    K.reset_launch_counts()
+    (fused, d_f, b5_f), (ref, d_s, b5_s) = fused_and_stagewise(
+        torch, pm, held, lambda: K.LAUNCHES["kmeans_assign_reduce"])
+    others = K.LAUNCHES["kmeans_update_stats"] \
+        + K.LAUNCHES["kmeans_workset_update"]
+    same_bits("KMeans terminal", ref, fused)
+    scaled = np.asarray(fused["scaled"], np.float64)
+    cents = km.get_model_data()[0]["centroids"][0].astype(np.float64)
+    d2 = ((scaled * scaled).sum(1)[:, None] - 2.0 * scaled @ cents.T
+          + (cents * cents).sum(1)[None, :])
+    two = np.sort(d2, axis=1)[:, :2]
+    near = two[:, 1] - two[:, 0] <= 1e-5 * two[:, 1]
+    pred = np.asarray(fused["prediction"])
+    off = int(np.sum((pred != d2.argmin(1)) & ~near))
+    log(f"KMeans terminal (phase 26): fit launches {fit_launches}; "
+        f"transform of {KM_HELD} rows: B5 launches fused {b5_f}, stagewise "
+        f"{b5_s}; dispatches {d_f} / {d_s}; {int(near.sum())} rows within "
+        f"1e-5 relative of a tie in f64, {off} other rows off the float64 "
+        f"argmin [{card}]")
+    if (b5_f, b5_s, others, d_f, d_s) != (1, 1, 0, 1, 2) or off:
+        fail("KMeans terminal: launches, dispatches or assignments wrong")
+    fused_ms, stagewise_ms = median_transform_ms(torch, pm, held)
+    log(f"KMeans terminal transform median ms: fused {fused_ms:.3f}, "
+        f"stagewise {stagewise_ms:.3f}; phase 26: "
+        f"{time.perf_counter() - t_phase:.2f} s [{card}]")
+    return table, held, fused, b5_f
+
+
+def ivf_terminal_phase(torch, dev, card):
+    """Phase 27: StandardScaler fitted on the retrieval corpus, the flat
+    and IVF-PQ indexes built on the scaled corpus, [scaler, index] over
+    the bench queries at nprobe 2."""
+    from flink_ml_tpu_torch import IVFIndex, PipelineModel, PQConfig, Table
+    from flink_ml_tpu_torch.models.feature import StandardScaler
+    from flink_ml_tpu_torch.ops import retrieve as R
+
+    t_phase = time.perf_counter()
+    X, queries = retrieval_corpus(RT_N, RT_D, RT_NQ)
+    sc = (StandardScaler(device=DEVICE).set_features_col("query")
+          .set_output_col("query").fit(Table({"query": X})))
+    Xs = np.asarray(sc.transform(Table({"query": X}))[0]["query"],
+                    np.float32)
+    qt = Table({"query": queries})
+    qs = np.asarray(sc.transform(qt)[0]["query"], np.float32)
+    launches = {}
+    for name, pq in (("retrieve_flat", None),
+                     ("retrieve_pq", PQConfig(**RT_PQ))):
+        index = IVFIndex.build(Xs, RT_NLIST, pq, k=RT_K, nprobe=2, seed=1,
+                               device=DEVICE)
+        pm = PipelineModel([sc, index])
+        plan = pm._chain_plan([qt])
+        if plan is None or plan.describe() != [("segment", 2)]:
+            fail(f"IVF terminal: plan {plan.describe() if plan else None}")
+        R.reset_launch_counts()
+        (fused, d_f, c_f), (ref, d_s, c_s) = fused_and_stagewise(
+            torch, pm, qt, lambda: sum(R.LAUNCHES.values()))
+        launches[name] = c_f
+        calls = int(R.LAUNCHES[name])
+        same_bits(f"IVF terminal ({name})", ref, fused)
+        nn, dist = index.search(qs)
+        direct = (np.array_equal(nn, fused["neighbors"]) and
+                  np.array_equal(dist.view(np.uint32),
+                                 np.asarray(fused["distances"]).view(
+                                     np.uint32)))
+        log(f"IVF terminal (phase 27, {name}): {RT_NQ} queries at nprobe "
+            f"2: calls fused {c_f}, stagewise {c_s} (2 CUDA launches "
+            f"each); dispatches {d_f} / {d_s}; equal to scaler.transform "
+            f"+ search: {direct} [{card}]")
+        if (c_f, c_s, calls, d_f, d_s) != (1, 1, 2, 1, 2) or not direct:
+            fail(f"IVF terminal ({name}): calls, dispatches or results "
+                 "wrong")
+    log(f"phase 27: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return launches
+
+
+def widedeep_terminal_phase(torch, dev, card):
+    """Phase 28: StandardScaler on the dense column ahead of a Wide&Deep
+    model at the bench width fitted 1 epoch; 8192 rows fused and
+    stagewise; an out-of-range id raises on both paths."""
+    from flink_ml_tpu_torch import PipelineModel, Table, WideDeep
+    from flink_ml_tpu_torch.models.feature import StandardScaler
+
+    t_phase = time.perf_counter()
+    cat, dense, y = widedeep_bench_data(WD_BATCH, WD_STEPS)
+    rows = WD_BATCH * WD_STEPS
+    table = Table({"denseFeatures": dense.reshape(rows, WD_DENSE),
+                   "catFeatures": cat.reshape(rows, WD_FIELDS),
+                   "label": y.reshape(rows)})
+    sc = (StandardScaler(device=DEVICE).set_features_col("denseFeatures")
+          .set_output_col("denseFeatures").fit(table))
+    wd = (WideDeep(device=DEVICE).set_vocab_sizes([WD_VOCAB] * WD_FIELDS)
+          .set(WideDeep.EMBEDDING_DIM, WD_EMB)
+          .set(WideDeep.HIDDEN_UNITS, WD_HIDDEN)
+          .set_global_batch_size(WD_BATCH).set_max_iter(1).set_seed(0)
+          .fit(sc.transform(table)[0]))
+    pm = PipelineModel([sc, wd])
+    h_cat, h_dense, _ = widedeep_bench_data(WD_TRANSFORM_ROWS, 1, seed=18)
+    held = Table({"denseFeatures": h_dense[0], "catFeatures": h_cat[0]})
+    plan = pm._chain_plan([held])
+    if plan is None or plan.describe() != [("segment", 2)]:
+        fail(f"Wide&Deep terminal: plan "
+             f"{plan.describe() if plan else None}")
+    (fused, d_f, _), (ref, d_s, _) = fused_and_stagewise(torch, pm, held)
+    same_bits("Wide&Deep terminal", ref, fused)
+    # the terminal against an independent float64 numpy forward of the
+    # fitted parameters on the scaled rows the segment fetched
+    want = numpy_widedeep_scores(
+        wd._params, np.asarray(fused["denseFeatures"]),
+        h_cat[0] + np.arange(WD_FIELDS, dtype=np.int64) * WD_VOCAB)
+    perr = float(np.max(np.abs(fused["rawPrediction"] - want)))
+    bad_cat = h_cat[0].copy()
+    bad_cat[5, 3] = WD_VOCAB
+    bad = Table({"denseFeatures": h_dense[0], "catFeatures": bad_cat})
+    raised = []
+    for disabled in (False, True):
+        from flink_ml_tpu_torch.api import chain
+
+        try:
+            if disabled:
+                with chain.chain_disabled():
+                    pm.transform(bad)
+            else:
+                pm.transform(bad)
+        except ValueError:
+            raised.append(True)
+    fused_ms, stagewise_ms = median_transform_ms(torch, pm, held)
+    log(f"Wide&Deep terminal (phase 28): loss {wd.loss_log}, "
+        f"{WD_TRANSFORM_ROWS} rows, dispatches {d_f} / {d_s}, scores "
+        f"finite {bool(np.isfinite(fused['rawPrediction']).all())}, max "
+        f"|score - numpy f64 score| = {perr:.3e} (tolerance 1e-5); an "
+        f"out-of-range id raised on {len(raised)} of 2 paths; transform "
+        f"median ms fused {fused_ms:.3f}, stagewise {stagewise_ms:.3f} "
+        f"(the stagewise transform copies the model to the card each "
+        f"call); phase 28: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    if (d_f, d_s) != (1, 2) or len(raised) != 2 or perr > 1e-5 or \
+            not np.isfinite(fused["rawPrediction"]).all():
+        fail("Wide&Deep terminal: dispatches, scores or the range check "
+             "wrong")
+
+
+def composition_phase(torch, dev, card, km_run):
+    """Phase 29: CrossValidator over the Criteo-width mixed LR, against
+    the same CV on the CPU; a Graph source -> StandardScaler -> KMeans
+    against phase 26's pipeline."""
+    from flink_ml_tpu_torch import (CrossValidator, GraphBuilder, KMeans,
+                                    LogisticRegression, ParamGridBuilder,
+                                    Table)
+    from flink_ml_tpu_torch.models import BinaryClassificationEvaluator
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.feature import StandardScaler
+    from flink_ml_tpu_torch.ops import ell_scatter as E
+    from flink_ml_tpu_torch.ops import kmeans as K
+
+    t_phase = time.perf_counter()
+    dense, cat, y = criteo_rows(ROWS, D_MAIN, seed=0)
+    table = Table({"features_dense": dense, "features_indices": cat,
+                   "label": y})
+    grid = (ParamGridBuilder()
+            .add_grid(LogisticRegression.REG, list(CV_REGS)).build())
+
+    def cv(device):
+        est = (LogisticRegression(device=device).set_num_features(D_MAIN)
+               .set_global_batch_size(BATCH).set_max_iter(CV_ITERS)
+               .set_tol(0))
+        ev = (BinaryClassificationEvaluator(device=device)
+              .set_raw_prediction_col("rawPrediction")
+              .set_metrics("areaUnderROC"))
+        return CrossValidator(est, ev, grid).set_num_folds(CV_FOLDS) \
+            .set_seed(0)
+
+    card_cv = cv(DEVICE)
+    fits = [tr.num_rows for tr, _ in card_cv._splits(table)] \
+        * len(CV_REGS) + [table.num_rows]
+    want = sum(S.plan_epoch_layout(n, BATCH, 1, 0)[0] * CV_ITERS
+               for n in fits)
+    E.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = card_cv.fit(table)
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    cv_launches = dict(E.LAUNCHES)
+    t0 = time.perf_counter()
+    cpu = cv("cpu").fit(table)
+    cpu_s = time.perf_counter() - t0
+    auc_d = float(np.max(np.abs(np.asarray(got.fold_metrics)
+                                - np.asarray(cpu.fold_metrics))))
+    log(f"CrossValidator (phase 29): {len(fits)} fits of {fits} rows, "
+        f"launches {cv_launches}, expected {want} each of B1 and B2; "
+        f"chosen reg card {got.best_params[LogisticRegression.REG]}, CPU "
+        f"{cpu.best_params[LogisticRegression.REG]}; "
+        f"per-fold AUC card {got.fold_metrics}, CPU {cpu.fold_metrics}, "
+        f"max |d| {auc_d:.3e} (tolerance {CV_AUC_TOL}); fit s card "
+        f"{cv_s:.3f}, CPU {cpu_s:.3f} [{card}]")
+    if cv_launches["ell_margin"] != want or \
+            cv_launches["ell_scatter_apply_fused"] != want or \
+            cv_launches["ell_scatter_apply"] != 0:
+        fail("CrossValidator: B1/B2 launches are not the fits' steps")
+    if got.best_index != cpu.best_index or auc_d > CV_AUC_TOL:
+        fail("CrossValidator: the card and the CPU disagree")
+    # phase 4's label marker saturates the AUC, so the refitted winners'
+    # weights are held too (the fits' tolerance, bench.py:266)
+    coef = {name: m.best_model.get_model_data()[0]["coefficients"][0]
+            for name, m in (("card", got), ("cpu", cpu))}
+    coef_d = float(np.max(np.abs(coef["card"] - coef["cpu"])))
+    log(f"CrossValidator refit on all rows: max |w card - w CPU| = "
+        f"{coef_d:.3e} (allclose rtol 1e-3, atol 1e-4)")
+    if not np.allclose(coef["card"], coef["cpu"], rtol=1e-3, atol=1e-4):
+        fail("CrossValidator: the refitted models disagree")
+
+    km_table, held, km_fused, _ = km_run
+    b = GraphBuilder()
+    src = b.source()
+    scaled = b.add_stage(StandardScaler(device=DEVICE)
+                         .set_output_col("scaled"), [src])[0]
+    pred = b.add_stage(KMeans(device=DEVICE).set_k(K_KM)
+                       .set_max_iter(KM_ITERS).set_features_col("scaled"),
+                       [scaled])[0]
+    K.reset_launch_counts()
+    gm = b.build([src], [pred]).fit(km_table)
+    torch.cuda.synchronize()
+    fit_launches = dict(K.LAUNCHES)       # the fit's walk transforms too
+    K.reset_launch_counts()
+    (g_out,) = gm.transform(held)
+    torch.cuda.synchronize()
+    g_launches = dict(K.LAUNCHES)
+    log(f"Graph (phase 29): source -> StandardScaler -> KMeans, fit "
+        f"launches {fit_launches}, transform launches {g_launches}; phase "
+        f"29: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    if fit_launches["kmeans_update_stats"] != KM_ITERS or \
+            g_launches["kmeans_assign_reduce"] != 1 or \
+            g_launches["kmeans_update_stats"] != 0:
+        fail(f"Graph: launches {fit_launches}, {g_launches}")
+    same_bits("Graph against phase 26's pipeline", km_fused, g_out)
+    return cv_launches
+
+
 def killing_at(wins, at, exc):
     """A live feed that dies handing out window ``at``."""
     for i, w in enumerate(wins):
@@ -3261,6 +3704,21 @@ def main():
         "stream"] = {"launches": km_stream}
     stream_widedeep_phase(torch, dev, card)
     online_phase(torch, dev, card)
+
+    # phases 25-29: fused pipeline segments and the composition layer;
+    # the launches each terminal's transform added land under "chain"
+    pipeline_phase(torch, dev, card)
+    km_run = kmeans_terminal_phase(torch, dev, card)
+    ivf_launches = ivf_terminal_phase(torch, dev, card)
+    widedeep_terminal_phase(torch, dev, card)
+    cv_launches = composition_phase(torch, dev, card, km_run)
+    chained = {"kmeans_assign_reduce": km_run[3], **ivf_launches,
+               "ell_margin": cv_launches["ell_margin"],
+               "ell_scatter_apply_fused":
+                   cv_launches["ell_scatter_apply_fused"]}
+    for entry in kernels:
+        if entry["name"] in chained:
+            entry["chain"] = {"launches": chained[entry["name"]]}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -18,11 +18,20 @@ and ``transform``, with the three KMeans kernels; Wide&Deep ``fit``
 (routed table gradients, dense and lazy Adam) and ``transform``, with the
 routed-gradient fold kernel;
 the IVF / IVF-PQ vector index (``IVFIndex.build``, ``search``,
-``transform``), with the two fused scan+top-k kernels.  Entry points run
+``transform``), with the two fused scan+top-k kernels; the composition
+layer (``Graph``, ``CrossValidator``, ``TrainValidationSplit``) and the
+chainable feature stages (``models.feature``), whose runs inside a
+``PipelineModel`` execute as fused device segments (``api.chain``) ending
+in the linear, KMeans, Wide&Deep or IVF terminal.  Entry points run
 on the card unless the caller passes ``device="cpu"``.
 This package imports neither JAX nor ``flink_ml_tpu``.
 """
 
+from .api.graph import Graph, GraphBuilder, GraphModel, TableId
+from .api.model_selection import (CrossValidator,
+                                  CrossValidatorModel,
+                                  ParamGridBuilder,
+                                  TrainValidationSplit)
 from .api.pipeline import Pipeline, PipelineModel
 from .api.stage import AlgoOperator, Estimator, Model, Stage, Transformer
 from .data.table import Table
@@ -66,7 +75,10 @@ from .retrieval import IVFIndex, PQConfig
 
 __all__ = [
     "AlgoOperator", "Estimator", "Model", "Stage", "Transformer",
+    "CrossValidator", "CrossValidatorModel", "ParamGridBuilder",
+    "TrainValidationSplit",
     "Pipeline", "PipelineModel", "Table",
+    "Graph", "GraphBuilder", "GraphModel", "TableId",
     "DenseVector", "SparseVector", "Vectors",
     "LogisticRegression", "LogisticRegressionModel",
     "LinearRegression", "LinearRegressionModel",

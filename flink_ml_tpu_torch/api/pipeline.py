@@ -7,13 +7,13 @@ and keeps transforming the inputs through each produced/passed stage up to
 a ``PipelineModel`` chaining ``transform`` across all resulting stages
 (``PipelineModel.java:58-64``).
 
-A copy of the JAX package's ``api/pipeline.py`` without the fused chain
-branch.
+A copy of the JAX package's ``api/pipeline.py``: runs of chainable stages
+execute as fused device segments (``api/chain.py``).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 from ..utils import persist
 from .stage import AlgoOperator, Estimator, Model, Stage
@@ -36,6 +36,18 @@ def _stagewise(stages, tables: List) -> List:
                 fanned.extend(stage.transform(t))
             tables = fanned
     return tables
+
+
+def _place(stages, device) -> List:
+    """Set ``device`` on every loaded stage that runs on one (nested
+    pipelines included); ``None`` keeps the stages' load default."""
+    if device is not None:
+        for stage in stages:
+            if isinstance(stage, (Pipeline, PipelineModel)):
+                _place(stage._stages, device)
+            elif hasattr(stage, "device"):
+                stage.device = device
+    return stages
 
 
 class Pipeline(Estimator["PipelineModel"]):
@@ -77,8 +89,8 @@ class Pipeline(Estimator["PipelineModel"]):
         persist.save_pipeline(self, self._stages, path)
 
     @classmethod
-    def load(cls, path: str) -> "Pipeline":
-        return cls(persist.load_pipeline(path, cls))
+    def load(cls, path: str, device=None) -> "Pipeline":
+        return cls(_place(persist.load_pipeline(path, cls), device))
 
 
 class PipelineModel(Model):
@@ -92,13 +104,67 @@ class PipelineModel(Model):
 
     def transform(self, *inputs) -> List:
         """Sequentially feed outputs of stage i into stage i+1
-        (``PipelineModel.java:58-64``).  Stagewise only: the JAX package's
-        fused chain path (``api/chain.py``) is not ported yet."""
-        return _stagewise(self._stages, list(inputs))
+        (``PipelineModel.java:58-64``).
+
+        When every stage in a run is chainable (``api/chain.py`` kernel
+        protocol), the run executes as ONE device segment instead of
+        per-stage copies in and out — bit-exact with the stagewise path,
+        auto-selected, cached per input schema."""
+        tables = list(inputs)
+        plan = self._chain_plan(tables)
+        if plan is not None:
+            return plan.transform(*tables)
+        return _stagewise(self._stages, tables)
+
+    def _chain_plan(self, tables) -> Optional[object]:
+        """The cached fused plan for this input schema, or None when the
+        chain is disabled, no segment merges >= 2 stages, or plan build
+        fails (every one of these runs the stagewise path).
+
+        The cache key includes every stage's live param values, so a
+        post-build ``set_threshold(...)`` / ``set_prediction_col(...)``
+        builds a fresh plan instead of serving the stale kernels the old
+        values were baked into.  (Mutating fitted MODEL DATA in place via
+        ``set_model_data`` after a transform is not fingerprinted —
+        reload or rebuild the PipelineModel for that.)"""
+        from ..data.table import Table
+        from . import chain
+
+        if not chain._enabled() or not self._stages or not tables:
+            return None
+        if not all(isinstance(t, Table) for t in tables):
+            return None
+        keys = {chain.raw_schema(t) for t in tables}
+        if len(keys) != 1:
+            return None          # mixed-schema flows stay stagewise
+        # a stage's device steers its kernel's device, so it keys too
+        params_key = tuple(
+            (tuple(sorted((p.name, repr(v))
+                          for p, v in s._ensure_param_map().items())),
+             str(getattr(s, "device", None)))
+            if hasattr(s, "_ensure_param_map") else id(s)
+            for s in self._stages)
+        (schema_key,) = keys
+        key = (schema_key, params_key)
+        cache = self.__dict__.setdefault("_chain_plans", {})
+        if key in cache:
+            return cache[key]
+        if len(cache) > 32:      # param-churn guard: plans are rebuildable
+            cache.clear()
+        example = tables[0].take(min(tables[0].num_rows, 8))
+        try:
+            plan = chain.compile_pipeline(self, example)
+            plan = plan if plan.worthwhile else None
+        except Exception:        # unported config/schema: stagewise
+            plan = None
+        cache[key] = plan
+        return plan
 
     def save(self, path: str) -> None:
         persist.save_pipeline(self, self._stages, path)
 
     @classmethod
-    def load(cls, path: str) -> "PipelineModel":
-        return cls(persist.load_pipeline(path, cls))
+    def load(cls, path: str, device=None) -> "PipelineModel":
+        """Load a pipeline saved by this package or by the JAX package;
+        ``device`` places every stage (default: each stage's own)."""
+        return cls(_place(persist.load_pipeline(path, cls), device))

@@ -1,6 +1,7 @@
 """Algorithm library (ported so far: the linear family on every feature
 layout with SoftmaxRegression and OnlineLogisticRegression, KMeans and
-OnlineKMeans, Wide&Deep, and the evaluators of those families)."""
+OnlineKMeans, Wide&Deep, the evaluators of those families, and the
+chainable feature stages with RandomSplitter)."""
 
 from .classification import (  # noqa: F401
     LinearSVC,
@@ -21,6 +22,29 @@ from .clustering import (  # noqa: F401
 from .evaluation import (  # noqa: F401
     BinaryClassificationEvaluator,
     MulticlassClassificationEvaluator,
+)
+from .feature import (  # noqa: F401
+    Binarizer,
+    Bucketizer,
+    Imputer,
+    ImputerModel,
+    MaxAbsScaler,
+    MaxAbsScalerModel,
+    MinMaxScaler,
+    MinMaxScalerModel,
+    Normalizer,
+    OneHotEncoder,
+    OneHotEncoderModel,
+    OnlineStandardScaler,
+    OnlineStandardScalerModel,
+    PolynomialExpansion,
+    RobustScaler,
+    RobustScalerModel,
+    StandardScaler,
+    StandardScalerModel,
+    StringIndexer,
+    StringIndexerModel,
+    VectorAssembler,
 )
 from .recommendation import WideDeep, WideDeepModel  # noqa: F401
 from .regression import LinearRegression, LinearRegressionModel  # noqa: F401

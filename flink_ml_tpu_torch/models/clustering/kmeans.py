@@ -16,9 +16,13 @@ n >= 65536 rows and the euclidean measure, else the plain body; only the
 kernel wrappers branch on the tensors' device.  The out-of-core fit
 (:func:`kmeans_fit_outofcore`) applies the same rule to the stream's batch
 rows, so the stats kernel carries every batch of a stream of 65536-row
-batches.  Not ported, each raising ``NotImplementedError`` naming its
-ROADMAP queue: ``initMode="k-means++"`` (A4), the multi-device stats and
-streams (A10) and the chain transform (A7).  Every stage runs on
+batches.  ``KMeansModel.transform`` and the chain terminal
+(``transform_kernel``, ``api/chain.py``) run one function: the
+``kmeans_assign_reduce`` kernel on the card with the euclidean measure,
+else the measure's pairwise distances and ``argmin``.  Not ported, each
+raising ``NotImplementedError`` naming its ROADMAP queue:
+``initMode="k-means++"`` (A4) and the multi-device stats and streams
+(A10).  Every stage runs on
 ``device`` (default ``"cuda"``; raises without a card unless ``"cpu"`` is
 asked for).  The device is a
 runtime choice, not a param, so it is not saved.
@@ -34,6 +38,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ...api.chain import (StageKernel, apply_kernel_or_none, as_matrix,
+                          numeric_entry, run_kernel)
 from ...api.stage import Estimator, Model
 from ...data.table import Table
 from ...distance import DistanceMeasure
@@ -565,6 +571,22 @@ class KMeans(KMeansParams, Estimator["KMeansModel"]):
         return stage
 
 
+def _kmeans_chain_kernel(static, params, cols):
+    """Nearest centroid of each row: on the card with the euclidean
+    measure the ``kmeans_assign_reduce`` kernel (B5), of which only the
+    assignments are kept; otherwise ``argmin`` of the measure's pairwise
+    distances."""
+    (fcol, acol, measure_name) = static
+    points = as_matrix(cols[fcol]).to(torch.float32).contiguous()
+    centroids = params["centroids"]
+    if points.device.type == "cuda" and measure_name == "euclidean":
+        assign = kmeans_assign_reduce(points, centroids)[0]
+    else:
+        measure = DistanceMeasure.get_instance(measure_name)
+        assign = torch.argmin(measure.pairwise(points, centroids), dim=1)
+    return {acol: assign}
+
+
 class KMeansModel(KMeansModelParams, Model):
     """Batch prediction: the nearest centroid of each row, appended as the
     prediction column (int64)."""
@@ -592,26 +614,43 @@ class KMeansModel(KMeansModelParams, Model):
                 "set_model_data first")
 
     def transform_kernel(self, schema):
-        raise _not_ported("the chain-fused KMeans transform", "A7")
+        """Chain TERMINAL: the in-segment assignment is the standalone
+        transform's (:func:`_kmeans_chain_kernel`); the host ``post``
+        applies the int64 cast.  Bit-exact with the stagewise
+        transform."""
+        self._require_model()
+        fcol = self.get_features_col()
+        if numeric_entry(schema, fcol) is None:
+            return None
+        pred_col = self.get_prediction_col()
+        assign_col = f"__chain_assign__{pred_col}"
+
+        def post(host):
+            return {pred_col: host[assign_col].astype(np.int64)}
+
+        return StageKernel(
+            fn=_kmeans_chain_kernel,
+            static=(fcol, assign_col, self.get_distance_measure()),
+            params={"centroids": self._centroids},
+            consumes=(fcol,), produces=(assign_col,), post=post,
+            device=self.device)
 
     # -- inference ----------------------------------------------------------
     def transform(self, *inputs) -> List[Table]:
-        """Euclidean on the card: the ``kmeans_assign_reduce`` kernel, of
-        which only the assignments are kept.  Otherwise ``argmin`` of the
-        measure's pairwise distances."""
+        """The chain terminal as a one-stage segment (rows padded to the
+        shared bucket); a column of vectors is stacked to f32 first."""
         (table,) = inputs
         self._require_model()
-        dev = resolve_device(self.device)
-        measure = DistanceMeasure.get_instance(self.get_distance_measure())
-        points = torch.from_numpy(np.ascontiguousarray(stack_vectors(
-            table[self.get_features_col()]).astype(np.float32))).to(dev)
-        centroids = torch.from_numpy(self._centroids).to(dev)
-        if dev.type == "cuda" and measure.name == "euclidean":
-            assign = kmeans_assign_reduce(points, centroids)[0]
-        else:
-            assign = torch.argmin(measure.pairwise(points, centroids), dim=1)
-        return [table.with_column(self.get_prediction_col(),
-                                  assign.cpu().numpy().astype(np.int64))]
+        cols = apply_kernel_or_none(self.transform_kernel(table.schema()),
+                                    table)
+        if cols is None:        # object column / f32-unsafe integers
+            fcol = self.get_features_col()
+            stacked = Table({fcol: stack_vectors(table[fcol]).astype(
+                np.float32)})
+            cols = run_kernel(self.transform_kernel(stacked.schema()),
+                              stacked)
+        pred_col = self.get_prediction_col()
+        return [table.with_column(pred_col, cols[pred_col])]
 
     # -- persistence --------------------------------------------------------
     def save(self, path: str) -> None:

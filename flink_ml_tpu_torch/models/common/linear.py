@@ -19,6 +19,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ...api.chain import (StageKernel, apply_kernel_or_none, as_matrix,
+                          numeric_entry, run_kernel)
 from ...api.stage import Estimator, Model
 from ...data.table import Table
 from ...linalg import SparseVector, stack_sparse_vectors, stack_vectors
@@ -56,6 +58,14 @@ def check_sparse_indices(idx: np.ndarray, num_features: int) -> None:
             f"hashed index out of range for numFeatures={num_features} "
             f"(got index {int(idx.max()) if int(idx.min()) >= 0 else int(idx.min())}); "
             "the hasher and the model disagree on the hash-space size")
+
+
+def _linear_chain_kernel(static, params, cols):
+    """Chain-terminal margins ``X @ w + b`` in f32, staged under a
+    private column the host ``post`` maps to prediction/raw columns."""
+    (fcol, mcol) = static
+    X = as_matrix(cols[fcol]).to(torch.float32)
+    return {mcol: X @ params["w"] + params["b"]}
 
 
 def resolve_features(table: Table, col: str):
@@ -152,15 +162,12 @@ class LinearModelBase(LinearModelParams, Model):
         return self._state.planned_impl if self._state is not None else None
 
     # -- inference ----------------------------------------------------------
-    def _margins(self, table: Table) -> np.ndarray:
-        """Margins in f32 on the device, returned as f64 numpy: ``X @ w +
-        b`` for dense features, ``sum(vals * w[idx]) + b`` for sparse
-        pairs, ``dense @ w[:nd] + sum(w[cat]) + b`` for the mixed layout
-        (the JAX package's ``_jit_margins``, ``_jit_sparse_margins`` and
-        ``_jit_mixed_margins``; its zero-column trick for a context-stable
-        XLA contraction has no counterpart here)."""
-        self._require_model()
-        kind, feats = resolve_features(table, self.get_features_col())
+    def _margins(self, kind: str, feats) -> np.ndarray:
+        """Margins of the sparse layouts in f32 on the device, returned as
+        f64 numpy: ``sum(vals * w[idx]) + b`` for sparse pairs, ``dense @
+        w[:nd] + sum(w[cat]) + b`` for the mixed layout (the JAX
+        package's ``_jit_sparse_margins`` and ``_jit_mixed_margins``).
+        Dense features score through :meth:`transform_kernel`."""
         dev = resolve_device(self.device)
         w = torch.as_tensor(self._state.coefficients, dtype=torch.float32,
                             device=dev)
@@ -176,13 +183,11 @@ class LinearModelBase(LinearModelParams, Model):
             check_sparse_indices(idx, self._state.coefficients.shape[0])
             m = torch.sum(put(vals, torch.float32)
                           * w[put(idx, torch.int64)], dim=-1) + b
-        elif kind == "mixed":
+        else:
             dense, cat = feats
             check_sparse_indices(cat, self._state.coefficients.shape[0])
             m = (put(dense, torch.float32) @ w[:dense.shape[-1]]
                  + torch.sum(w[put(cat, torch.int64)], dim=-1) + b)
-        else:
-            m = put(feats, torch.float32) @ w + b
         return m.cpu().numpy().astype(np.float64)
 
     def _decision(self, margins: np.ndarray) -> np.ndarray:
@@ -191,13 +196,62 @@ class LinearModelBase(LinearModelParams, Model):
     def _raw(self, margins: np.ndarray) -> np.ndarray:
         return margins
 
-    def transform(self, *inputs) -> List[Table]:
-        (table,) = inputs
-        m = self._margins(table)
-        out = table.with_column(self.get_prediction_col(), self._decision(m))
+    def transform_kernel(self, schema):
+        """Chain TERMINAL for dense features: the in-segment kernel is
+        the f32 ``X @ w + b`` of the standalone dense transform, and the
+        host ``post`` applies the f64 ``_decision``/``_raw`` mapping —
+        fused output is bit-exact with stagewise ``transform``.  Sparse
+        pair/mixed feature layouts stay on ``_margins`` (the chain
+        substrate is dense column dicts)."""
+        self._require_model()
+        fcol = self.get_features_col()
+        if numeric_entry(schema, fcol) is None:
+            return None
+        pred_col = self.get_prediction_col()
         raw_col = self.get_raw_prediction_col()
-        if raw_col:
-            out = out.with_column(raw_col, self._raw(m))
+        margin_col = f"__chain_margins__{pred_col}"
+
+        def post(host):
+            m = host[margin_col].astype(np.float64)
+            out = {pred_col: self._decision(m)}
+            if raw_col:
+                out[raw_col] = self._raw(m)
+            return out
+
+        return StageKernel(
+            fn=_linear_chain_kernel, static=(fcol, margin_col),
+            params={"w": np.asarray(self._state.coefficients, np.float32),
+                    "b": np.float32(self._state.intercept)},
+            consumes=(fcol,), produces=(margin_col,), post=post,
+            device=self.device)
+
+    def transform(self, *inputs) -> List[Table]:
+        """Dense features score through the chain terminal as a one-stage
+        segment (rows padded to the shared bucket), so the standalone and
+        the fused transform run one product on one shape; a column of
+        vectors (or of f32-unsafe integers) is stacked to f32 first.
+        Sparse pair/mixed layouts score through :meth:`_margins`."""
+        (table,) = inputs
+        self._require_model()
+        cols = apply_kernel_or_none(self.transform_kernel(table.schema()),
+                                    table)
+        if cols is None:
+            fcol = self.get_features_col()
+            kind, feats = resolve_features(table, fcol)
+            if kind == "dense":
+                stacked = Table({fcol: feats.astype(np.float32)})
+                cols = run_kernel(self.transform_kernel(stacked.schema()),
+                                  stacked)
+            else:
+                m = self._margins(kind, feats)
+                cols = {self.get_prediction_col(): self._decision(m)}
+                if self.get_raw_prediction_col():
+                    cols[self.get_raw_prediction_col()] = self._raw(m)
+        out = table
+        for name in (self.get_prediction_col(),
+                     self.get_raw_prediction_col()):
+            if name:
+                out = out.with_column(name, cols[name])
         return [out]
 
     # -- persistence --------------------------------------------------------

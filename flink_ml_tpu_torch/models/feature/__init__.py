@@ -1,0 +1,43 @@
+"""Feature stages (ported so far: the chainable stages and the splitter)."""
+
+from .encoders import (  # noqa: F401
+    OneHotEncoder,
+    OneHotEncoderModel,
+    StringIndexer,
+    StringIndexerModel,
+    VectorAssembler,
+)
+from .online_scaler import (  # noqa: F401
+    OnlineStandardScaler,
+    OnlineStandardScalerModel,
+)
+from .pca import PCA, PCAModel  # noqa: F401
+from .randomsplitter import RandomSplitter  # noqa: F401
+from .scalers import (  # noqa: F401
+    MaxAbsScaler,
+    MaxAbsScalerModel,
+    MinMaxScaler,
+    MinMaxScalerModel,
+    RobustScaler,
+    RobustScalerModel,
+    StandardScaler,
+    StandardScalerModel,
+)
+from .transforms import (  # noqa: F401
+    Binarizer,
+    Bucketizer,
+    Imputer,
+    ImputerModel,
+    Normalizer,
+    PolynomialExpansion,
+)
+from .vector_ops import (  # noqa: F401
+    DCT,
+    ElementwiseProduct,
+    Interaction,
+    KBinsDiscretizer,
+    KBinsDiscretizerModel,
+    VectorIndexer,
+    VectorIndexerModel,
+    VectorSlicer,
+)

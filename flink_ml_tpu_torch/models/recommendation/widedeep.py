@@ -26,10 +26,11 @@ order there, and the streamed fit promises the same bits for any
 fit keeps the routed fold and autograd's scatter-add.
 
 A port of the JAX package's ``models/recommendation/widedeep.py``, single
-device.  Not ported, each raising ``NotImplementedError`` naming its ROADMAP
+device.  ``WideDeepModel.transform`` and the chain terminal
+(``transform_kernel``, ``api/chain.py``) run one function on one padded
+shape.  Not ported, each raising ``NotImplementedError`` naming its ROADMAP
 queue: the multi-process and elastic branches of ``fit_outofcore`` and
-``build_sharded_train_step`` (A10), and the chain terminal
-``transform_kernel`` (A7).  Every stage runs on ``device``
+``build_sharded_train_step`` (A10).  Every stage runs on ``device``
 (default ``"cuda"``; raises without a card unless ``"cpu"`` is asked for).
 Matrix products run in full f32: the port never turns on
 ``torch.backends.cuda.matmul.allow_tf32`` (off by default), whose ~3
@@ -44,6 +45,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ...api.chain import (StageKernel, apply_kernel_or_none, numeric_entry,
+                          run_normalized)
 from ...api.stage import Estimator, Model
 from ...data.table import Table
 from ...iteration import IterationBodyResult, IterationConfig, iterate
@@ -718,6 +721,16 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
         return stage
 
 
+def _widedeep_chain_kernel(static, params, cols):
+    """Chain-terminal scores ``sigmoid(forward)``; the raw per-field ids
+    offset into the stacked vocab in-device (an exact int add; the range
+    check runs host-side as the kernel's ``pre``)."""
+    (dcol, ccol, scol) = static
+    dense = cols[dcol].to(torch.float32)
+    cat = cols[ccol] + params["offsets"][None, :]
+    return {scol: torch.sigmoid(forward(params["net"], dense, cat))}
+
+
 class WideDeepModel(WideDeepParams, Model):
     """Scores: ``sigmoid(forward)`` as the raw prediction (float64) and
     ``score > 0.5`` as the prediction (int64)."""
@@ -739,24 +752,59 @@ class WideDeepModel(WideDeepParams, Model):
             raise RuntimeError("WideDeepModel has no model data")
 
     def transform_kernel(self, schema):
-        raise _not_ported("the chain-fused Wide&Deep transform", "A7")
+        """Chain TERMINAL: ``sigmoid(forward)`` over the segment's device
+        columns.  The categorical id range check (host control flow) runs
+        as the kernel's ``pre`` on the segment's entry columns, so the
+        stage only chains while catFeatures passes through from the
+        segment input untouched."""
+        self._require_model()
+        dcol, ccol = self.DENSE_FEATURES_COL, self.CAT_FEATURES_COL
+        cat_entry = schema.get(ccol)
+        if numeric_entry(schema, dcol) is None \
+                or cat_entry is None or cat_entry[1].kind not in "iu" \
+                or len(cat_entry[0]) != 1 \
+                or cat_entry[0][0] != len(self._vocab_sizes):
+            return None
+        raw_col = self.get_raw_prediction_col()
+        pred_col = self.get_prediction_col()
+        score_col = f"__chain_scores__{pred_col}"
+        vocab_sizes = self._vocab_sizes
+
+        def pre(host):
+            _validate_cat_ids(np.asarray(host[ccol]), vocab_sizes)
+
+        def post(host):
+            scores = host[score_col].astype(np.float64)
+            return {raw_col: scores,
+                    pred_col: (scores > 0.5).astype(np.int64)}
+
+        return StageKernel(
+            fn=_widedeep_chain_kernel, static=(dcol, ccol, score_col),
+            params={"net": self._params,
+                    "offsets": _field_offsets(vocab_sizes)},
+            consumes=(dcol, ccol), produces=(score_col,),
+            post=post, pre=pre, pre_cols=(ccol,), device=self.device)
 
     def transform(self, *inputs) -> List[Table]:
+        """The chain terminal as a one-stage segment (rows padded to the
+        shared bucket; zero pad rows hold id 0, a valid slot of every
+        field).  Off its schema, or with ids past +-2^24, the columns are
+        range-checked and cast to f32 and int32 first."""
         (table,) = inputs
         self._require_model()
-        dev = resolve_device(self.device)
-        dense = np.asarray(table[self.DENSE_FEATURES_COL], np.float32)
-        cat = np.asarray(table[self.CAT_FEATURES_COL], np.int32)
-        cat = _validate_cat_ids(cat, self._vocab_sizes)
-        params = params_to_device(self._params, dev)
-        with torch.no_grad():
-            scores = torch.sigmoid(forward(
-                params, torch.from_numpy(np.ascontiguousarray(dense)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(cat)).to(dev)))
-        scores = scores.cpu().numpy().astype(np.float64)
-        out = table.with_column(self.get_raw_prediction_col(), scores)
-        out = out.with_column(self.get_prediction_col(),
-                              (scores > 0.5).astype(np.int64))
+        cols = apply_kernel_or_none(self.transform_kernel(table.schema()),
+                                    table)
+        if cols is None:
+            dcol, ccol = self.DENSE_FEATURES_COL, self.CAT_FEATURES_COL
+            cat = np.asarray(table[ccol], np.int32)
+            _validate_cat_ids(cat, self._vocab_sizes)
+            host = {dcol: np.asarray(table[dcol], np.float32), ccol: cat}
+            cols = run_normalized(self.transform_kernel(Table(host).schema()),
+                                  host)
+        out = table
+        for name in (self.get_raw_prediction_col(),
+                     self.get_prediction_col()):
+            out = out.with_column(name, cols[name])
         return [out]
 
     # -- persistence --------------------------------------------------------

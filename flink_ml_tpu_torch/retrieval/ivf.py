@@ -29,9 +29,11 @@ list overflows its block or the centroid drift (max per-list ||member mean
 - centroid|| over the centroid RMS norm) crosses ``drift_threshold``, it
 reports ``"reanchor"`` with a freshly built index instead.
 
-Not ported: the chain terminal ``transform_kernel`` (ROADMAP queue A7) and
-the serving integration, index tenants and delta publish (A8).  The build
-helpers are numpy and array-for-array the JAX package's.
+``transform`` and the chain terminal (``transform_kernel``,
+``api/chain.py``) call the same retrieve wrappers as ``search`` on the
+index's cached device params.  Not ported: the serving integration, index
+tenants and delta publish (ROADMAP queue A8).  The build helpers are numpy
+and array-for-array the JAX package's.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..api.chain import StageKernel, numeric_entry, run_kernel
 from ..data.table import Table
 from ..kernels.quantize import quantize_rows
 from ..ops import retrieve as R
@@ -50,6 +53,32 @@ from ..utils.device import resolve_device
 from ..utils.padding import pad_rows_to_block, require_block_rows
 
 __all__ = ["IVFIndex", "PQConfig", "SearchPlan", "retrieve_sig"]
+
+
+#: the chain terminal's staging columns, mapped by its host ``post``
+_NN_STAGE = "__retrieve_nn__"
+_DIST_STAGE = "__retrieve_dist__"
+
+
+def _scan(p: Dict[str, torch.Tensor], q: torch.Tensor, nprobe: int, k: int,
+          nlist: int, block: int, m: Optional[int], flat_fn, pq_fn):
+    """One search of ``q (b, d)`` over the device params ``p``: the flat
+    search, or the PQ search with ``m`` subspaces."""
+    shape = dict(nprobe=nprobe, k=k, nlist=nlist, block=block)
+    if m is None:
+        return flat_fn(q, p["centroids"], p["ids"], p["vecs"], **shape)
+    return pq_fn(q, p["centroids"], p["ids"], p["codes"], p["cb_q"],
+                 p["cb_s"], m=m, **shape)
+
+
+def _ivf_chain_kernel(static, params, cols):
+    """Chain-terminal search: the retrieve wrappers ``search`` uses (the
+    B8/B9 kernels on the card), looked up at call time."""
+    (qcol, nprobe, k, nlist, block, m) = static
+    q = cols[qcol].to(torch.float32).contiguous()
+    nn, dist = _scan(params, q, nprobe, k, nlist, block, m,
+                     R.retrieve_flat, R.retrieve_pq)
+    return {_NN_STAGE: nn, _DIST_STAGE: dist}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,9 +275,25 @@ class IVFIndex:
         return out
 
     def transform_kernel(self, schema):
-        raise NotImplementedError(
-            "the chain terminal of IVFIndex is not ported to "
-            "flink_ml_tpu_torch yet (ROADMAP queue A7)")
+        """Chain TERMINAL: the search of :meth:`search_tensors` (the
+        retrieve kernel on a CUDA index, one launch) over the segment's
+        query column, on the index's cached device params."""
+        if numeric_entry(schema, self.query_col) is None:
+            return None
+        ncol, dcol = self.neighbors_col, self.distances_col
+
+        def post(host):
+            return {ncol: host[_NN_STAGE].astype(np.int64),
+                    dcol: host[_DIST_STAGE]}
+
+        return StageKernel(
+            fn=_ivf_chain_kernel,
+            static=(self.query_col, self.nprobe, self.k, self.nlist,
+                    self.block, None if self.pq is None else self.pq.m),
+            params=self.device_params(),
+            consumes=(self.query_col,),
+            produces=(_NN_STAGE, _DIST_STAGE), post=post,
+            device=self.device)
 
     # -- search -------------------------------------------------------------
     def _drop_device_copy(self) -> None:
@@ -277,13 +322,9 @@ class IVFIndex:
         return self._scan(q, R.retrieve_flat, R.retrieve_pq)
 
     def _scan(self, q, flat_fn, pq_fn):
-        p = self.device_params()
-        shape = dict(nprobe=self.nprobe, k=self.k, nlist=self.nlist,
-                     block=self.block)
-        if self.pq is None:
-            return flat_fn(q, p["centroids"], p["ids"], p["vecs"], **shape)
-        return pq_fn(q, p["centroids"], p["ids"], p["codes"], p["cb_q"],
-                     p["cb_s"], m=self.pq.m, **shape)
+        return _scan(self.device_params(), q, self.nprobe, self.k,
+                     self.nlist, self.block,
+                     None if self.pq is None else self.pq.m, flat_fn, pq_fn)
 
     def _search(self, queries: np.ndarray, plain: bool = False
                 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -300,17 +341,19 @@ class IVFIndex:
     def transform(self, *inputs) -> List[Table]:
         """Batch search: appends ``neighbors`` (n, k) int64 ids (-1 for
         unfilled slots) and ``distances`` (n, k) f32: squared L2 for flat,
-        the lookup-table approximation for PQ."""
+        the lookup-table approximation for PQ.  The chain terminal as a
+        one-stage segment (queries padded to the shared bucket)."""
         (table,) = inputs
-        entry = table.schema().get(self.query_col)
-        if entry is None or entry[1].kind not in "fiub":
+        kernel = self.transform_kernel(table.schema())
+        if kernel is None:
             raise TypeError(
                 f"IVFIndex.transform needs a numeric {self.query_col!r} "
                 "column of query vectors")
-        nn, dist = self._search(np.asarray(table[self.query_col],
-                                           np.float32))
-        out = table.with_column(self.neighbors_col, nn)
-        return [out.with_column(self.distances_col, dist)]
+        cols = run_kernel(kernel, table, op="retrieve")
+        out = table.with_column(self.neighbors_col,
+                                cols[self.neighbors_col])
+        return [out.with_column(self.distances_col,
+                                cols[self.distances_col])]
 
     def search(self, queries, *, nprobe: Optional[int] = None,
                k: Optional[int] = None, plain: bool = False

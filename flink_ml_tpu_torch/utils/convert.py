@@ -16,7 +16,8 @@ from .device import resolve_device
 __all__ = ["params_from_jax", "model_from_jax_state", "softmax_model_from_jax",
            "kmeans_model_from_jax",
            "widedeep_params_from_jax", "adam_state_from_jax",
-           "ivf_index_from_jax"]
+           "ivf_index_from_jax", "feature_model_from_jax",
+           "pipeline_model_from_jax"]
 
 
 def params_from_jax(params: Dict[str, np.ndarray], device="cuda"
@@ -125,3 +126,101 @@ def ivf_index_from_jax(params, *, nlist: int, block: int, dim: int, k: int,
         store={int(i): np.array(v, np.float32)
                for i, v in zip(np.asarray(ids).tolist(), vectors)},
         device=device)
+
+
+def _port_table(table):
+    """A JAX package ``Table`` (any object with ``column_names`` and
+    ``__getitem__``) as a port ``Table`` of numpy columns."""
+    from ..data.table import Table
+
+    return Table({name: np.asarray(table[name])
+                  for name in table.column_names})
+
+
+def _numpy_tree(tree):
+    """Nested dicts/lists of arrays as the same tree of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_tree(v) for v in tree]
+    return np.asarray(tree)
+
+
+def _with_params(port_stage, jax_stage):
+    port_stage.params_from_json(jax_stage.params_to_json())
+    return port_stage
+
+
+def feature_model_from_jax(stage, device="cuda"):
+    """The port's counterpart of a JAX package feature stage of
+    ``models/feature`` (a fitted ``*Model`` or a stateless transformer):
+    the same class name, params and model data."""
+    from ..models import feature
+    from ..models.feature.transforms import _OnDevice
+
+    resolve_device(device)
+    name = type(stage).__name__
+    cls = getattr(feature, name, None)
+    if cls is None or not name[0].isupper():
+        raise TypeError(f"{name} is not a ported feature stage")
+    # RandomSplitter is host work and takes no device
+    out = _with_params(cls(device=device) if issubclass(cls, _OnDevice)
+                       else cls(), stage)
+    if name == "StringIndexerModel":
+        # per-column vocabularies of different lengths: not one Table
+        out._vocab = {k: list(v) for k, v in stage._vocab.items()}
+    elif hasattr(stage, "get_model_data") and hasattr(out, "set_model_data"):
+        out.set_model_data(*(_port_table(t) for t in stage.get_model_data()))
+    if hasattr(stage, "model_version"):
+        out.model_version = int(stage.model_version)
+    return out
+
+
+_LINEAR = ("LogisticRegressionModel", "LinearSVCModel",
+           "LinearRegressionModel")
+
+
+def _stage_from_jax(stage, device):
+    from ..api.pipeline import PipelineModel
+    from ..models import (LinearRegressionModel, LinearSVCModel,
+                          LogisticRegressionModel, WideDeepModel)
+
+    name = type(stage).__name__
+    if name == "PipelineModel":
+        return PipelineModel([_stage_from_jax(s, device)
+                              for s in stage.stages])
+    if name in _LINEAR:
+        cls = {"LogisticRegressionModel": LogisticRegressionModel,
+               "LinearSVCModel": LinearSVCModel,
+               "LinearRegressionModel": LinearRegressionModel}[name]
+        (data,) = stage.get_model_data()
+        return _with_params(model_from_jax_state(
+            np.asarray(data["coefficients"])[0],
+            float(np.asarray(data["intercept"])[0]), cls, device), stage)
+    if name == "KMeansModel":
+        (data,) = stage.get_model_data()
+        return _with_params(kmeans_model_from_jax(
+            np.asarray(data["centroids"])[0], device), stage)
+    if name == "WideDeepModel":
+        resolve_device(device)
+        out = _with_params(WideDeepModel(device=device), stage)
+        out._params = _numpy_tree(stage._params)
+        out._vocab_sizes = tuple(int(v) for v in stage._vocab_sizes)
+        return out
+    if name == "IVFIndex":
+        return ivf_index_from_jax(
+            stage.params, nlist=stage.nlist, block=stage.block,
+            dim=stage.dim, k=stage.k, nprobe=stage.nprobe, pq=stage.pq,
+            seed=stage.seed, list_slack=stage.list_slack,
+            drift_threshold=stage.drift_threshold, max_iter=stage.max_iter,
+            stored=stage.stored_vectors(), device=device)
+    return feature_model_from_jax(stage, device)
+
+
+def pipeline_model_from_jax(pm, device="cuda"):
+    """The port's ``PipelineModel`` for a fitted JAX package
+    ``PipelineModel``: feature stages through
+    :func:`feature_model_from_jax`, the linear family, KMeans, Wide&Deep
+    and IVF indexes through their converters (nested pipelines too)."""
+    resolve_device(device)
+    return _stage_from_jax(pm, device)

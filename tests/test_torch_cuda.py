@@ -1150,3 +1150,122 @@ def test_sparse_ftrl_step_gives_the_same_bits_twice(cuda_device):
     for k in ("w", "z", "n"):
         assert torch.equal(runs[0][0][k], runs[1][0][k])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+# -- fused pipeline segments ending in each terminal ---------------------------
+
+def _scaled_pipeline(cuda_device, X, terminal):
+    """StandardScaler -> MaxAbsScaler -> ``terminal(scaled table)`` on
+    the card."""
+    from flink_ml_tpu_torch.models.feature import MaxAbsScaler, StandardScaler
+
+    dev = str(cuda_device)
+    table = T.Table({"features": X})
+    s1 = StandardScaler(device=dev).set_output_col("std").fit(table)
+    t1 = s1.transform(table)[0]
+    s2 = (MaxAbsScaler(device=dev).set_features_col("std")
+          .set_output_col("ma").fit(t1))
+    return T.PipelineModel([s1, s2, terminal(s2.transform(t1)[0])])
+
+
+def _fused_and_stagewise(pm, table):
+    from flink_ml_tpu_torch.api import chain
+
+    with chain.chain_disabled():
+        (ref,) = pm.transform(table)
+    (out,) = pm.transform(table)
+    for c in ref.column_names:
+        assert np.array_equal(np.asarray(ref[c]), np.asarray(out[c])), c
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 4096])
+def test_fused_linear_terminal_equals_stagewise(cuda_device, n):
+    from flink_ml_tpu_torch.api import chain
+
+    rng = np.random.default_rng(40)
+    X = rng.normal(size=(n, 16)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float64)
+    pm = _scaled_pipeline(cuda_device, X, lambda t: (
+        T.LogisticRegression(device=str(cuda_device)).set_features_col("ma")
+        .set_max_iter(2).fit(t.with_column("label", y))))
+    table = T.Table({"features": X})
+    _fused_and_stagewise(pm, table)
+    assert pm._chain_plan([table]).describe() == [("segment", 3)]
+    d0 = chain.dispatch_count()
+    pm.transform(table)
+    assert chain.dispatch_count() - d0 == 1
+
+
+@pytest.mark.cuda
+def test_fused_kmeans_terminal_launches_b5_once(cuda_device):
+    rng = np.random.default_rng(41)
+    X = rng.normal(size=(70000, 8)).astype(np.float32)
+    pm = _scaled_pipeline(cuda_device, X, lambda t: (
+        T.KMeans(device=str(cuda_device)).set_k(16).set_max_iter(3)
+        .set_features_col("ma").fit(t)))
+    held = T.Table({"features": X[:5000]})
+    out = _fused_and_stagewise(pm, held)
+    TK.reset_launch_counts()
+    pm.transform(held)
+    assert TK.LAUNCHES["kmeans_assign_reduce"] == 1
+    scaled = pm.stages[1].transform(pm.stages[0].transform(held)[0])[0]
+    P = np.asarray(scaled["ma"], np.float64)
+    C = pm.stages[2]._centroids.astype(np.float64)
+    d2 = ((P[:, None, :] - C[None]) ** 2).sum(-1)
+    agree = np.asarray(out["prediction"]) == d2.argmin(1)
+    srt = np.sort(d2, axis=1)
+    near = (srt[:, 1] - srt[:, 0]) <= 1e-5 * srt[:, 1]
+    assert (agree | near).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pq", [None, (4, 8)])
+def test_fused_ivf_terminal_launches_one_search(cuda_device, pq):
+    from flink_ml_tpu_torch.models.feature import StandardScaler
+
+    dev = str(cuda_device)
+    rng = np.random.default_rng(42)
+    X = rng.normal(size=(2000, 16)).astype(np.float32)
+    corpus = T.Table({"query": X})
+    sc = (StandardScaler(device=dev).set_features_col("query")
+          .set_output_col("query").fit(corpus))
+    scaled = np.asarray(sc.transform(corpus)[0]["query"], np.float32)
+    index = T.IVFIndex.build(scaled, nlist=16, k=5, nprobe=2, seed=1,
+                             pq=None if pq is None else T.PQConfig(*pq),
+                             device=dev)
+    pm = T.PipelineModel([sc, index])
+    queries = T.Table({"query": X[:64]})
+    out = _fused_and_stagewise(pm, queries)
+    name = "retrieve_flat" if pq is None else "retrieve_pq"
+    TR.reset_launch_counts()
+    pm.transform(queries)
+    assert TR.LAUNCHES[name] == 1
+    nn, dist = index.search(scaled[:64])
+    assert np.array_equal(np.asarray(out["neighbors"]), nn)
+    assert np.array_equal(np.asarray(out["distances"]), dist)
+
+
+@pytest.mark.cuda
+def test_fused_widedeep_terminal_equals_stagewise(cuda_device):
+    from flink_ml_tpu_torch.models.feature import StandardScaler
+
+    dev = str(cuda_device)
+    rng = np.random.default_rng(43)
+    n = 512
+    dense = rng.normal(size=(n, 13)).astype(np.float32)
+    cat = rng.integers(0, 50, size=(n, 4)).astype(np.int32)
+    t = T.Table({"denseFeatures": dense, "catFeatures": cat,
+                 "label": (cat[:, 0] > 20).astype(np.float32)})
+    sc = (StandardScaler(device=dev).set_features_col("denseFeatures")
+          .set_output_col("denseFeatures").fit(t))
+    wd = (T.WideDeep(device=dev).set_vocab_sizes([50] * 4).set_max_iter(1)
+          .set_global_batch_size(128).fit(sc.transform(t)[0]))
+    pm = T.PipelineModel([sc, wd])
+    feats = t.drop("label")
+    _fused_and_stagewise(pm, feats)
+    assert pm._chain_plan([feats]).describe() == [("segment", 2)]
+    bad = T.Table({"denseFeatures": dense, "catFeatures": cat + 50})
+    with pytest.raises(ValueError):
+        pm.transform(bad)

@@ -84,6 +84,74 @@ def test_stream_and_online_modules_import_without_jax():
     assert [m for m in out if _forbidden(m)] == []
 
 
+COMPOSITION_MODULES = (
+    "flink_ml_tpu_torch.api.chain", "flink_ml_tpu_torch.api.graph",
+    "flink_ml_tpu_torch.api.model_selection",
+    "flink_ml_tpu_torch.models.feature",
+    "flink_ml_tpu_torch.models.feature.transforms",
+    "flink_ml_tpu_torch.models.feature.scalers",
+    "flink_ml_tpu_torch.models.feature.online_scaler",
+    "flink_ml_tpu_torch.models.feature.pca",
+    "flink_ml_tpu_torch.models.feature.vector_ops",
+    "flink_ml_tpu_torch.models.feature.encoders",
+    "flink_ml_tpu_torch.models.feature.randomsplitter")
+
+
+def test_composition_and_feature_modules_import_without_jax():
+    """The chain, Graph, model selection and the feature stages load
+    neither JAX nor the JAX package."""
+    code = ("import sys, " + ", ".join(COMPOSITION_MODULES) + "; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         timeout=300).stdout.split()
+    assert set(COMPOSITION_MODULES) <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_fused_pipelines_need_cuda_unless_cpu_asked(monkeypatch):
+    """The feature stages, the fused segments and the terminals raise
+    without a card unless the CPU is asked for; a plan never falls back
+    to the CPU silently."""
+    from flink_ml_tpu_torch.api import chain
+    from flink_ml_tpu_torch.models.feature import (
+        PCA, MinMaxScaler, Normalizer, StandardScaler)
+    from flink_ml_tpu_torch.utils.convert import (feature_model_from_jax,
+                                                  pipeline_model_from_jax)
+
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(32, 4))
+    table = T.Table({"features": X, "label": (X[:, 0] > 0) * 1.0})
+    scaler = StandardScaler(device="cpu").set_output_col("s").fit(table)
+    lr = (T.LogisticRegression(device="cpu").set_features_col("s")
+          .set_max_iter(1).fit(scaler.transform(table)[0]))
+    pm = T.PipelineModel([scaler, lr])
+    km = T.KMeans(device="cpu").set_k(2).set_max_iter(2).fit(table)
+    index = T.IVFIndex.build(X.astype(np.float32), nlist=2, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        PCA().set_k(2).fit(table)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        MinMaxScaler().fit(table).transform(table)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        Normalizer().transform(table)
+    for stage in (scaler, lr, km, index):
+        stage.device = "cuda"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        pm.transform(table)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        chain.compile_pipeline(pm, table)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        km.transform(table)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        index.transform(T.Table({"query": X}))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        feature_model_from_jax(scaler)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        pipeline_model_from_jax(pm)
+
+
 def test_streamed_and_online_fits_need_cuda_unless_cpu_asked(monkeypatch):
     """The streamed KMeans and Wide&Deep fits and the two online learners
     raise without a card unless the CPU is asked for."""

@@ -279,8 +279,11 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="A10"):
         T.KMeans(device="cpu").fit_outofcore(lambda: iter(()),
                                              mesh=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        kmeans_model_from_jax(X[:2], device="cpu").transform_kernel(None)
+    # the chain terminal is ported: a kernel for a numeric column only
+    model = kmeans_model_from_jax(X[:2], device="cpu")
+    kernel = model.transform_kernel(T.Table({"features": X}).schema())
+    assert kernel.post is not None and kernel.consumes == ("features",)
+    assert model.transform_kernel({}) is None
     with pytest.raises(ValueError, match="euclidean"):
         TKM.kmeans_workset_epoch_step(TDistance.get_instance("cosine"), 2)
 

@@ -363,8 +363,10 @@ def test_search_plan_and_option_views():
         idx.transform(T.Table({"wrong": X}))
     with pytest.raises(TypeError, match="query"):
         idx.transform(T.Table({"query": np.array(["a"] * 4)}))
-    with pytest.raises(NotImplementedError, match="A7"):
-        idx.transform_kernel(T.Table({"query": X}).schema())
+    # the chain terminal is ported: a kernel for a numeric query column
+    kernel = idx.transform_kernel(T.Table({"query": X}).schema())
+    assert kernel.post is not None and kernel.consumes == ("query",)
+    assert idx.transform_kernel(T.Table({"wrong": X}).schema()) is None
     # a view serves the same device copy; plain=True equals the wrapper
     # path on the CPU
     assert view.device_params() is idx.device_params()

@@ -331,7 +331,9 @@ def test_unported_paths_name_their_queue():
         est.fit_outofcore(lambda: iter([]), membership=object())
     with pytest.raises(NotImplementedError, match="A10"):
         TWD.build_sharded_train_step(None, 4, [4], 2, (2,))
-    with pytest.raises(NotImplementedError, match="A7"):
+    # the chain terminal is ported: it needs model data, and declines a
+    # schema without the dense and categorical columns
+    with pytest.raises(RuntimeError, match="no model data"):
         T.WideDeepModel(device="cpu").transform_kernel({})
 
 
