@@ -259,13 +259,43 @@ line is printed):
     allclose(1e-3, 1e-4) (phase 4's marker saturates the AUC).  A ``GraphBuilder`` graph
     source -> StandardScaler -> KMeans fitted on phase 26's points gives
     phase 26's fused output bit for bit.
+30. Serving, LR (``bench.py:1531-1624``'s endpoint: d 64, numpy seed 17
+    weights, a 1024-row pool, 1-8-row requests, ``max_batch_rows`` 256,
+    ``max_wait_ms`` 1.0, queue 2^14): the same 8 rows scored in every
+    bucket 8-256 give the same bits (each family below too); 1, 8 and 64
+    clients (64, 64, 16 requests each), every response equal to
+    ``model.transform`` of its rows bit for bit, p50/p99 ms, requests/s,
+    batches, fill ratio, warm-up ms by bucket; phase 4's Criteo-width
+    mixed LR through ``make_servable`` (the ``model.transform`` route),
+    bit for bit; a hot swap under 4 clients, every response exactly one
+    generation's transform, nothing dropped.
+31. Kernel servables at full width: KMeans on phase 7's centroids (B5 one
+    launch a served batch; requests of 1-256 rows; B5 at every bucket
+    8-256 against its plain version under phase 6's gate); phase 12's
+    flat and IVF-PQ indexes at nprobe 2 (one retrieve call a batch; ids
+    and distance bits equal ``search`` of each request alone); phase 10's
+    Wide&Deep on a zipfian key mix (``bench.py:3841-3842``), plain and
+    through the row cache (512 blocks of 512 rows), both bit for bit the
+    offline transform; hit rate and pool bytes.
+32. The multi-tenant scheduler (``bench.py:3414-3416,3496-3498``: 9 LR
+    tenants at d 32, 1 interactive + 8 bulk with zipfian weights,
+    ``max_batch_rows`` 128, bulk cap 8, ``max_wait_ms`` 0.5): tenants 2-9
+    load no kernel library and build no plan; interactive p99 alone,
+    under a bulk flood and through one FIFO endpoint; sheds under overload
+    all bulk; a seeded ``chip_down`` schedule at the dispatch boundary
+    requeues, and every retried response is bit-identical.
+33. Int8: the LR of phase 30, the KMeans of phase 31 (B5, launches
+    counted) and phase 10's Wide&Deep, plain and cached: decisions agree
+    with f32 at 0.99 or better, two predicts give the same bits, cached
+    int8 equals bypassed int8 bit for bit; resident param bytes.
 
 The last lines are the kernel table (nine kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
 ``values`` and the streamed fit's launches under ``stream``, the three
 KMeans kernels (the stats kernel with phase 22's launches under
 ``stream``), the fold, the two retrieve kernels; the launches a fused
-transform or phase 29's CV added under ``chain``)
+transform or phase 29's CV added under ``chain``, the served batches'
+launches of phase 31 under ``serve``)
 as one JSON object, the card line from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.  The script imports neither JAX nor the JAX package.
 """
@@ -616,6 +646,7 @@ def kmeans_phases(torch, dev, card, timer):
     model = est.fit(table)
     torch.cuda.synchronize()
     bsp_s = time.perf_counter() - t0
+    FITTED["kmeans"] = model
     bsp_launches = dict(K.LAUNCHES)
     log(f"KMeans fit: {bsp_s:.3f} s for {KM_ITERS} rounds of {n} x {d}, "
         f"k {k} (host->device copy included); plan {est.planned_impl}; "
@@ -922,6 +953,7 @@ def widedeep_phases(torch, dev, card, timer):
     model = est.fit(table)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    FITTED["widedeep"] = model
     launches = G.LAUNCHES["fold_runs"]
     info = est.route_info
     losses = model.loss_log
@@ -1264,6 +1296,7 @@ def retrieval_phases(torch, dev, card, timer):
                         device=DEVICE)
     sync()
     build_s = {"ivf": t1 - t0, "ivfpq": time.perf_counter() - t1}
+    FITTED["flat"], FITTED["pq"] = flat, pq
     km = dict(K.LAUNCHES)
     fits = flat.build_fits + pq.build_fits
     log(f"IVF builds at {n} x {d}, nlist {RT_NLIST}: block {flat.block} "
@@ -2970,7 +3003,7 @@ def same_bits(what, ref, out):
         a, b = np.asarray(ref[c]), np.asarray(out[c])
         if a.dtype != b.dtype or a.shape != b.shape or \
                 not np.array_equal(a.view(np.uint8), b.view(np.uint8)):
-            fail(f"{what}: column {c!r} differs fused and stagewise")
+            fail(f"{what}: column {c!r} differs from its reference")
 
 
 def fused_and_stagewise(torch, pm, table, counter=None):
@@ -3364,6 +3397,731 @@ def composition_phase(torch, dev, card, km_run):
     return cv_launches
 
 
+# Serving (phases 30-33).  bench_serving's endpoint (bench.py:1531-1624):
+# LR d 64 weights from numpy seed 17, a 1024-row pool, 1-8-row requests,
+# max_batch_rows 256, max_wait_ms 1.0, queue 2^14, 1/8/64 clients.
+SV_D, SV_POOL = 64, 1024
+SV_CLIENTS = ((1, 64), (8, 64), (64, 16))
+SV_BATCH, SV_WAIT_MS, SV_QUEUE = 256, 1.0, 1 << 14
+SV_JOIN_S = 120
+SV_BUCKETS = (8, 16, 32, 64, 128, 256)
+# bench_multitenant's scheduler (bench.py:3414-3416, 3496-3498): 9 LR
+# tenants at d 32, 1 interactive + 8 bulk with zipfian weights 1/(i+1)
+MT_D, MT_BATCH, MT_BULK_ROWS, MT_WAIT_MS = 32, 128, 8, 0.5
+# the Wide&Deep row cache (phase 31): a quarter of the 1,048,554 rows
+WD_CACHE_BLOCK, WD_CACHE_BLOCKS = 512, 512
+ENVELOPE = 0.99             # int8 decision agreement (tests/test_int8.py)
+FITTED = {}                 # models of earlier phases the serving reuses
+
+
+def zipf_ids(rng, size, vocab, a=1.3):
+    """bench.py:3841-3842's zipfian key mix."""
+    return ((rng.zipf(a, size=size) - 1) % vocab).astype(np.int32)
+
+
+def close_endpoint(what, endpoint):
+    """Close an endpoint or scheduler and fail if its loop outlived the
+    join."""
+    thread = endpoint._thread
+    endpoint.close(timeout=SV_JOIN_S)
+    if thread is not None and thread.is_alive():
+        fail(f"{what}: the serve thread is still alive after close")
+
+
+def run_clients(what, n_clients, work):
+    """``work(worker)`` on ``n_clients`` threads at once; every thread is
+    joined with a timeout and its exception, if any, fails the run.
+    Returns the wall seconds."""
+    import threading
+
+    errors = []
+
+    def body(worker):
+        try:
+            work(worker)
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(repr(exc)[:300])
+
+    threads = [threading.Thread(target=body, args=(w,))
+               for w in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SV_JOIN_S)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        fail(f"{what}: a client thread is still alive after "
+             f"{SV_JOIN_S} s")
+    if errors:
+        fail(f"{what}: client errors {errors[:3]}")
+    return wall
+
+
+def bucket_bits(servable, pool, name, card):
+    """Trouble 1 of the serving path: the same 8 rows scored inside every
+    bucket of the ladder (the other rows from the pool); prints, per pair
+    of buckets, how many of the 8 rows differ, and fails on any."""
+    from flink_ml_tpu_torch import Table
+
+    heads = {}
+    for b in SV_BUCKETS:
+        out = servable.predict(Table({c: np.asarray(pool[c])[:b]
+                                      for c in pool.column_names}))
+        heads[b] = [np.asarray(out[c])[:8] for c in out.column_names
+                    if c not in pool.column_names]
+    diffs = {}
+    for i, a in enumerate(SV_BUCKETS):
+        for b in SV_BUCKETS[i + 1:]:
+            diffs[(a, b)] = int(np.logical_or.reduce([
+                (x.reshape(8, -1).view(np.uint8)
+                 != y.reshape(8, -1).view(np.uint8)).any(1)
+                for x, y in zip(heads[a], heads[b])]).sum())
+    log(f"bucket invariance ({name}): rows of 8 differing per pair of "
+        f"buckets {diffs} [{card}]")
+    if any(diffs.values()):
+        fail(f"{name}: a row's bits depend on the bucket it rides in")
+
+
+def lr_from_weights(coef, icpt):
+    from flink_ml_tpu_torch import LogisticRegressionModel, Table
+
+    return LogisticRegressionModel(device=DEVICE).set_model_data(Table({
+        "coefficients": np.asarray(coef)[None, :],
+        "intercept": np.array([icpt])}))
+
+
+def serving_lr_phase(torch, dev, card, mixed_model):
+    """Phase 30: bench_serving's LR endpoint at 1/8/64 clients, every
+    response against ``model.transform`` of its rows; phase 4's mixed LR
+    through ``make_servable`` (the ``model.transform`` route); a hot swap
+    under 4 clients.  Returns the LR model and its pool (phase 33)."""
+    import threading
+
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.serving import (ModelRegistry, ServingEndpoint,
+                                            serve_model)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(17)
+    model = lr_from_weights(rng.normal(size=SV_D), 0.1)
+    pool = Table({"features": rng.normal(size=(SV_POOL, SV_D)).astype(
+        np.float32)})
+    registry = ModelRegistry()
+    t0 = time.perf_counter()
+    registry.deploy("lr", model, pool.take(2), max_batch_rows=SV_BATCH)
+    warm_s = time.perf_counter() - t0
+    endpoint = ServingEndpoint(registry, "lr", max_batch_rows=SV_BATCH,
+                               max_wait_ms=SV_WAIT_MS,
+                               queue_capacity=SV_QUEUE).start()
+    warm_ms = {b: v["ms"]
+               for b, v in endpoint.warmup_report["buckets"].items()}
+    log(f"serving LR (phase 30): deploy + warm-up {warm_s:.3f} s; warm-up "
+        f"ms by bucket {warm_ms} [{card}]")
+    try:
+        bucket_bits(registry.current("lr").servable, pool,
+                    "LR d 64", card)
+        for clients, per_client in SV_CLIENTS:
+            latencies, served = [], []
+            lock = threading.Lock()
+
+            def client(worker):
+                crng = np.random.default_rng(worker)
+                mine = []
+                for _ in range(per_client):
+                    start = int(crng.integers(0, SV_POOL - 24))
+                    rows = int(crng.integers(1, 9))
+                    req = pool.slice(start, start + rows)
+                    t0 = time.perf_counter()
+                    out = endpoint.predict(req, timeout=SV_JOIN_S)
+                    mine.append((time.perf_counter() - t0, req, out))
+                with lock:
+                    latencies.extend(m[0] for m in mine)
+                    served.extend(m[1:] for m in mine)
+
+            b0 = endpoint.metrics.batches.value
+            wall = run_clients(f"serving LR ({clients} clients)", clients,
+                               client)
+            batches = endpoint.metrics.batches.value - b0
+            for req, out in served:
+                same_bits(f"serving LR ({clients} clients)",
+                           model.transform(req)[0], out)
+            lat = np.asarray(latencies)
+            log(f"serving LR, {clients} clients: {len(lat)} requests in "
+                f"{wall:.3f} s, {len(lat) / wall:.1f} requests/s, p50 "
+                f"{1e3 * np.quantile(lat, 0.5):.3f} ms, p99 "
+                f"{1e3 * np.quantile(lat, 0.99):.3f} ms, {batches} batches, "
+                f"fill ratio {endpoint.metrics.snapshot()['batch_fill_ratio']}"
+                f"; every response = the offline transform bit for bit "
+                f"[{card}]")
+            if len(lat) != clients * per_client:
+                fail("serving LR: requests were dropped")
+        if endpoint.metrics.shed.value:
+            fail("serving LR: requests were shed at ample capacity")
+
+        # hot swap under load: 4 clients, every response exactly one
+        # generation's offline transform, nothing dropped
+        model_b = lr_from_weights(rng.normal(size=SV_D) + 0.5, -0.3)
+        reqs = [pool.slice(s, s + 1 + s % 8) for s in range(0, 960, 6)]
+        results = [None] * len(reqs)
+        swapped = threading.Event()
+
+        def swap_client(worker):
+            for i in range(worker, len(reqs), 4):
+                results[i] = endpoint.predict(reqs[i], timeout=SV_JOIN_S)
+                if i == len(reqs) // 2:
+                    swapped.wait(SV_JOIN_S)
+
+        def swap():
+            time.sleep(0.02)              # clients under way first
+            endpoint.hot_swap(model_b)
+            swapped.set()
+
+        swapper = threading.Thread(target=swap)
+        swapper.start()
+        run_clients("hot swap", 4, swap_client)
+        swapper.join(SV_JOIN_S)
+        if swapper.is_alive():
+            fail("hot swap: the deploy thread is still alive")
+        gens = {"a": 0, "b": 0}
+        for req, out in zip(reqs, results):
+            if out is None:
+                fail("hot swap: a request was dropped")
+            raw = np.asarray(out["rawPrediction"])
+            if np.array_equal(raw, model.transform(req)[0]["rawPrediction"]):
+                gens["a"] += 1
+            elif np.array_equal(raw, model_b.transform(req)[0][
+                    "rawPrediction"]):
+                gens["b"] += 1
+            else:
+                fail("hot swap: a response matches neither generation")
+        log(f"hot swap under 4 clients: {len(reqs)} responses, "
+            f"generation 1 {gens['a']}, generation 2 {gens['b']}, "
+            f"live generation {registry.generation('lr')}, health "
+            f"{endpoint.metrics.health} [{card}]")
+        if registry.generation("lr") != 2 or not gens["b"]:
+            fail("hot swap: generation 2 never served")
+    finally:
+        close_endpoint("serving LR", endpoint)
+
+    # phase 4's Criteo-width mixed LR: make_servable's model.transform
+    # route (the sparse layouts have no chain kernel)
+    dense, cat, _ = criteo_rows(2048, D_MAIN, seed=31)
+    mixed = Table({"features_dense": dense, "features_indices": cat})
+    mep = serve_model(mixed_model, mixed.take(2), max_batch_rows=SV_BATCH,
+                      max_wait_ms=SV_WAIT_MS, queue_capacity=SV_QUEUE)
+    try:
+        if mep.registry.current("default").servable._kernel is not None:
+            fail("mixed LR: expected the model.transform route")
+        reqs = [mixed.slice(s, s + 1 + s % 8) for s in range(0, 1920, 10)]
+        outs = [None] * len(reqs)
+
+        def mixed_client(worker):
+            for i in range(worker, len(reqs), 8):
+                outs[i] = mep.predict(reqs[i], timeout=SV_JOIN_S)
+
+        run_clients("mixed LR", 8, mixed_client)
+        for req, out in zip(reqs, outs):
+            same_bits("mixed LR", mixed_model.transform(req)[0], out)
+        log(f"serving the Criteo-width mixed LR: {len(reqs)} requests in "
+            f"{mep.metrics.batches.value} batches, every response = the "
+            f"offline transform bit for bit [{card}]")
+    finally:
+        close_endpoint("mixed LR", mep)
+    log(f"phase 30: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return model, pool
+
+
+def serve_checked(what, endpoint, reqs, n_clients):
+    """Serve ``reqs`` from ``n_clients`` threads; returns the responses in
+    request order and the batches they took."""
+    outs = [None] * len(reqs)
+
+    def client(worker):
+        for i in range(worker, len(reqs), n_clients):
+            outs[i] = endpoint.predict(reqs[i], timeout=SV_JOIN_S)
+
+    b0 = endpoint.metrics.batches.value
+    wall = run_clients(what, n_clients, client)
+    if any(o is None for o in outs):
+        fail(f"{what}: a request was dropped")
+    return outs, endpoint.metrics.batches.value - b0, wall
+
+
+def serving_kernel_phase(torch, dev, card):
+    """Phase 31: the kernel-backed servables at full width — KMeans (B5)
+    on phase 7's centroids, the flat (B8) and IVF-PQ (B9) indexes of
+    phase 12 at nprobe 2, phase 10's Wide&Deep served plain and through
+    the row cache on a zipfian key mix.  Returns the serve launches of
+    B5, B8 and B9."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.ops import kmeans as K
+    from flink_ml_tpu_torch.ops import retrieve as R
+    from flink_ml_tpu_torch.serving import make_servable, serve_model
+
+    t_phase = time.perf_counter()
+    launches = {}
+    rng = np.random.default_rng(61)
+
+    # -- KMeans: B5 once a served batch ------------------------------------
+    km = FITTED["kmeans"]
+    pts = rng.normal(size=(4096, D_KM)).astype(np.float32)
+    reqs = [Table({"features": pts[s:s + n]}) for s, n in zip(
+        range(0, 4096, 128), rng.integers(1, 257, size=32))]
+    refs = [km.transform(r)[0] for r in reqs]
+    ep = serve_model(km, reqs[0], max_batch_rows=SV_BATCH,
+                     max_wait_ms=SV_WAIT_MS)
+    try:
+        bucket_bits(ep.registry.current("default").servable,
+                    Table({"features": pts[:SV_BATCH]}), "KMeans (B5)",
+                    card)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        outs, batches, wall = serve_checked("KMeans serving", ep, reqs, 8)
+        torch.cuda.synchronize()
+        launches["kmeans_assign_reduce"] = K.LAUNCHES["kmeans_assign_reduce"]
+        others = K.LAUNCHES["kmeans_update_stats"] \
+            + K.LAUNCHES["kmeans_workset_update"]
+    finally:
+        close_endpoint("KMeans serving", ep)
+    for ref, out in zip(refs, outs):
+        same_bits("KMeans serving", ref, out)
+    log(f"serving KMeans (k {K_KM}, d {D_KM}): {len(reqs)} requests of "
+        f"1-256 rows in {batches} batches, {wall:.3f} s; B5 launches "
+        f"{launches['kmeans_assign_reduce']} (others {others}); every "
+        f"response = the offline transform bit for bit [{card}]")
+    if launches["kmeans_assign_reduce"] != batches or others:
+        fail("KMeans serving: B5 did not launch once a served batch")
+    cents = torch.from_numpy(km._centroids).to(dev)
+    worst = 0
+    for b in SV_BUCKETS:
+        p = torch.from_numpy(pts[:b]).to(dev)
+        got = K.kmeans_assign_reduce(p, cents)[0]
+        want = K.kmeans_assign_reduce_plain(p, cents)[0]
+        near = near_tie_rows(torch, -2.0 * (p @ cents.T)
+                             + (cents * cents).sum(1)[None, :])
+        bad = int((got != want)[~near].sum())
+        worst = max(worst, bad)
+    log(f"B5 at buckets {SV_BUCKETS} vs its plain version: {worst} "
+        f"assignments differ off near-tie rows (phase 6's gate) [{card}]")
+    if worst:
+        fail("B5 disagrees with its plain version at a serving bucket")
+
+    # -- IVF: one retrieve call a served batch ------------------------------
+    _, queries = retrieval_corpus(RT_N, RT_D, 4096)
+    for name, index in (("retrieve_flat", FITTED["flat"]),
+                        ("retrieve_pq", FITTED["pq"])):
+        index = index.with_options(nprobe=2)
+        sizes = rng.integers(1, 257, size=24)
+        starts = np.concatenate([[0], np.cumsum(sizes)[:-1]]) % 3800
+        reqs = [Table({"query": queries[s:s + n]})
+                for s, n in zip(starts, sizes)]
+        ep = serve_model(index, reqs[0], max_batch_rows=SV_BATCH,
+                         max_wait_ms=SV_WAIT_MS)
+        try:
+            torch.cuda.synchronize()
+            R.reset_launch_counts()
+            outs, batches, wall = serve_checked(f"IVF serving ({name})", ep,
+                                                reqs, 8)
+            torch.cuda.synchronize()
+            launches[name] = R.LAUNCHES[name]
+            other = sum(R.LAUNCHES.values()) - launches[name]
+        finally:
+            close_endpoint(f"IVF serving ({name})", ep)
+        for req, out in zip(reqs, outs):
+            nn, dist = index.search(req["query"])
+            if not (np.array_equal(nn, out["neighbors"]) and np.array_equal(
+                    dist.view(np.uint32),
+                    np.asarray(out["distances"]).view(np.uint32))):
+                fail(f"IVF serving ({name}): a response differs from "
+                     "search of its request alone")
+        log(f"serving IVF ({name}, nprobe 2): {len(reqs)} requests of "
+            f"1-256 queries in {batches} batches, {wall:.3f} s; calls "
+            f"{launches[name]} (others {other}); ids and distance bits = "
+            f"search of each request alone [{card}]")
+        if launches[name] != batches or other:
+            fail(f"IVF serving ({name}): not one call a served batch")
+
+    # -- Wide&Deep, plain and through the row cache -------------------------
+    wd = FITTED["widedeep"]
+    n_req = 48
+    sizes = rng.integers(1, 17, size=n_req)
+    total = int(sizes.sum())
+    cat = np.stack([zipf_ids(rng, total, WD_VOCAB)
+                    for _ in range(WD_FIELDS)], axis=1)
+    dense = rng.normal(size=(total, WD_DENSE)).astype(np.float32)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    reqs = [Table({"denseFeatures": dense[s:s + n],
+                   "catFeatures": cat[s:s + n]})
+            for s, n in zip(starts, sizes)]
+    refs = [wd.transform(r)[0] for r in reqs]
+    served = {}
+    for label, kw in (("plain", {}),
+                      ("row cache", dict(
+                          emb_cache=True, cache_block_rows=WD_CACHE_BLOCK,
+                          cache_capacity_blocks=WD_CACHE_BLOCKS))):
+        ep = serve_model(wd, reqs[0], max_batch_rows=SV_BATCH,
+                         max_wait_ms=SV_WAIT_MS, **kw)
+        try:
+            servable = ep.registry.current("default").servable
+            if label == "plain":
+                pool = Table({"denseFeatures": dense[:SV_BATCH],
+                              "catFeatures": cat[:SV_BATCH]})
+                bucket_bits(servable, pool, "Wide&Deep", card)
+            else:
+                servable.cache.reset_counters()
+            outs, batches, wall = serve_checked(f"Wide&Deep ({label})", ep,
+                                                reqs, 8)
+        finally:
+            close_endpoint(f"Wide&Deep ({label})", ep)
+        for ref, out in zip(refs, outs):
+            same_bits(f"Wide&Deep serving ({label})", ref, out)
+        served[label] = outs
+        extra = ""
+        if label == "row cache":
+            snap = servable.cache.snapshot()
+            extra = (f"; hit rate {snap['hit_rate']}, {snap['block_faults']}"
+                     f" block faults, {snap['evictions']} evictions, "
+                     f"{snap['bypasses']} bypasses, pool bytes "
+                     f"{snap['pool_bytes']} ({snap['capacity_blocks']} of "
+                     f"{snap['n_blocks']} blocks)")
+        log(f"serving Wide&Deep ({label}): {n_req} zipfian requests of "
+            f"1-16 rows in {batches} batches, {wall:.3f} s, param bytes "
+            f"{servable.param_bytes}{extra}; every response = the offline "
+            f"transform bit for bit [{card}]")
+    log(f"phase 31: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return launches
+
+
+def lr_tenant(seed):
+    rng = np.random.default_rng(seed)
+    return lr_from_weights(rng.normal(size=MT_D), 0.1)
+
+
+def multitenant_phase(torch, dev, card):
+    """Phase 32: bench_multitenant's scheduler — admission of 9 LR
+    tenants, the interactive p99 alone, under a bulk flood and through
+    one FIFO endpoint, the shed order under overload, a seeded chip_down
+    schedule at the dispatch boundary."""
+    import threading
+
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.api import chain
+    from flink_ml_tpu_torch.kernels import build
+    from flink_ml_tpu_torch.robustness import FaultPlan
+    from flink_ml_tpu_torch.serving import (ServingOverloadedError,
+                                            SharedScheduler, serve_model)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(41)
+    feats = Table({"features": rng.normal(size=(1024, MT_D)).astype(
+        np.float32)})
+    bulk = [f"bulk{i}" for i in range(8)]
+    zipf_w = 1.0 / (np.arange(8) + 1.0)
+    zipf_w /= zipf_w.sum()
+    models = {"inter": lr_tenant(0),
+              **{name: lr_tenant(i + 1) for i, name in enumerate(bulk)}}
+    sched = SharedScheduler(max_batch_rows=MT_BATCH, max_wait_ms=MT_WAIT_MS,
+                            queue_capacity=1 << 13,
+                            bulk_batch_rows=MT_BULK_ROWS)
+    counted = {"load_library": 0, "compile_pipeline": 0}
+    retries = [0]
+    real_load, real_compile = build.load_library, chain.compile_pipeline
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            counted[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    try:
+        sched.add_tenant("inter", models["inter"], feats.take(2),
+                         slo="interactive")
+        build.load_library = count("load_library", real_load)
+        chain.compile_pipeline = count("compile_pipeline", real_compile)
+        try:
+            reports = [sched.add_tenant(n, models[n], feats.take(2),
+                                        slo="bulk").admission_report
+                       for n in bulk]
+        finally:
+            build.load_library, chain.compile_pipeline = \
+                real_load, real_compile
+        log(f"admission of tenants 2-9 (tenant 1's schema): library loads "
+            f"{counted['load_library']}, plan builds "
+            f"{counted['compile_pipeline']}, warm-up wall s "
+            f"{[r['wall_s'] for r in reports]} [{card}]")
+        if any(counted.values()) or any(r["compiled"] for r in reports):
+            fail("admission of a same-schema tenant built something")
+        sched.start()
+
+        def interactive(submit, n_clients=2, per_client=100):
+            """p99 ms of paced interactive clients; a request shed (the
+            FIFO endpoint's full queue) retries, its latency counted from
+            the first attempt."""
+            lat, lock = [], threading.Lock()
+
+            def client(worker):
+                crng = np.random.default_rng(100 + worker)
+                mine = []
+                for _ in range(per_client):
+                    start = int(crng.integers(0, 1000))
+                    req = feats.slice(start, start + int(crng.integers(1, 5)))
+                    t0 = time.perf_counter()
+                    while True:
+                        try:
+                            fut = submit(req)
+                            break
+                        except ServingOverloadedError:
+                            with lock:
+                                retries[0] += 1
+                            time.sleep(0.002)
+                    out = fut.result(SV_JOIN_S)
+                    mine.append(time.perf_counter() - t0)
+                    if not np.array_equal(
+                            out["rawPrediction"],
+                            models["inter"].transform(req)[0][
+                                "rawPrediction"]):
+                        raise AssertionError("interactive response wrong")
+                    time.sleep(0.001)     # a user clicking, paced
+                with lock:
+                    lat.extend(mine)
+
+            run_clients("interactive clients", n_clients, client)
+            return 1e3 * float(np.quantile(np.asarray(lat), 0.99))
+
+        def flood(submit, stop, sheds, admitted, worker):
+            """Bursts of 4 eight-row requests at zipfian-picked bulk
+            tenants, above the service rate (bench.py's bulk_flood)."""
+            crng = np.random.default_rng(500 + worker)
+            while not stop.is_set():
+                shed = False
+                for _ in range(4):
+                    name = bulk[int(crng.choice(8, p=zipf_w))]
+                    start = int(crng.integers(0, 900))
+                    try:
+                        admitted.append(submit(
+                            name, feats.slice(start, start + 8)))
+                    except ServingOverloadedError:
+                        shed = True
+                        sheds.append(name)
+                time.sleep(0.001 if shed else 0.0005)
+
+        def contended(submit_inter, submit_bulk):
+            """(interactive p99 ms, bulk sheds, bulk requests admitted)
+            under the flood; every admitted bulk request is answered."""
+            stop, sheds, admitted = threading.Event(), [], []
+            flooders = [threading.Thread(
+                target=flood, args=(submit_bulk, stop, sheds, admitted, w))
+                for w in range(2)]
+            for t in flooders:
+                t.start()
+            try:
+                time.sleep(0.25)          # past the queue-fill transient
+                p99 = interactive(submit_inter)
+            finally:
+                stop.set()
+                for t in flooders:
+                    t.join(SV_JOIN_S)
+                if any(t.is_alive() for t in flooders):
+                    fail("a bulk flood thread is still alive")
+            for fut in admitted:
+                fut.result(SV_JOIN_S)     # raises if a request failed
+            return p99, len(sheds), len(admitted)
+
+        def to_inter(req):
+            return sched.submit("inter", req)
+
+        interactive(to_inter, per_client=10)           # warm
+        alone = interactive(to_inter)
+        p99_contended, bulk_sheds, bulk_admitted = contended(
+            to_inter, sched.submit)
+        sheds = sched.shed_counts()
+        inter_retries = retries[0]
+    finally:
+        close_endpoint("scheduler", sched)
+
+    # one FIFO endpoint: the same interactive and bulk requests through a
+    # single queue with no classes
+    fifo = serve_model(models["inter"], feats.take(2),
+                       max_batch_rows=MT_BATCH, max_wait_ms=MT_WAIT_MS,
+                       queue_capacity=1 << 10)
+    try:
+        def fifo_inter(req):
+            return fifo.submit(req)
+
+        interactive(fifo_inter, per_client=10)          # warm
+        retries[0] = 0
+        p99_fifo, fifo_sheds, fifo_admitted = contended(
+            fifo_inter, lambda name, req: fifo.submit(req))
+    finally:
+        close_endpoint("FIFO endpoint", fifo)
+    log(f"multi-tenant (phase 32): interactive p99 alone {alone:.3f} ms, "
+        f"under the bulk flood {p99_contended:.3f} ms (bulk sheds "
+        f"{bulk_sheds}, {bulk_admitted} bulk requests admitted and all "
+        f"answered; shed counts {sheds}), through one FIFO endpoint "
+        f"(queue 1024) under the same flood {p99_fifo:.3f} ms (bulk sheds "
+        f"{fifo_sheds}, {fifo_admitted} admitted and answered, interactive "
+        f"retries after a shed {retries[0]}) [{card}]")
+    if sheds["interactive"] or sheds["standard"] or inter_retries:
+        fail("multi-tenant: a non-bulk request was shed under the flood")
+
+    # the shed order under overload: a small scheduler, not started
+    small = SharedScheduler(max_batch_rows=MT_BATCH, max_wait_ms=MT_WAIT_MS,
+                            queue_capacity=64, bulk_batch_rows=MT_BULK_ROWS)
+    try:
+        small.add_tenant("i", models["inter"], feats.take(2),
+                         slo="interactive")
+        small.add_tenant("b", models["bulk0"], feats.take(2), slo="bulk")
+        order, futures = [], []
+        for k in range(120):
+            name = "i" if k % 4 == 0 else "b"
+            try:
+                futures.append((name, k, small.submit(
+                    name, feats.slice(k, k + 1))))
+            except ServingOverloadedError:
+                order.append(name)
+        counts = small.shed_counts()
+        small.start()
+        for name, k, fut in futures:
+            fut.result(SV_JOIN_S)
+    finally:
+        close_endpoint("small scheduler", small)
+    bulk_share = counts["bulk"] / max(1, sum(counts.values()))
+    log(f"overload of a 64-request queue: {len(order)} sheds, "
+        f"{100 * bulk_share:.1f}% bulk ({counts}); {len(futures)} admitted "
+        f"requests all answered [{card}]")
+    if counts["interactive"] or not counts["bulk"]:
+        fail("overload: the sheds are not all bulk")
+
+    # a seeded chip_down schedule at the dispatch boundary: requeued, then
+    # answered bit-identically, nothing dropped
+    chips = SharedScheduler(max_batch_rows=MT_BATCH, max_wait_ms=MT_WAIT_MS,
+                            queue_capacity=1 << 13)
+    plan = FaultPlan(seed=7).inject_random("serving.dispatch", rate=0.3,
+                                           horizon=200, kind="chip_down")
+    try:
+        for name in ("inter", "bulk0", "bulk1"):
+            chips.add_tenant(name, models[name], feats.take(2),
+                             slo="interactive" if name == "inter"
+                             else "standard")
+        chips.start()
+        reqs = [(("inter", "bulk0", "bulk1")[i % 3],
+                 feats.slice(i, i + 1 + i % 8)) for i in range(0, 600, 5)]
+        with plan:
+            futures = [chips.submit(name, req) for name, req in reqs]
+            outs = [f.result(SV_JOIN_S) for f in futures]
+        snap = chips.snapshot()
+    finally:
+        close_endpoint("chip_down scheduler", chips)
+    for (name, req), out in zip(reqs, outs):
+        if not np.array_equal(out["rawPrediction"],
+                              models[name].transform(req)[0][
+                                  "rawPrediction"]):
+            fail("chip_down: a retried response is not bit-identical")
+    log(f"chip_down at the dispatch boundary: {len(plan.fires)} faults, "
+        f"{snap['requeued_requests']} requests requeued, {len(reqs)} of "
+        f"{len(reqs)} answered bit-identically [{card}]")
+    if not plan.fires or snap["requeued_requests"] < len(plan.fires):
+        fail("chip_down: no requeue happened")
+    log(f"phase 32: {time.perf_counter() - t_phase:.2f} s [{card}]")
+
+
+def int8_phase(torch, dev, card, lr_model, lr_pool):
+    """Phase 33: the LR of phase 30, the KMeans of phase 31 (B5) and the
+    Wide&Deep of phase 31, plain and cached, at precision int8."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.ops import kmeans as K
+    from flink_ml_tpu_torch.serving import make_servable
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(71)
+
+    def agreement(a, b):
+        return float(np.mean(np.asarray(a) == np.asarray(b)))
+
+    def pair(what, model, example, batches, **kw):
+        """(int8 servable, agreement with f32, resident bytes int8 / f32)
+        over ``batches``; two int8 predicts of a batch give one set of
+        bits."""
+        sv8 = make_servable(model, example, max_batch_rows=SV_BATCH,
+                            precision="int8", **kw).warm_up()
+        svf = make_servable(model, example, max_batch_rows=SV_BATCH,
+                            **kw).warm_up()
+        agree = []
+        for batch in batches:
+            out8 = sv8.predict(batch)
+            again = sv8.predict(batch)
+            for c in out8.column_names:
+                if not np.array_equal(np.asarray(out8[c]),
+                                      np.asarray(again[c])):
+                    fail(f"int8 {what}: two predicts differ")
+            agree.append(agreement(out8["prediction"],
+                                   svf.predict(batch)["prediction"]))
+        return sv8, float(np.mean(agree)), sv8.param_bytes, svf.param_bytes
+
+    lr_batches = [lr_pool.slice(s, s + SV_BATCH)
+                  for s in range(0, SV_POOL, SV_BATCH)]
+    _, lr_agree, lr8, lrf = pair("LR", lr_model, lr_pool.take(2), lr_batches)
+
+    km = FITTED["kmeans"]
+    pts = rng.normal(size=(1024, D_KM)).astype(np.float32)
+    km_batches = [Table({"features": pts[s:s + SV_BATCH]})
+                  for s in range(0, 1024, SV_BATCH)]
+    sv8 = make_servable(km, km_batches[0].take(2), max_batch_rows=SV_BATCH,
+                        precision="int8").warm_up()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    km_outs = [sv8.predict(b) for b in km_batches]
+    torch.cuda.synchronize()
+    km_launches = K.LAUNCHES["kmeans_assign_reduce"]
+    svf = make_servable(km, km_batches[0].take(2), max_batch_rows=SV_BATCH
+                        ).warm_up()
+    km_agree = float(np.mean([agreement(o["prediction"],
+                                        svf.predict(b)["prediction"])
+                              for o, b in zip(km_outs, km_batches)]))
+    if not all(np.array_equal(o["prediction"], sv8.predict(b)["prediction"])
+               for o, b in zip(km_outs, km_batches)):
+        fail("int8 KMeans: two predicts differ")
+
+    wd = FITTED["widedeep"]
+    n = 1024
+    cat = np.stack([zipf_ids(rng, n, WD_VOCAB) for _ in range(WD_FIELDS)],
+                   axis=1)
+    dense = rng.normal(size=(n, WD_DENSE)).astype(np.float32)
+    wd_batches = [Table({"denseFeatures": dense[s:s + SV_BATCH],
+                         "catFeatures": cat[s:s + SV_BATCH]})
+                  for s in range(0, n, SV_BATCH)]
+    wd_ex = wd_batches[0].take(2)
+    _, wd_agree, wd8, wdf = pair("Wide&Deep", wd, wd_ex, wd_batches)
+    cache_kw = dict(emb_cache=True, cache_block_rows=WD_CACHE_BLOCK,
+                    cache_capacity_blocks=WD_CACHE_BLOCKS)
+    cached8, c_agree, c8, cf = pair("Wide&Deep cached", wd, wd_ex,
+                                    wd_batches, **cache_kw)
+    # cached int8 against bypassed int8: a one-block cache bypasses every
+    # batch and dequantizes the same codes on the host
+    bypass = make_servable(wd, wd_ex, max_batch_rows=SV_BATCH,
+                           precision="int8", emb_cache=True,
+                           cache_block_rows=WD_CACHE_BLOCK,
+                           cache_capacity_blocks=1).warm_up()
+    for b in wd_batches:
+        if not np.array_equal(cached8.predict(b)["rawPrediction"],
+                              bypass.predict(b)["rawPrediction"]):
+            fail("int8 Wide&Deep: cached and bypassed scores differ")
+    log(f"int8 (phase 33): decision agreement with f32 — LR {lr_agree:.4f}"
+        f", KMeans {km_agree:.4f} (B5 launches {km_launches} for "
+        f"{len(km_batches)} batches), Wide&Deep {wd_agree:.4f}, Wide&Deep "
+        f"cached {c_agree:.4f} (envelope {ENVELOPE}); two predicts "
+        f"bit-identical; cached int8 = bypassed int8 bit for bit "
+        f"({bypass.cache.bypasses} bypasses); resident param bytes int8 / "
+        f"f32: LR {lr8} / {lrf}, Wide&Deep {wd8} / {wdf}, Wide&Deep "
+        f"cached {c8} / {cf} [{card}]")
+    if min(lr_agree, km_agree, wd_agree, c_agree) < ENVELOPE:
+        fail("int8: decision agreement below the envelope")
+    if km_launches != len(km_batches):
+        fail("int8 KMeans: B5 did not launch once a batch")
+    log(f"phase 33: {time.perf_counter() - t_phase:.2f} s [{card}]")
+
+
 def killing_at(wins, at, exc):
     """A live feed that dies handing out window ``at``."""
     for i, w in enumerate(wins):
@@ -3719,6 +4477,16 @@ def main():
     for entry in kernels:
         if entry["name"] in chained:
             entry["chain"] = {"launches": chained[entry["name"]]}
+
+    # phases 30-33: serving; the launches the served batches took land
+    # under "serve"
+    lr_model, lr_pool = serving_lr_phase(torch, dev, card, model)
+    served = serving_kernel_phase(torch, dev, card)
+    multitenant_phase(torch, dev, card)
+    int8_phase(torch, dev, card, lr_model, lr_pool)
+    for entry in kernels:
+        if entry["name"] in served:
+            entry["serve"] = {"launches": served[entry["name"]]}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -245,20 +245,26 @@ def _fetch(out: Dict[str, torch.Tensor], names, n: int
 
 
 def run_kernel(kernel: StageKernel, table: Table, *,
+               params: Any = None, min_bucket: int = DEFAULT_MIN_BUCKET,
                op: Optional[str] = None) -> Dict[str, np.ndarray]:
     """Run ONE stage's kernel as a single-stage segment (normalize -> pre
     -> bucket-pad -> copy in -> run -> fetch -> post), padded as a fused
-    segment pads (:class:`ChainConfig`'s defaults).
+    segment pads (:class:`ChainConfig`'s defaults).  ``params`` replaces
+    ``kernel.params`` with tensors already on the kernel's device (a
+    servable copies its params once a generation instead of once a
+    request); ``min_bucket`` is the bucket floor (a servable's).
 
     Raises :class:`UnsafeColumnValues` when a consumed integer column
     carries values outside the f32-exact range — callers fall back to
     their host path for that call (see :func:`apply_kernel_or_none`)."""
     host = {n: _normalize_col(table[n], ChainConfig.dtype)
             for n in kernel.consumes}
-    return run_normalized(kernel, host, op=op)
+    return run_normalized(kernel, host, params=params,
+                          min_bucket=min_bucket, op=op)
 
 
 def run_normalized(kernel: StageKernel, host: Dict[str, np.ndarray], *,
+                   params: Any = None, min_bucket: int = DEFAULT_MIN_BUCKET,
                    op: Optional[str] = None) -> Dict[str, np.ndarray]:
     """:func:`run_kernel` on host columns the caller has already cast to
     the segment's dtypes (f32 floats, int32 ids), without the +-2^24
@@ -268,9 +274,10 @@ def run_normalized(kernel: StageKernel, host: Dict[str, np.ndarray], *,
     dev = resolve_device(kernel.device)
     with tracer.span("bucket_pad", cat="kernel", op=op):
         padded, n = pad_rows_to_bucket(tuple(host.values()),
-                                       min_bucket=ChainConfig.min_bucket)
+                                       min_bucket=min_bucket)
         cols = {name: _tensor(a, dev) for name, a in zip(host, padded)}
-    params = params_to_device(kernel.params, dev)
+    if params is None:
+        params = params_to_device(kernel.params, dev)
     # the fetch is the completion fence: this span covers the queue, the
     # device compute and the copy of the produced columns
     with tracer.span("device_execute", cat="kernel", op=op,
@@ -526,7 +533,8 @@ def _device_schema(table: Table, dtype) -> tuple:
     return tuple(sig)
 
 
-def compile_pipeline(pipeline_model, example: Table) -> CompiledPipeline:
+def compile_pipeline(pipeline_model, example: Table, *,
+                     min_bucket: int = DEFAULT_MIN_BUCKET) -> CompiledPipeline:
     """Compile a fitted ``PipelineModel`` into a fused plan.
 
     Walks the stage list with ``example`` (any table carrying the request
@@ -534,9 +542,10 @@ def compile_pipeline(pipeline_model, example: Table) -> CompiledPipeline:
     stage for its kernel at the current schema and greedily grouping
     maximal chainable runs into :class:`CompiledSegment`\\s.  A terminal
     kernel (one with a host ``post``) closes its segment; a stage without
-    a kernel breaks the chain and runs stagewise.
+    a kernel breaks the chain and runs stagewise.  Segments pad rows to
+    buckets from ``min_bucket`` up (a servable passes its own floor).
     """
-    config = ChainConfig()
+    config = ChainConfig(min_bucket=min_bucket)
     items: List = []
     current = example
     run_stages: List = []

@@ -119,6 +119,20 @@ class PrefetchStats:
             d["pad_fraction"] = round(self.pad_fraction(), 4)
         return d
 
+    def publish(self, group) -> None:
+        """Write the current stats into a ``utils.metrics.MetricGroup`` as
+        gauges (names of :meth:`as_dict`, with ``chunks_emitted`` and
+        ``put_overlap_s`` for the per-chunk view); safe to call
+        repeatedly: gauges are overwritten in place."""
+        group.gauge("read_s").set(round(self.read_s, 4))
+        group.gauge("transform_s").set(round(self.transform_s, 4))
+        group.gauge("put_overlap_s").set(round(self.put_s, 4))
+        group.gauge("consumer_wait_s").set(round(self.wait_s, 4))
+        group.gauge("batches").set(self.batches)
+        group.gauge("chunks_emitted").set(self.chunks)
+        group.gauge("pad_fraction").set(round(self.pad_fraction(), 4))
+        group.gauge("chunk_assemble_s").set(round(self.assemble_s, 4))
+
 
 def _grouped(batches: Iterable[Any], size: int) -> Iterator[list]:
     """Consecutive ``size``-item groups of ``batches`` (final group
@@ -257,6 +271,7 @@ def prefetch_to_device(batches: Iterable[Any], *, depth: int = 2,
                        stats: Optional[PrefetchStats] = None,
                        put_fn: Optional[Callable[[Any, Any], Any]] = None,
                        chunks: Optional[int] = None,
+                       metric_group: Optional[Any] = None,
                        retry_policy: Optional[Any] = None
                        ) -> Iterator[Any]:
     """Iterate ``device`` copies of ``batches`` (trees of numpy arrays:
@@ -289,6 +304,10 @@ def prefetch_to_device(batches: Iterable[Any], *, depth: int = 2,
     place and cursor-backed generator sources re-iterate at their cursor;
     a bare generator that dies on a transient fails loudly
     (``StreamRetryUnsupported``) rather than truncating silently.
+
+    ``metric_group`` (a ``utils.metrics.MetricGroup``) receives the stats
+    as gauges (:meth:`PrefetchStats.publish`) after every unit and at
+    close.
     """
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
@@ -624,6 +643,8 @@ def prefetch_to_device(batches: Iterable[Any], *, depth: int = 2,
                     staging.release(held, done)
                 held = bufs
             st.batches += tree[2] if chunks is not None else 1
+            if metric_group is not None:
+                st.publish(metric_group)
             yield tree
     finally:
         stop.set()
@@ -639,5 +660,7 @@ def prefetch_to_device(batches: Iterable[Any], *, depth: int = 2,
                     "prefetch thread %s still alive after close "
                     "(blocked in a live-source pull?); it will exit at "
                     "its next stop check", t.name)
+        if metric_group is not None:
+            st.publish(metric_group)
         if pool is not None:
             pool.shutdown(wait=False, cancel_futures=True)

@@ -11,6 +11,12 @@ is kept beside each library as ``<name>.log``.
 
 Nothing here runs at import: the CPU tests import every module on
 machines with no ``nvcc`` and no card.
+
+Thread-safe: serving launches kernels from its serve thread and from a
+deploy thread warming the next generation at the same time, so the
+first use of a library builds and loads it under one process-wide lock
+(one ``nvcc`` however many threads arrive), and :func:`count_launch`
+adds to the ops modules' launch counters under another.
 """
 
 from __future__ import annotations
@@ -20,11 +26,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Iterable, Optional
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all",
-           "load_library", "nvcc_path", "build_log"]
+           "load_library", "nvcc_path", "build_log", "count_launch"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
@@ -34,6 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -124,10 +133,20 @@ def build_all(names: Optional[Iterable[str]] = None) -> float:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it first if
-    needed.  Cached per process."""
+    needed.  Cached per process; concurrent first calls build once."""
     lib = _LOADED.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(_target(name))
-        _LOADED[name] = lib
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(_target(name))
+                _LOADED[name] = lib
     return lib
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]`` (an ops module's ``LAUNCHES``) under a
+    lock: launches come from several threads when serving."""
+    with _COUNT_LOCK:
+        counts[name] += 1

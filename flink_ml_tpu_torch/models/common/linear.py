@@ -41,6 +41,7 @@ from ...params.shared import (
 )
 from ...utils import persist
 from ...utils.device import resolve_device
+from ...utils.row_tiles import in_row_tiles
 from .losses import LOSSES
 from .sgd import (LinearState, SGDConfig, sgd_fit, sgd_fit_mixed,
                   sgd_fit_outofcore, sgd_fit_sparse)
@@ -166,8 +167,10 @@ class LinearModelBase(LinearModelParams, Model):
         """Margins of the sparse layouts in f32 on the device, returned as
         f64 numpy: ``sum(vals * w[idx]) + b`` for sparse pairs, ``dense @
         w[:nd] + sum(w[cat]) + b`` for the mixed layout (the JAX
-        package's ``_jit_sparse_margins`` and ``_jit_mixed_margins``).
-        Dense features score through :meth:`transform_kernel`."""
+        package's ``_jit_sparse_margins`` and ``_jit_mixed_margins``), in
+        row tiles of one shape so a row's margin has the same bits in any
+        batch (``utils/row_tiles.py``).  Dense features score through
+        :meth:`transform_kernel`."""
         dev = resolve_device(self.device)
         w = torch.as_tensor(self._state.coefficients, dtype=torch.float32,
                             device=dev)
@@ -181,13 +184,16 @@ class LinearModelBase(LinearModelParams, Model):
         if kind == "sparse":
             idx, vals, _ = feats
             check_sparse_indices(idx, self._state.coefficients.shape[0])
-            m = torch.sum(put(vals, torch.float32)
-                          * w[put(idx, torch.int64)], dim=-1) + b
+            m = in_row_tiles(
+                lambda v, i: torch.sum(v * w[i], dim=-1) + b,
+                put(vals, torch.float32), put(idx, torch.int64))
         else:
             dense, cat = feats
             check_sparse_indices(cat, self._state.coefficients.shape[0])
-            m = (put(dense, torch.float32) @ w[:dense.shape[-1]]
-                 + torch.sum(w[put(cat, torch.int64)], dim=-1) + b)
+            nd = dense.shape[-1]
+            m = in_row_tiles(
+                lambda x, c: x @ w[:nd] + torch.sum(w[c], dim=-1) + b,
+                put(dense, torch.float32), put(cat, torch.int64))
         return m.cpu().numpy().astype(np.float64)
 
     def _decision(self, margins: np.ndarray) -> np.ndarray:

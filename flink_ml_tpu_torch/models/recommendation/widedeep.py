@@ -70,6 +70,7 @@ from ...params.shared import (
 from ...utils import persist
 from ...utils.device import resolve_device
 from ...utils.padding import FixedRowBatcher
+from ...utils.row_tiles import in_row_tiles
 from ..common.adam import (
     AdamState,
     adam_init,
@@ -90,7 +91,8 @@ from ..common.sgd import (
 )
 
 __all__ = ["WideDeep", "WideDeepModel", "WideDeepParams", "init_params",
-           "params_to_device", "forward_from_rows", "forward", "bce_loss",
+           "params_to_device", "forward_from_rows", "scores_from_rows",
+           "forward", "bce_loss",
            "build_reference_train_step", "build_sharded_train_step"]
 
 
@@ -200,6 +202,20 @@ def forward_from_rows(params: Dict[str, Any], dense: torch.Tensor,
         if i + 1 < n:
             deep = torch.relu(deep)
     return wide + deep[:, 0]
+
+
+def scores_from_rows(params: Dict[str, Any], dense: torch.Tensor,
+                     wide_rows: torch.Tensor, emb_rows: torch.Tensor
+                     ) -> torch.Tensor:
+    """``sigmoid(forward_from_rows)``, the scores of ``transform``, the
+    chain terminal and serving, in row tiles of one shape
+    (``utils/row_tiles.py``): at the bench width cuBLAS gives a row other
+    bits in a batch of 8 rows than in one of 64
+    (``scripts/serving_bucket_bits.py``), and a served request must equal
+    the offline transform of its rows."""
+    return in_row_tiles(
+        lambda d, w, e: torch.sigmoid(forward_from_rows(params, d, w, e)),
+        dense, wide_rows, emb_rows)
 
 
 class _FixedOrderRows(torch.autograd.Function):
@@ -722,13 +738,16 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
 
 
 def _widedeep_chain_kernel(static, params, cols):
-    """Chain-terminal scores ``sigmoid(forward)``; the raw per-field ids
-    offset into the stacked vocab in-device (an exact int add; the range
-    check runs host-side as the kernel's ``pre``)."""
+    """Chain-terminal scores ``sigmoid(forward)`` in row tiles
+    (:func:`scores_from_rows`); the raw per-field ids offset into the
+    stacked vocab in-device (an exact int add; the range check runs
+    host-side as the kernel's ``pre``)."""
     (dcol, ccol, scol) = static
+    net = params["net"]
     dense = cols[dcol].to(torch.float32)
     cat = cols[ccol] + params["offsets"][None, :]
-    return {scol: torch.sigmoid(forward(params["net"], dense, cat))}
+    return {scol: scores_from_rows(net, dense, _rows(net["wide_cat"], cat),
+                                   _rows(net["emb"], cat))}
 
 
 class WideDeepModel(WideDeepParams, Model):

@@ -55,6 +55,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.build import count_launch
+
 __all__ = ["EllLayout", "ell_layout", "ell_layout_device", "supported",
            "ELL_WIDTH",
            "HEAVY_THRESHOLD", "sample_routing", "ell_margin",
@@ -730,7 +732,7 @@ def _ptr(t: Optional[torch.Tensor]):
 def _launched(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
 
 
 def ell_margin(w: torch.Tensor, route_w: torch.Tensor, *, m_len: int,

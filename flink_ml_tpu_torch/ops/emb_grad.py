@@ -55,6 +55,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..kernels.build import count_launch
+
 __all__ = ["EmbGradRoute", "emb_grad_route", "routed_table_grad",
            "routed_table_grad_gather", "fold_runs", "fold_runs_plain",
            "LAUNCHES", "reset_launch_counts"]
@@ -290,7 +292,7 @@ def fold_runs(g_sorted: torch.Tensor, sorted_ids: torch.Tensor,
             fold_passes, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fold_runs kernel launch failed: CUDA error {rc}")
-    LAUNCHES["fold_runs"] += 1
+    count_launch(LAUNCHES, "fold_runs")
     return res
 
 

@@ -44,6 +44,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..distance import DistanceMeasure
+from ..kernels.build import count_launch
 
 __all__ = ["kmeans_update_stats", "kmeans_update_stats_plain",
            "kmeans_assign_reduce", "kmeans_assign_reduce_plain",
@@ -265,7 +266,7 @@ def _launch(name: str, mode: str, points: torch.Tensor,
             grid.value, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return sums, counts
 
 

@@ -51,6 +51,8 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from ..kernels.build import count_launch
+
 __all__ = ["retrieve_flat", "retrieve_flat_plain", "retrieve_pq",
            "retrieve_pq_plain", "coarse_distances", "flat_distances",
            "decode_codebooks", "pq_lut", "adc_distances", "select_probes",
@@ -449,7 +451,7 @@ def _search(name: str, launch: Callable[..., int], pointers: tuple,
                     torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return nn, dist
 
 

@@ -31,8 +31,9 @@ reports ``"reanchor"`` with a freshly built index instead.
 
 ``transform`` and the chain terminal (``transform_kernel``,
 ``api/chain.py``) call the same retrieve wrappers as ``search`` on the
-index's cached device params.  Not ported: the serving integration, index
-tenants and delta publish (ROADMAP queue A8).  The build helpers are numpy
+index's cached device params; ``serving/executor.py`` serves an index
+through that terminal.  Not ported: index tenants and delta publish
+(ROADMAP queue A8).  The build helpers are numpy
 and array-for-array the JAX package's.
 """
 

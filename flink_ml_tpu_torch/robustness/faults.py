@@ -10,11 +10,13 @@ instrumented seams of the stack::
     serving.load       registry model loads (serving/registry.py)
     serving.warm_up    executor warm-up (serving/executor.py)
     serving.predict    executor predict calls
+    serving.publish    registry publish_servable swaps
+    serving.dispatch   the serving loops' dispatch boundary (endpoint
+                       and scheduler)
     iterate.epoch      hosted iteration epochs (iteration/core.py)
 
-The port instruments ``source.pull``, ``checkpoint.write``,
-``persist.write`` and ``iterate.epoch``; the other scopes keep their
-names so a plan written for the JAX package runs unchanged.
+The port instruments every scope above, under the JAX package's names,
+so a plan written for that package runs unchanged.
 
 Each scope keeps an invocation counter; a fault fires when the counter
 hits a scheduled index.  Explicit schedules (:meth:`FaultPlan.inject`)

@@ -14,8 +14,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 __all__ = ["FixedRowBatcher", "pad_rows_with_mask", "bucket_rows",
-           "pad_rows_to_bucket", "pad_rows_to_block", "require_block_rows",
-           "DEFAULT_MIN_BUCKET"]
+           "bucket_sizes", "pad_rows_to_bucket", "pad_rows_to_block",
+           "require_block_rows", "DEFAULT_MIN_BUCKET", "DEFAULT_BUCKET_CAP"]
 
 #: Smallest row bucket the predict paths pad to.
 DEFAULT_MIN_BUCKET = 8
@@ -83,6 +83,21 @@ def bucket_rows(n: int, *, min_bucket: int = DEFAULT_MIN_BUCKET) -> int:
     if n <= min_bucket:
         return min_bucket
     return 1 << (int(n) - 1).bit_length()
+
+
+def bucket_sizes(max_rows: int,
+                 min_bucket: int = DEFAULT_MIN_BUCKET) -> Tuple[int, ...]:
+    """The full bucket ladder covering every batch of ``1..max_rows`` rows
+    (ascending powers of two): the shapes a serving warm-up runs."""
+    if max_rows <= 0:
+        raise ValueError("max_rows must be positive")
+    sizes = []
+    b = bucket_rows(1, min_bucket=min_bucket)
+    top = bucket_rows(max_rows, min_bucket=min_bucket)
+    while b <= top:
+        sizes.append(b)
+        b <<= 1
+    return tuple(sizes)
 
 
 def pad_rows_to_bucket(arrays: Sequence[np.ndarray], *,

@@ -23,6 +23,7 @@ in the JAX package.
 from __future__ import annotations
 
 import importlib
+import inspect
 import json
 import os
 import time
@@ -159,15 +160,19 @@ def load_pipeline(path: str, expected_class: Optional[type] = None) -> List[Any]
     return [load_stage(stage_path(path, i)) for i in range(num_stages)]
 
 
-def load_stage(path: str):
+def load_stage(path: str, device=None):
     """Reflective dispatch to the saved class's ``load``
-    (``ReadWriteUtils.java:294-314``)."""
+    (``ReadWriteUtils.java:294-314``).  ``device``, when given, is passed
+    to a ``load`` that takes one (the stages that hold tensors)."""
     meta = load_metadata(path)
     cls = _resolve_saved_class(path, meta)
     load_fn = getattr(cls, "load", None)
     if load_fn is None:
         raise IOError(f"Class {meta['className']} does not implement load()")
-    return cls.load(path)
+    if device is not None and \
+            "device" in inspect.signature(load_fn).parameters:
+        return load_fn(path, device=device)
+    return load_fn(path)
 
 
 def load_stage_param(path: str):

@@ -9,6 +9,9 @@ on a machine with the card and no JAX:
 small and seeded; ``chip_smoke.py`` repeats the comparison at the main
 path's full shapes."""
 
+import os
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -1269,3 +1272,123 @@ def test_fused_widedeep_terminal_equals_stagewise(cuda_device):
     bad = T.Table({"denseFeatures": dense, "catFeatures": cat + 50})
     with pytest.raises(ValueError):
         pm.transform(bad)
+
+
+# -- serving -------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", [8, 16, 32, 64, 128, 256])
+def test_kmeans_assign_reduce_at_serving_buckets(cuda_device, bucket):
+    """B5 at every bucket of the serving ladder (k 256, d 64): the
+    assignments equal the plain version's off near-tie rows."""
+    pts, _ = _kmeans_problem(bucket, 64, 256, seed=bucket)
+    cents = np.random.default_rng(bucket).normal(size=(256, 64)).astype(
+        np.float32)
+    p = torch.from_numpy(pts).to(cuda_device)
+    c = torch.from_numpy(cents).to(cuda_device)
+    near = _near_tie_rows(_plain_scores(p, c))
+    a = TK.kmeans_assign_reduce(p, c)[0]
+    want = TK.kmeans_assign_reduce_plain(p, c)[0]
+    assert torch.equal(a[~near], want[~near])
+
+
+def _serve_all(endpoint, reqs):
+    futures = [endpoint.submit(r) for r in reqs]
+    return [f.result(60) for f in futures]
+
+
+@pytest.mark.cuda
+def test_kmeans_servable_launches_b5_once_a_batch(cuda_device):
+    """Served on the card: one B5 launch a served batch, and every
+    response equals the offline transform of its request."""
+    from flink_ml_tpu_torch.serving import serve_model
+
+    rng = np.random.default_rng(51)
+    cents = rng.normal(size=(64, 16)).astype(np.float32)
+    model = T.KMeansModel(device=str(cuda_device)).set_model_data(
+        T.Table({"centroids": cents[None]}))
+    X = rng.normal(size=(600, 16)).astype(np.float32)
+    reqs = [T.Table({"features": X[i:i + 1 + i % 40]})
+            for i in range(0, 560, 40)]
+    refs = [model.transform(r)[0]["prediction"] for r in reqs]
+    endpoint = serve_model(model, reqs[0], max_batch_rows=256,
+                           max_wait_ms=2.0)
+    try:
+        TK.reset_launch_counts()
+        b0 = endpoint.metrics.batches.value
+        outs = _serve_all(endpoint, reqs)
+        torch.cuda.synchronize()
+        assert TK.LAUNCHES["kmeans_assign_reduce"] == \
+            endpoint.metrics.batches.value - b0
+        for out, ref in zip(outs, refs):
+            np.testing.assert_array_equal(out["prediction"], ref)
+    finally:
+        endpoint.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pq", [None, (4, 8)])
+def test_ivf_servable_one_search_a_batch(cuda_device, pq):
+    """Flat (B8) and IVF-PQ (B9) served on the card: one retrieve call a
+    served batch; ids and distance bits equal ``search`` of each request
+    alone."""
+    from flink_ml_tpu_torch.serving import serve_model
+
+    rng = np.random.default_rng(52)
+    X = rng.normal(size=(4096, 16)).astype(np.float32)
+    index = T.IVFIndex.build(
+        X, nlist=16, pq=None if pq is None else T.PQConfig(*pq),
+        nprobe=2, device=str(cuda_device))
+    q = rng.normal(size=(300, 16)).astype(np.float32)
+    reqs = [T.Table({"query": q[i:i + 1 + i % 30]})
+            for i in range(0, 270, 30)]
+    name = "retrieve_flat" if pq is None else "retrieve_pq"
+    endpoint = serve_model(index, reqs[0], max_batch_rows=256,
+                           max_wait_ms=2.0)
+    try:
+        TR.reset_launch_counts()
+        b0 = endpoint.metrics.batches.value
+        outs = _serve_all(endpoint, reqs)
+        torch.cuda.synchronize()
+        assert TR.LAUNCHES[name] == endpoint.metrics.batches.value - b0
+        for req, out in zip(reqs, outs):
+            nn, dist = index.search(req["query"])
+            assert np.array_equal(out["neighbors"], nn)
+            assert np.array_equal(out["distances"], dist)
+    finally:
+        endpoint.close()
+
+
+@pytest.mark.cuda
+def test_load_library_from_four_threads_builds_once(cuda_device,
+                                                     monkeypatch, tmp_path):
+    """Four threads' first use of a library at once: one nvcc, one loaded
+    library, the launches counted."""
+    from flink_ml_tpu_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "_LOADED", {})
+    calls = []
+    real = build.build_all
+
+    def counting(names=None):
+        calls.append(tuple(names))
+        return real(names)
+
+    monkeypatch.setattr(build, "build_all", counting)
+    gate = threading.Barrier(4, timeout=60)
+    libs = []
+
+    def first_use():
+        gate.wait()
+        libs.append(build.load_library("kmeans"))
+
+    threads = [threading.Thread(target=first_use) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == [("kmeans",)]
+    assert len(libs) == 4 and all(lib is libs[0] for lib in libs)
+    assert len([f for f in os.listdir(tmp_path) if f.endswith(".so")]) == 1

@@ -110,6 +110,72 @@ def test_composition_and_feature_modules_import_without_jax():
     assert [m for m in out if _forbidden(m)] == []
 
 
+SERVING_MODULES = (
+    "flink_ml_tpu_torch.serving", "flink_ml_tpu_torch.serving.batcher",
+    "flink_ml_tpu_torch.serving.executor",
+    "flink_ml_tpu_torch.serving.registry",
+    "flink_ml_tpu_torch.serving.endpoint",
+    "flink_ml_tpu_torch.serving.scheduler",
+    "flink_ml_tpu_torch.serving.embcache",
+    "flink_ml_tpu_torch.serving.metrics", "flink_ml_tpu_torch.obs.tree",
+    "flink_ml_tpu_torch.utils.metrics", "flink_ml_tpu_torch.ops.int8_serving",
+    "flink_ml_tpu_torch.kernels.quantize")
+
+
+def test_serving_modules_import_without_jax():
+    """The serving runtime, the metrics tree, the metric groups and the
+    int8 scoring functions load neither JAX nor the JAX package."""
+    code = ("import sys, " + ", ".join(SERVING_MODULES) + "; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         timeout=300).stdout.split()
+    assert set(SERVING_MODULES) <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_servables_and_row_cache_need_cuda_unless_cpu_asked(monkeypatch):
+    """A servable scores on its model's device, default the card; the row
+    cache's pools default to the card; a registry loads saved stages onto
+    the card.  Without one each raises unless the CPU is asked for."""
+    from flink_ml_tpu_torch.serving import (EmbeddingRowCache, ModelRegistry,
+                                            make_servable, serve_model)
+
+    rng = np.random.default_rng(4)
+    X = rng.normal(size=(32, 4))
+    table = T.Table({"features": X, "label": (X[:, 0] > 0) * 1.0})
+    lr = T.LogisticRegression(device="cpu").set_max_iter(1).fit(table)
+    km = T.KMeans(device="cpu").set_k(2).set_max_iter(2).fit(table)
+    wd_table = T.Table({"denseFeatures": X, "catFeatures":
+                        rng.integers(0, 5, size=(32, 2)),
+                        "label": table["label"]})
+    wd = (T.WideDeep(device="cpu").set_vocab_sizes([5, 5]).set_max_iter(1)
+          .fit(wd_table))
+    feats = table.drop("label").take(2)
+    wd_feats = wd_table.drop("label").take(2)
+    assert make_servable(lr, feats).warm_up().ready    # the CPU, asked for
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for model in (T.LogisticRegressionModel(), T.KMeansModel(),
+                  T.WideDeepModel()):
+        assert model.device == "cuda"
+    for model in (lr, km, wd):
+        model.device = "cuda"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        make_servable(lr, feats)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        make_servable(km, feats, precision="int8")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        make_servable(wd, wd_feats)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        make_servable(wd, wd_feats, emb_cache=True)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        serve_model(lr, feats)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        EmbeddingRowCache({"emb": np.zeros((8, 2), np.float32)})
+    assert ModelRegistry().device == "cuda"
+
+
 def test_fused_pipelines_need_cuda_unless_cpu_asked(monkeypatch):
     """The feature stages, the fused segments and the terminals raise
     without a card unless the CPU is asked for; a plan never falls back
