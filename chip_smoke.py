@@ -288,6 +288,35 @@ line is printed):
     counted) and phase 10's Wide&Deep, plain and cached: decisions agree
     with f32 at 0.99 or better, two predicts give the same bits, cached
     int8 equals bypassed int8 bit for bit; resident param bytes.
+34. Train while serving at the Criteo width: phase 4's mixed LR served,
+    a ``ContinuousLearner`` (publish every 4 steps) over a ``WindowLog``
+    of 16 windows of 2^15 Criteo-shaped rows: B1 and B2 once a step; 4
+    publishes; the generation served after each cut equals an offline
+    ``sgd_fit_outofcore`` over the first T windows bit for bit; 4
+    clients throughout, nothing dropped, every response one published
+    generation's transform bit for bit; a crash at ``serving.publish``
+    and a torn WAL tail heal to the uninterrupted run's bits.
+    ``bench_online``'s fields (``bench.py:2231-2392``), windows/s, cut ms.
+35. Publishes into kernel servables: an OnlineKMeans body over phase 7's
+    points (d 64, k 256) publishing each window's centroids into a KMeans
+    endpoint (B5 once a served batch, each generation bit for bit its
+    offline transform); phase 12's flat and IVF-PQ indexes as two
+    tenants of one scheduler, 64 inserts + 64 deletes published as a
+    sparse delta to each (one retrieve call a served batch, ids and
+    distance bits = ``search`` of the updated index, the other tenant
+    untouched, the recall probe gauge set); phase 10's Wide&Deep, plain
+    and cached, a 1024-row embedding delta (payload bytes, encode and
+    apply ms, bit for bit the offline transform, a fresh row cache).
+36. Failover and placement (``bench_failover``'s shape,
+    ``bench.py:4426-4470``): 4 logical chips, an LR d 32 victim, a bulk
+    tenant and phase 31's KMeans on the victim chip; a seeded
+    ``chip_down`` at a dispatch boundary under 16 closed-loop clients,
+    unreplicated and 2-way replicated: nothing dropped, every response
+    bit for bit its offline transform, brownout sheds bulk only and steps
+    down after the hysteresis window, a requeued KMeans batch launches
+    B5 again, an autoscale tick racing the failover costs one
+    ``PlacementConflict`` retry; recovery wall s and interactive p99
+    before/during/after.
 
 The last lines are the kernel table (nine kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
@@ -295,7 +324,8 @@ each with its value variant's launches, error, times and bound under
 KMeans kernels (the stats kernel with phase 22's launches under
 ``stream``), the fold, the two retrieve kernels; the launches a fused
 transform or phase 29's CV added under ``chain``, the served batches'
-launches of phase 31 under ``serve``)
+launches of phase 31 under ``serve``, and the train-while-serve launches
+of phases 34-36 under ``online``)
 as one JSON object, the card line from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.  The script imports neither JAX nor the JAX package.
 """
@@ -4122,6 +4152,845 @@ def int8_phase(torch, dev, card, lr_model, lr_pool):
     log(f"phase 33: {time.perf_counter() - t_phase:.2f} s [{card}]")
 
 
+# Train while serving (phase 34): bench_online's learner (bench.py:2231-
+# 2392) at the Criteo width — 16 windows of BATCH rows, a cut every 4
+# steps, 4 clients on phase 4's served mixed LR
+OL_WINDOWS, OL_EVERY, OL_CLIENTS, OL_POOL = 16, 4, 4, 2048
+OL_CRASH_PULL = 10          # (e) the live source dies handing out window 10
+OL_SPARSE_SLOTS = 1024      # weights a hand-made sparse delta touches
+# Publishes into kernel servables (phase 35)
+OKM_WINDOWS, OKM_ROWS, OKM_ALPHA = 8, 4096, 0.9
+RT_EDIT_ROWS = 64           # inserts and deletes of each index delta
+WD_DELTA_ROWS = 1024        # embedding rows of the Wide&Deep delta
+# Failover (phase 36): bench_failover's shape (bench.py:4426-4470)
+FO_D, FO_CLIENTS, FO_PER_PHASE, FO_KILL_AT = 32, 16, 25, 5
+FO_HYSTERESIS_S = 30.0
+
+
+class ShiftedClock:
+    """``time.monotonic`` plus an offset a phase can advance: recovery
+    walls stay real seconds, a hysteresis window passes at once."""
+
+    def __init__(self):
+        self.offset = 0.0
+
+    def __call__(self):
+        return time.monotonic() + self.offset
+
+    def advance(self, dt):
+        self.offset += dt
+
+
+def train_while_serve_phase(torch, dev, card, mixed_model):
+    """Phase 34: a ``ContinuousLearner`` over 16 Criteo-width windows
+    publishing into phase 4's served mixed LR under 4 clients; returns the
+    learner's B1/B2/B3 launches."""
+    import shutil
+    import threading
+
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.iteration import CheckpointConfig
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.common.losses import LOSSES
+    from flink_ml_tpu_torch.obs import tracer
+    from flink_ml_tpu_torch.online import (ContinuousLearner, DeltaEncoder,
+                                           DeltaPublisher, model_with_params,
+                                           params_of_model)
+    from flink_ml_tpu_torch.ops import ell_scatter as E
+    from flink_ml_tpu_torch.robustness import (FaultPlan, InjectedCrash,
+                                               RecoveryReport, RetryPolicy,
+                                               corrupt_file)
+    from flink_ml_tpu_torch.serving import serve_model
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ST_DIR, ignore_errors=True)
+    dense, cat, y = criteo_rows(OL_WINDOWS * BATCH, D_MAIN, seed=34)
+    windows = [Table({"features_dense": dense[i * BATCH:(i + 1) * BATCH],
+                      "features_indices": cat[i * BATCH:(i + 1) * BATCH],
+                      "label": y[i * BATCH:(i + 1) * BATCH].astype(
+                          np.float32)})
+               for i in range(OL_WINDOWS)]
+    p_dense, p_cat, _ = criteo_rows(OL_POOL, D_MAIN, seed=35)
+    pool = Table({"features_dense": p_dense, "features_indices": p_cat})
+    keys = dict(dense_key="features_dense", indices_key="features_indices")
+    cfg = S.SGDConfig(max_epochs=1, tol=0.0)
+    event_at, landed = {}, []
+
+    class Spy(DeltaPublisher):
+        """Keeps every landed generation's params and landing time."""
+
+        history = []
+
+        def apply(self, update):
+            result = super().apply(update)
+            if result.mode != "noop":
+                Spy.history.append((result.step, result.mode,
+                                    result.generation, {
+                                        k: v.copy()
+                                        for k, v in self._base.items()}))
+                landed.append((result.step, time.perf_counter()))
+            return result
+
+    def stamped(lo=0):
+        for i in range(lo, OL_WINDOWS):
+            event_at[i] = time.perf_counter()
+            yield windows[i]
+
+    def endpoint():
+        return serve_model(mixed_model, pool.take(2),
+                           max_batch_rows=SV_BATCH, max_wait_ms=SV_WAIT_MS,
+                           queue_capacity=SV_QUEUE)
+
+    def learner(ep, source, name, **kw):
+        return ContinuousLearner(
+            loss_fn=LOSSES["logistic"], num_features=D_MAIN, source=source,
+            wal_dir=os.path.join(ST_DIR, name, "wal"), endpoint=ep,
+            batch_rows=BATCH, config=cfg,
+            checkpoint=CheckpointConfig(os.path.join(ST_DIR, name, "ck")),
+            publish_every_steps=OL_EVERY, device=DEVICE,
+            backoff=RetryPolicy(base_delay=0.0, sleep=lambda s: None),
+            **keys, **kw)
+
+    def served_w(ep):
+        model = ep.registry.current("default").servable.model
+        return np.asarray(model._state.coefficients, np.float32)
+
+    try:
+        ep = endpoint()
+        responses, errors, lock = [], [], threading.Lock()
+        stop = threading.Event()
+
+        def client(worker):
+            crng = np.random.default_rng(340 + worker)
+            mine = []
+            try:
+                while not stop.is_set():
+                    start = int(crng.integers(0, OL_POOL - 8))
+                    rows = int(crng.integers(1, 9))
+                    t0 = time.perf_counter()
+                    out = ep.predict(pool.slice(start, start + rows),
+                                     timeout=SV_JOIN_S)
+                    mine.append((start, rows, time.perf_counter() - t0,
+                                 np.asarray(out["rawPrediction"])))
+            except Exception as exc:  # noqa: BLE001 — reported below
+                errors.append(repr(exc)[:300])
+            with lock:
+                responses.extend(mine)
+
+        try:
+            run = learner(ep, stamped(), "main")
+            run.publisher = Spy(ep.registry, "default", metrics=ep.metrics)
+            clients = [threading.Thread(target=client, args=(w,))
+                       for w in range(OL_CLIENTS)]
+            for t in clients:
+                t.start()
+            time.sleep(0.05)
+            tracer.clear()
+            tracer.enable()
+            E.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.run(max_windows=OL_WINDOWS)
+            torch.cuda.synchronize()
+            learn_s = time.perf_counter() - t0
+            launches = dict(E.LAUNCHES)
+            cut_ms = [round(1e3 * r.publish_s, 3) for r in run.publish_log]
+            tracer.disable()
+            cuts = [sp.dur * 1e3 for sp in tracer.find("checkpoint_write")]
+            tracer.clear()
+            time.sleep(0.05)
+            stop.set()
+            for t in clients:
+                t.join(SV_JOIN_S)
+            held_wall = time.perf_counter() - t0
+            if any(t.is_alive() for t in clients):
+                fail("train while serving: a client thread is still alive")
+            shed = ep.metrics.shed.value
+
+            # a sparse delta at this width, against a full deploy
+            pub, enc = ep.delta_publisher(), DeltaEncoder()
+            p = params_of_model(ep.registry.current("default").servable
+                                .model)
+            pub.apply(enc.encode(100, p, pub.stats))
+            enc.ack()
+            srng = np.random.default_rng(36)
+            delta_ms, delta_bytes = [], None
+            for step in range(101, 106):
+                p = {"w": p["w"].copy(), "b": p["b"]}
+                p["w"][srng.integers(0, D_MAIN, OL_SPARSE_SLOTS)] += \
+                    np.float32(0.01)
+                res = pub.apply(enc.encode(step, p, pub.stats))
+                enc.ack()
+                if res.mode != "delta":
+                    fail(f"a {OL_SPARSE_SLOTS}-weight update published "
+                         f"as {res.mode!r}")
+                delta_ms.append(res.publish_s * 1e3)
+                delta_bytes = res.payload_bytes
+            swap_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ep.hot_swap(mixed_model)
+                swap_ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            stop.set()
+            close_endpoint("train while serving", ep)
+
+        steps = [s for s, _, _, _ in Spy.history]
+        modes = [m for _, m, _, _ in Spy.history]
+        log(f"train while serving (phase 34): learner {learn_s:.3f} s for "
+            f"{OL_WINDOWS} windows of {BATCH} rows = "
+            f"{OL_WINDOWS / learn_s:.3f} windows/s; launches {launches}; "
+            f"publishes at steps {steps}, modes {modes}, payload bytes "
+            f"{[len(f['w']) * 4 + 4 for *_, f in Spy.history]}; checkpoint "
+            f"cut host ms median {statistics.median(cuts):.3f} over "
+            f"{len(cuts)} cuts [{card}]")
+        for name in ("ell_margin", "ell_scatter_apply_fused"):
+            if launches[name] != OL_WINDOWS:
+                fail(f"{name} launched {launches[name]} times in the "
+                     f"learner, expected {OL_WINDOWS} (one a step)")
+        if launches["ell_scatter_apply"]:
+            fail("the pair kernel ran on the learner's 8192-row grid")
+        if steps != list(range(OL_EVERY, OL_WINDOWS + 1, OL_EVERY)):
+            fail(f"publishes landed at steps {steps}")
+
+        # (c) each cut's generation against the offline streamed fit
+        for step, _, _, flat in Spy.history:
+            def reader(upto=step):
+                for w in windows[:upto]:
+                    yield w.to_dict()
+
+            state, _ = S.sgd_fit_outofcore(
+                LOSSES["logistic"], reader, num_features=D_MAIN,
+                config=cfg, device=DEVICE, **keys)
+            if state.planned_impl != "ell-stream" or \
+                    flat["w"].tobytes() != np.asarray(
+                        state.coefficients, np.float32).tobytes() or \
+                    flat["b"].tobytes() != np.float32(
+                        state.intercept).tobytes():
+                fail(f"the generation published at step {step} is not "
+                     "the offline streamed fit over its windows")
+        log(f"(c) each of the {len(steps)} generations = the offline "
+            f"sgd_fit_outofcore on the card over its first T windows "
+            f"(default W 8 offline, W {min(8, OL_EVERY)} in the learner), "
+            f"bit for bit")
+
+        # (d) every response is one published generation's transform
+        gens = [mixed_model] + [model_with_params(mixed_model, {
+            "w": f["w"], "b": f["b"]}) for *_, f in Spy.history]
+        refs = [np.asarray(g.transform(pool)[0]["rawPrediction"])
+                for g in gens]
+        served_by = [0] * len(gens)
+        for start, rows, _, raw in responses:
+            hits = [i for i, ref in enumerate(refs)
+                    if np.array_equal(ref[start:start + rows].view(np.uint64),
+                                      raw.view(np.uint64))]
+            if not hits:
+                fail("train while serving: a response matches no "
+                     "published generation")
+            served_by[hits[-1]] += 1
+        lat = np.asarray([r[2] for r in responses])
+        lags = [t - event_at[s - 1] for s, t in landed]
+        log(f"(d) {OL_CLIENTS} clients across the publishes: "
+            f"{len(responses)} responses, dropped {len(errors)}, shed "
+            f"{shed}; by generation (boot, then each cut) {served_by}; "
+            f"held {len(responses) / held_wall:.1f} requests/s, p99 "
+            f"{1e3 * np.quantile(lat, 0.99):.3f} ms [{card}]")
+        if errors or shed:
+            fail(f"train while serving: requests dropped {errors[:3]} or "
+                 f"shed ({shed})")
+        log(f"bench_online fields at the Criteo width: publish_delta_ms "
+            f"{statistics.median(delta_ms):.3f} ({OL_SPARSE_SLOTS} weights, "
+            f"{delta_bytes} payload bytes; the learner's cut publishes, w "
+            f"whole: {cut_ms} ms), "
+            f"publish_full_swap_ms {statistics.median(swap_ms):.3f} "
+            f"(hot_swap: adapt + warm {SV_BUCKETS} + swap), "
+            f"freshness_lag_ms {1e3 * statistics.median(lags):.3f} "
+            f"(ingest of a cut's newest window -> its generation live), "
+            f"held_requests_per_sec {len(responses) / held_wall:.1f}, "
+            f"held_p99_ms {1e3 * np.quantile(lat, 0.99):.3f}, "
+            f"dropped_requests {len(errors)} [{card}]")
+        final = Spy.history[-1][3]["w"]
+
+        # (e1) a crash inside a publish heals through resilient_fit
+        ep = endpoint()
+        try:
+            run = learner(ep, stamped(), "crash")
+            report = RecoveryReport()
+            with FaultPlan().inject("serving.publish", at=1, kind="crash"):
+                run.run(max_windows=OL_WINDOWS, report=report)
+            noops = run.publisher.stats.skips
+            e1 = (report.restarts, noops, served_w(ep).tobytes()
+                  == final.tobytes(), [r.step for r in run.publish_log])
+        finally:
+            close_endpoint("train while serving (crash)", ep)
+        # (e2) the process dies pulling a window, its newest WAL append torn
+        ep = endpoint()
+        try:
+            plan = FaultPlan().inject("source.pull", at=OL_CRASH_PULL,
+                                      kind="crash")
+            first = learner(ep, plan.wrap_source(stamped()), "torn",
+                            max_restarts=0)
+            with plan:
+                try:
+                    first.run(max_windows=OL_WINDOWS)
+                    fail("the source crash did not stop the learner")
+                except InjectedCrash:
+                    pass
+            wal = os.path.join(ST_DIR, "torn", "wal")
+            logged = sorted(f for f in os.listdir(wal)
+                            if f.startswith("win-"))
+            corrupt_file(os.path.join(wal, logged[-1]), mode="torn")
+            second = learner(ep, stamped(OL_CRASH_PULL - 1), "torn")
+            second.run(max_windows=OL_WINDOWS)
+            e2 = (logged[-1], second.publisher.stats.skips,
+                  served_w(ep).tobytes() == final.tobytes())
+        finally:
+            close_endpoint("train while serving (torn)", ep)
+        log(f"(e) crash at serving.publish #1: restarts {e1[0]}, publishes "
+            f"{e1[3]}, replayed cuts published as noop {e1[1]}, final "
+            f"served bits = the uninterrupted run's {e1[2]}; torn WAL tail "
+            f"({e2[0]}) after a crash at source pull {OL_CRASH_PULL}: "
+            f"noop replays {e2[1]}, final bits equal {e2[2]}")
+        if e1[0] != 1 or not e1[1] or not e1[2] or not e2[1] or not e2[2]:
+            fail("train while serving: a crash did not heal to the "
+                 "uninterrupted run's bits")
+    finally:
+        shutil.rmtree(ST_DIR, ignore_errors=True)
+    log(f"phase 34: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return {name: launches[name] for name in
+            ("ell_margin", "ell_scatter_apply_fused", "ell_scatter_apply")}
+
+
+def _serve_and_check(what, ep, reqs, refs, counter, kernel):
+    """Serve ``reqs`` from 4 clients; every response must equal its
+    reference bit for bit and ``kernel`` must launch once a served batch.
+    Returns (launches, batches)."""
+    before = counter[kernel]
+    outs, batches, _ = serve_checked(what, ep, reqs, 4)
+    for ref, out in zip(refs, outs):
+        same_bits(what, ref, out)
+    launches = counter[kernel] - before
+    if launches != batches:
+        fail(f"{what}: {kernel} launched {launches} times for {batches} "
+             "served batches")
+    return launches, batches
+
+
+def publish_kernel_phase(torch, dev, card):
+    """Phase 35: publishes into the KMeans endpoint (OnlineKMeans through
+    a PublishingListener), the two index tenants and the Wide&Deep
+    servables.  Returns the B5, B8 and B9 launches of the served
+    batches."""
+    import copy
+
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.distance import DistanceMeasure
+    from flink_ml_tpu_torch.iteration import (IterationBodyResult,
+                                              IterationConfig, iterate)
+    from flink_ml_tpu_torch.models.clustering.online_kmeans import (
+        decayed_update)
+    from flink_ml_tpu_torch.online import (DeltaEncoder, PublishingListener,
+                                           apply_delta, diff_params,
+                                           encode_and_publish,
+                                           flatten_params, model_with_params,
+                                           params_of_model)
+    from flink_ml_tpu_torch.online.driver import publish_index_update
+    from flink_ml_tpu_torch.ops import kmeans as K
+    from flink_ml_tpu_torch.ops import retrieve as R
+    from flink_ml_tpu_torch.retrieval.metrics import RecallProbe
+    from flink_ml_tpu_torch.serving import SharedScheduler, serve_model
+
+    t_phase = time.perf_counter()
+    launches = {}
+    rng = np.random.default_rng(35)
+
+    # -- (a) OnlineKMeans generations into a KMeans endpoint (B5) ---------
+    km = FITTED["kmeans"]
+    pts = np.random.default_rng(0).normal(
+        size=(OKM_WINDOWS * OKM_ROWS, D_KM)).astype(np.float32)
+    q = rng.normal(size=(2048, D_KM)).astype(np.float32)
+    sizes = rng.integers(1, 257, size=12)
+    reqs = [Table({"features": q[s:s + n]})
+            for s, n in zip(range(0, 2048, 160), sizes)]
+    ep = serve_model(km, reqs[0], max_batch_rows=SV_BATCH,
+                     max_wait_ms=SV_WAIT_MS)
+    measure = DistanceMeasure.get_instance("euclidean")
+    gens, served = [], [0, 0]
+    try:
+        K.reset_launch_counts()
+        base = K.LAUNCHES["kmeans_update_stats"]
+
+        class Checking(PublishingListener):
+            """After each landed publish, serve the generation and hold
+            it to KMeansModel with those centroids, offline."""
+
+            def _publish(self, epoch, context):
+                before = len(self.publish_log)
+                super()._publish(epoch, context)
+                if len(self.publish_log) == before:
+                    return
+                live = ep.registry.current("default").servable.model
+                refs = [live.transform(r)[0] for r in reqs]
+                n, b = _serve_and_check(
+                    "OnlineKMeans generation", ep, reqs, refs, K.LAUNCHES,
+                    "kmeans_assign_reduce")
+                served[0] += n
+                served[1] += b
+                gens.append(self.publish_log[-1])
+
+        listener = Checking(ep.delta_publisher(), publish_on="epoch",
+                            params_of=lambda s: {"centroids": s[0]})
+
+        def body(state, epoch, X):
+            return IterationBodyResult(decayed_update(
+                measure, K_KM, OKM_ALPHA, state[0], state[1],
+                torch.from_numpy(X).to(dev)))
+
+        windows = (pts[i * OKM_ROWS:(i + 1) * OKM_ROWS]
+                   for i in range(OKM_WINDOWS))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iterate(body, (torch.from_numpy(km._centroids).to(dev),
+                       torch.zeros(K_KM, device=dev)), windows,
+                config=IterationConfig(mode="hosted"), listeners=[listener])
+        torch.cuda.synchronize()
+        okm_s = time.perf_counter() - t0
+        stats_launches = K.LAUNCHES["kmeans_update_stats"] - base
+    finally:
+        close_endpoint("OnlineKMeans endpoint", ep)
+    launches["kmeans_assign_reduce"] = served[0]
+    log(f"(a) OnlineKMeans (d {D_KM}, k {K_KM}, {OKM_WINDOWS} windows of "
+        f"{OKM_ROWS} of phase 7's points, decay {OKM_ALPHA}) -> "
+        f"PublishingListener -> KMeans endpoint: {len(gens)} generations "
+        f"(modes {[g.mode for g in gens]}, payload bytes "
+        f"{[g.payload_bytes for g in gens]}, publish ms "
+        f"{[round(1e3 * g.publish_s, 3) for g in gens]}); {served[1]} served "
+        f"batches, B5 launches {served[0]}, stats kernel {stats_launches}; "
+        f"each generation's responses = KMeansModel with its centroids, "
+        f"offline, bit for bit; {okm_s:.3f} s with the serving [{card}]")
+    if len(gens) != OKM_WINDOWS or stats_launches:
+        fail("OnlineKMeans: a window's generation did not land, or the "
+             "stats kernel ran")
+
+    # -- (b) the flat and IVF-PQ indexes as two scheduler tenants ----------
+    _, queries = retrieval_corpus(RT_N, RT_D, 4096)
+    indexes = {"flat": FITTED["flat"].with_options(nprobe=2),
+               "pq": FITTED["pq"].with_options(nprobe=2)}
+    for index in indexes.values():
+        # the bench's publish leg runs with the drift re-anchor off
+        # (bench.py:4370-4372): a fresh build's drift is already past
+        # the default 0.25 (phase 12)
+        index.drift_threshold = None
+    kernel_of = {"flat": "retrieve_flat", "pq": "retrieve_pq"}
+    sched = SharedScheduler(max_batch_rows=SV_BATCH, max_wait_ms=SV_WAIT_MS,
+                            queue_capacity=SV_QUEUE)
+    qreqs = [Table({"query": queries[s:s + n]})
+             for s, n in zip(range(0, 3800, 160),
+                             rng.integers(1, 129, size=20))]
+    try:
+        for name, index in indexes.items():
+            sched.add_tenant(name, index, qreqs[0], slo="interactive")
+        sched.start()
+        for name, index in indexes.items():
+            pub, enc = sched.delta_publisher(name), DeltaEncoder()
+            publish_index_update(enc, pub, 1, "delta", index)
+            other = "pq" if name == "flat" else "flat"
+            other_gen = sched.registry.current(other).generation
+            other_before = [sched.predict(other, r, timeout=SV_JOIN_S)
+                            for r in qreqs[:4]]
+            ids, vecs = index.stored_vectors()
+            pick = rng.choice(len(ids), size=RT_EDIT_ROWS, replace=False)
+            t0 = time.perf_counter()
+            mode, nxt = index.updated(
+                inserts=vecs[pick] + rng.normal(
+                    scale=1e-3, size=vecs[pick].shape).astype(np.float32),
+                insert_ids=np.arange(RT_EDIT_ROWS) + int(ids.max()) + 1,
+                delete_ids=ids[pick])
+            edit_ms = (time.perf_counter() - t0) * 1e3
+            if mode != "delta":
+                fail(f"index {name}: {RT_EDIT_ROWS} inserts and deletes "
+                     f"re-anchored ({mode})")
+            update = enc.encode(2, params_of_model(nxt), pub.stats)
+            res = pub.apply(update)
+            enc.ack()
+            full_bytes = sum(a.nbytes for a in nxt.params.values())
+            log(f"(b) index {name}: {RT_EDIT_ROWS} inserts + "
+                f"{RT_EDIT_ROWS} deletes published as {res.mode}: leaves "
+                f"{update.changed_leaves}, payload {res.payload_bytes} of "
+                f"{full_bytes} bytes, {sorted((k, 'rows' if d.idx is not None else 'whole') for k, d in update.leaves.items())}; "
+                f"index edit {edit_ms:.3f} ms, publish "
+                f"{1e3 * res.publish_s:.3f} ms [{card}]")
+            if res.mode != "delta":
+                fail(f"index {name}: the edit did not publish as a delta")
+            refs = []
+            for r in qreqs:
+                nn, dist = nxt.search(r["query"])
+                refs.append(Table({"query": r["query"], "neighbors": nn,
+                                   "distances": dist}))
+            tenant = sched.tenant(name)
+            b0 = tenant.metrics.batches.value
+            before = R.LAUNCHES[kernel_of[name]]
+            outs, _, _ = serve_checked(f"index tenant {name}", TenantView(
+                sched, name), qreqs, 4)
+            calls = R.LAUNCHES[kernel_of[name]] - before
+            batches = tenant.metrics.batches.value - b0
+            for ref, out in zip(refs, outs):
+                same_bits(f"index tenant {name} after the delta", ref, out)
+            if calls != batches:
+                fail(f"index tenant {name}: {calls} retrieve calls for "
+                     f"{batches} served batches")
+            launches[kernel_of[name]] = calls
+            if sched.registry.current(other).generation != other_gen:
+                fail(f"a delta to {name} moved tenant {other}")
+            for r, was in zip(qreqs[:4], other_before):
+                same_bits(f"tenant {other} across {name}'s delta", was,
+                          sched.predict(other, r, timeout=SV_JOIN_S))
+            probe = RecallProbe(nxt, sample=0.25)
+            probe.observe(np.concatenate([np.asarray(r["query"])
+                                          for r in qreqs[:8]]),
+                          neighbors=np.concatenate(
+                              [np.asarray(o["neighbors"])
+                               for o in outs[:8]]))
+            value = probe.publish(tenant.metrics)
+            gauge = sched.snapshot()[f"tenants.{name}.recall_probe"]
+            log(f"(b) index tenant {name} after the delta: {calls} "
+                f"retrieve calls for {batches} served batches; ids and "
+                f"distance bits = search of the updated index; tenant "
+                f"{other} untouched (generation {other_gen}); recall probe "
+                f"{value:.4f}, gauge {gauge} [{card}]")
+            if gauge != value:
+                fail("the recall probe did not reach the tenant gauge")
+    finally:
+        close_endpoint("index tenants", sched)
+
+    # -- (c) a Wide&Deep embedding delta, plain and through the row cache ---
+    wd = FITTED["widedeep"]
+    n_req = 24
+    sizes = rng.integers(1, 17, size=n_req)
+    total = int(sizes.sum())
+    cat = np.stack([zipf_ids(rng, total, WD_VOCAB)
+                    for _ in range(WD_FIELDS)], axis=1)
+    dense = rng.normal(size=(total, WD_DENSE)).astype(np.float32)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    wreqs = [Table({"denseFeatures": dense[s:s + n],
+                    "catFeatures": cat[s:s + n]})
+             for s, n in zip(starts, sizes)]
+    p = params_of_model(wd)
+    full_bytes = sum(a.nbytes for a in flatten_params(p).values())
+    p2 = copy.copy(p)
+    p2["emb"] = p["emb"].copy()
+    rows = np.random.default_rng(353).choice(
+        p["emb"].shape[0], size=WD_DELTA_ROWS, replace=False)
+    p2["emb"][rows] += np.random.default_rng(354).normal(
+        scale=0.01, size=(WD_DELTA_ROWS, p["emb"].shape[1])).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    delta = diff_params(p, p2, step=2)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    apply_delta(p, delta)
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    published = model_with_params(wd, p2)
+    refs = [published.transform(r)[0] for r in wreqs]
+    log(f"(c) Wide&Deep delta of {WD_DELTA_ROWS} embedding rows: payload "
+        f"{delta.payload_bytes} bytes of {full_bytes} (leaves "
+        f"{delta.changed_leaves}); diff_params {encode_ms:.1f} ms, "
+        f"apply_delta {apply_ms:.1f} ms on the host [{card}]")
+    for label, kw in (("plain", {}),
+                      ("row cache", dict(
+                          emb_cache=True, cache_block_rows=WD_CACHE_BLOCK,
+                          cache_capacity_blocks=WD_CACHE_BLOCKS))):
+        ep = serve_model(wd, wreqs[0], max_batch_rows=SV_BATCH,
+                         max_wait_ms=SV_WAIT_MS, **kw)
+        try:
+            serve_checked(f"Wide&Deep ({label}) before", ep, wreqs, 4)
+            old = ep.registry.current("default").servable
+            pub, enc = ep.delta_publisher(), DeltaEncoder()
+            encode_and_publish(enc, pub, 1, p)
+            t0 = time.perf_counter()
+            update = enc.encode(2, p2, pub.stats)
+            enc_ms = (time.perf_counter() - t0) * 1e3
+            res = pub.apply(update)
+            enc.ack()
+            live = ep.registry.current("default").servable
+            outs, batches, _ = serve_checked(f"Wide&Deep ({label})", ep,
+                                             wreqs, 4)
+        finally:
+            close_endpoint(f"Wide&Deep ({label})", ep)
+        for ref, out in zip(refs, outs):
+            same_bits(f"Wide&Deep ({label}) after the delta", ref, out)
+        fresh = ""
+        if label == "row cache":
+            snap = live.cache.snapshot()
+            fresh = (f"; a fresh row cache {live.cache is not old.cache} "
+                     f"(faults {snap['block_faults']}, hit rate "
+                     f"{snap['hit_rate']})")
+            if live.cache is old.cache:
+                fail("the cached Wide&Deep servable kept its old cache")
+        log(f"(c) Wide&Deep ({label}): published as {res.mode}, encode "
+            f"{enc_ms:.1f} ms, apply + rebind + swap "
+            f"{1e3 * res.publish_s:.1f} ms; {n_req} requests in {batches} "
+            f"batches = the offline transform of the published model bit "
+            f"for bit{fresh} [{card}]")
+        if res.mode != "delta":
+            fail(f"Wide&Deep ({label}): the row update did not publish as "
+                 "a delta")
+    log(f"phase 35: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return launches
+
+
+class TenantView:
+    """One tenant of a scheduler with an endpoint's ``predict``."""
+
+    def __init__(self, sched, name):
+        self.sched, self.name = sched, name
+        self.metrics = sched.tenant(name).metrics
+
+    def predict(self, table, timeout=None):
+        return self.sched.predict(self.name, table, timeout=timeout)
+
+
+def failover_phase(torch, dev, card):
+    """Phase 36: bench_failover's kill under 16 closed-loop clients,
+    unreplicated and 2-way replicated, with phase 31's KMeans on the
+    victim chip; the brownout ladder, a requeued KMeans batch, and an
+    autoscale tick racing the failover.  Returns B5's served launches."""
+    import threading
+
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.autoscale import (AutoscaleController,
+                                              PlacementStore, PolicyConfig)
+    from flink_ml_tpu_torch.obs.tree import MetricsTree
+    from flink_ml_tpu_torch.ops import kmeans as K
+    from flink_ml_tpu_torch.robustness import (FaultPlan, InjectedChipDown)
+    from flink_ml_tpu_torch.serving import (DISPATCH_SCOPE, FailoverDriver,
+                                            ServingOverloadedError,
+                                            SharedScheduler)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(23)
+    lr = lr_from_weights(rng.normal(size=FO_D), 0.1)
+    km = FITTED["kmeans"]
+    feats = Table({"features": rng.normal(size=(1024, FO_D)).astype(
+        np.float32)})
+    kpts = Table({"features": rng.normal(size=(1024, D_KM)).astype(
+        np.float32)})
+    b5 = [0, 0]                       # launches, batches
+
+    def run_variant(replicas):
+        clock = ShiftedClock()
+        sched = SharedScheduler(max_batch_rows=64, max_wait_ms=0.5,
+                                queue_capacity=1 << 13)
+        try:
+            sched.add_tenant("inter", lr, feats.take(2), slo="interactive")
+            sched.add_tenant("bulk0", lr, feats.take(2), slo="bulk")
+            sched.add_tenant("km", km, kpts.take(2), slo="standard")
+            store = PlacementStore(4, clock=clock)
+            store.publish({"inter": [3], "km": [3], "bulk0": [0]}, 0)
+            driver = FailoverDriver(sched, store, chips=[0, 1, 2, 3],
+                                    clock=clock,
+                                    hysteresis_s=FO_HYSTERESIS_S)
+            if replicas > 1:
+                driver.ensure_replicas("inter", replicas)
+            sched.start()
+            drops, served, bulk_futs, bulk_sheds = [], [], [], [0]
+            lock = threading.Lock()
+
+            def sweep(samples):
+                def client(worker):
+                    crng = np.random.default_rng(300 + worker)
+                    mine, got = [], []
+                    try:
+                        for i in range(FO_PER_PHASE):
+                            start = int(crng.integers(0, 1000))
+                            rows = int(crng.integers(1, 5))
+                            name, pool = (("km", kpts) if i % 2
+                                          else ("inter", feats))
+                            req = pool.slice(start, start + rows)
+                            t0 = time.perf_counter()
+                            out = sched.predict(name, req, timeout=120)
+                            if name == "inter":
+                                mine.append(time.perf_counter() - t0)
+                            got.append((name, req, out))
+                            if i % 4 == 0:
+                                try:
+                                    fut = sched.submit("bulk0",
+                                                       feats.take(8))
+                                    with lock:
+                                        bulk_futs.append(fut)
+                                except ServingOverloadedError:
+                                    with lock:
+                                        bulk_sheds[0] += 1
+                            time.sleep(0.001)
+                    except Exception as exc:  # noqa: BLE001
+                        with lock:
+                            drops.append(repr(exc)[:200])
+                    with lock:
+                        samples.extend(mine)
+                        served.extend(got)
+
+                run_clients(f"failover sweep ({replicas} replicas)",
+                            FO_CLIENTS, client)
+
+            def p99(samples):
+                return 1e3 * float(np.quantile(np.asarray(samples), 0.99))
+
+            sweep([])                                  # warm
+            km_t = sched.tenant("km")
+            k0, kb0 = K.LAUNCHES["kmeans_assign_reduce"], \
+                km_t.metrics.batches.value
+            served.clear()
+            before, during, after = [], [], []
+            sweep(before)
+            plan = FaultPlan(seed=20).inject(DISPATCH_SCOPE, at=FO_KILL_AT,
+                                             kind="chip_down")
+            with plan:
+                sweep(during)
+            level = driver.brownout_level
+            sweep(after)
+            for fut in bulk_futs:
+                fut.result(SV_JOIN_S)
+            torch.cuda.synchronize()
+            b5[0] += K.LAUNCHES["kmeans_assign_reduce"] - k0
+            b5[1] += km_t.metrics.batches.value - kb0
+            if len(driver.reports) != 1:
+                fail(f"failover: {len(driver.reports)} failovers (fires "
+                     f"{plan.fires})")
+            rep = driver.reports[0]
+            sheds = sched.shed_counts()
+            # the ladder: the chip comes back; level holds through the
+            # hysteresis window, then steps down
+            driver.health.recover(rep.dead_chips[0])
+            driver.tick()
+            held = driver.brownout_level
+            clock.advance(FO_HYSTERESIS_S)
+            driver.tick()
+            return dict(rep=rep, level=level, held=held,
+                        settled=driver.brownout_level, sheds=sheds,
+                        bulk_sheds=bulk_sheds[0], drops=drops,
+                        served=list(served), p99=(p99(before), p99(during),
+                                                  p99(after)),
+                        requeued=sched.snapshot()["requeued_requests"],
+                        km_requeued=km_t.metrics.requeued.value,
+                        restores=driver.snapshot()["restores"])
+        finally:
+            close_endpoint(f"failover ({replicas} replicas)", sched)
+
+    K.reset_launch_counts()
+    variants = {1: run_variant(1), 2: run_variant(2)}
+    for replicas, v in variants.items():
+        rep = v["rep"]
+        for name, req, out in v["served"]:
+            model = km if name == "km" else lr
+            same_bits(f"failover ({replicas} replicas, {name})",
+                      model.transform(req)[0], out)
+        log(f"failover, {replicas} replica(s): chip {rep.dead_chips} lost "
+            f"at a dispatch boundary ({rep.cause}), recovery wall "
+            f"{rep.wall_s:.6f} s, requeued {rep.requeued} (scheduler "
+            f"{v['requeued']}, KMeans tenant {v['km_requeued']}), moved "
+            f"{rep.moved}, kept a replica {rep.replicated}, placement "
+            f"generation {rep.generation}; brownout {v['level']} (held "
+            f"{v['held']} through the dwell, {v['settled']} after "
+            f"{FO_HYSTERESIS_S} s; restores {v['restores']}); shed counts "
+            f"{v['sheds']}; dropped {len(v['drops'])}; interactive p99 ms "
+            f"before/during/after {v['p99'][0]:.3f} / {v['p99'][1]:.3f} / "
+            f"{v['p99'][2]:.3f}; {len(v['served'])} responses bit for bit "
+            f"the offline transform [{card}]")
+        if v["drops"] or v["sheds"]["interactive"] or \
+                v["sheds"]["standard"]:
+            fail(f"failover: dropped {v['drops'][:3]} or a non-bulk shed "
+                 f"{v['sheds']}")
+        if v["level"] != 1 or v["held"] != 1 or v["settled"] != 0:
+            fail("failover: the brownout ladder did not rise to 1, hold "
+                 "through the hysteresis window and settle to 0")
+        if not v["bulk_sheds"]:
+            fail("failover: the brownout shed no bulk request")
+    solo, dual = variants[1]["rep"], variants[2]["rep"]
+    log(f"failover recovery wall: unreplicated {solo.wall_s:.6f} s, 2-way "
+        f"replicated {dual.wall_s:.6f} s, ratio "
+        f"{dual.wall_s / solo.wall_s:.4f} [{card}]")
+    if dual.moved != ("km",) or "inter" not in dual.replicated \
+            or "inter" not in solo.moved:
+        fail("failover: the replicated variant did not keep its replica")
+
+    # a requeued KMeans batch launches B5 again, bit for bit
+    sched = SharedScheduler(max_batch_rows=64, max_wait_ms=0.0)
+    try:
+        sched.add_tenant("km", km, kpts.take(2), slo="interactive")
+        store = PlacementStore(2)
+        store.publish({"km": [1]}, 0)
+        driver = FailoverDriver(sched, store, chips=[0, 1])
+        reqs = [kpts.slice(8 * i, 8 * i + 1 + i) for i in range(6)]
+        futs = [sched.submit("km", r) for r in reqs]
+        k0 = K.LAUNCHES["kmeans_assign_reduce"]
+        with FaultPlan().inject(DISPATCH_SCOPE, at=0, kind="chip_down"):
+            while True:
+                formed = sched._next_batch(timeout=0.0)
+                if formed is None:
+                    break
+                sched._dispatch(*formed)
+        torch.cuda.synchronize()
+        relaunch = K.LAUNCHES["kmeans_assign_reduce"] - k0
+        b5[0] += relaunch
+        b5[1] += sched.tenant("km").metrics.batches.value
+        for r, f in zip(reqs, futs):
+            same_bits("requeued KMeans batch", km.transform(r)[0],
+                      f.result(0))
+        requeued = sched.snapshot()["requeued_requests"]
+    finally:
+        sched.close()
+    log(f"a KMeans batch requeued by the chip loss: {requeued} requests "
+        f"requeued, B5 launched {relaunch} time(s) for the retried batch, "
+        f"responses = the offline transform bit for bit [{card}]")
+    if requeued != len(reqs) or relaunch != 1:
+        fail("the requeued KMeans batch did not relaunch B5 once")
+
+    # an autoscale tick racing the failover: one PlacementConflict retry
+    clock = ShiftedClock()
+    sched = SharedScheduler(max_batch_rows=64, max_wait_ms=0.0)
+    try:
+        sched.add_tenant("x", lr, feats.take(2), slo="interactive")
+        sched.add_tenant("km", km, kpts.take(2), slo="standard")
+        signals = MetricsTree().register("scheduler", {
+            "tenants.x.slo": "interactive",
+            "tenants.x.latency_p99_ms": 500.0})
+        store = PlacementStore(4, clock=clock)
+        store.publish({"x": [3], "km": [3]}, 1)
+        driver = FailoverDriver(sched, store, chips=[0, 1, 2, 3],
+                                clock=clock)
+        controller = AutoscaleController.build(
+            signals, store=store, scheduler=sched, health=driver.health,
+            clock=clock, policy_config=PolicyConfig(p99_target_ms=50.0,
+                                                    total_chips=4))
+        real, raced = store.publish, []
+
+        def racing(servables, workers, *, expected_generation=None):
+            if expected_generation is not None and not raced:
+                raced.append(None)
+                raced[0] = controller.tick()
+            return real(servables, workers,
+                        expected_generation=expected_generation)
+
+        store.publish = racing
+        rep = driver.on_chip_fault(InjectedChipDown("killed under a tick"))
+        pmap = store.current()
+    finally:
+        sched.close()
+    log(f"an autoscale tick racing the failover: tick {raced[0].kind}, "
+        f"failover conflicts {rep.conflicts}, placement generation "
+        f"{pmap.generation}, learner workers {pmap.learner_workers}, "
+        f"placement {dict(pmap.servables)}")
+    if rep.conflicts != 1 or pmap.learner_workers != 0 or any(
+            3 in chips for chips in pmap.servables.values()):
+        fail("the racing autoscale tick did not resolve in one "
+             "PlacementConflict retry onto the survivors")
+    if b5[0] != b5[1]:
+        fail(f"failover: B5 launched {b5[0]} times for {b5[1]} KMeans "
+             "batches")
+    log(f"phase 36: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return {"kmeans_assign_reduce": b5[0]}
+
+
 def killing_at(wins, at, exc):
     """A live feed that dies handing out window ``at``."""
     for i, w in enumerate(wins):
@@ -4487,6 +5356,18 @@ def main():
     for entry in kernels:
         if entry["name"] in served:
             entry["serve"] = {"launches": served[entry["name"]]}
+
+    # phases 34-36: train while serving, publishes, failover; the launches
+    # of each land under "online"
+    online = {34: train_while_serve_phase(torch, dev, card, model),
+              35: publish_kernel_phase(torch, dev, card),
+              36: failover_phase(torch, dev, card)}
+    for entry in kernels:
+        by_phase = {f"phase_{k}": v[entry["name"]]
+                    for k, v in online.items() if entry["name"] in v}
+        if by_phase:
+            entry["online"] = {"launches": sum(by_phase.values()),
+                               **by_phase}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -22,7 +22,10 @@ the IVF / IVF-PQ vector index (``IVFIndex.build``, ``search``,
 layer (``Graph``, ``CrossValidator``, ``TrainValidationSplit``) and the
 chainable feature stages (``models.feature``), whose runs inside a
 ``PipelineModel`` execute as fused device segments (``api.chain``) ending
-in the linear, KMeans, Wide&Deep or IVF terminal.  Entry points run
+in the linear, KMeans, Wide&Deep or IVF terminal; the serving runtime
+(``serving``: endpoints, the multi-tenant scheduler, failover) with
+train-while-serve publishes (``online``) and the autoscale control plane
+(``autoscale``).  Entry points run
 on the card unless the caller passes ``device="cpu"``.
 This package imports neither JAX nor ``flink_ml_tpu``.
 """

@@ -204,8 +204,7 @@ class WindowBatchReader:
     cursor back onto the log's WINDOW cursor via ``WindowLog.restore``,
     so a resumed fit replays exactly the logged-but-unacknowledged
     windows past its restored step — the exactly-once ingest edge of the
-    train-while-serve loop (the JAX package's ``online/driver.py``, not
-    ported yet).  It does
+    train-while-serve loop (``online/driver.py``).  It does
     NOT claim ``total_rows``: the stream is unbounded, so the decoded
     replay cache must never engage.
 

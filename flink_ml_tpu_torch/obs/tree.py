@@ -116,7 +116,8 @@ class MetricsTree:
 def default_tree(*, endpoint: Any = None, serving: Any = None,
                  scheduler: Any = None, recovery: Any = None,
                  stream_info: Any = None, iteration_result: Any = None,
-                 tracer: Any = None) -> MetricsTree:
+                 tracer: Any = None, autoscale: Any = None,
+                 failover: Any = None) -> MetricsTree:
     """A :class:`MetricsTree` pre-wired to every standard surface that
     exists in this process:
 
@@ -133,11 +134,16 @@ SharedScheduler`'s subtree (class-labeled shed counters, health, and
     - ``training``: a live ``stream_info`` dict of a streamed fit;
     - ``iteration``: an ``IterationResult``'s ``side``;
     - ``trace``: span-tracer volume counters (never the spans themselves:
-      those export through the tracer's own writers).
+      those export through the tracer's own writers);
+    - ``autoscale``: an :class:`~flink_ml_tpu_torch.autoscale.controller.\
+AutoscaleController`'s self-view (ticks, actuations, decision latency,
+      the policy's decision ledger, the live placement generation);
+    - ``failover``: a :class:`~flink_ml_tpu_torch.serving.failover.\
+FailoverDriver`'s fleet view (chips live/down, brownout level,
+      failover/requeue/conflict counters, last failover wall).
 
-    The JAX package's ``elastic``, ``autoscale`` and ``failover``
-    providers come with the modules they observe (ROADMAP A10, A11 and
-    the failover slice).
+    The JAX package's ``elastic`` provider comes with the elastic fleet
+    coordinator (ROADMAP A10).
     """
     tree = MetricsTree()
     tree.register("kernels", kernel_stats)
@@ -160,6 +166,10 @@ SharedScheduler`'s subtree (class-labeled shed counters, health, and
         tree.register("trace", lambda: {
             "enabled": tracer.enabled, "spans": tracer.count,
             "dropped": tracer.dropped})
+    if autoscale is not None:
+        tree.register("autoscale", autoscale)
+    if failover is not None:
+        tree.register("failover", failover)
     return tree
 
 

@@ -32,9 +32,13 @@ reports ``"reanchor"`` with a freshly built index instead.
 ``transform`` and the chain terminal (``transform_kernel``,
 ``api/chain.py``) call the same retrieve wrappers as ``search`` on the
 index's cached device params; ``serving/executor.py`` serves an index
-through that terminal.  Not ported: index tenants and delta publish
-(ROADMAP queue A8).  The build helpers are numpy
-and array-for-array the JAX package's.
+through that terminal, an index is a ``SharedScheduler`` tenant like a
+model, and an ``updated`` generation reaches serving through the online
+publish protocol (``online/driver.py::publish_index_update``: a
+``"delta"`` ships the touched rows through ``params_of_model`` ->
+``rebound``; a ``"reanchor"`` ships the rebuilt index whole, or through a
+warmed redeploy when its shapes changed).  The build helpers
+are numpy and array-for-array the JAX package's.
 """
 
 from __future__ import annotations

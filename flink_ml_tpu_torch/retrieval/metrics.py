@@ -4,9 +4,9 @@
 ``RecallProbe`` is the online form: a deterministic sample of live
 queries re-scored against an EXACT float64 scan of the index's stored
 vectors.  A copy of the JAX package's ``retrieval/metrics.py`` (numpy
-only).  The serving metrics tree is not ported yet (ROADMAP queue A8), so
-:meth:`RecallProbe.publish` takes any object with an ``on_recall_probe``
-method."""
+only).  :meth:`RecallProbe.publish` takes any object with an
+``on_recall_probe`` method — an index tenant's ``ServingMetrics``, whose
+``recall_probe`` gauge rides the scheduler's metrics tree."""
 
 from __future__ import annotations
 

@@ -1,7 +1,6 @@
 """Online serving runtime: fitted models behind endpoints that keep the
 card busy under many small concurrent requests while bounding tail
-latency.  A port of the JAX package's ``serving/`` (its failover module
-comes with the autoscale modules, ROADMAP A8 and A11):
+latency.  A port of the JAX package's ``serving/``:
 
 - :mod:`.batcher` — bounded request queue + dynamic micro-batcher
   (max-wait coalescing, shed-on-full admission control),
@@ -20,7 +19,15 @@ comes with the autoscale modules, ROADMAP A8 and A11):
   shedding, weighted fair queuing within a class, per-tenant metric
   subtrees and ``tenant``-keyed trace spans,
 - :mod:`.embcache` — device-resident LRU embedding-row blocks for
-  Wide&Deep's long-tail vocab, bit-exact with offline ``transform``.
+  Wide&Deep's long-tail vocab, bit-exact with offline ``transform``,
+- :mod:`.failover` — serving fleet failover: a chip-lease health table
+  (seeded ``chip_down``/``chip_flap`` faults, lease expiry on an
+  injected clock), re-placement through the autoscale placement store's
+  CAS, re-admission, the SLO-aware brownout ladder with hysteresis, and
+  N-way replication of high-SLO tenants.
+
+Continuous publishes into a live generation (``endpoint.delta_publisher()``,
+``scheduler.delta_publisher(name)``) come from ``online/``.
 
 Quick start::
 
@@ -47,6 +54,8 @@ from .batcher import MicroBatcher, ServingOverloadedError, ServingRequest
 from .embcache import CachedWideDeepServable, EmbeddingRowCache
 from .endpoint import ServingEndpoint, serve_model
 from .executor import ServableModel, make_servable
+from .failover import (CHIP_SCOPE, FailoverDriver, FailoverReport,
+                       FleetHealth)
 from .metrics import (HEALTH_DEGRADED, HEALTH_SERVING, LatencyTracker,
                       ServingMetrics)
 from .registry import DeployedModel, GenerationConflict, ModelRegistry
@@ -64,5 +73,6 @@ __all__ = [
     "SharedScheduler", "Tenant",
     "SLO_INTERACTIVE", "SLO_STANDARD", "SLO_BULK", "SLO_CLASSES",
     "EmbeddingRowCache", "CachedWideDeepServable",
-    "DISPATCH_SCOPE",
+    "CHIP_SCOPE", "DISPATCH_SCOPE",
+    "FleetHealth", "FailoverDriver", "FailoverReport",
 ]

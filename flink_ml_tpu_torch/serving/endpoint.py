@@ -70,13 +70,15 @@ class ServingEndpoint:
         return self._registry
 
     def delta_publisher(self):
-        """The continuous-learning publisher of this endpoint's entry:
-        not ported yet."""
-        raise NotImplementedError(
-            "ServingEndpoint.delta_publisher needs the online/ modules "
-            "(delta, publish, staleness, driver), ported in the next slice "
-            "(ROADMAP queue A8); deploy new versions with hot_swap() or "
-            "registry.deploy() meanwhile")
+        """A :class:`~flink_ml_tpu_torch.online.publish.DeltaPublisher`
+        bound to this endpoint's registry entry and metrics — the
+        serving-side half of the continuous-learning publish protocol.
+        Publishes account (delta/full counters, staleness gauge) on THIS
+        endpoint."""
+        from ..online.publish import DeltaPublisher
+
+        return DeltaPublisher(self._registry, self._name,
+                              metrics=self.metrics)
 
     def hot_swap(self, model, **deploy_kwargs):
         """Self-healing hot-swap: deploy ``model`` as the next generation

@@ -37,8 +37,16 @@ a click next to a nightly bulk scorer):
   warm-up report.
 - **Lossless chip faults.**  An injected ``chip_down`` / ``chip_flap``
   at the dispatch boundary (``DISPATCH_SCOPE``) requeues the formed
-  batch at the front of its tenants' queues with futures intact; the
-  retried dispatch answers them bit-identically.
+  batch at the front of its tenants' queues with futures intact and
+  hands the fault to an attached failover driver (``serving/failover.py``);
+  the retried dispatch answers them bit-identically.
+- **Brownout and placement.**  While the failover driver has the fleet
+  capacity-short, ``set_brownout(L)`` sheds the bottom L SLO classes at
+  admission (interactive never); ``apply_placement`` adopts an autoscale
+  placement map by scaling each tenant's WFQ weight with its chip count.
+- **Continuous publishes.**  ``delta_publisher(name)`` binds the online
+  publish protocol (``online/publish.py``) to one tenant's registry
+  entry and metrics.
 
 Observability: every tenant owns a full :class:`ServingMetrics` subtree
 under ``scheduler.tenants.<name>.*``, the scheduler itself exports
@@ -51,9 +59,6 @@ serialize on the queue lock); ONE scheduler thread runs the
 pick → coalesce → dispatch loop, so per-servable execution is serial by
 construction (the single-consumer contract the embedding-row cache
 relies on, ``serving/embcache.py``).
-
-The JAX package's brownout ladder, placement weights and failover-driver
-hooks come with the failover and autoscale modules (ROADMAP A8, A11).
 """
 
 from __future__ import annotations
@@ -133,6 +138,10 @@ class Tenant:
         self.serve_name = serve_name
         self.slo = slo
         self.weight = weight
+        #: the admission-time weight — ``apply_placement`` rescales
+        #: ``weight`` by the tenant's chip count RELATIVE to this, so
+        #: placements compose instead of compounding
+        self.base_weight = weight
         self.metrics = metrics
         self.pending: deque = deque()
         #: WFQ virtual-finish tag (rows served / weight, class-relative)
@@ -243,6 +252,17 @@ class SharedScheduler:
         #: blowing their SLO deadline
         self._requeued = self.group.counter("requeued_requests")
         self._deadline_shed = self.group.counter("deadline_shed")
+        #: brownout: level L sheds the bottom L SLO classes at ADMISSION
+        #: while failover has the fleet capacity-short — bulk first,
+        #: interactive protected by construction (the ladder tops out
+        #: below the highest class).  Plain int read by the lock-free
+        #: submit path, written by ``set_brownout``.
+        self._brownout = 0
+        self._brownout_gauge = self.group.gauge("brownout_level")
+        self._brownout_gauge.set(0)
+        #: the attached failover driver (None until a FailoverDriver
+        #: binds itself) — the dispatch seam hands it chip faults
+        self._failover: Optional[Any] = None
         #: per-SLO-class queue depth gauges (the aggregate gauge hides
         #: the INTERACTIVE depth under a bulk flood)
         self._class_depth = {slo: self.group.gauge(f"queue_depth_{slo}")
@@ -268,6 +288,11 @@ class SharedScheduler:
         self._idle_window_busy = 0.0
         self._idle_fraction = self.group.gauge("chip_idle_fraction")
         self._idle_fraction.set(float("nan"))
+        #: the placement generation last applied via apply_placement —
+        #: -1 until an autoscale controller or failover first moves it
+        self._placement_generation = self.group.gauge(
+            "placement_generation")
+        self._placement_generation.set(-1)
         self._tenant_group = self.group.add_group("tenants")
 
         self._tenants: Dict[str, Tenant] = {}
@@ -381,12 +406,15 @@ class SharedScheduler:
             return sorted(self._tenants)
 
     def delta_publisher(self, name: str):
-        """The continuous-learning publisher of one tenant: not ported
-        yet."""
-        raise NotImplementedError(
-            "SharedScheduler.delta_publisher needs the online/ modules "
-            "(delta, publish, staleness, driver), ported in the next slice "
-            "(ROADMAP queue A8)")
+        """A continuous-learning publisher bound to this tenant's
+        registry entry and metrics — a delta push to one tenant swaps
+        ONLY that tenant's generation; every other tenant's servable and
+        latency accounting are untouched."""
+        from ..online.publish import DeltaPublisher
+
+        tenant = self.tenant(name)
+        return DeltaPublisher(self.registry, tenant.serve_name,
+                              metrics=tenant.metrics)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "SharedScheduler":
@@ -435,6 +463,14 @@ class SharedScheduler:
                 f"request has {rows} rows > the {tenant.slo!r} class's "
                 f"batch cap {self.batch_rows[tenant.slo]}; split it "
                 "client-side")
+        # brownout gate: while failover has the fleet capacity-short,
+        # level L refuses the bottom L classes outright — lock-free like
+        # the overload fast path, and accounted as a shed (it IS one,
+        # just triggered by capacity instead of depth)
+        brownout = self._brownout
+        if (brownout > 0 and self._class_rank(tenant.slo)
+                >= len(SLO_CLASSES) - brownout):
+            raise self._brownout_error(tenant, brownout)
         limit = self.admit_limits[tenant.slo]
         if self._depth >= limit:          # lock-free fast path
             raise self._shed_error(tenant, self._depth, limit)
@@ -457,23 +493,39 @@ class SharedScheduler:
                 timeout: Optional[float] = 30.0) -> Table:
         return self.submit(name, table).result(timeout)
 
-    def _shed_error(self, tenant: Tenant, depth: int,
-                    limit: int) -> ServingOverloadedError:
+    def _account_shed(self, tenant: Tenant, **ids: str) -> None:
         """Account one shed (class counter, tenant metrics with the live
-        generation stamped, health -> DEGRADED, tracer instant) and
-        build the admission-control error.  Deliberately lock-free:
-        counter bumps and the registry's unlocked generation read."""
+        generation stamped, health -> DEGRADED, tracer instant).
+        Deliberately lock-free: counter bumps and the registry's unlocked
+        generation read."""
         self._shed[tenant.slo].inc()
         generation = self.registry.live_generation(tenant.serve_name)
         tenant.metrics.on_shed(len(tenant.pending), generation=generation)
         self._health.set(HEALTH_DEGRADED)
         tracer.instant("shed", cat="serving", tenant=tenant.name,
-                       generation=generation)
+                       generation=generation, **ids)
+
+    def _shed_error(self, tenant: Tenant, depth: int,
+                    limit: int) -> ServingOverloadedError:
+        """Account an overload shed and build the admission-control
+        error."""
+        self._account_shed(tenant)
         return ServingOverloadedError(
             f"scheduler queue depth {depth} >= {limit} (class "
             f"{tenant.slo!r} threshold of capacity "
             f"{self.queue_capacity}); request shed — queue full for this "
             "class; retry with backoff or lower the offered load")
+
+    def _brownout_error(self, tenant: Tenant,
+                        level: int) -> ServingOverloadedError:
+        """Account a brownout refusal exactly like an overload shed — the
+        cause differs (capacity short, not queue full), the contract does
+        not."""
+        self._account_shed(tenant, x_brownout=str(level))
+        return ServingOverloadedError(
+            f"brownout level {level}: class {tenant.slo!r} is shed while "
+            "the serving fleet is capacity-short after a chip loss; "
+            "retry after the fleet recovers")
 
     # -- the scheduler loop --------------------------------------------------
     def _serve_loop(self) -> None:
@@ -631,11 +683,15 @@ class SharedScheduler:
                   picked: List[Tuple[Tenant, ServingRequest]]) -> None:
         # the chip-fault seam: fired BEFORE anything else — an injected
         # chip_down/chip_flap here requeues the batch with futures intact
-        # (lossless by construction); the next loop retries it
+        # (lossless by construction) and hands the fault to the attached
+        # FailoverDriver, which re-places; the next loop retries it
         try:
             fault_point(DISPATCH_SCOPE)
-        except (InjectedChipDown, InjectedChipFlap):
-            self._requeue(picked)
+        except (InjectedChipDown, InjectedChipFlap) as exc:
+            requeued = self._requeue(picked)
+            driver = self._failover
+            if driver is not None:
+                driver.on_chip_fault(exc, requeued=requeued)
             return
         # ONE registry capture per batch — the hot-swap atomicity point
         # (every request in the batch runs on one fully-warmed version).
@@ -709,10 +765,66 @@ class SharedScheduler:
         depth = self._depth
         self._queue_depth.set(depth)
         # heal: once the queue recedes below EVERY class threshold,
-        # nothing is being shed anymore — degradation is over
+        # nothing is being shed anymore — degradation is over.  An
+        # active brownout blocks the heal: admission is still refusing
+        # whole classes, so the scheduler IS degraded however shallow
+        # the queue looks
         if (self._health.value != HEALTH_SERVING
-                and depth < min(self.admit_limits.values())):
+                and depth < min(self.admit_limits.values())
+                and self._brownout == 0):
             self._health.set(HEALTH_SERVING)
+
+    # -- placement -----------------------------------------------------------
+    def apply_placement(self, pmap: Any) -> Dict[str, float]:
+        """Adopt an autoscale :class:`~flink_ml_tpu_torch.autoscale.\
+placement.PlacementMap`: every placed tenant's WFQ weight becomes
+        ``base_weight * chip_count`` — capacity share tracks the chip
+        share the controller granted — and unplaced tenants keep their
+        admission weight.  Pure bookkeeping on this (single-device)
+        scheduler: no queue is touched, no batch re-formed; in-flight
+        requests are unaffected.  Returns the applied name -> weight
+        map (the actuation receipt the controller logs)."""
+        with self._cond:
+            applied: Dict[str, float] = {}
+            for tenant in self._tenants.values():
+                chips = len(pmap.chips_for(tenant.name))
+                if chips > 0:
+                    tenant.weight = tenant.base_weight * chips
+                    applied[tenant.name] = tenant.weight
+                else:
+                    tenant.weight = tenant.base_weight
+            self._placement_generation.set(pmap.generation)
+        tracer.instant("placement_applied", cat="serving",
+                       generation=pmap.generation,
+                       x_tenants=str(len(applied)))
+        return applied
+
+    # -- failover ------------------------------------------------------------
+    def attach_failover(self, driver: Any) -> None:
+        """Bind the :class:`~flink_ml_tpu_torch.serving.failover.\
+FailoverDriver`: the dispatch seam hands it injected chip faults
+        (after requeueing the batch) and it drives ``set_brownout``."""
+        self._failover = driver
+
+    def set_brownout(self, level: int) -> int:
+        """Set the brownout ladder rung: level L sheds the bottom L SLO
+        classes at admission (0 = none).  Clamped so the highest class
+        can NEVER be browned out — interactive protection is by
+        construction, not configuration.  Lowering to 0 re-checks the
+        heal condition (brownout blocks it while active)."""
+        level = max(0, min(int(level), len(SLO_CLASSES) - 1))
+        self._brownout = level
+        self._brownout_gauge.set(level)
+        if level > 0:
+            self._health.set(HEALTH_DEGRADED)
+        elif (self._health.value != HEALTH_SERVING
+                and self._depth < min(self.admit_limits.values())):
+            self._health.set(HEALTH_SERVING)
+        return level
+
+    @property
+    def brownout_level(self) -> int:
+        return self._brownout
 
     # -- observability -------------------------------------------------------
     @property

@@ -1392,3 +1392,108 @@ def test_load_library_from_four_threads_builds_once(cuda_device,
     assert calls == [("kmeans",)]
     assert len(libs) == 4 and all(lib is libs[0] for lib in libs)
     assert len([f for f in os.listdir(tmp_path) if f.endswith(".so")]) == 1
+
+
+@pytest.mark.cuda
+def test_mixed_continuous_learner_launches_b1_b2_once_a_step(cuda_device,
+                                                             tmp_path):
+    """A mixed-layout ``ContinuousLearner`` on the card: the margin (B1)
+    and fused scatter (B2) launch once per training step, the pair
+    scatter never, and the served generation after the last cut is the
+    offline streamed fit on the card bit for bit."""
+    from flink_ml_tpu_torch.iteration import CheckpointConfig
+    from flink_ml_tpu_torch.online import ContinuousLearner
+    from flink_ml_tpu_torch.serving import serve_model
+
+    rng = np.random.default_rng(61)
+    n_windows, batch = 8, 512
+    windows = []
+    for _ in range(n_windows):
+        dense = rng.normal(size=(batch, 4)).astype(np.float32)
+        cat = rng.integers(0, D, size=(batch, 6)).astype(np.int32)
+        y = (dense[:, 0] > 0).astype(np.float32)
+        windows.append(T.Table({"features_dense": dense,
+                                "features_indices": cat, "label": y}))
+    boot = T.LogisticRegressionModel(device=str(cuda_device))
+    boot.set_model_data(T.Table({"coefficients": np.zeros((1, D)),
+                                 "intercept": np.zeros(1)}))
+    endpoint = serve_model(boot, windows[0].drop("label").take(2),
+                           max_batch_rows=32, max_wait_ms=0.5)
+    keys = dict(dense_key="features_dense", indices_key="features_indices")
+    cfg = TS.SGDConfig(learning_rate=0.4, max_epochs=1, tol=0.0)
+    try:
+        learner = ContinuousLearner(
+            loss_fn=LOSSES["logistic"], num_features=D,
+            source=iter(windows), wal_dir=str(tmp_path / "wal"),
+            endpoint=endpoint, batch_rows=batch, config=cfg,
+            checkpoint=CheckpointConfig(str(tmp_path / "ck")),
+            publish_every_steps=4, device=str(cuda_device), **keys)
+        TE.reset_launch_counts()
+        learner.run(max_windows=n_windows)
+        torch.cuda.synchronize()
+        assert TE.LAUNCHES["ell_margin"] == n_windows
+        assert TE.LAUNCHES["ell_scatter_apply_fused"] == n_windows
+        assert TE.LAUNCHES["ell_scatter_apply"] == 0
+        assert [r.step for r in learner.publish_log] == [4, 8]
+        state, _ = TS.sgd_fit_outofcore(
+            LOSSES["logistic"], lambda: (w.to_dict() for w in windows),
+            num_features=D, config=cfg, steps_per_dispatch=4,
+            device=str(cuda_device), **keys)
+        served = endpoint.registry.current("default").servable.model
+        assert np.asarray(served._state.coefficients, np.float32).tobytes() \
+            == np.asarray(state.coefficients, np.float32).tobytes()
+    finally:
+        endpoint.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pq", [None, (4, 8)])
+def test_index_tenant_delta_calls_one_search_a_batch(cuda_device, pq):
+    """An index tenant after a delta publish (64 inserts and 64 deletes):
+    one retrieve call a served batch, ids and distance bits equal
+    ``search`` of the updated index, the other tenant untouched."""
+    from flink_ml_tpu_torch.online import DeltaEncoder
+    from flink_ml_tpu_torch.online.driver import publish_index_update
+    from flink_ml_tpu_torch.serving import SharedScheduler
+
+    rng = np.random.default_rng(63)
+    X = rng.normal(size=(4096, 16)).astype(np.float32)
+    kw = dict(nlist=16, nprobe=2, device=str(cuda_device),
+              drift_threshold=None)
+    index = T.IVFIndex.build(X, pq=None if pq is None else T.PQConfig(*pq),
+                             **kw)
+    other = T.IVFIndex.build(X[::-1].copy(), **kw)
+    q = rng.normal(size=(128, 16)).astype(np.float32)
+    s = SharedScheduler(max_batch_rows=64, max_wait_ms=1.0)
+    s.add_tenant("idx", index, T.Table({"query": q[:2]}))
+    s.add_tenant("other", other, T.Table({"query": q[:2]}))
+    s.start()
+    try:
+        other_gen = s.registry.current("other").generation
+        ref_other = s.predict("other", T.Table({"query": q[:8]}),
+                              timeout=60)
+        pub, enc = s.delta_publisher("idx"), DeltaEncoder()
+        publish_index_update(enc, pub, 1, "delta", index)
+        mode, nxt = index.updated(inserts=q[:64] + 0.01,
+                                  insert_ids=np.arange(5000, 5064),
+                                  delete_ids=np.arange(64))
+        assert mode == "delta"
+        assert publish_index_update(enc, pub, 2, mode, nxt).mode == "delta"
+        reqs = [T.Table({"query": q[i:i + 1 + i % 8]})
+                for i in range(0, 120, 8)]
+        name = "retrieve_flat" if pq is None else "retrieve_pq"
+        TR.reset_launch_counts()
+        b0 = s.tenant("idx").metrics.batches.value
+        outs = [s.predict("idx", r, timeout=60) for r in reqs]
+        torch.cuda.synchronize()
+        assert TR.LAUNCHES[name] == s.tenant("idx").metrics.batches.value \
+            - b0
+        for req, out in zip(reqs, outs):
+            nn, dist = nxt.search(req["query"])
+            assert np.array_equal(out["neighbors"], nn)
+            assert np.asarray(out["distances"]).tobytes() == dist.tobytes()
+        assert s.registry.current("other").generation == other_gen
+        again = s.predict("other", T.Table({"query": q[:8]}), timeout=60)
+        assert np.array_equal(again["neighbors"], ref_other["neighbors"])
+    finally:
+        s.close()

@@ -122,6 +122,30 @@ SERVING_MODULES = (
     "flink_ml_tpu_torch.kernels.quantize")
 
 
+ONLINE_MODULES = (
+    "flink_ml_tpu_torch.online", "flink_ml_tpu_torch.online.delta",
+    "flink_ml_tpu_torch.online.publish", "flink_ml_tpu_torch.online.staleness",
+    "flink_ml_tpu_torch.online.driver", "flink_ml_tpu_torch.autoscale",
+    "flink_ml_tpu_torch.autoscale.placement",
+    "flink_ml_tpu_torch.autoscale.signals",
+    "flink_ml_tpu_torch.autoscale.policy",
+    "flink_ml_tpu_torch.autoscale.controller",
+    "flink_ml_tpu_torch.serving.failover")
+
+
+def test_online_autoscale_and_failover_modules_import_without_jax():
+    """The continuous-learning modules, the autoscale control plane and
+    serving failover load neither JAX nor the JAX package."""
+    code = ("import sys, " + ", ".join(ONLINE_MODULES) + "; "
+            "print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         timeout=300).stdout.split()
+    assert set(ONLINE_MODULES) <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+
+
 def test_serving_modules_import_without_jax():
     """The serving runtime, the metrics tree, the metric groups and the
     int8 scoring functions load neither JAX nor the JAX package."""
@@ -238,6 +262,15 @@ def test_streamed_and_online_fits_need_cuda_unless_cpu_asked(monkeypatch):
         T.OnlineKMeans().set_k(2).fit(iter(stream))
     assert T.OnlineKMeans(device="cpu").set_k(2).fit(
         iter(stream)).model_version == 1
+    from flink_ml_tpu_torch.online import ContinuousLearner
+    from flink_ml_tpu_torch.serving import ModelRegistry
+
+    learner = dict(loss_fn=None, num_features=2, source=iter(stream),
+                   wal_dir="unused", registry=ModelRegistry(device="cpu"),
+                   batch_rows=16, checkpoint="unused")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ContinuousLearner(**learner)
+    assert ContinuousLearner(device="cpu", **learner).device == "cpu"
 
 
 def _py_files(root):

@@ -11,7 +11,7 @@ subtree, the ``add_tenant`` lifecycle, dispatch failures, chip-down
 requeues, and the real serve thread under concurrent clients.  The
 queue-mechanics cases also run the JAX package's scheduler on the same
 submits and require the same batches.  The JAX file's delta-publish
-isolation test waits for the port's ``online/`` modules.
+isolation test is in ``tests/test_torch_continuous.py``.
 
 Every blocking wait has a timeout; every scheduler closes in a
 ``finally``."""
@@ -692,8 +692,11 @@ def test_add_tenant_validation_and_lifecycle():
     with pytest.raises(ValueError, match="split it client-side"):
         s.submit("a", feats.take(16).concat(
             _feats(n=512, seed=5).take(241)))
-    with pytest.raises(NotImplementedError, match="online"):
-        s.delta_publisher("a")
+    pub = s.delta_publisher("a")
+    assert pub._name == "a" and pub._registry is s.registry
+    assert pub._metrics is s.tenant("a").metrics
+    with pytest.raises(KeyError, match="unknown tenant"):
+        s.delta_publisher("ghost")
     s.start()
     try:
         with pytest.raises(RuntimeError, match="already started"):

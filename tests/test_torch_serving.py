@@ -476,12 +476,80 @@ def test_publish_servable_rebind_and_generation_conflict():
         generic.rebind(a)
 
 
-def test_delta_publisher_waits_for_the_online_slice():
-    endpoint = serve_model(_fit_lr(), _lr_table().drop("label").take(1),
-                           max_batch_rows=16)
+@pytest.mark.parametrize("family", ["lr", "linreg", "kmeans", "widedeep"])
+def test_delta_publisher_serves_the_published_bits(family):
+    """``endpoint.delta_publisher()`` publishes into the endpoint's entry:
+    a nudged generation of each family swaps in through the rebind (one
+    generation up, accounted on the endpoint), and every response after it
+    is the offline transform of the published model bit for bit — and
+    the JAX package's servable of the same params within the family's
+    tolerance."""
+    from flink_ml_tpu import online as JO
+    from flink_ml_tpu_torch.online import (DeltaEncoder, encode_and_publish,
+                                           flatten_params, model_with_params,
+                                           params_of_model,
+                                           unflatten_params)
+
+    jmodel, cols, sizes = _jax_family(family)
+    model = pipeline_model_from_jax(jmodel, device="cpu")
+    reqs = _requests(T.Table(cols), sizes)
+    endpoint = serve_model(model, reqs[0], max_batch_rows=64,
+                           max_wait_ms=0.5)
     try:
-        with pytest.raises(NotImplementedError, match="online"):
-            endpoint.delta_publisher()
+        pub = endpoint.delta_publisher()
+        enc = DeltaEncoder()
+        p = params_of_model(model)
+        flat = flatten_params(p)
+        key = max(flat, key=lambda k: flat[k].size)
+        nudged = dict(flat)
+        nudged[key] = flat[key].copy()
+        nudged[key].reshape(-1)[::3] += np.float32(0.25)
+        p2 = unflatten_params(p, nudged)
+        gen0 = endpoint.registry.current("default").generation
+        res = encode_and_publish(enc, pub, 1, p2)
+        assert res.mode == "full" and res.generation == gen0 + 1
+        assert endpoint.metrics.snapshot()["publishes_full"] == 1
+        published = endpoint.registry.current("default").servable.model
+        assert flatten_params(params_of_model(published))[key].tobytes() \
+            == nudged[key].tobytes()
+        jpublished = JO.model_with_params(jmodel, p2)
+        jserv = JS.make_servable(jpublished, _requests(J.Table(cols),
+                                                       sizes)[0],
+                                 max_batch_rows=64).warm_up()
+        for req, jreq in zip(reqs, _requests(J.Table(cols), sizes)):
+            served = endpoint.predict(req, timeout=JOIN_S)
+            offline = model_with_params(model, p2).transform(req)[0]
+            for col in offline.column_names:
+                np.testing.assert_array_equal(served[col], offline[col])
+            _against_jax(family, jserv.predict(jreq), served)
+    finally:
+        endpoint.close()
+
+
+def test_delta_publisher_second_cut_ships_a_sparse_delta():
+    """The endpoint's publisher ships a one-coefficient change as a sparse
+    delta (12 bytes on the wire) and the endpoint serves it."""
+    from flink_ml_tpu_torch.online import DeltaEncoder, params_of_model
+
+    model = _fit_lr()
+    feats = _lr_table(seed=5).drop("label")
+    endpoint = serve_model(model, feats.take(1), max_batch_rows=16,
+                           max_wait_ms=0.5)
+    try:
+        pub, enc = endpoint.delta_publisher(), DeltaEncoder()
+        p = params_of_model(model)
+        pub.apply(enc.encode(1, p, pub.stats))
+        enc.ack()
+        p2 = {"w": p["w"].copy(), "b": p["b"]}
+        p2["w"][3] = np.float32(-4.0)
+        res = pub.apply(enc.encode(2, p2, pub.stats))
+        assert res.mode == "delta" and res.payload_bytes == 12
+        assert endpoint.metrics.snapshot()["publishes_delta"] == 1
+        out = endpoint.predict(feats.take(5), timeout=JOIN_S)
+        np.testing.assert_array_equal(
+            out["rawPrediction"],
+            _lr_from_weights(p2["w"], float(p2["b"])).transform(
+                feats.take(5))[0]["rawPrediction"])
     finally:
         endpoint.close()
 
