@@ -32,7 +32,9 @@ line is printed):
    scatter: the ``r_ext`` gather plus ``index_add_``, and ``index_add_``
    of pre-gathered updates beside it; the pair scatter: ``index_add_``),
    beside the bound computed from bytes; the sample routing's one-time build for
-   the fit's 8 steps; epochs/s.
+   the fit's 8 steps; epochs/s through the kernels and through the plain
+   versions; C4's cost at the leg: step 0's two overflow scatter-adds in
+   the fit's fixed order against ``index_add_`` on the same inputs.
 6. KMeans kernels vs plain versions on the card at the headline (2^20
    points x 64 dims, k = 256, numpy seed 0 N(0,1) points, centroids the
    midpoints of seeded-permutation pairs of points): the stats kernel
@@ -71,12 +73,16 @@ line is printed):
     printed), every step of that epoch vs the autograd ``'off'`` step from
     the routed fit's own state within the same tolerances, a replay ending
     bit for bit on the fit, the whole ``'off'`` epoch's loss within them,
-    and scores within 1e-5 of a numpy float64 forward.
+    two ``'off'`` fits and two lazy fits bit for bit (their table
+    gradients sum in a fixed order), and scores within 1e-5 of a numpy
+    float64 forward.
 11. Wide&Deep times: the fold kernel (the bench, heavy-hitter and deep
     routes, each at E = 64 and E = 1) against its plain version, the
     ``index_add_`` scatter-add it replaces and the byte bound; steps/s over
-    device-resident epoch tensors through the kernel, the plain fold and
-    the autograd scatter-add; ``fit()`` wall and the host route build.
+    device-resident epoch tensors through the kernel, the plain fold, and
+    the ``'off'`` step with its fixed-order table gradients (C4's cost:
+    that gradient's ms against ``index_add_``); ``fit()`` wall and the
+    host route build.
 
 12. IVF retrieval main path, at the JAX package's retrieval bench
     (``bench.py:4171-4213``: 131072 x 64 points in 4096 masses of 32,
@@ -119,7 +125,8 @@ line is printed):
     rows, batch 2^14, 2 epochs) with the routing budget cut to 3 steps
     builds its routing per chunk every epoch, launches the margin and
     fused-scatter kernels every step, gives every step's margin bit for
-    bit, and agrees with the whole-routing fit; the rebuild's cost a step.
+    bit, and equals the whole-routing fit bit for bit; the rebuild's cost
+    a step.
 16. Sparse LR at the Criteo width: phase 4's rows in the pair encoding
     (``bench.py:100-115``: indices 0-12 carry the dense values, the 26
     hashed slots 1.0; nnz 39), ``LogisticRegression(device="cuda")`` on
@@ -130,8 +137,7 @@ line is printed):
     versions on the card, the fit equals phase 4's mixed fit of the same
     rows and the same fit from an ``ell_layout_device`` layout (heavy_cap
     24, ``bench.py:297-301``), each within allclose rtol 1e-3, atol 1e-4
-    (``bench.py:266, 316``: the overflow and heavy legs' ``index_add_``
-    adds in no fixed order on the card); ``transform`` equals numpy f64
+    (``bench.py:266, 316``); ``transform`` equals numpy f64
     scoring; ``BinaryClassificationEvaluator`` gives the same
     areaUnderROC on the card as on the CPU.  Both value variants equal
     their plain versions bit for bit on the fit's step 0 and are timed
@@ -202,13 +208,13 @@ line is printed):
     Checks: (a) W 8 = W 1 bit for bit; (b) a fit whose reader dies
     fetching batch 12, healed by ``resilient_fit`` from a
     ``checkpoint_every_steps=8`` cut, equals the uninterrupted fit bit for
-    bit; (c) a second run bit for bit; (d) every step, from the streamed
-    fit's own state, within loss rtol 1e-5, parameters rtol 1e-4 / atol
-    1e-5 of the in-memory ``routedEmbeddingGrad='off'`` step on the same
-    batch, the replay ending bit for bit on the streamed fit, and the
+    bit; (c) a second run bit for bit; (d) the in-memory
+    ``routedEmbeddingGrad='off'`` step (the streamed fit's own step)
+    replayed from the streamed fit's state, two calls a step bit for bit,
+    the replay ending bit for bit on the streamed fit, and the
     whole fit's loss log within rtol 1e-5 of the in-memory 'off' fit on
-    the same rows (the whole fits' parameters are printed, beside two
-    in-memory 'off' fits against each other: phase 10's rule).
+    the same rows (the whole fits' parameters are printed), and two
+    in-memory 'off' fits bit for bit.
     Then (a)-(c) with ``lazyEmbeddingOptimizer`` on the first 4 batches
     (the crash fetching batch 6, cuts every 2 steps at W 2).  Prints
     streamed steps/s beside phase 11's, the cut's host ms, the recovery s
@@ -317,6 +323,37 @@ line is printed):
     B5 again, an autoscale tick racing the failover costs one
     ``PlacementConflict`` retry; recovery wall s and interactive p99
     before/during/after.
+
+37. GBT in core at ``bench_gbt``'s shape (``bench.py:1340-1357``: 2^19 x
+    32 N(0,1) f32 rows, numpy seed 29, label ``X0 + 0.5 X1 X2 + 0.3 noise
+    > 0``; 8 trees, depth 5, 64 bins, learning rate 0.2): ``train_forest``
+    on the card, both histogram forms ("segsum": the fixed-order
+    scatter-add; "mxu": the f32 one-hot product), each fit twice bit for
+    bit; the first tree's level histograms of both forms against a
+    float64 numpy histogram and each other (rtol 1e-4, atol 1e-5,
+    ``bench.py:1388-1391``) and timed at n_nodes 1-16 beside the bytes
+    bound; the training log-loss falling tree by tree and within 1e-3
+    (relative) of the same fit on the CPU; the host share of a tree;
+    ``predict_forest`` on the card equal to a numpy walk; a 3-class
+    softmax fit at 2^16 rows whose probabilities sum to 1 within 1e-9.
+    Prints the warm fits' trees/s.
+38. GBT out of core: the same rows streamed from a ``DataCacheWriter``
+    cache in 2^16-row batches; W 8 = W 1 and a rerun bit for bit; the
+    training log-loss within 1e-4 (relative) of phase 37's in-core fit,
+    and the nodes whose split differs; streamed trees/s.
+39. The estimators: ``GBTClassifier(device="cuda")`` binary and 3-class
+    and ``GBTRegressor`` (2^16 x 32) each within 1e-3 of the same fit on
+    the CPU in training loss; ``NaiveBayes`` at smoothing 0 against
+    float64 scores (-inf where a class never saw a present feature); KNN
+    at k 5 (2^17 x 64 train, 4096 queries) against a float64 k-nearest
+    vote, queries whose k-th and (k+1)-th distances tie within f32
+    rounding held to the vote of some valid k-set; ``OneVsRest`` over
+    ``LogisticRegression`` (4 classes) against the CPU; a
+    ``StandardScaler -> GBTClassifier`` pipeline fitted and applied on
+    the card (fused = stagewise bit for bit); the binary
+    ``GBTClassifierModel`` served at requests of 1-256 rows, every
+    response its offline transform bit for bit.  No kernel of the table
+    runs in phases 37-39.
 
 The last lines are the kernel table (nine kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
@@ -1043,8 +1080,8 @@ def widedeep_phases(torch, dev, card, timer):
     one_epoch_gate("kernel vs plain fold on the card", one_k, one_p)
     del one_p
 
-    # routed (kernel) vs autograd's scatter-add ('off', atomics on the
-    # card).  From the same state one step differs only in the order of
+    # routed (kernel) vs the fixed-order scatter-add of the 'off' step.
+    # From the same state one step differs only in the order of
     # the table-gradient sums, so every step of the epoch is gated from
     # the routed fit's own state, and the replay must end bit for bit on
     # the routed fit.  The whole epochs are held to the loss only: Adam's
@@ -1074,6 +1111,17 @@ def widedeep_phases(torch, dev, card, timer):
     replayed = all(np.array_equal(params[k].cpu().numpy(), one_k._params[k])
                    for k in WD_TABLE_KEYS)
     one_off = estimator(1).set(WideDeep.ROUTED_EMB_GRAD, "off").fit(table)
+    # C4: the fits without the route gather through _FixedOrderRows, so
+    # two of them give the same bits
+    repeat = {"off": _wd_same(one_off, estimator(1).set(
+        WideDeep.ROUTED_EMB_GRAD, "off").fit(table))}
+    lazy_one = estimator(1).set(WideDeep.LAZY_EMB_OPT, True).fit(table)
+    repeat["lazy"] = _wd_same(lazy_one, estimator(1).set(
+        WideDeep.LAZY_EMB_OPT, True).fit(table))
+    del lazy_one
+    log(f"two in-memory Wide&Deep fits give the same bits: {repeat}")
+    if not all(repeat.values()):
+        fail("two in-memory Wide&Deep fits without the route differ")
     part = {k: int(np.sum(~np.isclose(one_k._params[k], one_off._params[k],
                                       **WD_PARAM_TOL)))
             for k in WD_TABLE_KEYS}
@@ -1122,6 +1170,11 @@ def widedeep_phases(torch, dev, card, timer):
         n_slots = sid.shape[0]
         bound_ms = fold_bound_ms(n_slots, E)
         results[name, E] = (ms, plain_ms, lib_ms, bound_ms)
+        if (name, E) == ("bench", 64):
+            # C4's cost at the 'off' step's table gradient: the backward
+            # of _FixedOrderRows (fixed order) beside index_add_ above
+            c4_ms = timer.ms(lambda: S._scatter_add_(torch.zeros(
+                (num_rows,) + tuple(flat.shape[1:]), device=dev), ids, flat))
         levels = G._kernels().emb_fold_group_levels()
         log(f"time fold_runs ({name} route, S {n_slots}, E {E}, "
             f"fold_passes {P}: {-(-P // levels)} level-group launches of "
@@ -1159,8 +1212,10 @@ def widedeep_phases(torch, dev, card, timer):
         f"{steps} steps, fold_passes {fit_route.fold_passes}), "
         f"device-resident "
         f"epoch tensors: kernel {rates['kernel']:.3f}, plain fold "
-        f"{rates['plain']:.3f}, autograd scatter-add 'off' "
-        f"{rates['off']:.3f}; fit() wall {fit_s:.3f} s for {WD_EPOCHS} "
+        f"{rates['plain']:.3f}, fixed-order autograd scatter-add 'off' "
+        f"{rates['off']:.3f} (C4: its table gradient at step 0, E 64, "
+        f"{c4_ms:.4f} ms against index_add_ "
+        f"{results['bench', 64][2]:.4f}); fit() wall {fit_s:.3f} s for {WD_EPOCHS} "
         f"epochs incl. host route build {info['build_s']:.3f} s (route "
         f"build alone, this layout: {build_s:.3f} s) [{card}]")
 
@@ -2143,16 +2198,16 @@ def routing_chunk_phase(torch, dev, card):
     log(f"routing rebuild per step (chunks of {C1_CHUNK} steps, batch "
         f"{C1_FIT_BATCH}, {C1_FEATURES} features): {rebuild[0] * 1e3:.3f} ms "
         f"first, {min(rebuild[1:]) * 1e3:.3f} ms again [{card}]")
-    # the fits' overflow and heavy-hitter legs scatter with index_add_,
-    # whose atomics add in no fixed order on the card: two fits agree
-    # within the main path's one-epoch tolerance, not bit for bit
+    # every scatter-add of the fits sums in a fixed order (C4): the
+    # chunked routing gives the whole routing's fit bit for bit
     a = whole.get_model_data()[0]["coefficients"][0]
     b = model.get_model_data()[0]["coefficients"][0]
     diff = float(np.max(np.abs(a - b)))
     log(f"routing-chunk fit vs the whole-routing fit: max |dw| {diff:.3e} "
-        f"(allclose rtol 1e-3, atol 1e-4); every step's margin through the "
-        f"chunks bit for bit the whole routing's: {same_margin}")
-    if not same_margin or not np.allclose(a, b, rtol=1e-3, atol=1e-4):
+        f"(tolerance 0: bit for bit {np.array_equal(a, b)}); every step's "
+        f"margin through the chunks bit for bit the whole routing's: "
+        f"{same_margin}")
+    if not same_margin or not np.array_equal(a, b):
         fail("the chunked routing changed the fit")
 
 # The iteration runtime on the card (phase 20): the reference's bounded
@@ -2456,10 +2511,9 @@ SK_BATCH = 1 << 17
 # a checkpoint_every_steps=2 cut at W 2)
 SW_W, SW_CRASH_PULL, SW_CUT_EVERY = 8, 12, 8
 SW_LAZY_BATCHES = 4
-# tests/test_torch_widedeep.py's tolerance of one step from converted
-# state (held here step by step from the streamed fit's state)
+# tests/test_torch_widedeep.py's loss tolerance of one step from converted
+# state (held here between the streamed and the in-memory fit's loss logs)
 SW_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
-SW_PARAM_TOL = dict(rtol=1e-4, atol=1e-5)
 # Streaming FTRL (phase 24) at bench_online_ftrl's shape (bench.py:1459-1472)
 FT_D, FT_WINDOWS, FT_ROWS, FT_DENSE, FT_UNIT = 1 << 20, 16, 1 << 12, 13, 26
 FT_ALPHA, FT_BETA, FT_L1, FT_L2 = 0.1, 1.0, 1e-4, 1e-4
@@ -2737,20 +2791,16 @@ def stream_widedeep_phase(torch, dev, card):
                 fail(f"streamed Wide&Deep ({label}): a rerun differs")
             if lazy:
                 break
-            # (d) the in-memory 'off' step (autograd's scatter-add, atomics
-            # on the card) on the same batches, every step from the
-            # streamed fit's own state (phase 10's rule: whole runs part
-            # where Adam's ~sign(g) * lr update meets a reordered ~0
-            # gradient, so whole fits are held to the loss only); the
-            # replay must end bit for bit on the streamed fit
+            # (d) the in-memory 'off' step is the streamed fit's step
+            # (both gather through _FixedOrderRows, C4): replayed on the
+            # same batches, every step from the streamed fit's own state,
+            # two calls of it give the same bits, and the replay must end
+            # bit for bit on the streamed fit
             params = W.params_to_device(W.init_params(
                 np.random.default_rng(18), WD_DENSE, vocab, WD_EMB,
                 WD_HIDDEN), dev)
-            fixed_step, state = W._make_train_ops(params, 1e-2, False,
-                                                  fixed_order=True)
-            off_step, _ = W._make_train_ops(params, 1e-2, False)
+            off_step, state = W._make_train_ops(params, 1e-2, False)
             offs = W._field_offsets(vocab)
-            worst = {}
             for i in range(steps):
                 rows_i = perm[(i % WD_STEPS) * WD_BATCH:
                               (i % WD_STEPS + 1) * WD_BATCH]
@@ -2760,18 +2810,13 @@ def stream_widedeep_phase(torch, dev, card):
                                     + offs).astype(np.int32),
                                    cols["label"][rows_i],
                                    np.ones(WD_BATCH, np.float32)))
-                p_f, s_f, l_f = fixed_step(params, state, *batch_i)
+                p_f, s_f, l_f = off_step(params, state, *batch_i)
                 p_o, _, l_o = off_step(params, state, *batch_i)
-                if not np.allclose(float(l_f), float(l_o), **SW_LOSS_TOL):
-                    fail(f"step {i}: streamed loss {float(l_f)} vs 'off' "
-                         f"{float(l_o)}")
                 a, b = _wd_leaves(p_f), _wd_leaves(p_o)
-                for k in a:
-                    worst[k] = max(worst.get(k, 0.0),
-                                   float((a[k] - b[k]).abs().max()))
-                    if not torch.allclose(a[k], b[k], **SW_PARAM_TOL):
-                        fail(f"step {i}: the streamed and the 'off' step "
-                             f"disagree on {k}")
+                if not torch.equal(l_f, l_o) or not all(
+                        torch.equal(a[k], b[k]) for k in a):
+                    fail(f"step {i}: two calls of the 'off' step from one "
+                         f"state differ")
                 params, state = p_f, s_f
                 del p_o
             replayed = all(np.array_equal(v.cpu().numpy(), want) for v, want
@@ -2785,10 +2830,13 @@ def stream_widedeep_phase(torch, dev, card):
             a, b, c = (_wd_leaves(m._params) for m in (main, mem, mem2))
             whole = {k: float(np.max(np.abs(a[k] - b[k]))) for k in a}
             self_d = {k: float(np.max(np.abs(b[k] - c[k]))) for k in b}
-            log(f"(d) streamed vs in-memory 'off' steps, each from the "
-                f"streamed state: max |d| by leaf {worst} (loss rtol 1e-5, "
-                f"params rtol 1e-4, atol 1e-5); the replay equals the fit "
-                f"{replayed}; whole fits: loss {main.loss_log} vs "
+            # C4: the in-memory 'off' fit gathers through _FixedOrderRows,
+            # so two of them give the same bits
+            if not _wd_same(mem, mem2):
+                fail("two in-memory 'off' Wide&Deep fits differ")
+            log(f"(d) the in-memory 'off' step replayed from the streamed "
+                f"state, twice a step: the same bits; the replay equals the "
+                f"fit {replayed}; whole fits: loss {main.loss_log} vs "
                 f"{mem.loss_log} (rtol 1e-5), max |d| by leaf {whole}; two "
                 f"in-memory 'off' fits against each other: {self_d}")
             if not replayed:
@@ -4991,6 +5039,597 @@ def failover_phase(torch, dev, card):
     return {"kmeans_assign_reduce": b5[0]}
 
 
+# The boosted trees and the instance classifiers (phases 37-39):
+# bench_gbt's shape (bench.py:1340-1357)
+GB_ROWS, GB_D, GB_SEED = 1 << 19, 32, 29
+GB_TREES, GB_DEPTH, GB_BINS, GB_LR = 8, 5, 64, 0.2
+GB_HIST_TOL = dict(rtol=1e-4, atol=1e-5)   # bench.py:1388-1391
+GB_CPU_LOSS_RTOL = 1e-3       # the card's training log-loss vs the CPU's
+GB_STREAM_BATCH = 1 << 16
+GB_STREAM_LOSS_RTOL = 1e-4    # streamed vs in-core training log-loss
+GB_SOFT_ROWS = 1 << 16
+GB_HIST_REPS = 10
+GB_EST_ROWS = 1 << 16         # phase 39's estimator fits
+NB_ROWS, NB_D, NB_CLASSES = 1 << 16, 64, 3
+NB_TOL = dict(rtol=1e-5, atol=1e-3)
+KN_TRAIN, KN_D, KN_Q, KN_K = 1 << 17, 64, 4096, 5
+KN_TIE = 1e-6        # k-th vs (k+1)-th squared distance, of |q|^2 + max|x|^2
+OV_ROWS, OV_D, OV_CLASSES = 1 << 15, 16, 4
+OV_TOL = dict(rtol=1e-3, atol=1e-4)        # bench.py:266
+GB_SERVE_SIZES = (1, 2, 3, 5, 8, 9, 16, 17, 31, 32, 33, 63, 64, 65, 100,
+                  127, 128, 129, 200, 255, 256)
+
+
+def gbt_rows(n, d, seed):
+    """bench_gbt's rows: N(0,1) f32 features, label ``X0 + 0.5 X1 X2 +
+    0.3 noise > 0`` (``bench.py:1346-1349``)."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2]
+         + 0.3 * rng.normal(size=n) > 0).astype(np.float64)
+    return X, y
+
+
+def gbt_grad_hess(y, pred):
+    """``bench.py:1351-1353``."""
+    p = 1.0 / (1.0 + np.exp(-pred))
+    return (p - y), np.maximum(p * (1.0 - p), 1e-16)
+
+
+def log_loss(y, margins):
+    return float(np.mean(np.logaddexp(0.0, margins) - y * margins))
+
+
+def forest_losses(G, X, y, forest, dev):
+    """The training log-loss after each tree, from margins summed as
+    ``train_forest`` sums them (base + lr * tree output, in f64)."""
+    binned = G.apply_bins(X, forest.bin_edges)
+    depth = int(np.log2(forest.feature.shape[1] + 1)) - 1
+    outs = G._tree_preds(binned, forest.feature, forest.threshold,
+                         forest.value, depth, dev)
+    m = np.full(len(X), forest.base_score)
+    losses = []
+    for out in outs:
+        m = m + forest.learning_rate * out.astype(np.float64)
+        losses.append(log_loss(y, m))
+    return losses
+
+
+def numpy_forest(X, forest):
+    """``predict_forest`` in numpy: searchsorted bins, each tree walked in
+    arrays, its f32 outputs summed as ``predict_forest`` sums them."""
+    binned = np.stack([np.searchsorted(forest.bin_edges[j], X[:, j],
+                                       side="left")
+                       for j in range(X.shape[1])], axis=1)
+    n, nodes = len(X), forest.feature.shape[1]
+    depth = int(np.log2(nodes + 1)) - 1
+    rows = np.arange(n)
+    pred = np.full(n, forest.base_score)
+    for feature, threshold, value in zip(forest.feature, forest.threshold,
+                                         forest.value):
+        node = np.zeros(n, np.int64)
+        out = np.zeros(n, np.float32)
+        settled = np.zeros(n, bool)
+        for _ in range(depth + 1):
+            feat = feature[node]
+            leaf = feat < 0
+            out = np.where(leaf & ~settled, value[node], out)
+            settled |= leaf
+            right = binned[rows, np.maximum(feat, 0)] > threshold[node]
+            node = np.where(settled, node,
+                            np.minimum(2 * node + 1 + right, nodes - 1))
+        pred += forest.learning_rate * out
+    return pred
+
+
+def same_forest(a, b):
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("feature", "threshold", "value"))
+
+
+def split_differences(a, b):
+    """Nodes whose split differs: the feature, or a split's threshold."""
+    split = (a.feature >= 0) | (b.feature >= 0)
+    return int(np.sum((a.feature != b.feature)
+                      | (split & (a.threshold != b.threshold))))
+
+
+def gbt_device_tree(torch, G, binned, g, h, d, cfg):
+    """``_train_one_tree``'s device work with no host read between its
+    launches: the levels, the leaf values, the tree rows, the in-sample
+    walk."""
+    impl = G.resolve_hist_impl()
+    ids = torch.zeros((binned.shape[0],), dtype=torch.int32,
+                      device=binned.device)
+    splits, level_ids = [], [ids]
+    for level in range(cfg.max_depth):
+        f, b, gain, ids = G._build_level(
+            binned, ids, g, h, 2 ** level, d, cfg.max_bins, cfg.reg_lambda,
+            cfg.min_child_weight, hist_impl=impl)
+        splits.append((f, b, gain))
+        level_ids.append(ids)
+    vals = [G._leaf_values(level_ids[level], g, h, 2 ** level,
+                           cfg.reg_lambda)
+            for level in range(cfg.max_depth + 1)]
+    rows = G._tree_rows(splits, vals, cfg.max_depth)
+    return G._predict_tree_device(binned, *rows, cfg.max_depth)
+
+
+def gbt_phase(torch, dev, card, timer):
+    """Phase 37: GBT in core at bench_gbt's shape: two fits on the card
+    bit for bit, both histogram forms timed by fit and by level against
+    float64 numpy histograms and the bytes bound, the log-loss falling and
+    within GB_CPU_LOSS_RTOL of the CPU fit, the host share of a tree,
+    ``predict_forest`` against a numpy walk, a 3-class softmax fit."""
+    from flink_ml_tpu_torch.models.common import gbt as G
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the one-hot histogram product must run in f32")
+    n, d, bins = GB_ROWS, GB_D, GB_BINS
+    X, y = gbt_rows(n, d, GB_SEED)
+    cfg = G.GBTConfig(num_trees=GB_TREES, max_depth=GB_DEPTH,
+                      max_bins=bins, learning_rate=GB_LR)
+    impl = G.resolve_hist_impl()
+    other = "mxu" if impl == "segsum" else "segsum"
+
+    def fit(form):
+        old = G.HIST_IMPL
+        G.HIST_IMPL = form
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forest = G.train_forest(X, y, gbt_grad_hess, 0.0, cfg,
+                                    device=dev)
+            return forest, time.perf_counter() - t0
+        finally:
+            G.HIST_IMPL = old
+
+    forest, cold_s = fit("auto")
+    runs = {impl: [], other: []}
+    for form in (impl, other, other, impl):
+        runs[form].append(fit(form))
+    repeat = {form: all(same_forest(f, rs[0][0]) for f, _ in rs)
+              for form, rs in runs.items()}
+    repeat[impl] = repeat[impl] and same_forest(forest, runs[impl][0][0])
+    rate = {form: GB_TREES / statistics.median(s for _, s in rs)
+            for form, rs in runs.items()}
+    t0 = time.perf_counter()
+    G.bin_features(X, bins)
+    bin_s = time.perf_counter() - t0
+    loop = GB_TREES / (statistics.median(s for _, s in runs[impl]) - bin_s)
+    log(f"GBT in core ({n} x {d}, {GB_TREES} trees, depth {GB_DEPTH}, "
+        f"{bins} bins, lr {GB_LR}; 'auto' = {impl} on the card): cold fit "
+        f"{cold_s:.3f} s; warm trees/s {impl} {rate[impl]:.3f}, {other} "
+        f"{rate[other]:.3f} (median of 2 fits each, in turns); of a fit's "
+        f"wall the host binning (quantile edges and searchsorted, numpy) "
+        f"{bin_s:.3f} s, the boosting loop alone {loop:.3f} trees/s; fits "
+        f"repeat bit for bit {repeat}; splits that differ between the "
+        f"forms {split_differences(runs[impl][0][0], runs[other][0][0])} "
+        f"[{card}]")
+    RATES["gbt_trees_per_sec"] = rate[impl]
+    if not all(repeat.values()):
+        fail("GBT: two fits on the card gave different forests")
+    if not np.any(forest.feature[0] >= 0):
+        fail("GBT: the fit grew no splits")
+
+    losses = forest_losses(G, X, y, forest, dev)
+    t0 = time.perf_counter()
+    cpu = G.train_forest(X, y, gbt_grad_hess, 0.0, cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    cpu_losses = forest_losses(G, X, y, cpu, "cpu")
+    worst = max(abs(a - b) / b for a, b in zip(losses, cpu_losses))
+    log(f"GBT training log-loss by tree: card {[round(v, 6) for v in losses]}"
+        f", CPU {[round(v, 6) for v in cpu_losses]} (worst relative gap "
+        f"{worst:.3e}, tolerance {GB_CPU_LOSS_RTOL}); splits that differ "
+        f"{split_differences(forest, cpu)}; the CPU fit {cpu_s:.3f} s")
+    if not all(b < a for a, b in zip([log_loss(y, np.zeros(n))] + losses,
+                                     losses)):
+        fail(f"GBT: the training log-loss did not fall tree by tree: "
+             f"{losses}")
+    if worst > GB_CPU_LOSS_RTOL:
+        fail("GBT: the card's fit left the CPU fit's log-loss")
+
+    # the first tree's level histograms: both forms against a float64
+    # numpy histogram and each other, and timed beside the bytes bound
+    binned_host = G.apply_bins(X, forest.bin_edges)
+    binned = torch.from_numpy(binned_host).to(dev)
+    g, h = (a.astype(np.float32) for a in gbt_grad_hess(y, np.zeros(n)))
+    gd, hd = torch.from_numpy(g).to(dev), torch.from_numpy(h).to(dev)
+    f0 = torch.from_numpy(forest.feature[0]).to(dev)
+    thr0 = torch.from_numpy(forest.threshold[0]).to(dev)
+    bound_ms = (n * d * 4 + 3 * n * 4) / HBM_BYTES_PER_S * 1e3
+    hist_ms = {}
+    for level in range(GB_DEPTH):
+        n_nodes = 2 ** level
+        ids = G._route_to_level(binned, f0, thr0, level)
+        ids_host = ids.cpu().numpy()
+        live = ids_host >= 0
+        keys = (ids_host[live, None] * (d * bins)
+                + np.arange(d)[None, :] * bins + binned_host[live]).ravel()
+        want = [np.bincount(keys, weights=np.repeat(v[live].astype(
+            np.float64), d), minlength=n_nodes * d * bins).reshape(
+            n_nodes, d, bins) for v in (g, h)]
+        got = {form: [t.cpu().numpy() for t in G._HIST_IMPLS[form](
+            binned, ids, gd, hd, n_nodes, d, bins)] for form in G._HIST_IMPLS}
+        errs = {form: max(float(np.max(np.abs(a - w)))
+                          for a, w in zip(got[form], want))
+                for form in got}
+        ok = all(np.allclose(a, w, **GB_HIST_TOL)
+                 for form in got for a, w in zip(got[form], want))
+        ok = ok and all(np.allclose(a, b, **GB_HIST_TOL) for a, b in
+                        zip(got["segsum"], got["mxu"]))
+        hist_ms[n_nodes] = {form: timer.ms(
+            lambda form=form: G._HIST_IMPLS[form](binned, ids, gd, hd,
+                                                  n_nodes, d, bins),
+            reps=GB_HIST_REPS, warm=2) for form in G._HIST_IMPLS}
+        log(f"GBT level {level} (n_nodes {n_nodes}): segsum "
+            f"{hist_ms[n_nodes]['segsum']:.4f} ms, mxu "
+            f"{hist_ms[n_nodes]['mxu']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"(bytes: binned rows, g, h, node ids); max |hist - float64| "
+            f"{errs} (rtol {GB_HIST_TOL['rtol']}, atol "
+            f"{GB_HIST_TOL['atol']}) [{card}]")
+        if not ok:
+            fail(f"GBT level {level}: a histogram form left the float64 "
+                 "histogram or the other form")
+    RATES["gbt_hist_ms"] = hist_ms
+
+    # the host share of a tree: one tree's wall (host gradients, copies,
+    # the tree, the in-sample read) against its device work enqueued with
+    # no host read in between
+    m = np.full(n, 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gh = [a.astype(np.float32) for a in gbt_grad_hess(y, m)]
+    grad_s = time.perf_counter() - t0
+    g1, h1 = (torch.from_numpy(a).to(dev) for a in gh)
+    *_, tp = G._train_one_tree(binned, g1, h1, d, cfg)
+    m = m + GB_LR * tp.cpu().numpy().astype(np.float64)
+    tree_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = []
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        gbt_device_tree(torch, G, binned, g1, h1, d, cfg)
+        end.record()
+        torch.cuda.synchronize()
+        device_ms.append(start.elapsed_time(end))
+    dev_ms = statistics.median(device_ms[1:])
+    log(f"GBT host share of a tree: {1 - dev_ms / tree_ms:.3f} (tree wall "
+        f"{tree_ms:.3f} ms, of it host gradients {grad_s * 1e3:.3f} ms; "
+        f"the tree's device work alone {dev_ms:.3f} ms) [{card}]")
+
+    Xh, _ = gbt_rows(50000, d, seed=30)
+    got = G.predict_forest(Xh, forest, device=dev)
+    if not np.array_equal(got, numpy_forest(Xh.astype(np.float64),
+                                            forest)):
+        fail("GBT: predict_forest on the card differs from a numpy walk")
+    log("GBT predict_forest on the card (50000 held-out rows) = a numpy "
+        "walk of the same forest, bit for bit")
+
+    Xs, _ = gbt_rows(GB_SOFT_ROWS, d, seed=31)
+    ys = ((Xs[:, 0] > 0).astype(np.int64)
+          + (Xs[:, 1] + Xs[:, 2] > 0.5).astype(np.int64))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    soft = G.train_forest_softmax(Xs, ys, 3, cfg, device=dev)
+    soft_s = time.perf_counter() - t0
+    probs = G._softmax_rows(G.predict_forest_softmax(Xs, soft, device=dev))
+    sum_err = float(np.max(np.abs(probs.sum(axis=1) - 1.0)))
+    acc = float(np.mean(np.argmax(probs, axis=1) == ys))
+    log(f"GBT softmax (3 classes, {GB_SOFT_ROWS} rows): {GB_TREES * 3} "
+        f"trees in {soft_s:.3f} s ({GB_TREES * 3 / soft_s:.3f} trees/s), "
+        f"training accuracy {acc:.4f}, max |sum p - 1| {sum_err:.3e} "
+        f"(tolerance 1e-9) [{card}]")
+    if sum_err > 1e-9 or acc < 0.9:
+        fail("GBT softmax: probabilities do not sum to 1 or it did not "
+             "learn")
+    log(f"phase 37: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return X, y, cfg, forest, losses
+
+
+def gbt_stream_phase(torch, dev, card, X, y, cfg, incore, incore_losses):
+    """Phase 38: the same rows streamed from a DataCacheWriter cache in
+    2^16-row batches: W 8 = W 1 and a rerun bit for bit, the log-loss
+    within GB_STREAM_LOSS_RTOL of the in-core fit's, streamed trees/s."""
+    import shutil
+
+    from flink_ml_tpu_torch.data.datacache import (DataCacheReader,
+                                                   DataCacheWriter)
+    from flink_ml_tpu_torch.models.common import gbt as G
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(ST_DIR, ignore_errors=True)
+    cache = os.path.join(ST_DIR, "gbt")
+    try:
+        writer = DataCacheWriter(cache)
+        for s in range(0, len(y), GB_STREAM_BATCH):
+            writer.append({"features": X[s:s + GB_STREAM_BATCH],
+                           "label": y[s:s + GB_STREAM_BATCH]})
+        writer.finish()
+
+        def fit(W):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forest = G.train_forest_outofcore(
+                lambda: DataCacheReader(cache, batch_rows=GB_STREAM_BATCH),
+                gbt_grad_hess, 0.0,
+                dataclasses.replace(cfg, steps_per_dispatch=W),
+                work_dir=os.path.join(ST_DIR, "work"), sample_rows=len(y),
+                batch_device_rows=GB_STREAM_BATCH, device=dev)
+            return forest, time.perf_counter() - t0
+
+        w1, w1_s = fit(1)
+        w8, w8_s = fit(8)
+        again, again_s = fit(8)
+    finally:
+        shutil.rmtree(ST_DIR, ignore_errors=True)
+    losses = forest_losses(G, X, y, w8, dev)
+    gap = abs(losses[-1] - incore_losses[-1]) / incore_losses[-1]
+    log(f"GBT streamed ({len(y) // GB_STREAM_BATCH} batches of "
+        f"{GB_STREAM_BATCH}): W 8 = W 1 bit for bit {same_forest(w8, w1)}, "
+        f"a rerun bit for bit {same_forest(again, w8)}; training log-loss "
+        f"{losses[-1]:.6f} vs in core {incore_losses[-1]:.6f} (relative "
+        f"{gap:.3e}, tolerance {GB_STREAM_LOSS_RTOL}); splits that differ "
+        f"from the in-core forest {split_differences(w8, incore)}; trees/s "
+        f"W 1 {GB_TREES / w1_s:.3f}, W 8 {GB_TREES / w8_s:.3f}, W 8 again "
+        f"{GB_TREES / again_s:.3f} [{card}]")
+    RATES["gbt_stream_trees_per_sec"] = GB_TREES / again_s
+    if not same_forest(w8, w1) or not same_forest(again, w8):
+        fail("GBT streamed: W 8 and W 1 (or a rerun) differ")
+    if gap > GB_STREAM_LOSS_RTOL:
+        fail("GBT streamed: the log-loss left the in-core fit's")
+    log(f"phase 38: {time.perf_counter() - t_phase:.2f} s [{card}]")
+
+
+def knn_reference(train, classes, queries, k, n_classes):
+    """The float64 k-nearest vote, and for each query whether its k-th and
+    (k+1)-th squared distances tie within KN_TIE, with the classes a
+    valid k-set may vote for there."""
+    x2 = np.sum(train * train, axis=1)
+    scale = float(x2.max())
+    votes, ties = [], {}
+    for s in range(0, len(queries), 256):
+        q = queries[s:s + 256]
+        d2 = (np.sum(q * q, axis=1)[:, None] - 2.0 * (q @ train.T)
+              + x2[None, :])
+        near = np.argpartition(d2, k, axis=1)[:, :k + 1]
+        for i in range(len(q)):
+            row = d2[i, near[i]]
+            order = near[i][np.argsort(row, kind="stable")]
+            dk, dk1 = d2[i, order[k - 1]], d2[i, order[k]]
+            counts = np.bincount(classes[order[:k]], minlength=n_classes)
+            votes.append(int(np.argmax(counts)))
+            tol = KN_TIE * (float(q[i] @ q[i]) + scale)
+            if dk1 - dk <= tol:
+                forced = np.flatnonzero(d2[i] < dk - tol)
+                tied = np.flatnonzero(np.abs(d2[i] - dk) <= tol)
+                ties[s + i] = valid_votes(classes, forced, tied, k,
+                                          n_classes)
+    return np.asarray(votes), ties
+
+
+def valid_votes(classes, forced, tied, k, n_classes):
+    """The winning classes of every k-set: the forced neighbours plus any
+    ``k - len(forced)`` of the tied ones."""
+    from itertools import combinations
+
+    need = k - len(forced)
+    base = np.bincount(classes[forced], minlength=n_classes)
+    wins = set()
+    for pick in combinations(tied.tolist(), need):
+        counts = base + np.bincount(classes[list(pick)],
+                                    minlength=n_classes)
+        wins.add(int(np.argmax(counts)))
+    return wins
+
+
+def classifiers_phase(torch, dev, card):
+    """Phase 39: GBTClassifier (binary, 3 classes) and GBTRegressor on the
+    card against the CPU; NaiveBayes at smoothing 0 against float64
+    scores; KNN at k 5 against a float64 vote; OneVsRest over
+    LogisticRegression against the CPU; a StandardScaler -> GBTClassifier
+    pipeline; a served GBT model equal to its offline transform in every
+    bucket."""
+    from flink_ml_tpu_torch import Pipeline, Table
+    from flink_ml_tpu_torch.models.classification import (
+        GBTClassifier, KNNClassifier, LogisticRegression, NaiveBayes,
+        OneVsRest)
+    from flink_ml_tpu_torch.models.classification.naivebayes import _scores
+    from flink_ml_tpu_torch.models.feature import StandardScaler
+    from flink_ml_tpu_torch.models.regression import GBTRegressor
+    from flink_ml_tpu_torch.serving import ModelRegistry, ServingEndpoint
+
+    t_phase = time.perf_counter()
+    X, y = gbt_rows(GB_EST_ROWS, GB_D, seed=33)
+    noise = np.random.default_rng(34).normal(size=len(y))
+    targets = {
+        "binary": (GBTClassifier, y),
+        "3 classes": (GBTClassifier, (X[:, 0] > 0).astype(np.int64)
+                      + (X[:, 1] + X[:, 2] > 0.5).astype(np.int64)),
+        "regressor": (GBTRegressor, X[:, 0] + 0.5 * X[:, 1] * X[:, 2]
+                      + 0.3 * noise),
+    }
+
+    def est(cls, device):
+        return (cls(device=device).set_max_iter(GB_TREES)
+                .set_max_depth(GB_DEPTH).set_max_bins(GB_BINS)
+                .set_learning_rate(GB_LR))
+
+    def loss_of(name, out, target):
+        if name == "regressor":
+            return float(np.mean((out["prediction"] - target) ** 2))
+        p = np.clip(np.asarray(out["rawPrediction"], np.float64), 1e-15, 1)
+        if p.ndim == 1:
+            return float(-np.mean(target * np.log(p)
+                                  + (1 - target) * np.log1p(-p)))
+        return float(-np.mean(np.log(p[np.arange(len(target)), target])))
+
+    feats = Table({"features": X})
+    gbt_binary = None
+    for name, (cls, target) in targets.items():
+        table = Table({"features": X, "label": target})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_model = est(cls, DEVICE).fit(table)
+        card_s = time.perf_counter() - t0
+        cpu_model = est(cls, "cpu").fit(table)
+        a, b = (m.transform(feats)[0] for m in (card_model, cpu_model))
+        la, lb = loss_of(name, a, target), loss_of(name, b, target)
+        if name == "regressor":
+            agree = (f"max |prediction - CPU's| "
+                     f"{float(np.max(np.abs(a['prediction'] - b['prediction']))):.3e}")
+        else:
+            agree = (f"predictions equal on "
+                     f"{float(np.mean(a['prediction'] == b['prediction'])):.4f}"
+                     f" of the rows")
+        log(f"{cls.__name__} ({name}, {GB_EST_ROWS} x {GB_D}) on the card: "
+            f"fit {card_s:.3f} s; training loss {la:.6f} vs the CPU fit's "
+            f"{lb:.6f} (relative {abs(la - lb) / lb:.3e}, tolerance "
+            f"{GB_CPU_LOSS_RTOL}); {agree} [{card}]")
+        if abs(la - lb) > GB_CPU_LOSS_RTOL * lb:
+            fail(f"{cls.__name__} ({name}): the card's fit left the CPU's")
+        if name == "binary":
+            gbt_binary = card_model
+            binary_acc = float(np.mean(a["prediction"] == target))
+
+    # NaiveBayes at smoothing 0: per-class Poisson counts with features a
+    # class never uses, so log-likelihoods of -inf reach the product
+    rng = np.random.default_rng(35)
+    rates = rng.gamma(2.0, 1.0, size=(NB_CLASSES, NB_D))
+    rates[rng.random((NB_CLASSES, NB_D)) < 0.2] = 0.0
+    cls_ids = rng.integers(0, NB_CLASSES, size=NB_ROWS)
+    counts = rng.poisson(rates[cls_ids]).astype(np.float64)
+    nb = NaiveBayes(device=DEVICE).set_smoothing(0.0).fit(
+        Table({"features": counts, "label": cls_ids}))
+    pred = nb.transform(Table({"features": counts}))[0]["prediction"]
+    got = _scores(*(torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                    for a in (counts, nb._log_theta, nb._log_prior))
+                  ).cpu().numpy()
+    lt = nb._log_theta
+    want = counts @ np.where(np.isneginf(lt), 0.0, lt).T + nb._log_prior
+    impossible = ((counts > 0).astype(np.float64)
+                  @ np.isneginf(lt).astype(np.float64).T) > 0
+    want[impossible] = -np.inf
+    finite = np.isfinite(want)
+    top2 = np.sort(np.where(finite, want, -np.inf), axis=1)[:, -2:]
+    tie = np.abs(top2[:, 1] - top2[:, 0]) <= NB_TOL["rtol"] * np.abs(
+        top2[:, 1]) + NB_TOL["atol"]
+    ref_pred = nb._labels[np.argmax(np.where(finite, want, -np.inf),
+                                    axis=1)]
+    bad_pred = int(np.sum((pred != ref_pred) & ~tie))
+    score_ok = (np.allclose(got[finite], want[finite], **NB_TOL)
+                and bool(np.all(got[~finite] <= -1e38)))
+    log(f"NaiveBayes (smoothing 0, {NB_ROWS} x {NB_D}, {NB_CLASSES} "
+        f"classes, {int((~finite).sum())} scores at -inf): card scores vs "
+        f"float64 max |d| {float(np.max(np.abs(got[finite] - want[finite]))):.3e}"
+        f" (rtol {NB_TOL['rtol']}, atol {NB_TOL['atol']}; -inf read as <= "
+        f"-1e38); predictions differing off ties {bad_pred}, ties "
+        f"{int(tie.sum())} [{card}]")
+    if not score_ok or bad_pred:
+        fail("NaiveBayes: the card's scores or predictions left float64")
+
+    # KNN at k 5: 2^17 x 64 training rows, 4096 queries
+    rng = np.random.default_rng(36)
+    train = rng.normal(size=(KN_TRAIN, KN_D)).astype(np.float32)
+    proj = rng.normal(size=(KN_D, 4))
+    labels = np.argmax(train @ proj, axis=1)
+    queries = rng.normal(size=(KN_Q, KN_D)).astype(np.float32)
+    knn = KNNClassifier(device=DEVICE).set_k(KN_K).fit(
+        Table({"features": train, "label": labels}))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    kpred = knn.transform(Table({"features": queries}))[0]["prediction"]
+    knn_s = time.perf_counter() - t0
+    ref, ties = knn_reference(train.astype(np.float64), labels,
+                              queries.astype(np.float64), KN_K, 4)
+    off = [i for i in range(KN_Q) if i not in ties and kpred[i] != ref[i]]
+    bad_ties = [i for i, wins in ties.items() if kpred[i] not in wins]
+    log(f"KNN (k {KN_K}, {KN_TRAIN} x {KN_D} train, {KN_Q} queries): "
+        f"transform {knn_s:.3f} s ({KN_Q / knn_s:.1f} queries/s); votes "
+        f"differing from the float64 vote {len(off)}; queries whose k-th "
+        f"and (k+1)-th distances tie within f32 rounding {len(ties)}, "
+        f"outside every valid k-set's vote {len(bad_ties)} [{card}]")
+    if off or bad_ties:
+        fail("KNN: the card's votes left the float64 k-nearest vote")
+
+    # OneVsRest over LogisticRegression, 4 classes
+    rng = np.random.default_rng(37)
+    centers = rng.normal(size=(OV_CLASSES, OV_D)) * 2
+    ov_y = rng.integers(0, OV_CLASSES, size=OV_ROWS)
+    ov_X = (centers[ov_y] + rng.normal(size=(OV_ROWS, OV_D))).astype(
+        np.float32)
+    ov_table = Table({"features": ov_X, "label": ov_y.astype(np.float64)})
+
+    def ovr(device):
+        base = (LogisticRegression(device=device).set_max_iter(5)
+                .set_learning_rate(0.5).set_global_batch_size(4096)
+                .set_tol(0).set_raw_prediction_col("rawPrediction"))
+        return OneVsRest(base).fit(ov_table)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ov_card = ovr(DEVICE)
+    ov_s = time.perf_counter() - t0
+    ov_cpu = ovr("cpu")
+    coef_ok = all(np.allclose(a._state.coefficients, b._state.coefficients,
+                              **OV_TOL)
+                  for a, b in zip(ov_card.models, ov_cpu.models))
+    oa, ob = (m.transform(Table({"features": ov_X}))[0]
+              for m in (ov_card, ov_cpu))
+    raw = np.sort(ob["rawPrediction"], axis=1)
+    ov_tie = raw[:, -1] - raw[:, -2] <= 1e-3
+    ov_off = int(np.sum((oa["prediction"] != ob["prediction"]) & ~ov_tie))
+    acc = float(np.mean(oa["prediction"] == ov_y))
+    log(f"OneVsRest over LogisticRegression ({OV_CLASSES} classes, "
+        f"{OV_ROWS} x {OV_D}): 4 fits on the card {ov_s:.3f} s; every "
+        f"sub-model within allclose(1e-3, 1e-4) of the CPU's {coef_ok}; "
+        f"predictions differing off near ties {ov_off}; accuracy {acc:.4f} "
+        f"[{card}]")
+    if not coef_ok or ov_off or acc < 0.9:
+        fail("OneVsRest: the card's fit left the CPU's")
+
+    # StandardScaler -> GBTClassifier, fitted and applied on the card
+    scaled = Table({"raw": X * 3.0 + 1.0, "label": y})
+    pm = Pipeline([StandardScaler(device=DEVICE).set_features_col("raw")
+                   .set_output_col("features"),
+                   est(GBTClassifier, DEVICE)]).fit(scaled)
+    out = pm.transform(Table({"raw": X * 3.0 + 1.0}))[0]
+    stage = pm.stages[1].transform(pm.stages[0].transform(
+        Table({"raw": X * 3.0 + 1.0}))[0])[0]
+    same_bits("StandardScaler -> GBTClassifier", stage, out)
+    acc = float(np.mean(out["prediction"] == y))
+    log(f"Pipeline StandardScaler -> GBTClassifier on the card: fused "
+        f"transform = stagewise bit for bit; training accuracy {acc:.4f} "
+        f"(the unscaled binary fit's {binary_acc:.4f}: scaling keeps the "
+        f"quantile bins' order) [{card}]")
+    if abs(acc - binary_acc) > 0.01:
+        fail("the StandardScaler -> GBTClassifier pipeline left the "
+             "unscaled fit's accuracy")
+
+    # a GBTClassifierModel served at requests of 1-256 rows
+    registry = ModelRegistry(device=DEVICE)
+    registry.deploy("gbt", gbt_binary, feats.take(2),
+                    max_batch_rows=SV_BATCH)
+    endpoint = ServingEndpoint(registry, "gbt", max_batch_rows=SV_BATCH,
+                               max_wait_ms=SV_WAIT_MS).start()
+    starts = [(i * 997) % (len(X) - SV_BATCH)
+              for i in range(len(GB_SERVE_SIZES))]
+    reqs = [Table({"features": X[s:s + size]})
+            for s, size in zip(starts, GB_SERVE_SIZES)]
+    try:
+        outs, batches, wall = serve_checked("GBT serving", endpoint, reqs, 4)
+    finally:
+        close_endpoint("GBT serving", endpoint)
+    for req, served in zip(reqs, outs):
+        same_bits("GBT serving", gbt_binary.transform(req)[0], served)
+    log(f"serving GBTClassifierModel: {len(reqs)} requests of 1-256 rows "
+        f"in {batches} batches, {wall:.3f} s; every response = the offline "
+        f"transform bit for bit [{card}]")
+    log(f"phase 39: {time.perf_counter() - t_phase:.2f} s [{card}]")
+
+
 def killing_at(wins, at, exc):
     """A live feed that dies handing out window ``at``."""
     for i, w in enumerate(wins):
@@ -5310,6 +5949,27 @@ def main():
         f"kernels {rates['kernels']:.3f}, plain versions "
         f"{rates['plain']:.3f}; fit() wall {fit_s:.3f} s for {EPOCHS} "
         f"epochs incl. layout build [{card}]")
+    # C4's cost at the leg: step 0's two overflow legs as the fit sums
+    # them (fixed order) and through index_add_ (atomics), on the same
+    # inputs; the epoch against the parent's is
+    # scripts/lr_epoch_rate.py --against
+    ovf_idx, ovf_src = epoch_lay.ovf_idx[0], epoch_lay.ovf_src[0]
+    r_ext = S._extended_r(torch.from_numpy(np.random.default_rng(2).normal(
+        size=BATCH).astype(np.float32)).to(dev))
+    w0 = torch.zeros(D_MAIN, device=dev)
+    m0 = torch.zeros(S._ext_len(BATCH), device=dev)
+    c4 = {}
+    for leg, (dst, idx, vals) in {"margin": (m0, ovf_src, w0[ovf_idx]),
+                                  "update": (w0, ovf_idx, r_ext[ovf_src])
+                                  }.items():
+        c4[leg] = (timer.ms(lambda: S._overflow_scatter_(
+            dst, idx, vals, ovf_src, BATCH)),
+            timer.ms(lambda: dst.index_add_(0, idx, vals)))
+    log(f"C4 cost at the leg (overflow list of {ovf_idx.numel()}, step 0, "
+        f"device ms): " + ", ".join(
+            f"{leg} fixed order {f:.4f} vs index_add_ {a:.4f}"
+            for leg, (f, a) in c4.items())
+        + f"; 2 legs a step [{card}]")
 
     kernels += kmeans_phases(torch, dev, card, timer)
     kernels.append(widedeep_phases(torch, dev, card, timer))
@@ -5368,6 +6028,14 @@ def main():
         if by_phase:
             entry["online"] = {"launches": sum(by_phase.values()),
                                **by_phase}
+
+    # phases 37-39: the boosted trees and the instance classifiers (no
+    # kernel of the table: GBT's histograms are fixed-order PyTorch ops)
+    X_gb, y_gb, cfg_gb, forest_gb, losses_gb = gbt_phase(torch, dev, card,
+                                                         timer)
+    gbt_stream_phase(torch, dev, card, X_gb, y_gb, cfg_gb, forest_gb,
+                     losses_gb)
+    classifiers_phase(torch, dev, card)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,13 +1,20 @@
 """Algorithm library (ported so far: the linear family on every feature
 layout with SoftmaxRegression and OnlineLogisticRegression, KMeans and
-OnlineKMeans, Wide&Deep, the evaluators of those families, and the
-chainable feature stages with RandomSplitter)."""
+OnlineKMeans, Wide&Deep, the boosted trees (GBTClassifier, GBTRegressor),
+NaiveBayes, KNNClassifier and OneVsRest, the evaluators of those families,
+and the chainable feature stages with RandomSplitter)."""
 
 from .classification import (  # noqa: F401
+    GBTClassifier,
+    GBTClassifierModel,
+    KNNClassifier,
+    KNNClassifierModel,
     LinearSVC,
     LinearSVCModel,
     LogisticRegression,
     LogisticRegressionModel,
+    NaiveBayes,
+    NaiveBayesModel,
     OnlineLogisticRegression,
     OnlineLogisticRegressionModel,
     SoftmaxRegression,
@@ -47,4 +54,9 @@ from .feature import (  # noqa: F401
     VectorAssembler,
 )
 from .recommendation import WideDeep, WideDeepModel  # noqa: F401
-from .regression import LinearRegression, LinearRegressionModel  # noqa: F401
+from .regression import (  # noqa: F401
+    GBTRegressor,
+    GBTRegressorModel,
+    LinearRegression,
+    LinearRegressionModel,
+)

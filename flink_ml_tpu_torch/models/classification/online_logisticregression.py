@@ -17,7 +17,7 @@ FTRL-Proximal (per McMahan et al., the standard formulation):
           = -(z - sign(z) l1) / ((beta + sqrt(n))/alpha + l2)   otherwise
 
 The hashed update's gradient scatter-add sums in one fixed order on the
-card (``sgd._scatter_add_(fixed_order=True)``), so a resumed fit equals an
+card (``sgd._scatter_add_``), so a resumed fit equals an
 uninterrupted one bit for bit there as on the CPU.  The JAX package has no
 Pallas kernel on this path.
 
@@ -325,6 +325,6 @@ def sparse_ftrl_step(state, idx, vals, y, sample_w, alpha: float,
     weight_sum = torch.clamp_min(torch.sum(sample_w), 1e-12)
     r = (p - y) * sample_w / weight_sum
     g = _scatter_add_(torch.zeros_like(w), idx.reshape(-1),
-                      (vals * r[:, None]).reshape(-1), True)
+                      (vals * r[:, None]).reshape(-1))
     return (_ftrl_apply(state, g, alpha, beta, l1, l2),
             _log_loss(p, y, sample_w, weight_sum))

@@ -255,19 +255,19 @@ def _finish_sparse_step(config: SGDConfig):
     return finish
 
 
-def _scatter_add_(t: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
-                  fixed_order: bool) -> torch.Tensor:
-    """``t[idx] += vals`` in place.  ``fixed_order`` sums repeated
-    indices in one fixed order on the card too, so a fit gives the same
-    bits run after run (what the streamed fit's W, replay and resume
-    rest on): the sort-based accumulation behind
-    ``index_put_(accumulate=True)``, called through ``_index_put_impl_``
-    with ``unsafe=True`` (the public op checks the index range with two
-    host reads a call; the layouts build every index in range).  Without
-    it, and on the CPU, ``index_add_``: a serial loop on the CPU, atomics
-    in no fixed order on the card, and several times cheaper there
-    (``scripts/scatter_leg_times.py``), which the in-memory fits keep."""
-    if fixed_order and t.is_cuda:
+def _scatter_add_(t: torch.Tensor, idx: torch.Tensor,
+                  vals: torch.Tensor) -> torch.Tensor:
+    """``t[idx] += vals`` in place, repeated indices summed in one fixed
+    order on the card too, so a fit gives the same bits run after run
+    (what the in-memory fits' repeatability and the streamed fit's W,
+    replay and resume rest on).  On the card: the sort-based accumulation
+    behind ``index_put_(accumulate=True)``, called through
+    ``_index_put_impl_`` with ``unsafe=True`` (the public op checks the
+    index range with two host reads a call; the layouts build every index
+    in range); ``index_add_``, which adds with atomics in no fixed order
+    there, is cheaper (``scripts/scatter_leg_times.py``) but no fit takes
+    it.  On the CPU: ``index_add_``, a serial loop."""
+    if t.is_cuda:
         return torch.ops.aten._index_put_impl_(t, [idx.long()], vals,
                                                True, True)
     return t.index_add_(0, idx, vals)
@@ -275,26 +275,22 @@ def _scatter_add_(t: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
 
 def _overflow_scatter_(t: torch.Tensor, idx: torch.Tensor,
                        vals: torch.Tensor, ovf_src: torch.Tensor,
-                       batch: int, fixed_order: bool) -> torch.Tensor:
+                       batch: int) -> torch.Tensor:
     """An overflow leg's ``t[idx] += vals`` (:func:`_scatter_add_`).  The
     layouts pad the overflow lists after their live entries (``ovf_src <
-    batch``), all with one target: in the fixed-order sum that padding
-    would be one run of a repeated index, summed serially (tens of
+    batch``), all with one target: in the card's fixed-order sum that
+    padding would be one run of a repeated index, summed serially (tens of
     thousands long at the streamed fits' cap of ``max(1024, batch)``).  So
-    with ``fixed_order`` each pad entry goes to a slot of its own (its
-    position modulo ``len(t)``) carrying ``-0.0``, which adds nothing to
-    any value: the live slots get the bits they would get without the
-    spread.  Without it, one ``index_add_`` and nothing else."""
-    if not fixed_order:
-        return t.index_add_(0, idx, vals)
+    each pad entry goes to a slot of its own (its position modulo
+    ``len(t)``) carrying ``-0.0``, which adds nothing to any value: the
+    live slots get the bits they would get without the spread."""
     live = ovf_src < batch
     spread = torch.arange(idx.numel(), device=idx.device) % t.numel()
     return _scatter_add_(t, torch.where(live, idx.long(), spread),
-                         torch.where(live, vals, -0.0), True)
+                         torch.where(live, vals, -0.0))
 
 
-def _sparse_update(loss_fn: LossFn, config: SGDConfig,
-                   fixed_order: bool = False):
+def _sparse_update(loss_fn: LossFn, config: SGDConfig):
     """Single-batch update for the generic ``(indices, values)`` layout
     without the ELL routing: the margin is ``sum(values * w[indices])``
     and the gradient a direct scatter-add of ``-lr * values * r`` into the
@@ -310,13 +306,12 @@ def _sparse_update(loss_fn: LossFn, config: SGDConfig,
         value, r = _loss_and_r(loss_fn, margin, yb, wb)
         return finish(w, b, value, r, lambda w: _scatter_add_(
             w.clone(), idx.reshape(-1),
-            (-lr * (vals * r[:, None])).reshape(-1), fixed_order))
+            (-lr * (vals * r[:, None])).reshape(-1)))
 
     return update
 
 
-def _mixed_update(loss_fn: LossFn, config: SGDConfig,
-                  fixed_order: bool = False):
+def _mixed_update(loss_fn: LossFn, config: SGDConfig):
     """Single-batch update for the mixed layout without the ELL routing:
     ``dense`` features occupy weight slots ``[0, dense.shape[-1])``, hashed
     ``cat`` indices (implicit value 1.0) gather and scatter directly.  The
@@ -334,8 +329,7 @@ def _mixed_update(loss_fn: LossFn, config: SGDConfig,
 
         def apply_grad(w):
             w = _scatter_add_(w.clone(), cat.reshape(-1),
-                              torch.repeat_interleave(-lr * r, n_cat),
-                              fixed_order)
+                              torch.repeat_interleave(-lr * r, n_cat))
             w[:n_dense] += -lr * (r @ dense)
             return w
 
@@ -360,8 +354,7 @@ def _extended_r(r: torch.Tensor) -> torch.Tensor:
 
 
 def _ell_margin(w, batch, route_w, ovf_idx, ovf_src, heavy_idx, heavy_cnt,
-                route_val=None, ovf_val=None, plain=False,
-                fixed_order=False):
+                route_val=None, ovf_val=None, plain=False):
     """Per-sample categorical margin ``sum_j v_j * w[idx_j]`` over the ELL
     routing: the in-grid slots through the margin kernel over the sample
     routing (:func:`~flink_ml_tpu_torch.ops.ell_scatter.sample_routing`),
@@ -372,20 +365,19 @@ def _ell_margin(w, batch, route_w, ovf_idx, ovf_src, heavy_idx, heavy_cnt,
     margin_fn = E.ell_margin_plain if plain else E.ell_margin
     mext = margin_fn(w, route_w, m_len=_ext_len(batch), route_val=route_val)
     o = w[ovf_idx] if ovf_val is None else ovf_val * w[ovf_idx]
-    mext = _overflow_scatter_(mext, ovf_src, o, ovf_src, batch,
-                              fixed_order)
+    mext = _overflow_scatter_(mext, ovf_src, o, ovf_src, batch)
     return mext[:batch] + w[heavy_idx] @ heavy_cnt.to(torch.float32)
 
 
 def _apply_ell_categorical(lr, w, r, r_ext, src, pos, mask, ovf_idx,
                            ovf_src, heavy_idx, heavy_cnt, val_ell=None,
-                           ovf_val=None, plain=False, fixed_order=False):
+                           ovf_val=None, plain=False):
     """THE ELL gradient application: in-grid scatter kernel -> overflow
     scatter-add -> heavy-hitter matvec (padding entries carry zero counts
     and add 0 at w[0]).  The fused kernel runs on grids whose row count
     divides into 8-row blocks, the gather + pair kernel otherwise (the JAX
     package's plan).  Returns a new tensor; the overflow and heavy legs
-    update it in place (``fixed_order``: :func:`_overflow_scatter_`)."""
+    update it in place (:func:`_overflow_scatter_`)."""
     if src.shape[0] % E.FUSED_BLOCK_ROWS == 0:
         fused = E.ell_scatter_apply_fused_plain if plain \
             else E.ell_scatter_apply_fused
@@ -396,8 +388,7 @@ def _apply_ell_categorical(lr, w, r, r_ext, src, pos, mask, ovf_idx,
         pair = E.ell_scatter_apply_plain if plain else E.ell_scatter_apply
         w = pair(w, upd, pos, mask)
     o = r_ext[ovf_src] if ovf_val is None else ovf_val * r_ext[ovf_src]
-    _overflow_scatter_(w, ovf_idx, (-lr) * o, ovf_src, r.shape[0],
-                       fixed_order)
+    _overflow_scatter_(w, ovf_idx, (-lr) * o, ovf_src, r.shape[0])
     # the heavy indices are distinct and their pads add zeros, so the
     # atomics' order cannot change a bit here
     return w.index_add_(0, heavy_idx,
@@ -405,7 +396,7 @@ def _apply_ell_categorical(lr, w, r, r_ext, src, pos, mask, ovf_idx,
 
 
 def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
-                      plain: bool = False, fixed_order: bool = False):
+                      plain: bool = False):
     """ELL twin of :func:`_mixed_update`: same loss/regularization algebra,
     but the forward margin and the backward scatter of the categorical
     slots ride the static ELL routing's kernels.  The batch arguments
@@ -414,9 +405,7 @@ def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
     per-step sample routing the margin reads (:func:`sample_routing`);
     the raw index tensor is not an input.  Results differ from
     :func:`_mixed_update` only in f32 summation order.  ``plain`` runs the
-    kernels' plain versions (the oracle on the card); ``fixed_order``
-    makes every step's bits the same run after run on the card
-    (:func:`_scatter_add_`)."""
+    kernels' plain versions (the oracle on the card)."""
     lr = config.learning_rate
     finish = _finish_sparse_step(config)
 
@@ -426,8 +415,7 @@ def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
         n_dense = dense.shape[-1]
         margin = (dense @ w[:n_dense]
                   + _ell_margin(w, dense.shape[0], route_w, ovf_idx,
-                                ovf_src, heavy_idx, heavy_cnt, plain=plain,
-                                fixed_order=fixed_order)
+                                ovf_src, heavy_idx, heavy_cnt, plain=plain)
                   + b)
         value, r = _loss_and_r(loss_fn, margin, yb, wb)
         r_ext = _extended_r(r)
@@ -435,7 +423,7 @@ def _mixed_update_ell(loss_fn: LossFn, config: SGDConfig,
         def apply_grad(w):
             w = _apply_ell_categorical(
                 lr, w, r, r_ext, src, pos, mask, ovf_idx, ovf_src,
-                heavy_idx, heavy_cnt, plain=plain, fixed_order=fixed_order)
+                heavy_idx, heavy_cnt, plain=plain)
             w[:n_dense] += -lr * (r @ dense)
             return w
 
@@ -622,7 +610,8 @@ def sgd_fit_sparse(loss_fn: LossFn, indices: np.ndarray, values: np.ndarray,
     their value variants.  Returns the fitted state and the per-epoch loss
     log.  Runs on ``device`` (default the card; raises without one).
     ``plain`` runs the ELL kernels' plain versions (the oracle on the
-    card)."""
+    card).  Every scatter-add sums in a fixed order
+    (:func:`_scatter_add_`), so two fits on the card give the same bits."""
     from .linear import check_sparse_indices
 
     dev = resolve_device(device)
@@ -670,7 +659,9 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
     (n, n_cat) are hashed slots with implicit value 1.0.  Returns the
     fitted state and the per-epoch loss log.  Runs on ``device`` (default
     the card; raises without one).  ``plain`` runs the ELL kernels' plain
-    PyTorch versions instead of the kernels (the oracle on the card)."""
+    PyTorch versions instead of the kernels (the oracle on the card).
+    Every scatter-add sums in a fixed order (:func:`_scatter_add_`), so
+    two fits on the card give the same bits."""
     from .linear import check_sparse_indices
 
     dev = resolve_device(device)
@@ -794,8 +785,7 @@ def _streamed_ell_update(loss_fn: LossFn, config: SGDConfig, plain: bool):
     routing is built on the card from the step's layout
     (:func:`~flink_ml_tpu_torch.ops.ell_scatter.sample_routing`) before
     the kernels run."""
-    update = _mixed_update_ell(loss_fn, config, plain=plain,
-                               fixed_order=True)
+    update = _mixed_update_ell(loss_fn, config, plain=plain)
 
     def device_routed(params, dense, src, pos, mask, *rest):
         route_w, _ = E.sample_routing(src, pos, mask, dense.shape[0])
@@ -941,12 +931,12 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
     if stream_ell:
         update = _streamed_ell_update(loss_fn, config, plain)
     elif mixed:
-        mixed_update = _mixed_update(loss_fn, config, fixed_order=True)
+        mixed_update = _mixed_update(loss_fn, config)
 
         def update(params, dense, cat, yb, wb):
             return mixed_update(params, dense, cat.long(), yb, wb)
     elif sparse:
-        sparse_update = _sparse_update(loss_fn, config, fixed_order=True)
+        sparse_update = _sparse_update(loss_fn, config)
 
         def update(params, idx, vals, yb, wb):
             return sparse_update(params, idx.long(), vals, yb, wb)

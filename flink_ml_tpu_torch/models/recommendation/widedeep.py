@@ -13,17 +13,18 @@ per-step slot -> row sort is built once per fit on the host, and each step
 differentiates through the gathered rows (``torch.autograd.grad`` with the
 rows as leaves), then folds and places the per-slot gradients itself. The
 fold is the CUDA kernel of ``kernels/csrc/emb_grad.cu`` on the card whenever
-``fold_passes >= 1``.  ``routedEmbeddingGrad='off'`` keeps autograd's
-scatter-add; ``lazyEmbeddingOptimizer`` runs LazyAdam on the tables.  The
-optimizers are written out in ``models/common/adam.py``.
+``fold_passes >= 1``.  ``routedEmbeddingGrad='off'`` takes the table
+gradients from autograd's scatter-add; ``lazyEmbeddingOptimizer`` runs
+LazyAdam on the tables.  The optimizers are written out in
+``models/common/adam.py``.
 
-The streamed fit (``fit_outofcore``) gathers the table rows through
+Every fit without the route (``'off'``, lazy, and the streamed
+``fit_outofcore``) gathers the table rows through
 :class:`_FixedOrderRows`, whose backward sums each row's gradient in one
-fixed order on the card too (``sgd._scatter_add_(fixed_order=True)``):
-autograd's own ``index_select`` backward adds with atomics in no fixed
-order there, and the streamed fit promises the same bits for any
-``steps_per_dispatch``, after a resume and run after run.  The in-memory
-fit keeps the routed fold and autograd's scatter-add.
+fixed order on the card too (``sgd._scatter_add_``): autograd's own
+``index_select`` backward adds with atomics in no fixed order there, and a
+fit promises the same bits run after run (the streamed fit also for any
+``steps_per_dispatch`` and after a resume).
 
 A port of the JAX package's ``models/recommendation/widedeep.py``, single
 device.  ``WideDeepModel.transform`` and the chain terminal
@@ -220,7 +221,7 @@ def scores_from_rows(params: Dict[str, Any], dense: torch.Tensor,
 
 class _FixedOrderRows(torch.autograd.Function):
     """``table[ids]`` whose backward sums the gradient rows of repeated
-    ids in one fixed order (``sgd._scatter_add_(fixed_order=True)``, the
+    ids in one fixed order (``sgd._scatter_add_``, the
     sort-based accumulation on the card; ``index_add_`` on the CPU, the
     same serial loop as autograd's own backward there)."""
 
@@ -234,32 +235,28 @@ class _FixedOrderRows(torch.autograd.Function):
     def backward(ctx, grad_rows):
         (ids,) = ctx.saved_tensors
         grad = grad_rows.new_zeros(ctx.table_shape)
-        return _scatter_add_(grad, ids, grad_rows.contiguous(), True), None
+        return _scatter_add_(grad, ids, grad_rows.contiguous()), None
 
 
-def _rows(table: torch.Tensor, cat_ids: torch.Tensor,
-          fixed_order: bool = False) -> torch.Tensor:
-    """``table[cat_ids]`` for ``cat_ids (b, fields)``; ``fixed_order``
-    gathers through :class:`_FixedOrderRows`."""
-    flat = cat_ids.reshape(-1)
-    got = (_FixedOrderRows.apply(table, flat) if fixed_order
-           else torch.index_select(table, 0, flat))
+def _rows(table: torch.Tensor, cat_ids: torch.Tensor) -> torch.Tensor:
+    """``table[cat_ids]`` for ``cat_ids (b, fields)``, gathered through
+    :class:`_FixedOrderRows`."""
+    got = _FixedOrderRows.apply(table, cat_ids.reshape(-1))
     return got.reshape(*cat_ids.shape, *table.shape[1:])
 
 
 def forward(params: Dict[str, Any], dense: torch.Tensor,
-            cat_ids: torch.Tensor, fixed_order: bool = False
-            ) -> torch.Tensor:
+            cat_ids: torch.Tensor) -> torch.Tensor:
     """Logits for a batch; ``cat_ids`` are already offset into the stacked
-    vocab (``(batch, n_fields)``).  ``fixed_order``: see :func:`_rows`."""
-    return forward_from_rows(
-        params, dense, _rows(params["wide_cat"], cat_ids, fixed_order),
-        _rows(params["emb"], cat_ids, fixed_order))
+    vocab (``(batch, n_fields)``)."""
+    return forward_from_rows(params, dense,
+                             _rows(params["wide_cat"], cat_ids),
+                             _rows(params["emb"], cat_ids))
 
 
-def bce_loss(params, dense, cat_ids, labels, mask, fixed_order=False):
+def bce_loss(params, dense, cat_ids, labels, mask):
     """The linear family's masked binary log-loss of :func:`forward`."""
-    return logistic_loss(forward(params, dense, cat_ids, fixed_order),
+    return logistic_loss(forward(params, dense, cat_ids),
                          labels, mask)
 
 
@@ -304,7 +301,7 @@ def _split(tree):
 
 def _make_train_ops(params, lr: float, lazy: bool, route=None,
                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                    plain: bool = False, fixed_order: bool = False):
+                    plain: bool = False):
     """``(batch_step, opt_state0)`` for the Wide&Deep training loop;
     ``batch_step(params, opt_state, dense, cat_ids, labels, mask,
     *route_arrays) -> (params, opt_state, loss)``.
@@ -322,7 +319,7 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
     masked ones), dense Adam on the rest, with its own step count.  Rows
     a batch does not touch keep param AND optimizer state exactly.
 
-    ``fixed_order`` (without ``route``) forms the table gradients through
+    Without ``route`` the table gradients come through
     :class:`_FixedOrderRows`: the same bits run after run on the card."""
     if route is not None:
         if lazy:
@@ -359,8 +356,8 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
     if not lazy:
         def batch_step(params, opt_state, dense, cat_ids, labels, mask):
             loss, (grads,) = _value_and_grad(
-                lambda p: bce_loss(p, dense, cat_ids, labels, mask,
-                                   fixed_order), params)
+                lambda p: bce_loss(p, dense, cat_ids, labels, mask),
+                params)
             params, opt_state = adam_update(grads, opt_state, params, lr,
                                             b1, b2, eps)
             return params, opt_state, loss
@@ -377,8 +374,7 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
 
     def batch_step(params, opt_state, dense, cat_ids, labels, mask):
         loss, (grads,) = _value_and_grad(
-            lambda p: bce_loss(p, dense, cat_ids, labels, mask,
-                               fixed_order), params)
+            lambda p: bce_loss(p, dense, cat_ids, labels, mask), params)
         tables, rest = _split(params)
         g_tab, g_rest = _split(grads)
         rest, rest_state = adam_update(g_rest, opt_state["rest"], rest, lr,
@@ -651,8 +647,7 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
                 global_step, saved, meta = restored
                 params = params_to_device(saved["params"], dev)
                 opt_state = _opt_state_from_tree(saved["opt_state"], dev)
-                raw_step, _ = _make_train_ops(params, lr, lazy,
-                                              fixed_order=True)
+                raw_step, _ = _make_train_ops(params, lr, lazy)
                 step = chunk_step(raw_step)
                 start_epoch = int(meta["train_epoch"])
                 skip_steps = int(meta["step_in_epoch"])
@@ -695,7 +690,7 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
                             rng, int(chunk[0].shape[2]), vocab_sizes,
                             self.EMBEDDING_DIM, self.HIDDEN_UNITS), dev)
                         raw_step, opt_state = _make_train_ops(
-                            params, lr, lazy, fixed_order=True)
+                            params, lr, lazy)
                         step = chunk_step(raw_step)
                     if loss_sum is None:
                         loss_sum = torch.zeros((), dtype=torch.float32,

@@ -17,6 +17,7 @@ __all__ = ["params_from_jax", "model_from_jax_state", "softmax_model_from_jax",
            "kmeans_model_from_jax",
            "widedeep_params_from_jax", "adam_state_from_jax",
            "ivf_index_from_jax", "feature_model_from_jax",
+           "model_data_from_jax", "onevsrest_model_from_jax",
            "pipeline_model_from_jax"]
 
 
@@ -179,6 +180,40 @@ def feature_model_from_jax(stage, device="cuda"):
 _LINEAR = ("LogisticRegressionModel", "LinearSVCModel",
            "LinearRegressionModel")
 
+#: models carried across by their model-data tables
+_MODEL_DATA = ("GBTClassifierModel", "GBTRegressorModel", "NaiveBayesModel",
+               "KNNClassifierModel")
+
+
+def model_data_from_jax(stage, device="cuda"):
+    """The port's counterpart of a fitted JAX package
+    ``GBTClassifierModel`` (binary or multiclass), ``GBTRegressorModel``,
+    ``NaiveBayesModel`` or ``KNNClassifierModel``: the same class name,
+    params and model-data tables."""
+    from .. import models
+
+    resolve_device(device)
+    name = type(stage).__name__
+    if name not in _MODEL_DATA:
+        raise TypeError(f"{name} is not carried by its model data; "
+                        f"expected one of {_MODEL_DATA}")
+    out = _with_params(getattr(models, name)(device=device), stage)
+    return out.set_model_data(*(_port_table(t)
+                                for t in stage.get_model_data()))
+
+
+def onevsrest_model_from_jax(stage, device="cuda"):
+    """The port's ``OneVsRestModel`` for a fitted JAX package one: its
+    params, label values and each binary sub-model through its own
+    converter."""
+    from ..models.classification import OneVsRestModel
+
+    resolve_device(device)
+    out = _with_params(OneVsRestModel(), stage)
+    out.models = [_stage_from_jax(sub, device) for sub in stage.models]
+    out.label_values = np.asarray(stage.label_values)
+    return out
+
 
 def _stage_from_jax(stage, device):
     from ..api.pipeline import PipelineModel
@@ -197,6 +232,10 @@ def _stage_from_jax(stage, device):
         return _with_params(model_from_jax_state(
             np.asarray(data["coefficients"])[0],
             float(np.asarray(data["intercept"])[0]), cls, device), stage)
+    if name in _MODEL_DATA:
+        return model_data_from_jax(stage, device)
+    if name == "OneVsRestModel":
+        return onevsrest_model_from_jax(stage, device)
     if name == "KMeansModel":
         (data,) = stage.get_model_data()
         return _with_params(kmeans_model_from_jax(
@@ -220,7 +259,8 @@ def _stage_from_jax(stage, device):
 def pipeline_model_from_jax(pm, device="cuda"):
     """The port's ``PipelineModel`` for a fitted JAX package
     ``PipelineModel``: feature stages through
-    :func:`feature_model_from_jax`, the linear family, KMeans, Wide&Deep
-    and IVF indexes through their converters (nested pipelines too)."""
+    :func:`feature_model_from_jax`, the linear family, KMeans, Wide&Deep,
+    IVF indexes, the boosted trees, NaiveBayes, KNN and OneVsRest through
+    their converters (nested pipelines too)."""
     resolve_device(device)
     return _stage_from_jax(pm, device)

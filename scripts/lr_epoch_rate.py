@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""The in-memory LR epoch rate on the card, beside another checkout's.
+"""The in-memory LR epoch rate and Wide&Deep step rate on the card,
+beside another checkout's.
 
-    python3 scripts/lr_epoch_rate.py [--against DIR] [--reps N]
+    python3 scripts/lr_epoch_rate.py [--against DIR] [--reps N] [--rounds R]
 
-At ``chip_smoke.py`` phase 4/5's shapes (2^18 Criteo-shaped rows from
+Each checkout's updates are built as its own fits build them, so
+``--against`` a parent times what each commit's fits run.  LR: at
+``chip_smoke.py`` phase 4/5's shapes (2^18 Criteo-shaped rows from
 ``criteo_rows(..., seed=0)``, 2^20 features, batch 2^15, 8 steps an
-epoch): the ELL update over device-resident epoch tensors (the layout
-and the sample routing built once, outside the clock), 3 epochs a run,
-``N`` runs (default 5) after one warm run, host clock around
+epoch), the ELL update over device-resident epoch tensors (the layout
+and the sample routing built once, outside the clock), 3 epochs a run.
+Wide&Deep: at phase 10/11's bench width (26 fields x 40329 vocab,
+embedding 64, MLP (1024, 512, 256), batch 8192, 16 steps, numpy seed
+17), one pass of the in-memory step without the route ('off', dense
+Adam) and of the lazy step over device-resident batches.  ``N`` runs of
+each (default 5) after one warm run, host clock around
 ``torch.cuda.synchronize()``.  Each checkout runs in its own process;
 with ``--against DIR`` (a checkout of another commit, e.g. one unpacked
-with ``git archive``) the order is DIR, this, this, DIR, so both are
-timed in one call on one card.  Prints each run's epochs/s and the
-median per checkout, beside the card's name and power limit.  Needs one
-NVIDIA GPU and nvcc.
+with ``git archive``) the order is DIR, this, this, DIR, ``R`` times
+(default 1), so both are timed in one call on one card.  Prints each
+process's rates and the median per checkout over all its runs, beside
+the card's name and power limit.  Needs one NVIDIA GPU and nvcc.
 """
 
 import argparse
@@ -28,23 +35,18 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EPOCHS = 3
 
 
-def worker(root: str, reps: int) -> None:
-    """Time the epoch loop of the package at ``root``; print one JSON
-    line of epochs/s per run."""
-    sys.path.insert(0, root)
-    sys.path.insert(1, HERE)
+def epoch_runner(torch, C):
+    """``run()``: epochs/s of one run of the LR ELL update loop at the
+    shapes above, the update as this checkout's ``sgd_fit_mixed`` builds
+    it."""
     import dataclasses
 
     import numpy as np
-    import torch
 
-    import chip_smoke as C
-    from flink_ml_tpu_torch.kernels import build
     from flink_ml_tpu_torch.models.common import sgd as S
     from flink_ml_tpu_torch.models.common.losses import LOSSES
     from flink_ml_tpu_torch.ops import ell_scatter as E
 
-    build.build_all()
     dev = torch.device("cuda")
     dense, cat, y = C.criteo_rows(C.ROWS, C.D_MAIN, seed=0)
     steps = C.ROWS // C.BATCH
@@ -74,16 +76,76 @@ def worker(root: str, reps: int) -> None:
         torch.cuda.synchronize()
         return EPOCHS / (time.perf_counter() - t0)
 
-    run()
-    print(json.dumps({"root": root, "epochs_per_s": [run()
-                                                     for _ in range(reps)]}),
-          flush=True)
+    return run
+
+
+def widedeep_runner(torch, C):
+    """``run(lazy)``: steps/s of one pass of the in-memory Wide&Deep step
+    without the route over the bench-width batches above, the step as
+    this checkout's ``WideDeep.fit`` builds it ('off' or lazy)."""
+    import numpy as np
+
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.recommendation import widedeep as W
+
+    dev = torch.device("cuda")
+    cat, dense, y = C.widedeep_bench_data(C.WD_BATCH, C.WD_STEPS)
+    rows = C.WD_BATCH * C.WD_STEPS
+    vocab = [C.WD_VOCAB] * C.WD_FIELDS
+    steps, batch, perm = S.plan_epoch_layout(rows, C.WD_BATCH, 1, 0)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(
+            S.prepare_epoch_tensor(a, perm, steps, batch))).to(dev)
+
+    epoch = (put(dense.reshape(rows, C.WD_DENSE)),
+             put((cat.reshape(rows, C.WD_FIELDS)
+                  + W._field_offsets(vocab)).astype(np.int32)),
+             put(y.reshape(rows)), put(np.ones(rows, np.float32)))
+    host = W.init_params(np.random.default_rng(1), C.WD_DENSE, vocab,
+                         C.WD_EMB, C.WD_HIDDEN)
+
+    def run(lazy):
+        params = W.params_to_device(host, dev)
+        step, state = W._make_train_ops(params, 1e-2, lazy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            params, state, _ = step(params, state, *(a[i] for a in epoch))
+        torch.cuda.synchronize()
+        return steps / (time.perf_counter() - t0)
+
+    return run
+
+
+def worker(root: str, reps: int) -> None:
+    """Time the loops of the package at ``root``; print one JSON line of
+    rates per run."""
+    sys.path.insert(0, root)
+    sys.path.insert(1, HERE)
+    import torch
+
+    import chip_smoke as C
+    from flink_ml_tpu_torch.kernels import build
+
+    build.build_all()
+    lr = epoch_runner(torch, C)
+    lr()
+    out = {"root": root, "lr_epochs_per_s": [lr() for _ in range(reps)]}
+    del lr
+    wd = widedeep_runner(torch, C)
+    for key, lazy in (("wd_off_steps_per_s", False),
+                      ("wd_lazy_steps_per_s", True)):
+        wd(lazy)
+        out[key] = [wd(lazy) for _ in range(reps)]
+    print(json.dumps(out), flush=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--against", help="a checkout of another commit")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
@@ -97,24 +159,30 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
-    roots = [HERE]
+    roots = [HERE] * args.rounds
     if args.against:
         other = os.path.abspath(args.against)
-        roots = [other, HERE, HERE, other]
+        roots = [other, HERE, HERE, other] * args.rounds
+    keys = ("lr_epochs_per_s", "wd_off_steps_per_s", "wd_lazy_steps_per_s")
     rates = {}
     for root in roots:
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", root,
              "--reps", str(args.reps)], check=True, capture_output=True,
             text=True, timeout=900, cwd=root).stdout.strip().splitlines()
-        got = json.loads(out[-1])["epochs_per_s"]
-        rates.setdefault(root, []).extend(got)
-        print(f"{root}: epochs/s {[round(r, 3) for r in got]} [{card}]",
-              flush=True)
+        got = json.loads(out[-1])
+        for key in keys:
+            rates.setdefault(root, {}).setdefault(key, []).extend(got[key])
+        print(f"{root}: " + "; ".join(
+            f"{key} {[round(r, 3) for r in got[key]]}" for key in keys)
+            + f" [{card}]", flush=True)
     for root, got in rates.items():
-        print(f"{root}: median {statistics.median(got):.3f} epochs/s over "
-              f"{len(got)} runs of {EPOCHS} epochs (8 steps of 2^15 at "
-              f"2^20 features) [{card}]", flush=True)
+        print(f"{root}: median over {len(got[keys[0]])} runs: LR "
+              f"{statistics.median(got[keys[0]]):.3f} epochs/s ({EPOCHS} "
+              f"epochs of 8 steps of 2^15 at 2^20 features a run); "
+              f"Wide&Deep 'off' {statistics.median(got[keys[1]]):.3f}, "
+              f"lazy {statistics.median(got[keys[2]]):.3f} steps/s [{card}]",
+              flush=True)
 
 
 if __name__ == "__main__":

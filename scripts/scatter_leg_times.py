@@ -93,13 +93,13 @@ def main() -> None:
               f" cap {lay.heavy_idx.shape[1]}", flush=True)
         for leg, (dst, idx, vals, overflow) in legs.items():
             add = timed(lambda: dst.index_add_(0, idx, vals))
-            fixed = timed(lambda: S._scatter_add_(dst, idx, vals, True))
+            fixed = timed(lambda: S._scatter_add_(dst, idx, vals))
             line = (f"  {leg}: index_add_ {add[0]:.1f} us host, "
                     f"{add[1]:.4f} ms device; fixed order {fixed[0]:.1f} us "
                     f"host, {fixed[1]:.4f} ms device")
             if overflow:
                 spread = timed(lambda: S._overflow_scatter_(
-                    dst, idx, vals, ovf_src, C.BATCH, True))
+                    dst, idx, vals, ovf_src, C.BATCH))
                 line += (f"; padding spread {spread[0]:.1f} us host, "
                          f"{spread[1]:.4f} ms device")
             print(f"{line} [{card}]", flush=True)

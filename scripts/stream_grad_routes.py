@@ -8,8 +8,8 @@ order (W, resume and reruns give the same bits).  Two ways, at the bench
 width (``bench.py:1094-1112``: 26 fields x 40329 vocab, embedding 64,
 batch 8192, numpy seed 17):
 
-(i)  ``fixed``: the gather's backward is ``sgd._scatter_add_(...,
-     fixed_order=True)`` (the sort-based ``index_put_(accumulate=True)``),
+(i)  ``fixed``: the gather's backward is ``sgd._scatter_add_`` (on the
+     card the sort-based ``index_put_(accumulate=True)``),
      what ``WideDeep.fit_outofcore`` runs (``widedeep._FixedOrderRows``);
 (ii) ``sort_fold``: a per-batch route built on the card (a stable sort of
      the batch's ids, its run starts and longest run read to the host),
@@ -93,7 +93,7 @@ def fixed_table_grad(g_rows, ids, num_rows):
     from flink_ml_tpu_torch.models.common.sgd import _scatter_add_
 
     return _scatter_add_(g_rows.new_zeros((num_rows,) + g_rows.shape[1:]),
-                         ids, g_rows, True)
+                         ids, g_rows)
 
 
 def index_add_table_grad(g_rows, ids, num_rows):
@@ -121,7 +121,7 @@ def streamed_step_ms(route: str, dev, steps=8, batch=WD_BATCH,
                      vocab=WD_VOCAB, emb=WD_EMB, hidden=WD_HIDDEN, reps=3,
                      time_fn=None):
     """ms a step of the streamed dense-Adam Wide&Deep step (the
-    ``fit_outofcore`` step: ``_make_train_ops(fixed_order=True)``) over
+    ``fit_outofcore`` step: ``_make_train_ops``) over
     ``steps`` device-resident batches, the gather's backward on ``route``
     ("fixed" or "sort_fold"); ``time_fn(fn) -> ms`` times one run of all
     the steps.  Returns ``(ms a step, final params)``."""
@@ -136,8 +136,7 @@ def streamed_step_ms(route: str, dev, steps=8, batch=WD_BATCH,
     if route == "sort_fold":
         W._FixedOrderRows = SortFoldRows
     try:
-        step, opt0 = W._make_train_ops(params0, 1e-2, False,
-                                       fixed_order=True)
+        step, opt0 = W._make_train_ops(params0, 1e-2, False)
 
         def run():
             params, opt = params0, opt0
@@ -302,15 +301,14 @@ def main() -> None:
     flat_i, flat_v = idx.reshape(-1), vals.reshape(-1)
     zeros = torch.zeros(FTRL_D, device=dev)
     scatter = {
-        "fixed": lambda: OLR._scatter_add_(zeros.clone(), flat_i, flat_v,
-                                           True),
+        "fixed": lambda: OLR._scatter_add_(zeros.clone(), flat_i, flat_v),
         "index_add_": lambda: zeros.clone().index_add_(0, flat_i, flat_v)}
     state = {k: torch.zeros(FTRL_D, device=dev) for k in ("w", "z", "n")}
     saved = OLR._scatter_add_
     step_ms = {}
     for name in ("fixed", "index_add_"):
         if name == "index_add_":
-            OLR._scatter_add_ = lambda t, i, v, _: t.index_add_(0, i, v)
+            OLR._scatter_add_ = lambda t, i, v: t.index_add_(0, i, v)
         try:
             step_ms[name] = _event_ms(lambda: OLR.sparse_ftrl_step(
                 state, idx, vals, y, sw, 0.1, 1.0, 1e-4, 1e-4))

@@ -223,9 +223,8 @@ def test_sparse_fit_matches_plain_versions(cuda_device, d, kernel, rows):
     """The sparse (indices, values) fit through the kernels' value
     variants against the same fit through the plain versions, both on the
     card: grids of 128 rows (8-row blocks, the fused scatter) and 1001
-    rows (the pair scatter).  The overflow and heavy legs' index_add_ adds
-    in no fixed order on the card, so the fits agree within the bench's
-    tolerance, not bit for bit."""
+    rows (the pair scatter), within the bench's tolerance; a second
+    kernel fit gives the same bits (every scatter-add in a fixed order)."""
     idx, vals, y = _pair_rows(d)
     if rows == "normal":
         vals = np.random.default_rng(6).normal(size=vals.shape).astype(
@@ -246,6 +245,10 @@ def test_sparse_fit_matches_plain_versions(cuda_device, d, kernel, rows):
     np.testing.assert_allclose(got.coefficients, want.coefficients,
                                rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(got_log, want_log, rtol=1e-4)
+    again, again_log = TS.sgd_fit_sparse(LOSSES["logistic"], idx, vals, y,
+                                         None, d, cfg, device=cuda_device)
+    np.testing.assert_array_equal(again.coefficients, got.coefficients)
+    assert again_log == got_log
 
 
 @pytest.mark.cuda
@@ -1497,3 +1500,118 @@ def test_index_tenant_delta_calls_one_search_a_batch(cuda_device, pq):
         assert np.array_equal(again["neighbors"], ref_other["neighbors"])
     finally:
         s.close()
+
+
+@pytest.mark.cuda
+def test_in_memory_fits_give_the_same_bits_twice(cuda_device):
+    """The in-memory mixed LR fit (heavy indices and overflowing rows: the
+    legs that used to add with atomics) and the Wide&Deep 'off' and lazy
+    fits, each run twice on the card: the same bits."""
+    dense, cat, y = _fit_data(n=2400)
+    cat[:, 1] = 777                           # a heavy index
+    cat[:, 2] = 128 * 5 + np.arange(len(y)) % 3  # an overflowing row
+    cfg = TS.SGDConfig(learning_rate=0.3, max_epochs=2,
+                       global_batch_size=600, tol=0, reg=0.01)
+    fits = [TS.sgd_fit_mixed(LOSSES["logistic"], dense, cat, y, None, D,
+                             cfg, device=cuda_device) for _ in range(2)]
+    assert fits[0][0].planned_impl == "ell"
+    np.testing.assert_array_equal(fits[0][0].coefficients,
+                                  fits[1][0].coefficients)
+    assert fits[0][1] == fits[1][1]
+
+    rng = np.random.default_rng(12)
+    n, vocab = 2000, [50, 30, 7]
+    wcat = np.stack([rng.integers(0, v, size=n) for v in vocab], 1)
+    wdense = rng.normal(size=(n, 5)).astype(np.float32)
+    table = T.Table({"denseFeatures": wdense, "catFeatures": wcat,
+                     "label": (wcat[:, 0] % 2).astype(np.int64)})
+    for lazy in (False, True):
+        def fit():
+            return (T.WideDeep(device=cuda_device).set_vocab_sizes(vocab)
+                    .set_max_iter(2).set_global_batch_size(256).set_seed(2)
+                    .set(T.WideDeep.ROUTED_EMB_GRAD, "off")
+                    .set(T.WideDeep.LAZY_EMB_OPT, lazy).fit(table))
+
+        a, b = fit(), fit()
+        assert a.loss_log == b.loss_log
+        for k in ("emb", "wide_cat", "wide_dense", "wide_b"):
+            np.testing.assert_array_equal(a._params[k], b._params[k])
+
+
+def _gbt_level(n=40000, d=8, bins=32, n_nodes=4, seed=31):
+    rng = np.random.default_rng(seed)
+    binned = rng.integers(0, bins, size=(n, d)).astype(np.int32)
+    ids = np.where(rng.random(n) < 0.2, -1,
+                   rng.integers(0, n_nodes, size=n)).astype(np.int32)
+    g = rng.normal(size=n).astype(np.float32)
+    h = (rng.random(n) + 0.1).astype(np.float32)
+    return binned, ids, g, h, d, bins, n_nodes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["segsum", "mxu"])
+def test_gbt_histograms_repeat_and_match_float64(cuda_device, impl):
+    """Each histogram form on the card: two calls give the same bits, and
+    the sums equal a float64 numpy histogram within the tolerance of
+    ``bench.py:1388-1391`` (rtol 1e-4, atol 1e-5)."""
+    from flink_ml_tpu_torch.models.common import gbt as TGB
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    binned, ids, g, h, d, bins, n_nodes = _gbt_level()
+    args = [torch.from_numpy(a).to(cuda_device) for a in (binned, ids, g, h)]
+    one = TGB._HIST_IMPLS[impl](*args, n_nodes, d, bins)
+    two = TGB._HIST_IMPLS[impl](*args, n_nodes, d, bins)
+    live = ids >= 0
+    for got, again, v in zip(one, two, (g, h)):
+        assert torch.equal(got, again)
+        want = np.zeros((n_nodes, d, bins))
+        for f in range(d):
+            np.add.at(want, (ids[live], f, binned[live, f]),
+                      v[live].astype(np.float64))
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_gbt_fits_on_the_card(cuda_device, tmp_path):
+    """A small GBT fit on the card: a second fit gives the same bits, the
+    streamed fit at W 8 equals W 1 bit for bit, and the card's in-core
+    forest predicts what the same fit on the CPU predicts (rtol 1e-4)."""
+    from flink_ml_tpu_torch.models.common import gbt as TGB
+
+    rng = np.random.default_rng(29)
+    n, d = 20000, 8
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.3 * rng.normal(size=n)
+         > 0).astype(np.float64)
+
+    def grad_hess(yv, pred):
+        p = 1.0 / (1.0 + np.exp(-pred))
+        return p - yv, np.maximum(p * (1.0 - p), 1e-16)
+
+    cfg = TGB.GBTConfig(num_trees=4, max_depth=4, max_bins=32,
+                        learning_rate=0.2)
+    a, b = (TGB.train_forest(X, y, grad_hess, 0.0, cfg, device=cuda_device)
+            for _ in range(2))
+    for k in ("feature", "threshold", "value"):
+        np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+    cpu = TGB.train_forest(X, y, grad_hess, 0.0, cfg, device="cpu")
+    np.testing.assert_allclose(
+        TGB.predict_forest(X, a, device=cuda_device),
+        TGB.predict_forest(X, cpu, device="cpu"), rtol=1e-4, atol=1e-5)
+
+    def reader():
+        for s in range(0, n, 3000):
+            yield {"features": X[s:s + 3000], "label": y[s:s + 3000]}
+
+    streamed = {}
+    for W in (1, 8):
+        streamed[W] = TGB.train_forest_outofcore(
+            reader, grad_hess, 0.0,
+            TGB.GBTConfig(num_trees=3, max_depth=3, max_bins=32,
+                          steps_per_dispatch=W),
+            work_dir=str(tmp_path / f"w{W}"), batch_device_rows=2048,
+            device=cuda_device)
+    for k in ("feature", "threshold", "value"):
+        np.testing.assert_array_equal(getattr(streamed[8], k),
+                                      getattr(streamed[1], k))

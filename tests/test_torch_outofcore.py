@@ -663,9 +663,8 @@ def test_overflow_padding_spread_keeps_every_live_bit(cap, batch):
     idx = torch.from_numpy(target)
     base = torch.from_numpy(rng.normal(size=batch + 5).astype(np.float32))
     base[::7] = -0.0
-    want = TS._overflow_scatter_(base.clone(), idx, vals, idx, batch,
-                                 False)
-    got = TS._overflow_scatter_(base.clone(), idx, vals, idx, batch, True)
+    want = base.clone().index_add_(0, idx, vals)
+    got = TS._overflow_scatter_(base.clone(), idx, vals, idx, batch)
     keep = torch.ones(batch + 5, dtype=torch.bool)
     keep[batch] = False
     assert torch.equal(got[keep].view(torch.int32),
