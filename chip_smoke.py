@@ -353,7 +353,34 @@ line is printed):
     the card (fused = stagewise bit for bit); the binary
     ``GBTClassifierModel`` served at requests of 1-256 rows, every
     response its offline transform bit for bit.  No kernel of the table
-    runs in phases 37-39.
+    runs in phases 37-41.
+40. ALS at ``bench_als``'s shape (``bench.py:1218-1239``: 2^14 users,
+    2^12 items, 2^21 uniform ratings N(0,1), numpy seed 3; rank 64, reg
+    0.1, explicit), ``ALS(device="cuda")`` for 5 epochs: 'auto' plans
+    the sorted form (both spans printed, under the cap of 256); two fits
+    bit for bit; a user half-epoch from the start state on the card
+    against the port on the host CPU (rtol 1e-4, atol 1e-4); 256 sampled
+    users against float64 normal equations (1e-4 of the factor's norm);
+    ALS-WR's objective falling every epoch through the fit's own body,
+    whose factors equal the fit's (the training RMSE need not fall every
+    epoch on ratings without low-rank structure: over the fit); the forced 'scatter' fit within 5e-3
+    of the sorted fit; a workset fit (tol 1e-3) with its rounds and
+    active fractions, its RMSE within 1% of the BSP fit's; an implicit
+    fit finite and twice bit for bit; ``transform`` of 2^16 pairs within
+    1e-5 of float64 dots (of |U_u| |V_i|); ``recommend_for_users`` for
+    1024 users, k 10, training pairs excluded, equal to a float64 top-k
+    (swaps within a tie of 1e-6 counted), scored by ``RankingEvaluator``
+    over 2^14 held-out pairs.  Prints epochs/s of both forms (CUDA
+    events, in turns) against the epoch's bound and the host plan build.
+41. Swing (4096 users x 1024 items, 12-60 items a user drawn Zipf(1.1),
+    the defaults): the scores twice bit for bit, symmetric within 1e-6,
+    64 sampled item pairs within 1e-5 of a float64 sum over their common
+    user pairs and those items' top-100 lists equal to float64's (swaps
+    within a tie counted); seconds against ``2 U^2 I^2`` FLOPs.
+    MinHashLSH (2^16 x 2048 binary rows, ~5% active, 4 tables x 4
+    functions): signatures equal numpy int64 minima exactly, the masked
+    min timed against its bound, ``approx_nearest_neighbors`` (k 10,
+    16 planted near-duplicates) equal to the CPU's.
 
 The last lines are the kernel table (nine kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
@@ -5630,6 +5657,491 @@ def classifiers_phase(torch, dev, card):
     log(f"phase 39: {time.perf_counter() - t_phase:.2f} s [{card}]")
 
 
+# The recommenders (phases 40-41): bench_als's shape (bench.py:1218-1239)
+ALS_USERS, ALS_ITEMS, ALS_NNZ, ALS_SEED = 1 << 14, 1 << 12, 1 << 21, 3
+ALS_RANK, ALS_REG, ALS_EPOCHS = 64, 0.1, 5
+ALS_CPU_TOL = dict(rtol=1e-4, atol=1e-4)   # a user half-epoch, card vs CPU
+ALS_F64_RTOL = 1e-4          # sampled users vs float64, of the factor norm
+ALS_SAMPLED = 256
+ALS_FORM_TOL = dict(rtol=5e-3, atol=5e-3)  # tests/test_als.py:276-303
+ALS_WS_TOL, ALS_WS_RMSE_RTOL = 1e-3, 0.01
+ALS_PAIRS = 1 << 16
+ALS_PRED_RTOL = 1e-5         # of |U_u| |V_i|
+ALS_REC_USERS, ALS_REC_K, ALS_HELD = 1024, 10, 1 << 14
+ALS_TIE = 1e-6               # of |U_u| max|V_i|: ranks may swap
+ALS_EPOCH_REPS = 5
+# Swing: 4096 users x 1024 items, 12-60 items a user, Zipf(1.1) over items
+SG_USERS, SG_ITEMS, SG_ZIPF, SG_SEED = 4096, 1024, 1.1, 43
+SG_MIN_ITEMS, SG_MAX_ITEMS = 12, 60
+SG_PAIRS, SG_RTOL, SG_SYM = 64, 1e-5, 1e-6
+# MinHashLSH: 2^16 x 2048 binary rows, ~5% active, 4 tables x 4 functions
+MH_ROWS, MH_D, MH_ACTIVE, MH_TABLES, MH_FNS = 1 << 16, 2048, 0.05, 4, 4
+MH_REPS, MH_DUPS = 10, 16
+
+
+def als_ratings(n_users, n_items, nnz, seed):
+    """bench_als's ratings: uniform (user, item) ids, N(0,1) ratings."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, n_users, size=nnz)
+    i = rng.integers(0, n_items, size=nnz)
+    return u, i, rng.normal(size=nnz).astype(np.float32)
+
+
+def als_rmse(torch, dev, U, V, u, i, r, reg=None):
+    """Training RMSE of the factors (numpy or tensors) over the ratings,
+    on the card, summed in float64; with ``reg``, also ALS-WR's
+    objective, ``sum (r - U_u.V_i)^2 + reg (sum_u n_u |U_u|^2 + sum_i
+    n_i |V_i|^2)``, which each half-epoch minimizes over one side."""
+    U, V = (torch.as_tensor(x, device=dev) for x in (U, V))
+    ut, it = (torch.from_numpy(x).to(dev) for x in (u, i))
+    pred = torch.sum(U[ut] * V[it], dim=1).double()
+    err = pred - torch.from_numpy(r).to(dev).double()
+    sq = torch.sum(err * err)
+    rmse = float(torch.sqrt(sq / len(r)))
+    if reg is None:
+        return rmse
+    norms = [torch.bincount(idx, minlength=len(F)).double()
+             @ torch.sum(F.double() ** 2, dim=1)
+             for idx, F in ((ut, U), (it, V))]
+    return rmse, float(sq + reg * (norms[0] + norms[1]))
+
+
+def als_phase(torch, dev, card, timer):
+    """Phase 40: ALS at bench_als's shape on the card: 'auto' plans the
+    sorted form, two fits bit for bit, a user half-epoch against the CPU
+    and 256 users against float64 solves, the training RMSE falling epoch
+    by epoch, the scatter, workset and implicit fits, transform against
+    float64 dots, recommend_for_users against a float64 top-k and
+    RankingEvaluator over held-out pairs; epochs/s of both forms against
+    the epoch's bound."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.models import ALS
+    from flink_ml_tpu_torch.models.evaluation import RankingEvaluator
+    from flink_ml_tpu_torch.models.recommendation import als as A
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the ALS normal equations must run in f32")
+    n_u, n_i, nnz, rank = ALS_USERS, ALS_ITEMS, ALS_NNZ, ALS_RANK
+    u, i, r = als_ratings(n_u, n_i, nnz, ALS_SEED)
+    table = Table({"user": u, "item": i, "rating": r})
+    user_ids, u_idx = np.unique(u, return_inverse=True)
+    item_ids, i_idx = np.unique(i, return_inverse=True)
+    if len(user_ids) != n_u or len(item_ids) != n_i:
+        fail("ALS: some user or item drew no rating")
+
+    def fit(form="auto", tab=table, **extra):
+        est = (ALS(device=DEVICE).set_rank(rank).set_reg_param(ALS_REG)
+               .set_max_iter(ALS_EPOCHS).set_seed(0)
+               .set(ALS.NEQ_IMPL, form))
+        for name, v in extra.items():
+            getattr(est, f"set_{name}")(v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(tab)
+        return est, model, time.perf_counter() - t0
+
+    def factors(model):
+        data = model.get_model_data()[0]
+        return data["userFactors"][0], data["itemFactors"][0]
+
+    def same(a, b):
+        return all(np.array_equal(x, y)
+                   for x, y in zip(factors(a), factors(b)))
+
+    # 1-2. 'auto' plans the sorted form; two fits give the same bits
+    est, model, cold_s = fit()
+    spans = est.plan_spans
+    log(f"ALS ({n_u} users x {n_i} items, {nnz} ratings, rank {rank}, reg "
+        f"{ALS_REG}, {ALS_EPOCHS} epochs): 'auto' planned "
+        f"{est.planned_impl}, spans users {spans and spans[0]} items "
+        f"{spans and spans[1]} (cap {A._NEQ_AUTO_SPAN_CAP}); cold fit "
+        f"{cold_s:.3f} s [{card}]")
+    if est.planned_impl != "sorted" or max(spans) > A._NEQ_AUTO_SPAN_CAP:
+        fail("ALS: 'auto' did not plan the sorted form")
+    _, again, warm_s = fit()
+    if not same(model, again):
+        fail("ALS: two fits on the card gave different factors")
+    log(f"ALS: a second fit {warm_s:.3f} s, the same bits [{card}]")
+
+    # 3-4. one user half-epoch from the fit's start state: the card vs
+    # the port on the host CPU, and 256 users vs float64 solves
+    U0, V0 = A.init_factors(n_u, n_i, rank, 0)
+    w = np.ones(nnz, np.float32)
+    t0 = time.perf_counter()
+    plan_u, plan_v = A.NeqPlan(u_idx), A.NeqPlan(i_idx)
+    plan_s = time.perf_counter() - t0
+    if (plan_u.span, plan_v.span) != tuple(spans):
+        fail("ALS: the fit's spans differ from its plans'")
+
+    def half_epoch(device):
+        side = plan_u.side_data(i_idx, r, w, device)
+        return A._solve_side_sorted(
+            torch.from_numpy(U0).to(device), torch.from_numpy(V0).to(device),
+            plan_u, *side, n_u, ALS_REG, False, 1.0).cpu().numpy()
+
+    on_card = half_epoch(dev)
+    t0 = time.perf_counter()
+    on_cpu = half_epoch("cpu")
+    cpu_s = time.perf_counter() - t0
+    gap = float(np.max(np.abs(on_card - on_cpu)))
+    log(f"ALS user half-epoch, card vs host CPU: max |d| {gap:.3e} (rtol "
+        f"{ALS_CPU_TOL['rtol']}, atol {ALS_CPU_TOL['atol']}); the CPU's "
+        f"{cpu_s:.3f} s")
+    if not np.allclose(on_card, on_cpu, **ALS_CPU_TOL):
+        fail("ALS: the card's half-epoch left the CPU's")
+    order = np.argsort(u_idx, kind="stable")
+    bounds = np.searchsorted(u_idx[order], np.arange(n_u + 1))
+    worst = 0.0
+    for s in np.random.default_rng(4).choice(n_u, ALS_SAMPLED,
+                                             replace=False):
+        rows = order[bounds[s]:bounds[s + 1]]
+        y = V0[i_idx[rows]].astype(np.float64)
+        lhs = y.T @ y + ALS_REG * max(len(rows), 1) * np.eye(rank)
+        want = np.linalg.solve(lhs, y.T @ r[rows].astype(np.float64))
+        worst = max(worst, float(np.linalg.norm(on_card[s] - want)
+                                 / np.linalg.norm(want)))
+    log(f"ALS: {ALS_SAMPLED} sampled users vs float64 normal equations: "
+        f"worst |d| / |x| {worst:.3e} (tolerance {ALS_F64_RTOL})")
+    if worst > ALS_F64_RTOL:
+        fail("ALS: the card's solve left the float64 solve")
+
+    # 5. epoch by epoch through the fit's own body: ALS-WR's objective
+    # falls every epoch (each half-epoch minimizes it over one side); the
+    # training RMSE need not, on ratings without low-rank structure
+    sorted_data = (plan_u.side_data(i_idx, r, w, dev)
+                   + plan_v.side_data(u_idx, r, w, dev))
+    raw_data = tuple(torch.from_numpy(x).to(dev) for x in (
+        u_idx.astype(np.int64), i_idx.astype(np.int64), r, w))
+    bodies = {"sorted": (A.als_epoch_step(n_u, n_i, ALS_REG, False, 1.0,
+                                          plans=(plan_u, plan_v)),
+                         sorted_data),
+              "scatter": (A.als_epoch_step(n_u, n_i, ALS_REG, False, 1.0),
+                          raw_data)}
+    body, data = bodies["sorted"]
+    state = (torch.from_numpy(U0).to(dev), torch.from_numpy(V0).to(dev))
+    trace = [als_rmse(torch, dev, *state, u_idx, i_idx, r, ALS_REG)]
+    for e in range(ALS_EPOCHS):
+        state = body(state, e, data).feedback
+        trace.append(als_rmse(torch, dev, *state, u_idx, i_idx, r, ALS_REG))
+    rmses, objs = [x for x, _ in trace], [y for _, y in trace]
+    log(f"ALS by epoch from the start state: objective "
+        f"{[round(x, 3) for x in objs]}; training RMSE "
+        f"{[round(x, 6) for x in rmses]}")
+    if not all(b < a for a, b in zip(objs, objs[1:])) \
+            or rmses[-1] >= rmses[0]:
+        fail(f"ALS: the objective did not fall every epoch, or the RMSE "
+             f"did not fall over the fit: {objs}, {rmses}")
+    if not all(np.array_equal(x.cpu().numpy(), y)
+               for x, y in zip(state, factors(model))):
+        fail("ALS: the epoch body's factors differ from the fit's")
+
+    # 6. the scatter form within JAX's own tolerance of the sorted form
+    s_est, s_model, s_s = fit("scatter")
+    diff = max(float(np.max(np.abs(x - y)))
+               for x, y in zip(factors(s_model), factors(model)))
+    log(f"ALS scatter fit ({s_est.planned_impl}) {s_s:.3f} s: max |d| vs "
+        f"the sorted fit {diff:.3e} (rtol/atol {ALS_FORM_TOL['rtol']})")
+    if s_est.planned_impl != "scatter" or not all(
+            np.allclose(x, y, **ALS_FORM_TOL)
+            for x, y in zip(factors(s_model), factors(model))):
+        fail("ALS: the scatter fit left the sorted fit")
+
+    # 7. the workset fit
+    ws_est, ws_model, ws_s = fit(workset_tol=ALS_WS_TOL)
+    rep = ws_est.last_workset_report
+    rmse_bsp = rmses[-1]
+    rmse_ws = als_rmse(torch, dev, *factors(ws_model), u_idx, i_idx, r)
+    log(f"ALS workset fit (tol {ALS_WS_TOL}) {ws_s:.3f} s: {rep['rounds']} "
+        f"rounds of at most {ALS_EPOCHS}, active fractions "
+        f"{[round(float(x), 6) for x in rep['active_fraction']]}; RMSE "
+        f"{rmse_ws:.6f} vs BSP {rmse_bsp:.6f}")
+    if rep["rounds"] > ALS_EPOCHS or len(rep["active_fraction"]) \
+            != rep["rounds"] or abs(rmse_ws - rmse_bsp) \
+            > ALS_WS_RMSE_RTOL * rmse_bsp:
+        fail("ALS: the workset fit's report or RMSE is off")
+
+    # 8. the implicit fit (|r|, alpha 1): finite, twice the same bits
+    implicit = Table({"user": u, "item": i, "rating": np.abs(r)})
+    im_est, im_a, im_s = fit(tab=implicit, implicit_prefs=True, alpha=1.0)
+    _, im_b, _ = fit(tab=implicit, implicit_prefs=True, alpha=1.0)
+    finite = all(np.isfinite(x).all() for x in factors(im_a))
+    log(f"ALS implicit fit ({im_est.planned_impl}) {im_s:.3f} s: finite "
+        f"{finite}, a second fit the same bits {same(im_a, im_b)}")
+    if not finite or not same(im_a, im_b):
+        fail("ALS: the implicit fit is not finite or not repeatable")
+
+    # 9. transform against float64 dots of the fitted factors
+    Uf, Vf = factors(model)
+    rng = np.random.default_rng(5)
+    pu = rng.integers(0, n_u, ALS_PAIRS)
+    pi = rng.integers(0, n_i, ALS_PAIRS)
+    pred = model.transform(Table({"user": pu, "item": pi}))[0]["prediction"]
+    U64, V64 = Uf.astype(np.float64), Vf.astype(np.float64)
+    want = np.einsum("nk,nk->n", U64[pu], V64[pi])
+    scale = np.linalg.norm(U64[pu], axis=1) * np.linalg.norm(V64[pi], axis=1)
+    rel = float(np.max(np.abs(pred - want) / scale))
+    log(f"ALS transform of {ALS_PAIRS} pairs: max |p - float64| / (|U_u| "
+        f"|V_i|) {rel:.3e} (tolerance {ALS_PRED_RTOL})")
+    if pred.shape != (ALS_PAIRS,) or not np.isfinite(pred).all() \
+            or rel > ALS_PRED_RTOL:
+        fail("ALS: transform left the float64 dots")
+
+    # 10. recommend_for_users with the training pairs excluded, against a
+    # float64 top-k; RankingEvaluator over held-out pairs
+    sel = np.arange(ALS_REC_USERS)
+    t0 = time.perf_counter()
+    recs = model.recommend_for_users(sel, ALS_REC_K, exclude=table)
+    rec_s = time.perf_counter() - t0
+    scores = U64[sel] @ V64.T
+    seen = u < ALS_REC_USERS
+    scores[u[seen], i[seen]] = -np.inf
+    ties = 0
+    for row in sel:
+        got = np.asarray(recs["recommendations"][row])
+        ref = np.argsort(-scores[row], kind="stable")[:ALS_REC_K]
+        tie = ALS_TIE * np.linalg.norm(U64[row]) \
+            * np.linalg.norm(V64, axis=1).max()
+        for a, b in zip(got, ref):
+            if a == b:
+                continue
+            if abs(scores[row, a] - scores[row, b]) > tie:
+                fail(f"ALS: user {row}'s recommendations differ from the "
+                     f"float64 top-k beyond a tie ({got} vs {ref})")
+            ties += 1
+        if len(got) != ALS_REC_K:
+            fail(f"ALS: user {row} got {len(got)} recommendations")
+    held_u = rng.integers(0, ALS_REC_USERS, ALS_HELD)
+    held_i = rng.integers(0, n_i, ALS_HELD)
+    truth = np.empty(ALS_REC_USERS, object)
+    for row in sel:
+        truth[row] = held_i[held_u == row].tolist()
+    metrics = RankingEvaluator().set_k(ALS_REC_K).transform(Table({
+        "prediction": recs["recommendations"], "label": truth}))[0]
+    values = {m: float(metrics[m][0]) for m in metrics.column_names}
+    log(f"ALS recommend_for_users ({ALS_REC_USERS} users, k {ALS_REC_K}, "
+        f"{int(seen.sum())} training pairs excluded) {rec_s:.3f} s: the "
+        f"float64 top-k's ids, {ties} positions swapped within a tie of "
+        f"{ALS_TIE}; RankingEvaluator over {ALS_HELD} held-out pairs "
+        f"(random ratings: no signal expected) {values}")
+    if not all(0.0 <= v <= 1.0 for v in values.values()):
+        fail("ALS: RankingEvaluator's metrics leave [0, 1]")
+
+    # 11-12. epochs/s of both forms (warm, CUDA events, in turns) against
+    # the epoch's bound
+    ms = {"sorted": [], "scatter": []}
+    for form in ("sorted", "scatter", "scatter", "sorted"):
+        b, d = bodies[form]
+        ms[form].append(timer.ms(lambda: b(state, 0, d),
+                                 reps=ALS_EPOCH_REPS, warm=1))
+    epoch_ms = {f: statistics.median(v) for f, v in ms.items()}
+    ops = 2 * nnz * rank * rank * 2          # both sides' A terms
+    gather_bytes = 2 * nnz * rank * 4
+    bound_ms = max(ops / FP32_OPS_PER_S, gather_bytes / HBM_BYTES_PER_S) \
+        * 1e3
+    padded = [p.chunk * len(p.g_lo) for p in (plan_u, plan_v)]
+    onehot_ops = sum(2 * p.span * n * rank * (rank + 1)
+                     for p, n in zip((plan_u, plan_v), padded))
+    outer_bytes = sum(2 * n * rank * rank * 4 for n in padded)
+    log(f"ALS epoch (warm, median of {ALS_EPOCH_REPS} x 2, L2 flushed): "
+        f"sorted {epoch_ms['sorted']:.3f} ms = "
+        f"{1e3 / epoch_ms['sorted']:.3f} epochs/s, scatter "
+        f"{epoch_ms['scatter']:.3f} ms = {1e3 / epoch_ms['scatter']:.3f} "
+        f"epochs/s; bound {bound_ms:.4f} ms (operations: {ops:.3e} f32 "
+        f"FLOPs at {FP32_OPS_PER_S:.0e}; bytes: {gather_bytes:.3e} B of "
+        f"factor gathers, {gather_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+        f"sorted {epoch_ms['sorted'] / bound_ms:.1f}x, scatter "
+        f"{epoch_ms['scatter'] / bound_ms:.1f}x the bound; the sorted "
+        f"form's one-hot products {onehot_ops:.3e} FLOPs and its outer "
+        f"products {outer_bytes:.3e} B written and read; host plan build "
+        f"(two NeqPlans) {plan_s:.3f} s, the scatter form none [{card}]")
+    RATES["als_epochs_per_sec"] = {f: 1e3 / v for f, v in epoch_ms.items()}
+    log(f"phase 40: {time.perf_counter() - t_phase:.2f} s [{card}]")
+
+
+def swing_interactions(seed):
+    """SG_USERS users, each with SG_MIN_ITEMS-SG_MAX_ITEMS distinct items
+    drawn Zipf(SG_ZIPF) over SG_ITEMS items."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, SG_ITEMS + 1) ** SG_ZIPF
+    p /= p.sum()
+    counts = rng.integers(SG_MIN_ITEMS, SG_MAX_ITEMS + 1, size=SG_USERS)
+    items = np.concatenate([rng.choice(SG_ITEMS, size=c, replace=False, p=p)
+                            for c in counts])
+    return np.repeat(np.arange(SG_USERS), counts), items
+
+
+def swing_row64(B, w, i, alpha2):
+    """Row ``i`` of the Swing similarity in float64: over the users of
+    item i, ``0.5 sum_{u != v} K_uv B_uj B_vj``."""
+    Bu = B[B[:, i] > 0]
+    wu = w[B[:, i] > 0]
+    uu = Bu @ Bu.T
+    K = np.where(uu > 0, np.outer(wu, wu) / np.maximum(alpha2 + uu, 1e-300),
+                 0.0)
+    np.fill_diagonal(K, 0.0)
+    return 0.5 * np.sum(Bu * (K @ Bu), axis=0)
+
+
+def swing_pair64(B, w, i, j, alpha2):
+    """The Swing similarity of items i and j summed directly in float64
+    over the unordered pairs of their common users."""
+    common = (B[:, i] > 0) & (B[:, j] > 0)
+    Bc, wc = B[common], w[common]
+    uu = Bc @ Bc.T
+    K = np.where(uu > 0, np.outer(wc, wc) / np.maximum(alpha2 + uu, 1e-300),
+                 0.0)
+    return float(np.sum(np.triu(K, k=1)))
+
+
+def minhash_reference(X, table):
+    """(n, m) int64 signatures: numpy minima of the hash table's rows over
+    each row's active indices, in row chunks."""
+    out = np.empty((X.shape[0], table.shape[1]), np.int64)
+    for s in range(0, X.shape[0], 8192):
+        rows, cols = np.nonzero(X[s:s + 8192])
+        starts = np.searchsorted(rows, np.arange(min(8192, len(X) - s)))
+        out[s:s + 8192] = np.minimum.reduceat(table[cols], starts, axis=0)
+    return out
+
+
+def recommenders_phase(torch, dev, card, timer):
+    """Phase 41: Swing (4096 x 1024, Zipf) twice bit for bit, symmetric,
+    sampled pairs and top-k lists against float64; MinHashLSH signatures
+    at 2^16 x 2048 against a numpy int64 minimum exactly, its kernel time
+    against the bound, approx_nearest_neighbors against the CPU."""
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.models.feature import MinHashLSH
+    from flink_ml_tpu_torch.models.feature import lsh as L
+    from flink_ml_tpu_torch.models.recommendation import Swing
+    from flink_ml_tpu_torch.models.recommendation import swing as SW
+
+    t_phase = time.perf_counter()
+    users, items = swing_interactions(SG_SEED)
+    table = Table({"user": users, "item": items})
+    op = Swing(device=DEVICE)
+    item_vals, B = op.interaction_matrix(table)
+    a1, a2, beta = (float(op.get_alpha1()), float(op.get_alpha2()),
+                    float(op.get_beta()))
+    Bt = torch.from_numpy(B).to(dev)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S = SW._swing_scores(Bt, a1, a2, beta)
+        torch.cuda.synchronize()
+        runs.append((S, time.perf_counter() - t0))
+    (S, s1), (S2, s2) = runs
+    repeat = bool(torch.equal(S, S2))
+    S = S.cpu().numpy().astype(np.float64)
+    asym = float(np.max(np.abs(S - S.T)) / np.max(np.abs(S)))
+    ops = 2.0 * B.shape[0] ** 2 * B.shape[1] ** 2
+    log(f"Swing ({B.shape[0]} users x {B.shape[1]} items, "
+        f"{int(B.sum())} interactions after the filter and the per-item cap "
+        f"of {op.get_max_user_num_per_item()}): scores {s1:.3f} / "
+        f"{s2:.3f} s, twice the same bits {repeat}; bound "
+        f"{ops / FP32_OPS_PER_S:.3f} s ({ops:.3e} f32 FLOPs at "
+        f"{FP32_OPS_PER_S:.0e}), {min(s1, s2) * FP32_OPS_PER_S / ops:.2f}x "
+        f"it; "
+        f"max |S - S^T| / max|S| {asym:.3e} (tolerance {SG_SYM}) [{card}]")
+    if not repeat or asym > SG_SYM:
+        fail("Swing: two runs differ, or S is not symmetric")
+
+    t0 = time.perf_counter()
+    out = op.transform(table)[0]
+    tr_s = time.perf_counter() - t0
+    counts = B.sum(axis=1).astype(np.float64)
+    w64 = np.where(counts > 0, (counts + a1) ** -beta, 0.0)
+    B64 = B.astype(np.float64)
+    rng = np.random.default_rng(SG_SEED + 1)
+    worst, ties, compared = 0.0, 0, 0
+    for i in rng.choice(len(item_vals), SG_PAIRS, replace=False):
+        row = swing_row64(B64, w64, i, a2)
+        row[i] = 0.0
+        live = np.flatnonzero(row > 0)
+        if len(live):
+            j = int(rng.choice(live))
+            want = swing_pair64(B64, w64, i, j, a2)
+            worst = max(worst, abs(S[i, j] - want) / want)
+            compared += 1
+        got = np.asarray(out["similar_items"][i])
+        ref = np.argsort(-row, kind="stable")
+        ref = ref[row[ref] > 0][:op.get_k()]
+        if len(got) != len(ref):
+            fail(f"Swing: item {i} lists {len(got)} items, float64 "
+                 f"{len(ref)}")
+        for a, b in zip(got, ref):
+            if a != b:
+                if abs(row[a] - row[b]) > SG_RTOL * row[b]:
+                    fail(f"Swing: item {i}'s top-k differs from float64 "
+                         "beyond a tie")
+                ties += 1
+    log(f"Swing transform {tr_s:.3f} s; {compared} sampled item pairs vs a "
+        f"float64 sum over their common user pairs: worst relative "
+        f"{worst:.3e} (tolerance {SG_RTOL}); their items' top-{op.get_k()} "
+        f"lists = float64's, {ties} positions swapped within a tie")
+    if worst > SG_RTOL:
+        fail("Swing: a sampled pair left the float64 sum")
+
+    # MinHashLSH
+    rng = np.random.default_rng(SG_SEED + 2)
+    X = rng.random((MH_ROWS, MH_D), dtype=np.float32) < MH_ACTIVE
+    X[np.arange(MH_ROWS), np.arange(MH_ROWS) % MH_D] = True
+    # near-duplicates of row 123 (a tenth of its bits dropped) for the
+    # nearest-neighbour query to find
+    dups = rng.choice(np.arange(124, MH_ROWS), MH_DUPS, replace=False)
+    for d in dups:
+        X[d] = X[123] & (rng.random(MH_D) >= 0.1)
+    Xf = X.astype(np.float32)
+    feats = Table({"features": Xf, "id": np.arange(MH_ROWS)})
+
+    def lsh(device):
+        return (MinHashLSH(device=device).set_num_hash_tables(MH_TABLES)
+                .set_num_hash_functions_per_table(MH_FNS).set_seed(7)
+                .fit(Table({"features": Xf[:1]})))
+
+    model = lsh(DEVICE)
+    t0 = time.perf_counter()
+    sig = model.transform(feats)[0]["output"]
+    sig_s = time.perf_counter() - t0
+    hashes = model.hash_table(MH_D)
+    want = minhash_reference(X, hashes.astype(np.int64))
+    exact = sig.shape == (MH_ROWS, MH_TABLES, MH_FNS) and np.array_equal(
+        sig.reshape(MH_ROWS, -1), want)
+    active, table_d = (torch.from_numpy(X).to(dev),
+                       torch.from_numpy(hashes).to(dev))
+    mh_ms = timer.ms(lambda: L._minhash_batch(active, table_d),
+                     reps=MH_REPS, warm=1)
+    m = MH_TABLES * MH_FNS
+    mh_bytes = MH_ROWS * MH_D + MH_D * m * 4 + MH_ROWS * m * 4
+    mh_ops = MH_ROWS * MH_D * m
+    mh_bound = max(mh_bytes / HBM_BYTES_PER_S,
+                   mh_ops / FP32_OPS_PER_S) * 1e3
+    log(f"MinHashLSH ({MH_ROWS} x {MH_D}, {X.mean():.4f} active, "
+        f"{MH_TABLES} tables x {MH_FNS} functions): signatures = numpy "
+        f"int64 minima {exact}; transform {sig_s:.3f} s; the masked min "
+        f"{mh_ms:.3f} ms (median of {MH_REPS}) against a bound of "
+        f"{mh_bound:.4f} ms (the larger of {mh_bytes:.3e} B and "
+        f"{mh_ops:.3e} compare-selects at the fp32 rate), "
+        f"{mh_ms / mh_bound:.1f}x [{card}]")
+    if not exact:
+        fail("MinHashLSH: signatures differ from the numpy minima")
+    key = Xf[123]
+    t0 = time.perf_counter()
+    nn = model.approx_nearest_neighbors(feats, key, k=10)
+    nn_s = time.perf_counter() - t0
+    ref = lsh("cpu").approx_nearest_neighbors(feats, key, k=10)
+    same_nn = np.array_equal(nn["id"], ref["id"]) and np.array_equal(
+        nn["distCol"], ref["distCol"])
+    log(f"MinHashLSH approx_nearest_neighbors (k 10) {nn_s:.3f} s: ids "
+        f"{nn['id'].tolist()}, distances {nn['distCol'].round(4).tolist()}"
+        f"; ids and distances = the CPU's {same_nn}")
+    if not same_nn or nn["id"][0] != 123 or nn["distCol"][0] != 0.0 \
+            or len(nn["id"]) != 10 or not set(nn["id"][1:]) <= set(dups):
+        fail("MinHashLSH: the nearest neighbours differ from the CPU's")
+    log(f"phase 41: {time.perf_counter() - t_phase:.2f} s [{card}]")
+
+
 def killing_at(wins, at, exc):
     """A live feed that dies handing out window ``at``."""
     for i, w in enumerate(wins):
@@ -6036,6 +6548,11 @@ def main():
     gbt_stream_phase(torch, dev, card, X_gb, y_gb, cfg_gb, forest_gb,
                      losses_gb)
     classifiers_phase(torch, dev, card)
+
+    # phases 40-41: the recommenders (no kernel of the table: their
+    # products are cuBLAS GEMMs, cholesky_ex and PyTorch ops)
+    als_phase(torch, dev, card, timer)
+    recommenders_phase(torch, dev, card, timer)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

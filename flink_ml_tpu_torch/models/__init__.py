@@ -1,8 +1,9 @@
 """Algorithm library (ported so far: the linear family on every feature
 layout with SoftmaxRegression and OnlineLogisticRegression, KMeans and
 OnlineKMeans, Wide&Deep, the boosted trees (GBTClassifier, GBTRegressor),
-NaiveBayes, KNNClassifier and OneVsRest, the evaluators of those families,
-and the chainable feature stages with RandomSplitter)."""
+NaiveBayes, KNNClassifier and OneVsRest, the recommenders (ALS, Swing),
+the evaluators of those families with RankingEvaluator, and the chainable
+feature stages with RandomSplitter and MinHashLSH)."""
 
 from .classification import (  # noqa: F401
     GBTClassifier,
@@ -53,7 +54,7 @@ from .feature import (  # noqa: F401
     StringIndexerModel,
     VectorAssembler,
 )
-from .recommendation import WideDeep, WideDeepModel  # noqa: F401
+from .recommendation import ALS, ALSModel, WideDeep, WideDeepModel  # noqa: F401
 from .regression import (  # noqa: F401
     GBTRegressor,
     GBTRegressorModel,

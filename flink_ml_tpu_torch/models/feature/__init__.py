@@ -1,4 +1,5 @@
-"""Feature stages (ported so far: the chainable stages and the splitter)."""
+"""Feature stages (ported so far: the chainable stages, the splitter and
+MinHashLSH)."""
 
 from .encoders import (  # noqa: F401
     OneHotEncoder,
@@ -6,6 +7,10 @@ from .encoders import (  # noqa: F401
     StringIndexer,
     StringIndexerModel,
     VectorAssembler,
+)
+from .lsh import (  # noqa: F401
+    MinHashLSH,
+    MinHashLSHModel,
 )
 from .online_scaler import (  # noqa: F401
     OnlineStandardScaler,

@@ -182,14 +182,15 @@ _LINEAR = ("LogisticRegressionModel", "LinearSVCModel",
 
 #: models carried across by their model-data tables
 _MODEL_DATA = ("GBTClassifierModel", "GBTRegressorModel", "NaiveBayesModel",
-               "KNNClassifierModel")
+               "KNNClassifierModel", "ALSModel", "MinHashLSHModel")
 
 
 def model_data_from_jax(stage, device="cuda"):
     """The port's counterpart of a fitted JAX package
     ``GBTClassifierModel`` (binary or multiclass), ``GBTRegressorModel``,
-    ``NaiveBayesModel`` or ``KNNClassifierModel``: the same class name,
-    params and model-data tables."""
+    ``NaiveBayesModel``, ``KNNClassifierModel``, ``ALSModel`` or
+    ``MinHashLSHModel``: the same class name, params and model-data
+    tables."""
     from .. import models
 
     resolve_device(device)
@@ -197,7 +198,8 @@ def model_data_from_jax(stage, device="cuda"):
     if name not in _MODEL_DATA:
         raise TypeError(f"{name} is not carried by its model data; "
                         f"expected one of {_MODEL_DATA}")
-    out = _with_params(getattr(models, name)(device=device), stage)
+    cls = getattr(models, name, None) or getattr(models.feature, name)
+    out = _with_params(cls(device=device), stage)
     return out.set_model_data(*(_port_table(t)
                                 for t in stage.get_model_data()))
 

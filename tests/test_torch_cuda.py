@@ -1615,3 +1615,133 @@ def test_gbt_fits_on_the_card(cuda_device, tmp_path):
     for k in ("feature", "threshold", "value"):
         np.testing.assert_array_equal(getattr(streamed[8], k),
                                       getattr(streamed[1], k))
+
+
+def _als_neq_inputs(seed=41, n_groups=12, n_other=9, nnz=2000, rank=8):
+    """A heavy group crossing chunks and 10% zero weights."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, n_groups, size=nnz)
+    g[:800] = 3
+    o = rng.integers(0, n_other, size=nnz)
+    r = rng.normal(size=nnz).astype(np.float32)
+    w = np.where(rng.random(nnz) < 0.1, 0.0, 1.0).astype(np.float32)
+    factors = rng.normal(size=(n_other, rank)).astype(np.float32)
+    return n_groups, g, o, r, w, factors
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("implicit", [False, True])
+def test_als_normal_equations_on_the_card_match_cpu(cuda_device, implicit,
+                                                    monkeypatch):
+    """Both normal-equation forms on the card against the port on the CPU
+    (rtol 1e-4, atol 1e-4: f32 sums in another order), each twice bit for
+    bit; the scatter form in chunks of 256 through the fixed-order
+    scatter-add."""
+    from flink_ml_tpu_torch.models.recommendation import als as TA
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    monkeypatch.setattr(TA, "_CHUNK", 256)
+    n_groups, g, o, r, w, factors = _als_neq_inputs()
+    r = np.abs(r) if implicit else r
+    plan = TA.NeqPlan(g, chunk=256)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        f = torch.from_numpy(factors).to(dev)
+        raw = [torch.from_numpy(a).to(dev) for a in (g, o, r, w)]
+        side = plan.side_data(o, r, w, dev)
+        out[str(dev)] = [
+            [TA._normal_equations(f, *raw, n_groups, implicit, 0.7)
+             for _ in range(2)],
+            [TA._normal_equations_sorted(f, *side, plan.g_lo, n_groups,
+                                         plan.span, plan.chunk, implicit,
+                                         0.7) for _ in range(2)]]
+    for (card_one, card_two), (cpu_one, _) in zip(out[str(cuda_device)],
+                                                  out["cpu"]):
+        for a, b, c in zip(card_one, card_two, cpu_one):
+            assert torch.equal(a, b)
+            np.testing.assert_allclose(a.cpu().numpy(), c.numpy(),
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_als_fits_repeat_bit_for_bit_on_the_card(cuda_device):
+    """Sorted, scatter and workset ALS fits on the card, each run twice:
+    the same bits; each within 5e-3 of the same fit on the CPU."""
+    rng = np.random.default_rng(42)
+    n = 3000
+    users = rng.integers(0, 60, n)
+    items = rng.integers(0, 40, n)
+    ratings = (np.sin(users * 0.3) + np.cos(items * 0.5)
+               + 0.05 * rng.normal(size=n)).astype(np.float32)
+    table = T.Table({"user": users, "item": items, "rating": ratings})
+
+    def fit(form, dev):
+        est = (T.models.ALS(device=dev).set_rank(8).set_max_iter(5)
+               .set_seed(0))
+        if form == "workset":
+            est.set_workset_tol(1e-4)
+        else:
+            est.set(T.models.ALS.NEQ_IMPL, form)
+        data = est.fit(table).get_model_data()[0]
+        assert est.planned_impl == form
+        return data["userFactors"][0], data["itemFactors"][0]
+
+    for form in ("sorted", "scatter", "workset"):
+        one, two = fit(form, cuda_device), fit(form, cuda_device)
+        cpu = fit(form, "cpu")
+        for a, b, c in zip(one, two, cpu):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_allclose(a, c, rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_als_solve_masks_failed_factorizations_on_the_card(cuda_device):
+    """``cholesky_ex`` on the card: an exactly singular system, an
+    unobserved group and an indefinite one (whose failed factor solves to
+    finite values) keep ``prev``; a regular system solves as on the CPU.
+    Nothing raises."""
+    from flink_ml_tpu_torch.models.recommendation import als as TA
+
+    A = np.zeros((4, 3, 3), np.float32)
+    A[0] = np.outer([1.0, 2.0, 0.0], [1.0, 2.0, 0.0])
+    A[2] = np.diag([1.0, -1.0, 1.0])
+    A[3] = np.eye(3) * 2.0 + 0.1
+    b = np.arange(12, dtype=np.float32).reshape(4, 3)
+    cnt = np.array([1.0, 0.0, 2.0, 3.0], np.float32)
+    prev = np.full((4, 3), 7.0, np.float32)
+    factors = np.ones((5, 3), np.float32)
+    got = {}
+    for dev in ("cpu", cuda_device):
+        args = [torch.from_numpy(a).to(dev)
+                for a in (prev, factors, A, b, cnt)]
+        got[str(dev)] = TA._solve_from_neq(*args, 0.0, False).cpu().numpy()
+    card = got[str(cuda_device)]
+    np.testing.assert_array_equal(card[:3], prev[:3])
+    np.testing.assert_allclose(card[3], got["cpu"][3], rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_swing_and_minhash_on_the_card_match_cpu(cuda_device):
+    """Swing scores on the card within rtol 1e-5 of the CPU's, twice bit
+    for bit; MinHash signatures equal the CPU's exactly."""
+    from flink_ml_tpu_torch.models.feature import MinHashLSH
+    from flink_ml_tpu_torch.models.recommendation import swing as TSW
+
+    rng = np.random.default_rng(5)
+    B = (rng.random((300, 60)) < 0.15).astype(np.float32)
+    cpu = TSW._swing_scores(torch.from_numpy(B), 15.0, 0.0, 0.3, 128)
+    one, two = (TSW._swing_scores(torch.from_numpy(B).to(cuda_device), 15.0,
+                                  0.0, 0.3, 128) for _ in range(2))
+    assert torch.equal(one, two)
+    np.testing.assert_allclose(one.cpu().numpy(), cpu.numpy(), rtol=1e-5,
+                               atol=1e-7)
+
+    X = (rng.random((500, 64)) < 0.1).astype(np.float64)
+    X[:, 0] = 1.0
+    sigs = []
+    for dev in ("cpu", cuda_device):
+        model = (MinHashLSH(device=dev).set_num_hash_tables(4)
+                 .set_num_hash_functions_per_table(4).set_seed(9)
+                 .fit(T.Table({"features": X})))
+        sigs.append(model.transform(T.Table({"features": X}))[0]["output"])
+    np.testing.assert_array_equal(sigs[0], sigs[1])
