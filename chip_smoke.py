@@ -381,6 +381,43 @@ line is printed):
     functions): signatures equal numpy int64 minima exactly, the masked
     min timed against its bound, ``approx_nearest_neighbors`` (k 10,
     16 planted near-duplicates) equal to the CPU's.
+42. The text pipeline at 20 Newsgroups' size (scikit-learn's
+    ``fetch_20newsgroups(subset="all")``: 18,846 documents, 20 classes),
+    a synthetic corpus from numpy seed 0 (Zipf(1.1) word ids over 2^17
+    rendered words, ~200 topic words a class, English stop words mixed
+    in, 50-500 words a document): ``Tokenizer -> StopWordsRemover ->
+    CountVectorizer (vocabularySize 2^14) -> IDF -> UnivariateFeatureSelector
+    (ANOVA, numTopFeatures 2048) -> SoftmaxRegression`` fitted as one
+    ``Pipeline`` on the card (3 epochs).  Prints the hasher that ran,
+    the wall of each stage's fit and transform split into host and card
+    time (``torch.profiler``; a spin kernel marks each stage), and which
+    stages fused.  Checks: the fused transform = the stagewise one
+    (numeric columns bit for bit, token columns list for list); IDF's
+    product = the CPU port's bit for bit; ANOVA's F within rtol 1e-4 of
+    the CPU's, and the card's 2048 indices = the CPU's selection by
+    p-value, or every index that differs at the boundary (its F moved by
+    1e-4 either way brackets the k-th p-value; p-values that underflow to
+    0 tie and break to the lower index), the count printed; the softmax
+    fit within allclose rtol 1e-3, atol 1e-4 of the CPU's, the loss
+    falling every epoch; the evaluator's accuracy of the card's fit =
+    the CPU fit's, or every prediction that differs a near tie.  Then, on
+    phase 25's table (2^17 x 64, seed 23): ``VarianceThresholdSelector``
+    (threshold 1.0) and the F-regression ``UnivariateFeatureSelector``
+    (top 16), card against CPU by the same rules, and ``[variance
+    selector, StandardScaler, F-regression selector, LinearRegression]``
+    as one fused segment of 4 stages (one dispatch; stagewise 2: the
+    selectors gather on the host), fused = stagewise.
+43. A hashed Criteo fit: phase 4's 2^18 rows as columns ``I1..I13``
+    (the dense values) and ``C1..C26`` (the ids as 8 hex digits):
+    ``SQLTransformer`` (``LOG1P(MAX(Ij, 0))``, checked against numpy)
+    -> ``FeatureHasher(numFeatures 2^20, sparseOutput)`` (nnz 39) ->
+    ``LogisticRegression(device="cuda")``, 3 epochs at batch 2^15.
+    Checks: every categorical slot = ``data/criteo.py``'s slot for the
+    same token less ``n_reserved`` (``parse_chunk`` of the same rows as
+    TSV, hash_space 2^20); the plan is "ell"; B1 and B2 ``kVal`` launch 8
+    x 3 = 24 times each; one epoch = the same fit through the plain
+    versions on the card; the loss falls every epoch; ``transform`` =
+    numpy f64 scoring.
 
 The last lines are the kernel table (nine kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
@@ -388,8 +425,8 @@ each with its value variant's launches, error, times and bound under
 KMeans kernels (the stats kernel with phase 22's launches under
 ``stream``), the fold, the two retrieve kernels; the launches a fused
 transform or phase 29's CV added under ``chain``, the served batches'
-launches of phase 31 under ``serve``, and the train-while-serve launches
-of phases 34-36 under ``online``)
+launches of phase 31 under ``serve``, the train-while-serve launches
+of phases 34-36 under ``online``, and phase 43's under ``hashed``)
 as one JSON object, the card line from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.  The script imports neither JAX nor the JAX package.
 """
@@ -6142,6 +6179,557 @@ def recommenders_phase(torch, dev, card, timer):
     log(f"phase 41: {time.perf_counter() - t_phase:.2f} s [{card}]")
 
 
+# -- phases 42-43: the text and selection stages ----------------------------
+
+TX_DOCS, TX_CLASSES = 18846, 20    # 20 Newsgroups, subset "all"
+TX_LEXICON = 1 << 17               # rendered words the corpus draws from
+TX_VOCAB = 1 << 14                 # CountVectorizer vocabularySize
+TX_TOPIC_WORDS = 200               # each class's topic words
+TX_TOPIC_SHARE = 0.1               # of a document's words: its class's topic
+TX_STOP_SHARE = 0.3                # of a document's words: stop words
+TX_LEN = (50, 500)                 # words a document
+TX_TOP = 2048                      # UnivariateFeatureSelector numTopFeatures
+TX_EPOCHS = 3                      # SoftmaxRegression epochs
+TX_F_RTOL = 1e-4                   # F values and variances, card vs CPU
+TX_FIT_TOL = dict(rtol=1e-3, atol=1e-4)    # the softmax fit, card vs CPU
+TX_TIE = 1e-3                      # top-two class scores within (relative)
+SL_VAR_THRESHOLD = 1.0             # phase 25's N(0,1) columns: about half
+SL_TOP = 16                        # the F-regression selector's top k
+SL_EPOCHS = 2
+
+
+def text_corpus(n, seed=0):
+    """A synthetic corpus at 20 Newsgroups' size (scikit-learn's
+    ``fetch_20newsgroups(subset="all")``: 18,846 documents, 20 classes)
+    from numpy ``seed``: word ids Zipf(1.1) over TX_LEXICON rendered
+    words (ranks permuted), a tenth of a document's words drawn from its
+    class's 200 topic words, three tenths English stop words (a third of
+    them capitalised), 50-500 words a document.  Returns (texts (n,)
+    object, labels (n,) int64)."""
+    from flink_ml_tpu_torch.models.feature import StopWordsRemover
+
+    rng = np.random.default_rng(seed)
+    syll = [c + v for c in "bcdfghjklmnprstvwz" for v in "aeiou"]
+    s = len(syll)
+    lexicon = np.asarray([syll[i // (s * s)] + syll[i // s % s]
+                          + syll[i % s] + "s" for i in range(TX_LEXICON)],
+                         dtype="U12")
+    stop = list(StopWordsRemover.load_default_stop_words())
+    if set(lexicon) & set(stop):
+        fail("the rendered lexicon holds a stop word")
+    stop = np.asarray(stop + [w.capitalize() for w in stop[::3]], "U12")
+    labels = rng.integers(0, TX_CLASSES, size=n)
+    lengths = rng.integers(TX_LEN[0], TX_LEN[1] + 1, size=n)
+    total = int(lengths.sum())
+    ids = rng.zipf(1.1, size=total) - 1
+    while True:
+        bad = np.flatnonzero(ids >= TX_LEXICON)
+        if not bad.size:
+            break
+        ids[bad] = rng.zipf(1.1, size=bad.size) - 1
+    ids = rng.permutation(TX_LEXICON)[ids]
+    topics = rng.integers(0, TX_LEXICON, size=(TX_CLASSES, TX_TOPIC_WORDS))
+    doc_of = np.repeat(np.arange(n), lengths)
+    u = rng.random(total)
+    topical = np.flatnonzero(u < TX_TOPIC_SHARE)
+    ids[topical] = topics[labels[doc_of[topical]],
+                          rng.integers(0, TX_TOPIC_WORDS, topical.size)]
+    words = lexicon[ids]
+    stops = np.flatnonzero((u >= TX_TOPIC_SHARE)
+                           & (u < TX_TOPIC_SHARE + TX_STOP_SHARE))
+    words[stops] = stop[rng.integers(0, len(stop), stops.size)]
+    texts = np.empty(n, object)
+    for i, chunk in enumerate(np.split(words, np.cumsum(lengths)[:-1])):
+        texts[i] = " ".join(chunk.tolist())
+    return texts, labels
+
+
+class CardSpans:
+    """Host-clock wall and card seconds of the spans run inside one
+    ``torch.profiler`` profile (CUDA activity): a spin kernel launched
+    at each span's start and end marks it on the device timeline, and
+    its card time is the device time (kernels and copies) between its
+    two marks, or None where the profiler recorded no device time.
+    ``spans`` lists ``(name, wall s, card s)``; the profiler's own start
+    and trace processing add up in ``RATES["profiler_s"]``."""
+
+    MARK = "spin_kernel"
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.spans = []
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.torch.cuda.synchronize()
+        self.t_all = time.perf_counter()
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        return self
+
+    def run(self, name, fn):
+        torch = self.torch
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        torch.cuda._sleep(1)
+        self.spans.append([name, wall, None])
+        return out
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.prof.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        # the raw kineto events: parsing them all into FunctionEvents
+        # (``prof.events()``) takes longer than the spans themselves
+        cuda = self.torch.autograd.DeviceType.CUDA
+        events = sorted(
+            (_ns(e, "start"), _ns(e, "duration"), e.name())
+            for e in self.prof.profiler.kineto_results.events()
+            if e.device_type() == cuda)
+        marks = [i for i, e in enumerate(events) if self.MARK in e[2]]
+        if len(marks) == 2 * len(self.spans) and \
+                len(events) > len(marks):
+            for k, span in enumerate(self.spans):
+                lo, hi = marks[2 * k], marks[2 * k + 1]
+                span[2] = sum(e[1] for e in events[lo + 1:hi]) / 1e9
+        RATES["profiler_s"] = RATES.get("profiler_s", 0.0) + (
+            time.perf_counter() - self.t_all
+            - sum(w for _, w, _ in self.spans))
+        return False
+
+
+def _ns(event, what):
+    """A kineto event's start or duration in ns (older PyTorch: us)."""
+    if hasattr(event, f"{what}_ns"):
+        return getattr(event, f"{what}_ns")()
+    return getattr(event, f"{what}_us")() * 1000
+
+
+def split_text(wall, card_s):
+    if card_s is None:
+        return f"{wall:.3f} s (card time not measured)"
+    return (f"{wall:.3f} s = host {wall - card_s:.3f} s + card "
+            f"{card_s:.3f} s")
+
+
+def same_columns(what, ref, out, names):
+    """``names`` of two tables equal: numeric columns in dtype and bits,
+    token columns list for list."""
+    for c in names:
+        a, b = np.asarray(ref[c]), np.asarray(out[c])
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{what}: column {c!r} differs in dtype or shape")
+        if a.dtype == object:
+            same = all(list(x) == list(y) for x, y in zip(a, b))
+        else:
+            same = np.array_equal(np.ascontiguousarray(a).view(np.uint8),
+                                  np.ascontiguousarray(b).view(np.uint8))
+        if not same:
+            fail(f"{what}: column {c!r} differs from its reference")
+
+
+def boundary_diffs(what, f_card, f_cpu, dfn, dfd, got, k):
+    """Selected indices ``got`` (the card's numTopFeatures ``k``) against
+    the CPU's: the selection sorts p-values (the F survival function,
+    which underflows to 0 for large F; ties break to the lower index), so
+    equal, or every index in one set only is at the boundary: the
+    p-values of its F moved by TX_F_RTOL either way bracket the CPU's
+    k-th smallest p-value.  Returns the count of such indices."""
+    from flink_ml_tpu_torch.models.feature.selectors import _select_by_mode
+    from flink_ml_tpu_torch.models.stats import f_p_values
+
+    d = len(f_cpu)
+
+    def p_of(f):
+        return f_p_values(f, np.full(d, dfn), np.full(d, dfd))
+
+    p_cpu = p_of(f_cpu)
+    want = _select_by_mode(p_cpu, "numTopFeatures", k)
+    diff = np.setxor1d(got, want)
+    edge = float(np.sort(p_cpu)[k - 1])
+    lo = p_of(f_cpu * (1 + TX_F_RTOL))[diff]
+    hi = p_of(f_cpu * (1 - TX_F_RTOL))[diff]
+    off = diff[~((lo <= edge) & (edge <= hi))]
+    n_zero = int(np.sum(p_cpu == 0.0))
+    log(f"{what}: {len(got)} selected on the card, {diff.size} indices "
+        f"differ from the CPU's top {k} by p-value (k-th p {edge!r}; "
+        f"{n_zero} p-values underflow to 0 on the CPU, {int(np.sum(p_of(f_card) == 0.0))} "
+        f"on the card), each at the boundary within rtol {TX_F_RTOL} of "
+        f"its F: {off.size == 0}")
+    if off.size:
+        fail(f"{what}: the card selected {off.tolist()[:20]} off the "
+             "boundary")
+    return int(diff.size)
+
+
+def text_phase(torch, dev, card):
+    """Phase 42: the text pipeline at 20 Newsgroups' size on the card,
+    held against the CPU port stage by stage; then the variance and
+    F-regression selectors on phase 25's table and a fused selection
+    segment."""
+    import copy
+
+    import flink_ml_tpu_torch as T
+    from flink_ml_tpu_torch.api import chain
+    from flink_ml_tpu_torch.models import stats as ST
+    from flink_ml_tpu_torch.models.evaluation import (
+        MulticlassClassificationEvaluator)
+    from flink_ml_tpu_torch.models.feature import (
+        IDF, CountVectorizer, StandardScaler, StopWordsRemover, Tokenizer,
+        UnivariateFeatureSelector, VarianceThresholdSelector)
+    from flink_ml_tpu_torch.models.feature import selectors as SEL
+    from flink_ml_tpu_torch.utils import native_text
+
+    t_phase = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        fail("ANOVA's one-hot products must run in full f32 (TF32 is on)")
+    t0 = time.perf_counter()
+    texts, labels = text_corpus(TX_DOCS)
+    n_words = sum(len(t.split(" ")) for t in texts[:512]) / 512
+    log(f"text corpus: {TX_DOCS} documents, {TX_CLASSES} classes, "
+        f"~{n_words:.0f} words a document (first 512), made in "
+        f"{time.perf_counter() - t0:.3f} s (numpy seed 0); hashing through "
+        f"{'native libtexthash' if native_text.native_available() else 'the Python FNV-1a loop'}")
+    table = T.Table({"text": texts, "label": labels})
+
+    stages = [
+        Tokenizer().set_features_col("text").set_output_col("tokens"),
+        StopWordsRemover().set_features_col("tokens").set_output_col("kept"),
+        CountVectorizer().set_features_col("kept").set_output_col("counts")
+        .set_vocabulary_size(TX_VOCAB),
+        IDF(device=DEVICE).set_features_col("counts").set_output_col(
+            "tfidf"),
+        UnivariateFeatureSelector(device=DEVICE).set_features_col("tfidf")
+        .set_output_col("selected").set_feature_type("continuous")
+        .set_label_type("categorical").set_selection_threshold(TX_TOP),
+        T.SoftmaxRegression(device=DEVICE).set_features_col("selected")
+        .set_max_iter(TX_EPOCHS).set_tol(0),
+    ]
+    def timed(spans, stage, method, key):
+        orig = getattr(stage, method)
+        setattr(stage, method, lambda *t: spans.run(key, lambda: orig(*t)))
+
+    with CardSpans(torch) as fit_spans:
+        for stage in stages:
+            name = type(stage).__name__
+            method = "fit" if hasattr(stage, "fit") else "transform"
+            timed(fit_spans, stage, method, f"{name}.{method}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pm = T.Pipeline(stages).fit(table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    for stage in stages:
+        stage.__dict__.pop("fit", None)
+        stage.__dict__.pop("transform", None)
+    log(f"text pipeline fit: {fit_s:.3f} s wall; the stages' fits (and "
+        f"the transforms of the stages that are not estimators), the "
+        f"rest the fitted models' transforms between them [{card}]")
+    for key, wall, card_s in fit_spans.spans:
+        log(f"  {key}: {split_text(wall, card_s)}")
+    cv, idf, sel, soft = pm.stages[2:]
+    losses = soft.loss_log
+    log(f"vocabulary {len(cv.vocabulary)} words (first {cv.vocabulary[:3]},"
+        f" last {cv.vocabulary[-2:]}); softmax loss log {losses}")
+    if len(cv.vocabulary) != TX_VOCAB:
+        fail(f"vocabulary of {len(cv.vocabulary)} words, expected {TX_VOCAB}")
+    if len(losses) != TX_EPOCHS or not all(np.isfinite(losses)) or \
+            not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"text softmax: loss log {losses}")
+
+    # the fused transform (the main path's scoring), then stagewise stage
+    # by stage with each stage's split
+    plan = pm._chain_plan([table])
+    fused_desc = plan.describe() if plan is not None else None
+    outs = [table]
+    with CardSpans(torch) as tr_spans:
+        d0 = chain.dispatch_count()
+        fused = tr_spans.run("PipelineModel.transform", lambda: pm.transform(
+            table)[0])
+        d_fused = chain.dispatch_count() - d0
+        with chain.chain_disabled():
+            for stage in pm.stages:
+                outs.append(tr_spans.run(
+                    f"{type(stage).__name__}.transform",
+                    lambda s=stage: s.transform(outs[-1])[0]))
+    (_, tr_s, tr_card), *per_stage = tr_spans.spans
+    log(f"text pipeline transform (fused plan {fused_desc}: "
+        + ("no run of two chainable stages -- IDFModel and "
+           "SoftmaxRegressionModel carry no chain kernel, in either "
+           "package -- so every stage runs stagewise"
+           if fused_desc is None else "segments as listed")
+        + f"): {split_text(tr_s, tr_card)}, {d_fused} dispatches; then "
+        f"stagewise, stage by stage: [{card}]")
+    for key, wall, card_s in per_stage:
+        log(f"  {key}: {split_text(wall, card_s)}")
+    stagewise = outs[-1]
+    same_columns("text pipeline fused vs stagewise", stagewise, fused,
+                 stagewise.column_names)
+    log("text pipeline: fused = stagewise, every column bit for bit "
+        "(token columns list for list)")
+
+    # IDF: the card's product = the CPU port's, bit for bit
+    counts, tfidf, selected = (stagewise[c] for c in ("counts", "tfidf",
+                                                       "selected"))
+    cpu_idf = copy.copy(idf)
+    cpu_idf.device = "cpu"
+    cpu_tfidf = cpu_idf.transform(T.Table({"counts": counts}))[0]["tfidf"]
+    same_idf = np.array_equal(cpu_tfidf.view(np.uint8), tfidf.view(np.uint8))
+    log(f"IDF ({TX_DOCS} x {TX_VOCAB}): card = CPU bit for bit {same_idf}")
+    if not same_idf:
+        fail("IDF: the card's tf-idf differs from the CPU's")
+
+    # ANOVA: F within TX_F_RTOL; the card's selection = the CPU's up to
+    # the boundary
+    f_card = ST.anova_f_scores(tfidf, labels, device=DEVICE)[0]
+    f_cpu = ST.anova_f_scores(tfidf, labels, device="cpu")[0]
+    rel = float(np.max(np.abs(f_card - f_cpu) / np.abs(f_cpu)))
+    log(f"ANOVA F ({TX_VOCAB} features, {TX_CLASSES} classes): max "
+        f"relative |card - CPU| = {rel:.3e} (rtol {TX_F_RTOL})")
+    if not np.allclose(f_card, f_cpu, rtol=TX_F_RTOL, atol=0.0):
+        fail("ANOVA: the card's F values are off the CPU's")
+    got = sel.get_model_data()[0]["indices"]
+    n_diff = boundary_diffs("ANOVA selector", f_card, f_cpu,
+                            TX_CLASSES - 1, TX_DOCS - TX_CLASSES, got, TX_TOP)
+
+    # the softmax fit on the card = the same fit on the CPU; accuracy
+    cpu_soft = (T.SoftmaxRegression(device="cpu").set_features_col(
+        "selected").set_max_iter(TX_EPOCHS).set_tol(0).fit(
+            T.Table({"selected": selected, "label": labels})))
+    w_card = soft.get_model_data()[0]["coefficients"][0]
+    w_cpu = cpu_soft.get_model_data()[0]["coefficients"][0]
+    dw = float(np.max(np.abs(w_card - w_cpu)))
+    log(f"text softmax fit card vs CPU: max |dw| {dw:.3e} (allclose rtol "
+        f"{TX_FIT_TOL['rtol']}, atol {TX_FIT_TOL['atol']})")
+    if not np.allclose(w_card, w_cpu, **TX_FIT_TOL):
+        fail("text softmax: the card's fit is off the CPU's")
+    cpu_out = cpu_soft.transform(T.Table({"selected": selected}))[0]
+    ev = MulticlassClassificationEvaluator().set_metrics("accuracy")
+    acc = {w: float(ev.transform(T.Table({
+        "label": labels, "prediction": o["prediction"]}))[0]["accuracy"][0])
+        for w, o in ((DEVICE, fused), ("cpu", cpu_out))}
+    flips = np.flatnonzero(fused["prediction"] != cpu_out["prediction"])
+    probs = np.sort(cpu_out["rawPrediction"][flips], axis=1)
+    tied = np.isclose(probs[:, -1], probs[:, -2], rtol=TX_TIE, atol=0.0) \
+        if flips.size else np.zeros(0, bool)
+    log(f"text accuracy: card {acc[DEVICE]!r}, CPU {acc['cpu']!r}; "
+        f"{flips.size} predictions differ, each a near tie (top two "
+        f"probabilities within rtol {TX_TIE}): {bool(tied.all())}")
+    if acc[DEVICE] != acc["cpu"] and not tied.all():
+        fail("text accuracy: the card's differs from the CPU's off a tie")
+    if not acc[DEVICE] > 0.5:
+        fail(f"the text fit did not learn the topics (accuracy "
+             f"{acc[DEVICE]})")
+
+    # the selectors on phase 25's table
+    X, _, y_reg, _ = dense_rows(PL_ROWS, PL_DIM, seed=23)
+    dense = T.Table({"features": X, "label": y_reg})
+    var = {w: SEL._sample_variances(torch.as_tensor(X, device=w)).cpu(
+        ).numpy().astype(np.float64) for w in (DEVICE, "cpu")}
+    vts = {w: VarianceThresholdSelector(device=w).set_variance_threshold(
+        SL_VAR_THRESHOLD).fit(dense) for w in (DEVICE, "cpu")}
+    rel = float(np.max(np.abs(var[DEVICE] - var["cpu"]) / var["cpu"]))
+    v_got = vts[DEVICE].get_model_data()[0]["indices"]
+    v_want = vts["cpu"].get_model_data()[0]["indices"]
+    v_diff = np.setxor1d(v_got, v_want)
+    v_edge = bool(np.isclose(var["cpu"][v_diff], SL_VAR_THRESHOLD,
+                             rtol=TX_F_RTOL, atol=0.0).all())
+    log(f"VarianceThresholdSelector ({PL_ROWS} x {PL_DIM}, threshold "
+        f"{SL_VAR_THRESHOLD}): max relative |var card - CPU| {rel:.3e} "
+        f"(rtol {TX_F_RTOL}); kept {v_got.size}, {v_diff.size} differ "
+        f"from the CPU's, each at the threshold: {v_edge}")
+    if not np.allclose(var[DEVICE], var["cpu"], rtol=TX_F_RTOL, atol=0.0) \
+            or not v_edge:
+        fail("VarianceThresholdSelector: the card is off the CPU")
+    fr = {w: ST.f_regression_scores(X, y_reg, device=w)[0]
+          for w in (DEVICE, "cpu")}
+    rel = float(np.max(np.abs(fr[DEVICE] - fr["cpu"]) / fr["cpu"]))
+    log(f"F-regression F ({PL_ROWS} x {PL_DIM}): max relative |card - CPU| "
+        f"{rel:.3e} (rtol {TX_F_RTOL})")
+    if not np.allclose(fr[DEVICE], fr["cpu"], rtol=TX_F_RTOL, atol=0.0):
+        fail("F-regression: the card's F values are off the CPU's")
+    ufs = (UnivariateFeatureSelector(device=DEVICE).set_feature_type(
+        "continuous").set_label_type("continuous").set_selection_threshold(
+            SL_TOP).fit(dense))
+    boundary_diffs("F-regression selector", fr[DEVICE], fr["cpu"], 1,
+                   PL_ROWS - 2, ufs.get_model_data()[0]["indices"], SL_TOP)
+
+    # a fused selection segment: VarianceThresholdSelector ->
+    # StandardScaler -> UnivariateFeatureSelector -> LinearRegression
+    sel_pm = T.Pipeline([
+        VarianceThresholdSelector(device=DEVICE).set_variance_threshold(
+            SL_VAR_THRESHOLD).set_output_col("kept"),
+        StandardScaler(device=DEVICE).set_features_col("kept")
+        .set_output_col("std"),
+        UnivariateFeatureSelector(device=DEVICE).set_features_col("std")
+        .set_output_col("top").set_feature_type("continuous")
+        .set_label_type("continuous").set_selection_threshold(SL_TOP),
+        T.LinearRegression(device=DEVICE).set_features_col("top")
+        .set_max_iter(SL_EPOCHS),
+    ]).fit(dense)
+    feats = dense.drop("label")
+    sel_plan = sel_pm._chain_plan([feats])
+    if sel_plan is None or sel_plan.describe() != [("segment", 4)]:
+        fail(f"selection pipeline: plan "
+             f"{sel_plan.describe() if sel_plan else None}, expected one "
+             "segment of 4 stages")
+    (f_out, d_f, _), (s_out, d_s, _) = fused_and_stagewise(torch, sel_pm,
+                                                           feats)
+    log(f"selection pipeline (VarianceThresholdSelector -> StandardScaler "
+        f"-> UnivariateFeatureSelector -> LinearRegression): plan "
+        f"{sel_plan.describe()}, dispatches fused {d_f}, stagewise {d_s}")
+    # stagewise, the scaler and the regression dispatch; the selectors'
+    # standalone transforms gather on the host
+    if (d_f, d_s) != (1, 2):
+        fail(f"selection pipeline: dispatches fused {d_f}, stagewise "
+             f"{d_s}; expected 1 and 2")
+    # a selector's standalone gather returns the stacked f64 matrix, the
+    # segment its f32 columns (the JAX package's dtypes too): the
+    # intermediate columns equal in value, the outputs in bits
+    for c in ("kept", "top"):
+        if not np.array_equal(np.asarray(s_out[c], np.float64),
+                              np.asarray(f_out[c], np.float64)):
+            fail(f"selection pipeline: column {c!r} differs in value")
+    same_columns("selection pipeline", s_out, f_out,
+                 [c for c in s_out.column_names if c not in ("kept", "top")])
+    log("selection pipeline: fused = stagewise (predictions and the "
+        "scaled column bit for bit; the selected columns in value, f32 "
+        "fused against the stagewise gather's f64)")
+    log(f"phase 42: {time.perf_counter() - t_phase:.2f} s, of it "
+        f"{RATES.get('profiler_s', 0.0):.2f} s the profiler's own start "
+        f"and trace processing [{card}]")
+    return n_diff
+
+
+def hex_tokens(ids):
+    """Criteo-style categorical tokens: each id as 8 lower-case hex
+    digits."""
+    digits = np.frombuffer(b"0123456789abcdef", np.uint8)
+    nib = (ids.astype(np.int64)[:, None] >> np.arange(28, -4, -4)) & 15
+    return np.ascontiguousarray(digits[nib]).view("S8")[:, 0].astype("U8")
+
+
+def hashed_criteo_phase(torch, dev, card, dense, cat, y):
+    """Phase 43: phase 4's rows as Criteo columns through SQLTransformer
+    -> FeatureHasher (sparseOutput) -> LogisticRegression on the card.
+    Returns the B1/B2 launches of the fit."""
+    import flink_ml_tpu_torch as T
+    from flink_ml_tpu_torch.data import criteo
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.common.losses import LOSSES
+    from flink_ml_tpu_torch.models.feature import FeatureHasher, SQLTransformer
+    from flink_ml_tpu_torch.ops import ell_scatter as E
+    from flink_ml_tpu_torch.utils import native_text
+
+    t_phase = time.perf_counter()
+    n = len(y)
+    num = [f"I{j + 1}" for j in range(N_DENSE)]
+    cats = [f"C{f + 1}" for f in range(N_CAT)]
+    t0 = time.perf_counter()
+    cols = {name: dense[:, j] for j, name in enumerate(num)}
+    cols.update({name: hex_tokens(cat[:, f]) for f, name in enumerate(cats)})
+    cols["label"] = y
+    table = T.Table(cols)
+    render_s = time.perf_counter() - t0
+    statement = ("SELECT " + ", ".join(
+        [f"LOG1P(MAX({c}, 0)) AS {c}" for c in num] + cats + ["label"])
+        + " FROM __THIS__")
+    t0 = time.perf_counter()
+    (logged,) = SQLTransformer().set_statement(statement).transform(table)
+    sql_s = time.perf_counter() - t0
+    want = np.log1p(np.maximum(dense, np.float32(0)))
+    if not all(np.array_equal(logged[c], want[:, j])
+               for j, c in enumerate(num)):
+        fail("SQLTransformer: log1p(max(x, 0)) differs from numpy's")
+    t0 = time.perf_counter()
+    (hashed,) = (FeatureHasher().set_input_cols(*num, *cats)
+                 .set_num_features(D_MAIN).set_sparse_output(True)
+                 .set_output_col("features").transform(logged))
+    hash_s = time.perf_counter() - t0
+    idx, vals = hashed["features_indices"], hashed["features_values"]
+    log(f"hashed Criteo (phase 4's {n} rows): rendered in {render_s:.3f} s;"
+        f" SQLTransformer {sql_s:.3f} s; FeatureHasher ({D_MAIN} slots, "
+        f"{'native' if native_text.native_available() else 'Python'} "
+        f"FNV-1a) {hash_s:.3f} s; nnz {idx.shape[1]} [{card}]")
+    if idx.shape != (n, N_DENSE + N_CAT) or idx.dtype != np.int32 or \
+            vals.dtype != np.float32:
+        fail(f"FeatureHasher: pair columns {idx.shape} {idx.dtype}, "
+             f"{vals.dtype}")
+
+    # each categorical slot = the Criteo reader's slot for the same token
+    lines = ["\t".join([str(int(label))] + [""] * N_DENSE + list(row))
+             for label, row in zip(y.tolist(),
+                                   zip(*(cols[c].tolist() for c in cats)))]
+    data = ("\n".join(lines) + "\n").encode()
+    _, r_cat, _, _ = criteo.parse_chunk(data, n, D_MAIN, N_DENSE)
+    same_slots = np.array_equal(r_cat - N_DENSE, idx[:, N_DENSE:])
+    log(f"hashed slots vs criteo.parse_chunk ({criteo.parser_name()} "
+        f"parser, hash_space {D_MAIN}, less n_reserved {N_DENSE}): equal "
+        f"{same_slots}")
+    if not same_slots:
+        fail("FeatureHasher's categorical slots differ from the Criteo "
+             "reader's")
+
+    steps = n // BATCH
+
+    def estimator(epochs):
+        return (T.LogisticRegression(device=DEVICE).set_num_features(D_MAIN)
+                .set_global_batch_size(BATCH).set_max_iter(epochs)
+                .set_tol(0))
+
+    E.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = estimator(EPOCHS).fit(hashed)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(E.LAUNCHES)
+    losses = model.loss_log
+    log(f"hashed LR fit: {fit_s:.3f} s, loss log {losses}, plan "
+        f"{model.planned_impl}, launches {launches} [{card}]")
+    if model.planned_impl != "ell":
+        fail(f"the hashed fit planned {model.planned_impl!r}, expected "
+             "'ell'")
+    if len(losses) != EPOCHS or not all(np.isfinite(losses)) or \
+            not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"hashed loss log {losses}")
+    for name in ("ell_margin", "ell_scatter_apply_fused"):
+        if launches[name] != steps * EPOCHS:
+            fail(f"{name} launched {launches[name]} times in the hashed "
+                 f"fit, expected {steps * EPOCHS}")
+    if launches["ell_scatter_apply"] != 0:
+        fail("the pair kernel ran on a grid of 8192 rows")
+    cfg = estimator(1)._sgd_config()
+    one_k, _ = S.sgd_fit_sparse(LOSSES["logistic"], idx, vals, y, None,
+                                D_MAIN, cfg, device=dev)
+    one_p, _ = S.sgd_fit_sparse(LOSSES["logistic"], idx, vals, y, None,
+                                D_MAIN, cfg, device=dev, plain=True)
+    allclose_fit("hashed, one epoch, kernels vs plain versions on the card",
+                 one_k.coefficients, one_p.coefficients)
+    (out,) = model.transform(hashed.take(4096))
+    coef = model.get_model_data()[0]["coefficients"][0]
+    icpt = float(model.get_model_data()[0]["intercept"][0])
+    margin = (vals[:4096].astype(np.float64) * coef[idx[:4096]]).sum(1) \
+        + icpt
+    perr = float(np.max(np.abs(out["rawPrediction"]
+                               - 1.0 / (1.0 + np.exp(-margin)))))
+    acc = float(np.mean(out["prediction"] == y[:4096]))
+    log(f"hashed transform: 4096 rows, max |p - numpy f64 p| = {perr:.3e} "
+        f"(tolerance 1e-5), accuracy {acc:.4f}")
+    if perr > 1e-5 or not acc > 0.99:
+        fail("hashed transform disagrees with numpy scoring, or the fit "
+             "did not learn the label marker")
+    log(f"phase 43: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return {k: launches[k] for k in ("ell_margin", "ell_scatter_apply_fused")}
+
+
 def killing_at(wins, at, exc):
     """A live feed that dies handing out window ``at``."""
     for i, w in enumerate(wins):
@@ -6553,6 +7141,14 @@ def main():
     # products are cuBLAS GEMMs, cholesky_ex and PyTorch ops)
     als_phase(torch, dev, card, timer)
     recommenders_phase(torch, dev, card, timer)
+
+    # phases 42-43: the text and selection stages; the hashed Criteo fit's
+    # launches land under "hashed"
+    text_phase(torch, dev, card)
+    hashed = hashed_criteo_phase(torch, dev, card, dense, cat, y)
+    for entry in kernels:
+        if entry["name"] in hashed:
+            entry["hashed"] = {"launches": hashed[entry["name"]]}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -2,8 +2,8 @@
 layout with SoftmaxRegression and OnlineLogisticRegression, KMeans and
 OnlineKMeans, Wide&Deep, the boosted trees (GBTClassifier, GBTRegressor),
 NaiveBayes, KNNClassifier and OneVsRest, the recommenders (ALS, Swing),
-the evaluators of those families with RankingEvaluator, and the chainable
-feature stages with RandomSplitter and MinHashLSH)."""
+the evaluators of those families with RankingEvaluator, every feature
+stage of the JAX package's ``models/feature``, and the stats tests)."""
 
 from .classification import (  # noqa: F401
     GBTClassifier,
@@ -55,6 +55,7 @@ from .feature import (  # noqa: F401
     VectorAssembler,
 )
 from .recommendation import ALS, ALSModel, WideDeep, WideDeepModel  # noqa: F401
+from .stats import ChiSqTest  # noqa: F401
 from .regression import (  # noqa: F401
     GBTRegressor,
     GBTRegressorModel,

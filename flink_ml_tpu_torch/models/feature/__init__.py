@@ -1,5 +1,4 @@
-"""Feature stages (ported so far: the chainable stages, the splitter and
-MinHashLSH)."""
+"""Feature stages (all of the JAX package's ``models/feature``)."""
 
 from .encoders import (  # noqa: F401
     OneHotEncoder,
@@ -27,6 +26,28 @@ from .scalers import (  # noqa: F401
     RobustScalerModel,
     StandardScaler,
     StandardScalerModel,
+)
+from .selectors import (  # noqa: F401
+    UnivariateFeatureSelector,
+    UnivariateFeatureSelectorModel,
+    VarianceThresholdSelector,
+    VarianceThresholdSelectorModel,
+)
+from .sqltransformer import SQLTransformer  # noqa: F401
+from .text import (  # noqa: F401
+    FeatureHasher,
+    HashingTF,
+    IDF,
+    IDFModel,
+    IndexToString,
+)
+from .tokenize import (  # noqa: F401
+    CountVectorizer,
+    CountVectorizerModel,
+    NGram,
+    RegexTokenizer,
+    StopWordsRemover,
+    Tokenizer,
 )
 from .transforms import (  # noqa: F401
     Binarizer,

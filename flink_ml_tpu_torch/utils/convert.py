@@ -154,22 +154,28 @@ def _with_params(port_stage, jax_stage):
 
 def feature_model_from_jax(stage, device="cuda"):
     """The port's counterpart of a JAX package feature stage of
-    ``models/feature`` (a fitted ``*Model`` or a stateless transformer):
-    the same class name, params and model data."""
-    from ..models import feature
+    ``models/feature`` (a fitted ``*Model`` or a stateless transformer)
+    or stats test of ``models/stats``: the same class name, params and
+    model data."""
+    from ..models import feature, stats
     from ..models.feature.transforms import _OnDevice
 
     resolve_device(device)
     name = type(stage).__name__
-    cls = getattr(feature, name, None)
+    cls = getattr(feature, name, None) or getattr(stats, name, None)
     if cls is None or not name[0].isupper():
         raise TypeError(f"{name} is not a ported feature stage")
-    # RandomSplitter is host work and takes no device
+    # the host stages (RandomSplitter, the tokenizers, the hashers,
+    # SQLTransformer, ChiSqTest) take no device
     out = _with_params(cls(device=device) if issubclass(cls, _OnDevice)
                        else cls(), stage)
     if name == "StringIndexerModel":
         # per-column vocabularies of different lengths: not one Table
         out._vocab = {k: list(v) for k, v in stage._vocab.items()}
+    elif name == "IndexToString":
+        # labels set through set_labels, not model data
+        if stage._labels is not None:
+            out.set_labels(np.asarray(stage._labels))
     elif hasattr(stage, "get_model_data") and hasattr(out, "set_model_data"):
         out.set_model_data(*(_port_table(t) for t in stage.get_model_data()))
     if hasattr(stage, "model_version"):

@@ -1745,3 +1745,110 @@ def test_swing_and_minhash_on_the_card_match_cpu(cuda_device):
                  .fit(T.Table({"features": X})))
         sigs.append(model.transform(T.Table({"features": X}))[0]["output"])
     np.testing.assert_array_equal(sigs[0], sigs[1])
+
+
+@pytest.mark.cuda
+def test_idf_and_anova_on_the_card_match_cpu(cuda_device):
+    """IDF's product on the card equals the CPU's bit for bit (one f32
+    multiply).  ANOVA's class moments and the Pearson r (the f32 work on
+    the device, summed in another order) within rtol 1e-5 of the CPU's
+    (moments: of each column's largest magnitude; r: atol 1e-6).  The F
+    values then agree within that error carried through the host
+    formula: ANOVA's ``ss_within = total_sq - ss_between`` cancels, so
+    its F moves by up to 1e-5 times ``total_sq / ss_within``;
+    F-regression's by 2e-6 / (|r| (1 - r^2)).  The selectors pick the
+    same indices on this seeded table."""
+    from flink_ml_tpu_torch.models import feature as TF
+    from flink_ml_tpu_torch.models import stats as ST
+    from flink_ml_tpu_torch.models.stats import anovatest, fvaluetest
+
+    rng = np.random.default_rng(42)
+    counts = rng.poisson(0.3, size=(500, 300)).astype(np.float64)
+    y = rng.integers(0, 5, size=500)
+    counts[:, :10] += y[:, None] * np.arange(1, 11)
+    table = T.Table({"features": counts, "label": y})
+    out = {}
+    for where in (cuda_device, "cpu"):
+        model = TF.IDF(device=where).fit(table)
+        out[str(where)] = model.transform(table)[0]["output"]
+    a, b = out[str(cuda_device)], out["cpu"]
+    assert a.dtype == b.dtype == np.float64
+    assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+    x32 = torch.as_tensor(a.astype(np.float32))
+    onehot = torch.as_tensor(np.eye(5, dtype=np.float32)[y])
+    card, cpu = ([t.cpu().numpy().astype(np.float64) for t in
+                  anovatest._class_moments(x32.to(w), onehot.to(w))]
+                 for w in (cuda_device, "cpu"))
+    for got, want in zip(card, cpu):
+        scale = np.abs(want).max(axis=0)
+        assert np.all(np.abs(got - want) <= 1e-5 * scale)
+    counts_k, s, _, total_sq = cpu
+    ss_within = total_sq - np.sum(s * s / counts_k[:, None], axis=0)
+    cond = np.maximum(total_sq / ss_within, 1.0)
+    f_card = ST.anova_f_scores(a, y, device=cuda_device)[0]
+    f_cpu = ST.anova_f_scores(a, y, device="cpu")[0]
+    assert np.all(np.abs(f_card - f_cpu) <= 1e-5 * cond * f_cpu)
+
+    yr = a[:, 3] * 2 + rng.normal(size=500)
+    y32 = torch.as_tensor(yr.astype(np.float32))
+    r_card, r_cpu = (fvaluetest._pearson_r(x32.to(w), y32.to(w)).cpu()
+                     .numpy().astype(np.float64)
+                     for w in (cuda_device, "cpu"))
+    np.testing.assert_allclose(r_card, r_cpu, rtol=0, atol=1e-6)
+    fr_card = ST.f_regression_scores(a, yr, device=cuda_device)[0]
+    fr_cpu = ST.f_regression_scores(a, yr, device="cpu")[0]
+    r = np.abs(r_cpu)
+    assert np.all(np.abs(fr_card - fr_cpu)
+                  <= fr_cpu * 2e-6 / (r * (1 - r * r)) + 1e-12)
+    for ltype, label in (("categorical", y), ("continuous", yr)):
+        idx = {}
+        for where in (cuda_device, "cpu"):
+            sel = (TF.UnivariateFeatureSelector(device=where)
+                   .set_feature_type("continuous").set_label_type(ltype)
+                   .set_selection_threshold(8))
+            idx[str(where)] = sel.fit(T.Table({"features": a, "label":
+                                               label})).get_model_data(
+                )[0]["indices"]
+        assert np.array_equal(idx[str(cuda_device)], idx["cpu"])
+
+
+@pytest.mark.cuda
+def test_hashed_sparse_lr_launches_b1_b2_value_variants(cuda_device):
+    """SQLTransformer -> FeatureHasher(sparseOutput) -> LogisticRegression
+    on the card: the pair columns (nnz 13 + 26) plan "ell" and launch the
+    margin and the fused scatter once a step each; the fit equals the same
+    fit through the plain versions on the card."""
+    from flink_ml_tpu_torch.models import feature as TF
+
+    d, n, batch = D, 1200, 400
+    dense, cat, y = _fit_data(n=n, d=d, seed=8)
+    cols = {f"I{j + 1}": dense[:, j] for j in range(13)}
+    cols.update({f"C{f + 1}": np.char.mod("%08x", cat[:, f])
+                 for f in range(26)})
+    cols["label"] = y
+    stmt = ("SELECT " + ", ".join(
+        [f"LOG1P(MAX(I{j + 1}, 0)) AS I{j + 1}" for j in range(13)]
+        + [f"C{f + 1}" for f in range(26)] + ["label"]) + " FROM __THIS__")
+    (logged,) = TF.SQLTransformer().set_statement(stmt).transform(
+        T.Table(cols))
+    (hashed,) = (TF.FeatureHasher().set_input_cols(
+        *[f"I{j + 1}" for j in range(13)], *[f"C{f + 1}" for f in range(26)])
+        .set_num_features(d).set_sparse_output(True)
+        .set_output_col("features").transform(logged))
+    est = (T.LogisticRegression(device=cuda_device).set_num_features(d)
+           .set_global_batch_size(batch).set_max_iter(2).set_tol(0))
+    TE.reset_launch_counts()
+    model = est.fit(hashed)
+    torch.cuda.synchronize()
+    assert model.planned_impl == "ell"
+    assert TE.LAUNCHES == {"ell_margin": 3 * 2,
+                           "ell_scatter_apply_fused": 3 * 2,
+                           "ell_scatter_apply": 0}
+    want, _ = TS.sgd_fit_sparse(
+        LOSSES["logistic"], hashed["features_indices"],
+        hashed["features_values"], y, None, d, est._sgd_config(),
+        device=cuda_device, plain=True)
+    np.testing.assert_allclose(
+        model.get_model_data()[0]["coefficients"][0], want.coefficients,
+        rtol=1e-3, atol=1e-4)

@@ -133,6 +133,78 @@ ONLINE_MODULES = (
     "flink_ml_tpu_torch.serving.failover")
 
 
+TEXT_SELECTION_MODULES = (
+    "flink_ml_tpu_torch.utils.native_text",
+    "flink_ml_tpu_torch.models.feature.tokenize",
+    "flink_ml_tpu_torch.models.feature.text",
+    "flink_ml_tpu_torch.models.feature.sqltransformer",
+    "flink_ml_tpu_torch.models.feature.selectors",
+    "flink_ml_tpu_torch.models.stats",
+    "flink_ml_tpu_torch.models.stats.anovatest",
+    "flink_ml_tpu_torch.models.stats.chisqtest",
+    "flink_ml_tpu_torch.models.stats.fvaluetest")
+
+
+@pytest.mark.parametrize("first", [TEXT_SELECTION_MODULES[0],
+                                   "flink_ml_tpu_torch.models.stats"])
+def test_text_and_selection_modules_import_without_jax(first):
+    """The tokenizers, the hashers, SQLTransformer, the selectors and the
+    stats tests load neither JAX nor the JAX package, whichever of the
+    stats and feature packages is imported first."""
+    code = ("import sys, " + first + ", " + ", ".join(TEXT_SELECTION_MODULES)
+            + "; print('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         timeout=300).stdout.split()
+    assert set(TEXT_SELECTION_MODULES) <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_text_and_selection_device_stages_need_cuda_unless_cpu_asked(
+        monkeypatch):
+    """IDF's model, the variance and univariate selectors' fits, ANOVATest,
+    FValueTest and their scoring functions raise without a card unless the
+    CPU is asked for; the host stages take no device."""
+    from flink_ml_tpu_torch.models import feature as TF
+    from flink_ml_tpu_torch.models import stats as TS
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(12, 3))
+    y = np.arange(12) % 3
+    table = T.Table({"features": X, "label": y})
+    counts = T.Table({"features": np.abs(X).round()})
+    idf = TF.IDF().fit(counts)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        idf.transform(counts)
+    uni = (TF.UnivariateFeatureSelector().set_feature_type("continuous"))
+    calls = [
+        lambda: TF.VarianceThresholdSelector().fit(table),
+        lambda: uni.set_label_type("categorical").fit(table),
+        lambda: uni.set_label_type("continuous").fit(table),
+        lambda: TS.ANOVATest().transform(table),
+        lambda: TS.FValueTest().transform(table),
+        lambda: TS.anova_f_scores(X, y),
+        lambda: TS.f_regression_scores(X, y.astype(float)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no GPU"):
+            call()
+    idf.device = "cpu"
+    assert idf.transform(counts)[0]["output"].dtype == np.float64
+    cpu_uni = (TF.UnivariateFeatureSelector(device="cpu")
+               .set_feature_type("continuous").set_label_type("categorical")
+               .set_selection_threshold(1))
+    assert cpu_uni.fit(table).get_model_data()[0]["indices"].shape == (1,)
+    TS.ChiSqTest().transform(T.Table({"features": X.round(), "label": y}))
+    for host in (TF.Tokenizer, TF.RegexTokenizer, TF.NGram,
+                 TF.StopWordsRemover, TF.CountVectorizer, TF.HashingTF,
+                 TF.FeatureHasher, TF.IndexToString, TF.SQLTransformer,
+                 TS.ChiSqTest):
+        assert not hasattr(host(), "device"), host
+
+
 def test_online_autoscale_and_failover_modules_import_without_jax():
     """The continuous-learning modules, the autoscale control plane and
     serving failover load neither JAX nor the JAX package."""
