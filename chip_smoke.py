@@ -419,14 +419,50 @@ line is printed):
     versions on the card; the loss falls every epoch; ``transform`` =
     numpy f64 scoring.
 
-The last lines are the kernel table (nine kernels: the three ELL kernels,
+44. The bf16 stats kernel (``compute_dtype=torch.bfloat16``; ``first`` on
+    the tensor cores, ``fast`` and ``split`` on the CUDA cores) against
+    its plain twin at the headline (phase 6's points and centroids), each
+    tie policy, and on phase 6's 1000 zero pad rows against duplicated
+    centroids: one Lloyd step within the KMeans gate; the assignments
+    that differ (half the counts' moves) at most the rows whose plain f32
+    top-two gap lies below the bf16 bound (``BF16_GAP``); no negative
+    count after the pad correction, duplicated centroids counted alike.
+    Times of the three policies beside the f32 kernel, the plain twin,
+    bf16 ``addmm`` of the score product and the bound (the f32 points
+    read once; the bf16 FLOPs of the score product, and of a dense
+    one-hot sums product beside it).
+45. k-means++ on the card (``select_kmeanspp_centroids``, seed 0, k 256 on
+    the headline table) with CUDA's sync debug mode at "error" around the
+    k-1 rounds (no host sync), timed, k distinct centers, one seed one
+    seeding; ``KMeans(initMode="k-means++", device="cuda")`` fit of 10
+    rounds: the stats kernel launched once a round, the fit equal bit for
+    bit to the seeding's rounds; the initial and final costs beside phase
+    7's random-init fit (each fit lowers its cost).  Then KMeans at k 1024
+    (5 rounds, the staged-centroid plan) and
+    ``AgglomerativeClustering(ward, 16 clusters)`` over its 1024
+    centroids, labels equal to a float64 numpy re-run.
+46. The data-parallel fit (``parallel/``): two gloo ranks spawned on the
+    one card, each with half of the headline table (NCCL refuses two ranks
+    on one device), and a one-rank NCCL group with all of it;
+    ``KMeans(device="cuda").fit`` in f32 and bf16, 10 rounds.  Every rank
+    launches its stats kernel once a round (counted in the rank), all
+    ranks hold the same centroids bit for bit, a replay through the
+    group's kernel body ends on the fit bit for bit; each of the two-rank
+    fit's rounds is within the KMeans gate of the one-process round from
+    the same centroids and its objective within 1e-3 of the one-process
+    fit's from the same init; the one-rank NCCL fit equals the one-process
+    fit bit for bit.  Any rank that fails fails the phase.
+
+The last lines are the kernel table (ten kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
 ``values`` and the streamed fit's launches under ``stream``, the three
 KMeans kernels (the stats kernel with phase 22's launches under
-``stream``), the fold, the two retrieve kernels; the launches a fused
+``stream``) and the stats kernel's bf16 variant beside them, the fold,
+the two retrieve kernels; the launches a fused
 transform or phase 29's CV added under ``chain``, the served batches'
 launches of phase 31 under ``serve``, the train-while-serve launches
-of phases 34-36 under ``online``, and phase 43's under ``hashed``)
+of phases 34-36 under ``online``, phase 43's under ``hashed`` and phase
+46's data-parallel fits' under ``parallel``, by group)
 as one JSON object, the card line from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.  The script imports neither JAX nor the JAX package.
 """
@@ -785,6 +821,7 @@ def kmeans_phases(torch, dev, card, timer):
     if est.planned_impl != "kernel":
         fail(f"KMeans planned {est.planned_impl!r}, expected 'kernel'")
     if bsp_launches != {"kmeans_update_stats": KM_ITERS,
+                        "kmeans_update_stats_bf16": 0,
                         "kmeans_assign_reduce": 0,
                         "kmeans_workset_update": 0}:
         fail(f"KMeans fit launches {bsp_launches}")
@@ -1454,7 +1491,8 @@ def retrieval_phases(torch, dev, card, timer):
     if len(fits) != 2 + RT_PQ["m"] or \
             any(plan != "kernel_ws" for _, plan, _ in fits):
         fail(f"a build fit did not plan the workset kernel: {fits}")
-    if km != {"kmeans_update_stats": 0, "kmeans_assign_reduce": 0,
+    if km != {"kmeans_update_stats": 0, "kmeans_update_stats_bf16": 0,
+              "kmeans_assign_reduce": 0,
               "kmeans_workset_update": sum(r for _, _, r in fits)}:
         fail(f"build launches {km} do not match the fits' rounds")
     copy_s = {}
@@ -2636,8 +2674,8 @@ def stream_kmeans_phase(torch, dev, card):
         log(f"(a) streamed KMeans fit: plan {est.planned_impl}, launches "
             f"{launches} (expected kmeans_update_stats {want})")
         if est.planned_impl != "kernel" or launches != {
-                "kmeans_update_stats": want, "kmeans_assign_reduce": 0,
-                "kmeans_workset_update": 0}:
+                "kmeans_update_stats": want, "kmeans_update_stats_bf16": 0,
+                "kmeans_assign_reduce": 0, "kmeans_workset_update": 0}:
             fail("the stats kernel did not carry every streamed batch")
         if main.shape != (K_KM, D_KM) or not np.all(np.isfinite(main)):
             fail("the streamed centroids are not finite (k, d)")
@@ -6730,6 +6768,421 @@ def hashed_criteo_phase(torch, dev, card, dense, cat, y):
     return {k: launches[k] for k in ("ell_margin", "ell_scatter_apply_fused")}
 
 
+# -- phases 44-46: KMeans complete (bf16 stats, k-means++, agglomerative,
+#    the data-parallel fit) --------------------------------------------------
+
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 on the tensor cores, dense
+# phase 44: a bf16 rounding moves a score -2 p.c + |c|^2 by at most
+# 2 * 2^-8 * sum_j |p_j c_j| (p and c each within 2^-9, relative), so the
+# gap of a row's best two scores by at most 2^-6 * max_c sum_j |p_j c_j|:
+# a row whose plain f32 gap lies below that (plus 1e-5 (1 + |best|) for
+# the f32 sums) may be assigned apart under bf16
+BF16_GAP = 2.0 ** -6
+KB_PAD = 1000               # zero pad rows of phase 44's padded problem
+KP_K2, KP_ITERS2, KP_CLUSTERS = 1024, 5, 16   # phase 45's pre-clustering
+DP_WORLD = 2                # phase 46: gloo ranks sharing the card
+DP_DEVICE = "cuda:0"
+DP_TIMEOUT_S = 300
+
+
+def bf16_phase(torch, dev, card, timer):
+    """Phase 44: the bf16 stats kernel against its plain twin at the
+    headline, every tie policy, on the headline problem and on phase 6's
+    zero-padded rows against duplicated centroids; times beside the f32
+    kernel, bf16 ``addmm`` of the score product and the bound.  Returns
+    the kernel line's entry (launches filled by phase 46) and the
+    headline table (host and card)."""
+    from flink_ml_tpu_torch.models.clustering import kmeans as KM
+    from flink_ml_tpu_torch.ops import kmeans as K
+
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    n, d, k = N_KM, D_KM, K_KM
+    host = np.random.default_rng(0).normal(size=(n, d)).astype(np.float32)
+    pts = torch.from_numpy(host).to(dev)
+    perm = np.random.default_rng(1).permutation(n)
+    cents = torch.from_numpy(
+        0.5 * (host[perm[:k]] + host[perm[k:2 * k]])).to(dev)
+    ones = torch.ones(n, device=dev)
+    pad_pts = pts.clone()
+    pad_pts[-KB_PAD:] = 0.0
+    pad_mask = ones.clone()
+    pad_mask[-KB_PAD:] = 0.0
+    dup = cents.clone()
+    dup[0] *= 0.05
+    dup[k - 1] = dup[0]
+    dup[k - 2] = dup[1]
+    worst = 0.0
+    for label, p, m, c in (("headline", pts, ones, cents),
+                           ("zero pad rows, duplicated centroids", pad_pts,
+                            pad_mask, dup)):
+        real = p[:n - KB_PAD] if m is pad_mask else p
+        sc = -2.0 * (real @ c.T) + (c * c).sum(1)[None, :]
+        two = torch.topk(sc, 2, dim=1, largest=False).values
+        bound = (BF16_GAP * (real.abs() @ c.abs().T).max(1).values
+                 + 1e-5 * (1 + two[:, 0].abs()))
+        exempt = int(((two[:, 1] - two[:, 0]) <= bound).sum())
+        del sc
+        sb = K._scores(real, c, bf)
+        bnear = int(near_tie_rows(torch, sb).sum())
+        del sb
+        n_pad = n - int(m.sum())
+        for tie in ("first", "fast", "split"):
+            s, cnt = K.kmeans_update_stats(p, c, tie_policy=tie,
+                                           compute_dtype=bf)
+            ws, wc = K.kmeans_update_stats_plain(p, c, tie_policy=tie,
+                                                 compute_dtype=bf)
+            cnt = K.pad_correction(cnt, c, n_pad, tie_policy=tie)
+            wc = K.pad_correction(wc, c, n_pad, tie_policy=tie)
+            moved = float((cnt - wc).abs().sum()) / 2
+            ds = float((s - ws).abs().max())
+            args = (c, 0, (p, m))
+            step = KM.kmeans_epoch_step_kernel(
+                k, tie_policy=tie, compute_dtype=bf)(*args).feedback
+            want = KM.kmeans_epoch_step_kernel(
+                k, tie_policy=tie, compute_dtype=bf, plain=True)(
+                    *args).feedback
+            e = float((step - want).abs().max())
+            worst = max(worst, e)
+            log(f"check kmeans_update_stats_bf16 ({label}, tie {tie}): "
+                f"sums max |kernel - plain| {ds:.3e}, counts "
+                f"{float((cnt - wc).abs().max()):.1f}, assignments that "
+                f"differ (count moves) {moved:.1f}; rows whose plain f32 "
+                f"top-two gap is below the bf16 bound {exempt}, rows within "
+                f"{NEAR_TIE:g}(1+|best|) of a bf16 tie {bnear}; one Lloyd "
+                f"step max |kernel - plain| {e:.3e} (allclose rtol "
+                f"{KM_GATE['rtol']}, atol {KM_GATE['atol']})")
+            if moved > exempt:
+                fail(f"kmeans_update_stats_bf16 ({label}, tie {tie}): "
+                     f"{moved} assignments differ, more than the {exempt} "
+                     f"rows near a bf16 flip")
+            if not torch.allclose(step, want, **KM_GATE):
+                fail(f"kmeans_update_stats_bf16 ({label}, tie {tie}) "
+                     "disagrees with its plain twin")
+            if float(cnt.min()) < 0:
+                fail(f"tie {tie}: the bf16 pad correction left a negative "
+                     "count")
+            if m is pad_mask and tie != "first" and not (
+                    cnt[0] == cnt[k - 1] and cnt[1] == cnt[k - 2]):
+                fail(f"tie {tie}: duplicated centroids got unequal bf16 "
+                     "counts")
+    del pad_pts
+
+    c2b = (cents * cents).sum(1)[None, :].to(bf)
+    pb, cb = pts.to(bf), cents.to(bf)
+    lib_ms = timer.ms(lambda: torch.addmm(c2b, pb, cb.T, alpha=-2.0))
+    f32_ms = timer.ms(lambda: K.kmeans_update_stats(pts, cents,
+                                                    tie_policy="first"))
+    ms = {tie: timer.ms(lambda: K.kmeans_update_stats(
+        pts, cents, tie_policy=tie, compute_dtype=bf))
+        for tie in ("first", "fast", "split")}
+    plain_ms = timer.ms(lambda: K.kmeans_update_stats_plain(
+        pts, cents, tie_policy="first", compute_dtype=bf), reps=10)
+    del pb, cb
+    ops = 2.0 * n * k * d
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    dense_ms = 2 * ops / BF16_OPS_PER_S * 1e3
+    bytes_ms = (n * d + 2 * k * d + k) * 4 / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    log(f"time kmeans_update_stats_bf16: kernel first {ms['first']:.4f} ms, "
+        f"fast {ms['fast']:.4f}, split {ms['split']:.4f}; the f32 kernel "
+        f"(first) {f32_ms:.4f} ms; plain twin {plain_ms:.4f} ms; bf16 addmm "
+        f"(score product only) {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}: the f32 points read once {bytes_ms:.4f} ms; the "
+        f"score product's {ops:.3e} bf16 FLOPs {ops_ms:.4f} ms, {2 * ops:.3e} "
+        f"with a dense one-hot sums product {dense_ms:.4f} ms) [{card}]; "
+        f"phase 44: {time.perf_counter() - t_phase:.2f} s")
+    entry = {
+        "name": "kmeans_update_stats_bf16", "route": "cuda",
+        "source": KM_SOURCE, "replaces": KM_REPLACES["kmeans_update_stats"],
+        "launches": 0, "max_abs_err": worst, "ms": ms["first"],
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms,
+    }
+    return entry, host, pts
+
+
+def naive_ward(X, k):
+    """Ward agglomeration in numpy float64, the global closest pair each
+    merge (no neighbour index), on the same squared euclidean distances;
+    labels numbered by each cluster's smallest row."""
+    X = X.astype(np.float64)
+    n = len(X)
+    sq = (X * X).sum(1)
+    D = np.sqrt(np.maximum(sq[:, None] - 2.0 * (X @ X.T) + sq[None, :],
+                           0.0)) ** 2
+    np.fill_diagonal(D, np.inf)
+    size = np.ones(n)
+    root = np.arange(n)
+    alive = np.ones(n, bool)
+    for _ in range(n - k):
+        i, j = np.unravel_index(np.argmin(D), D.shape)
+        i, j = min(i, j), max(i, j)
+        tot = size[i] + size[j] + size
+        new = ((size[i] + size) * D[i] + (size[j] + size) * D[j]
+               - size * D[i, j]) / tot
+        new[~alive] = np.inf
+        new[i] = np.inf
+        D[i, :] = new
+        D[:, i] = new
+        D[j, :] = np.inf
+        D[:, j] = np.inf
+        alive[j] = False
+        size[i] += size[j]
+        root[root == j] = i
+    return np.unique(root, return_inverse=True)[1].astype(np.int64)
+
+
+def kpp_phase(torch, dev, card, host, pts):
+    """Phase 45: k-means++ on the card (the k-1 rounds under CUDA's sync
+    debug mode "error"), its fit through ``KMeans(initMode="k-means++")``
+    against random init, then KMeans at k = 1024 and AgglomerativeClustering
+    (ward) over its centroids against a float64 numpy re-run."""
+    from flink_ml_tpu_torch import KMeans, Table
+    from flink_ml_tpu_torch.distance import DistanceMeasure
+    from flink_ml_tpu_torch.models import AgglomerativeClustering
+    from flink_ml_tpu_torch.models.clustering import kmeans as KM
+    from flink_ml_tpu_torch.ops import kmeans as K
+
+    t_phase = time.perf_counter()
+    n, d, k = N_KM, D_KM, K_KM
+    ones = torch.ones(n, device=dev)
+
+    def seeding(seed, kk=k):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return KM.select_kmeanspp_centroids(pts, kk, generator=gen)
+
+    def inertia(c):
+        sc = -2.0 * (pts @ c.T) + (c * c).sum(1)[None, :]
+        return float(((pts * pts).sum(1) + sc.min(1).values).mean())
+
+    seeding(1, 2)                 # allocator and kernel set-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        start.record()
+        init = seeding(0)
+        end.record()
+    except RuntimeError as exc:
+        fail(f"k-means++ synchronized with the host inside its rounds: {exc}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    seed_ms = start.elapsed_time(end)
+    distinct = len(torch.unique(init, dim=0))
+    log(f"k-means++ seeding on the card: k {k} over {n} x {d} in "
+        f"{seed_ms:.3f} ms ({k - 1} rounds, no host sync: CUDA sync debug "
+        f"mode 'error'), {distinct} distinct centers [{card}]")
+    if distinct != k or not torch.equal(init, seeding(0)):
+        fail("k-means++: repeated centers, or one seed gave two seedings")
+
+    est = (KMeans(device=DEVICE).set_k(k).set_max_iter(KM_ITERS)
+           .set_init_mode("k-means++"))
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = est.fit(Table({"features": host}))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    got = torch.from_numpy(model.get_model_data()[0]["centroids"][0]).to(dev)
+    measure = DistanceMeasure.get_instance("euclidean")
+    replay = KM.fit_centroids(pts, ones, init, KM._fit_plan(n, d, k, measure),
+                              measure=measure, max_iter=KM_ITERS).state
+    rand_init = torch.from_numpy(KM.select_random_centroids(host, k, 0)).to(
+        dev)
+    rand_fit = torch.from_numpy(
+        FITTED["kmeans"].get_model_data()[0]["centroids"][0]).to(dev)
+    costs = {"k-means++": (inertia(init), inertia(got)),
+             "random": (inertia(rand_init), inertia(rand_fit))}
+    log(f"KMeans(initMode='k-means++') fit: {fit_s:.3f} s for {KM_ITERS} "
+        f"rounds (seeding and host->device copy included), plan "
+        f"{est.planned_impl}, launches {launches}; cost (mean squared "
+        f"distance to the nearest centroid) initial / after {KM_ITERS} "
+        f"rounds: k-means++ {costs['k-means++'][0]:.6f} / "
+        f"{costs['k-means++'][1]:.6f}, random init with the same seed "
+        f"(phase 7's fit) {costs['random'][0]:.6f} / "
+        f"{costs['random'][1]:.6f} [{card}]")
+    if est.planned_impl != "kernel" or launches["kmeans_update_stats"] != \
+            KM_ITERS or sum(launches.values()) != KM_ITERS:
+        fail(f"k-means++ fit launches {launches}")
+    if not torch.equal(replay, got):
+        fail("the k-means++ fit is not its seeding's rounds")
+    if not all(b < a for a, b in costs.values()):
+        fail(f"a fit did not lower its cost: {costs}")
+
+    est2 = KMeans(device=DEVICE).set_k(KP_K2).set_max_iter(KP_ITERS2)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    pre = est2.fit(Table({"features": host}))
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pre_launches = dict(K.LAUNCHES)
+    cents = pre.get_model_data()[0]["centroids"][0]
+    if pre_launches["kmeans_update_stats"] != KP_ITERS2 or \
+            sum(pre_launches.values()) != KP_ITERS2:
+        fail(f"k = {KP_K2} fit launches {pre_launches}")
+    t0 = time.perf_counter()
+    (out,) = (AgglomerativeClustering().set_num_clusters(KP_CLUSTERS)
+              .set_linkage("ward").transform(Table({"features": cents})))
+    agg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = naive_ward(cents, KP_CLUSTERS)
+    ref_s = time.perf_counter() - t0
+    labels = out["prediction"]
+    log(f"pre-clustering: KMeans k {KP_K2}, {KP_ITERS2} rounds in "
+        f"{pre_s:.3f} s (launches {pre_launches}), then "
+        f"AgglomerativeClustering(ward, {KP_CLUSTERS} clusters) over its "
+        f"{KP_K2} centroids on the host in {agg_s:.3f} s (numpy float64 "
+        f"re-run {ref_s:.3f} s); labels equal: "
+        f"{bool(np.array_equal(labels, want))}; cluster sizes "
+        f"{np.bincount(labels).tolist()}; phase 45: "
+        f"{time.perf_counter() - t_phase:.2f} s [{card}]")
+    if not np.array_equal(labels, want):
+        fail("AgglomerativeClustering disagrees with the float64 re-run")
+
+
+def dp_rank(rank, world, rounds, n, d, k):
+    """Phase 46's work on one rank of a process group on the card: the
+    KMeans fit of this rank's share of the headline table (n x d, numpy
+    seed 0; f32, then bf16), launches counted around each fit, then the
+    fit's rounds replayed through the group's kernel body from the same
+    init."""
+    import torch
+
+    from flink_ml_tpu_torch import KMeans, Table
+    from flink_ml_tpu_torch.models.clustering import kmeans as KM
+    from flink_ml_tpu_torch.ops import kmeans as K
+    from flink_ml_tpu_torch.parallel import default_mesh, distributed
+
+    host = np.random.default_rng(0).normal(size=(n, d)).astype(np.float32)
+    shards = np.split(host, world)
+    dev = distributed.rank_device()
+    pts = torch.from_numpy(shards[rank]).to(dev)
+    ones = torch.ones(len(pts), device=dev)
+    init = torch.from_numpy(KM.select_random_centroids(shards[0], k,
+                                                       0)).to(dev)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        est = (KMeans(device=dev, compute_dtype=dt).set_k(k)
+               .set_max_iter(rounds))
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = est.fit(Table({"features": shards[rank]}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        cents = torch.from_numpy(model.get_model_data()[0]["centroids"][0])
+        body = KM.kmeans_epoch_step_kernel(
+            k, compute_dtype=dt, mesh=default_mesh(),
+            n_pad=torch.zeros((), device=dev))
+        states = [init]
+        for r in range(rounds):
+            states.append(body(states[-1], r, (pts, ones)).feedback)
+        out[dtype] = {"centroids": cents, "launches": launches,
+                      "wall_s": wall, "plan": est.planned_impl,
+                      "states": torch.stack(states),
+                      "replay_equal": bool(torch.equal(states[-1].cpu(),
+                                                       cents))}
+    return out
+
+
+def parallel_phase(torch, dev, card, host, pts):
+    """Phase 46: the data-parallel KMeans fit on the card, two gloo ranks
+    sharing it (NCCL refuses two ranks on one device) and a one-rank NCCL
+    group, f32 and bf16; returns each dtype's stats launches by group."""
+    from flink_ml_tpu_torch.distance import DistanceMeasure
+    from flink_ml_tpu_torch.models.clustering import kmeans as KM
+    from flink_ml_tpu_torch.utils.backend import run_on_ranks
+
+    t_phase = time.perf_counter()
+    n, d, k = N_KM, D_KM, K_KM
+    ones = torch.ones(n, device=dev)
+    measure = DistanceMeasure.get_instance("euclidean")
+    plan = KM._fit_plan(n, d, k, measure)
+    keys = {"float32": "kmeans_update_stats",
+            "bfloat16": "kmeans_update_stats_bf16"}
+    runs = {}
+    for label, world, backend in ((f"gloo_{DP_WORLD}_ranks", DP_WORLD,
+                                   "gloo"), ("nccl_1_rank", 1, "nccl")):
+        t0 = time.perf_counter()
+        try:
+            runs[label] = run_on_ranks(dp_rank, world, world, KM_ITERS, n,
+                                       d, k, device=DP_DEVICE,
+                                       backend=backend,
+                                       timeout_s=DP_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"the {label} fit failed: {exc}")
+        log(f"{label}: spawned and fitted in {time.perf_counter() - t0:.2f} "
+            f"s (f32 and bf16, {KM_ITERS} rounds each)")
+    launches = {}
+    for dtype, key in keys.items():
+        dt = getattr(torch, dtype)
+        launches[dtype] = {}
+        for label, ranks in runs.items():
+            world = len(ranks)
+            res = [r[dtype] for r in ranks]
+            for r, one in enumerate(res):
+                want = {key: KM_ITERS}
+                got = {kk: v for kk, v in one["launches"].items() if v}
+                log(f"{label} {dtype} rank {r}: plan {one['plan']}, fit "
+                    f"{one['wall_s']:.3f} s, launches {got} (one a round), "
+                    f"replay equals the fit: {one['replay_equal']}")
+                if one["plan"] != "kernel" or got != want:
+                    fail(f"{label} {dtype} rank {r}: launches {got}")
+                if not one["replay_equal"]:
+                    fail(f"{label} {dtype} rank {r}: the replay is not the "
+                         "fit")
+                if not np.array_equal(one["centroids"], res[0]["centroids"]):
+                    fail(f"{label} {dtype}: rank {r}'s centroids differ "
+                         "from rank 0's")
+            launches[dtype][label] = sum(one["launches"][key] for one in res)
+            shard0 = np.split(host, world)[0]
+            init = torch.from_numpy(KM.select_random_centroids(shard0, k,
+                                                               0)).to(dev)
+            one_proc = KM.fit_centroids(pts, ones, init, plan,
+                                        measure=measure, max_iter=KM_ITERS,
+                                        compute_dtype=dt).state
+            got = torch.from_numpy(res[0]["centroids"]).to(dev)
+            if world == 1:
+                same = bool(torch.equal(got, one_proc))
+                log(f"{label} {dtype}: equal to the one-process card fit "
+                    f"from the same init bit for bit: {same}")
+                if not same:
+                    fail(f"{label} {dtype}: the one-rank fit is not the "
+                         "one-process fit")
+                continue
+            states = torch.from_numpy(res[0]["states"]).to(dev)
+            body = KM.kmeans_epoch_step_kernel(k, compute_dtype=dt)
+            worst = 0.0
+            for r in range(KM_ITERS):
+                step = body(states[r], r, (pts, ones)).feedback
+                worst = max(worst, float((step - states[r + 1]).abs().max()))
+                if not torch.allclose(step, states[r + 1], **KM_GATE):
+                    fail(f"{label} {dtype}: round {r} disagrees with the "
+                         "one-process round from the same centroids")
+            inert = [float(((pts * pts).sum(1) + (
+                -2.0 * (pts @ c.T) + (c * c).sum(1)[None, :]).min(1).values)
+                .mean()) for c in (got, one_proc)]
+            log(f"{label} {dtype}: every round within the KMeans gate "
+                f"(allclose rtol {KM_GATE['rtol']}, atol {KM_GATE['atol']}) "
+                f"of the one-process round from the same centroids, worst "
+                f"{worst:.3e}; the whole fits differ by max "
+                f"{float((got - one_proc).abs().max()):.3e}, inertia "
+                f"{inert[0]:.6f} against {inert[1]:.6f} (1e-3 relative)")
+            if not abs(inert[0] - inert[1]) <= 1e-3 * inert[1]:
+                fail(f"{label} {dtype}: the fit's objective is off the "
+                     "one-process fit's")
+    log(f"phase 46: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return launches
+
+
 def killing_at(wins, at, exc):
     """A live feed that dies handing out window ``at``."""
     for i, w in enumerate(wins):
@@ -7149,6 +7602,20 @@ def main():
     for entry in kernels:
         if entry["name"] in hashed:
             entry["hashed"] = {"launches": hashed[entry["name"]]}
+
+    # phases 44-46: the bf16 stats kernel, k-means++ with agglomerative,
+    # the data-parallel fit; the bf16 variant's line sits beside the f32
+    # stats kernel's, its launches those of phase 46's fits, and both
+    # carry phase 46's launches by group under "parallel"
+    bf16_entry, km_host, km_pts = bf16_phase(torch, dev, card, timer)
+    kpp_phase(torch, dev, card, km_host, km_pts)
+    par = parallel_phase(torch, dev, card, km_host, km_pts)
+    bf16_entry["launches"] = sum(par["bfloat16"].values())
+    bf16_entry["parallel"] = {"launches": par["bfloat16"]}
+    b4 = next(i for i, e in enumerate(kernels)
+              if e["name"] == "kmeans_update_stats")
+    kernels[b4]["parallel"] = {"launches": par["float32"]}
+    kernels.insert(b4 + 1, bf16_entry)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -301,6 +301,7 @@ def iterate(
     per_round: Optional[Sequence[str]] = None,
     workset: Optional[Workset] = None,
     workset_tol: float = 0.0,
+    workset_fraction: Optional[Callable[[Workset], Any]] = None,
     checkpoint: Optional[Union[CheckpointConfig, CheckpointManager]] = None,
     resume: bool = False,
 ) -> IterationResult:
@@ -326,7 +327,9 @@ def iterate(
     Workset iterations (``workset=``): the body is ``body(state, workset,
     epoch[, data])`` and its feedback is ``(new_state, new_workset)``; the
     workset rides the state (and its checkpoints).  Incompatible with
-    ``per_round=`` and PER_ROUND.
+    ``per_round=`` and PER_ROUND.  ``workset_fraction(workset)`` replaces
+    :func:`active_fraction` where the workset is one rank's share of a
+    data-parallel one: every rank must exit on the group's fraction.
 
     ``checkpoint`` (a :class:`CheckpointConfig` or
     :class:`CheckpointManager`) cuts ``(state, source cursor, terminated)``
@@ -372,6 +375,7 @@ def iterate(
                 "workset iterations are incompatible with per-round "
                 "re-initialisation (the workset is cross-round state)")
         ws_body, ws_tol = body, float(workset_tol)
+        ws_frac = workset_fraction or active_fraction
 
         def body(carry, epoch, *rest):  # noqa: F811
             # the workset rides next to the state; continue while active
@@ -379,7 +383,7 @@ def iterate(
             state, ws = carry
             res = normalize_body_result(ws_body(state, ws, epoch, *rest))
             new_state, new_ws = res.feedback
-            cont = active_fraction(new_ws) > ws_tol
+            cont = ws_frac(new_ws) > ws_tol
             if res.termination is not None:
                 cont = torch.logical_and(
                     cont, torch.as_tensor(res.termination,
@@ -388,7 +392,7 @@ def iterate(
             return IterationBodyResult((new_state, new_ws), res.outputs, cont)
 
         initial_state = (initial_state, workset)
-        frac_fn = lambda carry: active_fraction(carry[1])  # noqa: E731
+        frac_fn = lambda carry: ws_frac(carry[1])  # noqa: E731
 
     provider = _DataProvider(data)
     # the whole-state PER_ROUND lifecycle flag (not the per_round= keys)

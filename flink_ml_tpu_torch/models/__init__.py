@@ -1,6 +1,6 @@
 """Algorithm library (ported so far: the linear family on every feature
 layout with SoftmaxRegression and OnlineLogisticRegression, KMeans and
-OnlineKMeans, Wide&Deep, the boosted trees (GBTClassifier, GBTRegressor),
+OnlineKMeans, AgglomerativeClustering, Wide&Deep, the boosted trees (GBTClassifier, GBTRegressor),
 NaiveBayes, KNNClassifier and OneVsRest, the recommenders (ALS, Swing),
 the evaluators of those families with RankingEvaluator, every feature
 stage of the JAX package's ``models/feature``, and the stats tests)."""
@@ -22,6 +22,7 @@ from .classification import (  # noqa: F401
     SoftmaxRegressionModel,
 )
 from .clustering import (  # noqa: F401
+    AgglomerativeClustering,
     KMeans,
     KMeansModel,
     OnlineKMeans,

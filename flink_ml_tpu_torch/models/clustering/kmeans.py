@@ -10,22 +10,28 @@ device between rounds.  The epoch loop is :func:`..iteration.iterate`;
 the BSP fit never waits for the device inside it, the workset fit reads
 one scalar per round to decide its exit.
 
-A port of the JAX package's ``models/clustering/kmeans.py``, single
-device.  The fit plans by shape and measure only: the kernel path for
-n >= 65536 rows and the euclidean measure, else the plain body; only the
-kernel wrappers branch on the tensors' device.  The out-of-core fit
+A port of the JAX package's ``models/clustering/kmeans.py``.  The fit
+plans by shape and measure only: the kernel path for n >= 65536 rows and
+the euclidean measure, else the plain body; only the kernel wrappers
+branch on the tensors' device.  The out-of-core fit
 (:func:`kmeans_fit_outofcore`) applies the same rule to the stream's batch
 rows, so the stats kernel carries every batch of a stream of 65536-row
 batches.  ``KMeansModel.transform`` and the chain terminal
 (``transform_kernel``, ``api/chain.py``) run one function: the
 ``kmeans_assign_reduce`` kernel on the card with the euclidean measure,
-else the measure's pairwise distances and ``argmin``.  Not ported, each
-raising ``NotImplementedError`` naming its ROADMAP queue:
-``initMode="k-means++"`` (A4) and the multi-device stats and streams
-(A10).  Every stage runs on
+else the measure's pairwise distances and ``argmin``.  ``initMode
+"k-means++"`` seeds on the device (:func:`select_kmeanspp_centroids`).
+
+Data parallel: where a ``torch.distributed`` process group is initialized
+(``parallel/distributed.py``), ``KMeans.fit`` takes each rank's rows as
+its shard and follows the JAX package's multi-host fit: one allgather of
+the row counts first, the plan from the global count, rank 0's init
+broadcast, and each round this rank's stats (the kernel on the kernel
+plan) plus one all-reduce.  The streamed fit over several devices raises
+``NotImplementedError`` naming ROADMAP queue A10.  Every stage runs on
 ``device`` (default ``"cuda"``; raises without a card unless ``"cpu"`` is
-asked for).  The device is a
-runtime choice, not a param, so it is not saved.
+asked for).  The device and the stats kernel's ``compute_dtype`` are
+runtime choices, not params, so they are not saved.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from ...ops.kmeans import (
     kmeans_workset_update_plain,
     pad_correction,
     stats_from_assign as _stats_from_assign,
+    update_stats_sharded,
 )
 from ...params.param import BoolParam, IntParam, ParamValidators, StringParam
 from ...params.shared import (
@@ -63,14 +70,17 @@ from ...params.shared import (
     HasPredictionCol,
     HasSeed,
 )
+from ...parallel.collectives import axis_index, psum_packed
+from ...parallel.distributed import broadcast_from_host0, process_allgather
+from ...parallel.mesh import DATA_AXIS, default_mesh, local_axis_multiple
 from ...utils import persist
 from ...utils.device import resolve_device
 
 __all__ = ["KMeans", "KMeansModel", "KMeansParams", "KMeansModelParams",
-           "FitPlan", "select_random_centroids", "kmeans_epoch_step",
-           "kmeans_epoch_step_kernel", "kmeans_workset_epoch_step",
-           "workset_points_scored", "fit_centroids",
-           "kmeans_fit_outofcore"]
+           "FitPlan", "select_random_centroids", "select_kmeanspp_centroids",
+           "kmeans_epoch_step", "kmeans_epoch_step_kernel",
+           "kmeans_workset_epoch_step", "workset_points_scored",
+           "fit_centroids", "kmeans_fit_outofcore"]
 
 
 def _not_ported(what: str, queue: str):
@@ -153,13 +163,51 @@ def select_random_centroids(points: np.ndarray, k: int, seed: int) -> np.ndarray
     return points[idx]
 
 
-def select_kmeanspp_centroids(points: np.ndarray, k: int, seed: int):
-    raise _not_ported("initMode='k-means++' (its JAX stream cannot be "
-                      "reproduced; it needs a distribution-level test)", "A4")
+def select_kmeanspp_centroids(points: torch.Tensor, k: int, *,
+                              generator: torch.Generator) -> torch.Tensor:
+    """k-means++ seeding (Arthur & Vassilvitskii 2007) on the points'
+    device: the first center drawn uniformly, then k-1 rounds, each one
+    ``(n, d)`` pass that updates the squared distance to the nearest
+    chosen center (``d2 = min(d2, ||x - c||^2)``) and draws the next
+    center with probability proportional to ``d2``.  The draw is the JAX
+    package's categorical over ``log(d2)``, points with ``d2 == 0`` at
+    ``-inf`` (a chosen point never repeats while unchosen mass remains):
+    the argmax of the logits plus Gumbel noise.  Every round stays on the
+    device, with no host read; ``generator`` (on the points' device)
+    makes the draws, so one seed on one device gives one result.  The
+    JAX package draws from ``jax.random``, whose stream this cannot
+    reproduce."""
+    n, d = points.shape
+    if n < k:
+        raise ValueError(f"Need at least k={k} points, got {n}")
+    dev = points.device
+    tiny = torch.finfo(torch.float32).tiny
+    first = torch.randint(0, n, (1,), generator=generator, device=dev)
+    chosen = torch.empty((k, d), dtype=points.dtype, device=dev)
+    chosen[0:1] = points.index_select(0, first)
+    d2 = torch.sum(torch.square(points - chosen[0:1]), dim=1)
+    for i in range(1, k):
+        logits = torch.where(d2 > 0, torch.log(d2), -torch.inf)
+        u = torch.rand(n, generator=generator, device=dev).clamp_min(tiny)
+        idx = torch.argmax(logits - torch.log(-torch.log(u)))[None]
+        chosen[i:i + 1] = points.index_select(0, idx)
+        d2 = torch.minimum(
+            d2, torch.sum(torch.square(points - chosen[i:i + 1]), dim=1))
+    return chosen
 
 
-_INIT_MODES = {"random": select_random_centroids,
-               "k-means++": select_kmeanspp_centroids}
+def _select_init(mode: str, host_points: np.ndarray, points: torch.Tensor,
+                 k: int, seed: int) -> torch.Tensor:
+    """The fit's initial centroids on the points' device: the seeded
+    shuffle-take-k of the host rows (numpy, the JAX package's draw), or
+    k-means++ over the device rows from a generator seeded with ``seed``
+    on that device."""
+    if mode == "random":
+        return torch.from_numpy(np.ascontiguousarray(
+            select_random_centroids(host_points, k, seed))).to(points.device)
+    gen = torch.Generator(device=points.device)
+    gen.manual_seed(seed)
+    return select_kmeanspp_centroids(points, k, generator=gen)
 
 
 def _assign_stats(measure: DistanceMeasure, k: int, points, mask, centroids):
@@ -176,12 +224,16 @@ def _update_centroids(centroids, sums, counts):
                        centroids)
 
 
-def kmeans_epoch_step(measure: DistanceMeasure, k: int):
-    """One Lloyd's round, the plain body (``data`` = ``(points, mask)``)."""
+def kmeans_epoch_step(measure: DistanceMeasure, k: int, *, mesh=None):
+    """One Lloyd's round, the plain body (``data`` = ``(points, mask)``).
+    With ``mesh`` the stats are this rank's rows', summed over the mesh's
+    group."""
 
     def body(centroids, epoch, data):
         points, mask = data
         sums, counts = _assign_stats(measure, k, points, mask, centroids)
+        if mesh is not None:
+            sums, counts = psum_packed((sums, counts), mesh=mesh)
         return IterationBodyResult(
             feedback=_update_centroids(centroids, sums, counts))
 
@@ -189,19 +241,33 @@ def kmeans_epoch_step(measure: DistanceMeasure, k: int):
 
 
 def kmeans_epoch_step_kernel(k: int, *, tie_policy: str = "first",
-                             plain: bool = False):
+                             plain: bool = False,
+                             compute_dtype=torch.float32, mesh=None,
+                             n_pad=None):
     """One Lloyd's round on the stats kernel (``ops/kmeans.py``), the
     counterpart of the JAX package's ``kmeans_epoch_step_pallas``.  Zero
     pad rows (mask 0) are removed by :func:`pad_correction`.  ``plain``
     runs the kernel's plain version instead (for comparisons on the
-    card)."""
+    card).  ``compute_dtype`` is the kernel's product type (f32 or bf16).
+    With ``mesh`` each round is this rank's kernel launch and one
+    all-reduce (:func:`~flink_ml_tpu_torch.ops.kmeans.update_stats_sharded`)
+    and ``n_pad`` is the group's pad-row count."""
+    if mesh is not None and plain:
+        raise ValueError("a sharded round runs the kernel (plain=False)")
     stats = kmeans_update_stats_plain if plain else kmeans_update_stats
 
     def body(centroids, epoch, data):
         points, mask = data
-        sums, counts = stats(points, centroids, tie_policy=tie_policy)
-        n_pad = points.shape[0] - torch.sum(mask)
-        counts = pad_correction(counts, centroids, n_pad,
+        if mesh is None:
+            sums, counts = stats(points, centroids, tie_policy=tie_policy,
+                                 compute_dtype=compute_dtype)
+            pads = points.shape[0] - torch.sum(mask)
+        else:
+            sums, counts = update_stats_sharded(
+                points, centroids, mesh, tie_policy=tie_policy,
+                compute_dtype=compute_dtype)
+            pads = n_pad
+        counts = pad_correction(counts, centroids, pads,
                                 tie_policy=tie_policy)[:, None]
         # no clamp to 1: "split" ties give fractional counts in (0, 1)
         safe = torch.where(counts > 0, counts, 1.0)
@@ -230,11 +296,14 @@ _WS_BOUND_SLACK = 1e-5
 
 
 def kmeans_workset_epoch_step(measure: DistanceMeasure, k: int, *,
-                              kernel: bool = False):
+                              kernel: bool = False, mesh=None):
     """One bound-filtered Lloyd's round as a workset body (Hamerly 2010 on a
     device-resident mask).  ``kernel`` scores through the fused
     ``kmeans_workset_update`` kernel, else through its plain version; the
-    bound decay, settle rule and centroid update are shared.
+    bound decay, settle rule and centroid update are shared.  With
+    ``mesh`` the workset is this rank's rows' and the stats and the flip
+    count are summed over the mesh's group (one all-reduce), so every rank
+    takes the same centroids and the same settle decision.
 
     ``workset.bounds`` carries the cached assignment, an upper bound on the
     distance to the assigned centroid and a lower bound on the distance to
@@ -263,6 +332,9 @@ def kmeans_workset_epoch_step(measure: DistanceMeasure, k: int, *,
         upper = torch.where(on, d_best, ws.bounds["upper"])
         lower = torch.where(on, d_second, ws.bounds["lower"])
         changed = torch.sum(active * (assign != prev_assign))
+        if mesh is not None:
+            sums, counts, changed = psum_packed((sums, counts, changed),
+                                                mesh=mesh)
         new_centroids = _update_centroids(centroids, sums, counts)
 
         drift = torch.sqrt(torch.clamp_min(
@@ -315,11 +387,13 @@ class FitPlan:
 
 
 def _fit_plan(n: int, d: int, k: int, measure: DistanceMeasure, *,
-              workset: bool = False) -> FitPlan:
+              workset: bool = False, data_devs: int = 1) -> FitPlan:
     """Plan by shape and measure only: the kernel path for n >= 65536 and
-    the euclidean measure, else the plain body."""
+    the euclidean measure, else the plain body.  On a data axis of more
+    than one device the workset fit plans the plain body, as the JAX
+    package does (its workset kernel is single-device)."""
     kernel = measure.name == "euclidean" and n >= _KERNEL_MIN_ROWS
-    if not kernel:
+    if not kernel or (workset and data_devs > 1):
         return FitPlan("plain", k, d)
     return FitPlan("kernel_ws" if workset else "kernel", k, d)
 
@@ -328,20 +402,42 @@ def fit_centroids(points: torch.Tensor, mask: torch.Tensor,
                   init: torch.Tensor, plan: FitPlan, *,
                   measure: DistanceMeasure, max_iter: int,
                   workset: bool = False, tie_policy: str = "first",
-                  plain: bool = False):
+                  plain: bool = False, compute_dtype=torch.float32,
+                  mesh=None):
     """Lloyd's rounds from ``init`` over device-resident ``(points, mask)``
     under ``plan`` (BSP, or bound-filtered with ``workset``); returns the
     :class:`IterationResult`.  ``plain`` swaps the kernels for their plain
-    versions (for comparisons on the card)."""
+    versions (for comparisons on the card); ``compute_dtype`` is the stats
+    kernel's product type.  With ``mesh`` (a process group's) the rows are
+    this rank's shard and every round's stats, and the workset's exit
+    fraction, are the group's."""
     k = plan.k
     if workset:
         body = kmeans_workset_epoch_step(
-            measure, k, kernel=plan.impl == "kernel_ws" and not plain)
+            measure, k, kernel=plan.impl == "kernel_ws" and not plain,
+            mesh=mesh)
+        frac = None
+        if mesh is not None:
+            def frac(ws):
+                act, total = psum_packed(
+                    (torch.sum(ws.mask.to(torch.float32)),
+                     torch.full((), float(ws.mask.numel()),
+                                device=ws.mask.device)), mesh=mesh)
+                return act / total
         return iterate(body, init, (points, mask), max_epochs=max_iter,
                        workset=plan.init_workset(mask),
+                       workset_fraction=frac,
                        config=IterationConfig(mode="fused"))
-    body = (kmeans_epoch_step_kernel(k, tie_policy=tie_policy, plain=plain)
-            if plan.impl == "kernel" else kmeans_epoch_step(measure, k))
+    if plan.impl == "kernel":
+        n_pad = None
+        if mesh is not None:
+            (n_pad,) = psum_packed((points.shape[0] - torch.sum(mask),),
+                                   mesh=mesh)
+        body = kmeans_epoch_step_kernel(
+            k, tie_policy=tie_policy, plain=plain,
+            compute_dtype=compute_dtype, mesh=mesh, n_pad=n_pad)
+    else:
+        body = kmeans_epoch_step(measure, k, mesh=mesh)
     return iterate(body, init, (points, mask), max_epochs=max_iter,
                    config=IterationConfig(mode="fused"))
 
@@ -483,40 +579,81 @@ def _batch_stats(measure: DistanceMeasure, k: int, impl: str, plain: bool):
 class KMeans(KMeansParams, Estimator["KMeansModel"]):
     """Estimator: Lloyd's algorithm for ``maxIter`` rounds (termination
     parity with ``TerminateOnMaxIterationNum``), or until the workset
-    drains with ``set_workset(True)``."""
+    drains with ``set_workset(True)``.  ``compute_dtype`` (f32 or bf16)
+    is the stats kernel's product type on the kernel plan, the JAX
+    kernel's ``compute_dtype``."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", compute_dtype=torch.float32):
         super().__init__()
         self.device = device
+        self.compute_dtype = compute_dtype
         self.planned_impl: Optional[str] = None
         self.last_workset_report: Optional[dict] = None
 
     def fit(self, *inputs) -> "KMeansModel":
+        """Fit on this process's rows; inside a process group each rank
+        passes its own shard and every rank gets the same model."""
         (table,) = inputs
         # the report describes this fit only
         self.last_workset_report = None
         dev = resolve_device(self.device)
+        mesh = default_mesh()
+        grouped = mesh.group is not None
         k = self.get_k()
         measure = DistanceMeasure.get_instance(self.get_distance_measure())
         host_points = stack_vectors(table[self.get_features_col()]).astype(
             np.float32)
         n, d = host_points.shape
+        n_for_plan = n
+        if grouped:
+            # One allgather of the raw row counts before any other
+            # collective, so every rank takes the same branches from the
+            # same facts: the plan from the global count (ranks planning
+            # apart would run different collectives and deadlock), rank
+            # 0's too-small shard raising on every rank (raising on one
+            # would strand the rest in the init broadcast), and the
+            # padded counts checked here.
+            rows = process_allgather(np.asarray([n], np.int64),
+                                     mesh=mesh).reshape(-1)
+            n_for_plan = int(rows.sum())
+            if rows[0] < k:
+                raise ValueError(
+                    f"multi-host KMeans selects initial centroids from "
+                    f"host 0's shard, which holds {int(rows[0])} rows "
+                    f"< k={k}; give host 0 at least k rows")
         workset = self.get_workset()
-        plan = _fit_plan(n, d, k, measure, workset=workset)
+        plan = _fit_plan(n_for_plan, d, k, measure, workset=workset,
+                         data_devs=mesh.shape[DATA_AXIS])
         self.planned_impl = plan.impl
-        init = _INIT_MODES[self.get_init_mode()](host_points, k,
-                                                 self.get_seed())
         points_t = torch.from_numpy(np.ascontiguousarray(host_points)).to(
             dev)
         mask_t = torch.ones(n, dtype=torch.float32, device=dev)
-        init_t = torch.from_numpy(np.ascontiguousarray(init)).to(dev)
+        mode, seed = self.get_init_mode(), self.get_seed()
+        if grouped:
+            # the kernels take any row count: a rank pads to a multiple
+            # of one, so its padded count is its row count
+            multiple = local_axis_multiple(mesh)
+            padded_rows = -(-rows // multiple) * multiple
+            if not np.all(padded_rows == padded_rows[0]):
+                raise ValueError(
+                    "multi-host KMeans requires equal padded row counts "
+                    f"per process; got {padded_rows.tolist()}")
+            init_t = (_select_init(mode, host_points, points_t, k, seed)
+                      if axis_index(mesh=mesh) == 0 else
+                      torch.zeros((k, d), dtype=torch.float32, device=dev))
+            init_t = broadcast_from_host0(init_t, mesh=mesh)
+        else:
+            init_t = _select_init(mode, host_points, points_t, k, seed)
         result = fit_centroids(points_t, mask_t, init_t, plan,
                                measure=measure, max_iter=self.get_max_iter(),
                                workset=workset,
-                               tie_policy=self.get_tie_policy())
+                               tie_policy=self.get_tie_policy(),
+                               compute_dtype=self.compute_dtype,
+                               mesh=mesh if grouped else None)
         if workset:
             self.last_workset_report = self._workset_report(
-                result, n_real=n, n_padded=int(points_t.shape[0]))
+                result, n_real=n_for_plan,
+                n_padded=int(padded_rows.sum()) if grouped else n)
         centroids = result.state.cpu().numpy()
 
         model = KMeansModel(device=self.device)

@@ -21,6 +21,15 @@ on the tensor cores (3xTF32: each product within ~1e-6 of its f32 value,
 relative); the ``fast`` and ``split`` policies keep the CUDA cores' f32
 FMAs, whose scores their exact-tie rule recomputes.
 
+``kmeans_update_stats(..., compute_dtype=torch.bfloat16)`` is the JAX
+package's bf16 variant: the points and centroids are rounded to bf16 for
+the score product (f32 sums), ``|c|²`` stays f32 from the un-rounded
+centroids, and the sums product takes bf16 points and bf16 shares (a
+``split`` share of 1/3 enters the sums as 0.333984375) while ``counts``
+adds the f32 shares.  Its kernel scores ``first`` on the tensor cores
+(``mma.sync`` bf16, f32 sums) and ``fast``/``split`` on the CUDA cores
+with the same rounded operands.
+
 The kernels mask their ragged edge and take any row count.  They take
 zero pad rows too, as the JAX package's maskless contract has it: a zero
 row lands on the centroid(s) of least norm and adds nothing to ``sums``,
@@ -32,8 +41,9 @@ back.  A launch adds one to :data:`LAUNCHES`.
 
 A port of the JAX package's ``ops/kmeans_pallas.py``.  The TPU block
 planning (``pick_block_n*``, ``supported``) has no counterpart: the
-kernels plan their own shared memory.  ``update_stats_sharded`` is not
-ported (ROADMAP queue A10), nor a ``compute_dtype`` other than f32.
+kernels plan their own shared memory.  :func:`update_stats_sharded` runs
+the stats kernel on this rank's rows and sums ``(sums, counts)`` over the
+process group with one all-reduce (``parallel/collectives.py``).
 """
 
 from __future__ import annotations
@@ -49,19 +59,25 @@ from ..kernels.build import count_launch
 __all__ = ["kmeans_update_stats", "kmeans_update_stats_plain",
            "kmeans_assign_reduce", "kmeans_assign_reduce_plain",
            "kmeans_workset_update", "kmeans_workset_update_plain",
-           "stats_from_assign", "pad_correction", "TIE_POLICIES",
-           "LAUNCHES", "reset_launch_counts"]
+           "update_stats_sharded", "stats_from_assign", "pad_correction",
+           "TIE_POLICIES", "COMPUTE_DTYPES", "LAUNCHES",
+           "reset_launch_counts"]
 
 TIE_POLICIES = ("first", "fast", "split")
+#: score-product types of :func:`kmeans_update_stats`
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 #: Launches of each kernel since the last :func:`reset_launch_counts`.
 #: Only a launch of the CUDA kernel counts, never a plain version.
+#: The bf16 stats kernel counts under its own name.
 LAUNCHES: Dict[str, int] = {"kmeans_update_stats": 0,
+                            "kmeans_update_stats_bf16": 0,
                             "kmeans_assign_reduce": 0,
                             "kmeans_workset_update": 0}
 
 # kernel modes of kmeans.cu
-_MODES = {"first": 0, "fast": 1, "split": 2, "assign": 3, "workset": 4}
+_MODES = {"first": 0, "fast": 1, "split": 2, "assign": 3, "workset": 4,
+          "first_bf16": 5, "fast_bf16": 6, "split_bf16": 7}
 
 
 def reset_launch_counts() -> None:
@@ -73,10 +89,21 @@ def reset_launch_counts() -> None:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _scores(points: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bf16 (to nearest, ties to even) and held in f32:
+    a product of two such values is exact in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _scores(points: torch.Tensor, centroids: torch.Tensor,
+            compute_dtype=torch.float32) -> torch.Tensor:
     """``-2 p·cᵀ + |c|²`` (n, k): ``|p|²`` shifts a row uniformly and
-    cannot change which centroids attain its minimum."""
+    cannot change which centroids attain its minimum.  Under bf16 the
+    product takes the rounded operands (f32 sums); ``|c|²`` is f32 from
+    the un-rounded centroids either way."""
     c2 = torch.sum(centroids * centroids, dim=1)[None, :]
+    if compute_dtype == torch.bfloat16:
+        return -2.0 * (_bf16(points) @ _bf16(centroids).T) + c2
     return -2.0 * (points @ centroids.T) + c2
 
 
@@ -96,14 +123,18 @@ def stats_from_assign(k: int, points: torch.Tensor, mask: torch.Tensor,
 
 
 def kmeans_update_stats_plain(points: torch.Tensor, centroids: torch.Tensor,
-                              *, tie_policy: str = "fast"
+                              *, tie_policy: str = "fast",
+                              compute_dtype=torch.float32
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(sums, counts)`` of every row under ``tie_policy``: ``first`` the
     first-index argmin, ``fast`` every index equal to the row minimum,
-    ``split`` 1/#ties to each."""
+    ``split`` 1/#ties to each.  Under ``compute_dtype=torch.bfloat16``
+    the JAX kernel's casts, literally: bf16 operands in both products,
+    f32 sums, ``counts`` of the f32 shares."""
     _check_policy(tie_policy)
+    _check_dtype(compute_dtype)
     k = centroids.shape[0]
-    scores = _scores(points, centroids)
+    scores = _scores(points, centroids, compute_dtype)
     if tie_policy == "first":
         onehot = _onehot(torch.argmin(scores, dim=1), k, points.dtype)
     else:
@@ -112,7 +143,10 @@ def kmeans_update_stats_plain(points: torch.Tensor, centroids: torch.Tensor,
         if tie_policy == "split":
             onehot = onehot / torch.sum(onehot, dim=1, keepdim=True)
     del scores
-    return onehot.T @ points, torch.sum(onehot, dim=0)
+    counts = torch.sum(onehot, dim=0)
+    if compute_dtype == torch.bfloat16:
+        return _bf16(onehot).T @ _bf16(points), counts
+    return onehot.T @ points, counts
 
 
 def kmeans_assign_reduce_plain(points: torch.Tensor, centroids: torch.Tensor
@@ -215,12 +249,15 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_dtype(compute_dtype) -> None:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be torch.float32 or "
+                         f"torch.bfloat16, got {compute_dtype!r}")
+
+
 def _check_problem(points: torch.Tensor, centroids: torch.Tensor,
                    compute_dtype=torch.float32) -> Tuple[int, int, int]:
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            "only compute_dtype=torch.float32 is ported (a bf16 score "
-            "product is ROADMAP queue A4)")
+    _check_dtype(compute_dtype)
     if points.dim() != 2 or centroids.dim() != 2:
         raise ValueError("points and centroids must be 2-D")
     n, d = points.shape
@@ -275,15 +312,39 @@ def kmeans_update_stats(points: torch.Tensor, centroids: torch.Tensor, *,
                         compute_dtype=torch.float32
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fit hot path: ``(points (n, d), centroids (k, d)) -> (sums (k, d),
-    counts (k,))``, f32.  Replaces the JAX package's
+    counts (k,))``, f32 in and out; ``compute_dtype`` (f32 or bf16) is the
+    type of both products' operands.  Replaces the JAX package's
     ``kmeans_update_stats``.  Zero pad rows are counted; remove them with
     :func:`pad_correction`.  Deterministic."""
     _check_policy(tie_policy)
     _check_problem(points, centroids, compute_dtype)
     if points.device.type == "cpu":
         return kmeans_update_stats_plain(points, centroids,
-                                         tie_policy=tie_policy)
+                                         tie_policy=tie_policy,
+                                         compute_dtype=compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        return _launch("kmeans_update_stats_bf16", tie_policy + "_bf16",
+                       points, centroids)
     return _launch("kmeans_update_stats", tie_policy, points, centroids)
+
+
+def update_stats_sharded(points: torch.Tensor, centroids: torch.Tensor,
+                         mesh=None, *, tie_policy: str = "fast",
+                         compute_dtype=torch.float32
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Data-parallel stats: :func:`kmeans_update_stats` on this rank's
+    rows (one kernel launch on the card), then one all-reduce sums
+    ``(sums, counts)`` over ``mesh``'s process group (default: the
+    default mesh), so every rank holds the global stats.  The
+    counterpart of
+    the JAX package's ``update_stats_sharded`` (a psum over the ``data``
+    axis)."""
+    from ..parallel.collectives import psum_packed
+
+    return psum_packed(kmeans_update_stats(points, centroids,
+                                           tie_policy=tie_policy,
+                                           compute_dtype=compute_dtype),
+                       mesh=mesh)
 
 
 def kmeans_assign_reduce(points: torch.Tensor, centroids: torch.Tensor

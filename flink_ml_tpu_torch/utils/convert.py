@@ -18,7 +18,7 @@ __all__ = ["params_from_jax", "model_from_jax_state", "softmax_model_from_jax",
            "widedeep_params_from_jax", "adam_state_from_jax",
            "ivf_index_from_jax", "feature_model_from_jax",
            "model_data_from_jax", "onevsrest_model_from_jax",
-           "pipeline_model_from_jax"]
+           "algo_operator_from_jax", "pipeline_model_from_jax"]
 
 
 def params_from_jax(params: Dict[str, np.ndarray], device="cuda"
@@ -223,6 +223,23 @@ def onevsrest_model_from_jax(stage, device="cuda"):
     return out
 
 
+#: host AlgoOperators carried across by their params alone
+_ALGO_OPERATORS = ("AgglomerativeClustering",)
+
+
+def algo_operator_from_jax(stage):
+    """The port's counterpart of a JAX package host ``AlgoOperator``
+    (``AgglomerativeClustering``): the same class name and params.  It
+    holds no model data and takes no device."""
+    from .. import models
+
+    name = type(stage).__name__
+    if name not in _ALGO_OPERATORS:
+        raise TypeError(f"{name} is not a ported host AlgoOperator; "
+                        f"expected one of {_ALGO_OPERATORS}")
+    return _with_params(getattr(models, name)(), stage)
+
+
 def _stage_from_jax(stage, device):
     from ..api.pipeline import PipelineModel
     from ..models import (LinearRegressionModel, LinearSVCModel,
@@ -244,6 +261,8 @@ def _stage_from_jax(stage, device):
         return model_data_from_jax(stage, device)
     if name == "OneVsRestModel":
         return onevsrest_model_from_jax(stage, device)
+    if name in _ALGO_OPERATORS:
+        return algo_operator_from_jax(stage)
     if name == "KMeansModel":
         (data,) = stage.get_model_data()
         return _with_params(kmeans_model_from_jax(
@@ -268,7 +287,8 @@ def pipeline_model_from_jax(pm, device="cuda"):
     """The port's ``PipelineModel`` for a fitted JAX package
     ``PipelineModel``: feature stages through
     :func:`feature_model_from_jax`, the linear family, KMeans, Wide&Deep,
-    IVF indexes, the boosted trees, NaiveBayes, KNN and OneVsRest through
-    their converters (nested pipelines too)."""
+    IVF indexes, the boosted trees, NaiveBayes, KNN, OneVsRest and
+    AgglomerativeClustering through their converters (nested pipelines
+    too)."""
     resolve_device(device)
     return _stage_from_jax(pm, device)

@@ -1852,3 +1852,137 @@ def test_hashed_sparse_lr_launches_b1_b2_value_variants(cuda_device):
     np.testing.assert_allclose(
         model.get_model_data()[0]["coefficients"][0], want.coefficients,
         rtol=1e-3, atol=1e-4)
+
+
+def _bf16_scores(pts, cents):
+    return TK._scores(pts, cents, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tie", ["first", "fast", "split"])
+@pytest.mark.parametrize("n,d,k,dup", [(1000, 16, 37, False),
+                                       (4099, 64, 256, True),
+                                       (300, 9, 40, True),
+                                       (4099, 64, 1024, False),
+                                       (2050, 300, 600, True)])
+def test_kmeans_update_stats_bf16_matches_plain(cuda_device, tie, n, d, k,
+                                                dup):
+    """The bf16 variant against its plain twin (the same roundings) on
+    ragged n, k not a power of two, duplicated centroids, 7 zero pad rows,
+    and the staged-centroid and no-tile plans (the last two shapes).  The
+    two differ only in the order of the f32 sums of the score product:
+    off rows whose best two bf16 scores lie within 1e-5 (1 + |best|) of
+    each other the counts are exact and the sums within 1e-4; a near-tie
+    row may move one count.  The bf16 launches count apart from the f32
+    ones."""
+    pts, cents = _kmeans_problem(n, d, k, seed=n + d, duplicated=dup,
+                                 n_pad=7)
+    p = torch.from_numpy(pts).to(cuda_device)
+    c = torch.from_numpy(cents).to(cuda_device)
+    near = int(_near_tie_rows(_bf16_scores(p, torch.unique(c, dim=0)))
+               .sum())
+    TK.reset_launch_counts()
+    got_s, got_c = TK.kmeans_update_stats(p, c, tie_policy=tie,
+                                          compute_dtype=torch.bfloat16)
+    want_s, want_c = TK.kmeans_update_stats_plain(
+        p, c, tie_policy=tie, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["kmeans_update_stats_bf16"] == 1
+    assert TK.LAUNCHES["kmeans_update_stats"] == 0
+    if near:
+        assert float((got_c - want_c).abs().sum()) <= 4 * near
+    else:
+        torch.testing.assert_close(got_c, want_c, atol=0, rtol=0)
+        torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-5)
+    if dup and tie != "first":
+        # the duplicated least-norm centroid ties for every zero pad row
+        corr = TK.pad_correction(got_c, c, 7, tie_policy=tie)
+        assert float(corr.min()) >= 0
+        assert corr[0] == corr[k - 1] and corr[1] == corr[k - 2]
+
+
+@pytest.mark.cuda
+def test_kmeanspp_seeds_on_the_card_without_a_host_sync(cuda_device):
+    """k-means++ on the card: the k-1 rounds run with CUDA's sync debug
+    mode at "error" (any host sync raises); one seed gives one seeding,
+    k distinct rows of the points; the fit through ``initMode`` launches
+    the stats kernel once a round."""
+    from flink_ml_tpu_torch.models.clustering import kmeans as TKM
+
+    pts, _ = _kmeans_problem(70000, 8, 16, seed=21)
+    p = torch.from_numpy(pts).to(cuda_device)
+
+    def seed(s):
+        gen = torch.Generator(device=cuda_device)
+        gen.manual_seed(s)
+        return TKM.select_kmeanspp_centroids(p, 64, generator=gen)
+
+    seed(0)                      # first-call set-up outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = seed(5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(a, seed(5))
+    assert not torch.equal(a, seed(6))
+    rows = (p[None, :, :] == a[:, None, :]).all(-1)
+    assert rows.any(1).all() and len(torch.unique(a, dim=0)) == 64
+    TK.reset_launch_counts()
+    est = (T.KMeans(device=cuda_device).set_k(16).set_max_iter(4)
+           .set_seed(5).set_init_mode("k-means++"))
+    est.fit(T.Table({"features": pts}))
+    torch.cuda.synchronize()
+    assert est.planned_impl == "kernel"
+    assert TK.LAUNCHES["kmeans_update_stats"] == 4
+
+
+def _card_rank_fit(rank, world, n, dtype):
+    """One rank's KMeans fit of its share of a seeded table on the card
+    (in a process group), with the stats launches it made."""
+    pts, _ = _kmeans_problem(n, 8, 16, seed=23)
+    share = np.split(pts, world)[rank]
+    TK.reset_launch_counts()
+    model = (T.KMeans(device="cuda:0", compute_dtype=getattr(torch, dtype))
+             .set_k(16).set_max_iter(5).set_seed(2)
+             .fit(T.Table({"features": share})))
+    torch.cuda.synchronize()
+    return (model.get_model_data()[0]["centroids"][0], dict(TK.LAUNCHES))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_grouped_fit_on_the_card(cuda_device, world, backend, dtype):
+    """The data-parallel fit on the card: a one-rank NCCL group and two
+    gloo ranks sharing the card (NCCL refuses two ranks on one device).
+    Each rank launches its stats kernel once a round; the one-rank fit
+    equals the one-process fit from the same init bit for bit, the
+    two-rank fit within the KMeans gate of it (its sums add per rank,
+    then across ranks)."""
+    from flink_ml_tpu_torch.distance import DistanceMeasure
+    from flink_ml_tpu_torch.models.clustering import kmeans as TKM
+    from flink_ml_tpu_torch.utils.backend import run_on_ranks
+
+    n = 1 << 17
+    out = run_on_ranks(_card_rank_fit, world, world, n, dtype,
+                       device="cuda:0", backend=backend, timeout_s=240)
+    key = ("kmeans_update_stats_bf16" if dtype == "bfloat16"
+           else "kmeans_update_stats")
+    for cents, launches in out:
+        assert launches[key] == 5 and sum(launches.values()) == 5
+        np.testing.assert_array_equal(cents, out[0][0])
+    pts, _ = _kmeans_problem(n, 8, 16, seed=23)
+    shard0 = np.split(pts, world)[0]
+    measure = DistanceMeasure.get_instance("euclidean")
+    init = torch.from_numpy(TKM.select_random_centroids(shard0, 16, 2)).to(
+        cuda_device)
+    p = torch.from_numpy(pts).to(cuda_device)
+    want = TKM.fit_centroids(
+        p, torch.ones(n, device=cuda_device), init,
+        TKM._fit_plan(n, 8, 16, measure), measure=measure, max_iter=5,
+        compute_dtype=getattr(torch, dtype)).state.cpu().numpy()
+    if world == 1:
+        np.testing.assert_array_equal(out[0][0], want)
+    else:
+        np.testing.assert_allclose(out[0][0], want, rtol=5e-3, atol=5e-3)

@@ -205,6 +205,63 @@ def test_text_and_selection_device_stages_need_cuda_unless_cpu_asked(
         assert not hasattr(host(), "device"), host
 
 
+KMEANS_PARALLEL_MODULES = (
+    "flink_ml_tpu_torch.parallel", "flink_ml_tpu_torch.parallel.mesh",
+    "flink_ml_tpu_torch.parallel.collectives",
+    "flink_ml_tpu_torch.parallel.distributed",
+    "flink_ml_tpu_torch.data.broadcast", "flink_ml_tpu_torch.utils.backend",
+    "flink_ml_tpu_torch.models.clustering.agglomerative",
+    "flink_ml_tpu_torch.models.clustering.kmeans",
+    "flink_ml_tpu_torch.ops.kmeans")
+
+# a finder that refuses JAX and the JAX package: an import of either fails
+_BLOCK_JAX = (
+    "import sys\n"
+    "class _Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'flink_ml_tpu'):\n"
+    "            raise ImportError('blocked: ' + name)\n"
+    "sys.meta_path.insert(0, _Block())\n")
+
+
+@pytest.mark.parametrize("first", [KMEANS_PARALLEL_MODULES[0],
+                                   "flink_ml_tpu_torch.models.clustering"])
+def test_kmeans_parallel_modules_import_with_jax_blocked(first):
+    """The data-parallel modules, AgglomerativeClustering and the KMeans
+    modules (k-means++, the bf16 stats, the sharded fit) load with JAX and
+    the JAX package blocked, whichever is imported first."""
+    code = (_BLOCK_JAX + "import " + first + ", "
+            + ", ".join(KMEANS_PARALLEL_MODULES)
+            + "\nprint('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         timeout=300).stdout.split()
+    assert set(KMEANS_PARALLEL_MODULES) <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_kmeans_paths_need_cuda_unless_cpu_asked(monkeypatch):
+    """k-means++, the bf16 stats kernel's fit and AgglomerativeClustering's
+    host work: the KMeans entry points raise without a card unless the CPU
+    is asked for; the host stage takes no device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.random.default_rng(5).normal(size=(40, 3))
+    table = T.Table({"features": X})
+    for est in (T.KMeans().set_init_mode("k-means++"),
+                T.KMeans(compute_dtype=torch.bfloat16)):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            est.set_k(3).fit(table)
+        est.device = "cpu"
+        assert est.fit(table).get_model_data()[0]["centroids"].shape == (
+            1, 3, 3)
+    from flink_ml_tpu_torch.models import AgglomerativeClustering
+
+    agg = AgglomerativeClustering().set_num_clusters(3)
+    assert not hasattr(agg, "device")
+    assert len(np.unique(agg.transform(table)[0]["prediction"])) == 3
+
+
 def test_online_autoscale_and_failover_modules_import_without_jax():
     """The continuous-learning modules, the autoscale control plane and
     serving failover load neither JAX nor the JAX package."""

@@ -273,9 +273,10 @@ def test_select_random_centroids_matches_jax():
 
 def test_unported_paths_raise():
     X = _blobs(64, seed=13)
-    est = T.KMeans(device="cpu").set_init_mode("k-means++")
-    with pytest.raises(NotImplementedError, match="A4"):
-        est.fit(T.Table({"features": X}))
+    # k-means++ is ported (tests/test_torch_kmeanspp.py); the streamed fit
+    # over several devices is not
+    est = T.KMeans(device="cpu").set_init_mode("k-means++").set_k(3)
+    assert _centroids(est.fit(T.Table({"features": X}))).shape == (3, 16)
     with pytest.raises(NotImplementedError, match="A10"):
         T.KMeans(device="cpu").fit_outofcore(lambda: iter(()),
                                              mesh=object())

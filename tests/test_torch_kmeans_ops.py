@@ -142,9 +142,9 @@ def test_wrappers_check_their_inputs():
     pts, cents = _problem()
     with pytest.raises(ValueError, match="tie_policy"):
         TK.kmeans_update_stats(_t(pts), _t(cents), tie_policy="nearest")
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="compute_dtype"):
         TK.kmeans_update_stats(_t(pts), _t(cents),
-                               compute_dtype=torch.bfloat16)
+                               compute_dtype=torch.float16)
     with pytest.raises(TypeError, match="points must be"):
         TK.kmeans_assign_reduce(_t(pts.astype(np.float64)), _t(cents))
     with pytest.raises(ValueError, match="centroids must have shape"):
@@ -157,6 +157,7 @@ def test_wrappers_check_their_inputs():
                                  torch.zeros(n, dtype=torch.int64),
                                  torch.ones(n), torch.ones(n))
     assert TK.LAUNCHES == {"kmeans_update_stats": 0,
+                           "kmeans_update_stats_bf16": 0,
                            "kmeans_assign_reduce": 0,
                            "kmeans_workset_update": 0}
 
