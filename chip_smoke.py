@@ -419,18 +419,23 @@ line is printed):
     versions on the card; the loss falls every epoch; ``transform`` =
     numpy f64 scoring.
 
-44. The bf16 stats kernel (``compute_dtype=torch.bfloat16``; ``first`` on
-    the tensor cores, ``fast`` and ``split`` on the CUDA cores) against
-    its plain twin at the headline (phase 6's points and centroids), each
-    tie policy, and on phase 6's 1000 zero pad rows against duplicated
-    centroids: one Lloyd step within the KMeans gate; the assignments
-    that differ (half the counts' moves) at most the rows whose plain f32
-    top-two gap lies below the bf16 bound (``BF16_GAP``); no negative
-    count after the pad correction, duplicated centroids counted alike.
-    Times of the three policies beside the f32 kernel, the plain twin,
-    bf16 ``addmm`` of the score product and the bound (the f32 points
-    read once; the bf16 FLOPs of the score product, and of a dense
-    one-hot sums product beside it).
+44. The bf16 stats kernel (``compute_dtype=torch.bfloat16``; at the
+    headline ``kernels/csrc/kmeans_bf16.cu``, both products on ``wgmma``
+    for every tie policy, the route asserted through ``bf16_plan``)
+    against its plain twin at the headline (phase 6's points and
+    centroids), each tie policy, and on phase 6's 1000 zero pad rows
+    against duplicated centroids: one Lloyd step within the KMeans gate;
+    the assignments that differ (half the counts' moves) at most the rows
+    whose plain f32 top-two gap lies below the bf16 bound (``BF16_GAP``);
+    no negative count after the pad correction, duplicated centroids
+    counted alike; two launches the same bits.  ``kmeans.cu``'s bf16 modes
+    (the route of shapes outside the plan) held against the twin at the
+    headline under the same gates.  Times of the three policies beside
+    ``kmeans.cu``'s bf16 modes, the f32 kernel, the plain twin, bf16
+    ``addmm`` of the score product and the bare bf16 ``mm``, and the
+    bound (the f32 points read once; the bf16 FLOPs of the score product,
+    and of a dense one-hot sums product beside it); the bf16 BSP fit's
+    iterations/s beside phase 7's f32 rate.
 45. k-means++ on the card (``select_kmeanspp_centroids``, seed 0, k 256 on
     the headline table) with CUDA's sync debug mode at "error" around the
     k-1 rounds (no host sync), timed, k distinct centers, one seed one
@@ -457,7 +462,9 @@ The last lines are the kernel table (ten kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
 ``values`` and the streamed fit's launches under ``stream``, the three
 KMeans kernels (the stats kernel with phase 22's launches under
-``stream``) and the stats kernel's bf16 variant beside them, the fold,
+``stream``) and the stats kernel's bf16 variant (``kmeans_bf16.cu``:
+each policy's time, ``kmeans.cu``'s bf16 modes' and the bare bf16 ``mm``
+beside it) beside them, the fold,
 the two retrieve kernels; the launches a fused
 transform or phase 29's CV added under ``chain``, the served batches'
 launches of phase 31 under ``serve``, the train-while-serve launches
@@ -497,6 +504,7 @@ KM_ITERS, WS_ITERS = 10, 20
 KM_HELD = 1 << 16           # held-out rows for transform
 KM_RATE_ITERS = 50          # Lloyd rounds timed for iterations/s
 KM_SOURCE = "flink_ml_tpu_torch/kernels/csrc/kmeans.cu"
+KM_BF16_SOURCE = "flink_ml_tpu_torch/kernels/csrc/kmeans_bf16.cu"
 KM_REPLACES = {
     "kmeans_update_stats": "flink_ml_tpu/ops/kmeans_pallas.py:300",
     "kmeans_assign_reduce": "flink_ml_tpu/ops/kmeans_pallas.py:340",
@@ -6786,12 +6794,14 @@ DP_TIMEOUT_S = 300
 
 
 def bf16_phase(torch, dev, card, timer):
-    """Phase 44: the bf16 stats kernel against its plain twin at the
-    headline, every tie policy, on the headline problem and on phase 6's
-    zero-padded rows against duplicated centroids; times beside the f32
-    kernel, bf16 ``addmm`` of the score product and the bound.  Returns
-    the kernel line's entry (launches filled by phase 46) and the
-    headline table (host and card)."""
+    """Phase 44: the bf16 stats kernel (``kmeans_bf16.cu`` at the
+    headline) against its plain twin, every tie policy, on the headline
+    problem and on phase 6's zero-padded rows against duplicated
+    centroids, and ``kmeans.cu``'s bf16 modes on the headline problem;
+    times beside ``kmeans.cu``'s bf16 modes, the f32 kernel, bf16 ``addmm``
+    of the score product, the bare bf16 ``mm`` and the bound; the bf16
+    fit's iterations/s.  Returns the kernel line's entry (launches filled
+    by phase 46) and the headline table (host and card)."""
     from flink_ml_tpu_torch.models.clustering import kmeans as KM
     from flink_ml_tpu_torch.ops import kmeans as K
 
@@ -6812,6 +6822,8 @@ def bf16_phase(torch, dev, card, timer):
     dup[0] *= 0.05
     dup[k - 1] = dup[0]
     dup[k - 2] = dup[1]
+    if K.bf16_plan(k, d) is None:
+        fail(f"the headline (k {k}, d {d}) is outside kmeans_bf16.cu's plan")
     worst = 0.0
     for label, p, m, c in (("headline", pts, ones, cents),
                            ("zero pad rows, duplicated centroids", pad_pts,
@@ -6827,9 +6839,24 @@ def bf16_phase(torch, dev, card, timer):
         bnear = int(near_tie_rows(torch, sb).sum())
         del sb
         n_pad = n - int(m.sum())
-        for tie in ("first", "fast", "split"):
-            s, cnt = K.kmeans_update_stats(p, c, tie_policy=tie,
-                                           compute_dtype=bf)
+        for tie, route in (("first", "kmeans_bf16.cu"),
+                           ("fast", "kmeans_bf16.cu"),
+                           ("split", "kmeans_bf16.cu"),
+                           ("first", "kmeans.cu"), ("fast", "kmeans.cu"),
+                           ("split", "kmeans.cu")):
+            if route == "kmeans.cu" and m is pad_mask:
+                continue
+            if route == "kmeans.cu":
+                s, cnt = K._launch("kmeans_update_stats_bf16",
+                                   tie + "_bf16", p, c)
+            else:
+                s, cnt = K.kmeans_update_stats(p, c, tie_policy=tie,
+                                               compute_dtype=bf)
+                s2, cnt2 = K.kmeans_update_stats(p, c, tie_policy=tie,
+                                                 compute_dtype=bf)
+                if not (torch.equal(s, s2) and torch.equal(cnt, cnt2)):
+                    fail(f"kmeans_bf16.cu ({label}, tie {tie}): two "
+                         "launches differ")
             ws, wc = K.kmeans_update_stats_plain(p, c, tie_policy=tie,
                                                  compute_dtype=bf)
             cnt = K.pad_correction(cnt, c, n_pad, tie_policy=tie)
@@ -6837,14 +6864,24 @@ def bf16_phase(torch, dev, card, timer):
             moved = float((cnt - wc).abs().sum()) / 2
             ds = float((s - ws).abs().max())
             args = (c, 0, (p, m))
-            step = KM.kmeans_epoch_step_kernel(
-                k, tie_policy=tie, compute_dtype=bf)(*args).feedback
-            want = KM.kmeans_epoch_step_kernel(
-                k, tie_policy=tie, compute_dtype=bf, plain=True)(
-                    *args).feedback
+            if route == "kmeans.cu":
+                # the Lloyd step from the old modes' stats, as the body
+                # forms it (the body itself routes to kmeans_bf16.cu here)
+                step = torch.where(cnt[:, None] > 0, s / torch.where(
+                    cnt > 0, cnt, 1.0)[:, None], c)
+                want = torch.where(wc[:, None] > 0, ws / torch.where(
+                    wc > 0, wc, 1.0)[:, None], c)
+            else:
+                step = KM.kmeans_epoch_step_kernel(
+                    k, tie_policy=tie, compute_dtype=bf)(*args).feedback
+                want = KM.kmeans_epoch_step_kernel(
+                    k, tie_policy=tie, compute_dtype=bf, plain=True)(
+                        *args).feedback
             e = float((step - want).abs().max())
-            worst = max(worst, e)
-            log(f"check kmeans_update_stats_bf16 ({label}, tie {tie}): "
+            if route == "kmeans_bf16.cu":
+                worst = max(worst, e)
+            log(f"check kmeans_update_stats_bf16 via {route} ({label}, "
+                f"tie {tie}): "
                 f"sums max |kernel - plain| {ds:.3e}, counts "
                 f"{float((cnt - wc).abs().max()):.1f}, assignments that "
                 f"differ (count moves) {moved:.1f}; rows whose plain f32 "
@@ -6871,34 +6908,59 @@ def bf16_phase(torch, dev, card, timer):
     c2b = (cents * cents).sum(1)[None, :].to(bf)
     pb, cb = pts.to(bf), cents.to(bf)
     lib_ms = timer.ms(lambda: torch.addmm(c2b, pb, cb.T, alpha=-2.0))
+    mm_ms = timer.ms(lambda: torch.mm(pb, cb.T))
     f32_ms = timer.ms(lambda: K.kmeans_update_stats(pts, cents,
                                                     tie_policy="first"))
     ms = {tie: timer.ms(lambda: K.kmeans_update_stats(
         pts, cents, tie_policy=tie, compute_dtype=bf))
         for tie in ("first", "fast", "split")}
+    # kmeans.cu's bf16 modes at the headline: the design before
+    # kmeans_bf16.cu, in the same run
+    before_ms = {tie: timer.ms(lambda: K._launch(
+        "kmeans_update_stats_bf16", tie + "_bf16", pts, cents))
+        for tie in ("first", "fast", "split")}
     plain_ms = timer.ms(lambda: K.kmeans_update_stats_plain(
         pts, cents, tie_policy="first", compute_dtype=bf), reps=10)
     del pb, cb
+    # the bf16 BSP fit's rate, phase 7's loop (device-resident points)
+    body = KM.kmeans_epoch_step_kernel(k, compute_dtype=bf)
+    c_fit = body(cents, 0, (pts, ones)).feedback
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(KM_RATE_ITERS):
+        c_fit = body(c_fit, i, (pts, ones)).feedback
+    torch.cuda.synchronize()
+    rate = KM_RATE_ITERS / (time.perf_counter() - t0)
+    RATES["kmeans_bf16_iters_per_s"] = rate
     ops = 2.0 * n * k * d
     ops_ms = ops / BF16_OPS_PER_S * 1e3
     dense_ms = 2 * ops / BF16_OPS_PER_S * 1e3
     bytes_ms = (n * d + 2 * k * d + k) * 4 / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-    log(f"time kmeans_update_stats_bf16: kernel first {ms['first']:.4f} ms, "
-        f"fast {ms['fast']:.4f}, split {ms['split']:.4f}; the f32 kernel "
-        f"(first) {f32_ms:.4f} ms; plain twin {plain_ms:.4f} ms; bf16 addmm "
-        f"(score product only) {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
-        f"({bound_by}: the f32 points read once {bytes_ms:.4f} ms; the "
-        f"score product's {ops:.3e} bf16 FLOPs {ops_ms:.4f} ms, {2 * ops:.3e} "
-        f"with a dense one-hot sums product {dense_ms:.4f} ms) [{card}]; "
+    log(f"time kmeans_update_stats_bf16: kmeans_bf16.cu first "
+        f"{ms['first']:.4f} ms, fast {ms['fast']:.4f}, split "
+        f"{ms['split']:.4f}; kmeans.cu's bf16 modes first "
+        f"{before_ms['first']:.4f} ms, fast {before_ms['fast']:.4f}, split "
+        f"{before_ms['split']:.4f}; the f32 kernel (first) {f32_ms:.4f} ms; "
+        f"plain twin {plain_ms:.4f} ms; bf16 addmm (score product only) "
+        f"{lib_ms:.4f} ms, bare bf16 mm {mm_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}: the f32 points read once "
+        f"{bytes_ms:.4f} ms; the score product's {ops:.3e} bf16 FLOPs "
+        f"{ops_ms:.4f} ms, {2 * ops:.3e} with a dense one-hot sums product "
+        f"{dense_ms:.4f} ms) [{card}]")
+    log(f"KMeans BSP iterations/s at {n} x {d}, k {k}, bf16: {rate:.3f} "
+        f"(f32, phase 7: "
+        f"{RATES.get('kmeans_iters_per_s', float('nan')):.3f}) [{card}]; "
         f"phase 44: {time.perf_counter() - t_phase:.2f} s")
     entry = {
         "name": "kmeans_update_stats_bf16", "route": "cuda",
-        "source": KM_SOURCE, "replaces": KM_REPLACES["kmeans_update_stats"],
+        "source": KM_BF16_SOURCE,
+        "replaces": KM_REPLACES["kmeans_update_stats"],
         "launches": 0, "max_abs_err": worst, "ms": ms["first"],
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms,
+        "library_ms": lib_ms, "policy_ms": ms, "kmeans_cu_ms": before_ms,
+        "mm_ms": mm_ms, "iters_per_s": rate,
     }
     return entry, host, pts
 
@@ -7219,7 +7281,8 @@ def main():
     # -- 2. build ----------------------------------------------------------
     secs = build.build_all()
     log(f"build: {secs:.2f} s (0 = already built)")
-    for name in ("ell_scatter", "kmeans", "emb_grad", "retrieve"):
+    for name in ("ell_scatter", "kmeans", "kmeans_bf16", "emb_grad",
+                 "retrieve"):
         log(f"nvcc report ({name}):\n" + (build.build_log(name) or "(none)"))
 
     # -- 3. kernels vs plain versions at the main path's shapes ------------

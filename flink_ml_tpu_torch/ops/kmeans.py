@@ -26,9 +26,13 @@ package's bf16 variant: the points and centroids are rounded to bf16 for
 the score product (f32 sums), ``|c|²`` stays f32 from the un-rounded
 centroids, and the sums product takes bf16 points and bf16 shares (a
 ``split`` share of 1/3 enters the sums as 0.333984375) while ``counts``
-adds the f32 shares.  Its kernel scores ``first`` on the tensor cores
-(``mma.sync`` bf16, f32 sums) and ``fast``/``split`` on the CUDA cores
-with the same rounded operands.
+adds the f32 shares.  On the shapes of :func:`bf16_plan` (k <= 256,
+d <= 64: the headline and the data-parallel fit) its kernel is
+``kernels/csrc/kmeans_bf16.cu``: both products on ``wgmma`` for every
+tie policy, the tiles by bulk copy, the ties from the score registers.
+Other shapes take ``kmeans.cu``'s bf16 modes (``first`` on ``mma.sync``,
+``fast``/``split`` on the CUDA cores).  The route follows the shape
+alone; both count under ``LAUNCHES["kmeans_update_stats_bf16"]``.
 
 The kernels mask their ragged edge and take any row count.  They take
 zero pad rows too, as the JAX package's maskless contract has it: a zero
@@ -60,7 +64,7 @@ __all__ = ["kmeans_update_stats", "kmeans_update_stats_plain",
            "kmeans_assign_reduce", "kmeans_assign_reduce_plain",
            "kmeans_workset_update", "kmeans_workset_update_plain",
            "update_stats_sharded", "stats_from_assign", "pad_correction",
-           "TIE_POLICIES", "COMPUTE_DTYPES", "LAUNCHES",
+           "bf16_plan", "TIE_POLICIES", "COMPUTE_DTYPES", "LAUNCHES",
            "reset_launch_counts"]
 
 TIE_POLICIES = ("first", "fast", "split")
@@ -75,9 +79,28 @@ LAUNCHES: Dict[str, int] = {"kmeans_update_stats": 0,
                             "kmeans_assign_reduce": 0,
                             "kmeans_workset_update": 0}
 
-# kernel modes of kmeans.cu
+# kernel modes of kmeans.cu (the first three are kmeans_bf16.cu's policies)
 _MODES = {"first": 0, "fast": 1, "split": 2, "assign": 3, "workset": 4,
           "first_bf16": 5, "fast_bf16": 6, "split_bf16": 7}
+# kmeans_bf16.cu's plan: the bf16 centroids resident in shared memory in
+# products of 128; a consumer lane's (k, d) partial (2 cluster blocks x 32
+# dims) beside a product's 64 scores in the 232 registers it has
+_BF16_MAX_K, _BF16_MAX_D = 256, 64
+
+
+def bf16_plan(k: int, d: int):
+    """The score products of 128 centroids a tile of ``kmeans_bf16.cu``
+    takes for ``k`` centroids of ``d`` dims (1 for k <= 128, 2 up to 256),
+    or ``None`` where its plan does not hold the shape: then the bf16
+    stats take ``kmeans.cu``'s bf16 modes.  The bounds are the kernel's
+    budget: the bf16 centroids sit in shared memory beside three bf16
+    tiles and the ring of f32 tiles, and a consumer thread keeps its share
+    of the (k, d) partial (2 blocks of 64 clusters x 64 dims over 128
+    threads) in registers beside a product's scores, which d > 64 would
+    spill."""
+    if not (1 <= k <= _BF16_MAX_K and 1 <= d <= _BF16_MAX_D):
+        return None
+    return 1 if k <= 128 else 2
 
 
 def reset_launch_counts() -> None:
@@ -230,6 +253,29 @@ def _kernels():
     return _LIB
 
 
+_LIB_BF16 = None
+
+
+def _kernels_bf16():
+    """The built ``kmeans_bf16`` library with its C signatures declared
+    (built on first use)."""
+    global _LIB_BF16
+    if _LIB_BF16 is None:
+        from ..kernels.build import load_library
+
+        lib = load_library("kmeans_bf16")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.kmeans_bf16_grid.argtypes = [ci, ci, ci, ci,
+                                         ctypes.POINTER(ctypes.c_int),
+                                         ctypes.POINTER(ctypes.c_int64)]
+        lib.kmeans_bf16_launch.argtypes = [ci, vp, vp, vp, vp, vp, ci, ci,
+                                           ci, ci, vp]
+        lib.kmeans_bf16_grid.restype = ctypes.c_int
+        lib.kmeans_bf16_launch.restype = ctypes.c_int
+        _LIB_BF16 = lib
+    return _LIB_BF16
+
+
 def _check_policy(tie_policy: str) -> None:
     if tie_policy not in TIE_POLICIES:
         raise ValueError(f"tie_policy must be 'first', 'fast' or 'split', "
@@ -307,6 +353,36 @@ def _launch(name: str, mode: str, points: torch.Tensor,
     return sums, counts
 
 
+def _launch_bf16(tie_policy: str, points: torch.Tensor,
+                 centroids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``kmeans_bf16.cu`` (a shape :func:`bf16_plan` holds);
+    returns ``(sums, counts)``."""
+    n, d = points.shape
+    k = centroids.shape[0]
+    dev = points.device
+    lib = _kernels_bf16()
+    policy = _MODES[tie_policy]
+    with torch.cuda.device(dev):
+        grid, size = ctypes.c_int(0), ctypes.c_int64(0)
+        rc = lib.kmeans_bf16_grid(policy, n, k, d, ctypes.byref(grid),
+                                  ctypes.byref(size))
+        if rc != 0:
+            raise RuntimeError(f"kmeans_update_stats_bf16: kernel planning "
+                               f"failed: CUDA error {rc}")
+        scratch = torch.empty(size.value, dtype=torch.float32, device=dev)
+        sums = torch.empty((k, d), dtype=torch.float32, device=dev)
+        counts = torch.empty(k, dtype=torch.float32, device=dev)
+        rc = lib.kmeans_bf16_launch(
+            policy, _ptr(points), _ptr(centroids), _ptr(scratch), _ptr(sums),
+            _ptr(counts), n, k, d, grid.value,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kmeans_update_stats_bf16 kernel launch failed: "
+                           f"CUDA error {rc}")
+    count_launch(LAUNCHES, "kmeans_update_stats_bf16")
+    return sums, counts
+
+
 def kmeans_update_stats(points: torch.Tensor, centroids: torch.Tensor, *,
                         tie_policy: str = "fast",
                         compute_dtype=torch.float32
@@ -323,6 +399,8 @@ def kmeans_update_stats(points: torch.Tensor, centroids: torch.Tensor, *,
                                          tie_policy=tie_policy,
                                          compute_dtype=compute_dtype)
     if compute_dtype == torch.bfloat16:
+        if bf16_plan(centroids.shape[0], points.shape[1]) is not None:
+            return _launch_bf16(tie_policy, points, centroids)
         return _launch("kmeans_update_stats_bf16", tie_policy + "_bf16",
                        points, centroids)
     return _launch("kmeans_update_stats", tie_policy, points, centroids)

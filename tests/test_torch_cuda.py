@@ -1864,16 +1864,22 @@ def _bf16_scores(pts, cents):
                                        (4099, 64, 256, True),
                                        (300, 9, 40, True),
                                        (4099, 64, 1024, False),
-                                       (2050, 300, 600, True)])
-def test_kmeans_update_stats_bf16_matches_plain(cuda_device, tie, n, d, k,
-                                                dup):
+                                       (2050, 300, 600, True),
+                                       (2050, 128, 200, True),
+                                       (1000, 64, 257, False),
+                                       (700, 65, 64, True)])
+def test_kmeans_update_stats_bf16_matches_plain(cuda_device, monkeypatch,
+                                                tie, n, d, k, dup):
     """The bf16 variant against its plain twin (the same roundings) on
     ragged n, k not a power of two, duplicated centroids, 7 zero pad rows,
-    and the staged-centroid and no-tile plans (the last two shapes).  The
-    two differ only in the order of the f32 sums of the score product:
-    off rows whose best two bf16 scores lie within 1e-5 (1 + |best|) of
-    each other the counts are exact and the sums within 1e-4; a near-tie
-    row may move one count.  The bf16 launches count apart from the f32
+    on both sides of the route (``bf16_plan``: ``kmeans_bf16.cu`` for
+    k <= 256, d <= 64; else ``kmeans.cu``'s bf16 modes, with its
+    staged-centroid and no-tile plans at k 1024 and d 300), each shape
+    asserting the kernel it took.  The two differ only in the order of the
+    f32 sums of the score product: off rows whose best two bf16 scores lie
+    within 1e-5 (1 + |best|) of each other the counts are exact and the
+    sums within 1e-4; a near-tie row may move one count.  Two launches
+    give the same bits.  The bf16 launches count apart from the f32
     ones."""
     pts, cents = _kmeans_problem(n, d, k, seed=n + d, duplicated=dup,
                                  n_pad=7)
@@ -1881,14 +1887,27 @@ def test_kmeans_update_stats_bf16_matches_plain(cuda_device, tie, n, d, k,
     c = torch.from_numpy(cents).to(cuda_device)
     near = int(_near_tie_rows(_bf16_scores(p, torch.unique(c, dim=0)))
                .sum())
+    routes = []
+    for name, label in (("_launch_bf16", "kmeans_bf16.cu"),
+                        ("_launch", "kmeans.cu")):
+        def spy(*args, _real=getattr(TK, name), _label=label, **kw):
+            routes.append(_label)
+            return _real(*args, **kw)
+        monkeypatch.setattr(TK, name, spy)
     TK.reset_launch_counts()
     got_s, got_c = TK.kmeans_update_stats(p, c, tie_policy=tie,
                                           compute_dtype=torch.bfloat16)
     want_s, want_c = TK.kmeans_update_stats_plain(
         p, c, tie_policy=tie, compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
+    assert routes == ["kmeans_bf16.cu" if TK.bf16_plan(k, d) else
+                      "kmeans.cu"]
     assert TK.LAUNCHES["kmeans_update_stats_bf16"] == 1
     assert TK.LAUNCHES["kmeans_update_stats"] == 0
+    again_s, again_c = TK.kmeans_update_stats(p, c, tie_policy=tie,
+                                              compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(again_s, got_s) and torch.equal(again_c, got_c)
     if near:
         assert float((got_c - want_c).abs().sum()) <= 4 * near
     else:
@@ -1899,6 +1918,32 @@ def test_kmeans_update_stats_bf16_matches_plain(cuda_device, tie, n, d, k,
         corr = TK.pad_correction(got_c, c, 7, tie_policy=tie)
         assert float(corr.min()) >= 0
         assert corr[0] == corr[k - 1] and corr[1] == corr[k - 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tie", ["first", "fast", "split"])
+def test_kmeans_bf16_kernel_sees_bf16_operands(cuda_device, tie):
+    """Both products of ``kmeans_bf16.cu`` take bf16 operands: 128 copies
+    of p = (1.124, 0) are nearer (1, 0) than (1.25, 0) in f32, but bf16(p)
+    = (1.125, 0) ties them exactly (``first`` takes index 0, ``fast``
+    both, ``split`` halves) and the sums add 1.125 a copy.  The kernel
+    equals the bf16 twin bit for bit and not the f32 one (the same problem
+    is held against the JAX kernel in
+    ``tests/test_torch_kmeans_bf16_plan.py``)."""
+    pts = np.tile(np.array([[1.124, 0.0]], np.float32), (128, 1))
+    cents = np.array([[1.25, 0.0], [1.0, 0.0], [-5.0, -5.0]], np.float32)
+    p = torch.from_numpy(pts).to(cuda_device)
+    c = torch.from_numpy(cents).to(cuda_device)
+    assert TK.bf16_plan(3, 2) is not None
+    got = TK.kmeans_update_stats(p, c, tie_policy=tie,
+                                 compute_dtype=torch.bfloat16)
+    want = TK.kmeans_update_stats_plain(p, c, tie_policy=tie,
+                                        compute_dtype=torch.bfloat16)
+    f32 = TK.kmeans_update_stats_plain(p, c, tie_policy=tie)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert not torch.equal(got[1], f32[1])
+    assert float(got[0][0, 0]) == 1.125 * (128 if tie != "split" else 64)
 
 
 @pytest.mark.cuda
