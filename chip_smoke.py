@@ -435,7 +435,12 @@ line is printed):
     ``addmm`` of the score product and the bare bf16 ``mm``, and the
     bound (the f32 points read once; the bf16 FLOPs of the score product,
     and of a dense one-hot sums product beside it); the bf16 BSP fit's
-    iterations/s beside phase 7's f32 rate.
+    iterations/s beside phase 7's f32 rate.  Appended: ``kmeans.cu``'s
+    bf16 modes at the shapes outside ``bf16_plan`` (2^20 x 64 at k 1024,
+    2^20 x 128 at k 256) against the plain twin (assignments that differ
+    at most the rows near a bf16 flip; one Lloyd step within the KMeans
+    gate on every cluster no flip touched), each policy timed beside bf16
+    ``addmm``, the bare bf16 ``mm`` and the bound.
 45. k-means++ on the card (``select_kmeanspp_centroids``, seed 0, k 256 on
     the headline table) with CUDA's sync debug mode at "error" around the
     k-1 rounds (no host sync), timed, k distinct centers, one seed one
@@ -457,6 +462,28 @@ line is printed):
     the same centroids and its objective within 1e-3 of the one-process
     fit's from the same init; the one-rank NCCL fit equals the one-process
     fit bit for bit.  Any rank that fails fails the phase.
+47. The compressed data-parallel gradient reduction
+    (``parallel/grad_reduce.py``; no kernel of the table on its path):
+    four gloo ranks spawned on the one card, as a flat ``{"data": 4}``
+    mesh and as the 2x2 ``("dcn", "data")`` mesh, each with a 2^20-f32
+    gradient and a bias (numpy seed 4700 + rank; bench_comm's width,
+    ``bench.py:1663``).  Reduces: exact, top-k 0.1 over the all-gather
+    and over recursive halving/doubling, int8 dequant and fixed, top-k
+    with 8 buckets, the adaptive ladder (0.01, 0.05, 0.1, "exact") and
+    the hierarchical exact, top-k and int8.  Gates against numpy on the
+    same inputs: every rank the same bits; exact within (P-1) u sum|g| of
+    the float64 sum; top-k's residual on every rank bit for bit numpy's
+    stable-argsort top-k, its sum bit for bit numpy's rank-order f32 sum
+    (all-gather) or within (P-1) u of the f64 sum (rd); fixed's integer
+    totals exactly; dequant within P quantization steps.  Each mode's
+    first and median reduce ms, payload bytes, measured rd fill and the
+    pairwise rounds staged through the host.  Then the data-parallel
+    dense LR fit at d 2^14 (bench_comm's fit width, ``bench.py:1905``; 256
+    rows a rank a step, 8 steps, 12 epochs): exact within the fit gate of
+    the one-process fit of the same step batches; top-k 0.1 and the
+    overlapped bucketed top-k within 1e-3 of the dense loss; blocking and
+    overlapped step ms; and the exact and top-k fits in a one-rank NCCL
+    group, bit for bit the one-process fits.
 
 The last lines are the kernel table (ten kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
@@ -6965,6 +6992,105 @@ def bf16_phase(torch, dev, card, timer):
     return entry, host, pts
 
 
+KB_WIDE = ((1 << 20, 64, 1024), (1 << 20, 128, 256))   # (n, d, k)
+
+
+def bf16_wide_phase(torch, dev, card, timer):
+    """Phase 44, appended: the bf16 stats at the shapes outside
+    ``bf16_plan`` (k 1024 at d 64, d 128 at k 256: ``kmeans.cu``'s bf16
+    modes) against the plain twin under phase 44's gates (assignments
+    that differ at most the rows whose f32 top-two gap lies below the
+    bf16 bound; one Lloyd step within the KMeans gate on every cluster no
+    such flip touched), each policy timed beside
+    bf16 ``addmm`` of the score product, the bare bf16 ``mm`` and the
+    bound.  Returns the times by shape."""
+    from flink_ml_tpu_torch.ops import kmeans as K
+
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    out = {}
+    for n, d, k in KB_WIDE:
+        if K.bf16_plan(k, d) is not None:
+            fail(f"(k {k}, d {d}) is inside kmeans_bf16.cu's plan")
+        host = np.random.default_rng(0).normal(size=(n, d)).astype(
+            np.float32)
+        pts = torch.from_numpy(host).to(dev)
+        perm = np.random.default_rng(1).permutation(n)
+        cents = torch.from_numpy(
+            0.5 * (host[perm[:k]] + host[perm[k:2 * k]])).to(dev)
+        del host
+        sc = -2.0 * (pts @ cents.T) + (cents * cents).sum(1)[None, :]
+        two = torch.topk(sc, 2, dim=1, largest=False).values
+        del sc
+        bound = (BF16_GAP * (pts.abs() @ cents.abs().T).max(1).values
+                 + 1e-5 * (1 + two[:, 0].abs()))
+        exempt = int(((two[:, 1] - two[:, 0]) <= bound).sum())
+        del two, bound
+        rec = {}
+        for tie in ("first", "fast", "split"):
+            s_, cnt = K.kmeans_update_stats(pts, cents, tie_policy=tie,
+                                            compute_dtype=bf)
+            ws, wc = K.kmeans_update_stats_plain(pts, cents, tie_policy=tie,
+                                                 compute_dtype=bf)
+            moved = float((cnt - wc).abs().sum()) / 2
+            step = torch.where(cnt[:, None] > 0, s_ / torch.where(
+                cnt > 0, cnt, 1.0)[:, None], cents)
+            want = torch.where(wc[:, None] > 0, ws / torch.where(
+                wc > 0, wc, 1.0)[:, None], cents)
+            # a cluster holds ~n / k rows (~1000 at k 1024): one exempt
+            # flip moves its centroid by ~|p - c| / 1000, ~1e-2, past the
+            # KMeans gate; so the step gate holds the clusters whose
+            # counts agree, and the flips are held by the exemption
+            agree = cnt == wc
+            e = float((step - want)[agree].abs().max())
+            e_flip = float((step - want)[~agree].abs().max()) \
+                if bool((~agree).any()) else 0.0
+            ok = moved <= exempt and bool(torch.allclose(
+                step[agree], want[agree], **KM_GATE))
+            del s_, cnt, ws, wc
+            ms = timer.ms(lambda: K.kmeans_update_stats(
+                pts, cents, tie_policy=tie, compute_dtype=bf))
+            rec[tie] = {"ms": ms, "max_abs_err": e, "moved": moved,
+                        "flipped_cluster_err": e_flip}
+            log(f"check kmeans_update_stats_bf16 via kmeans.cu (n {n}, d "
+                f"{d}, k {k}, tie {tie}): {ms:.4f} ms; one Lloyd step max "
+                f"|kernel - plain| {e:.3e} over the "
+                f"{int(agree.sum())} clusters whose counts agree (allclose "
+                f"rtol {KM_GATE['rtol']}, atol {KM_GATE['atol']}), "
+                f"{e_flip:.3e} over the {int((~agree).sum())} a flip "
+                f"touched; assignments that differ {moved:.1f} (rows near "
+                f"a bf16 flip {exempt}) [{card}]")
+            if not ok:
+                fail(f"kmeans.cu's bf16 {tie} at (d {d}, k {k}) disagrees "
+                     "with its plain twin")
+        c2b = (cents * cents).sum(1)[None, :].to(bf)
+        pb, cb = pts.to(bf), cents.to(bf)
+        lib_ms = timer.ms(lambda: torch.addmm(c2b, pb, cb.T, alpha=-2.0))
+        mm_ms = timer.ms(lambda: torch.mm(pb, cb.T))
+        del pb, cb, c2b
+        ops = 2.0 * n * k * d
+        ops_ms = ops / BF16_OPS_PER_S * 1e3
+        bytes_ms = (n * d + 2 * k * d + k) * 4 / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        rec.update(library_ms=lib_ms, mm_ms=mm_ms, bound_ms=bound_ms,
+                   bound_by=bound_by)
+        slower = [t for t in ("first", "fast", "split")
+                  if rec[t]["ms"] > lib_ms]
+        log(f"time kmeans_update_stats_bf16 via kmeans.cu at (n {n}, d {d}, "
+            f"k {k}): first {rec['first']['ms']:.4f} ms, fast "
+            f"{rec['fast']['ms']:.4f}, split {rec['split']['ms']:.4f}; bf16 "
+            f"addmm (score product only) {lib_ms:.4f} ms, bare bf16 mm "
+            f"{mm_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: bytes "
+            f"{bytes_ms:.4f}, the score product's {ops:.3e} bf16 FLOPs "
+            f"{ops_ms:.4f}); slower than addmm: {slower or 'none'} [{card}]")
+        out[f"{n}x{d}_k{k}"] = rec
+        del pts, cents
+    log(f"phase 44 (wide bf16 shapes): {time.perf_counter() - t_phase:.2f} "
+        f"s [{card}]")
+    return out
+
+
 def naive_ward(X, k):
     """Ward agglomeration in numpy float64, the global closest pair each
     merge (no neighbour index), on the same squared euclidean distances;
@@ -7243,6 +7369,483 @@ def parallel_phase(torch, dev, card, host, pts):
                      "one-process fit's")
     log(f"phase 46: {time.perf_counter() - t_phase:.2f} s [{card}]")
     return launches
+
+
+GR_WORLD = 4                # phase 47: gloo ranks sharing the card
+GR_D = 1 << 20              # bench_comm's gradient width (bench.py:1663)
+GR_DENSITY = 0.1
+GR_BUCKETS = 8
+GR_LADDER = (0.01, 0.05, 0.1, "exact")
+GR_BLOCK = 256              # int8 elements a scale
+GR_REPS = 5                 # timed reduces a mode (after the gated one)
+GR_FIT_D = 1 << 14          # bench_comm's fit width (bench.py:1905)
+GR_FIT_ROWS = 256           # a rank's rows a step (bench.py:1906)
+GR_FIT_STEPS = 8
+GR_FIT_EPOCHS = 12
+GR_FIT_LR = 0.1
+GR_FIT_TOL = dict(rtol=1e-3, atol=1e-4)     # bench.py:266
+GR_LOSS_GAP = 1e-3          # test_sgd_topk_ef_density01_converges_to_dense
+GR_TIMEOUT_S = 600
+GR_ONE_RANK_BACKEND = "nccl"
+GR_U = 2.0 ** -24           # f32 unit roundoff
+
+
+def gr_sizes():
+    """Phase 47's sizes, handed to the ranks (which import this module
+    afresh)."""
+    return dict(d=GR_D, fit_d=GR_FIT_D, rows=GR_FIT_ROWS,
+                steps=GR_FIT_STEPS, epochs=GR_FIT_EPOCHS, reps=GR_REPS)
+
+
+def _fence(torch, dev):
+    """Wait for the rank's card (the timing fence of phase 47)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def gr_grads(rank, d):
+    """Rank ``rank``'s gradient tree of phase 47 (numpy seed 4700 +
+    rank): ``w`` of ``d`` f32, N(0, 1) with its first 64 entries 0 (ties
+    the selection must order), and the bias."""
+    rng = np.random.default_rng(4700 + rank)
+    w = rng.normal(size=d).astype(np.float32)
+    w[:64] = 0.0
+    return {"w": w, "b": np.float32(rng.normal())}
+
+
+def gr_fit_rows(rank, sz):
+    """Rank ``rank``'s rows of phase 47's fit: bench_comm's features
+    (N(0, 1) / 16, numpy seed 11 + rank) labelled by a planted weight
+    (seed 10), ``sz["steps"]`` steps of ``sz["rows"]``."""
+    n = sz["steps"] * sz["rows"]
+    X = (np.random.default_rng(11 + rank).normal(size=(n, sz["fit_d"]))
+         / 16.0).astype(np.float32)
+    w_true = np.random.default_rng(10).normal(size=sz["fit_d"])
+    return X, (X @ w_true > 0).astype(np.float64)
+
+
+def gr_modes():
+    """Phase 47's reduces: (name, config, hybrid mesh)."""
+    from flink_ml_tpu_torch.parallel.grad_reduce import GradReduceConfig as G
+
+    tk = dict(mode="topk", density=GR_DENSITY)
+    return [
+        ("exact", G(), False),
+        ("topk_allgather", G(**tk, wire_protocol="allgather"), False),
+        ("topk_rd", G(**tk), False),
+        ("int8_dequant", G(mode="int8", block_size=GR_BLOCK), False),
+        ("int8_fixed", G(mode="int8", block_size=GR_BLOCK,
+                         int8_accum="fixed"), False),
+        ("topk_buckets8", G(**tk, bucket_count=GR_BUCKETS), False),
+        ("adaptive", G(**tk, bucket_count=GR_BUCKETS, adaptive=True,
+                       adaptive_window=2, density_ladder=GR_LADDER), False),
+        ("hier_exact", G(dcn_axis="dcn"), True),
+        ("hier_topk", G(**tk, dcn_axis="dcn"), True),
+        ("hier_int8", G(mode="int8", block_size=GR_BLOCK, dcn_axis="dcn",
+                        int8_accum="fixed"), True),
+    ]
+
+
+def topk_oracle(acc, k):
+    """numpy's EF top-k of one unit: (sent, residual) by a stable
+    descending argsort of |acc| (the JAX package's test oracle)."""
+    order = np.argsort(-np.abs(acc), kind="stable")[:k]
+    sent = np.zeros_like(acc)
+    sent[order] = acc[order]
+    res = acc.copy()
+    res[order] = 0.0
+    return sent, res
+
+
+def gr_rank(rank, world, sz):
+    """Phase 47 on one rank of a group on the card: each mode's first
+    reduce (gated by the parent; the flat top-k residuals checked here
+    against numpy bit for bit), its median time over ``GR_REPS`` more,
+    its measured fill and the rounds staged through the host; then the
+    data-parallel dense LR fits."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.common.losses import LOSSES
+    from flink_ml_tpu_torch.parallel import collectives as C
+    from flink_ml_tpu_torch.parallel import distributed
+    from flink_ml_tpu_torch.parallel import grad_reduce as GR
+    from flink_ml_tpu_torch.parallel.grad_reduce import GradReduceConfig
+    from flink_ml_tpu_torch.parallel.mesh import default_mesh
+
+    dev = distributed.rank_device()
+    flat = default_mesh()
+    hybrid = distributed.hybrid_mesh({"data": 2})
+    host = gr_grads(rank, sz["d"])
+    g = {"w": torch.from_numpy(host["w"]).to(dev),
+         "b": torch.tensor(host["b"], device=dev)}
+    like = {"w": host["w"], "b": host["b"]}
+    out = {"modes": {}}
+    for name, cfg, hier in gr_modes():
+        mesh = hybrid if hier else flat
+        state = GR.init_state(cfg, g, mesh)
+        reader = GR.RungReader(cfg) if cfg.adaptive else None
+
+        def step(st):
+            rungs = reader.rungs(st) if reader is not None else None
+            return GR.reduce_gradients(g, st, cfg, mesh=mesh, rungs=rungs)
+
+        C.reset_staged()
+        distributed.barrier()
+        _fence(torch, dev)
+        t0 = time.perf_counter()
+        red, st1 = step(state)
+        _fence(torch, dev)
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        staged = dict(C.STAGED)
+        red_h = {k: v.cpu().numpy() for k, v in red.items()}
+        rec = {"first_ms": first_ms, "staged": staged,
+               "digest": hashlib.md5(red_h["w"].tobytes()
+                                     + red_h["b"].tobytes()).hexdigest()}
+        if rank == 0:
+            rec["red"] = red_h
+        if "fill" in st1:
+            hop = 2 if hier else world
+            rec["payload"] = GR.payload_bytes(
+                like, cfg, ici_size=2 if hier else 1, hop_size=hop,
+                fill=st1["fill"])
+            rec["fill"] = st1["fill"].cpu().numpy()
+        else:
+            rec["payload"] = GR.payload_bytes(like, cfg,
+                                              ici_size=2 if hier else 1)
+        if cfg.mode == "topk" and not hier and not cfg.adaptive:
+            # this rank's residual against numpy's, unit by unit
+            plan = GR.plan_buckets(like, cfg)
+            flat_g = np.concatenate([np.atleast_1d(host["b"]), host["w"]])
+            units = (plan.ranges if cfg.bucket_count else
+                     [(0, 1), (1, 1 + sz["d"])])
+            want = np.concatenate([topk_oracle(flat_g[lo:hi], max(1, int(
+                (hi - lo) * GR_DENSITY)))[1] for lo, hi in units])
+            got = np.concatenate([np.atleast_1d(
+                st1["ef"]["b"].cpu().numpy()), st1["ef"]["w"].cpu().numpy()])
+            rec["residual_equal"] = bool(np.array_equal(got, want))
+        if cfg.mode == "int8":
+            rec["key"] = st1["key"].cpu().tolist()
+        ms = []
+        st = st1
+        for _ in range(sz["reps"]):
+            distributed.barrier()
+            _fence(torch, dev)
+            t0 = time.perf_counter()
+            _, st = step(st)
+            _fence(torch, dev)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        rec["ms"] = statistics.median(ms)
+        if reader is not None:
+            rec["rungs"] = st["rung"].cpu().tolist()
+            rec["rung_reads"] = reader.reads
+        out["modes"][name] = rec
+        del state, st1, st, red
+
+    # (b) the data-parallel dense LR fit of this rank's rows
+    X, y = gr_fit_rows(rank, sz)
+    fits = {
+        "exact": None,
+        "topk": GradReduceConfig(mode="topk", density=GR_DENSITY),
+        "blocking": GradReduceConfig(mode="topk", density=GR_DENSITY,
+                                     bucket_count=GR_BUCKETS),
+        "overlapped": GradReduceConfig(mode="topk", density=GR_DENSITY,
+                                       bucket_count=GR_BUCKETS,
+                                       overlap=True),
+    }
+    out["fits"] = {}
+    for name, gr in fits.items():
+        cfg = S.SGDConfig(learning_rate=GR_FIT_LR,
+                          max_epochs=sz["epochs"], tol=0,
+                          global_batch_size=sz["rows"] * world,
+                          grad_reduce=gr)
+        C.reset_staged()
+        distributed.barrier()
+        _fence(torch, dev)
+        t0 = time.perf_counter()
+        state, log = S.sgd_fit(LOSSES["logistic"], X, y, None, cfg, dev)
+        _fence(torch, dev)
+        wall = time.perf_counter() - t0
+        out["fits"][name] = {
+            "w": state.coefficients, "b": state.intercept, "log": log,
+            "wall_s": wall,
+            "step_ms": 1e3 * wall / (sz["epochs"] * sz["steps"]),
+            "staged": dict(C.STAGED)}
+    return out
+
+
+def gr_one_rank(rank, world, sz):
+    """Phase 47(c): the exact and top-k fits of every rank's rows (the
+    one-process order, :func:`gr_one_process_rows`) in a one-rank
+    group."""
+    import torch
+
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.common.losses import LOSSES
+    from flink_ml_tpu_torch.parallel import distributed
+    from flink_ml_tpu_torch.parallel.grad_reduce import GradReduceConfig
+
+    X, y = gr_one_process_rows(GR_WORLD, sz)
+    dev = distributed.rank_device()
+    out = {}
+    for name, gr in (("exact", None), ("topk", GradReduceConfig(
+            mode="topk", density=GR_DENSITY))):
+        cfg = S.SGDConfig(learning_rate=GR_FIT_LR,
+                          max_epochs=sz["epochs"], tol=0,
+                          global_batch_size=sz["rows"] * GR_WORLD,
+                          grad_reduce=gr)
+        state, log = S.sgd_fit(LOSSES["logistic"], X, y, None, cfg, dev)
+        _fence(torch, dev)
+        out[name] = {"w": state.coefficients, "b": state.intercept,
+                     "log": log}
+    return out
+
+
+def gr_one_process_rows(world, sz):
+    """Every rank's rows in the order that gives a one-process fit the
+    ranks' step batches: step i's global batch is each rank's step-i rows
+    (its own seeded permutation), rank after rank, and the fit's own
+    permutation (seed 0) puts them there."""
+    parts = [gr_fit_rows(r, sz) for r in range(world)]
+    n_local = len(parts[0][0])
+    local = np.random.default_rng(0).permutation(n_local)
+    b = sz["rows"]
+    rows = [(r, local[i * b:(i + 1) * b])
+            for i in range(sz["steps"]) for r in range(world)]
+    Xd = np.concatenate([parts[r][0][idx] for r, idx in rows])
+    yd = np.concatenate([parts[r][1][idx] for r, idx in rows])
+    perm = np.random.default_rng(0).permutation(len(Xd))
+    X, y = np.empty_like(Xd), np.empty_like(yd)
+    X[perm], y[perm] = Xd, yd
+    return X, y
+
+
+def grad_reduce_phase(torch, dev, card):
+    """Phase 47: the compressed data-parallel gradient reduction
+    (``parallel/grad_reduce.py``) on four gloo ranks sharing the card, as
+    a flat ``{"data": 4}`` mesh and a 2x2 ``("dcn", "data")`` mesh, gated
+    against numpy oracles of the same seeded inputs; the data-parallel
+    dense LR fit on those ranks; the same fit in a one-rank NCCL group.
+    No kernel of the table runs here (the JAX package reduces in
+    ``jnp``)."""
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.common.losses import LOSSES
+    from flink_ml_tpu_torch.parallel import grad_reduce as GR
+    from flink_ml_tpu_torch.utils.backend import run_on_ranks
+
+    t_phase = time.perf_counter()
+    world = GR_WORLD
+    sz = gr_sizes()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_on_ranks(gr_rank, world, world, sz,
+                             device=DP_DEVICE, backend="gloo",
+                             timeout_s=GR_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as exc:
+        fail(f"phase 47's gloo ranks failed: {exc}")
+    log(f"phase 47: {world} gloo ranks on the card spawned and run in "
+        f"{time.perf_counter() - t0:.2f} s")
+    hosts = [gr_grads(r, sz["d"]) for r in range(world)]
+    W = np.stack([h["w"] for h in hosts])
+    B = np.asarray([h["b"] for h in hosts], np.float32)
+    exact64 = W.astype(np.float64).sum(0)
+    abs_sum = np.abs(W).astype(np.float64).sum(0)
+    k = max(1, int(sz["d"] * GR_DENSITY))
+    modes = {name: (cfg, hier) for name, cfg, hier in gr_modes()}
+    for name, (cfg, hier) in modes.items():
+        recs = [r["modes"][name] for r in ranks]
+        red = recs[0]["red"]["w"]
+        if any(r["digest"] != recs[0]["digest"] for r in recs):
+            fail(f"phase 47 {name}: the ranks' reduced gradients differ")
+        if not np.all(np.isfinite(red)) or red.shape != (sz["d"],):
+            fail(f"phase 47 {name}: reduced gradient {red.shape}, finite "
+                 f"{bool(np.all(np.isfinite(red)))}")
+        if cfg.mode == "exact":
+            # a sum of 4 f32 values in any order is within (P-1) u sum|x|
+            # of the exact sum (the adaptive ladder's exact rung too)
+            err = np.abs(red - exact64)
+            gate = (world - 1) * GR_U * abs_sum * (1 + 1e-6) + 1e-30
+            ok = bool(np.all(err <= gate))
+            detail = (f"max |red - f64 sum| {float(err.max()):.3e} within "
+                      f"(P-1) u sum|g|: {ok}")
+        elif cfg.mode == "topk" and not hier and not cfg.adaptive:
+            if cfg.bucket_count:
+                plan = GR.plan_buckets({"w": W[0], "b": B[0]}, cfg)
+                flat_all = np.concatenate([B[:, None], W], axis=1)
+                sent = np.stack([np.concatenate([topk_oracle(
+                    flat_all[p, lo:hi], max(1, int((hi - lo) * GR_DENSITY)))[0]
+                    for lo, hi in plan.ranges]) for p in range(world)])[:, 1:]
+            else:
+                sent = np.stack([topk_oracle(W[p], k)[0]
+                                 for p in range(world)])
+            seq = sent[0].copy()
+            for p in range(1, world):
+                seq = seq + sent[p]
+            res_ok = all(r["residual_equal"] for r in recs)
+            if cfg.wire_protocol == "allgather":
+                # rank-order f32 sums of the gathered pairs: numpy's bits
+                same = bool(np.array_equal(red, seq))
+            else:
+                err = np.abs(red - sent.astype(np.float64).sum(0))
+                same = bool(np.all(err <= (world - 1) * GR_U * np.abs(
+                    sent).astype(np.float64).sum(0) * (1 + 1e-6)))
+            ok = res_ok and same
+            detail = (f"residuals = numpy's stable-argsort top-k on every "
+                      f"rank: {res_ok}; sum "
+                      + ("= numpy's rank-order f32 sum bit for bit"
+                         if cfg.wire_protocol == "allgather" else
+                         "within (P-1) u sum|sent| of the f64 sum")
+                      + f": {same}")
+        elif cfg.mode == "int8" and cfg.int8_accum == "fixed":
+            # the integer totals, from the port's stream on the host: flat
+            # over the 4 ranks, or (2x2) over the dcn pair of each fast-
+            # axis shard of the rows' sums
+            hop = ([[(p, W[p]) for p in range(world)]] if not hier else
+                   [[(2 * m + i, np.split(W[2 * m] + W[2 * m + 1], 2)[i])
+                     for m in range(2)] for i in range(2)])
+            want = []
+            for members in hop:
+                blocks = np.stack([x for _, x in members]).reshape(
+                    len(members), -1, GR_BLOCK)
+                scale = np.maximum(np.abs(blocks).max(axis=2, keepdims=True)
+                                   / np.float32(127.0), np.float32(1e-12))
+                scale = scale.max(axis=0).astype(np.float32)
+                total = np.zeros(blocks.shape[1:], np.int64)
+                for j, (p, _) in enumerate(members):
+                    u = GR.draw_uniform(torch.tensor([0, p, 1]), 1,
+                                        blocks.shape[1:], "cpu").numpy()
+                    q = np.clip(np.floor(blocks[j] / scale + u), -127, 127)
+                    total += q.astype(np.int64)
+                want.append((total.astype(np.int32).astype(np.float32)
+                             * scale).reshape(-1))
+            ok = bool(np.array_equal(red, np.concatenate(want)))
+            detail = f"integer totals = numpy's exactly: {ok}"
+        elif cfg.mode == "topk" and hier:
+            # each fast-axis shard of each dcn row's sum (f32, rank order)
+            # sends its top-k; the dcn pair's two sends add exactly
+            want = []
+            for i in range(2):
+                sent = [topk_oracle(np.split(W[2 * m] + W[2 * m + 1], 2)[i],
+                                    max(1, int(sz["d"] // 2 * GR_DENSITY)))[0]
+                        for m in range(2)]
+                want.append(sent[0] + sent[1])
+            ok = bool(np.array_equal(red, np.concatenate(want)))
+            detail = ("sum = numpy's top-k of each dcn row's fast-axis "
+                      f"shards, bit for bit: {ok}")
+        elif cfg.mode == "int8" and not hier:
+            scales = np.abs(W.reshape(world, -1, GR_BLOCK)).max(2) / 127.0
+            bound = np.repeat(scales.sum(0), GR_BLOCK) * (1 + 1e-5) + 1e-6
+            err = np.abs(red - exact64)
+            ok = bool(np.all(err <= bound))
+            detail = (f"max |red - f64 sum| {float(err.max()):.3e} within "
+                      f"P quantization steps: {ok}")
+        else:
+            # the adaptive ladder: finite, the same bits on every rank
+            err = np.abs(red - exact64)
+            ok = bool(np.all(np.isfinite(red)))
+            detail = (f"max |red - f64 sum| {float(err.max()):.3e} (no "
+                      "numpy oracle gate: finite, the same on every rank)")
+        pay = recs[0]["payload"]
+        wire = pay.get("wire") or {}
+        fill = recs[0].get("fill")
+        log(f"phase 47 {name}{' (2x2 dcn x data)' if hier else ''}: "
+            f"first reduce {recs[0]['first_ms']:.3f} ms, median of "
+            f"{sz['reps']} more {statistics.median(r['ms'] for r in recs):.3f}"
+            f" ms (rank 0 {recs[0]['ms']:.3f}); payload "
+            f"{pay['compressed_bytes']} of {pay['dense_bytes']} B "
+            f"(ratio {pay['compression_ratio']}, wire protocol "
+            f"{pay['wire_protocol']}"
+            + (f", ici {pay['ici_bytes']} B" if 'ici_bytes' in pay else "")
+            + (f"; rd measured {wire.get('rd_bytes_measured')} B vs "
+               f"all-gather {wire.get('allgather_bytes')}, fill rounds "
+               f"{wire.get('fill_rounds_measured')}, switched "
+               f"{wire.get('switch_rate_measured')}" if wire else "")
+            + f"); pairwise rounds: "
+            + (f"host staging (gloo ranks with CUDA tensors), "
+               f"{recs[0]['staged']['rounds']} rounds, "
+               f"{recs[0]['staged']['bytes']} B through the host"
+               if recs[0]['staged']['rounds'] else "none")
+            + (f"; rungs {recs[0]['rungs']} after {1 + sz['reps']} steps, "
+               f"{recs[0]['rung_reads']} host reads"
+               if 'rungs' in recs[0] else "")
+            + (f"; union {float(fill[:, GR.FILL_UNION_SLOT].max()):.0f}"
+               if fill is not None else "")
+            + f"; {detail} [{card}]")
+        if not ok:
+            fail(f"phase 47 {name}: {detail}")
+
+    # (b) the data-parallel fits against the one-process fit of the same
+    # step batches, and (c) the one-rank NCCL group
+    X1, y1 = gr_one_process_rows(world, sz)
+    base = dict(learning_rate=GR_FIT_LR, max_epochs=sz["epochs"], tol=0,
+                global_batch_size=sz["rows"] * world)
+    one = {}
+    for name, gr in (("exact", None), ("topk", GR.GradReduceConfig(
+            mode="topk", density=GR_DENSITY))):
+        _fence(torch, dev)
+        t0 = time.perf_counter()
+        st, lg = S.sgd_fit(LOSSES["logistic"], X1, y1, None,
+                           S.SGDConfig(**base, grad_reduce=gr), dev)
+        _fence(torch, dev)
+        one[name] = (st, lg, time.perf_counter() - t0)
+    fits = {name: ranks[0]["fits"][name] for name in ranks[0]["fits"]}
+    for name in fits:
+        for r in ranks[1:]:
+            if not (np.array_equal(r["fits"][name]["w"], fits[name]["w"])
+                    and r["fits"][name]["log"] == fits[name]["log"]):
+                fail(f"phase 47 fit {name}: the ranks' weights differ")
+    st1 = one["exact"][0]
+    ex = fits["exact"]
+    d_ex = float(np.abs(ex["w"] - st1.coefficients).max())
+    log(f"phase 47 fit (d {sz['fit_d']}, {world} ranks x {sz['rows']} rows "
+        f"a step, {sz['steps']} steps, {sz['epochs']} epochs, lr "
+        f"{GR_FIT_LR}): exact loss {ex['log'][-1]:.6f} vs one process "
+        f"{one['exact'][1][-1]:.6f}, max |dw| {d_ex:.3e} (allclose rtol "
+        f"{GR_FIT_TOL['rtol']}, atol {GR_FIT_TOL['atol']}); "
+        + "; ".join(f"{n} loss {f['log'][-1]:.6f} ({f['step_ms']:.3f} ms a "
+                    f"step, {f['wall_s']:.3f} s)" for n, f in fits.items())
+        + f"; one-process fits {one['exact'][2]:.3f} / {one['topk'][2]:.3f} "
+        f"s [{card}]")
+    if not (np.allclose(ex["w"], st1.coefficients, **GR_FIT_TOL)
+            and abs(ex["b"] - st1.intercept) <= GR_FIT_TOL["atol"]
+            + GR_FIT_TOL["rtol"] * abs(st1.intercept)):
+        fail("phase 47: the exact data-parallel fit is off the one-process "
+             "fit of the same step batches")
+    dense_loss = ex["log"][-1]
+    for name in ("topk", "overlapped"):
+        gap = abs(fits[name]["log"][-1] - dense_loss)
+        log(f"phase 47 fit {name}: final loss {fits[name]['log'][-1]:.6f}, "
+            f"{gap:.3e} from the dense fit's (gate {GR_LOSS_GAP})")
+        if not gap < GR_LOSS_GAP:
+            fail(f"phase 47 fit {name}: {gap} from the dense fit's loss")
+    log(f"phase 47 fit step ms, top-k {GR_DENSITY} x {GR_BUCKETS} buckets: "
+        f"blocking {fits['blocking']['step_ms']:.3f}, overlapped "
+        f"{fits['overlapped']['step_ms']:.3f} (rounds staged through the "
+        f"host in the overlapped fit: "
+        f"{fits['overlapped']['staged']['rounds']}) [{card}]")
+
+    t0 = time.perf_counter()
+    try:
+        (nccl,) = run_on_ranks(gr_one_rank, 1, 1, sz,
+                               device=DP_DEVICE, backend=GR_ONE_RANK_BACKEND,
+                               timeout_s=GR_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as exc:
+        fail(f"phase 47's one-rank NCCL group failed: {exc}")
+    for name in ("exact", "topk"):
+        st, lg, _ = one[name]
+        same = (np.array_equal(nccl[name]["w"], st.coefficients)
+                and nccl[name]["b"] == st.intercept
+                and nccl[name]["log"] == lg)
+        log(f"phase 47 one-rank NCCL {name} fit: equal to the one-process "
+            f"card fit bit for bit: {same}")
+        if not same:
+            fail(f"phase 47: the one-rank NCCL {name} fit is not the "
+                 "one-process fit")
+    log(f"phase 47: one-rank group {time.perf_counter() - t0:.2f} s; "
+        f"phase 47 wall {time.perf_counter() - t_phase:.2f} s [{card}]")
 
 
 def killing_at(wins, at, exc):
@@ -7671,6 +8274,7 @@ def main():
     # stats kernel's, its launches those of phase 46's fits, and both
     # carry phase 46's launches by group under "parallel"
     bf16_entry, km_host, km_pts = bf16_phase(torch, dev, card, timer)
+    bf16_entry["wide_shapes"] = bf16_wide_phase(torch, dev, card, timer)
     kpp_phase(torch, dev, card, km_host, km_pts)
     par = parallel_phase(torch, dev, card, km_host, km_pts)
     bf16_entry["launches"] = sum(par["bfloat16"].values())
@@ -7679,6 +8283,10 @@ def main():
               if e["name"] == "kmeans_update_stats")
     kernels[b4]["parallel"] = {"launches": par["float32"]}
     kernels.insert(b4 + 1, bf16_entry)
+
+    # phase 47: the compressed data-parallel gradient reduction (no
+    # kernel of the table on its path)
+    grad_reduce_phase(torch, dev, card)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

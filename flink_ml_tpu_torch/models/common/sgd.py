@@ -30,10 +30,23 @@ through the plain updates, mixed batches through the ELL kernels with
 each batch's layout built in the prefetch decode workers and its sample
 routing on the card.
 
-A port of the single-device subset of the JAX package's
-``models/common/sgd.py``.  Its meshes, its elastic membership and its
-compressed gradient reduction (``SGDConfig.grad_reduce``) are ROADMAP
-queue A10 and raise.
+Data parallel (the dense layout): inside an initialized process group
+(``parallel/distributed.py``) :func:`sgd_fit` and :func:`sgd_fit_params`
+run on the default mesh (or ``mesh=``, e.g. a ``hybrid_mesh``), each rank
+on its own rows, with the JAX package's multi-process epoch layout
+(local batch = global batch / ranks, one allgather checking that every
+rank planned the same).  Each step's gradient of the global weighted-mean
+loss is summed over the ranks: by ``SGDConfig.grad_reduce``
+(:mod:`flink_ml_tpu_torch.parallel.grad_reduce`: top-k with error
+feedback, int8, hierarchical, buckets, overlap, the adaptive ladder),
+exactly where it is None or ``mode="exact"``; the reducer state rides
+``params["_gr"]``.  The streamed dense fit takes ``grad_reduce`` on this
+rank alone (one participant), its state riding the chunk carry and every
+checkpoint cut.
+
+A port of the JAX package's ``models/common/sgd.py``.  Its meshes for the
+hashed layouts and the streamed fit, multi-rank streams and its elastic
+membership are ROADMAP queue A10 and raise.
 """
 
 from __future__ import annotations
@@ -44,6 +57,8 @@ from typing import Callable, Dict, Optional, Tuple
 import inspect
 import itertools
 import time
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -62,6 +77,7 @@ from ...data.replay_cache import (
 from ...iteration.checkpoint import CheckpointConfig, CheckpointManager
 from ...obs.trace import tracer
 from ...ops import ell_scatter as E
+from ...parallel.collectives import psum
 from ...utils.device import resolve_device
 from ...utils.padding import FixedRowBatcher
 
@@ -90,10 +106,12 @@ class SGDConfig:
     #: the precision of the TPU kernels' one-hot matrix-unit gathers.  No
     #: effect here: the CUDA kernels gather in exact f32.
     ell_precision: str = "default"
-    #: The JAX package's compressed data-parallel gradient reduction; kept
-    #: so configurations carry over.  Anything but None (or a config whose
-    #: ``mode`` is ``"exact"``) raises: the hashed layouts as in the JAX
-    #: package, the dense layout naming ROADMAP queue A10.
+    #: How the data-parallel gradient sum of the dense trainers runs
+    #: (:class:`~flink_ml_tpu_torch.parallel.grad_reduce.GradReduceConfig`).
+    #: None and ``mode="exact"`` give the plain sum, bit-identically;
+    #: compressed modes route the gradients through ``reduce_gradients``.
+    #: The hashed in-memory layouts ignore it, as in the JAX package; their
+    #: streamed fits reject it.
     grad_reduce: Optional[object] = None
 
 
@@ -156,6 +174,38 @@ def plan_epoch_layout(n: int, global_batch_size: int, n_dev: int,
     return steps, batch, perm
 
 
+def _plan_epoch_layout_for_mesh(n_local: int, global_batch_size: int,
+                                mesh, seed: int
+                                ) -> Tuple[int, int, np.ndarray]:
+    """:func:`plan_epoch_layout` on a mesh of P ranks: each rank prepares
+    its local ``(steps, batch/P, ...)`` slice from its own ``n_local``
+    rows (the JAX package's multi-process layout); one rank (or none)
+    plans the one-process layout exactly.  One allgather of ``(steps,
+    local_batch)`` raises on every rank if the ranks planned apart."""
+    from ...parallel.distributed import process_allgather
+
+    procs = mesh.size if mesh.group is not None else 1
+    steps, batch, perm = plan_epoch_layout(
+        n_local, global_batch_size, mesh.size, seed)
+    if procs == 1:
+        return steps, batch, perm
+    if batch % procs:
+        raise ValueError(
+            f"global batch {batch} is not divisible by the mesh's "
+            f"{procs} processes (data axis {mesh.size}); size the batch and "
+            "data axis as multiples of the process count")
+    local_batch = batch // procs
+    steps = max(1, -(-n_local // local_batch))
+    layouts = process_allgather(np.asarray([steps, local_batch], np.int64),
+                                mesh=mesh)
+    if not np.all(layouts == layouts.reshape(-1, 2)[0]):
+        raise ValueError(
+            "multi-host fit requires every process to contribute the same "
+            f"row count; got per-process (steps, local_batch) = "
+            f"{layouts.reshape(-1, 2).tolist()}")
+    return steps, local_batch, perm
+
+
 def prepare_epoch_tensor(arr: np.ndarray, perm: np.ndarray, steps: int,
                          batch: int, pad_value: float = 0.0) -> np.ndarray:
     """Shuffle rows by ``perm``, pad to steps*batch, reshape to
@@ -202,12 +252,14 @@ def _loss_and_r(loss_fn: LossFn, margin: torch.Tensor, yb: torch.Tensor,
     return value.detach(), r
 
 
-def _linear_update(loss_fn: LossFn, config: SGDConfig):
+def _linear_update(loss_fn: LossFn, config: SGDConfig, mesh=None):
     """THE dense single-batch update: the autograd gradient of ``loss +
     l2/2 ||w||^2`` over ``xb @ w + b`` (vector or matrix ``w``), a plain
     step, then the l1 proximal soft-threshold.  The l2 term lives in the
     gradient here, not in :func:`_finish_sparse_step`'s decay before the
-    step; the two are the same algebra in another f32 order."""
+    step; the two are the same algebra in another f32 order.  With
+    ``mesh`` (a group of one rank) the gradient is summed over it (one
+    all-reduce, which keeps one rank's bits)."""
     lr = config.learning_rate
     reg, alpha = config.reg, config.elastic_net
     l2 = reg * (1.0 - alpha)
@@ -220,6 +272,8 @@ def _linear_update(loss_fn: LossFn, config: SGDConfig):
             value = loss_fn(xb @ w + b, yb, wb) + 0.5 * l2 * torch.sum(
                 torch.square(w))
             gw, gb = torch.autograd.grad(value, (w, b))
+        if mesh is not None:
+            gw, gb = psum((gw, gb), mesh.axis_names, mesh=mesh)
         new_w = params["w"] - lr * gw
         if l1 > 0:
             new_w = torch.sign(new_w) * torch.clamp(
@@ -228,6 +282,108 @@ def _linear_update(loss_fn: LossFn, config: SGDConfig):
         return {"w": new_w, "b": new_b}, value.detach()
 
     return update
+
+
+#: Reserved params key the data-parallel dense trainers carry the reducer
+#: state under (EF residual, rounding stream, rungs, fill, pending): it
+#: rides the epoch loop, the streamed fit's chunk carry and every
+#: checkpoint cut beside the weights.
+GR_STATE_KEY = "_gr"
+
+
+def _exact_reduce(mesh):
+    """The plain sum over every axis of ``mesh``: what ``grad_reduce``
+    None and ``mode="exact"`` run."""
+    from ...parallel.grad_reduce import GradReduceConfig
+
+    return GradReduceConfig(mode="exact", axis=tuple(mesh.axis_names))
+
+
+def _linear_update_reduced(loss_fn: LossFn, config: SGDConfig, mesh, gr,
+                           executor=None):
+    """The dense update of a rank of ``mesh`` (the JAX package's
+    ``_linear_update_reduced``): the local weighted-mean loss is
+    re-normalized to the global denominator (one all-reduce of the
+    denominator and the loss), the gradient of this rank's rows is summed
+    over the reduction axes by ``grad_reduce.reduce_gradients`` under
+    ``gr``, the l2 term applies as decay after the reduce (it needs no
+    communication), and l1 stays the proximal step.  The reducer state
+    rides ``params[GR_STATE_KEY]``.  With ``gr.overlap`` the previous
+    step's gradient is reduced while this step's is computed
+    (``start_pipelined``, on ``executor``'s worker thread where one is
+    given)."""
+    from ...parallel import grad_reduce as GR
+
+    lr = config.learning_rate
+    reg, alpha = config.reg, config.elastic_net
+    l2 = reg * (1.0 - alpha)
+    l1 = reg * alpha
+    overlap = GR.wants_overlap(gr)
+    axes = GR.reduction_axes(gr)
+    reader = GR.RungReader(gr) if gr.adaptive else None
+
+    def update(params, xb, yb, wb):
+        w, b = params["w"], params["b"]
+        st = params.get(GR_STATE_KEY, {})
+        rungs = reader.rungs(st) if reader is not None else None
+        if overlap:
+            pending = GR.start_pipelined(st, gr, mesh=mesh, rungs=rungs,
+                                         executor=executor)
+        value_local, r = _loss_and_r(loss_fn, xb @ w + b, yb, wb)
+        denom_local = torch.clamp(torch.sum(wb), min=1e-12)
+        tot = psum(torch.stack([denom_local, value_local * denom_local]),
+                   axes, mesh=mesh)
+        denom = tot[0]
+        value = tot[1] / denom
+        r = r * (denom_local / denom)
+        grads = {"w": torch.tensordot(xb, r, dims=([0], [0])),
+                 "b": torch.sum(r, dim=0)}
+        if overlap:
+            red, new_st = pending.finish(grads)
+        else:
+            red, new_st = GR.reduce_gradients(grads, st, gr, mesh=mesh,
+                                              rungs=rungs)
+        if l2 > 0:
+            value = value + 0.5 * l2 * torch.sum(torch.square(w))
+            w = w * (1.0 - lr * l2)
+        new_w = w - lr * red["w"]
+        if l1 > 0:
+            new_w = torch.sign(new_w) * torch.clamp(
+                torch.abs(new_w) - lr * l1, min=0.0)
+        new_b = b - (lr * red["b"] if config.fit_intercept else 0.0)
+        out = {"w": new_w, "b": new_b}
+        if new_st:
+            out[GR_STATE_KEY] = new_st
+        return out, value
+
+    return update
+
+
+def _apply_drain(params: dict, gr_state: dict, config: SGDConfig, mesh
+                 ) -> dict:
+    """Fit-end drain of an overlapped run: one exact apply of the summed
+    ``pending`` gradient plus the EF residual
+    (``grad_reduce.drain_pending``), with the same decay / step / prox /
+    bias tail as a step, so the run ends with no unsent mass.  It follows
+    the last loss entry; checkpoint cuts never include it."""
+    from ...parallel import grad_reduce as GR
+
+    gr = config.grad_reduce
+    drain = GR.drain_pending(gr_state, gr, mesh=mesh)
+    lr = config.learning_rate
+    reg, alpha = config.reg, config.elastic_net
+    l2 = reg * (1.0 - alpha)
+    l1 = reg * alpha
+    w = params["w"]
+    if l2 > 0:
+        w = w * (1.0 - lr * l2)
+    w = w - lr * drain["w"]
+    if l1 > 0:
+        w = torch.sign(w) * torch.clamp(torch.abs(w) - lr * l1, min=0.0)
+    b = params["b"]
+    if config.fit_intercept:
+        b = b - lr * drain["b"]
+    return {**params, "w": w, "b": b}
 
 
 def _finish_sparse_step(config: SGDConfig):
@@ -533,13 +689,6 @@ def _epoch_targets(labels: np.ndarray, weights: Optional[np.ndarray],
                                    pad_value=0.0)
 
 
-def _require_no_grad_reduce(config: SGDConfig) -> None:
-    if _active_grad_reduce(config) is not None:
-        raise NotImplementedError(
-            "grad_reduce (compressed data-parallel gradient reduction) is "
-            "not ported to flink_ml_tpu_torch yet (ROADMAP queue A10)")
-
-
 def _zero_params(num_features: int, dev: torch.device) -> dict:
     return {"w": torch.zeros(num_features, dtype=torch.float32, device=dev),
             "b": torch.zeros((), dtype=torch.float32, device=dev)}
@@ -550,18 +699,28 @@ def _linear_state(params: dict, impl: str) -> LinearState:
                        float(params["b"]), planned_impl=impl)
 
 
+def _rank_device(device):
+    """``device``, else this rank's device in a group, else the card."""
+    if device is None:
+        from ...parallel.distributed import rank_device
+
+        device = rank_device()
+    return resolve_device(device)
+
+
 def sgd_fit(loss_fn: LossFn, features: np.ndarray, labels: np.ndarray,
             weights: Optional[np.ndarray], config: SGDConfig,
-            device="cuda") -> Tuple[LinearState, list]:
+            device=None, *, mesh=None) -> Tuple[LinearState, list]:
     """Train ``(w, b)`` on dense ``(n, d)`` features, minimizing
     ``loss_fn(margin, labels, weights) + reg * ((1-alpha)/2 ||w||^2 +
     alpha ||w||_1)`` (the l1 part by proximal soft-threshold after each
     step).  Returns the fitted state (planned "dense") and the per-epoch
-    loss log.  Runs on ``device`` (default the card; raises without
-    one)."""
+    loss log.  Runs on ``device`` (default this rank's device in a
+    process group, else the card; raises without one); in a group each
+    rank passes its own rows (:func:`sgd_fit_params`)."""
     d = features.shape[1]
     params, loss_log = sgd_fit_params(
-        loss_fn, features, labels, weights, config, device,
+        loss_fn, features, labels, weights, config, device, mesh=mesh,
         init_params={"w": np.zeros((d,), np.float32),
                      "b": np.zeros((), np.float32)})
     return LinearState(np.asarray(params["w"], np.float64),
@@ -570,7 +729,7 @@ def sgd_fit(loss_fn: LossFn, features: np.ndarray, labels: np.ndarray,
 
 def sgd_fit_params(loss_fn: LossFn, features: np.ndarray, labels: np.ndarray,
                    weights: Optional[np.ndarray], config: SGDConfig,
-                   device="cuda", *, init_params: dict
+                   device=None, *, init_params: dict, mesh=None
                    ) -> Tuple[Dict[str, np.ndarray], list]:
     """The core behind :func:`sgd_fit`: trains any ``{"w", "b"}`` whose
     score is ``x @ w + b`` (vector ``w`` for the binary and regression
@@ -578,20 +737,52 @@ def sgd_fit_params(loss_fn: LossFn, features: np.ndarray, labels: np.ndarray,
     (numpy or tensors).  ``loss_fn(scores, labels, weights)`` defines the
     objective; labels ride the epoch tensor as f32 (exact for class ids
     below 2^24: cast back inside the loss).  Returns the fitted parameters
-    as f32 numpy and the per-epoch loss log."""
-    dev = resolve_device(device)
-    _require_no_grad_reduce(config)
+    as f32 numpy and the per-epoch loss log.
+
+    Inside a process group the fit runs on ``mesh`` (default the default
+    mesh): each rank passes its own rows, every rank gets the same
+    parameters, and each step's gradient is summed over the ranks under
+    ``config.grad_reduce`` (module docstring).  A group of one rank runs
+    the one-process fit, its gradient summed over the one rank."""
+    from ...parallel import grad_reduce as GR
+    from ...parallel.mesh import default_mesh
+
+    dev = _rank_device(device)
+    mesh = mesh or default_mesh()
+    gr = _active_grad_reduce(config)
+    if gr is not None:
+        GR.mesh_layout(gr, mesh)
+    ranks = mesh.size if mesh.group is not None else 1
     n = features.shape[0]
-    steps, batch, perm = plan_epoch_layout(
-        n, resolve_global_batch_size(config, n), 1, config.seed)
+    steps, batch, perm = _plan_epoch_layout_for_mesh(
+        n, resolve_global_batch_size(config, n), mesh, config.seed)
     X = prepare_epoch_tensor(features.astype(np.float32), perm, steps, batch)
     y, sw = _epoch_targets(labels, weights, perm, steps, batch)
     init = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
             for k, v in init_params.items()}
-    params, loss_log = _run_minibatch_epochs(
-        _linear_update(loss_fn, config),
-        tuple(torch.from_numpy(a).to(dev) for a in (X, y, sw)), init, steps,
-        config)
+    data = tuple(torch.from_numpy(a).to(dev) for a in (X, y, sw))
+    if gr is None and ranks == 1:
+        params, loss_log = _run_minibatch_epochs(
+            _linear_update(loss_fn, config,
+                           mesh if mesh.group is not None else None),
+            data, init, steps, config)
+        return {k: v.cpu().numpy() for k, v in params.items()}, loss_log
+    reduce = gr or _exact_reduce(mesh)
+    if GR.needs_state(reduce):
+        init[GR_STATE_KEY] = GR.init_state(
+            reduce, {k: init[k] for k in ("w", "b")}, mesh)
+    overlap = GR.wants_overlap(reduce) and mesh.group is not None
+    executor = ThreadPoolExecutor(max_workers=1) if overlap else None
+    try:
+        params, loss_log = _run_minibatch_epochs(
+            _linear_update_reduced(loss_fn, config, mesh, reduce, executor),
+            data, init, steps, config)
+    finally:
+        if executor is not None:
+            executor.shutdown()
+    gr_state = params.pop(GR_STATE_KEY, None)
+    if gr_state is not None and GR.wants_overlap(reduce):
+        params = _apply_drain(params, gr_state, config, mesh)
     return {k: v.cpu().numpy() for k, v in params.items()}, loss_log
 
 
@@ -615,7 +806,6 @@ def sgd_fit_sparse(loss_fn: LossFn, indices: np.ndarray, values: np.ndarray,
     from .linear import check_sparse_indices
 
     dev = resolve_device(device)
-    _require_no_grad_reduce(config)
     check_sparse_indices(indices, num_features)
     n, nnz = indices.shape
     steps, batch, perm = plan_epoch_layout(
@@ -665,7 +855,6 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
     from .linear import check_sparse_indices
 
     dev = resolve_device(device)
-    _require_no_grad_reduce(config)
     check_sparse_indices(cat_indices, num_features)
     n_dense = dense_features.shape[1]
     if n_dense > num_features:
@@ -711,6 +900,18 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
 # ---------------------------------------------------------------------------
 # the out-of-core (streamed) fit
 # ---------------------------------------------------------------------------
+
+def _params_to_device(tree, dev: torch.device):
+    """Restored host parameters (and reducer state) as tensors on
+    ``dev``: the weights as f32, every other leaf in its own dtype."""
+    def put(k, v):
+        if isinstance(v, dict):
+            return {kk: put(kk, vv) for kk, vv in v.items()}
+        arr = np.asarray(v, np.float32 if k in ("w", "b") else None)
+        return torch.from_numpy(np.require(arr, requirements="C")).to(dev)
+
+    return {k: put(k, v) for k, v in tree.items()}
+
 
 def _active_grad_reduce(config: SGDConfig):
     """The grad-reduce config IF it changes anything (None and
@@ -893,10 +1094,13 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
     in place) reports the plan, the decoded cache and the per-epoch wall
     seconds.
 
-    Not ported (ROADMAP queue A10): ``mesh=`` (multi-device and
-    multi-host streams), ``membership=`` (elastic fleets) and a dense
-    ``grad_reduce``; the mixed and sparse layouts reject ``grad_reduce``
-    as the JAX package does."""
+    ``config.grad_reduce`` (dense layout; planned
+    ``"dense-stream-reduced"``) runs on this rank alone, one participant
+    over the config's axes: its reducer state rides the chunk carry and
+    every checkpoint cut, and an overlapped run drains at its return.  The
+    mixed and sparse layouts reject ``grad_reduce`` as the JAX package
+    does.  Not ported (ROADMAP queue A10): ``mesh=`` (multi-device and
+    multi-host streams) and ``membership=`` (elastic fleets)."""
     if mesh is not None:
         raise NotImplementedError(
             "sgd_fit_outofcore(mesh=...) (multi-device and multi-host "
@@ -914,21 +1118,27 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
                          "for the mixed layout)")
     if dense_key is not None and indices_key is None:
         raise ValueError("dense_key requires indices_key")
-    if _active_grad_reduce(config) is not None:
-        if mixed or sparse:
-            raise ValueError(
-                "grad_reduce compression applies to the dense streaming "
-                "layout; the sparse/mixed paths' gradients are already "
-                "sparse by construction — drop grad_reduce or use the "
-                "dense features layout")
-        raise NotImplementedError(
-            "grad_reduce (compressed data-parallel gradient reduction) is "
-            "not ported to flink_ml_tpu_torch yet (ROADMAP queue A10)")
+    gr = _active_grad_reduce(config)
+    if gr is not None and (mixed or sparse):
+        raise ValueError(
+            "grad_reduce compression applies to the dense streaming "
+            "layout; the sparse/mixed paths' gradients are already "
+            "sparse by construction — drop grad_reduce or use the "
+            "dense features layout")
     stream_ell = mixed and plan_mixed_impl(num_features, 1) == "ell"
     stream_impl = ("ell-stream" if stream_ell
                    else ("xla-stream" if (mixed or sparse)
                          else "dense-stream"))
-    if stream_ell:
+    gr_mesh = None
+    if gr is not None:
+        from ...parallel import grad_reduce as GR
+        from ...parallel.mesh import local_mesh
+
+        # this rank alone: one participant over the config's axes
+        gr_mesh = local_mesh(GR.reduction_axes(gr), device=dev)
+        stream_impl = "dense-stream-reduced"
+        update = _linear_update_reduced(loss_fn, config, gr_mesh, gr)
+    elif stream_ell:
         update = _streamed_ell_update(loss_fn, config, plain)
     elif mixed:
         mixed_update = _mixed_update(loss_fn, config)
@@ -1042,6 +1252,8 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
         return to_host_batch(item[1])
 
     params = _zero_params(num_features, dev)
+    if gr is not None and GR.needs_state(gr):
+        params[GR_STATE_KEY] = GR.init_state(gr, dict(params), gr_mesh)
     loss_log: list = []
     prev_loss = float("inf")
     start_epoch = 0
@@ -1056,8 +1268,7 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
             # restored[0] is the save-slot key, the global step; the
             # epoch rides under "train_epoch"
             global_step, saved, meta = restored
-            params = {k: torch.as_tensor(np.asarray(v, np.float32)).to(dev)
-                      for k, v in saved["params"].items()}
+            params = _params_to_device(saved["params"], dev)
             start_epoch = int(meta["train_epoch"])
             skip_steps = int(meta["step_in_epoch"])
             resume_n_batches = int(meta["n_batches"])
@@ -1067,11 +1278,17 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
             prev_loss = float(meta["prev_loss"])
             loss_log = list(meta["loss_log"])
             if meta.get("converged"):
-                # the checkpointed run had already hit the tol stop
+                # the checkpointed run had already hit the tol stop; it
+                # drained at its return, so a converged resume does too
+                gr_state = params.pop(GR_STATE_KEY, None)
+                if gr_state is not None and GR.wants_overlap(gr):
+                    params = _apply_drain(params, gr_state, config,
+                                          gr_mesh)
                 return _linear_state(params, stream_impl), loss_log
 
     def _publish_params(params):
-        return {k: v.cpu().numpy() for k, v in params.items()}
+        # reducer state is the trainer's own, never published
+        return {k: params[k].cpu().numpy() for k in ("w", "b")}
 
     def _save(epoch, step_in_epoch, loss_sum, n_batches, converged=False):
         manager.save(global_step, {
@@ -1334,4 +1551,7 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
                 stream_info["decoded_cache_total_batches"] = \
                     replay_cache.n_batches
         stream_info["epoch_seconds"] = [round(s, 4) for s in epoch_secs]
+    gr_state = params.pop(GR_STATE_KEY, None)
+    if gr_state is not None and GR.wants_overlap(gr):
+        params = _apply_drain(params, gr_state, config, gr_mesh)
     return _linear_state(params, stream_impl), loss_log

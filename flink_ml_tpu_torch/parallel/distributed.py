@@ -18,8 +18,9 @@ Usage, one process a rank:
 
 Without a group everything runs in this one process.  A group of one rank
 runs the collectives too (the NCCL branch on one card).  A port of the JAX
-package's ``parallel/distributed.py``; ``global_mesh`` and ``hybrid_mesh``
-are the mesh module's :func:`~.mesh.device_mesh` here.
+package's ``parallel/distributed.py``: ``global_mesh`` is the mesh
+module's :func:`~.mesh.device_mesh`; :func:`hybrid_mesh` lays the ranks
+out in groups of ``ici_axes`` under a leading ``dcn`` axis.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ __all__ = [
     "global_to_host_local",
     "barrier",
     "broadcast_from_host0",
+    "hybrid_mesh",
     "process_allgather",
 ]
 
@@ -108,6 +110,9 @@ def initialize(coordinator_address: Optional[str] = None,
 def shutdown() -> None:
     """Leave the process group (a no-op without one)."""
     global _RANK_DEVICE
+    from .mesh import _forget_groups
+
+    _forget_groups()
     if dist.is_initialized():
         dist.destroy_process_group()
     _RANK_DEVICE = None
@@ -200,6 +205,28 @@ def broadcast_from_host0(tree: Any, *, mesh=None) -> Any:
         return t.cpu().numpy()
 
     return _tree_map(bcast, tree)
+
+
+def hybrid_mesh(ici_axes, dcn_axis: str = "dcn", device=None):
+    """Two-tier mesh: the leading ``dcn_axis`` spans groups of ranks (the
+    JAX package's hosts), the remaining ``ici_axes`` span the ranks of
+    each group (its chips).  Over ``world`` ranks the mesh is ``{dcn_axis:
+    world // prod(ici), **ici_axes}``: rank ``r`` of ``{"dcn": a, "data":
+    b}`` sits at ``(r // b, r % b)``.  Shard the batch over ``dcn_axis`` x
+    ``"data"``; ``grad_reduce``'s hierarchical configs reduce over the
+    fast axis first and compress the ``dcn`` hop.  Every rank must call it
+    (the first call creates the axes' groups)."""
+    from .mesh import device_mesh
+
+    ici_sizes = [int(n) for n in ici_axes.values()]
+    ici = int(np.prod(ici_sizes))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if ici < 1 or world % ici:
+        raise ValueError(
+            f"hybrid mesh of {dict(ici_axes)} per {dcn_axis} group needs a "
+            f"multiple of {ici} ranks, have {world}")
+    return device_mesh({dcn_axis: world // ici, **dict(ici_axes)},
+                       device=device)
 
 
 def host_local_to_global(tree: Any, mesh=None, axis: str = "data") -> Any:

@@ -1,21 +1,28 @@
-"""The data axis over a process group: the port's mesh.
+"""The axes of a process group: the port's mesh.
 
 The JAX package lays its devices out as a ``jax.sharding.Mesh`` and lets
 XLA insert the collectives.  The port runs one process (a rank of a
 ``torch.distributed`` process group) for each device, so its mesh is a
-small description of the group: one ``"data"`` axis whose size is the
-world size, the group, and the device this rank drives.  A batch sharded
-over the axis is each rank's own rows on its own device; a replicated
-value is the same tensor on every rank.
+small description of the group: named axes whose sizes multiply to the
+world size, a process group for each axis and each tuple of axes, and the
+device this rank drives.  Rank ``r`` sits where ``np.arange(world)
+.reshape(sizes)`` puts ``r``: on ``{"dcn": a, "data": b}`` at ``(r // b,
+r % b)``, so a ``"data"`` group is a row of ``b`` ranks and a ``"dcn"``
+group a column of ``a``.  A batch sharded over the axes is each rank's
+own rows on its own device; a replicated value is the same tensor on
+every rank.
 
-A port of the JAX package's ``parallel/mesh.py``, its data-parallel part
-(the ``"model"`` axis and ``use_mesh`` are not ported).  Without an
+A port of the JAX package's ``parallel/mesh.py`` (the ``"model"`` axis of
+tensor parallelism and ``use_mesh`` are not ported).  Without an
 initialized group the default mesh is one rank of one process.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+import itertools
+import math
+
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +39,7 @@ __all__ = [
     "fetch_replicated",
     "local_axis_multiple",
     "local_device_count",
+    "local_mesh",
     "mesh_process_count",
     "put_sharded",
     "replicate",
@@ -40,26 +48,97 @@ __all__ = [
 
 DATA_AXIS = "data"
 
+AxisSpec = Union[str, Tuple[str, ...]]
+
+
+def _axis_tuple(axis: AxisSpec) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
 
 class Mesh:
-    """One ``"data"`` axis over ``group`` (None: this process alone).
-    ``shape`` maps the axis to its size (the group's world size), as a
-    JAX mesh's ``shape`` does; ``device`` is the device this rank drives
-    (None where none was named)."""
+    """Named axes over ``group`` (None: this process alone).  ``shape``
+    maps each axis to its size, as a JAX mesh's ``shape`` does (an int is
+    one ``"data"`` axis of that size); ``device`` is the device this rank
+    drives (None where none was named).  ``subgroups`` holds, for each
+    proper tuple of axes (in mesh order), the group of the ranks that
+    share this rank's coordinates on the other axes; the tuple of every
+    axis is ``group``."""
 
-    def __init__(self, group, size: int, device: Optional[torch.device]):
+    def __init__(self, group, shape, device: Optional[torch.device], *,
+                 subgroups: Optional[Dict[Tuple[str, ...], Any]] = None):
+        if isinstance(shape, int):
+            shape = {DATA_AXIS: shape}
         self.group = group
-        self.shape = {DATA_AXIS: int(size)}
-        self.axis_names = (DATA_AXIS,)
+        self.shape = {str(a): int(n) for a, n in shape.items()}
+        self.axis_names = tuple(self.shape)
         self.device = device
+        self._subgroups = dict(subgroups or {})
 
     @property
     def size(self) -> int:
-        return self.shape[DATA_AXIS]
+        """Ranks on the mesh: the product of its axis sizes."""
+        return math.prod(self.shape.values())
+
+    def _axes(self, axis: AxisSpec) -> Tuple[str, ...]:
+        names = _axis_tuple(axis)
+        missing = [a for a in names if a not in self.shape]
+        if missing or not names:
+            raise ValueError(f"Mesh has no axis {axis!r}; axes: "
+                             f"{list(self.shape)}")
+        return tuple(a for a in self.axis_names if a in names)
+
+    def axis_group(self, axis: AxisSpec):
+        """The process group of ``axis`` (a name or a tuple of names):
+        the ranks that share this rank's coordinates on every other axis.
+        A tuple of every axis is the mesh's whole group; None without a
+        group."""
+        axes = self._axes(axis)
+        if self.group is None or len(axes) == len(self.axis_names):
+            return self.group
+        return self._subgroups[axes]
+
+    def axis_size(self, axis: AxisSpec) -> int:
+        return math.prod(self.shape[a] for a in self._axes(axis))
+
+    def lane(self) -> "Mesh":
+        """A second mesh of the same ranks and axes over groups of its
+        own, made once (every rank must call it at the same point: group
+        creation is collective).  Collectives on a lane never interleave
+        with the mesh's own, so a thread may run them while the caller's
+        thread runs collectives on the mesh (``grad_reduce``'s overlap)."""
+        if self.group is None:
+            return self
+        key = tuple(self.shape.items())
+        if key not in _LANES:
+            _LANES[key] = _new_groups(self.shape)
+        world, subgroups = _LANES[key]
+        return Mesh(world, self.shape, self.device, subgroups=subgroups)
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, group={'yes' if self.group else 'no'}, "
                 f"device={self.device})")
+
+
+def _new_groups(shape: Mapping[str, int]):
+    """A new group of the world and, for each proper tuple of axes, the
+    group of this rank's coordinates on the others.  Every rank creates
+    every group, in the same order (``dist.new_group`` is collective)."""
+    names = tuple(shape)
+    ranks = np.arange(math.prod(shape.values())).reshape(
+        tuple(shape.values()))
+    me = dist.get_rank()
+    world = dist.new_group(list(range(ranks.size)))
+    subgroups = {}
+    for size in range(1, len(names)):
+        for axes in itertools.combinations(range(len(names)), size):
+            rest = [i for i in range(len(names)) if i not in axes]
+            moved = np.moveaxis(ranks, rest, list(range(len(rest))))
+            for at in np.ndindex(*[ranks.shape[i] for i in rest]):
+                members = sorted(int(r) for r in moved[at].reshape(-1))
+                group = dist.new_group(members)
+                if me in members:
+                    subgroups[tuple(names[i] for i in axes)] = group
+    return world, subgroups
 
 
 def local_device_count() -> int:
@@ -69,30 +148,61 @@ def local_device_count() -> int:
     return 1
 
 
+# The groups of meshes of several axes, and of lanes, by axis sizes: made
+# once for the life of the process group (distributed.shutdown clears
+# both).
+_MESHES: Dict[Tuple[Tuple[str, int], ...], dict] = {}
+_LANES: Dict[Tuple[Tuple[str, int], ...], tuple] = {}
+
+
+def _forget_groups() -> None:
+    _MESHES.clear()
+    _LANES.clear()
+
+
 def device_mesh(axis_sizes: Optional[Mapping[str, int]] = None,
                 device=None) -> Mesh:
-    """The mesh of the initialized process group (one data axis of the
-    world size; ``-1`` stands for it), or of this process alone.
-    ``device`` is the rank's device (default: the one
-    :func:`~flink_ml_tpu_torch.parallel.distributed.initialize` was given).
-    Any other axis raises: one rank drives one device, so the port's
-    meshes are data-parallel only."""
+    """The mesh of the initialized process group over ``axis_sizes``
+    (default one ``"data"`` axis of the world size; one ``-1`` stands
+    for what the others leave), or of this process alone.  The sizes must
+    multiply to the world size.  ``device`` is the rank's device (default:
+    the one :func:`~flink_ml_tpu_torch.parallel.distributed.initialize`
+    was given).  With more than one axis every rank must call it (the
+    first call for a shape creates its groups, a collective)."""
     from . import distributed
 
     group = dist.group.WORLD if dist.is_initialized() else None
-    size = dist.get_world_size() if group is not None else 1
-    axis_sizes = dict(axis_sizes or {DATA_AXIS: size})
-    if set(axis_sizes) != {DATA_AXIS}:
-        raise ValueError(f"the port's meshes have one {DATA_AXIS!r} axis, "
-                         f"got {sorted(axis_sizes)}")
-    want = axis_sizes[DATA_AXIS]
-    if want not in (-1, size):
-        raise ValueError(f"Mesh {{'data': {want}}} needs {want} ranks, "
-                         f"the process group has {size}")
+    world = dist.get_world_size() if group is not None else 1
+    axis_sizes = dict(axis_sizes or {DATA_AXIS: world})
+    sizes = list(axis_sizes.values())
+    if sizes.count(-1) > 1:
+        raise ValueError("At most one mesh axis may be -1")
+    if -1 in sizes:
+        known = math.prod(n for n in sizes if n != -1)
+        if world % known:
+            raise ValueError(f"Cannot infer -1 axis: {world} ranks not "
+                             f"divisible by {known}")
+        axis_sizes[list(axis_sizes)[sizes.index(-1)]] = world // known
+    if math.prod(axis_sizes.values()) != world:
+        raise ValueError(f"Mesh {axis_sizes} needs "
+                         f"{math.prod(axis_sizes.values())} ranks, the "
+                         f"process group has {world}")
     if device is None:
         device = distributed.rank_device()
-    return Mesh(group, size, None if device is None
-                else torch.device(device))
+    device = None if device is None else torch.device(device)
+    if group is None or len(axis_sizes) == 1:
+        return Mesh(group, axis_sizes, device)
+    key = tuple(axis_sizes.items())
+    if key not in _MESHES:
+        _MESHES[key] = _new_groups(axis_sizes)[1]
+    return Mesh(group, axis_sizes, device, subgroups=_MESHES[key])
+
+
+def local_mesh(axes=(DATA_AXIS,), device=None) -> Mesh:
+    """A mesh of this rank alone with ``axes``, each of size one: what a
+    fit that runs on one rank's rows reduces over (no collective runs)."""
+    return Mesh(None, {a: 1 for a in _axis_tuple(axes)},
+                None if device is None else torch.device(device))
 
 
 def default_mesh() -> Mesh:

@@ -18,7 +18,8 @@ __all__ = ["params_from_jax", "model_from_jax_state", "softmax_model_from_jax",
            "widedeep_params_from_jax", "adam_state_from_jax",
            "ivf_index_from_jax", "feature_model_from_jax",
            "model_data_from_jax", "onevsrest_model_from_jax",
-           "algo_operator_from_jax", "pipeline_model_from_jax"]
+           "algo_operator_from_jax", "pipeline_model_from_jax",
+           "grad_reduce_state_from_jax"]
 
 
 def params_from_jax(params: Dict[str, np.ndarray], device="cuda"
@@ -292,3 +293,47 @@ def pipeline_model_from_jax(pm, device="cuda"):
     too)."""
     resolve_device(device)
     return _stage_from_jax(pm, device)
+
+
+def grad_reduce_state_from_jax(state, rank: int, config=None,
+                               device="cuda") -> dict:
+    """Rank ``rank``'s reducer state in the port from the JAX package's
+    participant-stacked one (numpy leaves with a leading participant dim,
+    ``grad_reduce.init_state(config, like, n)`` or a reduce's output), so
+    both packages resume the same schedule: ``ef``, ``pending``, ``ema``,
+    ``rung`` (int32), ``tick`` (int32), ``fill`` and ``union`` are row
+    ``rank``.  The JAX package's threefry ``key`` has no counterpart (the
+    port draws from its own counter-based stream): it becomes the port's
+    stream for ``(config.seed, rank)`` at the step ``tick`` gives (0
+    without a tick), so ``config`` is needed when ``key`` is there."""
+    from ..parallel.grad_reduce import state_participants
+
+    dev = resolve_device(device)
+    n = state_participants(state)
+    if n is not None and not 0 <= rank < n:
+        raise ValueError(f"rank {rank} outside the state's {n} "
+                         "participants")
+
+    def row(a):
+        if isinstance(a, dict):
+            return {k: row(v) for k, v in a.items()}
+        arr = np.asarray(a)[rank]
+        dtype = np.int32 if arr.dtype.kind in "iu" else np.float32
+        return torch.as_tensor(np.array(arr, dtype), device=dev)
+
+    out = {}
+    for key, value in state.items():
+        if key == "key":
+            if config is None:
+                raise ValueError("a state with a rounding key needs the "
+                                 "GradReduceConfig (its seed)")
+            step = int(np.asarray(state["tick"])[rank]) \
+                if "tick" in state else 0
+            out[key] = torch.tensor([config.seed, rank, step],
+                                    dtype=torch.int64, device=dev)
+        elif key in ("ef", "pending", "ema", "rung", "tick", "fill",
+                     "union"):
+            out[key] = row(value)
+        else:
+            raise ValueError(f"unknown reducer-state leaf {key!r}")
+    return out

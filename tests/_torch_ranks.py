@@ -100,3 +100,112 @@ def fail(rank):
     if rank == 1:
         raise ArithmeticError("rank one fails")
     return rank
+
+
+def _tree(arrays, rank):
+    """Rank ``rank``'s row of each participant-stacked array."""
+    return {k: torch.from_numpy(np.array(v[rank])) for k, v in arrays.items()}
+
+
+def _fed_draws(draws, rank):
+    """A ``draw_uniform`` that returns the JAX package's draws for this
+    rank: ``draws[(step, unit)]`` stacked over ranks."""
+    def draw(key, unit, shape, device):
+        u = draws[(int(key[2]), int(unit))][rank]
+        return torch.from_numpy(np.array(u)).reshape(shape)
+
+    return draw
+
+
+def reduce_job(rank, job):
+    """``job["steps"]`` reduces of this rank's rows of the stacked
+    gradients under ``job["config"]`` on a mesh of ``job["shape"]``, from
+    a fresh state or the JAX package's stacked ``job["state"]``; each
+    step's reduced tree and state, and the rounds staged."""
+    from flink_ml_tpu_torch.parallel import grad_reduce as GR
+    from flink_ml_tpu_torch.utils.convert import grad_reduce_state_from_jax
+
+    cfg = job["config"]
+    mesh = M.device_mesh(job["shape"])
+    grads = job["grads"]
+    if job.get("state") is not None:
+        state = grad_reduce_state_from_jax(job["state"], rank, cfg,
+                                           device="cpu")
+    else:
+        state = GR.init_state(cfg, _tree(grads[0], rank), mesh)
+    draw = GR.draw_uniform
+    if job.get("draws") is not None:
+        GR.draw_uniform = _fed_draws(job["draws"], rank)
+    reader = GR.RungReader(cfg) if cfg.adaptive else None
+    steps = []
+    t0 = time.perf_counter()
+    try:
+        for g in grads:
+            rungs = reader.rungs(state) if reader is not None else None
+            if job.get("pipelined"):
+                red, state = GR.pipelined_reduce(_tree(g, rank), state, cfg,
+                                                 mesh=mesh, rungs=rungs)
+            else:
+                red, state = GR.reduce_gradients(_tree(g, rank), state, cfg,
+                                                 mesh=mesh, rungs=rungs)
+            steps.append({"red": red, "state": dict(state)})
+    finally:
+        GR.draw_uniform = draw
+    out = {"steps": steps, "seconds": time.perf_counter() - t0,
+           "rung_reads": None if reader is None else reader.reads}
+    if job.get("pipelined"):
+        out["drain"] = GR.drain_pending(state, cfg, mesh=mesh)
+    return out
+
+
+def fit_job(rank, job):
+    """``sgd_fit_params`` of this rank's rows on a mesh of
+    ``job["shape"]`` (the default mesh without one)."""
+    from flink_ml_tpu_torch.models.common import sgd as S
+
+    mesh = M.device_mesh(job["shape"]) if job.get("shape") else None
+    t0 = time.perf_counter()
+    params, log = S.sgd_fit_params(
+        job["loss"], job["X"][rank], job["y"][rank], None,
+        S.SGDConfig(**job["config"]), "cpu", mesh=mesh,
+        init_params=job["init"])
+    return {"params": params, "log": log,
+            "seconds": time.perf_counter() - t0}
+
+
+def grad_reduce_work(rank, world, jobs):
+    """Each job of ``tests/test_torch_grad_reduce.py`` on this rank."""
+    run = {"reduce": reduce_job, "fit": fit_job, "mesh": mesh_job}
+    return {name: run[job["kind"]](rank, job) for name, job in jobs.items()}
+
+
+def mesh_job(rank, job):
+    """The dcn x data mesh's facts and its axis collectives on this
+    rank's value, and ``hybrid_mesh``'s layout (or its error)."""
+    from flink_ml_tpu_torch.parallel import collectives as C2
+
+    x = torch.from_numpy(rank_value(rank, (3,)))
+    out = {}
+    try:
+        mesh = D.hybrid_mesh({"data": 2})
+    except ValueError as exc:
+        return {"error": str(exc)}
+    out["shape"] = mesh.shape
+    out["size"] = mesh.size
+    for name, axis in (("data", "data"), ("dcn", "dcn"),
+                       ("both", ("dcn", "data"))):
+        out[name] = {
+            "index": C2.axis_index(axis, mesh=mesh),
+            "size": C2.axis_size(axis, mesh=mesh),
+            "psum": C2.psum(x, axis, mesh=mesh),
+            "ordered": C2.psum_ordered(x, axis, mesh=mesh),
+            "gather": C2.all_gather(x, axis, mesh=mesh, tiled=False),
+            "swap": (C2.ppermute(x, axis, [(0, 1), (1, 0)], mesh=mesh)
+                     if C2.axis_size(axis, mesh=mesh) > 1 else None),
+        }
+    lane = mesh.lane()
+    out["lane_psum"] = C2.psum(x, ("dcn", "data"), mesh=lane)
+    out["same_lane"] = mesh.lane().group is lane.group
+    out["cached"] = M.device_mesh(mesh.shape).axis_group(
+        "data") is mesh.axis_group("data")
+    return out

@@ -2031,3 +2031,72 @@ def test_grouped_fit_on_the_card(cuda_device, world, backend, dtype):
         np.testing.assert_array_equal(out[0][0], want)
     else:
         np.testing.assert_allclose(out[0][0], want, rtol=5e-3, atol=5e-3)
+
+
+def _rank_reduces(rank, world, device):
+    """Three reduces of each compressed mode on this rank's rows of a
+    seeded gradient, on ``device``: the reduced trees, the residuals and
+    the pairwise rounds staged through the host."""
+    from flink_ml_tpu_torch.parallel import collectives as TC
+    from flink_ml_tpu_torch.parallel import grad_reduce as TGR
+    from flink_ml_tpu_torch.parallel.grad_reduce import GradReduceConfig
+
+    rng = np.random.default_rng(31)
+    w = rng.normal(size=(3, world, 4099)).astype(np.float32)
+    w[:, :, :16] = 0.0                       # ties at zero
+    b = rng.normal(size=(3, world)).astype(np.float32)
+    configs = {
+        "topk_rd": GradReduceConfig(mode="topk", density=0.1),
+        "topk_allgather": GradReduceConfig(mode="topk", density=0.1,
+                                           wire_protocol="allgather"),
+        "topk_buckets": GradReduceConfig(mode="topk", density=0.1,
+                                         bucket_count=3),
+        "int8": GradReduceConfig(mode="int8", block_size=64, seed=3),
+        "int8_fixed": GradReduceConfig(mode="int8", block_size=64, seed=3,
+                                       int8_accum="fixed"),
+    }
+    TC.reset_staged()
+    out = {}
+    for name, cfg in configs.items():
+        def grads(s):
+            return {"w": torch.from_numpy(w[s, rank]).to(device),
+                    "b": torch.tensor(b[s, rank], device=device)}
+
+        state = TGR.init_state(cfg, grads(0))
+        reds = []
+        for s in range(3):
+            red, state = TGR.reduce_gradients(grads(s), state, cfg)
+            reds.append(red)
+        out[name] = {"red": reds, "ef": state.get("ef")}
+    out["staged"] = dict(TC.STAGED)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_grad_reduce_on_the_card_equals_cpu(cuda_device, world, backend):
+    """The top-k (rd, all-gather, buckets) and int8 (dequant, fixed)
+    reduces in a one-rank NCCL group and on two gloo ranks sharing the
+    card give the bits of the same code on CPU ranks: a stable sort's
+    selection, fixed-order scatter-adds, integer rounding draws.  gloo
+    ranks stage their pairwise rounds through the host; NCCL stages
+    nothing."""
+    from flink_ml_tpu_torch.utils.backend import run_on_ranks
+
+    card = run_on_ranks(_rank_reduces, world, world, "cuda:0",
+                        device="cuda:0", backend=backend, timeout_s=240)
+    cpu = run_on_ranks(_rank_reduces, world, world, "cpu", timeout_s=240)
+    for got, want in zip(card, cpu):
+        for name in want:
+            if name == "staged":
+                continue
+            for s in range(3):
+                for k in ("w", "b"):
+                    np.testing.assert_array_equal(
+                        got[name]["red"][s][k], want[name]["red"][s][k],
+                        err_msg=f"{name} step {s} {k}")
+            if want[name]["ef"] is not None:
+                np.testing.assert_array_equal(got[name]["ef"]["w"],
+                                              want[name]["ef"]["w"],
+                                              err_msg=name)
+        assert (got["staged"]["rounds"] > 0) == (backend == "gloo")

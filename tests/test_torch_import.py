@@ -262,6 +262,49 @@ def test_kmeans_paths_need_cuda_unless_cpu_asked(monkeypatch):
     assert len(np.unique(agg.transform(table)[0]["prediction"])) == 3
 
 
+GRAD_REDUCE_MODULES = (
+    "flink_ml_tpu_torch.parallel.grad_reduce",
+    "flink_ml_tpu_torch.parallel.collectives",
+    "flink_ml_tpu_torch.parallel.mesh",
+    "flink_ml_tpu_torch.parallel.distributed",
+    "flink_ml_tpu_torch.models.common.sgd",
+    "flink_ml_tpu_torch.utils.convert")
+
+
+@pytest.mark.parametrize("first", [GRAD_REDUCE_MODULES[0],
+                                   "flink_ml_tpu_torch.models.common.sgd"])
+def test_grad_reduce_modules_import_with_jax_blocked(first):
+    """The gradient reducer, the compressed collectives, the multi-axis
+    mesh, the data-parallel SGD trainers and the state converter load
+    with JAX and the JAX package blocked, whichever is imported first."""
+    code = (_BLOCK_JAX + "import " + first + ", "
+            + ", ".join(GRAD_REDUCE_MODULES)
+            + "\nprint('\\n'.join(sorted(sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         timeout=300).stdout.split()
+    assert set(GRAD_REDUCE_MODULES) <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_dense_fits_need_cuda_unless_cpu_asked(monkeypatch):
+    """The data-parallel dense fit with a compressed ``grad_reduce`` runs
+    on the card unless the CPU is asked for (outside a group, the
+    default device is the card)."""
+    from flink_ml_tpu_torch.parallel.grad_reduce import GradReduceConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.random.default_rng(6).normal(size=(64, 4)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float64)
+    cfg = TS.SGDConfig(max_epochs=2, grad_reduce=GradReduceConfig(
+        mode="topk", density=0.5))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        TS.sgd_fit(LOSSES["logistic"], X, y, None, cfg)
+    state, log = TS.sgd_fit(LOSSES["logistic"], X, y, None, cfg, "cpu")
+    assert state.coefficients.shape == (4,) and len(log) == 2
+
+
 def test_online_autoscale_and_failover_modules_import_without_jax():
     """The continuous-learning modules, the autoscale control plane and
     serving failover load neither JAX nor the JAX package."""

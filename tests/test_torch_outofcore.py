@@ -557,10 +557,16 @@ def test_stream_options_probe_publish_and_unported_branches(tmp_path):
     with pytest.raises(NotImplementedError, match="A10"):
         _port_fit(cache, 256, num_features=8, config=cfg,
                   membership=object())
-    gr = type("GR", (), {"mode": "topk"})()
-    with pytest.raises(NotImplementedError, match="A10"):
-        _port_fit(cache, 256, num_features=8,
-                  config=TS.SGDConfig(grad_reduce=gr))
+    # a dense grad_reduce trains (tests/test_torch_grad_reduce.py holds
+    # it to the JAX package); the hashed layouts refuse one
+    from flink_ml_tpu_torch.parallel.grad_reduce import GradReduceConfig
+
+    gr = GradReduceConfig(mode="topk")
+    st_gr, log_gr = _port_fit(cache, 256, num_features=8,
+                              config=TS.SGDConfig(max_epochs=2,
+                                                  grad_reduce=gr))
+    assert st_gr.planned_impl == "dense-stream-reduced"
+    assert len(log_gr) == 2 and np.all(np.isfinite(log_gr))
     with pytest.raises(ValueError, match="sparse by construction"):
         _port_fit(cache, 256, num_features=D_MIXED, dense_key="d",
                   indices_key="c", config=TS.SGDConfig(grad_reduce=gr))
