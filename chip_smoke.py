@@ -419,28 +419,30 @@ line is printed):
     versions on the card; the loss falls every epoch; ``transform`` =
     numpy f64 scoring.
 
-44. The bf16 stats kernel (``compute_dtype=torch.bfloat16``; at the
-    headline ``kernels/csrc/kmeans_bf16.cu``, both products on ``wgmma``
-    for every tie policy, the route asserted through ``bf16_plan``)
-    against its plain twin at the headline (phase 6's points and
-    centroids), each tie policy, and on phase 6's 1000 zero pad rows
-    against duplicated centroids: one Lloyd step within the KMeans gate;
-    the assignments that differ (half the counts' moves) at most the rows
-    whose plain f32 top-two gap lies below the bf16 bound (``BF16_GAP``);
-    no negative count after the pad correction, duplicated centroids
-    counted alike; two launches the same bits.  ``kmeans.cu``'s bf16 modes
-    (the route of shapes outside the plan) held against the twin at the
-    headline under the same gates.  Times of the three policies beside
-    ``kmeans.cu``'s bf16 modes, the f32 kernel, the plain twin, bf16
-    ``addmm`` of the score product and the bare bf16 ``mm``, and the
-    bound (the f32 points read once; the bf16 FLOPs of the score product,
-    and of a dense one-hot sums product beside it); the bf16 BSP fit's
-    iterations/s beside phase 7's f32 rate.  Appended: ``kmeans.cu``'s
-    bf16 modes at the shapes outside ``bf16_plan`` (2^20 x 64 at k 1024,
-    2^20 x 128 at k 256) against the plain twin (assignments that differ
-    at most the rows near a bf16 flip; one Lloyd step within the KMeans
-    gate on every cluster no flip touched), each policy timed beside bf16
-    ``addmm``, the bare bf16 ``mm`` and the bound.
+44. The bf16 stats kernel (``compute_dtype=torch.bfloat16``:
+    ``kernels/csrc/kmeans_bf16.cu`` at every shape, both products on
+    ``wgmma`` for every tie policy; its fused pass at the headline, the
+    plan asserted through ``bf16_plan``) against its plain twin at the
+    headline (phase 6's points and centroids), each tie policy, and on
+    phase 6's 1000 zero pad rows against duplicated centroids: one Lloyd
+    step within the KMeans gate; the assignments that differ (half the
+    counts' moves) at most the rows whose plain f32 top-two gap lies below
+    the bf16 bound (``BF16_GAP``), and at most twice the rows whose best
+    two bf16-operand scores lie within ``NEAR_TIE`` (1 + |best|) (the
+    kernel and the twin round alike and differ only in the order of the
+    score product's f32 sums); no negative count after the pad correction, duplicated centroids
+    counted alike; two launches the same bits.  Times of the three
+    policies beside the f32 kernel, the plain twin, bf16 ``addmm`` of the
+    score product and the bare bf16 ``mm``, and the bound (the f32 points
+    read once; the bf16 FLOPs of the score product, and of a dense
+    one-hot sums product beside it); the bf16 BSP fit's iterations/s
+    beside phase 7's f32 rate.  Appended: the kernel's two-pass plan at
+    ``KB_WIDE`` (2^20 x 64 at k 1024, 2^20 x 128 at k 256, 2^18 x 64 at
+    k 4096: 4 scoring launches) against the plain twin (assignments that
+    differ under both of those bounds; one Lloyd step within the KMeans
+    gate on every cluster whose counts agree; two launches the same
+    bits), each policy timed beside bf16 ``addmm``, the bare bf16 ``mm``
+    and the bound.
 45. k-means++ on the card (``select_kmeanspp_centroids``, seed 0, k 256 on
     the headline table) with CUDA's sync debug mode at "error" around the
     k-1 rounds (no host sync), timed, k distinct centers, one seed one
@@ -6821,14 +6823,13 @@ DP_TIMEOUT_S = 300
 
 
 def bf16_phase(torch, dev, card, timer):
-    """Phase 44: the bf16 stats kernel (``kmeans_bf16.cu`` at the
-    headline) against its plain twin, every tie policy, on the headline
-    problem and on phase 6's zero-padded rows against duplicated
-    centroids, and ``kmeans.cu``'s bf16 modes on the headline problem;
-    times beside ``kmeans.cu``'s bf16 modes, the f32 kernel, bf16 ``addmm``
-    of the score product, the bare bf16 ``mm`` and the bound; the bf16
-    fit's iterations/s.  Returns the kernel line's entry (launches filled
-    by phase 46) and the headline table (host and card)."""
+    """Phase 44: the bf16 stats kernel (``kmeans_bf16.cu``'s fused pass at
+    the headline) against its plain twin, every tie policy, on the
+    headline problem and on phase 6's zero-padded rows against duplicated
+    centroids; times beside the f32 kernel, bf16 ``addmm`` of the score
+    product, the bare bf16 ``mm`` and the bound; the bf16 fit's
+    iterations/s.  Returns the kernel line's entry (launches filled by
+    phases 45 and 46) and the headline table (host and card)."""
     from flink_ml_tpu_torch.models.clustering import kmeans as KM
     from flink_ml_tpu_torch.ops import kmeans as K
 
@@ -6849,8 +6850,9 @@ def bf16_phase(torch, dev, card, timer):
     dup[0] *= 0.05
     dup[k - 1] = dup[0]
     dup[k - 2] = dup[1]
-    if K.bf16_plan(k, d) is None:
-        fail(f"the headline (k {k}, d {d}) is outside kmeans_bf16.cu's plan")
+    if K.bf16_plan(k, d).route != "fused":
+        fail(f"the headline (k {k}, d {d}): bf16_plan {K.bf16_plan(k, d)} "
+             f"is not the fused pass")
     worst = 0.0
     for label, p, m, c in (("headline", pts, ones, cents),
                            ("zero pad rows, duplicated centroids", pad_pts,
@@ -6862,28 +6864,19 @@ def bf16_phase(torch, dev, card, timer):
                  + 1e-5 * (1 + two[:, 0].abs()))
         exempt = int(((two[:, 1] - two[:, 0]) <= bound).sum())
         del sc
-        sb = K._scores(real, c, bf)
+        # the copies of a duplicated centroid tie exactly in both
+        sb = K._scores(real, torch.unique(c, dim=0), bf)
         bnear = int(near_tie_rows(torch, sb).sum())
         del sb
         n_pad = n - int(m.sum())
-        for tie, route in (("first", "kmeans_bf16.cu"),
-                           ("fast", "kmeans_bf16.cu"),
-                           ("split", "kmeans_bf16.cu"),
-                           ("first", "kmeans.cu"), ("fast", "kmeans.cu"),
-                           ("split", "kmeans.cu")):
-            if route == "kmeans.cu" and m is pad_mask:
-                continue
-            if route == "kmeans.cu":
-                s, cnt = K._launch("kmeans_update_stats_bf16",
-                                   tie + "_bf16", p, c)
-            else:
-                s, cnt = K.kmeans_update_stats(p, c, tie_policy=tie,
-                                               compute_dtype=bf)
-                s2, cnt2 = K.kmeans_update_stats(p, c, tie_policy=tie,
-                                                 compute_dtype=bf)
-                if not (torch.equal(s, s2) and torch.equal(cnt, cnt2)):
-                    fail(f"kmeans_bf16.cu ({label}, tie {tie}): two "
-                         "launches differ")
+        for tie in ("first", "fast", "split"):
+            s, cnt = K.kmeans_update_stats(p, c, tie_policy=tie,
+                                           compute_dtype=bf)
+            s2, cnt2 = K.kmeans_update_stats(p, c, tie_policy=tie,
+                                             compute_dtype=bf)
+            if not (torch.equal(s, s2) and torch.equal(cnt, cnt2)):
+                fail(f"kmeans_bf16.cu ({label}, tie {tie}): two launches "
+                     "differ")
             ws, wc = K.kmeans_update_stats_plain(p, c, tie_policy=tie,
                                                  compute_dtype=bf)
             cnt = K.pad_correction(cnt, c, n_pad, tie_policy=tie)
@@ -6891,24 +6884,15 @@ def bf16_phase(torch, dev, card, timer):
             moved = float((cnt - wc).abs().sum()) / 2
             ds = float((s - ws).abs().max())
             args = (c, 0, (p, m))
-            if route == "kmeans.cu":
-                # the Lloyd step from the old modes' stats, as the body
-                # forms it (the body itself routes to kmeans_bf16.cu here)
-                step = torch.where(cnt[:, None] > 0, s / torch.where(
-                    cnt > 0, cnt, 1.0)[:, None], c)
-                want = torch.where(wc[:, None] > 0, ws / torch.where(
-                    wc > 0, wc, 1.0)[:, None], c)
-            else:
-                step = KM.kmeans_epoch_step_kernel(
-                    k, tie_policy=tie, compute_dtype=bf)(*args).feedback
-                want = KM.kmeans_epoch_step_kernel(
-                    k, tie_policy=tie, compute_dtype=bf, plain=True)(
-                        *args).feedback
+            step = KM.kmeans_epoch_step_kernel(
+                k, tie_policy=tie, compute_dtype=bf)(*args).feedback
+            want = KM.kmeans_epoch_step_kernel(
+                k, tie_policy=tie, compute_dtype=bf, plain=True)(
+                    *args).feedback
             e = float((step - want).abs().max())
-            if route == "kmeans_bf16.cu":
-                worst = max(worst, e)
-            log(f"check kmeans_update_stats_bf16 via {route} ({label}, "
-                f"tie {tie}): "
+            worst = max(worst, e)
+            log(f"check kmeans_update_stats_bf16 via kmeans_bf16.cu "
+                f"({label}, tie {tie}): "
                 f"sums max |kernel - plain| {ds:.3e}, counts "
                 f"{float((cnt - wc).abs().max()):.1f}, assignments that "
                 f"differ (count moves) {moved:.1f}; rows whose plain f32 "
@@ -6916,10 +6900,11 @@ def bf16_phase(torch, dev, card, timer):
                 f"{NEAR_TIE:g}(1+|best|) of a bf16 tie {bnear}; one Lloyd "
                 f"step max |kernel - plain| {e:.3e} (allclose rtol "
                 f"{KM_GATE['rtol']}, atol {KM_GATE['atol']})")
-            if moved > exempt:
+            if moved > exempt or moved > 2 * bnear:
                 fail(f"kmeans_update_stats_bf16 ({label}, tie {tie}): "
                      f"{moved} assignments differ, more than the {exempt} "
-                     f"rows near a bf16 flip")
+                     f"rows near a bf16 flip or twice the {bnear} near a "
+                     f"tie of the bf16 scores")
             if not torch.allclose(step, want, **KM_GATE):
                 fail(f"kmeans_update_stats_bf16 ({label}, tie {tie}) "
                      "disagrees with its plain twin")
@@ -6940,11 +6925,6 @@ def bf16_phase(torch, dev, card, timer):
                                                     tie_policy="first"))
     ms = {tie: timer.ms(lambda: K.kmeans_update_stats(
         pts, cents, tie_policy=tie, compute_dtype=bf))
-        for tie in ("first", "fast", "split")}
-    # kmeans.cu's bf16 modes at the headline: the design before
-    # kmeans_bf16.cu, in the same run
-    before_ms = {tie: timer.ms(lambda: K._launch(
-        "kmeans_update_stats_bf16", tie + "_bf16", pts, cents))
         for tie in ("first", "fast", "split")}
     plain_ms = timer.ms(lambda: K.kmeans_update_stats_plain(
         pts, cents, tie_policy="first", compute_dtype=bf), reps=10)
@@ -6967,9 +6947,7 @@ def bf16_phase(torch, dev, card, timer):
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     log(f"time kmeans_update_stats_bf16: kmeans_bf16.cu first "
         f"{ms['first']:.4f} ms, fast {ms['fast']:.4f}, split "
-        f"{ms['split']:.4f}; kmeans.cu's bf16 modes first "
-        f"{before_ms['first']:.4f} ms, fast {before_ms['fast']:.4f}, split "
-        f"{before_ms['split']:.4f}; the f32 kernel (first) {f32_ms:.4f} ms; "
+        f"{ms['split']:.4f}; the f32 kernel (first) {f32_ms:.4f} ms; "
         f"plain twin {plain_ms:.4f} ms; bf16 addmm (score product only) "
         f"{lib_ms:.4f} ms, bare bf16 mm {mm_ms:.4f} ms; bound "
         f"{bound_ms:.4f} ms ({bound_by}: the f32 points read once "
@@ -6986,32 +6964,36 @@ def bf16_phase(torch, dev, card, timer):
         "replaces": KM_REPLACES["kmeans_update_stats"],
         "launches": 0, "max_abs_err": worst, "ms": ms["first"],
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": lib_ms, "policy_ms": ms, "kmeans_cu_ms": before_ms,
-        "mm_ms": mm_ms, "iters_per_s": rate,
+        "library_ms": lib_ms, "policy_ms": ms, "mm_ms": mm_ms,
+        "iters_per_s": rate,
     }
     return entry, host, pts
 
 
-KB_WIDE = ((1 << 20, 64, 1024), (1 << 20, 128, 256))   # (n, d, k)
+# (n, d, k): an IVF coarse quantizer's widths (k 1024 at d 64, d 128 at
+# k 256) and a k past what one scoring launch holds (4 launches)
+KB_WIDE = ((1 << 20, 64, 1024), (1 << 20, 128, 256), (1 << 18, 64, 4096))
 
 
 def bf16_wide_phase(torch, dev, card, timer):
-    """Phase 44, appended: the bf16 stats at the shapes outside
-    ``bf16_plan`` (k 1024 at d 64, d 128 at k 256: ``kmeans.cu``'s bf16
-    modes) against the plain twin under phase 44's gates (assignments
-    that differ at most the rows whose f32 top-two gap lies below the
-    bf16 bound; one Lloyd step within the KMeans gate on every cluster no
-    such flip touched), each policy timed beside
-    bf16 ``addmm`` of the score product, the bare bf16 ``mm`` and the
-    bound.  Returns the times by shape."""
+    """Phase 44, appended: the bf16 stats at the shapes of the kernel's
+    two-pass plan against the plain twin under phase 44's gates
+    (assignments that differ at most the rows whose f32 top-two gap lies
+    below the bf16 bound, and at most twice the rows within NEAR_TIE of a
+    tie of the bf16-operand scores; one Lloyd step within the KMeans gate
+    on every cluster whose counts agree; two launches the same bits),
+    each policy timed beside bf16 ``addmm`` of the score product, the bare
+    bf16 ``mm`` and the bound.  Returns the times by shape."""
     from flink_ml_tpu_torch.ops import kmeans as K
 
     bf = torch.bfloat16
     t_phase = time.perf_counter()
     out = {}
     for n, d, k in KB_WIDE:
-        if K.bf16_plan(k, d) is not None:
-            fail(f"(k {k}, d {d}) is inside kmeans_bf16.cu's plan")
+        plan = K.bf16_plan(k, d)
+        if plan.route != "two_pass":
+            fail(f"(k {k}, d {d}): bf16_plan {plan} is not the two-pass "
+                 f"plan")
         host = np.random.default_rng(0).normal(size=(n, d)).astype(
             np.float32)
         pts = torch.from_numpy(host).to(dev)
@@ -7026,10 +7008,21 @@ def bf16_wide_phase(torch, dev, card, timer):
                  + 1e-5 * (1 + two[:, 0].abs()))
         exempt = int(((two[:, 1] - two[:, 0]) <= bound).sum())
         del two, bound
+        sb = K._scores(pts, cents, bf)
+        bnear = int(near_tie_rows(torch, sb).sum())
+        del sb
         rec = {}
         for tie in ("first", "fast", "split"):
+            before = K.LAUNCHES["kmeans_update_stats_bf16"]
             s_, cnt = K.kmeans_update_stats(pts, cents, tie_policy=tie,
                                             compute_dtype=bf)
+            s2, cnt2 = K.kmeans_update_stats(pts, cents, tie_policy=tie,
+                                             compute_dtype=bf)
+            if K.LAUNCHES["kmeans_update_stats_bf16"] - before != 2:
+                fail(f"(k {k}, d {d}, tie {tie}): two calls, launches "
+                     f"{dict(K.LAUNCHES)}")
+            same = bool(torch.equal(s_, s2) and torch.equal(cnt, cnt2))
+            del s2, cnt2
             ws, wc = K.kmeans_update_stats_plain(pts, cents, tie_policy=tie,
                                                  compute_dtype=bf)
             moved = float((cnt - wc).abs().sum()) / 2
@@ -7037,32 +7030,35 @@ def bf16_wide_phase(torch, dev, card, timer):
                 cnt > 0, cnt, 1.0)[:, None], cents)
             want = torch.where(wc[:, None] > 0, ws / torch.where(
                 wc > 0, wc, 1.0)[:, None], cents)
-            # a cluster holds ~n / k rows (~1000 at k 1024): one exempt
+            # a cluster holds ~n / k rows (~1000 at k 1024): one near-tie
             # flip moves its centroid by ~|p - c| / 1000, ~1e-2, past the
             # KMeans gate; so the step gate holds the clusters whose
-            # counts agree, and the flips are held by the exemption
+            # counts agree, and the flips (a handful) are held by the
+            # near-tie count
             agree = cnt == wc
             e = float((step - want)[agree].abs().max())
             e_flip = float((step - want)[~agree].abs().max()) \
                 if bool((~agree).any()) else 0.0
-            ok = moved <= exempt and bool(torch.allclose(
-                step[agree], want[agree], **KM_GATE))
+            ok = same and moved <= exempt and moved <= 2 * bnear and bool(
+                torch.allclose(step[agree], want[agree], **KM_GATE))
             del s_, cnt, ws, wc
             ms = timer.ms(lambda: K.kmeans_update_stats(
                 pts, cents, tie_policy=tie, compute_dtype=bf))
             rec[tie] = {"ms": ms, "max_abs_err": e, "moved": moved,
                         "flipped_cluster_err": e_flip}
-            log(f"check kmeans_update_stats_bf16 via kmeans.cu (n {n}, d "
-                f"{d}, k {k}, tie {tie}): {ms:.4f} ms; one Lloyd step max "
+            log(f"check kmeans_update_stats_bf16 via kmeans_bf16.cu (n {n}, "
+                f"d {d}, k {k}, plan {tuple(plan)}, tie {tie}): {ms:.4f} "
+                f"ms; two launches the same bits: {same}; one Lloyd step max "
                 f"|kernel - plain| {e:.3e} over the "
                 f"{int(agree.sum())} clusters whose counts agree (allclose "
                 f"rtol {KM_GATE['rtol']}, atol {KM_GATE['atol']}), "
                 f"{e_flip:.3e} over the {int((~agree).sum())} a flip "
                 f"touched; assignments that differ {moved:.1f} (rows near "
-                f"a bf16 flip {exempt}) [{card}]")
+                f"a bf16 flip {exempt}, within {NEAR_TIE:g}(1+|best|) of a "
+                f"tie of the bf16 scores {bnear}) [{card}]")
             if not ok:
-                fail(f"kmeans.cu's bf16 {tie} at (d {d}, k {k}) disagrees "
-                     "with its plain twin")
+                fail(f"kmeans_bf16.cu's {tie} at (d {d}, k {k}) disagrees "
+                     "with its plain twin, or two launches differ")
         c2b = (cents * cents).sum(1)[None, :].to(bf)
         pb, cb = pts.to(bf), cents.to(bf)
         lib_ms = timer.ms(lambda: torch.addmm(c2b, pb, cb.T, alpha=-2.0))
@@ -7077,8 +7073,8 @@ def bf16_wide_phase(torch, dev, card, timer):
                    bound_by=bound_by)
         slower = [t for t in ("first", "fast", "split")
                   if rec[t]["ms"] > lib_ms]
-        log(f"time kmeans_update_stats_bf16 via kmeans.cu at (n {n}, d {d}, "
-            f"k {k}): first {rec['first']['ms']:.4f} ms, fast "
+        log(f"time kmeans_update_stats_bf16 via kmeans_bf16.cu at (n {n}, d "
+            f"{d}, k {k}): first {rec['first']['ms']:.4f} ms, fast "
             f"{rec['fast']['ms']:.4f}, split {rec['split']['ms']:.4f}; bf16 "
             f"addmm (score product only) {lib_ms:.4f} ms, bare bf16 mm "
             f"{mm_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: bytes "
@@ -7214,6 +7210,38 @@ def kpp_phase(torch, dev, card, host, pts):
     if pre_launches["kmeans_update_stats"] != KP_ITERS2 or \
             sum(pre_launches.values()) != KP_ITERS2:
         fail(f"k = {KP_K2} fit launches {pre_launches}")
+    # the same fit in bf16: kmeans_bf16.cu's two-pass plan every round
+    est_bf = (KMeans(device=DEVICE, compute_dtype=torch.bfloat16)
+              .set_k(KP_K2).set_max_iter(KP_ITERS2))
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre_bf = est_bf.fit(Table({"features": host}))
+    torch.cuda.synchronize()
+    bf_s = time.perf_counter() - t0
+    bf_launches = dict(K.LAUNCHES)
+    obj = {"float32": inertia(torch.from_numpy(cents).to(dev)),
+           "bfloat16": inertia(torch.from_numpy(
+               pre_bf.get_model_data()[0]["centroids"][0]).to(dev))}
+    RATES["kmeans_k1024_iters_per_s"] = KP_ITERS2 / pre_s
+    RATES["kmeans_bf16_k1024_iters_per_s"] = KP_ITERS2 / bf_s
+    rel = abs(obj["bfloat16"] - obj["float32"]) / obj["float32"]
+    log(f"KMeans k {KP_K2}, {KP_ITERS2} rounds on {n} x {d}: f32 "
+        f"{RATES['kmeans_k1024_iters_per_s']:.3f} iterations/s, bf16 "
+        f"(plan {tuple(K.bf16_plan(KP_K2, d))}, launches {bf_launches}) "
+        f"{RATES['kmeans_bf16_k1024_iters_per_s']:.3f} iterations/s "
+        f"(host->device copy and init included in both); objective (mean "
+        f"squared distance to the nearest centroid) f32 "
+        f"{obj['float32']:.6f}, bf16 {obj['bfloat16']:.6f}, relative "
+        f"difference {rel:.3e} (gate 1e-3) [{card}]")
+    if est_bf.planned_impl != "kernel" or \
+            bf_launches["kmeans_update_stats_bf16"] != KP_ITERS2 or \
+            sum(bf_launches.values()) != KP_ITERS2:
+        fail(f"bf16 k = {KP_K2} fit: plan {est_bf.planned_impl}, launches "
+             f"{bf_launches}")
+    if not rel <= 1e-3:
+        fail(f"bf16 k = {KP_K2} fit's objective is {rel:.3e} (relative) "
+             f"from the f32 fit's")
     t0 = time.perf_counter()
     (out,) = (AgglomerativeClustering().set_num_clusters(KP_CLUSTERS)
               .set_linkage("ward").transform(Table({"features": cents})))
@@ -7232,6 +7260,7 @@ def kpp_phase(torch, dev, card, host, pts):
         f"{time.perf_counter() - t_phase:.2f} s [{card}]")
     if not np.array_equal(labels, want):
         fail("AgglomerativeClustering disagrees with the float64 re-run")
+    return bf_launches["kmeans_update_stats_bf16"]
 
 
 def dp_rank(rank, world, rounds, n, d, k):
@@ -8271,14 +8300,16 @@ def main():
 
     # phases 44-46: the bf16 stats kernel, k-means++ with agglomerative,
     # the data-parallel fit; the bf16 variant's line sits beside the f32
-    # stats kernel's, its launches those of phase 46's fits, and both
-    # carry phase 46's launches by group under "parallel"
+    # stats kernel's, its launches those of phase 45's bf16 k 1024 fit and
+    # phase 46's fits, and both carry phase 46's launches by group under
+    # "parallel"
     bf16_entry, km_host, km_pts = bf16_phase(torch, dev, card, timer)
     bf16_entry["wide_shapes"] = bf16_wide_phase(torch, dev, card, timer)
-    kpp_phase(torch, dev, card, km_host, km_pts)
+    k1024 = kpp_phase(torch, dev, card, km_host, km_pts)
     par = parallel_phase(torch, dev, card, km_host, km_pts)
-    bf16_entry["launches"] = sum(par["bfloat16"].values())
+    bf16_entry["launches"] = sum(par["bfloat16"].values()) + k1024
     bf16_entry["parallel"] = {"launches": par["bfloat16"]}
+    bf16_entry["k1024_fit"] = {"launches": k1024}
     b4 = next(i for i, e in enumerate(kernels)
               if e["name"] == "kmeans_update_stats")
     kernels[b4]["parallel"] = {"launches": par["float32"]}

@@ -3,21 +3,13 @@
 // points and centroids, the assignment and the keyed (sums, counts) reduce
 // in one pass over the points.
 //
-// One kernel template, eight modes, each replacing a Pallas kernel of
+// One kernel template, five modes, each replacing a Pallas kernel of
 // flink_ml_tpu/ops/kmeans_pallas.py:
 //
 // - kFirst / kFast / kSplit: kmeans_update_stats (_stats_kernel).  Scores
 //   -2*dot(p, c) + |c|^2; a point goes to the first minimal index (first),
 //   to every index equal to the row minimum (fast), or 1/#ties to each
 //   (split).  Out: sums (k, d), counts (k,).
-// - kFirstBf / kFastBf / kSplitBf: the same with compute_dtype=bfloat16
-//   (_stats_kernel(tie_policy, jnp.bfloat16)).  The points and centroids
-//   are rounded to bf16 (to nearest even) for the score product, whose
-//   sums are f32; |c|^2 stays f32 from the un-rounded centroids.  The
-//   sums product takes the bf16 point and the bf16 share: sums += bf16(w)
-//   * bf16(p) (a split share of 1/3 adds 0.333984375 p), while counts add
-//   the f32 share w.  A product of two bf16 values is exact in f32, so
-//   only the order of the f32 sums differs from the JAX kernel's.
 // - kAssign: kmeans_assign_reduce (_assign_kernel).  The first-index
 //   argmin of the same scores, plus sums and counts of every row.
 // - kWorkset: kmeans_workset_update (_workset_kernel).  Root distances
@@ -32,9 +24,7 @@
 // of the tensor cores; the bytes (points read once, 268 MB) take 0.08 ms.
 // So the kernels are bound by operations, and the design keeps the scores,
 // the one-hot and the partial sums out of device memory.  (The bf16
-// modes' product, 3.4e10 operations at 989 TFLOP/s, takes 0.035 ms, under
-// the bytes' 0.08 ms: they are bound by bytes, and keep the f32 modes'
-// keyed reduce.)
+// variant, compute_dtype=bfloat16, is kmeans_bf16.cu's.)
 //
 // - A block takes tiles of 128 points and walks over tiles b, b + G,
 //   b + 2G, ... (G = blocks that fit on the card at once).  The centroids
@@ -66,15 +56,6 @@
 //   ascending dims (4 points as one 16-byte load from the transposed tile,
 //   the group's 32 centroid values as 8 broadcast 16-byte loads, for 128
 //   FMAs), so the exact-tie path below can recompute a score bit for bit.
-// - The bf16 modes: first scores on the tensor cores (score_tc_bf16):
-//   mma.sync m16n8k16 bf16 x bf16 -> f32, one product a term (a bf16
-//   product needs no split), the points rounded to bf16 pairs as their A
-//   fragments are loaded from the same permuted f32 tile, the centroids
-//   staged as bf16 pairs in fragment order; the C fragment is the TF32
-//   product's, so fold_scores takes its sums unchanged.  fast and split
-//   keep the CUDA cores (score_fma on bf16-rounded operands, the staged
-//   centroids rounded once), so the exact-tie path rescores bit for bit
-//   with the same rounded operands (dot_of_bf16).
 // - The Pallas grid carried sums and counts from one sequential step to
 //   the next.  Hopper blocks run in no order, so each block keeps a
 //   private (k, d) partial and (k,) count, in shared memory where they fit
@@ -94,7 +75,6 @@
 // Each launcher returns cudaGetLastError() so the caller sees a refused
 // launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -114,19 +94,7 @@ constexpr size_t kSmemLimit = 232448;  // 227 KB, Hopper's per-block opt-in
 constexpr int kPointArrays = 5;  // per-point arrays of a tile in shared
                                  // memory (assign, ties, best, weight, |p|^2)
 
-enum Mode {
-  kFirst = 0, kFast = 1, kSplit = 2, kAssign = 3, kWorkset = 4,
-  kFirstBf = 5, kFastBf = 6, kSplitBf = 7
-};
-
-// The bf16 modes behave as their f32 mode (ties, weights, reduce) with
-// bf16-rounded operands in both products.
-__host__ __device__ constexpr bool is_bf16(int mode) {
-  return mode >= kFirstBf;
-}
-__host__ __device__ constexpr int base_mode(int mode) {
-  return mode >= kFirstBf ? mode - kFirstBf : mode;
-}
+enum Mode { kFirst = 0, kFast = 1, kSplit = 2, kAssign = 3, kWorkset = 4 };
 
 struct Plan {
   int cent_res;  // all centroids resident in shared memory
@@ -224,43 +192,8 @@ __device__ __forceinline__ float dot_of(const float* p, const float* c,
   return s;
 }
 
-// x rounded to bf16 (to nearest even), as an f32.
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Two floats as one bf16 pair, lo in the low half (the lower k index of
-// an mma fragment register).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// dot_of over the bf16-rounded operands (the bf16 fast and split modes'
-// scoring loop); each product is exact in f32.
-__device__ __forceinline__ float dot_of_bf16(const float* p, const float* c,
-                                             int d) {
-  float s = 0.0f;
-  for (int j = 0; j < d; ++j) s = fmaf(bf16r(p[j]), bf16r(c[j]), s);
-  return s;
-}
-
-// c += a * b on the tensor cores: one m16n8k16 bf16 product, f32 sums.
-// a: (A[g][2t], A[g][2t+1]), (A[g+8][2t], +1), (A[g][2t+8], +9),
-// (A[g+8][2t+8], +9); b: (B[2t][g], B[2t+1][g]), (B[2t+8][g], B[2t+9][g]);
-// c as in mma_tf32 (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// dst[(g * dch + j) * 32 + u] = centroid (c0 + 32 g + u), dim (j0 + j)
-// (rounded to bf16 for the bf16 modes); zero past k.
-template <bool kBf>
+// dst[(g * dch + j) * 32 + u] = centroid (c0 + 32 g + u), dim (j0 + j);
+// zero past k.
 __device__ void stage(float* dst, const float* __restrict__ cent, int k,
                       int d, int c0, int ngroups, int j0, int dch) {
   const int total = ngroups * dch * kGroup;
@@ -271,7 +204,7 @@ __device__ void stage(float* dst, const float* __restrict__ cent, int k,
     const int j = gj - g * dch;
     const int c = c0 + g * kGroup + u;
     const float v = c < k ? cent[static_cast<size_t>(c) * d + j0 + j] : 0.0f;
-    dst[idx] = kBf ? bf16r(v) : v;
+    dst[idx] = v;
   }
 }
 
@@ -294,32 +227,6 @@ __device__ void stage_frag(float* dst, const float* __restrict__ cent, int k,
     const int j = st * 8 + (ln & 3) + 4 * (e & 1);
     dst[idx] = c < k && j < dch ? cent[static_cast<size_t>(c) * d + j0 + j]
                                 : 0.0f;
-  }
-}
-
-// The centroids as bf16 pairs in the order the m16n8k16 B fragments read
-// them: dst[((g * nst + s) * 32 + lane) * 8 + e] = the pair of centroid
-// (c0 + 32 g + 8 (e/2) + lane/4) at dims (j0 + 16 s + 2 (lane%4) + 8 (e%2))
-// and the next, for the nst = ceil(dch/16) 16-dim steps of the slab; zero
-// past k and past the slab.  A lane's 8 pairs of a step (b0, b1 of 4
-// n-tiles) are two 16-byte loads.
-__device__ void stage_frag_bf16(uint32_t* dst, const float* __restrict__ cent,
-                                int k, int d, int c0, int ngroups, int j0,
-                                int dch) {
-  const int nst = (dch + 15) / 16;
-  const int total = ngroups * nst * 256;
-  for (int idx = threadIdx.x; idx < total; idx += kThreads) {
-    const int e = idx & 7;
-    const int ln = (idx >> 3) & 31;
-    const int gs = idx >> 8;
-    const int g = gs / nst;
-    const int st = gs - g * nst;
-    const int c = c0 + g * kGroup + (e >> 1) * 8 + (ln >> 2);
-    const int j = st * 16 + 2 * (ln & 3) + 8 * (e & 1);
-    const float* row = cent + static_cast<size_t>(c) * d + j0;
-    const float lo = c < k && j < dch ? row[j] : 0.0f;
-    const float hi = c < k && j + 1 < dch ? row[j + 1] : 0.0f;
-    dst[idx] = pack_bf16(lo, hi);
   }
 }
 
@@ -380,17 +287,14 @@ __device__ __forceinline__ float4 load_quad(const float* tile_s,
 
 // acc[j] += w * p[j * pstep] over the row (the point's dims lie pstep
 // apart: 1 in device memory, kTileStride in the transposed tile), the
-// warp's lanes on alternate dims; lane 0 adds w to the count.  The bf16
-// modes add bf16(w) * bf16(p[j]) (exact in f32) and count the f32 w.
+// warp's lanes on alternate dims; lane 0 adds w to the count.
 // Warp-uniform call.
-template <bool kBf>
 __device__ __forceinline__ void warp_add_row(float* acc, float* cnt,
                                              const float* p, int pstep,
                                              int d, float w, int lane) {
-  const float ws = kBf ? bf16r(w) : w;
   for (int j = lane; j < d; j += 32) {
     const float v = p[static_cast<size_t>(j) * pstep];
-    acc[j] += ws * (kBf ? bf16r(v) : v);
+    acc[j] += w * v;
   }
   if (lane == 0) *cnt += w;
 }
@@ -437,13 +341,11 @@ __device__ __forceinline__ void merge(float& best, int& idx, float& x,
   }
 }
 
-// The modes that score on the tensor cores; fast and split (f32 and
-// bf16) keep the CUDA cores, whose scores the exact-tie path can
-// recompute.
+// The modes that score on the tensor cores; fast and split keep the CUDA
+// cores, whose scores the exact-tie path can recompute.
 template <int MODE>
 __device__ __forceinline__ constexpr bool kTensorCores() {
-  return MODE == kFirst || MODE == kAssign || MODE == kWorkset ||
-         MODE == kFirstBf;
+  return MODE == kFirst || MODE == kAssign || MODE == kWorkset;
 }
 
 // Scores on the CUDA cores (the fast and split modes): a lane keeps 4
@@ -492,18 +394,14 @@ __device__ __forceinline__ void score_fma(
         slab = cent_s + static_cast<size_t>(g) * d * kGroup;
       } else {
         __syncthreads();
-        stage<is_bf16(MODE)>(cent_s, cent, k, d, sg * kWarps * kGroup,
-                             kWarps, j0, len);
+        stage(cent_s, cent, k, d, sg * kWarps * kGroup, kWarps, j0, len);
         __syncthreads();
         slab = cent_s + static_cast<size_t>(warp) * len * kGroup;
       }
       if (has) {
 #pragma unroll 2
         for (int j = 0; j < len; ++j) {
-          float4 pv = load_quad(tile_s, prow, j0 + j, lane);
-          if (is_bf16(MODE))
-            pv = make_float4(bf16r(pv.x), bf16r(pv.y), bf16r(pv.z),
-                             bf16r(pv.w));
+          const float4 pv = load_quad(tile_s, prow, j0 + j, lane);
           const float4* s4 =
               reinterpret_cast<const float4*>(slab + j * kGroup);
 #pragma unroll
@@ -859,129 +757,6 @@ __device__ __forceinline__ void score_tc(
   }
 }
 
-// Scores on the tensor cores in bf16 (the kFirstBf mode): score_tc's walk
-// with one m16n8k16 bf16 product a term.  Per 16-dim step a lane loads its
-// B fragments (two 16-byte loads of the fragment-ordered bf16 pairs), then
-// per kMtGroup m-tiles rounds its A fragments to bf16 pairs from four
-// 16-byte loads of the permuted f32 tile (dims 2 tig, 2 tig + 1, 2 tig + 8
-// and 2 tig + 9 of the step; each load holds rows gid and gid + 8 of two
-// m-tiles) and runs the 4 n-tiles' products of each.  The sums land in
-// score_tc's C layout, and fold_scores turns them into candidates.
-template <int MODE>
-__device__ __forceinline__ void score_tc_bf16(
-    const float* tile_s, const float* __restrict__ points, size_t row0,
-    int n, int k, int d, const float* __restrict__ cent,
-    const float* __restrict__ c2, float* cent_s, const Plan& plan,
-    float* cand_b, int* cand_i, float* cand_x) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int ngroups = plan.kpad / kGroup;
-  const int nsuper = (ngroups + kWarps - 1) / kWarps;
-  const float inf = __int_as_float(0x7f800000);
-  const uint32_t* cent_u = reinterpret_cast<const uint32_t*>(cent_s);
-  float* my_b = cand_b + warp * kTile;
-  int* my_i = cand_i + warp * kTile;
-  float* my_x = cand_x + warp * kTile;
-  for (int p = lane; p < kTile; p += 32) {
-    my_b[p] = inf;
-    my_i[p] = 0x7fffffff;
-    my_x[p] = 0.0f;
-  }
-  __syncwarp();
-  const int nst_res = (d + 15) / 16;  // steps of a resident group
-  for (int sg = 0; sg < nsuper; ++sg) {
-    const int g = sg * kWarps + warp;
-    const bool has = g < ngroups;  // warp-uniform
-    float acc[8][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 8; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
-    for (int j0 = 0; j0 < d; j0 += plan.dch) {
-      const int len = min(plan.dch, d - j0);
-      const int jend = j0 + len;
-      const int nst = (len + 15) / 16;
-      const uint32_t* slab;
-      if (plan.cent_res) {
-        slab = cent_u + static_cast<size_t>(g) * nst_res * 256;
-      } else {
-        __syncthreads();
-        stage_frag_bf16(reinterpret_cast<uint32_t*>(cent_s), cent, k, d,
-                        sg * kWarps * kGroup, kWarps, j0, len);
-        __syncthreads();
-        slab = cent_u + static_cast<size_t>(warp) * nst * 256;
-      }
-      if (has) {
-        for (int st = 0; st < nst; ++st) {
-          const uint4* bp =
-              reinterpret_cast<const uint4*>(slab + (st * 32 + lane) * 8);
-          const uint4 b01 = bp[0];
-          const uint4 b23 = bp[1];
-          const uint32_t bv[8] = {b01.x, b01.y, b01.z, b01.w,
-                                  b23.x, b23.y, b23.z, b23.w};
-          const int ja = j0 + st * 16 + 2 * tig;
-          const int dq[4] = {ja, ja + 1, ja + 8, ja + 9};
-#pragma unroll
-          for (int m0 = 0; m0 < 8; m0 += kMtGroup) {
-            uint32_t a[kMtGroup][4];
-#pragma unroll
-            for (int m = 0; m < kMtGroup; m += 2) {
-              // m-tiles m0 + m and m0 + m + 1 at the four dims: rows gid,
-              // gid + 8 of the first, then of the second
-              float4 v[4];
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                v[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-                if (dq[q] >= jend) continue;
-                if (tile_s != nullptr) {
-                  v[q] = *reinterpret_cast<const float4*>(
-                      tile_s + static_cast<size_t>(dq[q]) * kTileStride +
-                      gid * 16 + 2 * (m0 + m));
-                } else {
-                  const size_t last = static_cast<size_t>(n) - 1;
-                  const int r = (m0 + m) * 16 + gid;
-                  v[q] = make_float4(
-                      __ldg(points + min(row0 + r, last) * d + dq[q]),
-                      __ldg(points + min(row0 + r + 8, last) * d + dq[q]),
-                      __ldg(points + min(row0 + r + 16, last) * d + dq[q]),
-                      __ldg(points + min(row0 + r + 24, last) * d + dq[q]));
-                }
-              }
-              a[m][0] = pack_bf16(v[0].x, v[1].x);
-              a[m][1] = pack_bf16(v[0].y, v[1].y);
-              a[m][2] = pack_bf16(v[2].x, v[3].x);
-              a[m][3] = pack_bf16(v[2].y, v[3].y);
-              a[m + 1][0] = pack_bf16(v[0].z, v[1].z);
-              a[m + 1][1] = pack_bf16(v[0].w, v[1].w);
-              a[m + 1][2] = pack_bf16(v[2].z, v[3].z);
-              a[m + 1][3] = pack_bf16(v[2].w, v[3].w);
-            }
-#pragma unroll
-            for (int m = 0; m < kMtGroup; ++m)
-#pragma unroll
-              for (int nt = 0; nt < 4; ++nt)
-                mma_bf16(acc[m0 + m][nt], a[m], bv[2 * nt], bv[2 * nt + 1]);
-          }
-        }
-      }
-    }
-    if (!has) continue;
-    float cc[8];
-    bool ok[8];
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int c = g * kGroup + (q >> 1) * 8 + 2 * tig + (q & 1);
-      ok[q] = c < k;
-      cc[q] = ok[q] ? __ldg(c2 + c) : 0.0f;
-    }
-    fold_scores<MODE>(acc, cc, ok, g, gid, tig, my_b, my_i, my_x);
-  }
-}
-
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 kmeans_kernel(const float* __restrict__ points,
@@ -1023,13 +798,10 @@ kmeans_kernel(const float* __restrict__ points,
     acc[i] = 0.0f;
   for (int i = tid; i < k; i += kThreads) cnt[i] = 0.0f;
   if (plan.cent_res) {
-    if constexpr (MODE == kFirstBf)
-      stage_frag_bf16(reinterpret_cast<uint32_t*>(cent_s), cent, k, d, 0,
-                      plan.kpad / kGroup, 0, d);
-    else if constexpr (kTensorCores<MODE>())
+    if constexpr (kTensorCores<MODE>())
       stage_frag(cent_s, cent, k, d, 0, plan.kpad / kGroup, 0, d);
     else
-      stage<is_bf16(MODE)>(cent_s, cent, k, d, 0, plan.kpad / kGroup, 0, d);
+      stage(cent_s, cent, k, d, 0, plan.kpad / kGroup, 0, d);
   }
   __syncthreads();
 
@@ -1071,10 +843,7 @@ kmeans_kernel(const float* __restrict__ points,
       }
       __syncthreads();
     }
-    if constexpr (MODE == kFirstBf)
-      score_tc_bf16<MODE>(tile_s, points, row0, n, k, d, cent, c2, cent_s,
-                          plan, cand_b, cand_i, cand_x);
-    else if constexpr (kTensorCores<MODE>())
+    if constexpr (kTensorCores<MODE>())
       score_tc<MODE>(tile_s, points, row0, n, k, d, cent, c2, cent_s, s_p2,
                      plan, cand_b, cand_i, cand_x);
     else
@@ -1100,7 +869,7 @@ kmeans_kernel(const float* __restrict__ points,
         dsec_out[row] = xx;
         wt = padm[row];
       }
-      if (base_mode(MODE) == kSplit) wt = 1.0f / xx;
+      if (MODE == kSplit) wt = 1.0f / xx;
       s_asg[tid] = a;
       s_nt[tid] = MODE == kWorkset ? 1.0f : xx;
       s_best[tid] = b;
@@ -1116,9 +885,8 @@ kmeans_kernel(const float* __restrict__ points,
       const bool valid = p < rows;
       const int a = valid ? s_asg[p] : -1;
       const float w = valid ? s_w[p] : 0.0f;
-      const bool tied = (base_mode(MODE) == kFast ||
-                         base_mode(MODE) == kSplit) &&
-                        valid && s_nt[p] > 1.0f;
+      const bool tied = (MODE == kFast || MODE == kSplit) && valid &&
+                        s_nt[p] > 1.0f;
       const bool mine =
           !tied && a >= 0 && a < k && a % kWarps == warp && w != 0.0f;
       unsigned todo = __ballot_sync(kFull, mine || tied);
@@ -1143,21 +911,18 @@ kmeans_kernel(const float* __restrict__ points,
             const int c = c0 + kWarps * lane;
             const float* cr = cent + static_cast<size_t>(c) * d;
             const bool hit =
-                c < k && score_of(is_bf16(MODE) ? dot_of_bf16(pr, cr, d)
-                                                : dot_of(pr, cr, d),
-                                  __ldg(c2 + c)) == bestq;
+                c < k && score_of(dot_of(pr, cr, d), __ldg(c2 + c)) == bestq;
             unsigned hits = __ballot_sync(kFull, hit);
             while (hits) {
               const int c_hit = c0 + kWarps * (__ffs(hits) - 1);
               hits &= hits - 1;
-              warp_add_row<is_bf16(MODE)>(
-                  acc + static_cast<size_t>(c_hit) * stride, cnt + c_hit, pt,
-                  pstep, d, wq, lane);
+              warp_add_row(acc + static_cast<size_t>(c_hit) * stride,
+                           cnt + c_hit, pt, pstep, d, wq, lane);
             }
           }
         } else {
-          warp_add_row<is_bf16(MODE)>(acc + static_cast<size_t>(aq) * stride,
-                                      cnt + aq, pt, pstep, d, wq, lane);
+          warp_add_row(acc + static_cast<size_t>(aq) * stride, cnt + aq, pt,
+                       pstep, d, wq, lane);
         }
       }
     }
@@ -1215,9 +980,6 @@ KernelFn kernel_for(int mode) {
     case kSplit: return kmeans_kernel<kSplit>;
     case kAssign: return kmeans_kernel<kAssign>;
     case kWorkset: return kmeans_kernel<kWorkset>;
-    case kFirstBf: return kmeans_kernel<kFirstBf>;
-    case kFastBf: return kmeans_kernel<kFastBf>;
-    case kSplitBf: return kmeans_kernel<kSplitBf>;
     default: return nullptr;
   }
 }

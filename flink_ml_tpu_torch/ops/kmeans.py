@@ -26,13 +26,15 @@ package's bf16 variant: the points and centroids are rounded to bf16 for
 the score product (f32 sums), ``|c|²`` stays f32 from the un-rounded
 centroids, and the sums product takes bf16 points and bf16 shares (a
 ``split`` share of 1/3 enters the sums as 0.333984375) while ``counts``
-adds the f32 shares.  On the shapes of :func:`bf16_plan` (k <= 256,
-d <= 64: the headline and the data-parallel fit) its kernel is
-``kernels/csrc/kmeans_bf16.cu``: both products on ``wgmma`` for every
-tie policy, the tiles by bulk copy, the ties from the score registers.
-Other shapes take ``kmeans.cu``'s bf16 modes (``first`` on ``mma.sync``,
-``fast``/``split`` on the CUDA cores).  The route follows the shape
-alone; both count under ``LAUNCHES["kmeans_update_stats_bf16"]``.
+adds the f32 shares.  Its kernel is ``kernels/csrc/kmeans_bf16.cu`` at
+every shape, both products on ``wgmma`` for every tie policy, on the plan
+:func:`bf16_plan` returns: at k <= 256, d <= 64 (the headline and the
+data-parallel fit) one fused pass, the tiles by bulk copy and the ties
+from the score registers; past it two passes over bf16 panels of the
+points, a scoring pass that keeps each row's (minimum, first index, tie
+count) and a sums pass per 256-cluster slab and 64-dim panel.  Either
+way the op counts one launch under
+``LAUNCHES["kmeans_update_stats_bf16"]``.
 
 The kernels mask their ragged edge and take any row count.  They take
 zero pad rows too, as the JAX package's maskless contract has it: a zero
@@ -53,6 +55,7 @@ process group with one all-reduce (``parallel/collectives.py``).
 from __future__ import annotations
 
 import ctypes
+from collections import namedtuple
 from typing import Dict, Tuple
 
 import torch
@@ -64,8 +67,8 @@ __all__ = ["kmeans_update_stats", "kmeans_update_stats_plain",
            "kmeans_assign_reduce", "kmeans_assign_reduce_plain",
            "kmeans_workset_update", "kmeans_workset_update_plain",
            "update_stats_sharded", "stats_from_assign", "pad_correction",
-           "bf16_plan", "TIE_POLICIES", "COMPUTE_DTYPES", "LAUNCHES",
-           "reset_launch_counts"]
+           "bf16_plan", "Bf16Plan", "TIE_POLICIES", "COMPUTE_DTYPES",
+           "LAUNCHES", "reset_launch_counts"]
 
 TIE_POLICIES = ("first", "fast", "split")
 #: score-product types of :func:`kmeans_update_stats`
@@ -80,27 +83,64 @@ LAUNCHES: Dict[str, int] = {"kmeans_update_stats": 0,
                             "kmeans_workset_update": 0}
 
 # kernel modes of kmeans.cu (the first three are kmeans_bf16.cu's policies)
-_MODES = {"first": 0, "fast": 1, "split": 2, "assign": 3, "workset": 4,
-          "first_bf16": 5, "fast_bf16": 6, "split_bf16": 7}
-# kmeans_bf16.cu's plan: the bf16 centroids resident in shared memory in
-# products of 128; a consumer lane's (k, d) partial (2 cluster blocks x 32
-# dims) beside a product's 64 scores in the 232 registers it has
+_MODES = {"first": 0, "fast": 1, "split": 2, "assign": 3, "workset": 4}
+# kmeans_bf16.cu's fused pass: the bf16 centroids resident in shared
+# memory in products of 128; a consumer lane's (k, d) partial (2 cluster
+# blocks x 32 dims) beside a product's 64 scores in its 232 registers
 _BF16_MAX_K, _BF16_MAX_D = 256, 64
+# its two-pass plan: 16 KB panels (128 rows x 64 dims of bf16) a scoring
+# block holds; up to 4 panels a row the launch's centroids are held there
+# beside a ring of at least two tiles (and, at d 64 or 128, at least two
+# 16 KB pieces of the f32 rows that the first launch packs), past that
+# every panel streams.  The launcher lays out the plan it is given and
+# refuses one that does not fit.
+_SCORE_PANELS, _HELD_MAX_PANELS, _STREAM_CHUNKS, _SLAB = 13, 4, 16, 256
+_F32_PIECES = 2
+
+#: ``route`` "fused" or "two_pass"; ``panels`` 64-dim panels of a row;
+#: ``held`` whether a scoring launch holds its centroids in shared memory;
+#: ``chunks_per_launch`` 128-centroid chunks a scoring launch takes (the
+#: fused pass: its score products); ``score_launches`` scoring launches
+#: (super-slabs, in chunk order); ``slabs`` 256-cluster slabs and ``jobs``
+#: (slabs x panels) of the sums pass.
+Bf16Plan = namedtuple("Bf16Plan", "route panels held chunks_per_launch "
+                      "score_launches slabs jobs")
 
 
 def bf16_plan(k: int, d: int):
-    """The score products of 128 centroids a tile of ``kmeans_bf16.cu``
-    takes for ``k`` centroids of ``d`` dims (1 for k <= 128, 2 up to 256),
-    or ``None`` where its plan does not hold the shape: then the bf16
-    stats take ``kmeans.cu``'s bf16 modes.  The bounds are the kernel's
-    budget: the bf16 centroids sit in shared memory beside three bf16
-    tiles and the ring of f32 tiles, and a consumer thread keeps its share
-    of the (k, d) partial (2 blocks of 64 clusters x 64 dims over 128
-    threads) in registers beside a product's scores, which d > 64 would
-    spill."""
-    if not (1 <= k <= _BF16_MAX_K and 1 <= d <= _BF16_MAX_D):
+    """The plan of ``kmeans_bf16.cu`` for ``k`` centroids of ``d`` dims
+    (``None`` for k < 1 or d < 1): the wrapper hands its route and chunk
+    count to the launcher.
+
+    k <= 256 and d <= 64: one fused pass (a consumer thread's share of
+    the (k, d) partial, 2 blocks of 64 clusters x 64 dims, fits its
+    registers beside a product's scores; the bf16 centroids fit shared
+    memory), 1 or 2 score products of 128 centroids a tile.
+
+    Past that, two passes over the points packed once into bf16 panels:
+    scoring launches of ``chunks_per_launch`` chunks each carry every
+    row's (minimum, first index, tie count) on, in chunk order; then one
+    sums launch runs a job per (256-cluster slab, 64-dim panel), its
+    partial in registers, rescoring the slab only on tiles with a tied
+    row under ``fast``/``split``.  Up to 4 panels (d <= 256) a scoring
+    block holds its chunks (13 panels less a ring of two tiles, and at
+    d 64 or 128 less two panels' worth of f32 rows: there the first
+    scoring launch packs the points itself), else every (points,
+    centroids) panel pair streams, 16 chunks a launch."""
+    if k < 1 or d < 1:
         return None
-    return 1 if k <= 128 else 2
+    if k <= _BF16_MAX_K and d <= _BF16_MAX_D:
+        return Bf16Plan("fused", 1, True, 1 if k <= 128 else 2, 1, 1, 1)
+    panels = -(-d // 64)
+    kchunks = -(-k // 128)
+    held = panels <= _HELD_MAX_PANELS
+    f32 = _F32_PIECES if d in (64, 128) else 0
+    cmax = ((_SCORE_PANELS - 2 * panels - f32) // panels if held
+            else _STREAM_CHUNKS)
+    launches = -(-kchunks // cmax)
+    slabs = -(-k // _SLAB)
+    return Bf16Plan("two_pass", panels, held, -(-kchunks // launches),
+                    launches, slabs, slabs * panels)
 
 
 def reset_launch_counts() -> None:
@@ -265,11 +305,11 @@ def _kernels_bf16():
 
         lib = load_library("kmeans_bf16")
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.kmeans_bf16_grid.argtypes = [ci, ci, ci, ci,
+        lib.kmeans_bf16_grid.argtypes = [ci, ci, ci, ci, ci, ci,
                                          ctypes.POINTER(ctypes.c_int),
                                          ctypes.POINTER(ctypes.c_int64)]
         lib.kmeans_bf16_launch.argtypes = [ci, vp, vp, vp, vp, vp, ci, ci,
-                                           ci, ci, vp]
+                                           ci, ci, ci, ci, vp]
         lib.kmeans_bf16_grid.restype = ctypes.c_int
         lib.kmeans_bf16_launch.restype = ctypes.c_int
         _LIB_BF16 = lib
@@ -355,17 +395,19 @@ def _launch(name: str, mode: str, points: torch.Tensor,
 
 def _launch_bf16(tie_policy: str, points: torch.Tensor,
                  centroids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``kmeans_bf16.cu`` (a shape :func:`bf16_plan` holds);
-    returns ``(sums, counts)``."""
+    """Launch ``kmeans_bf16.cu`` on the plan of :func:`bf16_plan`; returns
+    ``(sums, counts)``."""
     n, d = points.shape
     k = centroids.shape[0]
     dev = points.device
     lib = _kernels_bf16()
     policy = _MODES[tie_policy]
+    plan = bf16_plan(k, d)
+    route = (0 if plan.route == "fused" else 1, plan.chunks_per_launch)
     with torch.cuda.device(dev):
         grid, size = ctypes.c_int(0), ctypes.c_int64(0)
-        rc = lib.kmeans_bf16_grid(policy, n, k, d, ctypes.byref(grid),
-                                  ctypes.byref(size))
+        rc = lib.kmeans_bf16_grid(policy, n, k, d, *route,
+                                  ctypes.byref(grid), ctypes.byref(size))
         if rc != 0:
             raise RuntimeError(f"kmeans_update_stats_bf16: kernel planning "
                                f"failed: CUDA error {rc}")
@@ -374,7 +416,7 @@ def _launch_bf16(tie_policy: str, points: torch.Tensor,
         counts = torch.empty(k, dtype=torch.float32, device=dev)
         rc = lib.kmeans_bf16_launch(
             policy, _ptr(points), _ptr(centroids), _ptr(scratch), _ptr(sums),
-            _ptr(counts), n, k, d, grid.value,
+            _ptr(counts), n, k, d, *route, grid.value,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kmeans_update_stats_bf16 kernel launch failed: "
@@ -399,10 +441,7 @@ def kmeans_update_stats(points: torch.Tensor, centroids: torch.Tensor, *,
                                          tie_policy=tie_policy,
                                          compute_dtype=compute_dtype)
     if compute_dtype == torch.bfloat16:
-        if bf16_plan(centroids.shape[0], points.shape[1]) is not None:
-            return _launch_bf16(tie_policy, points, centroids)
-        return _launch("kmeans_update_stats_bf16", tie_policy + "_bf16",
-                       points, centroids)
+        return _launch_bf16(tie_policy, points, centroids)
     return _launch("kmeans_update_stats", tie_policy, points, centroids)
 
 

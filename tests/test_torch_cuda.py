@@ -1867,15 +1867,28 @@ def _bf16_scores(pts, cents):
                                        (2050, 300, 600, True),
                                        (2050, 128, 200, True),
                                        (1000, 64, 257, False),
-                                       (700, 65, 64, True)])
+                                       (700, 65, 64, True),
+                                       (4099, 64, 512, False),
+                                       (3000, 64, 2048, True),
+                                       (2050, 128, 520, True),
+                                       (1000, 200, 300, True),
+                                       (700, 320, 257, False),
+                                       (65543, 64, 1024, False),
+                                       (65543, 128, 256, True),
+                                       (65543, 64, 4096, False)])
 def test_kmeans_update_stats_bf16_matches_plain(cuda_device, monkeypatch,
                                                 tie, n, d, k, dup):
     """The bf16 variant against its plain twin (the same roundings) on
-    ragged n, k not a power of two, duplicated centroids, 7 zero pad rows,
-    on both sides of the route (``bf16_plan``: ``kmeans_bf16.cu`` for
-    k <= 256, d <= 64; else ``kmeans.cu``'s bf16 modes, with its
-    staged-centroid and no-tile plans at k 1024 and d 300), each shape
-    asserting the kernel it took.  The two differ only in the order of the
+    ragged n, k not a power of two, duplicated centroids (the copies in
+    different 256-cluster slabs past k 256), 7 zero pad rows, on every
+    plan of ``kmeans_bf16.cu`` (``bf16_plan``, which the wrapper hands to
+    the launcher): the fused pass at k <= 256, d <= 64; two passes with 2,
+    4 and 8 slabs, the first scoring launch packing the points (d 64 and
+    128, ragged n), 2 and 3 scoring launches (k 2048 at d 64, k 520 at
+    d 128, k 300 at d 200), and the streamed scoring at d 300 and 320.  At
+    n 65543 (513 tiles against a persistent grid of one block an SM) every
+    scoring block walks several tiles and the sums jobs many, at the
+    widths ``chip_smoke.py`` times.  The kernel is the only route.  The two differ only in the order of the
     f32 sums of the score product: off rows whose best two bf16 scores lie
     within 1e-5 (1 + |best|) of each other the counts are exact and the
     sums within 1e-4; a near-tie row may move one count.  Two launches
@@ -1885,6 +1898,8 @@ def test_kmeans_update_stats_bf16_matches_plain(cuda_device, monkeypatch,
                                  n_pad=7)
     p = torch.from_numpy(pts).to(cuda_device)
     c = torch.from_numpy(cents).to(cuda_device)
+    plan = TK.bf16_plan(k, d)
+    assert plan.route == ("fused" if k <= 256 and d <= 64 else "two_pass")
     near = int(_near_tie_rows(_bf16_scores(p, torch.unique(c, dim=0)))
                .sum())
     routes = []
@@ -1900,8 +1915,7 @@ def test_kmeans_update_stats_bf16_matches_plain(cuda_device, monkeypatch,
     want_s, want_c = TK.kmeans_update_stats_plain(
         p, c, tie_policy=tie, compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    assert routes == ["kmeans_bf16.cu" if TK.bf16_plan(k, d) else
-                      "kmeans.cu"]
+    assert routes == ["kmeans_bf16.cu"]
     assert TK.LAUNCHES["kmeans_update_stats_bf16"] == 1
     assert TK.LAUNCHES["kmeans_update_stats"] == 0
     again_s, again_c = TK.kmeans_update_stats(p, c, tie_policy=tie,
@@ -1918,6 +1932,105 @@ def test_kmeans_update_stats_bf16_matches_plain(cuda_device, monkeypatch,
         corr = TK.pad_correction(got_c, c, 7, tie_policy=tie)
         assert float(corr.min()) >= 0
         assert corr[0] == corr[k - 1] and corr[1] == corr[k - 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,chunks,k,d", [
+    (0, 1, 256, 64),    # the fused pass: 256 centroids need 2 products
+    (0, 2, 257, 64),    # past its 256
+    (1, 10, 1024, 64),  # 10 held chunks at d 64 leave no room for the ring
+    (1, 0, 1024, 300),  # no chunk a launch
+    (2, 1, 1024, 64)])  # no such route
+def test_kmeans_bf16_launcher_refuses_unfit_plans(cuda_device, route,
+                                                  chunks, k, d):
+    """The launcher lays out the plan the wrapper hands it
+    (``bf16_plan``) and refuses one that does not hold the shape or fit
+    shared memory, before any launch."""
+    import ctypes
+
+    lib = TK._kernels_bf16()
+    grid, size = ctypes.c_int(0), ctypes.c_int64(0)
+    with torch.cuda.device(cuda_device):
+        rc = lib.kmeans_bf16_grid(0, 1000, k, d, route, chunks,
+                                  ctypes.byref(grid), ctypes.byref(size))
+    assert rc != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_kmeans_bf16_unaligned_points(cuda_device, d):
+    """Points whose base is not 16-byte aligned (a view 4 bytes into its
+    storage): the first scoring launch cannot bulk-copy their rows, so a
+    pack kernel packs them; the result equals the aligned call's bits."""
+    n, k = 3001, 300
+    pts, cents = _kmeans_problem(n, d, k, seed=d, duplicated=True, n_pad=7)
+    p = torch.from_numpy(pts).to(cuda_device)
+    c = torch.from_numpy(cents).to(cuda_device)
+    store = torch.empty(n * d + 1, device=cuda_device)
+    q = store[1:].view(n, d)
+    q.copy_(p)
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    for tie in ("first", "fast", "split"):
+        want = TK.kmeans_update_stats(p, c, tie_policy=tie,
+                                      compute_dtype=torch.bfloat16)
+        got = TK.kmeans_update_stats(q, c, tie_policy=tie,
+                                     compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tie", ["first", "fast", "split"])
+@pytest.mark.parametrize("d", [64, 128, 300])
+def test_kmeans_bf16_ties_across_slabs(cuda_device, tie, d):
+    """k 600: centroid 0 (the least norm) copied to index 300 and 599, so
+    a tie spans three 256-cluster slabs (and, at d 300, the streamed
+    scoring), centroid 1 copied to 257.  ``first`` gives every tied row
+    to the lowest index, ``fast`` to each copy, ``split`` a third or a
+    half to each; the 7 zero pad rows tie on the three copies of
+    centroid 0.  Held to the plain twin off near-tie rows: the counts
+    exactly under first and fast; under split, whose thirds are inexact
+    in f32 and added in another order than the twin's, within
+    (m - 1) ulp(count) of a cluster with m shares (each side lies within
+    half that of the exact sum of positive shares), below a third, so a
+    share that moved still shows."""
+    n, k = 3000, 600
+    pts, cents = _kmeans_problem(n, d, k, seed=d, n_pad=7)
+    cents[0] *= 0.05
+    cents[300] = cents[0]
+    cents[599] = cents[0]
+    cents[257] = cents[1]
+    p = torch.from_numpy(pts).to(cuda_device)
+    c = torch.from_numpy(cents).to(cuda_device)
+    near = int(_near_tie_rows(_bf16_scores(p, torch.unique(c, dim=0)))
+               .sum())
+    got_s, got_c = TK.kmeans_update_stats(p, c, tie_policy=tie,
+                                          compute_dtype=torch.bfloat16)
+    want_s, want_c = TK.kmeans_update_stats_plain(
+        p, c, tie_policy=tie, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    tol = torch.zeros_like(want_c)
+    if tie == "split":
+        shares = TK.kmeans_update_stats_plain(
+            p, c, tie_policy="fast", compute_dtype=torch.bfloat16)[1]
+        top = torch.maximum(got_c, want_c)
+        ulp = torch.nextafter(top, torch.full_like(top, float("inf"))) - top
+        tol = (shares - 1).clamp(min=0) * ulp
+        assert float(tol.max()) < 1 / 3
+    excess = ((got_c - want_c).abs() - tol).clamp(min=0)
+    assert float(excess.sum()) <= 4 * near
+    if not near:
+        torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-5)
+        assert bool(((got_c - want_c).abs() <= tol).all())
+    if tie == "first":
+        assert got_c[300] == 0 and got_c[599] == 0 and got_c[257] == 0
+        assert got_c[0] >= 7
+    else:
+        assert got_c[0] == got_c[300] == got_c[599] and got_c[0] > 0
+        assert got_c[1] == got_c[257]
+        torch.testing.assert_close(got_s[300], got_s[0], atol=0, rtol=0)
+    corr = TK.pad_correction(got_c, c, 7, tie_policy=tie)
+    assert float(corr.min()) >= 0
 
 
 @pytest.mark.cuda

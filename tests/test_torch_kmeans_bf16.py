@@ -114,6 +114,62 @@ def test_bf16_stats_match_pallas_interpret(tie, centroids):
     np.testing.assert_allclose(ts, js, **SUMS_TOL)
 
 
+def _wide_problem(d, k, n=N, n_pad=7, seed=0):
+    """Past the fused plan (k > 256 or d > 64): points near k random
+    centers, ``n_pad`` trailing zero rows, the centers as centroids with
+    the least-norm one (centroid 0, scaled by 0.05) copied across the
+    256-cluster boundary (to 257 at k 300, to 300 at k 600), so the zero
+    pad rows and the rows nearest it tie across two slabs."""
+    rng = np.random.default_rng(seed)
+    cents = rng.normal(size=(k, d)).astype(np.float32)
+    cents[0] *= 0.05
+    cents[257 if k < 600 else 300] = cents[0]
+    pts = (cents[rng.integers(k, size=n)]
+           + 0.3 * rng.normal(size=(n, d))).astype(np.float32)
+    pts[n - n_pad:] = 0.0
+    return pts, cents
+
+
+@pytest.mark.parametrize("d,k", [(128, 300), (72, 600)])
+@pytest.mark.parametrize("tie", TIES)
+def test_bf16_wide_stats_match_pallas_interpret(tie, d, k):
+    """The shapes of ``kmeans_bf16.cu``'s two passes (``bf16_plan``
+    route "two_pass"): the plain twin against the JAX kernel in interpret
+    mode, n 512 with 7 zero pad rows and a centroid tied across the
+    256-cluster boundary, under ``test_bf16_stats_match_pallas_interpret``'s
+    checks and tolerances; the tied copies get equal counts and sums
+    under ``fast`` and ``split``, the lower index all under ``first``."""
+    assert TK.bf16_plan(k, d).route == "two_pass"
+    n_pad = 7
+    pts, cents = _wide_problem(d, k, n_pad=n_pad)
+    real = pts[:N - n_pad]
+    exempt = _gap_exempt(real, cents)
+    assert exempt.sum() < 0.05 * len(real)
+    ta = torch.argmin(TK._scores(_t(real), _t(cents), torch.bfloat16),
+                      dim=1).numpy()
+    np.testing.assert_array_equal(ta[~exempt], _jax_assign(real, cents)[
+        ~exempt])
+
+    js, jc = _jax_stats(pts, cents, tie, n_pad)
+    ts, tc = _port_stats(pts, cents, tie, n_pad)
+    assert np.abs(tc - jc).sum() <= 2 * exempt.sum()
+    dup = 257 if k < 600 else 300
+    if tie == "first":
+        assert tc[dup] == 0 and jc[dup] == 0
+    else:
+        assert tc[dup] == tc[0] and jc[dup] == jc[0]
+        np.testing.assert_array_equal(ts[dup], ts[0])
+
+    kept = real[~exempt]
+    n_sub = -(-len(kept) // BLOCK) * BLOCK
+    sub = np.zeros((n_sub, d), np.float32)
+    sub[:len(kept)] = kept
+    js, jc = _jax_stats(sub, cents, tie, n_sub - len(kept))
+    ts, tc = _port_stats(sub, cents, tie, n_sub - len(kept))
+    np.testing.assert_array_equal(tc, jc)
+    np.testing.assert_allclose(ts, js, **SUMS_TOL)
+
+
 @pytest.mark.parametrize("centroids", ["distinct", "duplicated"])
 @pytest.mark.parametrize("tie", TIES)
 def test_bf16_mass_conservation(tie, centroids):

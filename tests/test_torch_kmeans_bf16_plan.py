@@ -1,11 +1,13 @@
-"""The route of the port's bf16 stats op: ``bf16_plan`` (which shapes
-``kernels/csrc/kmeans_bf16.cu`` takes; the rest take ``kmeans.cu``'s bf16
-modes), the CPU path (the plain twin, bit for bit, whatever the route),
-and a problem where the bf16 rounding of the points moves an argmin,
-held against the JAX package's bf16 kernel in interpret mode.
+"""The plan of the port's bf16 stats op: ``bf16_plan`` (the fused pass of
+``kernels/csrc/kmeans_bf16.cu`` at k <= 256 and d <= 64, its two passes
+past that, with their panels, held or streamed scoring, scoring launches,
+slabs and jobs), the CPU path (the plain twin, bit for bit, whatever the
+plan), and a problem where the bf16 rounding of the points moves an
+argmin, held against the JAX package's bf16 kernel in interpret mode.
 
 The card side of the same checks is in ``tests/test_torch_cuda.py``
-(``test_kmeans_update_stats_bf16_matches_plain`` and
+(``test_kmeans_update_stats_bf16_matches_plain``, which launches every
+kind of plan, ``test_kmeans_bf16_launcher_refuses_unfit_plans`` and
 ``test_kmeans_bf16_kernel_sees_bf16_operands``)."""
 
 import jax.numpy as jnp
@@ -24,17 +26,41 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+P = TK.Bf16Plan
+
+
 @pytest.mark.parametrize("k,d,want", [
-    (256, 64, 2),      # the headline (2^20 x 64, k 256)
-    (16, 8, 1),        # the data-parallel fit's problem
-    (37, 16, 1), (40, 9, 1), (128, 64, 1), (129, 64, 2), (1, 1, 1),
-    (257, 64, None),   # just past the plan: k
-    (256, 65, None),   # just past the plan: d
-    (200, 128, None), (1024, 64, None), (600, 300, None), (0, 64, None),
+    # the fused pass: 1 or 2 score products of 128 centroids a tile
+    (256, 64, P("fused", 1, True, 2, 1, 1, 1)),    # the headline
+    (16, 8, P("fused", 1, True, 1, 1, 1, 1)),      # the data-parallel fit
+    (37, 16, P("fused", 1, True, 1, 1, 1, 1)),
+    (40, 9, P("fused", 1, True, 1, 1, 1, 1)),
+    (128, 64, P("fused", 1, True, 1, 1, 1, 1)),
+    (129, 64, P("fused", 1, True, 2, 1, 1, 1)),
+    (1, 1, P("fused", 1, True, 1, 1, 1, 1)),
+    # two passes: k just past the fused pass, 2 slabs
+    (257, 64, P("two_pass", 1, True, 3, 1, 2, 2)),
+    # d just past it: 2 panels, 2 jobs
+    (256, 65, P("two_pass", 2, True, 2, 1, 1, 2)),
+    (200, 128, P("two_pass", 2, True, 2, 1, 1, 2)),
+    (1024, 64, P("two_pass", 1, True, 8, 1, 4, 4)),
+    # past the 9 chunks a launch holds at d 64 (where the first launch
+    # packs the points; 11 at d 8): 4 scoring launches
+    (4096, 64, P("two_pass", 1, True, 8, 4, 16, 16)),
+    (1408, 8, P("two_pass", 1, True, 11, 1, 6, 6)),
+    # 3 chunks a launch at d 128 (4 at d 72), 1 at d 256
+    (1024, 128, P("two_pass", 2, True, 3, 3, 4, 8)),
+    (1024, 72, P("two_pass", 2, True, 4, 2, 4, 8)),
+    (300, 200, P("two_pass", 4, True, 1, 3, 2, 8)),
+    # past 4 panels the scoring streams every panel pair, 16 chunks a launch
+    (600, 300, P("two_pass", 5, False, 5, 1, 3, 15)),
+    (100000, 1000, P("two_pass", 16, False, 16, 49, 391, 6256)),
+    (0, 64, None), (64, 0, None),
 ])
 def test_bf16_plan(k, d, want):
-    """The score products of 128 centroids ``kmeans_bf16.cu`` takes for
-    (k, d), ``None`` outside its plan (k <= 256, d <= 64)."""
+    """The plan the wrapper hands ``kmeans_bf16.cu``'s launcher for
+    (k, d): a plan for every k >= 1 and d >= 1, ``None`` only for an
+    empty shape."""
     assert TK.bf16_plan(k, d) == want
 
 
