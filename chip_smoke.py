@@ -202,11 +202,11 @@ line is printed):
     N(0,1) points near-tie flips compound over 10 rounds); (d) a second
     fit bit for bit.  Prints
     streamed iterations/s beside phase 7's and ``PrefetchStats``.
-23. The streamed Wide&Deep fit at the bench width: 16 batches of 8192
-    (phase 9's data, in the in-memory fit's shuffled order) through a
-    data cache, ``WideDeep.fit_outofcore``, 2 epochs, W 8, dense Adam.
+23. The streamed Wide&Deep fit at the bench width: 8 batches of 8192
+    (phase 9's generator, in the in-memory fit's shuffled order) through
+    a data cache, ``WideDeep.fit_outofcore``, 2 epochs, W 8, dense Adam.
     Checks: (a) W 8 = W 1 bit for bit; (b) a fit whose reader dies
-    fetching batch 12, healed by ``resilient_fit`` from a
+    fetching epoch 1's batch 3, healed by ``resilient_fit`` from a
     ``checkpoint_every_steps=8`` cut, equals the uninterrupted fit bit for
     bit; (c) a second run bit for bit; (d) the in-memory
     ``routedEmbeddingGrad='off'`` step (the streamed fit's own step)
@@ -216,7 +216,7 @@ line is printed):
     the same rows (the whole fits' parameters are printed), and two
     in-memory 'off' fits bit for bit.
     Then (a)-(c) with ``lazyEmbeddingOptimizer`` on the first 4 batches
-    (the crash fetching batch 6, cuts every 2 steps at W 2).  Prints
+    (the crash fetching batch 6, cuts every 4 steps at W 2).  Prints
     streamed steps/s beside phase 11's, the cut's host ms, the recovery s
     and the streamed step's ms on the two fixed-order table-gradient
     routes (``scripts/stream_grad_routes.py``: the sort-based scatter-add
@@ -381,17 +381,18 @@ line is printed):
     functions): signatures equal numpy int64 minima exactly, the masked
     min timed against its bound, ``approx_nearest_neighbors`` (k 10,
     16 planted near-duplicates) equal to the CPU's.
-42. The text pipeline at 20 Newsgroups' size (scikit-learn's
-    ``fetch_20newsgroups(subset="all")``: 18,846 documents, 20 classes),
-    a synthetic corpus from numpy seed 0 (Zipf(1.1) word ids over 2^17
-    rendered words, ~200 topic words a class, English stop words mixed
-    in, 50-500 words a document): ``Tokenizer -> StopWordsRemover ->
-    CountVectorizer (vocabularySize 2^14) -> IDF -> UnivariateFeatureSelector
-    (ANOVA, numTopFeatures 2048) -> SoftmaxRegression`` fitted as one
-    ``Pipeline`` on the card (3 epochs).  Prints the hasher that ran,
-    the wall of each stage's fit and transform split into host and card
-    time (``torch.profiler``; a spin kernel marks each stage), and which
-    stages fused.  Checks: the fused transform = the stagewise one
+42. The text pipeline at a quarter of 20 Newsgroups' size (scikit-learn's
+    ``fetch_20newsgroups(subset="all")``: 18,846 documents, 20 classes;
+    4,712 here), a synthetic corpus from numpy seed 0 (Zipf(1.1) word ids
+    over 2^17 rendered words, ~200 topic words a class, English stop words
+    mixed in, 50-500 words a document): ``Tokenizer -> StopWordsRemover ->
+    CountVectorizer (vocabularySize 2^14) -> IDF ->
+    UnivariateFeatureSelector (ANOVA, numTopFeatures 2048) ->
+    SoftmaxRegression`` fitted as one ``Pipeline`` on the card (3 epochs).
+    Prints the hasher that ran, the wall of each stage's fit and transform
+    split into host and card time (``torch.profiler``; a spin kernel marks
+    each stage), and which stages fused.  Checks: the fused transform = the
+    stagewise one
     (numeric columns bit for bit, token columns list for list); IDF's
     product = the CPU port's bit for bit; ANOVA's F within rtol 1e-4 of
     the CPU's, and the card's 2048 indices = the CPU's selection by
@@ -481,11 +482,34 @@ line is printed):
     first and median reduce ms, payload bytes, measured rd fill and the
     pairwise rounds staged through the host.  Then the data-parallel
     dense LR fit at d 2^14 (bench_comm's fit width, ``bench.py:1905``; 256
-    rows a rank a step, 8 steps, 12 epochs): exact within the fit gate of
+    rows a rank a step, 8 steps, 6 epochs): exact within the fit gate of
     the one-process fit of the same step batches; top-k 0.1 and the
     overlapped bucketed top-k within 1e-3 of the dense loss; blocking and
     overlapped step ms; and the exact and top-k fits in a one-rank NCCL
     group, bit for bit the one-process fits.
+48. The linear main path over ranks: (a) phase 4's mixed LR fit
+    (``LogisticRegression.fit`` in a process group) over 2 gloo ranks
+    sharing the card, each on its half of the rows, and over a one-rank
+    NCCL group: B1 and B2 24 launches a rank, B3 none; the one-rank fit
+    bit for bit phase 4's; the 2-rank fit within atol 1e-5 in ``w`` and
+    ``b`` and 1e-6 in the loss log of the one-process fit over the same
+    batches; a shard's one-step delta through the scatter kernels equal
+    to the plain versions' from the same ``r`` (tolerance 0), before
+    and after the rank-order sum; B1 and B2 timed at a rank's shard.
+    (b) The same over phase 43's hashed (indices, values) rows, the
+    kernels' value variants.  (c) ``fit_outofcore(mixed=True, mesh=)``
+    over the 2 ranks, each streaming its half of phase 21's rows (2
+    epochs, W 1: B1 and B2 64 launches a rank), and the same under
+    ``resilient_fit`` with the reader dying at batch 20, healed from a
+    cut bit for bit.  (d) An elastic fleet on 4 gloo ranks
+    (``ElasticCoordinator``, 2 ranks a worker; phase 47's dense LR at d
+    2^14 with top-k 0.25, 2 buckets, overlap, hierarchical over
+    ``("dcn", "data")``): from 1 worker a join at chunk boundary 2 and a
+    preemption at 4, each resized fit bit for bit the fixed fleet of the
+    new size restoring the same cut; a crash at a source pull in
+    mid-chunk on a fleet of 2 healed onto the survivor, bit for bit its
+    fixed fleet from the same cut; the resize pauses, steps replayed and
+    each attempt's step ms.
 
 The last lines are the kernel table (ten kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
@@ -497,8 +521,9 @@ beside it) beside them, the fold,
 the two retrieve kernels; the launches a fused
 transform or phase 29's CV added under ``chain``, the served batches'
 launches of phase 31 under ``serve``, the train-while-serve launches
-of phases 34-36 under ``online``, phase 43's under ``hashed`` and phase
-46's data-parallel fits' under ``parallel``, by group)
+of phases 34-36 under ``online``, phase 43's under ``hashed``, phase
+46's data-parallel fits' under ``parallel``, by group, and phase 48's
+under ``sharded``, by run and rank, with B1/B2's ms at a rank's shard)
 as one JSON object, the card line from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.  The script imports neither JAX nor the JAX package.
 """
@@ -2644,12 +2669,14 @@ def stream_phase(torch, dev, card, mem_epochs_per_s, mem_fit_s):
 # The streamed KMeans fit (phase 22): the KMeans headline's points through
 # a data cache, 8 batches of 2^17 rows a round
 SK_BATCH = 1 << 17
-# The streamed Wide&Deep fit (phase 23): 16 bench-width batches, W 8, a
-# crash fetching batch 12 healed from a checkpoint_every_steps=8 cut;
-# lazy Adam on the first 4 batches (a crash fetching batch 6 healed from
-# a checkpoint_every_steps=2 cut at W 2)
+# The streamed Wide&Deep fit (phase 23): 8 bench-width batches an epoch
+# (16 before they were cut for the script's time), W 8, a crash fetching
+# epoch 1's batch 3 healed from a checkpoint_every_steps=8 cut; lazy Adam
+# on the first 4 batches (a crash fetching batch 6 healed from a
+# checkpoint_every_steps=4 cut at W 2)
+SW_STEPS = 8
 SW_W, SW_CRASH_PULL, SW_CUT_EVERY = 8, 12, 8
-SW_LAZY_BATCHES = 4
+SW_LAZY_BATCHES, SW_LAZY_CUT_EVERY = 4, 4
 # tests/test_torch_widedeep.py's loss tolerance of one step from converted
 # state (held here between the streamed and the in-memory fit's loss logs)
 SW_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
@@ -2818,11 +2845,11 @@ def stream_widedeep_phase(torch, dev, card):
     shutil.rmtree(ST_DIR, ignore_errors=True)
     vocab = [WD_VOCAB] * WD_FIELDS
     try:
-        cat, dense, y = widedeep_bench_data(WD_BATCH, WD_STEPS)
+        cat, dense, y = widedeep_bench_data(WD_BATCH, SW_STEPS)
         cols = {"denseFeatures": dense.reshape(-1, WD_DENSE),
                 "catFeatures": cat.reshape(-1, WD_FIELDS),
                 "label": y.reshape(-1)}
-        n = WD_BATCH * WD_STEPS
+        n = WD_BATCH * SW_STEPS
         # the cache holds the rows in the in-memory fit's shuffled order,
         # so both fits take the same batches
         _, _, perm = plan_epoch_layout(n, WD_BATCH, 1, 17)
@@ -2860,7 +2887,7 @@ def stream_widedeep_phase(torch, dev, card):
 
         for lazy in (False, True):
             label = "lazy" if lazy else "dense"
-            steps = (SW_LAZY_BATCHES if lazy else WD_STEPS) * WD_EPOCHS
+            steps = (SW_LAZY_BATCHES if lazy else SW_STEPS) * WD_EPOCHS
             main, fit_s = fit(lazy, SW_W)
             if not (len(main.loss_log) == WD_EPOCHS
                     and np.all(np.isfinite(main.loss_log))):
@@ -2880,7 +2907,8 @@ def stream_widedeep_phase(torch, dev, card):
                 "source.pull", at=6 if lazy else SW_CRASH_PULL,
                 kind="crash")
             report = RecoveryReport()
-            every, w = (2, 2) if lazy else (SW_CUT_EVERY, SW_W)
+            every, w = (SW_LAZY_CUT_EVERY, 2) if lazy else (SW_CUT_EVERY,
+                                                            SW_W)
             tracer.enable()
             with plan:
                 healed, heal_s = fit(
@@ -2911,16 +2939,16 @@ def stream_widedeep_phase(torch, dev, card):
             if not lazy:
                 # the fit's one-off work (the host init draws, the
                 # parameters' copies in and out) cancels in the difference
-                # of a 3-epoch and a 1-epoch fit (the lazy epoch of 4
-                # steps is too short to read above the noise)
+                # of a 5-epoch and a 1-epoch fit, 32 steps (the lazy epoch
+                # of 4 steps is too short to read above the noise)
                 _, one_epoch_s = fit(lazy, SW_W, epochs=1)
-                _, three_epoch_s = fit(lazy, SW_W, epochs=3)
+                _, five_epoch_s = fit(lazy, SW_W, epochs=5)
                 t0 = time.perf_counter()
                 W.init_params(np.random.default_rng(18), WD_DENSE, vocab,
                               WD_EMB, WD_HIDDEN)
                 init_s = time.perf_counter() - t0
-                marginal = 2 * WD_STEPS / (three_epoch_s - one_epoch_s)
-                extra = (f"; epochs 2-3 alone (a 3-epoch fit less a "
+                marginal = 4 * SW_STEPS / (five_epoch_s - one_epoch_s)
+                extra = (f"; epochs 2-5 alone (a 5-epoch fit less a "
                          f"1-epoch fit) {marginal:.3f} steps/s; the host "
                          f"init draws {init_s:.3f} s of each fit")
             log(f"(c) {label}: a second run bit for bit "
@@ -2941,8 +2969,8 @@ def stream_widedeep_phase(torch, dev, card):
             off_step, state = W._make_train_ops(params, 1e-2, False)
             offs = W._field_offsets(vocab)
             for i in range(steps):
-                rows_i = perm[(i % WD_STEPS) * WD_BATCH:
-                              (i % WD_STEPS + 1) * WD_BATCH]
+                rows_i = perm[(i % SW_STEPS) * WD_BATCH:
+                              (i % SW_STEPS + 1) * WD_BATCH]
                 batch_i = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(
                     dev) for a in (cols["denseFeatures"][rows_i],
                                    (cols["catFeatures"][rows_i]
@@ -6256,7 +6284,9 @@ def recommenders_phase(torch, dev, card, timer):
 
 # -- phases 42-43: the text and selection stages ----------------------------
 
-TX_DOCS, TX_CLASSES = 18846, 20    # 20 Newsgroups, subset "all"
+# a quarter of 20 Newsgroups' subset "all" (18,846 documents), cut to keep
+# the script inside its time; every check of the phase stands
+TX_DOCS, TX_CLASSES = 4712, 20
 TX_LEXICON = 1 << 17               # rendered words the corpus draws from
 TX_VOCAB = 1 << 14                 # CountVectorizer vocabularySize
 TX_TOPIC_WORDS = 200               # each class's topic words
@@ -6274,13 +6304,13 @@ SL_EPOCHS = 2
 
 
 def text_corpus(n, seed=0):
-    """A synthetic corpus at 20 Newsgroups' size (scikit-learn's
-    ``fetch_20newsgroups(subset="all")``: 18,846 documents, 20 classes)
-    from numpy ``seed``: word ids Zipf(1.1) over TX_LEXICON rendered
-    words (ranks permuted), a tenth of a document's words drawn from its
-    class's 200 topic words, three tenths English stop words (a third of
-    them capitalised), 50-500 words a document.  Returns (texts (n,)
-    object, labels (n,) int64)."""
+    """A synthetic corpus of ``n`` documents in 20 Newsgroups' shape
+    (scikit-learn's ``fetch_20newsgroups(subset="all")``: 18,846 documents,
+    20 classes) from numpy ``seed``: word ids Zipf(1.1) over TX_LEXICON
+    rendered words (ranks permuted), a tenth of a document's words drawn
+    from its class's 200 topic words, three tenths English stop words (a
+    third of them capitalised), 50-500 words a document.  Returns (texts
+    (n,) object, labels (n,) int64)."""
     from flink_ml_tpu_torch.models.feature import StopWordsRemover
 
     rng = np.random.default_rng(seed)
@@ -6444,9 +6474,9 @@ def boundary_diffs(what, f_card, f_cpu, dfn, dfd, got, k):
 
 
 def text_phase(torch, dev, card):
-    """Phase 42: the text pipeline at 20 Newsgroups' size on the card,
-    held against the CPU port stage by stage; then the variance and
-    F-regression selectors on phase 25's table and a fused selection
+    """Phase 42: the text pipeline at a quarter of 20 Newsgroups' size on
+    the card, held against the CPU port stage by stage; then the variance
+    and F-regression selectors on phase 25's table and a fused selection
     segment."""
     import copy
 
@@ -6802,7 +6832,9 @@ def hashed_criteo_phase(torch, dev, card, dense, cat, y):
         fail("hashed transform disagrees with numpy scoring, or the fit "
              "did not learn the label marker")
     log(f"phase 43: {time.perf_counter() - t_phase:.2f} s [{card}]")
-    return {k: launches[k] for k in ("ell_margin", "ell_scatter_apply_fused")}
+    return ({k: launches[k] for k in ("ell_margin",
+                                      "ell_scatter_apply_fused")},
+            model, (idx, vals, y))
 
 
 # -- phases 44-46: KMeans complete (bf16 stats, k-means++, agglomerative,
@@ -7410,7 +7442,7 @@ GR_REPS = 5                 # timed reduces a mode (after the gated one)
 GR_FIT_D = 1 << 14          # bench_comm's fit width (bench.py:1905)
 GR_FIT_ROWS = 256           # a rank's rows a step (bench.py:1906)
 GR_FIT_STEPS = 8
-GR_FIT_EPOCHS = 12
+GR_FIT_EPOCHS = 6
 GR_FIT_LR = 0.1
 GR_FIT_TOL = dict(rtol=1e-3, atol=1e-4)     # bench.py:266
 GR_LOSS_GAP = 1e-3          # test_sgd_topk_ef_density01_converges_to_dense
@@ -7663,7 +7695,8 @@ def grad_reduce_phase(torch, dev, card):
     from flink_ml_tpu_torch.models.common import sgd as S
     from flink_ml_tpu_torch.models.common.losses import LOSSES
     from flink_ml_tpu_torch.parallel import grad_reduce as GR
-    from flink_ml_tpu_torch.utils.backend import run_on_ranks
+    from flink_ml_tpu_torch.utils.backend import (run_in_group_of_one,
+                                                  run_on_ranks)
 
     t_phase = time.perf_counter()
     world = GR_WORLD
@@ -7858,9 +7891,9 @@ def grad_reduce_phase(torch, dev, card):
 
     t0 = time.perf_counter()
     try:
-        (nccl,) = run_on_ranks(gr_one_rank, 1, 1, sz,
-                               device=DP_DEVICE, backend=GR_ONE_RANK_BACKEND,
-                               timeout_s=GR_TIMEOUT_S)
+        nccl = run_in_group_of_one(gr_one_rank, sz, device=DP_DEVICE,
+                                   backend=GR_ONE_RANK_BACKEND,
+                                   timeout_s=GR_TIMEOUT_S)
     except (RuntimeError, TimeoutError) as exc:
         fail(f"phase 47's one-rank NCCL group failed: {exc}")
     for name in ("exact", "topk"):
@@ -7875,6 +7908,607 @@ def grad_reduce_phase(torch, dev, card):
                  "one-process fit")
     log(f"phase 47: one-rank group {time.perf_counter() - t0:.2f} s; "
         f"phase 47 wall {time.perf_counter() - t_phase:.2f} s [{card}]")
+
+
+# -- phase 48: the linear main path over ranks and elastic fleets ----------
+
+LR_DP_WORLD = 2             # gloo ranks sharing the card (phase 48 a-c)
+LR_DP_TIMEOUT_S = 300
+LR_FIT_TOL = dict(atol=1e-5)            # tests/test_torch_linear_layouts.py
+LR_LOSS_TOL = 1e-6
+LR_STREAM_CRASH_PULL = 20   # phase 48 (c): epoch 0's batch 20 of 32 a rank
+LR_STREAM_CUT_EVERY = 8
+# phase 48 (d): phase 47's dense LR (bench.py:1905: d 2^14, 256 rows a rank
+# a step at 2 workers of 2 chips) with bench_elastic's posture
+# (bench.py:2425-2432): top-k 0.25, 2 buckets, overlap, hierarchical
+EL_WORLD, EL_CHIPS = 4, 2
+EL_D = 1 << 14
+EL_BATCH = 1024             # a global batch: 256 rows a rank at 4 ranks
+EL_STEPS, EL_EPOCHS, EL_W = 6, 3, 2     # 3 chunk boundaries an epoch
+EL_GR = dict(mode="topk", density=0.25, bucket_count=2, overlap=True,
+             axis="data", dcn_axis="dcn")
+EL_FAULTS = ((2, "join"), (4, "preempt"))   # membership boundaries
+EL_CRASH_PULL = 10          # epoch 1's batch 3: in mid-chunk
+EL_DEATH_CUT_EVERY = 4
+EL_TIMEOUT_S = 300
+EL_DIR = os.path.join(HERE, "scratch_sharded")
+
+
+def dp_order(parts, batch, seed):
+    """Rows of a one-process fit whose epoch layout (``plan_epoch_layout``
+    at ``seed``) gives step i the ranks' i-th local batches in rank order:
+    ``parts`` is each rank's tuple of row arrays; the ranks' own
+    permutations are the same seed's over their own rows."""
+    world = len(parts)
+    n_local = len(parts[0][0])
+    b = batch // world
+    local = np.random.default_rng(seed).permutation(n_local)
+    order = [(r, local[i * b:(i + 1) * b]) for i in range(n_local // b)
+             for r in range(world)]
+    perm = np.random.default_rng(seed).permutation(world * n_local)
+    out = []
+    for k in range(len(parts[0])):
+        joined = np.concatenate([parts[r][k][rows] for r, rows in order])
+        arr = np.empty_like(joined)
+        arr[perm] = joined
+        out.append(arr)
+    return out
+
+
+def lr_estimator(dev, epochs, d=D_MAIN):
+    from flink_ml_tpu_torch import LogisticRegression
+
+    return (LogisticRegression(device=dev).set_num_features(d)
+            .set_global_batch_size(BATCH).set_max_iter(epochs).set_tol(0))
+
+
+def lr_dp_rank(rank, world, hashed_path, stream_dirs, mesh=None):
+    """Phase 48 (a)-(c) on rank ``rank`` of ``mesh`` (default the process
+    group's), ``world`` ranks on the card: the mixed and the hashed
+    sparse LR fits of this rank's share of phase 4's and phase 43's rows
+    (``LogisticRegression.fit(table, mesh=)``),
+    B1/B2/B3 counted around each; one step's delta of this rank's shard
+    through the scatter kernels and through their plain versions, from
+    the same ``r``; B1 and B2 timed at the shard; with ``stream_dirs``,
+    the streamed fit over this rank's cache, uninterrupted and under a
+    crash healed from a cut."""
+    import torch
+
+    from flink_ml_tpu_torch import Table
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.ops import ell_scatter as E
+    from flink_ml_tpu_torch.parallel import collectives as C
+    from flink_ml_tpu_torch.parallel import distributed
+
+    dev = distributed.rank_device()
+    out = {}
+
+    def fit(what, table):
+        E.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = lr_estimator(dev, EPOCHS).fit(table, mesh=mesh)
+        torch.cuda.synchronize()
+        out[what] = {"w": model.get_model_data()[0]["coefficients"][0],
+                     "b": float(model.get_model_data()[0]["intercept"][0]),
+                     "log": model.loss_log, "plan": model.planned_impl,
+                     "launches": dict(E.LAUNCHES),
+                     "wall_s": time.perf_counter() - t0}
+
+    n = ROWS // world
+    share = slice(rank * n, (rank + 1) * n)
+    dense, cat, y = criteo_rows(ROWS, D_MAIN, seed=0)
+    dense, cat, y = dense[share], cat[share], y[share]
+    fit("mixed", Table({"features_dense": dense, "features_indices": cat,
+                        "label": y}))
+    hashed = np.load(hashed_path)
+    fit("sparse", Table({"features_indices": hashed["idx"][share],
+                         "features_values": hashed["vals"][share],
+                         "label": hashed["y"][share]}))
+
+    # one step's delta of this rank's first shard: kernels against the
+    # plain versions from the same r (tolerance 0 a shard, before the sum
+    # and after it)
+    b = BATCH // world
+    rows = np.random.default_rng(0).permutation(n)[:b]
+    lay = E.ell_layout(cat[rows][None], D_MAIN).to(dev)
+    r = torch.from_numpy(np.random.default_rng(40 + rank).normal(
+        size=b).astype(np.float32) / BATCH).to(dev)
+    lr = lr_estimator(dev, 1)._sgd_config().learning_rate
+    args = (lay.src[0], lay.pos[0], lay.mask[0], lay.ovf_idx[0],
+            lay.ovf_src[0], lay.heavy_idx[0], lay.heavy_cnt[0])
+    zeros = torch.zeros(D_MAIN, device=dev)
+    kern = S._apply_ell_categorical(lr, zeros.clone(), r, S._extended_r(r),
+                                    *args)
+    plain = S._apply_ell_categorical(lr, zeros.clone(), r,
+                                     S._extended_r(r), *args, plain=True)
+    torch.cuda.synchronize()
+    out["delta"] = {
+        "shard_equal": bool(torch.equal(kern, plain)),
+        "max_abs": float((kern - plain).abs().max()),
+        "sum_equal": bool(torch.equal(C.psum_ordered(kern, mesh=mesh),
+                                      C.psum_ordered(plain, mesh=mesh)))}
+    # B1 and B2 at the rank's shard size, timed on rank 0 alone
+    distributed.barrier(mesh=mesh)
+    if rank == 0:
+        timer = Timer(torch, dev)
+        w = torch.from_numpy(np.random.default_rng(2).normal(
+            size=D_MAIN).astype(np.float32)).to(dev)
+        route_w, _ = E.sample_routing(lay.src[0], lay.pos[0], lay.mask[0],
+                                      b)
+        r_ext = S._extended_r(r)
+        out["shard_ms"] = {
+            "rows": b,
+            "ell_margin": timer.ms(lambda: E.ell_margin(
+                w, route_w, m_len=S._ext_len(b))),
+            "ell_scatter_apply_fused": timer.ms(
+                lambda: E.ell_scatter_apply_fused(
+                    w, r_ext, lay.src[0], lay.pos[0], lay.mask[0], lr=lr))}
+        torch.cuda.synchronize()
+    distributed.barrier(mesh=mesh)
+    if stream_dirs:
+        out["stream"] = lr_stream_rank(rank, world, stream_dirs[rank], mesh)
+    return out
+
+
+def lr_one_rank(rank, world, hashed_path):
+    """Phase 48 (a)-(b) in a group of one rank (the NCCL branch)."""
+    return lr_dp_rank(rank, world, hashed_path, None)
+
+
+def phase48_rank(rank, world, hashed_path, stream_dirs, el_cache):
+    """Phase 48 on one rank of a world of EL_WORLD gloo ranks on the card:
+    (a)-(c) on the mesh of its first LR_DP_WORLD ranks (the others wait),
+    then (d) on the whole world."""
+    from flink_ml_tpu_torch.parallel import distributed
+    from flink_ml_tpu_torch.parallel.mesh import fleet_mesh
+
+    ranks = tuple(range(LR_DP_WORLD))
+    mesh = fleet_mesh(ranks, {"data": LR_DP_WORLD})
+    out = {}
+    if rank in ranks:
+        out["lr"] = lr_dp_rank(rank, LR_DP_WORLD, hashed_path, stream_dirs,
+                               mesh)
+    distributed.barrier()
+    out["el"] = el_rank(rank, world, el_cache)
+    return out
+
+
+def lr_stream_rank(rank, world, cache, mesh=None):
+    """Phase 48 (c) on one rank: ``fit_outofcore(mixed=True, mesh=)`` of 2
+    epochs over this rank's half of phase 21's stream, then the same under
+    ``resilient_fit`` with the reader dying at batch LR_STREAM_CRASH_PULL,
+    healed from a checkpoint_every_steps cut."""
+    import shutil
+
+    import torch
+
+    from flink_ml_tpu_torch.data.datacache import DataCacheReader
+    from flink_ml_tpu_torch.iteration import CheckpointConfig
+    from flink_ml_tpu_torch.ops import ell_scatter as E
+    from flink_ml_tpu_torch.parallel import default_mesh, distributed
+    from flink_ml_tpu_torch.robustness import (FaultPlan, RecoveryReport,
+                                               RetryPolicy, resilient_fit)
+
+    dev = distributed.rank_device()
+    rows = BATCH // world
+    ck = os.path.join(EL_DIR, "stream_ck")
+    if rank == 0:
+        shutil.rmtree(ck, ignore_errors=True)
+    distributed.barrier(mesh=mesh)
+
+    def run(plan=None, report=None):
+        est = lr_estimator(dev, ST_EPOCHS)
+
+        def reader():
+            it = DataCacheReader(cache, batch_rows=rows)
+            return it if plan is None else plan.wrap_source(it)
+
+        kw = dict(num_features=D_MAIN, mixed=True,
+                  mesh=mesh or default_mesh(),
+                  prefetch_workers=ST_WORKERS, stream_info={},
+                  checkpoint_every_steps=LR_STREAM_CUT_EVERY)
+        E.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if plan is None:
+            model = est.fit_outofcore(reader, **kw)
+        else:
+            with plan:
+                model = resilient_fit(
+                    est.fit_outofcore, reader,
+                    checkpoint=CheckpointConfig(ck, max_to_keep=99),
+                    max_restarts=1, report=report,
+                    backoff=RetryPolicy(sleep=lambda s: None), **kw)
+        torch.cuda.synchronize()
+        return {"w": model.get_model_data()[0]["coefficients"][0],
+                "b": float(model.get_model_data()[0]["intercept"][0]),
+                "log": model.loss_log, "plan": model.planned_impl,
+                "launches": dict(E.LAUNCHES), "W": kw["stream_info"][
+                    "steps_per_dispatch"],
+                "wall_s": time.perf_counter() - t0}
+
+    out = {"first": run()}
+    report = RecoveryReport()
+    out["healed"] = run(FaultPlan().inject(
+        "source.pull", at=LR_STREAM_CRASH_PULL, kind="crash"), report)
+    out["healed"]["report"] = report.as_dict()
+    return out
+
+
+def el_rank(rank, world, cache):
+    """Phase 48 (d) on one rank of a world of EL_WORLD gloo ranks on the
+    card, every rank running every call alike (the ranks outside a fleet
+    sit its attempts out): the elastic fit from 1 worker with a join at
+    chunk boundary 2 and a preemption at boundary 4; the fixed fleets of
+    each new size restoring the cut the resize restored from; a death in
+    mid-chunk (a crash at a source pull, on every rank of a 2-worker
+    fleet) healed onto the survivors, and the fixed fleet of the survivors
+    restoring the same cut.  Each attempt's wall and steps."""
+    import shutil
+
+    from flink_ml_tpu_torch.data.datacache import DataCacheReader
+    from flink_ml_tpu_torch.iteration import CheckpointConfig
+    from flink_ml_tpu_torch.iteration.checkpoint import CheckpointManager
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.common.losses import LOSSES
+    from flink_ml_tpu_torch.parallel import distributed
+    from flink_ml_tpu_torch.parallel.elastic import (ElasticCoordinator,
+                                                     ResizeRequested)
+    from flink_ml_tpu_torch.parallel.grad_reduce import GradReduceConfig
+    from flink_ml_tpu_torch.robustness import (FaultPlan, RecoveryReport,
+                                               RetryPolicy, resilient_fit)
+
+    cfg = S.SGDConfig(learning_rate=GR_FIT_LR, max_epochs=EL_EPOCHS, tol=0,
+                      grad_reduce=GradReduceConfig(**EL_GR))
+    root = os.path.join(EL_DIR, "elastic")
+    if rank == 0:
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+    distributed.barrier()
+    nobackoff = RetryPolicy(base_delay=0.0, sleep=lambda s: None)
+    attempts = []
+
+    def timed(*args, **kw):
+        """The fit, its wall and the steps it ran recorded per attempt."""
+        manager, start = kw["checkpoint"], None
+        t0 = time.perf_counter()
+        try:
+            out = S.sgd_fit_outofcore(*args, **kw)
+            end = EL_STEPS * EL_EPOCHS
+            return out
+        except ResizeRequested as exc:
+            end = exc.step
+            raise
+        except Exception:
+            end = None
+            raise
+        finally:
+            start = manager.last_restored_step if kw["resume"] else 0
+            attempts.append({"fleet": kw["mesh"].shape["dcn"],
+                             "from": start, "to": end,
+                             "wall_s": time.perf_counter() - t0})
+
+    def supervised(name, workers, faults=(), source=(), resume=False,
+                   every=2):
+        coord = ElasticCoordinator(chips_per_worker=EL_CHIPS,
+                                   initial_workers=workers)
+        plan = FaultPlan()
+        for at, kind in faults:
+            plan.inject(coord.SCOPE, at=at, kind=kind)
+        for at in source:
+            plan.inject("source.pull", at=at, kind="crash")
+        report = RecoveryReport()
+        manager = CheckpointManager(CheckpointConfig(
+            os.path.join(root, name), max_to_keep=99))
+        del attempts[:]
+        with plan:
+            st, log_ = resilient_fit(
+                timed, LOSSES["logistic"],
+                lambda: plan.wrap_source(DataCacheReader(
+                    cache, batch_rows=EL_BATCH)),
+                checkpoint=manager, elastic=coord, resume=resume,
+                backoff=nobackoff, report=report, max_restarts=1,
+                num_features=EL_D, config=cfg, cache_decoded=False,
+                steps_per_dispatch=EL_W, checkpoint_every_steps=every)
+        return {"w": st.coefficients, "b": st.intercept, "log": log_,
+                "report": report.as_dict(), "fleet": coord.fleet_size,
+                "restored": manager.last_restored_step,
+                "counters": dict(coord.counters),
+                "attempts": [dict(a) for a in attempts]}
+
+    def copy_cut(src, dst, step):
+        if rank == 0:
+            name = f"ckpt-{step:08d}"
+            os.makedirs(os.path.join(root, dst))
+            shutil.copytree(os.path.join(root, src, name),
+                            os.path.join(root, dst, name))
+        distributed.barrier()
+
+    out = {"elastic": supervised("e", 1, EL_FAULTS)}
+    cuts = [e["restored_step"] for e in out["elastic"]["report"]["events"]]
+    # the fleet of 2 restoring the first resize's cut, taking the second
+    # resize itself (a fresh coordinator counts its boundaries from 0)
+    copy_cut("e", "f2", cuts[0])
+    second = EL_FAULTS[1][0] - EL_FAULTS[0][0] - 1
+    out["fixed_2"] = supervised("f2", 2, ((second, "preempt"),),
+                                resume=True)
+    copy_cut("e", "f1", cuts[1])
+    out["fixed_1"] = supervised("f1", 1, resume=True)
+    out["death"] = supervised("d", 2, source=(EL_CRASH_PULL,),
+                              every=EL_DEATH_CUT_EVERY)
+    copy_cut("d", "d1", out["death"]["restored"])
+    out["death_fixed"] = supervised("d1", 1, resume=True,
+                                    every=EL_DEATH_CUT_EVERY)
+    distributed.barrier()
+    return out
+
+
+def fit_ref(model):
+    """A fitted LR model's weights, intercept and loss log, copied."""
+    data = model.get_model_data()[0]
+    return {"w": np.array(data["coefficients"][0]),
+            "b": float(data["intercept"][0]), "log": list(model.loss_log)}
+
+
+def sharded_lr_phase(torch, dev, card, mixed_ref, hashed_ref, hashed):
+    """Phase 48: the linear main path over ranks on the card.  (a) the
+    mixed LR fit of phase 4 over 2 gloo ranks sharing the card and over a
+    one-rank NCCL group (NCCL refuses two ranks on one device); (b) the
+    same over phase 43's hashed (indices, values) layout through the
+    kernels' value variants; (c) the streamed mixed fit over the 2 ranks,
+    a crash healed bit for bit; (d) an elastic fleet of 4 gloo ranks.
+    ``mixed_ref`` and ``hashed_ref`` are phases 4's and 43's one-process
+    fits (:func:`fit_ref`).  Returns the B1/B2/B3 launches of the
+    sharded fits by run, and B1/B2's ms at a rank's shard."""
+    import shutil
+
+    from flink_ml_tpu_torch.data.datacache import DataCacheWriter
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.models.common.losses import LOSSES
+    from flink_ml_tpu_torch.utils.backend import (run_in_group_of_one,
+                                                  run_on_ranks)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EL_DIR, ignore_errors=True)
+    os.makedirs(EL_DIR)
+    try:
+        idx, vals, y_h = hashed
+        hashed_path = os.path.join(EL_DIR, "hashed.npz")
+        np.savez(hashed_path, idx=idx, vals=vals, y=y_h)
+        dense, cat, y = criteo_rows(ST_ROWS, D_MAIN, seed=0)
+        half = ST_ROWS // LR_DP_WORLD
+        stream_dirs = []
+        for r in range(LR_DP_WORLD):
+            path = os.path.join(EL_DIR, f"stream_{r}")
+            w = DataCacheWriter(path)
+            part = slice(r * half, (r + 1) * half)
+            w.append({"features_dense": dense[part],
+                      "features_indices": cat[part],
+                      "label": y[part].astype(np.float32)})
+            w.finish()
+            stream_dirs.append(path)
+        del dense, cat, y
+        rng = np.random.default_rng(48)
+        true_w = rng.normal(size=EL_D).astype(np.float32) / 16
+        el_cache = os.path.join(EL_DIR, "el_cache")
+        w = DataCacheWriter(el_cache)
+        for _ in range(EL_STEPS):
+            X = rng.normal(size=(EL_BATCH, EL_D)).astype(np.float32)
+            w.append({"features": X,
+                      "label": (X @ true_w > 0).astype(np.float32)})
+        w.finish()
+        log(f"phase 48 inputs written in {time.perf_counter() - t_phase:.2f}"
+            " s (phase 43's hashed rows, phase 21's stream halved into 2 "
+            f"caches, {EL_STEPS} elastic batches of {EL_BATCH} x {EL_D})")
+
+        # one world of EL_WORLD gloo ranks runs (a)-(c) on its first 2
+        # ranks and then (d); a one-rank NCCL group runs (a)-(b)
+        t0 = time.perf_counter()
+        try:
+            world = run_on_ranks(phase48_rank, EL_WORLD, EL_WORLD,
+                                 hashed_path, stream_dirs, el_cache,
+                                 device=DP_DEVICE, backend="gloo",
+                                 timeout_s=EL_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"phase 48: the gloo world failed: {exc}")
+        log(f"phase 48 world of {EL_WORLD} gloo ranks on the card: spawned "
+            f"and run in {time.perf_counter() - t0:.2f} s")
+        runs = {"gloo_2_ranks": [w["lr"] for w in world[:LR_DP_WORLD]]}
+        el = [w["el"] for w in world]
+        t0 = time.perf_counter()
+        try:
+            runs["nccl_1_rank"] = [run_in_group_of_one(
+                lr_one_rank, hashed_path, device=DP_DEVICE,
+                backend=GR_ONE_RANK_BACKEND, timeout_s=LR_DP_TIMEOUT_S)]
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"phase 48: the one-rank group failed: {exc}")
+        log(f"phase 48 one-rank NCCL group (this process): run in "
+            f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(EL_DIR, ignore_errors=True)
+
+    steps = ROWS // BATCH
+    want_launch = steps * EPOCHS
+    launches = {}
+    cfg = lr_estimator(dev, EPOCHS)._sgd_config()
+    n = ROWS // LR_DP_WORLD
+    for layout in ("mixed", "sparse"):
+        for label, ranks in runs.items():
+            fits = [r[layout] for r in ranks]
+            for r, one in enumerate(fits):
+                got = {k: v for k, v in one["launches"].items() if v}
+                log(f"phase 48 ({'a' if layout == 'mixed' else 'b'}) "
+                    f"{layout} {label} rank {r}: plan {one['plan']}, fit "
+                    f"{one['wall_s']:.3f} s, loss log {one['log']}, "
+                    f"launches {got} [{card}]")
+                if one["plan"] != "ell":
+                    fail(f"phase 48 {layout} {label}: planned "
+                         f"{one['plan']!r}")
+                for name in ("ell_margin", "ell_scatter_apply_fused"):
+                    if one["launches"][name] != want_launch:
+                        fail(f"phase 48 {layout} {label} rank {r}: {name} "
+                             f"launched {one['launches'][name]} times, "
+                             f"expected {want_launch}")
+                if one["launches"]["ell_scatter_apply"] != 0:
+                    fail("phase 48: the pair kernel ran on a grid of 8192 "
+                         "rows")
+                if not (np.array_equal(one["w"], fits[0]["w"])
+                        and one["b"] == fits[0]["b"]
+                        and one["log"] == fits[0]["log"]):
+                    fail(f"phase 48 {layout} {label}: rank {r}'s fit "
+                         "differs from rank 0's")
+            launches.setdefault(layout, {})[label] = [
+                {k: f["launches"][k] for k in (
+                    "ell_margin", "ell_scatter_apply_fused",
+                    "ell_scatter_apply")} for f in fits]
+        # the one-rank NCCL group: the one-process fit, bit for bit
+        ref = mixed_ref if layout == "mixed" else hashed_ref
+        one = runs["nccl_1_rank"][0][layout]
+        same = (np.array_equal(one["w"], ref["w"]) and one["b"] == ref["b"]
+                and one["log"] == ref["log"])
+        log(f"phase 48 {layout} nccl_1_rank: equal to the one-process fit "
+            f"(phase {4 if layout == 'mixed' else 43}) bit for bit: {same}")
+        if not same:
+            fail(f"phase 48 {layout}: the one-rank NCCL fit is not the "
+                 "one-process fit")
+        # the 2-rank fit against the one-process fit over the same batches
+        if layout == "mixed":
+            d_all, c_all, y_all = criteo_rows(ROWS, D_MAIN, seed=0)
+            parts = [(d_all[r * n:(r + 1) * n], c_all[r * n:(r + 1) * n],
+                      y_all[r * n:(r + 1) * n]) for r in range(LR_DP_WORLD)]
+            d_o, c_o, y_o = dp_order(parts, BATCH, cfg.seed)
+            st, lg = S.sgd_fit_mixed(LOSSES["logistic"], d_o, c_o, y_o,
+                                     None, D_MAIN, cfg, device=dev)
+        else:
+            parts = [(idx[r * n:(r + 1) * n], vals[r * n:(r + 1) * n],
+                      y_h[r * n:(r + 1) * n]) for r in range(LR_DP_WORLD)]
+            i_o, v_o, y_o = dp_order(parts, BATCH, cfg.seed)
+            st, lg = S.sgd_fit_sparse(LOSSES["logistic"], i_o, v_o, y_o,
+                                      None, D_MAIN, cfg, device=dev)
+        two = runs["gloo_2_ranks"][0][layout]
+        dw = float(np.max(np.abs(two["w"] - st.coefficients)))
+        db = abs(two["b"] - st.intercept)
+        dl = float(np.max(np.abs(np.asarray(two["log"]) - np.asarray(lg))))
+        log(f"phase 48 {layout} gloo_2_ranks vs the one-process fit over "
+            f"the same batches: max |dw| {dw:.3e}, |db| {db:.3e} (atol "
+            f"{LR_FIT_TOL['atol']}), max |d loss| {dl:.3e} (atol "
+            f"{LR_LOSS_TOL})")
+        if not (np.allclose(two["w"], st.coefficients, rtol=0, **LR_FIT_TOL)
+                and db <= LR_FIT_TOL["atol"] and dl <= LR_LOSS_TOL):
+            fail(f"phase 48 {layout}: the 2-rank fit is off the "
+                 "one-process fit")
+    for label, ranks in runs.items():
+        for r, one in enumerate(ranks):
+            d = one["delta"]
+            log(f"phase 48 {label} rank {r}: one step's delta of its shard, "
+                f"scatter kernels vs plain versions from the same r: max "
+                f"|d| {d['max_abs']:.3e} (tolerance 0), equal "
+                f"{d['shard_equal']}; rank-order sums equal "
+                f"{d['sum_equal']}")
+            if not (d["shard_equal"] and d["sum_equal"]):
+                fail(f"phase 48 {label} rank {r}: the kernels' delta is not "
+                     "the plain versions'")
+    shard_ms = runs["gloo_2_ranks"][0]["shard_ms"]
+    log(f"phase 48 B1/B2 at a rank's shard ({shard_ms['rows']} rows, rank 0 "
+        f"of the world's gloo ranks on the card, the others idle at a "
+        f"barrier): ell_margin "
+        f"{shard_ms['ell_margin']:.4f} ms, ell_scatter_apply_fused "
+        f"{shard_ms['ell_scatter_apply_fused']:.4f} ms [{card}]")
+
+    # (c) the streamed fit over the 2 ranks
+    stream = [r["stream"] for r in runs["gloo_2_ranks"]]
+    st_steps = ST_ROWS // BATCH * ST_EPOCHS
+    for r, s in enumerate(stream):
+        first, healed = s["first"], s["healed"]
+        rep = healed["report"]
+        same = (np.array_equal(first["w"], healed["w"])
+                and first["b"] == healed["b"]
+                and first["log"] == healed["log"])
+        log(f"phase 48 (c) rank {r}: streamed mixed fit ({first['plan']}, W "
+            f"{first['W']}) {first['wall_s']:.3f} s = "
+            f"{first['wall_s'] / st_steps * 1e3:.3f} ms a step, loss log "
+            f"{first['log']}, launches {first['launches']}; crash at pull "
+            f"{LR_STREAM_CRASH_PULL} healed from the cut of step "
+            f"{rep['events'][0]['restored_step'] if rep['events'] else None}"
+            f" ({healed['wall_s']:.3f} s): equal bit for bit {same} [{card}]")
+        if first["plan"] != "ell-stream" or first["W"] != 1:
+            fail(f"phase 48 (c): planned {first['plan']} at W {first['W']}")
+        if first["launches"]["ell_margin"] != st_steps or \
+                first["launches"]["ell_scatter_apply_fused"] != st_steps:
+            fail(f"phase 48 (c) rank {r}: launches {first['launches']}, "
+                 f"expected {st_steps} each of B1 and B2")
+        if rep["restarts"] != 1 or not same:
+            fail(f"phase 48 (c) rank {r}: the healed stream is not the "
+                 "uninterrupted one")
+        if not np.array_equal(first["w"], stream[0]["first"]["w"]):
+            fail("phase 48 (c): the ranks' streamed fits differ")
+    launches["stream"] = [{k: s["first"]["launches"][k] for k in (
+        "ell_margin", "ell_scatter_apply_fused", "ell_scatter_apply")}
+        for s in stream]
+
+    # (d) the elastic fleet
+    def bits(a, b):
+        return (np.array_equal(a["w"], b["w"]) and a["b"] == b["b"]
+                and a["log"] == b["log"])
+
+    for r, o in enumerate(el):
+        if not bits(o["elastic"], el[0]["elastic"]):
+            fail(f"phase 48 (d): rank {r}'s elastic fit differs from rank "
+                 "0's")
+    e = el[0]["elastic"]
+    rep = e["report"]
+    sizes = [ev["fleet_size"] for ev in rep["events"]]
+    log(f"phase 48 (d) elastic fit (d {EL_D}, top-k {EL_GR['density']}, "
+        f"{EL_GR['bucket_count']} buckets, overlap, hierarchical (dcn, "
+        f"data), {EL_CHIPS} ranks a worker, W {EL_W}): from 1 worker, "
+        f"join at boundary {EL_FAULTS[0][0]}, preempt at "
+        f"{EL_FAULTS[1][0]}: resizes {rep['resizes']}, fleet sizes "
+        f"{sizes}, restored steps "
+        f"{[ev['restored_step'] for ev in rep['events']]}, transitions "
+        f"{e['counters']}, loss log {e['log']}")
+    if rep["resizes"] != 2 or sizes != [2, 1] or rep["restarts"] != 0:
+        fail(f"phase 48 (d): resizes {rep['resizes']}, fleets {sizes}")
+    for ev in rep["events"]:
+        log(f"phase 48 (d) resize to {ev['fleet_size']} worker(s): pause "
+            f"(detect -> restore on the new fleet) {ev['mttr_s']} s, steps "
+            f"replayed 0 (a boundary cut) [{card}]")
+    for a in e["attempts"]:
+        log(f"phase 48 (d) attempt on {a['fleet']} worker(s): steps "
+            f"{a['from']}-{a['to']}, {a['wall_s']:.3f} s = "
+            f"{a['wall_s'] / max(1, a['to'] - a['from']) * 1e3:.3f} ms a "
+            f"step (its restore and pipeline start included) [{card}]")
+    for a in el[0]["fixed_1"]["attempts"] + el[0]["fixed_2"]["attempts"]:
+        if a["to"] is not None:
+            log(f"phase 48 (d) fixed fleet attempt on {a['fleet']} "
+                f"worker(s): steps {a['from']}-{a['to']}, "
+                f"{a['wall_s'] / max(1, a['to'] - a['from']) * 1e3:.3f} ms "
+                f"a step [{card}]")
+    for name, size in (("fixed_2", 2), ("fixed_1", 1)):
+        same = bits(el[0][name], e)
+        log(f"phase 48 (d) the fixed fleet of {size} worker(s) restoring the "
+            f"same cut: the resized fit bit for bit {same}")
+        if not same:
+            fail(f"phase 48 (d): the resized fit is not the fixed fleet of "
+                 f"{size} restoring the same cut")
+    d = el[0]["death"]
+    drep = d["report"]
+    done = (EL_CRASH_PULL // (EL_STEPS + 1)) * EL_STEPS \
+        + (EL_CRASH_PULL % (EL_STEPS + 1)) // EL_W * EL_W
+    replayed = done - d["restored"]
+    same = bits(el[0]["death_fixed"], d)
+    log(f"phase 48 (d) death in mid-chunk (crash at source pull "
+        f"{EL_CRASH_PULL} on each rank of a fleet of 2 workers): restarts "
+        f"{drep['restarts']}, fleet after {d['fleet']} (deaths "
+        f"{d['counters']['deaths']}), restored step {d['restored']}, steps "
+        f"replayed {replayed}, time to recover "
+        f"{drep['events'][0]['mttr_s']} s; the fixed fleet of 1 restoring "
+        f"the same cut: bit for bit {same} [{card}]")
+    if drep["restarts"] != 1 or d["fleet"] != 1 or not same:
+        fail("phase 48 (d): the death in mid-chunk did not recover onto the "
+             "survivors")
+    log(f"phase 48: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return {"launches": launches, "shard_ms": shard_ms}
 
 
 def killing_at(wins, at, exc):
@@ -8007,6 +8641,7 @@ def main():
                  f"path, expected {steps * EPOCHS}")
     if launches["ell_scatter_apply"] != 0:
         fail("the pair kernel ran on a grid of 8192 rows")
+    main_ref = fit_ref(model)       # phase 48 holds its one-rank group to it
 
     cfg = estimator(1)._sgd_config()
     one_k, _ = S.sgd_fit_mixed(LOSSES["logistic"], dense, cat, y, None,
@@ -8293,7 +8928,9 @@ def main():
     # phases 42-43: the text and selection stages; the hashed Criteo fit's
     # launches land under "hashed"
     text_phase(torch, dev, card)
-    hashed = hashed_criteo_phase(torch, dev, card, dense, cat, y)
+    hashed, hashed_model, hashed_rows = hashed_criteo_phase(
+        torch, dev, card, dense, cat, y)
+    hashed_ref = fit_ref(hashed_model)
     for entry in kernels:
         if entry["name"] in hashed:
             entry["hashed"] = {"launches": hashed[entry["name"]]}
@@ -8318,6 +8955,22 @@ def main():
     # phase 47: the compressed data-parallel gradient reduction (no
     # kernel of the table on its path)
     grad_reduce_phase(torch, dev, card)
+
+    # phase 48: the linear main path over ranks and elastic fleets; B1-B3's
+    # launches by sharded run land under "sharded", with B1/B2's ms at a
+    # rank's shard
+    sharded = sharded_lr_phase(torch, dev, card, main_ref, hashed_ref,
+                               hashed_rows)
+    for entry in kernels[:3]:
+        entry["sharded"] = {
+            "launches": {f"{layout}_{label}": [r[entry["name"]] for r in rs]
+                         for layout in ("mixed", "sparse")
+                         for label, rs in sharded["launches"][layout].items()},
+            "stream_launches": [r[entry["name"]] for r in
+                                sharded["launches"]["stream"]]}
+        if entry["name"] in sharded["shard_ms"]:
+            entry["sharded"]["shard_rows"] = sharded["shard_ms"]["rows"]
+            entry["sharded"]["shard_ms"] = sharded["shard_ms"][entry["name"]]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -44,9 +44,13 @@ the host count ``n_valid`` mark the pad steps, which
 n_valid)`` triples.  The chunk is stacked straight into the pinned
 staging slot (one host copy), by the put worker.
 
-A port of the JAX package's ``data/prefetch.py``.  Its multi-device
-placement (``sharding=``, ``chunk_consumer_plan`` over a mesh) is ROADMAP
-queue A10 and raises here; its metric-group gauges are not ported.
+Placement over a mesh: the port runs one rank a device, so a rank's
+batches and chunks are its own rows and go whole to its own device
+(``sharding=`` a mesh; :func:`chunk_consumer_plan` over a mesh names the
+rank's device).
+
+A port of the JAX package's ``data/prefetch.py``; its metric-group gauges
+are not ported.
 """
 
 from __future__ import annotations
@@ -71,10 +75,17 @@ __all__ = ["prefetch_to_device", "PrefetchStats", "masked_chunk_scan",
 _END = object()
 
 
-def _multi_device_not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to flink_ml_tpu_torch yet (ROADMAP queue "
-        "A10: multi-device placement); the port feeds one device")
+def _placement(mesh) -> Optional[torch.device]:
+    """The device a mesh places this rank's units on (None without a
+    mesh)."""
+    if mesh is None:
+        return None
+    if not hasattr(mesh, "axis_names"):
+        raise TypeError("sharding= takes a parallel.mesh.Mesh (this rank's "
+                        f"device), got {type(mesh).__name__}")
+    if mesh.device is None:
+        raise ValueError(f"{mesh!r} names no device for this rank")
+    return resolve_device(mesh.device)
 
 
 @dataclass
@@ -253,13 +264,14 @@ def masked_chunk_scan(step: Callable, state: Any, loss_sum, chunk, mask,
 
 
 def chunk_consumer_plan(mesh, specs, W: int, prefetch_depth: int):
-    """``(sharding, depth)`` for ``chunks=W`` prefetch: the port feeds one
-    device, so ``sharding`` is None; ``depth`` converts the caller's
+    """``(sharding, depth)`` for ``chunks=W`` prefetch.  ``sharding`` is
+    where a rank's chunk goes: over a mesh (a rank of a process group,
+    one device a rank) the rank's device, whole, since the chunk holds
+    just its own rows (``specs``, the JAX package's partition specs, place
+    nothing more); None without a mesh.  ``depth`` converts the caller's
     per-batch ``prefetch_depth`` into chunks (``ceil(prefetch_depth /
-    W)``, at least one).  A mesh raises (ROADMAP queue A10)."""
-    if mesh is not None:
-        raise _multi_device_not_ported("chunk placement over a mesh")
-    return None, max(1, -(-prefetch_depth // W))
+    W)``, at least one)."""
+    return _placement(mesh), max(1, -(-prefetch_depth // W))
 
 
 def prefetch_to_device(batches: Iterable[Any], *, depth: int = 2,
@@ -287,8 +299,8 @@ def prefetch_to_device(batches: Iterable[Any], *, depth: int = 2,
     in stream order (every earlier unit is delivered first).
 
     ``put_fn(batch, device)`` overrides the transfer of a per-batch unit
-    (not with ``chunks``).  ``sharding`` (multi-device placement) raises:
-    ROADMAP queue A10.
+    (not with ``chunks``).  ``sharding`` (a mesh) places every unit on
+    this rank's device of the mesh in place of ``device``.
 
     ``chunks=W`` (an int >= 1; default None = per-batch yields) groups
     every ``W`` consecutive transformed batches into one stacked chunk
@@ -320,9 +332,7 @@ def prefetch_to_device(batches: Iterable[Any], *, depth: int = 2,
     if chunks is not None and put_fn is not None:
         raise ValueError("chunks= does not compose with put_fn (a per-batch "
                          "transfer override)")
-    if sharding is not None:
-        raise _multi_device_not_ported("prefetch_to_device(sharding=...)")
-    dev = resolve_device(device)
+    dev = _placement(sharding) or resolve_device(device)
     cuda = dev.type == "cuda"
     st = stats or PrefetchStats()
     if chunks is not None:

@@ -23,9 +23,14 @@ protocol): tensors go to host numpy (one blocking copy each), restored
 leaves come back as numpy, and a namedtuple class recorded by the JAX
 package (``flink_ml_tpu.<module>.<Class>``) resolves to the port's
 counterpart, so a cut written by either package restores in the other.
-The multi-host branches (one writer, a cross-host barrier) and the fleet
-metadata of elastic cuts (``mesh_shape_meta``, ``require_fleet_compat``)
-are ROADMAP queue A10.
+
+In a process group of several ranks (``group=``, default the whole group)
+a save is the JAX package's multi-host one: rank 0 of the group writes and
+a barrier of the group makes the cut visible to every rank before any goes
+on (the directory must be one that every rank sees).  A restore in a group
+lets rank 0 scan (and quarantine) first.  The fleet metadata of elastic
+cuts (:func:`mesh_shape_meta`, :func:`require_fleet_compat`) is the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -52,7 +57,45 @@ from ..robustness.durability import (
 from ..utils.persist import port_class_name
 
 __all__ = ["save_pytree", "load_pytree", "CheckpointManager",
-           "CheckpointConfig", "host_copy"]
+           "CheckpointConfig", "host_copy", "mesh_shape_meta", "THIS_RANK",
+           "require_fleet_compat"]
+
+
+def mesh_shape_meta(mesh, participant_count: Optional[int] = None
+                    ) -> Dict[str, Any]:
+    """The fleet-identity metadata every elastic-aware cut carries: the
+    writing mesh's axis sizes plus the reduction participant count.  A
+    restore onto a different fleet consults it to know what it is
+    re-sharding from (:func:`require_fleet_compat`); a cut without it can
+    only restore onto a fleet of the original shape."""
+    meta: Dict[str, Any] = {
+        "mesh_shape": {str(a): int(mesh.shape[a]) for a in mesh.axis_names}}
+    if participant_count is not None:
+        meta["participant_count"] = int(participant_count)
+    return meta
+
+
+def require_fleet_compat(meta: Dict[str, Any], *, saved_participants: int,
+                         current_participants: int, path: str = "") -> None:
+    """Gate a cross-fleet restore on the cut carrying mesh-shape metadata:
+    a cut may restore onto a fleet of another size only when it records
+    the fleet that wrote it (``mesh_shape`` / ``participant_count``, which
+    the elastic-aware fits attach).  A legacy cut restored onto a
+    different fleet raises a :class:`CorruptStateError` naming the fix,
+    never a silent wrong-shape restore."""
+    if saved_participants == current_participants:
+        return
+    if meta.get("mesh_shape") is None \
+            and meta.get("participant_count") is None:
+        where = f" at {path}" if path else ""
+        raise CorruptStateError(
+            f"checkpoint{where} holds reducer state for "
+            f"{saved_participants} participant(s) but is being restored "
+            f"onto a fleet of {current_participants}, and the cut "
+            "predates mesh-shape metadata (no 'mesh_shape'/"
+            "'participant_count' in its manifest) — refusing the "
+            "wrong-shape restore; restore onto a fleet of the original "
+            "size, or re-cut the checkpoint with an elastic-aware fit")
 
 
 _LEAF = "__leaf__"
@@ -180,25 +223,37 @@ def host_copy(tree: Any) -> Any:
     return tree
 
 
-def _require_one_process(what: str) -> None:
-    """The multi-host branches (one writer, a cross-host barrier) are
-    ROADMAP queue A10: refuse a process group of more than one rank."""
+def _save_group(group) -> Tuple[bool, Any]:
+    """``(coordinated, group)``: whether a save or restore coordinates
+    ranks, and over which group (None: the whole process group, which it
+    does where that has several ranks; ``THIS_RANK``: never)."""
     dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{what} across {dist.get_world_size()} processes is not ported "
-            "to flink_ml_tpu_torch yet (ROADMAP queue A10: multi-host)")
+    if group is THIS_RANK:
+        return False, None
+    if group is None:
+        return (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1), None
+    return dist.get_world_size(group) > 1, group
+
+
+def _is_writer(coordinated: bool, group) -> bool:
+    return not coordinated or torch.distributed.get_rank(group) == 0
 
 
 def save_pytree(path: str, tree: Any,
-                meta: Optional[Dict[str, Any]] = None) -> None:
+                meta: Optional[Dict[str, Any]] = None, *,
+                group: Any = None) -> None:
     """Atomically persist a state tree: arrays into one npz, structure +
     metadata into a JSON sidecar.  Tensor leaves are copied to the host
     first (one blocking copy each; callers wanting async snapshots pass
-    :func:`host_copy` of the state).  One process only: a multi-process
-    save raises (ROADMAP queue A10)."""
-    _require_one_process("a checkpoint save")
+    :func:`host_copy` of the state).  In a process group of several ranks
+    (``group``, default the whole group) only its rank 0 writes, and a
+    barrier of the group makes the cut visible before any rank returns
+    (every rank of the group must call it, with the same tree)."""
+    coordinated, group = _save_group(group)
+    if not _is_writer(coordinated, group):
+        torch.distributed.barrier(group=group)
+        return
     leaves: List[np.ndarray] = []
     skeleton = _encode_structure(tree, leaves)
     tmp = path + ".tmp"
@@ -226,6 +281,8 @@ def save_pytree(path: str, tree: Any,
         shutil.rmtree(old)
     else:
         os.replace(tmp, path)
+    if coordinated:
+        torch.distributed.barrier(group=group)
 
 
 def load_pytree(path: str) -> Tuple[Any, Dict[str, Any]]:
@@ -250,6 +307,12 @@ def load_pytree(path: str) -> Tuple[Any, Dict[str, Any]]:
             f"checkpoint at {path} failed to decode ({exc!r}); the save "
             "is truncated or corrupted — restore from an earlier "
             "checkpoint") from exc
+
+
+#: ``group=THIS_RANK``: this rank reads and writes alone, with no barrier,
+#: whatever process group exists (a fit of one rank's own; the manager's
+#: writer, which coordinates its group itself).
+THIS_RANK = object()
 
 
 class CheckpointConfig:
@@ -302,16 +365,26 @@ class CheckpointManager:
         return epoch % self.config.interval == 0
 
     def save(self, epoch: int, state: Any,
-             extra: Optional[Dict[str, Any]] = None) -> str:
+             extra: Optional[Dict[str, Any]] = None, *,
+             group: Any = None) -> str:
+        """Write the cut of ``epoch`` (in a group: its rank 0 writes and
+        collects old cuts, :func:`save_pytree`)."""
         path = self._ckpt_path(epoch)
         meta = {"epoch": epoch}
         if extra:
             meta.update(extra)
         # the cut's slot key IS the trainer's global step for streaming
         # fits: the `step` correlation id
-        with tracer.span("checkpoint_write", cat="train", step=int(epoch)):
-            save_pytree(path, state, meta)
-        self._gc()
+        coordinated, group = _save_group(group)
+        if _is_writer(coordinated, group):
+            # the writer collects old cuts before the barrier releases
+            # the others
+            with tracer.span("checkpoint_write", cat="train",
+                             step=int(epoch)):
+                save_pytree(path, state, meta, group=THIS_RANK)
+            self._gc()
+        if coordinated:
+            torch.distributed.barrier(group=group)
         return path
 
     def save_async(self, epoch: int, state: Any,
@@ -340,28 +413,42 @@ class CheckpointManager:
             error, self._pending_error = self._pending_error, None
             raise error
 
-    def latest(self) -> Optional[Tuple[int, Any, Dict[str, Any]]]:
+    def latest(self, *, group: Any = None
+               ) -> Optional[Tuple[int, Any, Dict[str, Any]]]:
         """The newest VALID checkpoint, scanning newest->oldest.  A cut
         that fails validation/decoding (torn write, bit flip, crash
         mid-commit) is quarantined (``<dir>.corrupt`` — kept for
         forensics, invisible to future scans) and the scan falls back to
         the previous one; only when NO valid checkpoint exists does this
-        return None."""
+        return None.  With ``group`` (a process group of several ranks,
+        every rank calling) its rank 0 scans and quarantines first, a
+        barrier, then the others read what it left."""
         self.wait()
+        coordinated, group = _save_group(THIS_RANK if group is None
+                                         else group)
+        writer = _is_writer(coordinated, group)
+        if not writer:
+            torch.distributed.barrier(group=group)
+        found = None
         for epoch in reversed(self.list_epochs()):
             path = self._ckpt_path(epoch)
             try:
                 state, meta = load_pytree(path)
             except CorruptStateError:
-                quarantine(path)
+                if writer:
+                    quarantine(path)
                 continue
             self.last_restore_at = self.clock()
             self.last_restored_step = int(meta["epoch"])
-            return int(meta["epoch"]), state, meta
-        return None
+            found = int(meta["epoch"]), state, meta
+            break
+        if writer and coordinated:
+            torch.distributed.barrier(group=group)
+        return found
 
-    def restore_latest(self) -> Optional[Tuple[int, Any, Dict[str, Any]]]:
-        return self.latest()
+    def restore_latest(self, *, group: Any = None
+                       ) -> Optional[Tuple[int, Any, Dict[str, Any]]]:
+        return self.latest(group=group)
 
     def _gc(self) -> None:
         keep = self.config.max_to_keep

@@ -298,7 +298,11 @@ class LinearEstimatorBase(LinearEstimatorParams, Estimator):
     def _labels(self, table: Table) -> np.ndarray:
         return np.asarray(table[self.get_label_col()], np.float64)
 
-    def fit(self, *inputs):
+    def fit(self, *inputs, mesh=None):
+        """Fit on ``inputs``' one table.  Inside a process group each rank
+        passes its own rows and the fit runs data-parallel on ``mesh``
+        (default the group's; the hashed layouts also take a ``("data",
+        "model")`` mesh: :func:`~.sgd.sgd_fit_mixed`)."""
         (table,) = inputs
         kind, feats = resolve_features(table, self.get_features_col())
         y = self._labels(table)
@@ -315,7 +319,7 @@ class LinearEstimatorBase(LinearEstimatorParams, Estimator):
                     "space size); call set_num_features")
             state, loss_log = sgd_fit_sparse(
                 loss, idx, vals, y, weights, num_features,
-                self._sgd_config(), device=self.device)
+                self._sgd_config(), device=self.device, mesh=mesh)
         elif kind == "mixed":
             dense, cat = feats
             num_features = self.get_num_features()
@@ -325,10 +329,11 @@ class LinearEstimatorBase(LinearEstimatorParams, Estimator):
                     "space size); call set_num_features")
             state, loss_log = sgd_fit_mixed(
                 loss, dense, cat, y, weights, num_features,
-                self._sgd_config(), device=self.device)
+                self._sgd_config(), device=self.device, mesh=mesh)
         else:
             state, loss_log = sgd_fit(loss, feats, y, weights,
-                                      self._sgd_config(), device=self.device)
+                                      self._sgd_config(), device=self.device,
+                                      mesh=mesh)
 
         model = self.model_cls(device=self.device)
         model.copy_params_from(self)
@@ -336,7 +341,7 @@ class LinearEstimatorBase(LinearEstimatorParams, Estimator):
         model._loss_log = loss_log
         return model
 
-    def fit_outofcore(self, make_reader, *, num_features: int,
+    def fit_outofcore(self, make_reader, *, num_features: int, mesh=None,
                       sparse: bool = False, mixed: bool = False,
                       checkpoint=None, checkpoint_every_steps: int = 0,
                       resume: bool = False, **stream_kwargs):
@@ -350,7 +355,10 @@ class LinearEstimatorBase(LinearEstimatorParams, Estimator):
         with ``mixed=True`` the Criteo-native ``{featuresCol}_dense`` +
         ``{featuresCol}_indices`` pair (implicit categorical value 1.0).
         globalBatchSize and seed are inert: the reader owns batch size
-        and order.  Runs on this estimator's ``device``; extra keyword
+        and order.  ``mesh`` (several ranks of a process group, each with
+        a reader over its own shard) runs the stream data-parallel
+        (:func:`~.sgd.sgd_fit_outofcore`).  Runs on this estimator's
+        ``device``; extra keyword
         arguments (``cache_decoded``, ``decoded_ram_budget``,
         ``stream_info``, ``prefetch_*``, ``steps_per_dispatch``,
         ``ell_*``, ``retry_policy``, ``plain``, ...) forward to
@@ -359,7 +367,7 @@ class LinearEstimatorBase(LinearEstimatorParams, Estimator):
         stream_kwargs.setdefault("device", self.device)
         state, loss_log = sgd_fit_outofcore(
             LOSSES[self.loss_name], make_reader,
-            num_features=num_features, config=self._sgd_config(),
+            num_features=num_features, config=self._sgd_config(), mesh=mesh,
             features_key=feat,
             label_key=self.get_label_col(),
             weight_key=self.get_weight_col() or None,

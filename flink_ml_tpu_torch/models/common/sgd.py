@@ -30,23 +30,36 @@ through the plain updates, mixed batches through the ELL kernels with
 each batch's layout built in the prefetch decode workers and its sample
 routing on the card.
 
-Data parallel (the dense layout): inside an initialized process group
-(``parallel/distributed.py``) :func:`sgd_fit` and :func:`sgd_fit_params`
-run on the default mesh (or ``mesh=``, e.g. a ``hybrid_mesh``), each rank
-on its own rows, with the JAX package's multi-process epoch layout
-(local batch = global batch / ranks, one allgather checking that every
-rank planned the same).  Each step's gradient of the global weighted-mean
-loss is summed over the ranks: by ``SGDConfig.grad_reduce``
-(:mod:`flink_ml_tpu_torch.parallel.grad_reduce`: top-k with error
-feedback, int8, hierarchical, buckets, overlap, the adaptive ladder),
-exactly where it is None or ``mode="exact"``; the reducer state rides
-``params["_gr"]``.  The streamed dense fit takes ``grad_reduce`` on this
-rank alone (one participant), its state riding the chunk carry and every
-checkpoint cut.
+Data parallel: inside an initialized process group (``parallel/
+distributed.py``) the in-memory fits run on the default mesh (or
+``mesh=``), each rank on its own rows, with the JAX package's
+multi-process epoch layout (local batch = global batch / ranks, one
+allgather checking that every rank planned the same).  The rank's loss is
+re-normalized to the global weighted mean (one sum of the (denominator,
+numerator) pair) before ``dloss/dmargin`` scales anything.
 
-A port of the JAX package's ``models/common/sgd.py``.  Its meshes for the
-hashed layouts and the streamed fit, multi-rank streams and its elastic
-membership are ROADMAP queue A10 and raise.
+- dense (:func:`sgd_fit`, :func:`sgd_fit_params`): each step's gradient
+  is summed over the ranks by ``SGDConfig.grad_reduce``
+  (:mod:`flink_ml_tpu_torch.parallel.grad_reduce`: top-k with error
+  feedback, int8, hierarchical, buckets, overlap, the adaptive ladder),
+  exactly where it is None or ``mode="exact"``; the reducer state rides
+  ``params["_gr"]``;
+- mixed and sparse on a data mesh (:func:`_mixed_update_ell_sharded`,
+  :func:`_sparse_update_ell_sharded`): each rank routes its own batch
+  shard through the ELL layout of that shard (slot sources numbered
+  inside it), runs the margin kernel for its margins and the scatter
+  kernels into a zero delta over the full weight, and one rank-order sum
+  of the deltas (``psum_ordered``) completes the scatter, the same bits on
+  every rank;
+- mixed on a ``("data", "model")`` mesh (:func:`_mixed_update_sharded`):
+  each model rank owns a contiguous ``num_features / M`` block of ``w``.
+
+A group of one rank runs the one-process fit.  The streamed fit takes
+``mesh=`` (each rank streams its own batches) and ``membership=`` (an
+elastic fleet, :mod:`flink_ml_tpu_torch.parallel.elastic`); without a
+mesh it runs on this rank alone, ``grad_reduce`` over one participant.
+
+A port of the JAX package's ``models/common/sgd.py``.
 """
 
 from __future__ import annotations
@@ -74,10 +87,16 @@ from ...data.replay_cache import (
     batch_fingerprint,
     default_ram_budget,
 )
-from ...iteration.checkpoint import CheckpointConfig, CheckpointManager
+from ...iteration.checkpoint import (
+    THIS_RANK,
+    CheckpointConfig,
+    CheckpointManager,
+    mesh_shape_meta,
+)
 from ...obs.trace import tracer
 from ...ops import ell_scatter as E
-from ...parallel.collectives import psum
+from ...parallel.collectives import axis_index, psum, psum_ordered
+from ...parallel.mesh import Mesh, default_mesh, local_mesh
 from ...utils.device import resolve_device
 from ...utils.padding import FixedRowBatcher
 
@@ -175,18 +194,23 @@ def plan_epoch_layout(n: int, global_batch_size: int, n_dev: int,
 
 
 def _plan_epoch_layout_for_mesh(n_local: int, global_batch_size: int,
-                                mesh, seed: int
+                                mesh, seed: int,
+                                batch_shards: Optional[int] = None
                                 ) -> Tuple[int, int, np.ndarray]:
     """:func:`plan_epoch_layout` on a mesh of P ranks: each rank prepares
     its local ``(steps, batch/P, ...)`` slice from its own ``n_local``
     rows (the JAX package's multi-process layout); one rank (or none)
-    plans the one-process layout exactly.  One allgather of ``(steps,
+    plans the one-process layout exactly.  ``batch_shards`` (default the
+    mesh's ranks) is P where the batch shards over fewer ranks than the
+    mesh holds (the data axis of a ``("data", "model")`` mesh; the ranks
+    of one model group pass the same rows).  One allgather of ``(steps,
     local_batch)`` raises on every rank if the ranks planned apart."""
     from ...parallel.distributed import process_allgather
 
-    procs = mesh.size if mesh.group is not None else 1
+    shards = mesh.size if batch_shards is None else int(batch_shards)
+    procs = shards if mesh.group is not None else 1
     steps, batch, perm = plan_epoch_layout(
-        n_local, global_batch_size, mesh.size, seed)
+        n_local, global_batch_size, shards, seed)
     if procs == 1:
         return steps, batch, perm
     if batch % procs:
@@ -386,26 +410,30 @@ def _apply_drain(params: dict, gr_state: dict, config: SGDConfig, mesh
     return {**params, "w": w, "b": b}
 
 
-def _finish_sparse_step(config: SGDConfig):
+def _finish_sparse_step(config: SGDConfig, *, sumsq=None, rsum=None):
     """Shared l2/apply/l1-prox/bias tail of the manual-gradient updates
     (l2 decay = ``w*(1-lr*l2)`` before the sparse gradient, exactly
     grad-of-``loss + l2/2 ||w||^2``; l1 via proximal soft-threshold
-    after)."""
+    after).  ``sumsq``/``rsum`` replace the two reductions (``||w||^2``
+    and ``sum(r)``) for callers whose ``w`` or ``r`` is a rank's shard;
+    ``rsum`` is called after ``apply_grad``."""
     lr = config.learning_rate
     reg, alpha = config.reg, config.elastic_net
     l2 = reg * (1.0 - alpha)
     l1 = reg * alpha
+    sumsq = sumsq or (lambda w: torch.sum(torch.square(w)))
+    rsum = rsum or torch.sum
 
     def finish(w, b, value, r, apply_grad):
         """``apply_grad(w)`` must return ``w - lr * grad_loss`` as a new
         tensor; ``r`` is dloss/dmargin for the bias step."""
         if l2 > 0:
-            value = value + 0.5 * l2 * torch.sum(torch.square(w))
+            value = value + 0.5 * l2 * sumsq(w)
             w = w * (1.0 - lr * l2)
         w = apply_grad(w)
         if l1 > 0:
             w = torch.sign(w) * torch.clamp(torch.abs(w) - lr * l1, min=0.0)
-        b = b - (lr * torch.sum(r) if config.fit_intercept else 0.0)
+        b = b - (lr * rsum(r) if config.fit_intercept else 0.0)
         return {"w": w, "b": b}, value
 
     return finish
@@ -616,17 +644,241 @@ def _sparse_update_ell(loss_fn: LossFn, config: SGDConfig,
     return update
 
 
+def _global_loss_and_r(loss_fn: LossFn, margin: torch.Tensor,
+                       yb: torch.Tensor, wb: torch.Tensor, mesh, axes
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss, dloss/dmargin)`` of the global weighted mean from a rank's
+    rows.  The losses of :mod:`.losses` are weighted means: a rank's own
+    mean divides by its own weight sum, so its ``r`` would be scaled by the
+    wrong denominator.  One rank-order sum of the (denominator, numerator)
+    pair over ``axes`` re-normalizes both, as the JAX package's
+    ``_mixed_update_sharded`` does."""
+    value_local, r = _loss_and_r(loss_fn, margin, yb, wb)
+    denom_local = torch.clamp(torch.sum(wb), min=1e-12)
+    tot = psum_ordered(torch.stack([denom_local, value_local * denom_local]),
+                       axes, mesh=mesh)
+    return tot[1] / tot[0], r * (denom_local / tot[0])
+
+
+def _data_parallel_update(loss_fn: LossFn, config: SGDConfig, mesh,
+                          margin_of, delta_of):
+    """The update of one rank of a data-parallel ``mesh`` for the hashed
+    layouts: ``margin_of(w, batch, *feats)`` is the rank's margins (less
+    ``b``) from its own rows, ``delta_of(zeros, r, *feats)`` its
+    ``-lr * grad`` over the full weight (a new tensor or ``zeros``
+    updated in place).  The loss is the global weighted mean
+    (:func:`_global_loss_and_r`); the deltas and the bias gradient are
+    summed over every axis of the mesh by one rank-order sum
+    (``psum_ordered``: the same bits on every rank, run after run)."""
+    axes = tuple(mesh.axis_names)
+    reduced = {}
+    finish = _finish_sparse_step(config, rsum=lambda r: reduced["rsum"])
+
+    def update(params, *batch):
+        *feats, yb, wb = batch
+        w, b = params["w"], params["b"]
+        margin = margin_of(w, yb.shape[0], *feats) + b
+        value, r = _global_loss_and_r(loss_fn, margin, yb, wb, mesh, axes)
+
+        def apply_grad(w):
+            delta = delta_of(torch.zeros_like(w), r, *feats)
+            flat = psum_ordered(torch.cat([delta, torch.sum(r)[None]]),
+                                axes, mesh=mesh)
+            reduced["rsum"] = flat[-1]
+            return w + flat[:-1]
+
+        return finish(w, b, value, r, apply_grad)
+
+    return update
+
+
+def _mixed_update_ell_sharded(loss_fn: LossFn, config: SGDConfig, mesh,
+                              plain: bool = False):
+    """Data-parallel twin of :func:`_mixed_update_ell` (the JAX package's
+    ``_mixed_update_ell_sharded``): a rank's batch arguments are its own
+    rows and the ELL layout of just those rows, slot sources numbered
+    inside them.  It runs the margin kernel (B1) for its margins and the
+    fused scatter (B2, or the pair kernel B3 where the grid does not tile
+    into 8-row blocks) into a zero delta over the full weight, adds its
+    dense block's partial ``-lr * r @ dense``, and one rank-order sum of
+    the deltas completes the scatter (:func:`_data_parallel_update`).
+    Results differ from the one-process update only in f32 summation
+    order (the per-rank partial sums)."""
+    lr = config.learning_rate
+
+    def margin_of(w, batch, dense, route_w, src, pos, mask, ovf_idx,
+                  ovf_src, heavy_idx, heavy_cnt):
+        return dense @ w[:dense.shape[-1]] + _ell_margin(
+            w, batch, route_w, ovf_idx, ovf_src, heavy_idx, heavy_cnt,
+            plain=plain)
+
+    def delta_of(zeros, r, dense, route_w, src, pos, mask, ovf_idx,
+                 ovf_src, heavy_idx, heavy_cnt):
+        delta = _apply_ell_categorical(
+            lr, zeros, r, _extended_r(r), src, pos, mask, ovf_idx, ovf_src,
+            heavy_idx, heavy_cnt, plain=plain)
+        delta[:dense.shape[-1]] += -lr * (r @ dense)
+        return delta
+
+    return _data_parallel_update(loss_fn, config, mesh, margin_of, delta_of)
+
+
+def _sparse_update_ell_sharded(loss_fn: LossFn, config: SGDConfig, mesh,
+                               plain: bool = False):
+    """Values-aware twin of :func:`_mixed_update_ell_sharded` for the
+    generic ``(indices, values)`` layout (the JAX package's
+    ``_sparse_update_ell_sharded``): the kernels' value variants over the
+    rank's own layout, per-slot updates ``-lr * value * r``, one
+    rank-order sum of the deltas."""
+    lr = config.learning_rate
+
+    def margin_of(w, batch, route, src, pos, mask, val_ell, ovf_idx,
+                  ovf_src, ovf_val, heavy_idx, heavy_cnt):
+        route_w, route_val = route
+        return _ell_margin(w, batch, route_w, ovf_idx, ovf_src, heavy_idx,
+                           heavy_cnt, route_val=route_val, ovf_val=ovf_val,
+                           plain=plain)
+
+    def delta_of(zeros, r, route, src, pos, mask, val_ell, ovf_idx,
+                 ovf_src, ovf_val, heavy_idx, heavy_cnt):
+        return _apply_ell_categorical(
+            lr, zeros, r, _extended_r(r), src, pos, mask, ovf_idx, ovf_src,
+            heavy_idx, heavy_cnt, val_ell=val_ell, ovf_val=ovf_val,
+            plain=plain)
+
+    return _data_parallel_update(loss_fn, config, mesh, margin_of, delta_of)
+
+
+def _mixed_update_dp(loss_fn: LossFn, config: SGDConfig, mesh):
+    """Data-parallel twin of :func:`_mixed_update` (direct gather and
+    scatter): the mixed layout on a mesh where the ELL plan does not
+    apply."""
+    lr = config.learning_rate
+
+    def margin_of(w, batch, dense, cat):
+        return (dense @ w[:dense.shape[-1]]
+                + torch.sum(E.gather_weights(w, cat), dim=-1))
+
+    def delta_of(zeros, r, dense, cat):
+        delta = _scatter_add_(zeros, cat.reshape(-1),
+                              torch.repeat_interleave(-lr * r, cat.shape[-1]))
+        delta[:dense.shape[-1]] += -lr * (r @ dense)
+        return delta
+
+    return _data_parallel_update(loss_fn, config, mesh, margin_of, delta_of)
+
+
+def _sparse_update_dp(loss_fn: LossFn, config: SGDConfig, mesh):
+    """Data-parallel twin of :func:`_sparse_update`."""
+    lr = config.learning_rate
+
+    def margin_of(w, batch, idx, vals):
+        return torch.sum(vals * E.gather_weights(w, idx), dim=-1)
+
+    def delta_of(zeros, r, idx, vals):
+        return _scatter_add_(zeros, idx.reshape(-1),
+                             (-lr * (vals * r[:, None])).reshape(-1))
+
+    return _data_parallel_update(loss_fn, config, mesh, margin_of, delta_of)
+
+
+def _mixed_update_sharded(loss_fn: LossFn, config: SGDConfig, mesh,
+                          num_features: int, n_dense: int):
+    """Model-parallel twin of :func:`_mixed_update` on a ``("data",
+    "model")`` mesh (the JAX package's ``_mixed_update_sharded``): the
+    weight is sharded over ``model``, each rank owning the contiguous
+    block ``[m * shard, (m + 1) * shard)`` for ``shard = num_features /
+    M``, so 2^24+ hash spaces never replicate.  A rank's batch arguments
+    are its data shard's rows (the same on every rank of its model
+    group).  Per step: the owned slots' partial margins (and, on model
+    rank 0, the dense block's) are summed over ``model``; the (numerator,
+    denominator) pair over ``data`` (:func:`_global_loss_and_r`); the
+    owned block's delta and the bias gradient over ``data``; ``||w||^2``
+    over ``model``.  Every sum is rank-order (``psum_ordered``), so the
+    ranks of a model group see the same margins bit for bit.  No kernel
+    of the table runs here: the JAX package computes it outside Pallas
+    too."""
+    M = int(mesh.shape["model"])
+    if num_features % M:
+        raise ValueError(
+            f"num_features={num_features} must divide the model axis "
+            f"({M}); pad the hash space")
+    shard = num_features // M
+    if n_dense > shard:
+        raise ValueError(
+            f"n_dense={n_dense} exceeds the per-rank weight shard "
+            f"{shard}; use fewer model shards")
+    lr = config.learning_rate
+    mrank = axis_index("model", mesh=mesh)
+    off = mrank * shard
+    reduced = {}
+    finish = _finish_sparse_step(
+        config,
+        sumsq=lambda w: psum_ordered(torch.sum(torch.square(w)), "model",
+                                     mesh=mesh),
+        rsum=lambda r: reduced["rsum"])
+
+    def update(params, dense, cat, yb, wb):
+        w, b = params["w"], params["b"]
+        loc = cat.long() - off
+        owned = (loc >= 0) & (loc < shard)
+        locc = torch.clamp(loc, 0, shard - 1)
+        part = torch.sum(torch.where(owned, w[locc], 0.0), dim=-1)
+        if mrank == 0:
+            part = part + dense @ w[:n_dense]
+        margin = psum_ordered(part, "model", mesh=mesh) + b
+        value, r = _global_loss_and_r(loss_fn, margin, yb, wb, mesh, "data")
+
+        def apply_grad(w):
+            delta = _scatter_add_(
+                torch.zeros_like(w), locc.reshape(-1),
+                torch.where(owned, -lr * r[:, None], 0.0).reshape(-1))
+            if mrank == 0:
+                delta[:n_dense] += -lr * (r @ dense)
+            flat = psum_ordered(torch.cat([delta, torch.sum(r)[None]]),
+                                "data", mesh=mesh)
+            reduced["rsum"] = flat[-1]
+            return w + flat[:-1]
+
+        return finish(w, b, value, r, apply_grad)
+
+    return update
+
+
+def _mesh_ranks(mesh) -> int:
+    """Ranks of a mesh that runs collectives: 1 without a group."""
+    return 1 if mesh is None or mesh.group is None else mesh.size
+
+
 def plan_mixed_impl(num_features: int, steps: int,
-                    layout_bytes_per_slot: int = 12) -> str:
+                    layout_bytes_per_slot: int = 12, *, mesh=None,
+                    allow_sharded: bool = False,
+                    allow_multiprocess: bool = False) -> str:
     """Which categorical implementation :func:`sgd_fit_mixed` runs:
     ``"ell"`` (the static-routing kernels) when the weight size tiles into
-    128-lane rows and the ``steps``-deep layout stack fits its budget, else
-    ``"plain"`` (direct gather/scatter): the JAX package's rule on its
-    accelerator.  The margin's sample routing does not enter it (it is
-    built per chunk of steps where it outgrows its own budget).  Planned
-    by shape and budget only, so the CPU and the card run the same code;
-    only the kernel wrappers branch on the device."""
-    if (E.supported(num_features)
+    128-lane rows, the ``steps``-deep layout stack fits its budget and the
+    mesh admits it, else ``"plain"`` (direct gather/scatter): the JAX
+    package's rule.  Where the JAX package asks for a TPU backend the port
+    plans by shape and budget on every device, so the CPU and the card run
+    the same code (on a CPU tensor the kernel wrappers run their plain
+    versions).  The margin's sample routing does not enter it (it is built
+    per chunk of steps where it outgrows its own budget).
+
+    ``mesh`` (a :class:`~flink_ml_tpu_torch.parallel.mesh.Mesh`, default
+    one rank): a mesh of several ranks is admitted with
+    ``allow_sharded=True`` when all its ranks lie on the ``"data"`` axis:
+    each rank routes its own batch shard through its own layout and one
+    sum completes the scatter (:func:`_mixed_update_ell_sharded`); the
+    budget is a rank's, so it does not change with the mesh.  Every rank
+    of the port is a process of its own, so a mesh of several ranks spans
+    processes: ``allow_multiprocess=True`` admits it, for callers whose
+    layout build is each rank's own (the in-memory fits, whose ranks each
+    lay out their own rows, and the streamed fit's decode workers)."""
+    n_dev = 1 if mesh is None else mesh.size
+    data_only = mesh is None or n_dev == int(mesh.shape.get("data", 0))
+    procs_ok = n_dev == 1 or allow_multiprocess
+    mesh_ok = n_dev == 1 or (allow_sharded and data_only and procs_ok)
+    if (mesh_ok and E.supported(num_features)
             and steps * num_features * layout_bytes_per_slot
             <= _ELL_LAYOUT_BUDGET_BYTES):
         return "ell"
@@ -745,7 +997,6 @@ def sgd_fit_params(loss_fn: LossFn, features: np.ndarray, labels: np.ndarray,
     ``config.grad_reduce`` (module docstring).  A group of one rank runs
     the one-process fit, its gradient summed over the one rank."""
     from ...parallel import grad_reduce as GR
-    from ...parallel.mesh import default_mesh
 
     dev = _rank_device(device)
     mesh = mesh or default_mesh()
@@ -786,10 +1037,36 @@ def sgd_fit_params(loss_fn: LossFn, features: np.ndarray, labels: np.ndarray,
     return {k: v.cpu().numpy() for k, v in params.items()}, loss_log
 
 
+def _plan_on(mesh, num_features: int, steps: int, **kw) -> str:
+    """:func:`plan_mixed_impl` for a fit on ``mesh``, whose ranks each lay
+    out their own rows (a mesh of one rank plans the one-process way)."""
+    if _mesh_ranks(mesh) == 1:
+        return plan_mixed_impl(num_features, steps, **kw)
+    return plan_mixed_impl(num_features, steps, mesh=mesh,
+                           allow_sharded=True, allow_multiprocess=True, **kw)
+
+
+def _hashed_epoch_plan(n: int, gbs: int, mesh, seed: int):
+    """The mesh, its batch shards and the epoch grid of a hashed-layout
+    fit: ``(mesh, ranks, model, steps, batch, perm)`` with ``batch`` a
+    rank's rows a step."""
+    mesh = mesh or default_mesh()
+    ranks = _mesh_ranks(mesh)
+    model = int(mesh.shape.get("model", 1))
+    if model > 1 and set(mesh.axis_names) != {"data", "model"}:
+        raise ValueError(
+            "a model-sharded hashed fit runs on a ('data', 'model') mesh, "
+            f"got axes {list(mesh.axis_names)}")
+    steps, batch, perm = _plan_epoch_layout_for_mesh(
+        n, gbs, mesh, seed, batch_shards=mesh.size // model)
+    return mesh, ranks, model, steps, batch, perm
+
+
 def sgd_fit_sparse(loss_fn: LossFn, indices: np.ndarray, values: np.ndarray,
                    labels: np.ndarray, weights: Optional[np.ndarray],
-                   num_features: int, config: SGDConfig, device="cuda",
-                   plain: bool = False) -> Tuple[LinearState, list]:
+                   num_features: int, config: SGDConfig, device=None,
+                   plain: bool = False, *, mesh=None
+                   ) -> Tuple[LinearState, list]:
     """Train ``(w, b)`` on the generic sparse layout: rows are ``(indices
     (n, nnz) int, values (n, nnz) float)`` pairs (what
     :func:`~flink_ml_tpu_torch.linalg.stack_sparse_vectors` and a hashing
@@ -799,19 +1076,30 @@ def sgd_fit_sparse(loss_fn: LossFn, indices: np.ndarray, values: np.ndarray,
     bytes a slot a step in the batch and plan budgets) and the sample
     routing with the slots' values; the margin and scatter kernels run
     their value variants.  Returns the fitted state and the per-epoch loss
-    log.  Runs on ``device`` (default the card; raises without one).
-    ``plain`` runs the ELL kernels' plain versions (the oracle on the
-    card).  Every scatter-add sums in a fixed order
-    (:func:`_scatter_add_`), so two fits on the card give the same bits."""
+    log.  Runs on ``device`` (default this rank's device in a process
+    group, else the card; raises without one).  ``plain`` runs the ELL
+    kernels' plain versions (the oracle on the card).  Every scatter-add
+    sums in a fixed order (:func:`_scatter_add_`), so two fits on the card
+    give the same bits.
+
+    Inside a process group the fit runs on ``mesh`` (default the default
+    mesh), each rank passing its own rows: on a data mesh each rank lays
+    out its own batch shards and the step is
+    :func:`_sparse_update_ell_sharded` (or the direct scatter's
+    :func:`_sparse_update_dp` off the ELL plan); every rank returns the
+    same state.  A group of one rank runs the one-process fit."""
     from .linear import check_sparse_indices
 
-    dev = resolve_device(device)
+    dev = _rank_device(device)
     check_sparse_indices(indices, num_features)
     n, nnz = indices.shape
-    steps, batch, perm = plan_epoch_layout(
+    mesh, ranks, model, steps, batch, perm = _hashed_epoch_plan(
         n, resolve_global_batch_size(config, n, num_features,
-                                     layout_bytes_per_slot=16), 1,
+                                     layout_bytes_per_slot=16), mesh,
         config.seed)
+    if model > 1:
+        raise ValueError("the model-sharded plan is the mixed layout's "
+                         "(sgd_fit_mixed); shard the sparse fit over 'data'")
     idx = prepare_epoch_tensor(indices.astype(np.int32), perm, steps, batch)
     vals = prepare_epoch_tensor(values.astype(np.float32), perm, steps,
                                 batch)
@@ -820,20 +1108,24 @@ def sgd_fit_sparse(loss_fn: LossFn, indices: np.ndarray, values: np.ndarray,
     def put(a):
         return torch.from_numpy(a).to(dev)
 
-    impl = plan_mixed_impl(num_features, steps, layout_bytes_per_slot=16)
+    impl = _plan_on(mesh, num_features, steps, layout_bytes_per_slot=16)
     if impl == "ell":
         # the raw (steps, batch, nnz) idx/vals stay on the host: margins
-        # and scatters both ride the layout
+        # and scatters both ride the layout (of this rank's rows)
         lay = E.ell_layout(idx, num_features, values=vals).to(dev)
         route = _StepRouting(lay, batch, routing_chunk_steps(
             steps, batch * nnz, entry_bytes=8))
         epoch_args = (route, lay.src, lay.pos, lay.mask, lay.val,
                       lay.ovf_idx, lay.ovf_src, lay.ovf_val, lay.heavy_idx,
                       lay.heavy_cnt, put(y), put(sw))
-        update = _sparse_update_ell(loss_fn, config, plain=plain)
+        update = (_sparse_update_ell(loss_fn, config, plain=plain)
+                  if ranks == 1 else
+                  _sparse_update_ell_sharded(loss_fn, config, mesh,
+                                             plain=plain))
     else:
         epoch_args = (put(idx).long(), put(vals), put(y), put(sw))
-        update = _sparse_update(loss_fn, config)
+        update = (_sparse_update(loss_fn, config) if ranks == 1
+                  else _sparse_update_dp(loss_fn, config, mesh))
     params, loss_log = _run_minibatch_epochs(
         update, epoch_args, _zero_params(num_features, dev), steps, config)
     return _linear_state(params, impl), loss_log
@@ -842,19 +1134,32 @@ def sgd_fit_sparse(loss_fn: LossFn, indices: np.ndarray, values: np.ndarray,
 def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
                   cat_indices: np.ndarray, labels: np.ndarray,
                   weights: Optional[np.ndarray], num_features: int,
-                  config: SGDConfig, device="cuda", plain: bool = False
-                  ) -> Tuple[LinearState, list]:
+                  config: SGDConfig, device=None, plain: bool = False, *,
+                  mesh=None) -> Tuple[LinearState, list]:
     """Train (w, b) on the Criteo-native mixed layout: ``dense_features``
     (n, n_dense) occupy weight slots ``[0, n_dense)`` and ``cat_indices``
     (n, n_cat) are hashed slots with implicit value 1.0.  Returns the
     fitted state and the per-epoch loss log.  Runs on ``device`` (default
-    the card; raises without one).  ``plain`` runs the ELL kernels' plain
-    PyTorch versions instead of the kernels (the oracle on the card).
-    Every scatter-add sums in a fixed order (:func:`_scatter_add_`), so
-    two fits on the card give the same bits."""
+    this rank's device in a process group, else the card; raises without
+    one).  ``plain`` runs the ELL kernels' plain PyTorch versions instead
+    of the kernels (the oracle on the card).  Every scatter-add sums in a
+    fixed order (:func:`_scatter_add_`), so two fits on the card give the
+    same bits.
+
+    Inside a process group the fit runs on ``mesh`` (default the default
+    mesh; the JAX package's ``sgd_fit_mixed(mesh=)``), each rank passing
+    its own rows and every rank returning the same state.  The plan
+    follows the JAX package's: a ``("data", "model")`` mesh whose model
+    axis spans several ranks plans ``"sharded"``
+    (:func:`_mixed_update_sharded`; the ranks of one model group pass the
+    same rows); a data mesh plans
+    ``"ell"`` by :func:`plan_mixed_impl`, each rank laying out its own
+    batch shards (:func:`_mixed_update_ell_sharded`), else ``"plain"``
+    (:func:`_mixed_update_dp`).  A group of one rank runs the one-process
+    fit."""
     from .linear import check_sparse_indices
 
-    dev = resolve_device(device)
+    dev = _rank_device(device)
     check_sparse_indices(cat_indices, num_features)
     n_dense = dense_features.shape[1]
     if n_dense > num_features:
@@ -862,8 +1167,8 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
                          f"num_features={num_features}")
     n = dense_features.shape[0]
     n_cat = cat_indices.shape[1]
-    steps, batch, perm = plan_epoch_layout(
-        n, resolve_global_batch_size(config, n, num_features), 1,
+    mesh, ranks, model, steps, batch, perm = _hashed_epoch_plan(
+        n, resolve_global_batch_size(config, n, num_features), mesh,
         config.seed)
 
     dense = prepare_epoch_tensor(dense_features.astype(np.float32), perm,
@@ -875,25 +1180,42 @@ def sgd_fit_mixed(loss_fn: LossFn, dense_features: np.ndarray,
     def put(a):
         return torch.from_numpy(a).to(dev)
 
-    impl = plan_mixed_impl(num_features, steps)
+    init = _zero_params(num_features, dev)
+    impl = ("sharded" if model > 1
+            else _plan_on(mesh, num_features, steps))
     if impl == "ell":
-        # one-time static routing of every step's categorical slots (and
-        # its sample-major inverse for the margin, built on the device
-        # per chunk of steps that fits its budget), replayed every epoch;
-        # the raw index tensor stays on the host
+        # one-time static routing of every step's categorical slots of
+        # this rank's rows (and its sample-major inverse for the margin,
+        # built on the device per chunk of steps that fits its budget),
+        # replayed every epoch; the raw index tensor stays on the host
         lay = E.ell_layout(cat, num_features).to(dev)
         route_w = _StepRouting(lay, batch,
                                routing_chunk_steps(steps, batch * n_cat))
         epoch_args = (put(dense), route_w, lay.src, lay.pos, lay.mask,
                       lay.ovf_idx, lay.ovf_src, lay.heavy_idx,
                       lay.heavy_cnt, put(y), put(sw))
-        update = _mixed_update_ell(loss_fn, config, plain=plain)
+        update = (_mixed_update_ell(loss_fn, config, plain=plain)
+                  if ranks == 1 else
+                  _mixed_update_ell_sharded(loss_fn, config, mesh,
+                                            plain=plain))
+    elif impl == "sharded":
+        epoch_args = (put(dense), put(cat).long(), put(y), put(sw))
+        update = _mixed_update_sharded(loss_fn, config, mesh, num_features,
+                                       n_dense)
+        init["w"] = init["w"][:num_features // model].clone()
     else:
         epoch_args = (put(dense), put(cat).long(), put(y), put(sw))
-        update = _mixed_update(loss_fn, config)
+        update = (_mixed_update(loss_fn, config) if ranks == 1
+                  else _mixed_update_dp(loss_fn, config, mesh))
 
     params, loss_log = _run_minibatch_epochs(
-        update, epoch_args, _zero_params(num_features, dev), steps, config)
+        update, epoch_args, init, steps, config)
+    if impl == "sharded":
+        # every rank returns the whole weight: its blocks in model order
+        from ...parallel.collectives import all_gather
+
+        params = {**params, "w": all_gather(params["w"], "model",
+                                            mesh=mesh)}
     return _linear_state(params, impl), loss_log
 
 
@@ -981,18 +1303,69 @@ def _seek_or_skip(reader, k: int):
     return it
 
 
-def _streamed_ell_update(loss_fn: LossFn, config: SGDConfig, plain: bool):
+def _streamed_ell_update(loss_fn: LossFn, config: SGDConfig, plain: bool,
+                         mesh=None):
     """The mixed ELL update over one streamed batch: the margin's sample
     routing is built on the card from the step's layout
     (:func:`~flink_ml_tpu_torch.ops.ell_scatter.sample_routing`) before
-    the kernels run."""
-    update = _mixed_update_ell(loss_fn, config, plain=plain)
+    the kernels run; with ``mesh`` (several ranks) the step is
+    :func:`_mixed_update_ell_sharded` over the rank's own batch."""
+    update = (_mixed_update_ell(loss_fn, config, plain=plain) if mesh is None
+              else _mixed_update_ell_sharded(loss_fn, config, mesh,
+                                             plain=plain))
 
     def device_routed(params, dense, src, pos, mask, *rest):
         route_w, _ = E.sample_routing(src, pos, mask, dense.shape[0])
         return update(params, dense, route_w, src, pos, mask, *rest)
 
     return device_routed
+
+
+def _gr_to_cut(state: dict, axes, mesh) -> dict:
+    """The participant-stacked form of the ranks' reducer states (the JAX
+    package's layout, leading participant dim, in the order of ``axes``
+    on ``mesh``): what a cut holds, so that it restores onto a fleet of
+    another size (``grad_reduce.reshard_state``) and in either package.
+    Every rank of the reduction group must call it (one all-gather a
+    leaf); without a group the state is one participant's."""
+    from ...parallel.collectives import all_gather
+    from ...parallel.mesh import _tree_map
+
+    if mesh is None or mesh.group is None:
+        return _tree_map(lambda t: t[None], state)
+    return all_gather(state, axes, tiled=False, mesh=mesh)
+
+
+def _gr_from_cut(stacked: dict, gr, participants: int, me: int, ici: int,
+                 meta: dict, path: str, dev: torch.device) -> dict:
+    """Participant ``me``'s reducer state from a cut's participant-stacked
+    one.  A cut of another participant count is resharded
+    (``grad_reduce.reshard_state``), which only a cut that names its fleet
+    may be (``require_fleet_compat``).  A JAX package cut's threefry
+    ``key`` becomes the port's stream at ``(seed, participant, tick)``
+    first (``utils.convert.grad_reduce_state_from_jax``'s rule)."""
+    from ...iteration.checkpoint import require_fleet_compat
+    from ...parallel import grad_reduce as GR
+
+    stacked = {k: v for k, v in stacked.items()}
+    n_saved = GR.state_participants(stacked)
+    key = stacked.get("key")
+    if key is not None and np.shape(key)[-1] != 3:
+        tick = (np.asarray(stacked["tick"], np.int64).reshape(n_saved)
+                if "tick" in stacked else np.zeros(n_saved, np.int64))
+        stacked["key"] = np.stack([np.asarray([gr.seed, i, t], np.int64)
+                                   for i, t in enumerate(tick)])
+    if n_saved is not None and n_saved != participants:
+        require_fleet_compat(meta, saved_participants=n_saved,
+                             current_participants=participants, path=path)
+        stacked = GR.reshard_state(stacked, participants, ici_size=ici)
+
+    def row(a):
+        if isinstance(a, dict):
+            return {k: row(v) for k, v in a.items()}
+        return torch.from_numpy(np.array(np.asarray(a)[me])).to(dev)
+
+    return {k: row(v) for k, v in stacked.items()}
 
 
 def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
@@ -1020,7 +1393,7 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
                       publish_cb: Optional[Callable] = None,
                       step_probe: bool = False,
                       membership=None,
-                      device="cuda",
+                      device=None,
                       plain: bool = False
                       ) -> Tuple[LinearState, list]:
     """Out-of-core variant of :func:`sgd_fit`: the dataset never has to fit
@@ -1095,22 +1468,50 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
     seconds.
 
     ``config.grad_reduce`` (dense layout; planned
-    ``"dense-stream-reduced"``) runs on this rank alone, one participant
-    over the config's axes: its reducer state rides the chunk carry and
-    every checkpoint cut, and an overlapped run drains at its return.  The
-    mixed and sparse layouts reject ``grad_reduce`` as the JAX package
-    does.  Not ported (ROADMAP queue A10): ``mesh=`` (multi-device and
-    multi-host streams) and ``membership=`` (elastic fleets)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sgd_fit_outofcore(mesh=...) (multi-device and multi-host "
-            "streams) is not ported to flink_ml_tpu_torch yet (ROADMAP "
-            "queue A10)")
-    if membership is not None:
-        raise NotImplementedError(
-            "sgd_fit_outofcore(membership=...) (elastic fleets) is not "
-            "ported to flink_ml_tpu_torch yet (ROADMAP queue A10)")
-    dev = resolve_device(device)
+    ``"dense-stream-reduced"``): its reducer state rides the chunk carry
+    and every checkpoint cut (participant-stacked, the JAX package's
+    layout), and an overlapped run drains at its return.  Without a mesh
+    it runs on this rank alone, one participant over the config's axes.
+    The mixed and sparse layouts reject ``grad_reduce`` as the JAX package
+    does.
+
+    **Several ranks** (``mesh=``, a mesh of a process group; the JAX
+    package's process-spanning meshes): call from every rank with a
+    reader over that rank's own shard of the data; the global batch is
+    the ranks' batches in rank order.  Dense batches train through the
+    data-parallel reduced update (exact, or ``grad_reduce``, which must
+    reduce over every axis of the mesh); mixed batches through
+    :func:`_mixed_update_ell_sharded` (each rank's decode workers build
+    its own batch's layout); sparse batches through
+    :func:`_sparse_update_dp`.  A mesh of several ranks runs one batch a
+    dispatch (``W = 1``), as the JAX package's process-spanning meshes do.
+    Rank 0 of the mesh writes the cuts, and a barrier makes each visible
+    (``iteration/checkpoint.py``); every cut records its fleet
+    (``mesh_shape_meta``).  Every rank returns the same state.
+
+    **Elastic membership** (``membership=``, an
+    :class:`~flink_ml_tpu_torch.parallel.elastic.ElasticCoordinator`, with
+    ``mesh=`` its fleet's :meth:`~.ElasticCoordinator.mesh`): the dense
+    layout only, and a checkpoint manager is required, as in the JAX
+    package.  Each rank of the fleet reads the global batch and trains
+    its ``1 / ranks`` share of its rows (the JAX package's one-process
+    fleet shards the batch over its devices), so a resize changes the
+    shard count, not the data; ``W`` is kept, so the chunk boundaries stay
+    where a fault schedule counts them.  Once per chunk boundary the fit
+    cuts where due, then calls ``membership.poll(global_step)``; when the
+    fleet moved it cuts (if it has not) and raises
+    :class:`~flink_ml_tpu_torch.parallel.elastic.ResizeRequested`, which
+    ``resilient_fit(elastic=)`` turns into a restore onto the new fleet:
+    the reducer state of a cut of another participant count is resharded
+    (``grad_reduce.reshard_state``).  A flat compressed ``grad_reduce``
+    on a mesh with the coordinator's dcn axis is rejected (it would
+    replicate the batch over the resizable axis)."""
+    from ...parallel import grad_reduce as GR
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError("mesh= takes a flink_ml_tpu_torch.parallel.mesh.Mesh "
+                        f"(a process group's axes), got {type(mesh).__name__}")
+    dev = _rank_device(device)
     mixed = dense_key is not None and indices_key is not None
     sparse = indices_key is not None and not mixed
     if sparse and values_key is None:
@@ -1125,31 +1526,69 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
             "layout; the sparse/mixed paths' gradients are already "
             "sparse by construction — drop grad_reduce or use the "
             "dense features layout")
-    stream_ell = mixed and plan_mixed_impl(num_features, 1) == "ell"
+    ranks = _mesh_ranks(mesh)
+    multi = ranks > 1
+    if membership is not None:
+        if mixed or sparse:
+            raise ValueError(
+                "elastic membership supports the dense streaming layout; "
+                "the mixed/sparse ELL paths keep a fixed mesh")
+        if mesh is None:
+            raise ValueError("elastic membership needs its fleet's mesh: "
+                             "pass mesh=membership.mesh()")
+        if gr is not None and membership.dcn_axis in mesh.shape \
+                and membership.dcn_axis not in GR.reduction_axes(gr):
+            raise ValueError(
+                f"elastic membership with grad_reduce must reduce over "
+                f"the elastic axis {membership.dcn_axis!r}: set "
+                f"dcn_axis={membership.dcn_axis!r} (hierarchical) on "
+                "the GradReduceConfig, or drop grad_reduce for the "
+                "exact joint-sharded path")
+    if gr is not None and multi:
+        axes, _, _ = GR.mesh_layout(gr, mesh)
+        if set(axes) != set(mesh.axis_names):
+            raise ValueError(
+                f"grad_reduce reduces over {list(axes)}, but the stream "
+                f"shards its batch over every axis of the mesh "
+                f"{list(mesh.axis_names)}: reduce over all of them")
+    stream_ell = mixed and _plan_on(mesh, num_features, 1) == "ell"
     stream_impl = ("ell-stream" if stream_ell
                    else ("xla-stream" if (mixed or sparse)
                          else "dense-stream"))
-    gr_mesh = None
+    # the mesh the reducer runs on, its participants (what a cut's
+    # reducer state is stacked over) and this rank's place among them
+    gr_mesh = mesh if multi else None
+    participants, me = ranks, 0
+    executor = None
+    if multi:
+        me = axis_index(tuple(mesh.axis_names), mesh=mesh)
     if gr is not None:
-        from ...parallel import grad_reduce as GR
-        from ...parallel.mesh import local_mesh
-
-        # this rank alone: one participant over the config's axes
-        gr_mesh = local_mesh(GR.reduction_axes(gr), device=dev)
+        if not multi:
+            # this rank alone: one participant over the config's axes
+            gr_mesh = local_mesh(GR.reduction_axes(gr), device=dev)
+        elif GR.wants_overlap(gr):
+            executor = ThreadPoolExecutor(max_workers=1)
         stream_impl = "dense-stream-reduced"
-        update = _linear_update_reduced(loss_fn, config, gr_mesh, gr)
+        update = _linear_update_reduced(loss_fn, config, gr_mesh, gr,
+                                        executor)
     elif stream_ell:
-        update = _streamed_ell_update(loss_fn, config, plain)
+        update = _streamed_ell_update(loss_fn, config, plain,
+                                      mesh if multi else None)
     elif mixed:
-        mixed_update = _mixed_update(loss_fn, config)
+        mixed_update = (_mixed_update_dp(loss_fn, config, mesh) if multi
+                        else _mixed_update(loss_fn, config))
 
         def update(params, dense, cat, yb, wb):
             return mixed_update(params, dense, cat.long(), yb, wb)
     elif sparse:
-        sparse_update = _sparse_update(loss_fn, config)
+        sparse_update = (_sparse_update_dp(loss_fn, config, mesh) if multi
+                         else _sparse_update(loss_fn, config))
 
         def update(params, idx, vals, yb, wb):
             return sparse_update(params, idx.long(), vals, yb, wb)
+    elif multi:
+        update = _linear_update_reduced(loss_fn, config, mesh,
+                                        _exact_reduce(mesh))
     else:
         update = _linear_update(loss_fn, config)
 
@@ -1159,9 +1598,27 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
     elif isinstance(checkpoint, CheckpointConfig):
         manager = CheckpointManager(checkpoint)
 
+    if membership is not None and manager is None:
+        raise ValueError(
+            "elastic membership requires a checkpoint manager: a resize "
+            "IS a restore onto the new mesh, so without durable cuts "
+            "there is nothing to resize from")
+    if membership is not None and mesh.size > 1 and mesh.group is None:
+        raise ValueError(
+            "an elastic fleet of several ranks needs a process group: run "
+            "the fit on the fleet's ranks of an initialized world "
+            "(resilient_fit(elastic=) on every rank)")
     W = max(1, int(steps_per_dispatch))
-    _, chunk_depth = chunk_consumer_plan(None, None, W, prefetch_depth)
-    batcher = FixedRowBatcher(1)   # the shared fixed-row protocol
+    if multi and membership is None:
+        W = 1
+    place, chunk_depth = chunk_consumer_plan(mesh if multi else None, None,
+                                             W, prefetch_depth)
+    if place is not None:
+        dev = place
+    # an elastic fleet shards each (global) batch over its ranks: rows
+    # pad to a multiple of the fleet, and this rank keeps its share
+    share = ranks if membership is not None else 1
+    batcher = FixedRowBatcher(share)   # the shared fixed-row protocol
 
     def to_host_batch(batch):
         if sparse or mixed:
@@ -1180,6 +1637,9 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
              else np.ones((y.shape[0],), np.float32))
         # final partial batch: pad, weight 0 (the batcher pins thread-safely)
         padded = batcher.pad(feats + (y, w), have=y.shape[0])
+        if share > 1:
+            rows = batcher.rows // share
+            padded = tuple(a[me * rows:(me + 1) * rows] for a in padded)
         if not stream_ell:
             return padded
         dense_p, cat_p = padded[0], padded[1]
@@ -1261,14 +1721,30 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
     resume_loss_sum = None  # their accumulated loss
     resume_n_batches = 0
     global_step = 0         # checkpoint tick: total batches over all epochs
+    group = mesh.group if multi else THIS_RANK
+
+    def _finish_params(params):
+        gr_state = params.pop(GR_STATE_KEY, None)
+        if executor is not None:
+            executor.shutdown()
+        if gr_state is not None and GR.wants_overlap(gr):
+            params = _apply_drain(params, gr_state, config, gr_mesh)
+        return params
 
     if manager is not None and resume:
-        restored = manager.restore_latest()
+        restored = manager.restore_latest(group=group)
         if restored is not None:
             # restored[0] is the save-slot key, the global step; the
             # epoch rides under "train_epoch"
             global_step, saved, meta = restored
-            params = _params_to_device(saved["params"], dev)
+            saved_params = dict(saved["params"])
+            saved_gr = saved_params.pop(GR_STATE_KEY, None)
+            params = _params_to_device(saved_params, dev)
+            if saved_gr is not None and gr is not None:
+                params[GR_STATE_KEY] = _gr_from_cut(
+                    saved_gr, gr, participants, me,
+                    int(gr_mesh.shape[gr.axis]) if gr.dcn_axis is not None
+                    else 1, meta, manager.config.directory, dev)
             start_epoch = int(meta["train_epoch"])
             skip_steps = int(meta["step_in_epoch"])
             resume_n_batches = int(meta["n_batches"])
@@ -1280,26 +1756,34 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
             if meta.get("converged"):
                 # the checkpointed run had already hit the tol stop; it
                 # drained at its return, so a converged resume does too
-                gr_state = params.pop(GR_STATE_KEY, None)
-                if gr_state is not None and GR.wants_overlap(gr):
-                    params = _apply_drain(params, gr_state, config,
-                                          gr_mesh)
-                return _linear_state(params, stream_impl), loss_log
+                return _linear_state(_finish_params(params),
+                                     stream_impl), loss_log
 
     def _publish_params(params):
         # reducer state is the trainer's own, never published
         return {k: params[k].cpu().numpy() for k in ("w", "b")}
 
+    fleet_meta = mesh_shape_meta(gr_mesh or mesh or local_mesh(),
+                                 participant_count=participants)
+
     def _save(epoch, step_in_epoch, loss_sum, n_batches, converged=False):
+        state = {k: v for k, v in params.items() if k != GR_STATE_KEY}
+        if GR_STATE_KEY in params:
+            # every rank of the reduction gathers: one stacked state
+            state[GR_STATE_KEY] = _gr_to_cut(params[GR_STATE_KEY],
+                                             GR.reduction_axes(gr), gr_mesh)
         manager.save(global_step, {
-            "params": params,
+            "params": state,
             "loss_sum": (loss_sum if loss_sum is not None
                          else torch.zeros((), dtype=torch.float32)),
         }, {
             "train_epoch": epoch, "step_in_epoch": step_in_epoch,
             "n_batches": n_batches, "prev_loss": prev_loss,
             "loss_log": loss_log, "converged": converged,
-        })
+            # fleet identity: what a restore onto a different fleet (an
+            # elastic resize) needs to know it is re-sharding from
+            **fleet_meta,
+        }, group=group)
 
     epoch_secs: list = []
     dispatch_log: list = []   # chunks per epoch
@@ -1489,6 +1973,7 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
                 n_dispatches += 1
                 # mid-epoch cuts land at chunk boundaries that crossed a
                 # checkpoint_every_steps multiple (publish AFTER the save)
+                cut_done = False
                 if (checkpoint_every_steps > 0
                         and (manager is not None or publish_cb is not None)
                         and step_in_epoch // checkpoint_every_steps
@@ -1496,9 +1981,21 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
                         // checkpoint_every_steps):
                     if manager is not None:
                         _save(epoch, step_in_epoch, loss_sum, n_batches)
+                        cut_done = True
                     if publish_cb is not None:
                         publish_cb(global_step,
                                    lambda p=params: _publish_params(p))
+                # elastic membership: one poll per chunk boundary; a moved
+                # fleet cuts here and hands the resize to the supervisor
+                if membership is not None and membership.poll(global_step):
+                    if not cut_done:
+                        _save(epoch, step_in_epoch, loss_sum, n_batches)
+                    from ...parallel.elastic import ResizeRequested
+
+                    raise ResizeRequested(
+                        step=global_step,
+                        fleet_size=membership.fleet_size,
+                        membership_epoch=membership.membership_epoch)
         finally:
             pipeline.close()
         if loss_sum is None:
@@ -1551,7 +2048,4 @@ def sgd_fit_outofcore(loss_fn: LossFn, make_reader: Callable, *,
                 stream_info["decoded_cache_total_batches"] = \
                     replay_cache.n_batches
         stream_info["epoch_seconds"] = [round(s, 4) for s in epoch_secs]
-    gr_state = params.pop(GR_STATE_KEY, None)
-    if gr_state is not None and GR.wants_overlap(gr):
-        params = _apply_drain(params, gr_state, config, gr_mesh)
-    return _linear_state(params, stream_impl), loss_log
+    return _linear_state(_finish_params(params), stream_impl), loss_log

@@ -117,7 +117,7 @@ def default_tree(*, endpoint: Any = None, serving: Any = None,
                  scheduler: Any = None, recovery: Any = None,
                  stream_info: Any = None, iteration_result: Any = None,
                  tracer: Any = None, autoscale: Any = None,
-                 failover: Any = None) -> MetricsTree:
+                 failover: Any = None, elastic: Any = None) -> MetricsTree:
     """A :class:`MetricsTree` pre-wired to every standard surface that
     exists in this process:
 
@@ -140,10 +140,10 @@ AutoscaleController`'s self-view (ticks, actuations, decision latency,
       the policy's decision ledger, the live placement generation);
     - ``failover``: a :class:`~flink_ml_tpu_torch.serving.failover.\
 FailoverDriver`'s fleet view (chips live/down, brownout level,
-      failover/requeue/conflict counters, last failover wall).
-
-    The JAX package's ``elastic`` provider comes with the elastic fleet
-    coordinator (ROADMAP A10).
+      failover/requeue/conflict counters, last failover wall);
+    - ``elastic``: an :class:`~flink_ml_tpu_torch.parallel.elastic.\
+ElasticCoordinator`'s fleet snapshot (fleet size, membership epoch,
+      workers, join/leave/preempt/death/expiry/resize counters).
     """
     tree = MetricsTree()
     tree.register("kernels", kernel_stats)
@@ -170,6 +170,8 @@ FailoverDriver`'s fleet view (chips live/down, brownout level,
         tree.register("autoscale", autoscale)
     if failover is not None:
         tree.register("failover", failover)
+    if elastic is not None:
+        tree.register("elastic", elastic)
     return tree
 
 

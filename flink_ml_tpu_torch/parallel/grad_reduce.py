@@ -37,7 +37,8 @@ over the mesh; its ``squeeze_state``/``unsqueeze_state`` are artefacts of
 ``shard_map`` with no counterpart here, and ``utils/convert.py``
 ``grad_reduce_state_from_jax`` takes rank r's slice of a stacked state).
 Every rank must make the same calls in the same order (they run
-collectives).  ``reshard_state`` (elastic fleets) is ROADMAP A10.2.
+collectives).  :func:`reshard_state` maps a cut's stacked state onto a
+fleet of another size (elastic fleets).
 
 Host reads.  The adaptive policy picks each bucket's rung on the host (a
 rung launches its own collectives): :class:`RungReader` reads the
@@ -102,6 +103,7 @@ __all__ = [
     "plan_buckets",
     "reduce_gradients",
     "reduction_axes",
+    "reshard_state",
     "resolved_wire_protocol",
     "start_pipelined",
     "state_participants",
@@ -426,6 +428,95 @@ def state_participants(state: Optional[dict]) -> Optional[int]:
     if not leaves:
         return None
     return int(_shape(leaves[0])[0])
+
+
+def reshard_state(state: dict, n_new: int, *, ici_size: int = 1) -> dict:
+    """Re-shard a participant-stacked reducer state (host arrays with a
+    leading participant dim: what a cut holds, the JAX package's layout)
+    onto a fleet of ``n_new`` participants: the resize-as-restore mapping
+    of elastic fleets (the JAX package's ``reshard_state``).  It depends
+    only on the state's leaf keys and the (fixed) ICI extent, never on
+    the reduce mode.  The port's state belongs to each rank, so the old
+    fleet's states are gathered first (a cut holds them stacked: the
+    streamed fit's ``_gr_to_cut``) and a rank takes its row of the result.
+
+    - ``ef`` and ``pending`` keep their total: the old participants' rows
+      are summed per ICI position (so each hierarchical shard residual
+      stays embedded at its own slice) and the sums seated on the new
+      fleet's first dcn group, every other row zero;
+    - ``ema``, ``rung``, ``tick`` and ``union`` broadcast from participant
+      0 (replicated content, or a smoothed statistic the next steps
+      re-diverge);
+    - ``fill`` (the old fleet's round structure) re-seats as zeros;
+    - ``key`` takes the port's rule, not the JAX package's ``fold_in``:
+      row ``i`` is the counter-based stream ``(seed, i, tick)`` of
+      :func:`draw_uniform`, with ``seed`` and ``tick`` (the draws taken)
+      from participant 0's key.  A JAX package key (threefry, two words)
+      has no port meaning: convert the state first
+      (``utils.convert.grad_reduce_state_from_jax``'s rule);
+    - any other leaf raises.
+
+    Deterministic and host-side: an elastic resize and a fixed fleet of
+    the new size restoring the same cut both route through it, which is
+    what makes the two agree bit for bit from the boundary on.  Returns
+    ``state`` itself when the count does not change."""
+    n_old = state_participants(state)
+    if n_old is None or n_old == n_new:
+        return state
+    if ici_size < 1 or n_old % ici_size or n_new % ici_size:
+        raise ValueError(
+            f"cannot reshard reducer state from {n_old} to {n_new} "
+            f"participants at ici_size={ici_size}: both fleet sizes must "
+            "be multiples of the (fixed) ICI extent")
+    d_new = n_new // ici_size
+
+    def tree(fn, t):
+        if isinstance(t, dict):
+            return {k: tree(fn, v) for k, v in t.items()}
+        return fn(t)
+
+    def host(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().cpu().numpy()
+        return np.asarray(a)
+
+    def collapse(a):
+        a = host(a).astype(np.float32)
+        tail = a.shape[1:]
+        total = a.reshape((n_old // ici_size, ici_size) + tail).sum(axis=0)
+        out = np.zeros((d_new, ici_size) + tail, np.float32)
+        out[0] = total
+        return out.reshape((n_new,) + tail)
+
+    def broadcast0(a):
+        a = host(a)
+        return np.broadcast_to(a[:1], (n_new,) + a.shape[1:]).copy()
+
+    out: dict = {}
+    for key, value in state.items():
+        if key in ("ef", "pending"):
+            out[key] = tree(collapse, value)
+        elif key in ("ema", "rung", "tick", "union"):
+            out[key] = tree(broadcast0, value)
+        elif key == "fill":
+            a = host(value).astype(np.float32)
+            out[key] = np.zeros((n_new,) + a.shape[1:], np.float32)
+        elif key == "key":
+            k = host(value)
+            if k.shape[1:] != (3,):
+                raise ValueError(
+                    "reducer-state key is not the port's (seed, rank, "
+                    "step) stream (a JAX package threefry key?): convert "
+                    "it before resharding")
+            seed, step = int(k[0, 0]), int(k[0, 2])
+            out[key] = np.asarray([[seed, i, step] for i in range(n_new)],
+                                  np.int64)
+        else:
+            raise ValueError(
+                f"unknown reducer-state leaf {key!r}: teach reshard_state "
+                "its resize semantics before restoring it onto a "
+                "different fleet")
+    return out
 
 
 # ---------------------------------------------------------------------------

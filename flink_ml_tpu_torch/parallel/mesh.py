@@ -37,6 +37,7 @@ __all__ = [
     "default_mesh",
     "device_mesh",
     "fetch_replicated",
+    "fleet_mesh",
     "local_axis_multiple",
     "local_device_count",
     "local_mesh",
@@ -65,7 +66,8 @@ class Mesh:
     axis is ``group``."""
 
     def __init__(self, group, shape, device: Optional[torch.device], *,
-                 subgroups: Optional[Dict[Tuple[str, ...], Any]] = None):
+                 subgroups: Optional[Dict[Tuple[str, ...], Any]] = None,
+                 ranks: Optional[Tuple[int, ...]] = None, lane=None):
         if isinstance(shape, int):
             shape = {DATA_AXIS: shape}
         self.group = group
@@ -73,6 +75,10 @@ class Mesh:
         self.axis_names = tuple(self.shape)
         self.device = device
         self._subgroups = dict(subgroups or {})
+        #: the process group's ranks in mesh order (a fleet of some of
+        #: the world's ranks: :func:`fleet_mesh`), None for the whole world
+        self.ranks = None if ranks is None else tuple(int(r) for r in ranks)
+        self._lane = lane
 
     @property
     def size(self) -> int:
@@ -108,6 +114,8 @@ class Mesh:
         thread runs collectives on the mesh (``grad_reduce``'s overlap)."""
         if self.group is None:
             return self
+        if self._lane is not None:
+            return self._lane
         key = tuple(self.shape.items())
         if key not in _LANES:
             _LANES[key] = _new_groups(self.shape)
@@ -119,15 +127,18 @@ class Mesh:
                 f"device={self.device})")
 
 
-def _new_groups(shape: Mapping[str, int]):
-    """A new group of the world and, for each proper tuple of axes, the
-    group of this rank's coordinates on the others.  Every rank creates
-    every group, in the same order (``dist.new_group`` is collective)."""
+def _new_groups(shape: Mapping[str, int], members=None):
+    """A new group of the mesh's ranks (``members`` in mesh order, default
+    the world's) and, for each proper tuple of axes, the group of this
+    rank's coordinates on the others.  Every rank of the world creates
+    every group, in the same order (``dist.new_group`` is collective),
+    members or not."""
     names = tuple(shape)
-    ranks = np.arange(math.prod(shape.values())).reshape(
-        tuple(shape.values()))
+    n = math.prod(shape.values())
+    ranks = (np.arange(n) if members is None
+             else np.asarray(members)).reshape(tuple(shape.values()))
     me = dist.get_rank()
-    world = dist.new_group(list(range(ranks.size)))
+    world = dist.new_group(sorted(int(r) for r in ranks.reshape(-1)))
     subgroups = {}
     for size in range(1, len(names)):
         for axes in itertools.combinations(range(len(names)), size):
@@ -155,9 +166,46 @@ _MESHES: Dict[Tuple[Tuple[str, int], ...], dict] = {}
 _LANES: Dict[Tuple[Tuple[str, int], ...], tuple] = {}
 
 
+_FLEETS: Dict[tuple, tuple] = {}
+
+
 def _forget_groups() -> None:
     _MESHES.clear()
     _LANES.clear()
+    _FLEETS.clear()
+
+
+def fleet_mesh(ranks, shape: Mapping[str, int], device=None) -> Mesh:
+    """The mesh of axes ``shape`` over some of the world's ranks
+    (``ranks``, ascending, in mesh order): an elastic fleet's
+    (:mod:`.elastic`).  Its groups and its lane's are made the first time
+    a fleet of these ranks and this shape is asked for, by every rank of
+    the world in the same order (group creation is collective over the
+    world); a rank outside ``ranks`` gets the mesh without a group.
+    Without an initialized process group the mesh only describes the
+    fleet (no group: nothing may run collectives on it)."""
+    from . import distributed
+
+    ranks = tuple(int(r) for r in ranks)
+    shape = {str(a): int(n) for a, n in shape.items()}
+    if list(ranks) != sorted(ranks) or len(set(ranks)) != len(ranks):
+        raise ValueError(f"a fleet's ranks must ascend, got {ranks}")
+    if math.prod(shape.values()) != len(ranks):
+        raise ValueError(f"mesh {shape} needs {math.prod(shape.values())} "
+                         f"ranks, the fleet has {len(ranks)}")
+    if not dist.is_initialized():
+        return Mesh(None, shape, None, ranks=ranks)
+    if device is None:
+        device = distributed.rank_device()
+    device = None if device is None else torch.device(device)
+    key = (ranks, tuple(shape.items()))
+    if key not in _FLEETS:
+        _FLEETS[key] = (_new_groups(shape, ranks), _new_groups(shape, ranks))
+    (group, sub), (lane_group, lane_sub) = _FLEETS[key]
+    if dist.get_rank() not in ranks:
+        return Mesh(None, shape, device, ranks=ranks)
+    lane = Mesh(lane_group, shape, device, subgroups=lane_sub, ranks=ranks)
+    return Mesh(group, shape, device, subgroups=sub, ranks=ranks, lane=lane)
 
 
 def device_mesh(axis_sizes: Optional[Mapping[str, int]] = None,

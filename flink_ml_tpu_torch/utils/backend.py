@@ -22,7 +22,7 @@ import time
 import traceback
 from typing import Any, Callable, List
 
-__all__ = ["run_on_ranks", "free_port"]
+__all__ = ["run_on_ranks", "run_in_group_of_one", "free_port"]
 
 
 def free_port() -> int:
@@ -126,3 +126,25 @@ def run_on_ranks(fn: Callable[..., Any], world_size: int, *args,
         raise TimeoutError(f"rank(s) {missing} of {world_size} did not "
                            f"return within {timeout_s} s")
     return [got[r] for r in range(world_size)]
+
+
+def run_in_group_of_one(fn: Callable[..., Any], *args, device: str = "cpu",
+                        backend=None, timeout_s: float = 60.0) -> Any:
+    """``fn(0, 1, *args)`` in this process, as the one rank of a fresh
+    process group (``distributed.initialize`` over a free localhost port
+    with ``device`` and ``backend``), left again before it returns: a
+    group of one without a spawn.  Tensors in its result come back as
+    numpy arrays, as from :func:`run_on_ranks`.  Refused inside a group
+    this process has already joined."""
+    from ..parallel import distributed
+
+    if distributed.is_initialized():
+        raise RuntimeError("this process is already a rank of a process "
+                           "group")
+    distributed.initialize(f"tcp://127.0.0.1:{free_port()}",
+                           num_processes=1, process_id=0, device=device,
+                           backend=backend, timeout_s=timeout_s)
+    try:
+        return _to_host(fn(0, 1, *args))
+    finally:
+        distributed.shutdown()

@@ -6,15 +6,16 @@ hysteresis matrix (deadband, publish-storm immunity, min-dwell), the
 injectable clock, controller actuation into the scheduler and a learner
 fleet, and the compressed diurnal replay.
 
-The JAX package's elastic coordinator is not ported (ROADMAP A10): the
-port's controller drives any object with ``request_resize``; here a
-stand-in fleet that applies a requested size at its next ``poll`` (the
-coordinator's chunk-boundary contract).  Against the JAX package
+The port's controller drives any object with ``request_resize``: the
+port's ``ElasticCoordinator`` (a request from a tick applied at the
+learner's next chunk boundary, its ``poll``), and a stand-in fleet that
+applies a requested size at its next ``poll``.  Against the JAX package
 (tolerance 0: host arithmetic on the same injected clock): both
 controllers, fed the same ``SignalFrame``s, make the same ``Decision``s;
 the compressed diurnal replay — the JAX side with its real
-``ElasticCoordinator``, the port with the stand-in — gives the same
-decisions, placements, SLO-violation minutes and chip-idle fractions."""
+``ElasticCoordinator``, the port with its own or with the stand-in —
+gives the same decisions, placements, SLO-violation minutes and chip-idle
+fractions."""
 
 import json
 import math
@@ -615,6 +616,48 @@ def test_scheduler_class_depth_and_idle_gauges_round_trip(stub_busy):
     assert frame.chip_idle_fraction == pytest.approx(0.84)
 
 
+def test_controller_drives_the_elastic_coordinator_at_the_next_boundary(
+        stub_busy):
+    """The port's controller and the port's ``ElasticCoordinator`` end to
+    end (``tests/test_autoscale.py``'s actuation case): the tick's
+    ``request_resize`` is not applied at the tick but at the learner's
+    next chunk boundary (``poll``), through the same preempt transition
+    injected churn takes; the fleet's gauges reach the metrics tree."""
+    from flink_ml_tpu_torch.parallel.elastic import ElasticCoordinator
+
+    clock = FakeClock()
+    scheduler = _stub_scheduler()
+    feats = _feats()
+    scheduler.add_tenant("inter", object(), feats.take(2),
+                         slo=SLO_INTERACTIVE, weight=2.0)
+    scheduler.add_tenant("bulk", object(), feats.take(2), slo=SLO_BULK)
+    coord = ElasticCoordinator(chips_per_worker=1, initial_workers=4,
+                               min_workers=1, clock=clock,
+                               devices=list(range(8)))
+    coord.mesh()
+    sched_signals = {"tenants.inter.slo": "interactive",
+                     "tenants.inter.latency_p99_ms": 500.0,
+                     "chip_idle_fraction": 0.0}
+    store = PlacementStore(8)
+    store.publish({"inter": [0, 1, 2, 3], "bulk": [0, 1, 2, 3]}, 4)
+    controller = AutoscaleController.build(
+        _fake_tree(sched_signals), store=store, scheduler=scheduler,
+        elastic=coord, policy_config=_config(), clock=clock)
+    d = controller.tick()
+    assert d.kind == DECISION_SCALE_SERVING
+    assert store.current().learner_workers == 3
+    assert coord.fleet_size == 4 and coord.counters["controller_requests"] == 1
+    assert coord.snapshot()["pending_resize_target"] == 3
+    assert coord.poll() is True            # the learner's next boundary
+    assert coord.fleet_size == 3 and coord.transitions[-1][0] == "preempt"
+    assert coord.counters["preemptions"] == 1
+    assert coord.fleet_ranks() == (0, 1, 2)
+    assert coord.mesh().shape == {"dcn": 3, "data": 1}
+    assert coord.poll() is False
+    snap = default_tree(elastic=coord).snapshot()["elastic"]
+    assert snap["fleet_size"] == 3 and snap["pending_resize_target"] == -1
+
+
 # -- the acceptance replay ---------------------------------------------------
 
 REPLAY_TARGET_MS = 250.0
@@ -634,6 +677,17 @@ def _replay(pkg):
         fleet = _Fleet(4)
         store = PlacementStore(8, chips_per_worker=1)
         tree = default_tree(scheduler=scheduler).register("elastic", fleet)
+        build, cfg, table = AutoscaleController.build, PolicyConfig, T
+    elif pkg == "torch-elastic":
+        from flink_ml_tpu_torch.parallel.elastic import ElasticCoordinator
+
+        scheduler = _stub_scheduler(max_batch_rows=64, max_wait_ms=0.0,
+                                    busy_clock=clock)
+        fleet = ElasticCoordinator(chips_per_worker=1, initial_workers=4,
+                                   min_workers=1, clock=clock,
+                                   devices=list(range(8)))
+        store = PlacementStore(8, chips_per_worker=1)
+        tree = default_tree(scheduler=scheduler, elastic=fleet)
         build, cfg, table = AutoscaleController.build, PolicyConfig, T
     else:
         from flink_ml_tpu.parallel.elastic import ElasticCoordinator
@@ -725,3 +779,14 @@ def test_diurnal_replay_equals_the_jax_package(stub_busy):
     assert violation_min[0] == violation_min[1] == 0.0
     assert got[1:5] == want[1:5]
     assert any(0.0 < f < 1.0 for f in idle if not math.isnan(f))
+
+
+def test_diurnal_replay_with_the_elastic_coordinator_equals_the_jax_package(
+        stub_busy):
+    """The replay with the port's own ``ElasticCoordinator`` as the learner
+    fleet: every tick's decision, extent and generation, the idle
+    fractions and the sheds are the JAX package's."""
+    got = _replay("torch-elastic")
+    want = _replay("jax")
+    assert [r[:5] for r in got[0]] == [r[:5] for r in want[0]]
+    assert got[1:5] == want[1:5]

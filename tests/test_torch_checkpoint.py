@@ -285,10 +285,28 @@ def test_checkpoint_hook_fires_after_durable_cut(tmp_path):
 
 
 def test_multi_process_save_raises_naming_a10(tmp_path, monkeypatch):
-    """The multi-host branches (one writer, a cross-host barrier) are not
-    ported: a save inside a process group of two ranks refuses."""
+    """The multi-host branches of the JAX package's save: in a process
+    group of two ranks, rank 1 writes nothing and waits at the group's
+    barrier; rank 0 writes the cut, then meets the barrier; ``THIS_RANK``
+    writes with no barrier."""
+    barriers = []
+    rank = {"r": 1}
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A10"):
-        TC.save_pytree(str(tmp_path / "cut"), {"w": torch.zeros(2)})
-    assert not os.path.exists(tmp_path / "cut")
+    monkeypatch.setattr(torch.distributed, "get_world_size",
+                        lambda group=None: 2)
+    monkeypatch.setattr(torch.distributed, "get_rank",
+                        lambda group=None: rank["r"])
+    monkeypatch.setattr(torch.distributed, "barrier",
+                        lambda group=None: barriers.append(
+                            os.path.exists(tmp_path / "cut")))
+    TC.save_pytree(str(tmp_path / "cut"), {"w": torch.zeros(2)})
+    assert not os.path.exists(tmp_path / "cut") and barriers == [False]
+    rank["r"] = 0
+    TC.save_pytree(str(tmp_path / "cut"), {"w": torch.ones(2)})
+    assert barriers == [False, True]
+    got, _ = TC.load_pytree(str(tmp_path / "cut"))
+    np.testing.assert_array_equal(got["w"], np.ones(2, np.float32))
+    rank["r"] = 1
+    TC.save_pytree(str(tmp_path / "mine"), {"w": torch.zeros(2)},
+                   group=TC.THIS_RANK)
+    assert os.path.exists(tmp_path / "mine") and len(barriers) == 2

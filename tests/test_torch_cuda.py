@@ -2213,3 +2213,79 @@ def test_grad_reduce_on_the_card_equals_cpu(cuda_device, world, backend):
                                               want[name]["ef"]["w"],
                                               err_msg=name)
         assert (got["staged"]["rounds"] > 0) == (backend == "gloo")
+
+
+def _mixed_shard(rank, n=1024, d=D, seed=41):
+    """Rank ``rank``'s rows of a seeded Criteo-shaped table (13 dense, 26
+    hashed slots, a heavy index and an overflowing table row)."""
+    rng = np.random.default_rng(seed + rank)
+    dense = rng.normal(size=(n, 13)).astype(np.float32)
+    cat = rng.integers(32, d, size=(n, 26)).astype(np.int32)
+    y = rng.integers(0, 2, size=n).astype(np.float64)
+    cat[:, 0] = np.where(y == 1, 16, 17)
+    cat[:, 1] = 777
+    cat[:, 2] = 128 * 5 + np.arange(n) % 3
+    return dense, cat, y
+
+
+def _rank_sharded_linear(rank, world):
+    """On the card in a process group: the mixed fit of this rank's rows
+    on the default mesh, with its B1/B2 launches; and one step's delta of
+    this rank's shard through the scatter kernels and through their plain
+    versions, from the same ``r``."""
+    from flink_ml_tpu_torch.parallel import collectives as TC
+
+    dense, cat, y = _mixed_shard(rank)
+    cfg = TS.SGDConfig(learning_rate=0.5, max_epochs=2, tol=0,
+                       global_batch_size=256 * world)
+    TE.reset_launch_counts()
+    st, log = TS.sgd_fit_mixed(LOSSES["logistic"], dense, cat, y, None, D,
+                               cfg, device="cuda:0")
+    torch.cuda.synchronize()
+    launches = dict(TE.LAUNCHES)
+    dev = torch.device("cuda", 0)
+    lay = TE.ell_layout(cat[None, :256], D).to(dev)
+    rng = np.random.default_rng(7 + rank)
+    r = torch.from_numpy(rng.normal(size=256).astype(np.float32)).to(dev)
+    args = (0.5, torch.zeros(D, device=dev), r, TS._extended_r(r),
+            lay.src[0], lay.pos[0], lay.mask[0], lay.ovf_idx[0],
+            lay.ovf_src[0], lay.heavy_idx[0], lay.heavy_cnt[0])
+    kernel = TS._apply_ell_categorical(*args)
+    plain = TS._apply_ell_categorical(*args[:1], torch.zeros(D, device=dev),
+                                      *args[2:], plain=True)
+    summed = TC.psum_ordered(kernel)
+    summed_plain = TC.psum_ordered(plain)
+    return {"w": st.coefficients, "b": st.intercept, "log": log,
+            "plan": st.planned_impl, "launches": launches,
+            "delta_equal": bool(torch.equal(kernel, plain)),
+            "sum_equal": bool(torch.equal(summed, summed_plain))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_mixed_fit_on_the_card(cuda_device, world, backend):
+    """The mixed fit over ranks on the card.  Each rank launches the margin
+    and fused scatter kernels (B1, B2) once a step of its own layout; a
+    rank's delta through the kernels equals its plain versions' bit for
+    bit, before and after the rank-order sum.  A one-rank NCCL group plans
+    the one-process fit: bit for bit the one-process fit on the card; two
+    gloo ranks sharing the card give every rank the same bits."""
+    from flink_ml_tpu_torch.utils.backend import run_on_ranks
+
+    out = run_on_ranks(_rank_sharded_linear, world, world, device="cuda:0",
+                       backend=backend, timeout_s=240)
+    steps = 1024 // 256 * 2
+    for got in out:
+        assert got["plan"] == "ell"
+        assert got["launches"]["ell_margin"] == steps
+        assert got["launches"]["ell_scatter_apply_fused"] == steps
+        assert got["delta_equal"] and got["sum_equal"]
+        np.testing.assert_array_equal(got["w"], out[0]["w"])
+    if world == 1:
+        dense, cat, y = _mixed_shard(0)
+        want, log = TS.sgd_fit_mixed(
+            LOSSES["logistic"], dense, cat, y, None, D,
+            TS.SGDConfig(learning_rate=0.5, max_epochs=2, tol=0,
+                         global_batch_size=256), device=cuda_device)
+        np.testing.assert_array_equal(out[0]["w"], want.coefficients)
+        assert out[0]["b"] == want.intercept and out[0]["log"] == log

@@ -129,7 +129,9 @@ def test_unported_layouts_raise():
     KMeans') raises naming its ROADMAP queue, and the hashed layouts
     still need numFeatures."""
     est = T.LogisticRegression(device="cpu").set_num_features(D)
-    with pytest.raises(NotImplementedError, match="queue A10"):
+    # the linear family's streams take a process group's mesh
+    # (tests/test_torch_sharded_linear.py); anything else is refused
+    with pytest.raises(TypeError, match="Mesh"):
         est.fit_outofcore(lambda: iter(()), num_features=D, mesh=object())
     with pytest.raises(ValueError, match="empty epoch"):
         est.fit_outofcore(lambda: iter(()), num_features=D)

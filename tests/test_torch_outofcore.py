@@ -251,7 +251,13 @@ def test_prefetch_abandon_does_not_hang_and_rejects_bad_args():
     it.close()   # joins the reader and put threads
     assert not [t for t in threading.enumerate()
                 if t.name.startswith("flink-ml-torch-prefetch")]
-    with pytest.raises(NotImplementedError, match="A10"):
+    # a mesh places every unit on this rank's device
+    from flink_ml_tpu_torch.parallel.mesh import local_mesh
+
+    assert next(prefetch_to_device(
+        [np.ones(2)], device="meta",
+        sharding=local_mesh(device="cpu"))).device.type == "cpu"
+    with pytest.raises(TypeError, match="sharding"):
         next(prefetch_to_device([1], device="cpu", sharding=object()))
     with pytest.raises(ValueError):
         next(prefetch_to_device([1], device="cpu", depth=0))
@@ -552,9 +558,13 @@ def test_stream_options_probe_publish_and_unported_branches(tmp_path):
     TS.sgd_fit_outofcore(LOSSES["logistic"], by_epoch, num_features=8,
                          config=cfg, device="cpu", stream_info=info)
     assert seen[-2:] == [0, 1] and info["decoded_cache_mode"] == "block"
-    with pytest.raises(NotImplementedError, match="A10"):
+    # the multi-rank and elastic branches train (tests/
+    # test_torch_sharded_linear.py and tests/test_torch_elastic.py hold
+    # them to the JAX package); a mesh must be the port's, and membership
+    # needs its fleet's mesh
+    with pytest.raises(TypeError, match="Mesh"):
         _port_fit(cache, 256, num_features=8, config=cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="fleet's mesh"):
         _port_fit(cache, 256, num_features=8, config=cfg,
                   membership=object())
     # a dense grad_reduce trains (tests/test_torch_grad_reduce.py holds

@@ -235,9 +235,20 @@ def test_resilient_fit_gives_up_and_does_not_retry_logic_errors(tmp_path):
     assert calls["n"] == 1
     with pytest.raises(TypeError, match="CheckpointConfig"):
         TR.resilient_fit(buggy, checkpoint=None)
-    with pytest.raises(NotImplementedError, match="A10"):
-        TR.resilient_fit(buggy, checkpoint=TI.CheckpointConfig(
-            str(tmp_path / "c")), elastic=object())
+    # under an elastic fleet too: one attempt, and the fleet stays put
+    # (a logic error is not a dead worker)
+    from flink_ml_tpu_torch.parallel.elastic import ElasticCoordinator
+
+    def buggy_fleet(checkpoint, resume, membership, mesh):
+        return buggy(checkpoint, resume)
+
+    calls["n"] = 0
+    fleet = ElasticCoordinator(devices=[0, 1], initial_workers=2)
+    with pytest.raises(ValueError, match="logic bug"):
+        TR.resilient_fit(buggy_fleet, checkpoint=TI.CheckpointConfig(
+            str(tmp_path / "c")), elastic=fleet, max_restarts=3,
+            backoff=TR.RetryPolicy(sleep=lambda s: None))
+    assert calls["n"] == 1 and fleet.fleet_size == 2
 
 
 def test_resilient_fit_time_to_recover_uses_injected_clock(tmp_path):
