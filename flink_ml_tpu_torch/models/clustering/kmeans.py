@@ -27,8 +27,9 @@ Data parallel: where a ``torch.distributed`` process group is initialized
 its shard and follows the JAX package's multi-host fit: one allgather of
 the row counts first, the plan from the global count, rank 0's init
 broadcast, and each round this rank's stats (the kernel on the kernel
-plan) plus one all-reduce.  The streamed fit over several devices raises
-``NotImplementedError`` naming ROADMAP queue A10.  Every stage runs on
+plan) plus one all-reduce.  The streamed fit over ranks
+(``kmeans_fit_outofcore(mesh=)``) streams each rank's own shard, B4 at the
+rank's batch and one all-reduce a batch.  Every stage runs on
 ``device`` (default ``"cuda"``; raises without a card unless ``"cpu"`` is
 asked for).  The device and the stats kernel's ``compute_dtype`` are
 runtime choices, not params, so they are not saved.
@@ -81,12 +82,6 @@ __all__ = ["KMeans", "KMeansModel", "KMeansParams", "KMeansModelParams",
            "kmeans_epoch_step", "kmeans_epoch_step_kernel",
            "kmeans_workset_epoch_step", "workset_points_scored",
            "fit_centroids", "kmeans_fit_outofcore"]
-
-
-def _not_ported(what: str, queue: str):
-    return NotImplementedError(
-        f"{what} is not ported to flink_ml_tpu_torch yet (ROADMAP queue "
-        f"{queue})")
 
 
 class KMeansModelParams(HasDistanceMeasure, HasFeaturesCol, HasPredictionCol):
@@ -477,14 +472,32 @@ def kmeans_fit_outofcore(make_reader, k: int, *,
     card).  ``info`` (a dict, filled in place) gets the plan and the
     per-epoch wall seconds.
 
-    Returns the final ``(k, d)`` centroids (host float32).  A mesh raises:
-    multi-device streams are ROADMAP queue A10."""
-    from ...data.prefetch import prefetch_to_device
-    from ..common.sgd import _reader_for_epoch
+    Returns the final ``(k, d)`` centroids (host float32).
 
-    if mesh is not None:
-        raise _not_ported("kmeans_fit_outofcore(mesh=...) (multi-device "
-                          "streams)", "A10")
+    **Several ranks** (``mesh=``, a
+    :class:`~flink_ml_tpu_torch.parallel.mesh.Mesh` of a process group):
+    call from every rank with a reader over its own shard; global batch
+    ``b`` is the ranks' batch ``b`` in rank order.  One allgather at the
+    first batch compares the ranks' plans (``_fit_plan`` at each rank's
+    batch rows, and ``d``) and raises on every rank if they differ; each
+    batch's stats run on the rank's rows (B4 through
+    ``ops/kmeans.py::update_stats_sharded`` on the kernel plan) and meet
+    in one packed all-reduce; before each batch one all-reduce of a flag
+    says whether every rank has one, so readers that yield different
+    batch counts raise on every rank rather than hang.  The f32 window is sized by the
+    global rows of a batch, and the float64 fold and the update are the
+    same bits on every rank.  The init is the seeded shuffle-take-k of
+    the global first batch (a rank-order gather of the first batches),
+    unless ``init`` is given.  A mesh of one rank is the one-process
+    fit."""
+    from ...data.prefetch import prefetch_to_device
+    from ...parallel.mesh import Mesh
+    from ..common.sgd import _mesh_ranks, _reader_for_epoch
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError("mesh= takes a flink_ml_tpu_torch.parallel.mesh.Mesh "
+                        f"(a process group's axes), got {type(mesh).__name__}")
+    multi = _mesh_ranks(mesh) > 1
     dev = resolve_device(device)
     measure = DistanceMeasure.get_instance(measure_name)
 
@@ -495,6 +508,7 @@ def kmeans_fit_outofcore(make_reader, k: int, *,
     stats = None     # (points) -> (sums, counts), planned at batch 0
     impl = None
     rows = None      # the stream's batch rows (its first batch's)
+    window = None    # batches an f32 window holds
     centroids = (None if init is None else torch.from_numpy(
         np.ascontiguousarray(init, np.float32)).to(dev))
     epoch_secs = []
@@ -523,23 +537,28 @@ def kmeans_fit_outofcore(make_reader, k: int, *,
             _reader_for_epoch(make_reader, iteration), depth=prefetch_depth,
             device=dev, transform=to_host_batch, stats=prefetch_stats)
         try:
-            for pts in pipeline:
+            for pts in _batches(pipeline, mesh if multi else None, dev):
                 if stats is None:
                     rows = int(pts.shape[0])
                     impl = _fit_plan(rows, int(pts.shape[1]), k,
                                      measure).impl
-                    stats = _batch_stats(measure, k, impl, plain)
-                if centroids is None:
-                    centroids = torch.from_numpy(np.ascontiguousarray(
-                        select_random_centroids(pts.cpu().numpy(), k,
-                                                seed))).to(dev)
+                    window = max(1, (1 << 23) // rows)
+                    first = pts
+                    if multi:
+                        window, first = _agree_plan(pts, impl, mesh)
+                    stats = _batch_stats(measure, k, impl, plain,
+                                         mesh if multi else None)
+                    if centroids is None:
+                        centroids = torch.from_numpy(np.ascontiguousarray(
+                            select_random_centroids(first.cpu().numpy(), k,
+                                                    seed))).to(dev)
                 s, c = stats(pts, centroids)
                 if sums is None:
                     sums, counts = s, c
                 else:
                     sums, counts = sums + s, counts + c
                 window_used += 1
-                if window_used >= max(1, (1 << 23) // rows):
+                if window_used >= window:
                     fold()
         finally:
             pipeline.close()
@@ -560,20 +579,86 @@ def kmeans_fit_outofcore(make_reader, k: int, *,
     return centroids.cpu().numpy()
 
 
-def _batch_stats(measure: DistanceMeasure, k: int, impl: str, plain: bool):
+def _batches(pipeline, mesh, dev):
+    """The stream's batches; over the ranks of ``mesh`` each batch only
+    while every rank has one: one all-reduce of a flag a batch, read on
+    the host, ends the epoch where no rank has a batch and raises on
+    every rank where some have and some have not (a rank left in a
+    collective the others never reach would hang)."""
+    from ...parallel.collectives import psum
+
+    it = iter(pipeline)
+    while True:
+        pts = next(it, None)
+        if mesh is not None:
+            flag = torch.tensor([0.0 if pts is None else 1.0], device=dev)
+            have = int(psum(flag, mesh.axis_names, mesh=mesh)[0])
+            if 0 < have < mesh.size:
+                raise ValueError(
+                    f"the ranks' readers yielded different batch counts: "
+                    f"{have} of {mesh.size} ranks had a batch where the "
+                    "others had ended; give every rank the same number of "
+                    "batches an epoch")
+        if pts is None:
+            return
+        yield pts
+
+
+def _agree_plan(pts: torch.Tensor, impl: str, mesh):
+    """The ranks' first batches compared (one allgather of ``(rows, d,
+    plan)``; a difference in ``d`` or the plan raises on every rank) and
+    gathered: ``(window, first)``, the f32 window sized by the global
+    rows of a batch and the global first batch, the ranks' first batches
+    in rank order (the init's draw)."""
+    from ...parallel.collectives import all_gather
+    from ...parallel.distributed import process_allgather
+
+    rows, d = int(pts.shape[0]), int(pts.shape[1])
+    got = process_allgather(np.asarray([rows, d, impl == "kernel"],
+                                       np.int64), mesh=mesh)
+    if not (np.all(got[:, 1] == d) and np.all(got[:, 2] == got[0, 2])):
+        raise ValueError(
+            "the ranks planned the streamed KMeans fit apart: (rows, d, "
+            f"kernel plan) per rank {got.tolist()}; give every rank batches "
+            "of the same width and the same plan (>= 65536 rows a batch "
+            "on every rank, or fewer on every rank)")
+    top = int(got[:, 0].max())
+    padded = torch.zeros((top, d), dtype=pts.dtype, device=pts.device)
+    padded[:rows] = pts
+    parts = all_gather(padded, tuple(mesh.axis_names), tiled=False,
+                       mesh=mesh)
+    first = torch.cat([parts[r, :int(n)] for r, n in enumerate(got[:, 0])])
+    return max(1, (1 << 23) // int(got[:, 0].sum())), first
+
+
+def _batch_stats(measure: DistanceMeasure, k: int, impl: str, plain: bool,
+                 mesh=None):
     """The per-batch ``(sums, counts)`` of the out-of-core fit: the stats
     kernel (or its plain version) under ``impl == "kernel"``, else the
-    plain assign-and-reduce.  No pad rows, so no correction."""
+    plain assign-and-reduce.  No pad rows, so no correction.  With
+    ``mesh`` the stats of this rank's rows are summed over every axis of
+    the mesh (B4 through :func:`update_stats_sharded` on the kernel
+    plan; one packed all-reduce)."""
     if impl != "kernel":
         def plain_stats(points, centroids):
             mask = torch.ones(points.shape[0], dtype=points.dtype,
                               device=points.device)
             return _assign_stats(measure, k, points, mask, centroids)
 
-        return plain_stats
-    fn = kmeans_update_stats_plain if plain else kmeans_update_stats
-    return lambda points, centroids: fn(points, centroids,
-                                        tie_policy="first")
+        fn = plain_stats
+    elif mesh is not None and not plain:
+        return lambda points, centroids: update_stats_sharded(
+            points, centroids, mesh, tie_policy="first",
+            axis=tuple(mesh.axis_names))
+    else:
+        def fn(points, centroids):
+            stats = (kmeans_update_stats_plain if plain
+                     else kmeans_update_stats)
+            return stats(points, centroids, tie_policy="first")
+    if mesh is None:
+        return fn
+    return lambda points, centroids: psum_packed(
+        fn(points, centroids), tuple(mesh.axis_names), mesh=mesh)
 
 
 class KMeans(KMeansParams, Estimator["KMeansModel"]):

@@ -33,8 +33,9 @@ from typing import Any, Callable, List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["AdamState", "adam_init", "adam_update", "lazy_adam_rows",
-           "bias_correction", "tree_leaves", "tree_unflatten", "tree_map"]
+__all__ = ["Adam", "AdamState", "adam_init", "adam_update",
+           "lazy_adam_rows", "bias_correction", "tree_leaves",
+           "tree_unflatten", "tree_map"]
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -106,6 +107,26 @@ def adam_update(grads, state: AdamState, params, lr: float,
     return tree_unflatten(params, new), AdamState(
         count=count, mu=tree_unflatten(params, mu),
         nu=tree_unflatten(params, nu))
+
+
+@dataclass(frozen=True)
+class Adam:
+    """``optax.adam(lr)`` as a value: ``init(params)`` and ``update(grads,
+    state, params) -> (new_params, new_state)`` (optax's ``update`` and
+    ``apply_updates`` in one call)."""
+
+    lr: float
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+
+    def init(self, params) -> AdamState:
+        return adam_init(params)
+
+    def update(self, grads, state: AdamState, params
+               ) -> Tuple[Any, AdamState]:
+        return adam_update(grads, state, params, self.lr, self.b1,
+                           self.b2, self.eps)
 
 
 def lazy_adam_rows(table: torch.Tensor, m: torch.Tensor, v: torch.Tensor,

@@ -26,13 +26,21 @@ fixed order on the card too (``sgd._scatter_add_``): autograd's own
 fit promises the same bits run after run (the streamed fit also for any
 ``steps_per_dispatch`` and after a resume).
 
-A port of the JAX package's ``models/recommendation/widedeep.py``, single
-device.  ``WideDeepModel.transform`` and the chain terminal
-(``transform_kernel``, ``api/chain.py``) run one function on one padded
-shape.  Not ported, each raising ``NotImplementedError`` naming its ROADMAP
-queue: the multi-process and elastic branches of ``fit_outofcore`` and
-``build_sharded_train_step`` (A10).  Every stage runs on ``device``
-(default ``"cuda"``; raises without a card unless ``"cpu"`` is asked for).
+Over ranks (one process a device, ``parallel/``): ``fit`` on a process
+group's mesh is data parallel (:func:`_make_group_train_ops`: the global
+step's slot gradient rows gathered in rank order and folded by B7 on every
+rank); ``fit_outofcore(mesh=)`` streams each rank's shard, and
+``fit_outofcore(membership=)`` trains an elastic fleet's shares of the
+global batch; :func:`build_sharded_train_step` is the JAX package's dp x tp
+step on a ``("data", "model")`` mesh (Megatron's pairs of differentiable
+collectives, ``parallel/collectives.py``), exact or with a compressed
+dense-tower reduction.
+
+A port of the JAX package's ``models/recommendation/widedeep.py``.
+``WideDeepModel.transform`` and the chain terminal (``transform_kernel``,
+``api/chain.py``) run one function on one padded shape.  Every stage runs
+on ``device`` (default ``"cuda"``; raises without a card unless ``"cpu"``
+is asked for).
 Matrix products run in full f32: the port never turns on
 ``torch.backends.cuda.matmul.allow_tf32`` (off by default), whose ~3
 decimal digits would break the agreement with the JAX package.
@@ -94,13 +102,9 @@ from ..common.sgd import (
 __all__ = ["WideDeep", "WideDeepModel", "WideDeepParams", "init_params",
            "params_to_device", "forward_from_rows", "scores_from_rows",
            "forward", "bce_loss",
-           "build_reference_train_step", "build_sharded_train_step"]
-
-
-def _not_ported(what: str, queue: str):
-    return NotImplementedError(
-        f"{what} is not ported to flink_ml_tpu_torch yet (ROADMAP queue "
-        f"{queue})")
+           "build_reference_train_step", "build_sharded_train_step",
+           "assert_sharded_matches_reference", "param_spec", "shard_params",
+           "gather_sharded_params"]
 
 
 class WideDeepParams(HasLabelCol, HasPredictionCol, HasRawPredictionCol,
@@ -394,6 +398,142 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
     return batch_step, opt_state0
 
 
+def _psum_loss_and_grads(value, g_rest, axes, mesh):
+    """The loss part and the dense-tower gradients summed over ``axes`` in
+    rank order, packed into one ``psum_ordered``."""
+    from ...parallel.collectives import psum_ordered
+
+    leaves = tree_leaves(g_rest)
+    flat = psum_ordered(torch.cat(
+        [value.reshape(1)] + [g.reshape(-1) for g in leaves]), axes,
+        mesh=mesh)
+    out, at = [], 1
+    for g in leaves:
+        out.append(flat[at:at + g.numel()].reshape(g.shape))
+        at += g.numel()
+    return flat[0], tree_unflatten(g_rest, out)
+
+
+def _gather_slot_rows(g_emb, g_wide, axes, mesh):
+    """Every rank's slot gradient rows of both tables, gathered in rank
+    order by one all-gather of the ``(S, emb + 1)`` rows: the global
+    step's slot order (every rank holds the same row count)."""
+    from ...parallel.collectives import all_gather
+
+    width = g_emb.shape[-1]
+    rows = all_gather(torch.cat([g_emb.reshape(-1, width),
+                                 g_wide.reshape(-1, 1)], dim=1), axes,
+                      mesh=mesh)
+    return rows[:, :width].contiguous(), rows[:, width].contiguous()
+
+
+def _placed_rows(tables, ids, rows_emb, rows_wide):
+    """The table gradients: the gathered rows summed into zero tables at
+    the gathered ids in their order (``sgd._scatter_add_``), the same
+    bits on every rank."""
+    return {"emb": _scatter_add_(torch.zeros_like(tables["emb"]), ids,
+                                 rows_emb),
+            "wide_cat": _scatter_add_(torch.zeros_like(tables["wide_cat"]),
+                                      ids, rows_wide)}
+
+
+def _make_group_train_ops(params, lr: float, lazy: bool, mesh, route=None,
+                          b1: float = 0.9, b2: float = 0.999,
+                          eps: float = 1e-8, plain: bool = False):
+    """:func:`_make_train_ops` for one rank of a data-parallel ``mesh``
+    (parameters and optimizer state replicated; each step's arguments
+    are this rank's rows, the same count on every rank): the JAX
+    package's in-memory fit over ``default_mesh()``, whose global step is
+    the ranks' rows in rank order.
+
+    Each step differentiates through the gathered table rows of its own
+    rows, the loss over the global mask sum (one rank-order sum of the
+    denominator first), so every row's gradient is the one-process
+    step's.  The dense-tower gradients and the loss sum over every axis
+    of the mesh in rank order (one packed ``psum_ordered``); the slot
+    gradient rows are gathered in rank order (one all-gather of the
+    ``(S, emb + 1)`` rows), the global step's slot order.  With
+    ``route`` (the route of the global epoch tensor, the same on every
+    rank) every rank folds and places them through ``route.apply``, the
+    fold kernel (B7) on the card; without, the gathered ids place them by
+    the fixed-order scatter (``sgd._scatter_add_``), and the lazy update
+    touches the global step's unmasked ids.  Every rank computes the same
+    bits."""
+    from ...parallel.collectives import all_gather, psum_ordered
+
+    if route is not None and lazy:
+        raise ValueError(
+            "routed table gradients are a dense-Adam path; disable "
+            "lazyEmbeddingOptimizer or set routedEmbeddingGrad='off'")
+    axes = tuple(mesh.axis_names)
+
+    def grads_of(params, dense, cat_ids, labels, mask):
+        denom = torch.clamp(psum_ordered(torch.sum(mask).reshape(1), axes,
+                                         mesh=mesh)[0], min=1e-12)
+        tables, rest = _split(params)
+        emb_rows = _rows(tables["emb"], cat_ids)
+        wide_rows = _rows(tables["wide_cat"], cat_ids)
+
+        def loss_rows(rest, emb_rows, wide_rows):
+            return _global_logistic(
+                forward_from_rows(rest, dense, wide_rows, emb_rows),
+                labels, mask, denom)
+
+        value, (g_rest, g_emb, g_wide) = _value_and_grad(
+            loss_rows, rest, emb_rows, wide_rows)
+        return (*_psum_loss_and_grads(value, g_rest, axes, mesh),
+                *_gather_slot_rows(g_emb, g_wide, axes, mesh))
+
+    if not lazy:
+        def batch_step(params, opt_state, dense, cat_ids, labels, mask,
+                       *route_arrays):
+            loss, g_rest, rows_emb, rows_wide = grads_of(
+                params, dense, cat_ids, labels, mask)
+            if route is not None:
+                g_tab = {"emb": route.apply(rows_emb, *route_arrays,
+                                            plain=plain),
+                         "wide_cat": route.apply(rows_wide, *route_arrays,
+                                                 plain=plain)}
+            else:
+                ids = all_gather(cat_ids.reshape(-1), axes, mesh=mesh)
+                g_tab = _placed_rows(params, ids, rows_emb, rows_wide)
+            params, opt_state = adam_update({**g_rest, **g_tab}, opt_state,
+                                            params, lr, b1, b2, eps)
+            return params, opt_state, loss
+
+        return batch_step, adam_init(params)
+
+    tables0, rest0 = _split(params)
+    opt_state0 = {
+        "rest": adam_init(rest0),
+        "m": tree_map(torch.zeros_like, tables0),
+        "v": tree_map(torch.zeros_like, tables0),
+        "t": 0,
+    }
+
+    def batch_step(params, opt_state, dense, cat_ids, labels, mask):
+        loss, g_rest, rows_emb, rows_wide = grads_of(
+            params, dense, cat_ids, labels, mask)
+        tables, rest = _split(params)
+        all_ids = all_gather(cat_ids, axes, mesh=mesh)
+        g_tab = _placed_rows(tables, all_ids.reshape(-1), rows_emb,
+                             rows_wide)
+        rest, rest_state = adam_update(g_rest, opt_state["rest"], rest, lr,
+                                       b1, b2, eps)
+        t = opt_state["t"] + 1
+        # the global step's unmasked ids (masked rows are epoch padding)
+        all_mask = all_gather(mask, axes, mesh=mesh)
+        ids = all_ids[all_mask > 0].reshape(-1).long()
+        for k in _LAZY_TABLE_KEYS:
+            lazy_adam_rows(tables[k], opt_state["m"][k], opt_state["v"][k],
+                           g_tab[k], ids, t, lr, b1, b2, eps)
+        new_state = {"rest": rest_state, "m": opt_state["m"],
+                     "v": opt_state["v"], "t": t}
+        return {**rest, **tables}, new_state, loss
+
+    return batch_step, opt_state0
+
+
 def _opt_state_tree(opt_state) -> Dict[str, Any]:
     """The optimizer state as a checkpoint tree of dicts: dense Adam as
     ``{"count", "mu", "nu"}`` (``optax.ScaleByAdamState``'s fields), the
@@ -433,9 +573,287 @@ def build_reference_train_step(d_dense: int, vocab_sizes, emb_dim: int,
     return batch_step, params, opt_state
 
 
-def build_sharded_train_step(*args, **kwargs):
-    raise _not_ported("the sharded Wide&Deep step (and its compressed "
-                      "gradient reduction)", "A10")
+def assert_sharded_matches_reference(sharded_params, sharded_loss,
+                                     ref_params, ref_loss, *,
+                                     mesh=None) -> None:
+    """Allclose on the loss and every parameter leaf (f32 tolerances: the
+    sharded step sums in another order than the one-device step).  With
+    ``mesh`` the rank's shards of ``sharded_params`` are gathered over
+    ``"model"`` first (:func:`gather_sharded_params`; every rank of the
+    mesh must call it)."""
+    if mesh is not None:
+        sharded_params = gather_sharded_params(sharded_params, mesh)
+    np.testing.assert_allclose(float(sharded_loss), float(ref_loss),
+                               rtol=1e-5, atol=1e-6)
+    host = tree_map(lambda t: np.asarray(t.detach().cpu() if isinstance(
+        t, torch.Tensor) else t), ref_params)
+    got = tree_map(lambda t: np.asarray(t.detach().cpu() if isinstance(
+        t, torch.Tensor) else t), sharded_params)
+    for a, b in zip(tree_leaves(got), tree_leaves(host)):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+# -- dp x tp: the sharded step --------------------------------------------
+
+MODEL_AXIS = "model"
+
+
+def param_spec(params) -> Dict[str, Any]:
+    """The JAX package's placement of each leaf over ``"model"``, as the
+    dimension it splits (None: replicated): the ``wide_*`` leaves
+    replicated, ``emb`` by columns, the MLP in Megatron pairs (an even
+    layer that is not the last column-parallel, ``w`` and ``b`` split; an
+    odd layer row-parallel, ``w`` split by rows, ``b`` replicated; a final
+    even layer replicated)."""
+    n = len(params["mlp"])
+    mlp = []
+    for i in range(n):
+        if i % 2 == 0 and i + 1 < n:
+            mlp.append({"w": 1, "b": 0})
+        elif i % 2 == 1:
+            mlp.append({"w": 0, "b": None})
+        else:
+            mlp.append({"w": None, "b": None})
+    return {"wide_cat": None, "wide_dense": None, "wide_b": None,
+            "emb": 1, "mlp": mlp}
+
+
+def _spec_leaves(params) -> list:
+    """:func:`param_spec` in :func:`tree_leaves` order (a split dim may be
+    0, which a tree walk would not tell from a leaf)."""
+    def walk(p, s):
+        if isinstance(p, dict):
+            return [x for k in sorted(p) for x in walk(p[k], s[k])]
+        if isinstance(p, (list, tuple)):
+            return [x for a, b in zip(p, s) for x in walk(a, b)]
+        return [s]
+
+    return walk(params, param_spec(params))
+
+
+def shard_params(params, index: int, size: int) -> Dict[str, Any]:
+    """Model rank ``index``'s shard (of ``size``) of a full parameter tree
+    (numpy arrays or tensors) under :func:`param_spec`."""
+    def one(x, dim):
+        if dim is None or size == 1:
+            return x
+        n = x.shape[dim]
+        if n % size:
+            raise ValueError(
+                f"a leaf of shape {tuple(x.shape)} does not split over "
+                f"{size} model ranks on dim {dim}")
+        w = n // size
+        sl = [slice(None)] * len(x.shape)
+        sl[dim] = slice(index * w, (index + 1) * w)
+        return x[tuple(sl)]
+
+    return tree_unflatten(params, [one(x, d) for x, d in zip(
+        tree_leaves(params), _spec_leaves(params))])
+
+
+def gather_sharded_params(params, mesh) -> Dict[str, Any]:
+    """A rank's shard tree gathered over ``"model"`` into the full host
+    tree (numpy): every rank of the mesh must call it (one all-gather a
+    split leaf)."""
+    from ...parallel.collectives import gather_axis
+
+    def one(x, dim):
+        if dim is not None:
+            x = gather_axis(x.detach(), MODEL_AXIS, dim=dim, mesh=mesh)
+        return x.detach().cpu().numpy()
+
+    return tree_unflatten(params, [one(x, d) for x, d in zip(
+        tree_leaves(params), _spec_leaves(params))])
+
+
+def _global_logistic(margin, labels, mask, denom):
+    """This rank's part of the global masked log-loss: the sum over its
+    rows divided by the global mask sum ``denom``, so each row's gradient
+    is the one-process fit's (:func:`..common.losses.logistic_loss` with
+    the global denominator)."""
+    y = labels * 2.0 - 1.0
+    z = -y * margin
+    return torch.sum(torch.logaddexp(torch.zeros_like(z), z) * mask) / denom
+
+
+def _sharded_forward(rest, dense, wide_rows, emb_rows, mlp_spec, mesh):
+    """Logits of a rank's rows with the MLP sharded over ``"model"``:
+    ``emb_rows (b, fields, emb/M)`` are this rank's embedding columns,
+    gathered into the deep input (backward: the reduce-scatter into a
+    column-parallel first layer); a column-parallel layer takes its
+    replicated input through :func:`copy_to_axis`, a row-parallel layer's
+    partial products meet in :func:`sum_over_axis`."""
+    from ...parallel.collectives import (copy_to_axis, gather_axis,
+                                         sum_over_axis)
+
+    wide = (dense @ rest["wide_dense"] + torch.sum(wide_rows, dim=1)
+            + rest["wide_b"])
+    emb = gather_axis(emb_rows, MODEL_AXIS, dim=2,
+                      reduce_grad=mlp_spec[0]["w"] == 1, mesh=mesh)
+    deep = torch.cat([dense, emb.reshape(emb.shape[0], -1)], dim=1)
+    n = len(rest["mlp"])
+    for i, (layer, sp) in enumerate(zip(rest["mlp"], mlp_spec)):
+        if sp["w"] == 1:
+            if i > 0:
+                deep = copy_to_axis(deep, MODEL_AXIS, mesh=mesh)
+            deep = deep @ layer["w"] + layer["b"]
+        elif sp["w"] == 0:
+            deep = sum_over_axis(deep @ layer["w"], MODEL_AXIS,
+                                 mesh=mesh) + layer["b"]
+        else:
+            deep = deep @ layer["w"] + layer["b"]
+        if i + 1 < n:
+            deep = torch.relu(deep)
+    return wide + deep[:, 0]
+
+
+def build_sharded_train_step(mesh, d_dense: int, vocab_sizes, emb_dim: int,
+                             hidden, lr: float = 1e-2, grad_reduce=None):
+    """The dp x tp training step of the JAX package on a ``("data",
+    "model")`` mesh of ranks: the embedding columns and the MLP hidden
+    dims sharded over ``"model"`` (:func:`param_spec`), the batch over
+    ``"data"`` (the ranks of one model group pass the same rows).  The
+    JAX package's seed-0 init, each rank keeping its shard.  Returns
+    ``(train_step, params, opt, opt_state, shard_batch_fn)``:
+    ``train_step(params, opt_state, dense, cat_ids, labels, mask) ->
+    (params, opt_state, loss)`` on this rank's shards and rows,
+    ``opt`` the :class:`~..common.adam.Adam` it steps with and
+    ``shard_batch_fn(dense, cat_ids, labels, mask)`` this rank's rows of
+    a global host batch (ids offset) as tensors on its device.
+    :func:`gather_sharded_params` gathers the shards back.
+
+    Per step: the loss divides by the global mask sum (one rank-order sum
+    over ``"data"``); the MLP runs Megatron's pairs
+    (:func:`_sharded_forward`); the dense-tower gradients sum over
+    ``"data"`` in rank order (one packed ``psum_ordered``); the table
+    gradients are every data rank's slot rows and ids gathered and
+    summed in the global slot order (:func:`_placed_rows`: ~27 MB a
+    rank at the bench width where a dense sum of a rank's ``(1048554,
+    32)`` embedding shard would move 134 MB), so every rank holds the
+    same bits.
+
+    ``grad_reduce`` (a compressed
+    :class:`~flink_ml_tpu_torch.parallel.grad_reduce.GradReduceConfig`):
+    the dense-tower gradients (``wide_dense``, ``wide_b``, ``mlp``) are
+    gathered over ``"model"`` into whole leaves, reduced over the
+    config's axes (``GR.mesh_layout``) by ``reduce_gradients`` (with
+    ``overlap``, ``pipelined_reduce``: one step stale) and each rank keeps
+    its slice, so top-k picks the entries of the JAX package's whole-leaf
+    selection and the model peers hold the same EF and ``pending``
+    state; the table gradients stay exact.  The step then takes and
+    returns the reducer state and the call returns a 6-tuple,
+    ``(train_step, params, opt, opt_state, shard_batch_fn, gr_state0)``,
+    with ``train_step(params, opt_state, gr_state, dense, cat_ids,
+    labels, mask) -> (params, opt_state, gr_state, loss)``; ``gr_state0``
+    is this rank's state, its data participant's slice of the JAX
+    package's stacked state."""
+    from ...parallel import grad_reduce as GR
+    from ...parallel.collectives import (all_gather, axis_index, gather_axis,
+                                         psum_ordered)
+    from ...parallel.mesh import Mesh
+    from ..common.adam import Adam
+
+    if not isinstance(mesh, Mesh):
+        raise TypeError("build_sharded_train_step takes a flink_ml_tpu_torch"
+                        ".parallel.mesh.Mesh (a process group's axes), got "
+                        f"{type(mesh).__name__}")
+    for axis in ("data", MODEL_AXIS):
+        if axis not in mesh.shape:
+            raise ValueError(f"build_sharded_train_step needs a ('data', "
+                             f"'model') mesh, got axes {list(mesh.shape)}")
+    dev = mesh.device if mesh.device is not None else resolve_device("cuda")
+    size = int(mesh.shape[MODEL_AXIS])
+    mrank = axis_index(MODEL_AXIS, mesh=mesh)
+    n_data = int(mesh.shape["data"])
+    drank = axis_index("data", mesh=mesh)
+    host = init_params(np.random.default_rng(0), d_dense, vocab_sizes,
+                       emb_dim, hidden)
+    spec = param_spec(host)
+    params = params_to_device(shard_params(host, mrank, size), dev)
+    opt = Adam(lr)
+    opt_state = opt.init(params)
+    compressed = grad_reduce is not None and grad_reduce.mode != "exact"
+    axes = (GR.mesh_layout(grad_reduce, mesh)[0] if compressed
+            else ("data",))
+    if MODEL_AXIS in axes:
+        raise ValueError("grad_reduce must reduce over the data axes; the "
+                         "'model' axis holds the shards")
+
+    def local_grads(params, dense, cat_ids, labels, mask):
+        """(local loss part, dense-tower grads, table grads) of this
+        rank's rows, the loss over the global denominator."""
+        denom = torch.clamp(psum_ordered(torch.sum(mask).reshape(1), axes,
+                                         mesh=mesh)[0], min=1e-12)
+        tables, rest = _split(params)
+        emb_rows = _rows(tables["emb"], cat_ids)
+        wide_rows = _rows(tables["wide_cat"], cat_ids)
+
+        def loss_rows(rest, emb_rows, wide_rows):
+            return _global_logistic(
+                _sharded_forward(rest, dense, wide_rows, emb_rows,
+                                 spec["mlp"], mesh), labels, mask, denom)
+
+        value, (g_rest, g_emb, g_wide) = _value_and_grad(
+            loss_rows, rest, emb_rows, wide_rows)
+        ids = all_gather(cat_ids.reshape(-1), axes, mesh=mesh)
+        return value, g_rest, _placed_rows(
+            tables, ids, *_gather_slot_rows(g_emb, g_wide, axes, mesh))
+
+    def shard_batch_fn(dense, cat_ids, labels, mask):
+        n = np.asarray(labels).shape[0]
+        if n % n_data:
+            raise ValueError(f"a batch of {n} rows does not split over "
+                             f"{n_data} data ranks")
+        b = n // n_data
+        rows = slice(drank * b, (drank + 1) * b)
+        return tuple(torch.from_numpy(np.ascontiguousarray(
+            np.asarray(a)[rows])).to(dev) for a in (
+                np.asarray(dense, np.float32), np.asarray(cat_ids, np.int32),
+                np.asarray(labels, np.float32), np.asarray(mask, np.float32)))
+
+    if not compressed:
+        def train_step(params, opt_state, dense, cat_ids, labels, mask):
+            value, g_rest, g_tab = local_grads(params, dense, cat_ids,
+                                               labels, mask)
+            loss, g_rest = _psum_loss_and_grads(value, g_rest, axes, mesh)
+            params, opt_state = opt.update({**g_rest, **g_tab}, opt_state,
+                                           params)
+            return params, opt_state, loss
+
+        return train_step, params, opt, opt_state, shard_batch_fn
+
+    gr = grad_reduce
+    overlap = GR.wants_overlap(gr)
+    rest_spec = _spec_leaves(_split(host)[1])
+    gr_state0 = GR.init_state(gr, params_to_device(_split(host)[1], dev),
+                              mesh)
+
+    def whole(leaves):
+        return [x if d is None else gather_axis(x, MODEL_AXIS, dim=d,
+                                                mesh=mesh)
+                for x, d in zip(leaves, rest_spec)]
+
+    def mine(leaves):
+        return [x if d is None else x.chunk(size, dim=d)[mrank].contiguous()
+                for x, d in zip(leaves, rest_spec)]
+
+    def train_step(params, opt_state, gr_state, dense, cat_ids, labels,
+                   mask):
+        value, g_rest, g_tab = local_grads(params, dense, cat_ids, labels,
+                                           mask)
+        loss = psum_ordered(value.reshape(1), axes, mesh=mesh)[0]
+        full = tree_unflatten(g_rest, whole(tree_leaves(g_rest)))
+        if overlap:
+            red, gr_state = GR.pipelined_reduce(full, gr_state, gr,
+                                                mesh=mesh)
+        else:
+            red, gr_state = GR.reduce_gradients(full, gr_state, gr,
+                                                mesh=mesh)
+        grads = {**tree_unflatten(g_rest, mine(tree_leaves(red))), **g_tab}
+        params, opt_state = opt.update(grads, opt_state, params)
+        return params, opt_state, gr_state, loss
+
+    return (train_step, params, opt, opt_state, shard_batch_fn, gr_state0)
 
 
 class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
@@ -449,15 +867,35 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
         self.device = device
         self.route_info: Optional[dict] = None
 
-    def fit(self, *inputs, plain: bool = False) -> "WideDeepModel":
+    def fit(self, *inputs, plain: bool = False,
+            mesh=None) -> "WideDeepModel":
         """``plain`` folds the routed gradients with the plain version
-        instead of the kernel (for comparisons on the card)."""
+        instead of the kernel (for comparisons on the card).
+
+        Inside a process group the fit runs on ``mesh`` (default the
+        default mesh; the JAX package's fit over ``default_mesh()``), each
+        rank passing its own rows (``KMeans.fit``'s rule): each rank lays
+        out its rows (``sgd._plan_epoch_layout_for_mesh``: one allgather
+        checks the ranks planned alike), the global step being the ranks'
+        local batches in rank order; the parameters are the same draw on
+        every rank; each step runs :func:`_make_group_train_ops`, whose
+        route is built from the rank-order gather of the ranks' epoch
+        tensors, the same on every rank, so B7 folds the global step's
+        gathered gradient rows on every rank.  Every rank returns the
+        same model.  A group of one rank is the one-process fit."""
+        from ..common.sgd import _mesh_ranks, _plan_epoch_layout_for_mesh
+
         (table,) = inputs
         vocab_sizes = self.get_vocab_sizes()
         if vocab_sizes is None:
             raise ValueError("WideDeep requires vocabSizes to be set")
         dev = resolve_device(self.device)
         self.route_info = None
+        if mesh is None:
+            from ...parallel.mesh import default_mesh
+
+            mesh = default_mesh()
+        grouped = _mesh_ranks(mesh) > 1
 
         dense = np.asarray(table[self.DENSE_FEATURES_COL], np.float32)
         cat = np.asarray(table[self.CAT_FEATURES_COL], np.int32)
@@ -465,9 +903,13 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
         cat = _validate_cat_ids(cat, vocab_sizes)
 
         n = dense.shape[0]
-        steps, batch, perm = plan_epoch_layout(
-            n, self.get_global_batch_size() or DEFAULT_GLOBAL_BATCH, 1,
-            self.get_seed())
+        gbs = self.get_global_batch_size() or DEFAULT_GLOBAL_BATCH
+        if grouped:
+            steps, batch, perm = _plan_epoch_layout_for_mesh(
+                n, gbs, mesh, self.get_seed())
+        else:
+            steps, batch, perm = plan_epoch_layout(n, gbs, 1,
+                                                   self.get_seed())
 
         def layout(arr):
             return prepare_epoch_tensor(arr, perm, steps, batch)
@@ -487,7 +929,15 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
             # sort is static: built once here on the host ("auto": gather
             # until the inverse map outgrows its budget, then scatter)
             t0 = time.perf_counter()
-            route = emb_grad_route(C, int(np.sum(vocab_sizes)),
+            C_route = C
+            if grouped:
+                # the global epoch tensor: the ranks' local batches of
+                # each step in rank order, the same on every rank
+                from ...parallel.distributed import process_allgather
+
+                C_route = np.concatenate(list(process_allgather(
+                    C, mesh=mesh)), axis=1)
+            route = emb_grad_route(C_route, int(np.sum(vocab_sizes)),
                                    placement="auto")
             build_s = time.perf_counter() - t0
             route = route.to(dev)
@@ -502,8 +952,13 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
         params = params_to_device(
             init_params(rng, dense.shape[1], vocab_sizes,
                         self.EMBEDDING_DIM, self.HIDDEN_UNITS), dev)
-        step_fn, opt_state = _make_train_ops(
-            params, self.LEARNING_RATE, lazy, route=route, plain=plain)
+        if grouped:
+            step_fn, opt_state = _make_group_train_ops(
+                params, self.LEARNING_RATE, lazy, mesh, route=route,
+                plain=plain)
+        else:
+            step_fn, opt_state = _make_train_ops(
+                params, self.LEARNING_RATE, lazy, route=route, plain=plain)
 
         def epoch_body(state, epoch, data):
             Xd, Cd, yd, md = data[:4]
@@ -577,13 +1032,43 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
         re-seeks the reader and continues bit for bit.
 
         ``routedEmbeddingGrad='on'`` raises: a stream's batches are not
-        replayed, so no static route exists.  Not ported (ROADMAP queue
-        A10): ``mesh=`` (process-spanning meshes and the multi-process
-        per-batch loop) and ``membership=`` (elastic fleets)."""
+        replayed, so no static route exists.
+
+        **Several ranks** (``mesh=``, a
+        :class:`~flink_ml_tpu_torch.parallel.mesh.Mesh` of a process
+        group; the JAX package's process-spanning meshes): call from every
+        rank with a reader over that rank's own shard, every rank
+        delivering the same number of equal batches an epoch; the global
+        batch is the ranks' batches in rank order and each step is
+        :func:`_make_group_train_ops`'s (the table gradients placed by the
+        fixed-order scatter of the gathered rows).  A mesh of several
+        ranks runs one batch a dispatch (``W = 1``).  Rank 0 of the mesh
+        writes the cuts and a barrier makes each visible; every cut
+        records its fleet (``mesh_shape_meta``).  Every rank returns the
+        same model.  A mesh of one rank is the one-process fit.
+
+        **Elastic membership** (``membership=``, an
+        :class:`~flink_ml_tpu_torch.parallel.elastic.ElasticCoordinator`,
+        with ``mesh=`` its fleet's :meth:`~.ElasticCoordinator.mesh`; a
+        checkpoint manager is required): each rank of the fleet reads the
+        global batch and trains its ``1 / ranks`` share of its rows (the
+        batch pads to a multiple of the fleet's ranks), so a resize
+        changes the shard count, not the data; ``W`` is kept.  Once per
+        chunk boundary the fit cuts where due, then polls
+        ``membership.poll(global_step)``; when the fleet moved it cuts (if
+        it has not) and raises
+        :class:`~flink_ml_tpu_torch.parallel.elastic.ResizeRequested` for
+        ``resilient_fit(elastic=)`` to restore onto the new fleet.  The
+        parameters and the Adam state are replicated, so a resize is
+        placement only."""
         from ...data.prefetch import (chunk_consumer_plan,
                                       masked_chunk_scan, prefetch_to_device)
-        from ...iteration.checkpoint import (CheckpointConfig,
-                                             CheckpointManager)
+        from ...iteration.checkpoint import (THIS_RANK, CheckpointConfig,
+                                             CheckpointManager,
+                                             mesh_shape_meta)
+        from ...parallel.collectives import axis_index
+        from ...parallel.mesh import Mesh, local_mesh
+        from ..common.sgd import _mesh_ranks
 
         vocab_sizes = self.get_vocab_sizes()
         if vocab_sizes is None:
@@ -594,21 +1079,36 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
                 "fit: its batches are not replayed, so no static route "
                 "exists — use 'auto' (streams on the fixed-order "
                 "scatter-add) or the in-memory fit()")
-        if mesh is not None:
-            raise _not_ported("WideDeep.fit_outofcore(mesh=...) "
-                              "(process-spanning meshes and the "
-                              "multi-process per-batch loop)", "A10")
-        if membership is not None:
-            raise _not_ported("WideDeep.fit_outofcore(membership=...) "
-                              "(elastic fleets)", "A10")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh= takes a flink_ml_tpu_torch.parallel.mesh.Mesh (a "
+                f"process group's axes), got {type(mesh).__name__}")
+        if membership is not None and mesh is None:
+            raise ValueError("elastic membership needs its fleet's mesh: "
+                             "pass mesh=membership.mesh()")
+        ranks = _mesh_ranks(mesh)
+        multi = ranks > 1
         dev = resolve_device(self.device)
         manager = None
         if isinstance(checkpoint, CheckpointManager):
             manager = checkpoint
         elif isinstance(checkpoint, CheckpointConfig):
             manager = CheckpointManager(checkpoint)
+        if membership is not None and manager is None:
+            raise ValueError(
+                "elastic membership requires a checkpoint manager: a "
+                "resize IS a restore onto the new mesh")
+        if membership is not None and mesh.size > 1 and mesh.group is None:
+            raise ValueError(
+                "an elastic fleet of several ranks needs a process group: "
+                "run the fit on the fleet's ranks of an initialized world "
+                "(resilient_fit(elastic=) on every rank)")
 
-        batcher = FixedRowBatcher(1)
+        # an elastic fleet shards each (global) batch over its ranks: rows
+        # pad to a multiple of the fleet, and this rank keeps its share
+        share = ranks if membership is not None else 1
+        me = axis_index(tuple(mesh.axis_names), mesh=mesh) if multi else 0
+        batcher = FixedRowBatcher(share)
         dense_col, cat_col = self.DENSE_FEATURES_COL, self.CAT_FEATURES_COL
         label_col = self.get_label_col()
         lr, lazy = self.LEARNING_RATE, bool(self.LAZY_EMB_OPT)
@@ -621,10 +1121,21 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
             y = np.asarray(b[label_col], np.float32)
             mask = np.ones((y.shape[0],), np.float32)
             # padding rows: mask 0 + cat id 0, inert in both optimizers
-            return batcher.pad((dense, cat, y, mask), have=y.shape[0])
+            padded = batcher.pad((dense, cat, y, mask), have=y.shape[0])
+            if share > 1:
+                rows = batcher.rows // share
+                padded = tuple(a[me * rows:(me + 1) * rows] for a in padded)
+            return padded
 
         W = max(1, int(steps_per_dispatch))
+        if multi and membership is None:
+            W = 1
         _, chunk_depth = chunk_consumer_plan(None, None, W, prefetch_depth)
+
+        def train_ops(params):
+            if multi:
+                return _make_group_train_ops(params, lr, lazy, mesh)
+            return _make_train_ops(params, lr, lazy)
 
         def chunk_step(raw_step):
             def step(state, *batch):
@@ -641,13 +1152,14 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
         skip_steps = 0          # batches already consumed in start_epoch
         resume_loss_sum = None
         resume_n_batches = 0
+        group = mesh.group if multi else THIS_RANK
         if manager is not None and resume:
-            restored = manager.restore_latest()
+            restored = manager.restore_latest(group=group)
             if restored is not None:
                 global_step, saved, meta = restored
                 params = params_to_device(saved["params"], dev)
                 opt_state = _opt_state_from_tree(saved["opt_state"], dev)
-                raw_step, _ = _make_train_ops(params, lr, lazy)
+                raw_step, _ = train_ops(params)
                 step = chunk_step(raw_step)
                 start_epoch = int(meta["train_epoch"])
                 skip_steps = int(meta["step_in_epoch"])
@@ -659,6 +1171,9 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
                     (torch.as_tensor(np.asarray(s, np.float32)).to(dev),
                      int(n)) for s, n in saved["epoch_sums"]]
 
+        fleet_meta = mesh_shape_meta(mesh or local_mesh(),
+                                     participant_count=ranks)
+
         def save(epoch, step_in_epoch, loss_sum, n_batches):
             manager.save(global_step, {
                 "params": params, "opt_state": _opt_state_tree(opt_state),
@@ -666,7 +1181,7 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
                              else torch.zeros((), dtype=torch.float32)),
                 "epoch_sums": [(s, int(n)) for s, n in epoch_sums],
             }, {"train_epoch": epoch, "step_in_epoch": step_in_epoch,
-                "n_batches": n_batches})
+                "n_batches": n_batches, **fleet_meta}, group=group)
 
         for epoch in range(start_epoch, self.get_max_iter()):
             reader = _reader_for_epoch(make_reader, epoch)
@@ -689,8 +1204,7 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
                         params = params_to_device(init_params(
                             rng, int(chunk[0].shape[2]), vocab_sizes,
                             self.EMBEDDING_DIM, self.HIDDEN_UNITS), dev)
-                        raw_step, opt_state = _make_train_ops(
-                            params, lr, lazy)
+                        raw_step, opt_state = train_ops(params)
                         step = chunk_step(raw_step)
                     if loss_sum is None:
                         loss_sum = torch.zeros((), dtype=torch.float32,
@@ -701,11 +1215,26 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
                     n_batches += n_valid
                     step_in_epoch += n_valid
                     global_step += n_valid
+                    cut_done = False
                     if (manager is not None and checkpoint_every_steps > 0
                             and step_in_epoch // checkpoint_every_steps
                             > (step_in_epoch - n_valid)
                             // checkpoint_every_steps):
                         save(epoch, step_in_epoch, loss_sum, n_batches)
+                        cut_done = True
+                    # elastic membership: one poll per chunk boundary; a
+                    # moved fleet cuts here and hands the resize to the
+                    # supervisor
+                    if membership is not None \
+                            and membership.poll(global_step):
+                        if not cut_done:
+                            save(epoch, step_in_epoch, loss_sum, n_batches)
+                        from ...parallel.elastic import ResizeRequested
+
+                        raise ResizeRequested(
+                            step=global_step,
+                            fleet_size=membership.fleet_size,
+                            membership_epoch=membership.membership_epoch)
             finally:
                 pipeline.close()
             if loss_sum is None:

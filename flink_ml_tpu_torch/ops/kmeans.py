@@ -447,21 +447,20 @@ def kmeans_update_stats(points: torch.Tensor, centroids: torch.Tensor, *,
 
 def update_stats_sharded(points: torch.Tensor, centroids: torch.Tensor,
                          mesh=None, *, tie_policy: str = "fast",
-                         compute_dtype=torch.float32
+                         compute_dtype=torch.float32, axis="data"
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Data-parallel stats: :func:`kmeans_update_stats` on this rank's
     rows (one kernel launch on the card), then one all-reduce sums
-    ``(sums, counts)`` over ``mesh``'s process group (default: the
-    default mesh), so every rank holds the global stats.  The
-    counterpart of
-    the JAX package's ``update_stats_sharded`` (a psum over the ``data``
-    axis)."""
+    ``(sums, counts)`` over ``axis`` (a name or a tuple of names) of
+    ``mesh``'s process group (default: the default mesh), so every rank
+    holds the global stats.  The counterpart of the JAX package's
+    ``update_stats_sharded`` (a psum over the ``data`` axis)."""
     from ..parallel.collectives import psum_packed
 
     return psum_packed(kmeans_update_stats(points, centroids,
                                            tie_policy=tie_policy,
                                            compute_dtype=compute_dtype),
-                       mesh=mesh)
+                       axis, mesh=mesh)
 
 
 def kmeans_assign_reduce(points: torch.Tensor, centroids: torch.Tensor

@@ -17,6 +17,20 @@ the same bits and a rerun repeats them.  ``reduce_scatter`` and
 ``ppermute_ring`` are built from an all-reduce and an all-gather, the
 collectives every backend takes.
 
+Tensor parallelism over an axis (the ``"model"`` axis of a ``("data",
+"model")`` mesh) differentiates through its collectives: Megatron's pairs
+as ``torch.autograd.Function`` classes.  :func:`gather_axis` concatenates the
+axis's shards in rank order and its backward is the reduce-scatter (or the
+own slice, where the gathered value is used replicated);
+:func:`copy_to_axis` is the identity whose backward sums over the axis
+(a replicated input into a column-parallel layer); :func:`sum_over_axis`
+sums over the axis, its backward the identity (after a row-parallel
+layer).  Every sum is :func:`psum_ordered`'s, so the ranks of the axis hold
+the same bits forward and backward.  A gather of ``(ids, rows)`` needs no
+variable-length form: every rank of a data-parallel step holds the same
+row count (the epoch layout and ``shard_batch`` check it), so
+:func:`all_gather` in rank order is the global step's slot order.
+
 The compressed all-reduces of ``grad_reduce``: :func:`sparse_all_reduce`
 (the all-gather form), :func:`sparse_all_reduce_rd` (recursive
 halving/doubling with measured fill-in), :func:`fixed_point_all_reduce`
@@ -45,7 +59,8 @@ __all__ = ["FILL_VEC_LEN", "STAGED", "psum", "psum_packed", "pmean", "pmax",
            "psum_ordered", "all_gather", "reduce_scatter", "ppermute",
            "ppermute_ring", "axis_index", "axis_size", "sparse_all_reduce",
            "sparse_all_reduce_rd", "fixed_point_all_reduce",
-           "quantized_all_reduce", "rd_topology", "reset_staged"]
+           "quantized_all_reduce", "rd_topology", "reset_staged",
+           "gather_axis", "copy_to_axis", "sum_over_axis"]
 
 # Fixed layout of the per-call fill-in vector returned by
 # :func:`sparse_all_reduce_rd` (the JAX package's): the slot count is
@@ -196,6 +211,79 @@ def ppermute_ring(x: Any, axis: AxisSpec = DATA_AXIS, *, shift: int = 1,
     n = axis_size(axis, mesh=mesh)
     src = (axis_index(axis, mesh=mesh) - shift) % n
     return _tree_map(lambda t: _gather(t, group)[src], x)
+
+
+# ---------------------------------------------------------------------------
+# collectives that autograd differentiates (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+
+class _GatherAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, dim, reduce_grad):
+        group = _axis_group(axis, mesh)
+        ctx.axis, ctx.mesh, ctx.dim = axis, mesh, dim
+        ctx.reduce_grad = reduce_grad
+        return torch.cat(_gather(x, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = axis_size(ctx.axis, mesh=ctx.mesh)
+        if ctx.reduce_grad:
+            g = psum_ordered(g, ctx.axis, mesh=ctx.mesh)
+        mine = g.chunk(n, dim=ctx.dim)[axis_index(ctx.axis, mesh=ctx.mesh)]
+        return mine.contiguous(), None, None, None, None
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_ordered(g, ctx.axis, mesh=ctx.mesh), None, None
+
+
+class _SumOverAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return psum_ordered(x, axis, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def gather_axis(x: torch.Tensor, axis: AxisSpec, *, dim: int = -1,
+                reduce_grad: bool = True, mesh: Optional[Mesh] = None
+                ) -> torch.Tensor:
+    """The axis's shards of ``x`` concatenated along ``dim`` in rank order
+    (equal shapes on every rank).  Backward: with ``reduce_grad`` the
+    reduce-scatter (the rank-order sum of every rank's gradient, of which
+    this rank keeps its block): the gathered value feeds a
+    column-parallel layer, so each rank's gradient is a partial one;
+    without, this rank's block of its own gradient (the value was used
+    replicated, every rank's gradient is the whole)."""
+    dim = dim % x.dim()
+    return _GatherAxis.apply(x, axis, mesh, dim, reduce_grad)
+
+
+def copy_to_axis(x: torch.Tensor, axis: AxisSpec, *,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """``x`` unchanged; its gradient summed over the axis in rank order (a
+    replicated input into a column-parallel layer: each rank's gradient
+    covers its own columns)."""
+    return _CopyToAxis.apply(x, axis, mesh)
+
+
+def sum_over_axis(x: torch.Tensor, axis: AxisSpec, *,
+                  mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """:func:`psum_ordered` of ``x`` over the axis; its gradient passes
+    through unchanged (the partial products of a row-parallel layer: the
+    gradient of the sum is every rank's gradient of its part)."""
+    return _SumOverAxis.apply(x, axis, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -12,9 +12,11 @@ group a column of ``a``.  A batch sharded over the axes is each rank's
 own rows on its own device; a replicated value is the same tensor on
 every rank.
 
-A port of the JAX package's ``parallel/mesh.py`` (the ``"model"`` axis of
-tensor parallelism and ``use_mesh`` are not ported).  Without an
-initialized group the default mesh is one rank of one process.
+A port of the JAX package's ``parallel/mesh.py`` (``use_mesh`` is not
+ported; a ``"model"`` axis of tensor parallelism is an axis like any
+other, its collectives ``parallel/collectives.py``'s differentiable
+ones).  Without an initialized group the default mesh is one rank of one
+process.
 """
 
 from __future__ import annotations

@@ -140,6 +140,15 @@ class Param(Generic[T]):
     # -- descriptor protocol ------------------------------------------------
     def __set_name__(self, owner: type, attr_name: str) -> None:
         self._attr_name = attr_name
+        self._owner = owner
+
+    def __reduce__(self):
+        # pickled by reference to the class attribute that declares it (its
+        # validator is a lambda): a stage's param map crosses processes
+        owner = getattr(self, "_owner", None)
+        if owner is None:
+            return super().__reduce__()
+        return (getattr, (owner, self._attr_name))
 
     def __get__(self, obj: Any, objtype: Optional[type] = None):
         if obj is None:

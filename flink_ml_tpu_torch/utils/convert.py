@@ -15,7 +15,8 @@ from .device import resolve_device
 
 __all__ = ["params_from_jax", "model_from_jax_state", "softmax_model_from_jax",
            "kmeans_model_from_jax",
-           "widedeep_params_from_jax", "adam_state_from_jax",
+           "widedeep_params_from_jax", "widedeep_shard_from_jax",
+           "widedeep_params_to_jax", "adam_state_from_jax",
            "ivf_index_from_jax", "feature_model_from_jax",
            "model_data_from_jax", "onevsrest_model_from_jax",
            "algo_operator_from_jax", "pipeline_model_from_jax",
@@ -82,6 +83,34 @@ def widedeep_params_from_jax(params, device="cuda"):
     from ..models.recommendation.widedeep import params_to_device
 
     return params_to_device(params, resolve_device(device))
+
+
+def widedeep_shard_from_jax(params, index: int, size: int, device="cuda"):
+    """Model rank ``index``'s shard (of ``size``) of the JAX package's full
+    Wide&Deep parameters (host numpy, e.g. ``jax.device_get`` of the
+    sharded step's tree), split by ``widedeep.param_spec`` (the JAX
+    package's ``param_spec``), as f32 tensors on ``device``."""
+    from ..models.recommendation.widedeep import params_to_device, shard_params
+
+    return params_to_device(shard_params(params, index, size),
+                            resolve_device(device))
+
+
+def widedeep_params_to_jax(shards):
+    """The JAX package's full host tree (numpy) from the shard trees of a
+    model group's ranks, in model-rank order (tensors or numpy): each split
+    leaf concatenated along the dim ``param_spec`` splits."""
+    from ..models.common.adam import tree_leaves, tree_unflatten
+    from ..models.recommendation.widedeep import _spec_leaves
+
+    def host(x):
+        return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor)
+                          else x)
+
+    per_rank = [[host(x) for x in tree_leaves(t)] for t in shards]
+    leaves = [parts[0] if d is None else np.concatenate(parts, axis=d)
+              for parts, d in zip(zip(*per_rank), _spec_leaves(shards[0]))]
+    return tree_unflatten(shards[0], leaves)
 
 
 def adam_state_from_jax(opt_state, device="cuda"):

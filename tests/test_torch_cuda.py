@@ -2289,3 +2289,124 @@ def test_sharded_mixed_fit_on_the_card(cuda_device, world, backend):
                          global_batch_size=256), device=cuda_device)
         np.testing.assert_array_equal(out[0]["w"], want.coefficients)
         assert out[0]["b"] == want.intercept and out[0]["log"] == log
+
+
+def _wd_rank_rows(rank, n=512):
+    rng = np.random.default_rng(40 + rank)
+    return T.Table({
+        "denseFeatures": rng.normal(size=(n, 4)).astype(np.float32),
+        "catFeatures": np.stack([rng.integers(0, 16, n),
+                                 rng.integers(0, 12, n)], 1).astype(np.int32),
+        "label": rng.integers(0, 2, n).astype(np.float32)})
+
+
+def _wd_estimator():
+    return (T.WideDeep(device="cuda:0").set_vocab_sizes([16, 12])
+            .set(T.WideDeep.HIDDEN_UNITS, (16, 8))
+            .set_global_batch_size(128).set_max_iter(2))
+
+
+def _rank_wd_fit(rank, world):
+    """On the card in a process group: ``WideDeep.fit`` of this rank's rows
+    on the default mesh with the fold kernel (its launches counted), then
+    with the plain fold."""
+    from flink_ml_tpu_torch.ops import emb_grad as TG
+
+    TG.reset_launch_counts()
+    model = _wd_estimator().fit(_wd_rank_rows(rank))
+    torch.cuda.synchronize()
+    launches = TG.LAUNCHES["fold_runs"]
+    plain = _wd_estimator().fit(_wd_rank_rows(rank), plain=True)
+    return {"params": model._params, "log": model.loss_log,
+            "launches": launches, "plain": plain._params,
+            "plain_log": plain.loss_log}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_widedeep_fit_over_ranks_folds_gathered_rows(cuda_device, world,
+                                                     backend):
+    """``WideDeep.fit`` over ranks on the card: every rank folds the global
+    step's gathered gradient rows through B7 (2 launches a step), bit for
+    bit the plain fold's fit; every rank holds the same bits; a one-rank
+    NCCL group is the one-process fit bit for bit."""
+    from flink_ml_tpu_torch.models.common.adam import tree_leaves
+    from flink_ml_tpu_torch.utils.backend import run_on_ranks
+
+    out = run_on_ranks(_rank_wd_fit, world, world, device="cuda:0",
+                       backend=backend, timeout_s=240)
+    steps = 512 // (128 // world) * 2
+    for got in out:
+        assert got["launches"] == 2 * steps
+        assert got["log"] == got["plain_log"] == out[0]["log"]
+        for a, b, c in zip(tree_leaves(got["params"]),
+                           tree_leaves(got["plain"]),
+                           tree_leaves(out[0]["params"])):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+    if world == 1:
+        want = _wd_estimator().fit(_wd_rank_rows(0))
+        assert out[0]["log"] == want.loss_log
+        for a, b in zip(tree_leaves(out[0]["params"]),
+                        tree_leaves(want._params)):
+            np.testing.assert_array_equal(a, b)
+
+
+def _km_rank_batches(rank, world):
+    """Rank ``rank``'s 65536 rows of each of two global batches."""
+    share = 1 << 16
+    pts = np.random.default_rng(5).normal(size=(2, share * world, 8)).astype(
+        np.float32)
+    return [b[rank * share:(rank + 1) * share] for b in pts]
+
+
+def _rank_km_stream(rank, world):
+    """On the card in a process group: ``kmeans_fit_outofcore(mesh=)`` of
+    this rank's share of two 65536-row batches, its B4 launches counted,
+    then with the plain stats."""
+    from flink_ml_tpu_torch.models.clustering import kmeans as TKM
+    from flink_ml_tpu_torch.parallel import default_mesh
+
+    mine = _km_rank_batches(rank, world)
+
+    def reader():
+        return iter({"features": b} for b in mine)
+
+    TK.reset_launch_counts()
+    info = {}
+    got = TKM.kmeans_fit_outofcore(reader, 16, max_iter=3,
+                                   mesh=default_mesh(), device="cuda:0",
+                                   info=info)
+    torch.cuda.synchronize()
+    launches = TK.LAUNCHES["kmeans_update_stats"]
+    plain = TKM.kmeans_fit_outofcore(reader, 16, max_iter=3,
+                                     mesh=default_mesh(), device="cuda:0",
+                                     plain=True)
+    return {"centroids": got, "plain": plain, "launches": launches,
+            "impl": info["impl"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_streamed_kmeans_over_ranks_launches_b4(cuda_device, world,
+                                                backend):
+    """``kmeans_fit_outofcore(mesh=)`` on the card: B4 carries every batch
+    of every rank (65536 rows a rank: the kernel plan), within the KMeans
+    gate of the plain stats' fit; every rank holds the same centroids; a
+    one-rank NCCL group is the one-process streamed fit bit for bit."""
+    from flink_ml_tpu_torch.models.clustering import kmeans as TKM
+    from flink_ml_tpu_torch.utils.backend import run_on_ranks
+
+    out = run_on_ranks(_rank_km_stream, world, world, device="cuda:0",
+                       backend=backend, timeout_s=240)
+    for got in out:
+        assert got["impl"] == "kernel" and got["launches"] == 2 * 3
+        np.testing.assert_array_equal(got["centroids"], out[0]["centroids"])
+        np.testing.assert_allclose(got["centroids"], got["plain"],
+                                   rtol=5e-3, atol=5e-3)
+    if world == 1:
+        mine = _km_rank_batches(0, 1)
+        want = TKM.kmeans_fit_outofcore(
+            lambda: iter({"features": b} for b in mine), 16, max_iter=3,
+            device=cuda_device)
+        np.testing.assert_array_equal(out[0]["centroids"], want)

@@ -273,11 +273,12 @@ def test_select_random_centroids_matches_jax():
 
 def test_unported_paths_raise():
     X = _blobs(64, seed=13)
-    # k-means++ is ported (tests/test_torch_kmeanspp.py); the streamed fit
-    # over several devices is not
+    # k-means++ is ported (tests/test_torch_kmeanspp.py), and so is the
+    # streamed fit over ranks (tests/test_torch_widedeep_ranks.py), whose
+    # mesh must be a process group's
     est = T.KMeans(device="cpu").set_init_mode("k-means++").set_k(3)
     assert _centroids(est.fit(T.Table({"features": X}))).shape == (3, 16)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="Mesh"):
         T.KMeans(device="cpu").fit_outofcore(lambda: iter(()),
                                              mesh=object())
     # the chain terminal is ported: a kernel for a numeric column only

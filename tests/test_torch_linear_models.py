@@ -124,10 +124,9 @@ assert not bad, bad
 
 
 def test_unported_layouts_raise():
-    """Every feature layout is ported, in memory and streamed; what stays
-    unported (streams over several devices, the linear family's and
-    KMeans') raises naming its ROADMAP queue, and the hashed layouts
-    still need numFeatures."""
+    """Every feature layout is ported, in memory and streamed, and so are
+    the streams over ranks, the linear family's and KMeans', which take a
+    process group's mesh; the hashed layouts still need numFeatures."""
     est = T.LogisticRegression(device="cpu").set_num_features(D)
     # the linear family's streams take a process group's mesh
     # (tests/test_torch_sharded_linear.py); anything else is refused
@@ -135,7 +134,7 @@ def test_unported_layouts_raise():
         est.fit_outofcore(lambda: iter(()), num_features=D, mesh=object())
     with pytest.raises(ValueError, match="empty epoch"):
         est.fit_outofcore(lambda: iter(()), num_features=D)
-    with pytest.raises(NotImplementedError, match="queue A10"):
+    with pytest.raises(TypeError, match="Mesh"):
         T.KMeans(device="cpu").fit_outofcore(lambda: iter(()),
                                              mesh=object())
     with pytest.raises(ValueError, match="numFeatures"):

@@ -168,7 +168,7 @@ def test_kmeans_outofcore_estimator_and_errors(tmp_path):
     with pytest.raises(ValueError, match="empty"):
         TKM.kmeans_fit_outofcore(lambda: iter(()), 2, max_iter=2,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="Mesh"):
         TKM.kmeans_fit_outofcore(lambda: iter(()), 2, mesh=object(),
                                  device="cpu")
 

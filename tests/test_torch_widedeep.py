@@ -324,12 +324,15 @@ def test_validation_errors():
 
 
 def test_unported_paths_name_their_queue():
+    """The paths over ranks are ported (``tests/test_torch_widedeep_ranks
+    .py`` runs them); what is not a mesh of a process group is refused
+    before any work."""
     est = T.WideDeep(device="cpu").set_vocab_sizes([4])
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="Mesh"):
         est.fit_outofcore(lambda: iter([]), mesh=object())
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="fleet's mesh"):
         est.fit_outofcore(lambda: iter([]), membership=object())
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="Mesh"):
         TWD.build_sharded_train_step(None, 4, [4], 2, (2,))
     # the chain terminal is ported: it needs model data, and declines a
     # schema without the dense and categorical columns
