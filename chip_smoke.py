@@ -510,6 +510,28 @@ line is printed):
     mid-chunk on a fleet of 2 healed onto the survivor, bit for bit its
     fixed fleet from the same cut; the resize pauses, steps replayed and
     each attempt's step ms.
+49. Wide&Deep and the streamed KMeans over ranks (4 gloo ranks sharing
+    the card and a one-rank NCCL group): the 2x2 dp x tp step held per
+    step to the one-device reference step; ``WideDeep.fit`` over 2 ranks
+    (B7 64 launches a rank, each equal to the plain fold);
+    ``fit_outofcore(mesh=)``; an elastic W&D fleet;
+    ``kmeans_fit_outofcore(mesh=)`` (B4 80 launches a rank).
+50. The remaining parallel families and the entry points: (a)
+    ``entry()`` on the card against the same forward on the host CPU;
+    (b) ``dryrun_multichip(4)`` on 4 gloo ranks
+    sharing the card, every leg held to its oracle in the ranks, B1 and
+    B2 24 launches a rank in the sharded ELL fit and B7 24 in the routed
+    Wide&Deep fit, each equal to its plain version bit for bit; (c) one
+    spawn of 4 gloo ranks: ring and Ulysses attention at b 2, s 8192, h
+    16, d 64 in f32 on ``{"seq": 4}``, causal and not, each rank's block
+    held to ``attention_reference`` computed here one query block at a
+    time; the routed MoE at 8192 tokens, d_model 1024, d_hidden 4096, 8
+    experts, group 1024, capacity 1.25 on ``{"data": 2, "expert": 2}``,
+    f32 and bf16 tokens, against ``moe_apply(mesh=None)`` (rows off the
+    tolerance only in a group holding a near-tie gate); a 4-stage tanh
+    pipeline at d 1024, batch 4096, 8 microbatches on ``{"pipe": 4}``,
+    forward and stage gradients against the sequential stages; each
+    family's ms a call and bytes staged through the host.
 
 The last lines are the kernel table (ten kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
@@ -523,7 +545,9 @@ transform or phase 29's CV added under ``chain``, the served batches'
 launches of phase 31 under ``serve``, the train-while-serve launches
 of phases 34-36 under ``online``, phase 43's under ``hashed``, phase
 46's data-parallel fits' under ``parallel``, by group, and phase 48's
-under ``sharded``, by run and rank, with B1/B2's ms at a rank's shard)
+under ``sharded``, by run and rank, with B1/B2's ms at a rank's shard,
+phase 49's under ``ranks`` and phase 50's dryrun launches by rank under
+``dryrun``)
 as one JSON object, the card line from nvidia-smi, and ``{"ok": true,
 "device": {...}}``.  The script imports neither JAX nor the JAX package.
 """
@@ -9336,6 +9360,347 @@ def widedeep_ranks_phase(torch, dev, card, km_ref, sw_ref):
                 "nccl_1_rank": one["kmeans_update_stats"]}}
 
 
+# phase 50: the remaining parallel families and the entry points
+FM_WORLD = 4                # gloo ranks sharing the card
+FM_TIMEOUT_S = 600
+FM_ATT = dict(b=2, s=8192, h=16, d=64)      # ring and Ulysses, f32
+FM_ATT_TOL = 1e-4           # max |rank block - attention_reference block|
+FM_MOE = dict(tokens=8192, d_model=1024, d_hidden=4096, experts=8,
+              group=1024, capacity=1.25)
+FM_MOE_TOL = dict(rtol=1e-4, atol=1e-5)     # f32, against mesh=None
+FM_MOE_NEAR_TIE = 1e-5      # top-two gate gap of a token whose route may flip
+FM_PIPE = dict(d=1024, batch=4096, n_micro=8, stages=4)
+FM_PIPE_TOL = 1e-4          # of max |value|: output and stage gradients
+FM_REPS = 3                 # timed calls a family (after one warm call)
+FM_SEED = 50
+
+
+def fm_qkv(torch, dev):
+    """Phase 50's Q, K, V (b, s, h, d) f32, drawn on the card from one
+    seeded generator (the same tensors in every process on the card)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(FM_SEED)
+    shape = tuple(FM_ATT[k] for k in ("b", "s", "h", "d"))
+    return [torch.randn(shape, generator=g, device=dev) for _ in range(3)]
+
+
+def fm_moe_inputs(dev):
+    from flink_ml_tpu_torch.parallel.moe import init_moe
+
+    m = FM_MOE
+    rng = np.random.default_rng(FM_SEED)
+    params = init_moe(rng, m["d_model"], m["d_hidden"], m["experts"],
+                      device=dev)
+    x = rng.normal(size=(m["tokens"], m["d_model"])).astype(np.float32)
+    return params, x
+
+
+def fm_pipe_inputs(dev):
+    import torch
+
+    p = FM_PIPE
+    rng = np.random.default_rng(FM_SEED + 1)
+    w = (rng.normal(size=(p["stages"], p["d"], p["d"]))
+         / np.sqrt(p["d"])).astype(np.float32)
+    b = (rng.normal(size=(p["stages"], p["d"])) * 0.1).astype(np.float32)
+    x = rng.normal(size=(p["batch"], p["d"])).astype(np.float32)
+    y = rng.normal(size=(p["batch"], p["d"])).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (w, b, x, y)]
+
+
+def fm_stage(params, x):
+    import torch
+
+    w, b = params
+    return torch.tanh(x @ w + b)
+
+
+def fm_timed(torch, dev, fn):
+    """``fn()`` once warm, then FM_REPS times: the last result, the
+    median ms a call (host clock behind a synchronize) and the bytes
+    staged through the host a call."""
+    from flink_ml_tpu_torch.parallel import collectives as C
+    from flink_ml_tpu_torch.parallel import distributed
+
+    out = fn()
+    ms, staged = [], []
+    for _ in range(FM_REPS):
+        distributed.barrier()
+        C.reset_staged()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        staged.append(C.STAGED["bytes"])
+    return out, {"ms": statistics.median(ms), "all_ms": ms,
+                 "staged_bytes": staged[-1]}
+
+
+def phase50_rank(rank, world):
+    """Phase 50 (c) on one rank of FM_WORLD gloo ranks sharing the card:
+    ring and Ulysses attention on ``{"seq": 4}`` (this rank's sequence
+    block, causal and not), the routed MoE on ``{"data": 2, "expert": 2}``
+    (this rank's tokens, its experts; f32 and bf16 tokens) and the 4-stage
+    pipeline on ``{"pipe": 4}`` (forward and the stage gradient).  Each
+    family's outputs, ms a call and bytes staged."""
+    import torch
+
+    from flink_ml_tpu_torch.parallel import distributed
+    from flink_ml_tpu_torch.parallel.mesh import device_mesh
+    from flink_ml_tpu_torch.parallel.moe import moe_apply, shard_moe
+    from flink_ml_tpu_torch.parallel.pipeline_parallel import build_pipeline
+    from flink_ml_tpu_torch.parallel.ring_attention import ring_attention
+    from flink_ml_tpu_torch.parallel.ulysses import ulysses_attention
+
+    dev = distributed.rank_device()
+    seq = device_mesh({"seq": world})
+    ep = device_mesh({"data": 2, "expert": world // 2})
+    pipe = device_mesh({"pipe": world})
+    out = {}
+    q, k, v = fm_qkv(torch, dev)
+    blk = slice(rank * (FM_ATT["s"] // world),
+                (rank + 1) * (FM_ATT["s"] // world))
+    qb, kb, vb = (t[:, blk].contiguous() for t in (q, k, v))
+    del q, k, v
+    with torch.no_grad():
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention)):
+            for causal in (False, True):
+                got, t = fm_timed(torch, dev, lambda: fn(
+                    qb, kb, vb, mesh=seq, axis="seq", causal=causal))
+                out[f"{name}_{causal}"] = {"out": got, **t}
+    del qb, kb, vb
+
+    params, x = fm_moe_inputs(dev)
+    mine = shard_moe(params, ep)
+    del params
+    rows = FM_MOE["tokens"] // 2
+    xr = torch.from_numpy(x[(rank // (world // 2)) * rows:][:rows]).to(dev)
+    with torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            xi = xr.to(getattr(torch, dtype))
+            got, t = fm_timed(torch, dev, lambda: moe_apply(
+                mine, xi, capacity_factor=FM_MOE["capacity"],
+                group_size=FM_MOE["group"], mesh=ep, data_axis="data"))
+            out[f"moe_{dtype}"] = {"out": got.float(), "dtype": str(
+                got.dtype), **t}
+    del mine, xr
+
+    w, b, xp, yp = fm_pipe_inputs(dev)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    fn = build_pipeline(fm_stage, pipe, n_micro=FM_PIPE["n_micro"])
+
+    def step():
+        w.grad, b.grad = None, None
+        o = fn((w, b), xp)
+        torch.mean((o - yp) ** 2).backward()
+        return o.detach()
+
+    got, t = fm_timed(torch, dev, step)
+    out["pipe"] = {"out": got if rank == 0 else None, "dw": w.grad[rank],
+                   "db": b.grad[rank],
+                   "dw_other": float(w.grad.abs().sum()
+                                     - w.grad[rank].abs().sum()), **t}
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    distributed.barrier()
+    return out
+
+
+def families_phase(torch, dev, card):
+    """Phase 50: (a) ``entry()`` on the card against the same forward on
+    the host CPU; (b) ``dryrun_multichip(4)``, B1/B2/B7
+    launches of its legs, each launch held to its plain version; (c) the
+    A10.5 families at FM_ATT / FM_MOE / FM_PIPE over one spawn of
+    FM_WORLD gloo ranks sharing the card, each rank held to its oracle in
+    this process (attention_reference one query block at a time; MoE at
+    ``mesh=None``; the sequential stages and autograd).  Returns the
+    dryrun's B1/B2/B7 launches by rank."""
+    from flink_ml_tpu_torch.entry import dryrun_multichip, entry
+    from flink_ml_tpu_torch.models.recommendation.widedeep import tree_map
+    from flink_ml_tpu_torch.parallel.moe import moe_apply
+    from flink_ml_tpu_torch.parallel.ring_attention import (
+        attention_reference)
+    from flink_ml_tpu_torch.utils.backend import run_on_ranks
+
+    t_phase = time.perf_counter()
+    # (a) entry() on the card vs the same forward on the host CPU
+    fn, args = entry()
+    if args[1].device.type != "cuda":
+        fail("phase 50 (a): entry() did not place its args on the card")
+    got = fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        got = fn(*args)
+    torch.cuda.synchronize()
+    entry_ms = (time.perf_counter() - t0) * 100
+    cpu_args = (tree_map(lambda t: t.cpu(), args[0]), args[1].cpu(),
+                args[2].cpu())
+    want = fn(*cpu_args)
+    e = float((got.cpu() - want).abs().max())
+    log(f"phase 50 (a) entry(): scores {tuple(got.shape)} on "
+        f"{got.device}, max |card - host CPU| {e:.3e} (allclose rtol 1e-5, "
+        f"atol 1e-6), {entry_ms:.4f} ms a forward [{card}]")
+    if got.shape != (256,) or not torch.isfinite(got).all() or \
+            not torch.allclose(got.cpu(), want, rtol=1e-5, atol=1e-6):
+        fail("phase 50 (a): entry() on the card is off the host forward")
+
+    # (b) dryrun_multichip(4), each kernel launch held to its plain version
+    t0 = time.perf_counter()
+    try:
+        dry = dryrun_multichip(FM_WORLD)
+    except (RuntimeError, TimeoutError, AssertionError) as exc:
+        fail(f"phase 50 (b): dryrun_multichip({FM_WORLD}) failed: {exc}")
+    dry_s = time.perf_counter() - t0
+    # B1/B2: the sharded ELL fit, 8 steps x 3 epochs a rank; B7: the routed
+    # W&D fit, 2 folds a step x 4 steps x 3 epochs a rank
+    want = {("mixed LR", "ell_margin"): 24,
+            ("mixed LR", "ell_scatter_apply_fused"): 24,
+            ("widedeep routed grads", "fold_runs"): 24}
+    launches = {"ell_margin": [], "ell_scatter_apply_fused": [],
+                "fold_runs": []}
+    for r, rep in enumerate(dry["ranks"]):
+        for (leg, name), n in want.items():
+            got_n = rep["launches"][leg][name]
+            launches[name].append(got_n)
+            if got_n != n:
+                fail(f"phase 50 (b) rank {r}: {name} launched {got_n} times "
+                     f"in the {leg!r} leg, expected {n}")
+        total = {name: sum(leg[name] for leg in rep["launches"].values())
+                 for name in launches}
+        for name, n in total.items():
+            h = rep["held"][name]
+            if h["checked"] != n or h["unequal"]:
+                fail(f"phase 50 (b) rank {r}: {name}: {h['checked']} of {n} "
+                     f"launches held, {h['unequal']} off the plain version")
+        if rep["launches"]["mixed LR"]["ell_scatter_apply"]:
+            fail("phase 50 (b): the pair kernel ran on a 128-row grid")
+    r0 = dry["ranks"][0]
+    log(f"phase 50 (b) dryrun_multichip({FM_WORLD}) on gloo ranks sharing "
+        f"the card: {dry['seconds']:.2f} s ({dry_s:.2f} s with the call); "
+        f"rank 0's legs (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in r0["secs"].items())
+        + f"; launches by rank {launches}, each held to its plain version "
+        f"bit for bit ({r0['held']}); dp x tp loss "
+        f"{r0['widedeep dp x tp']['loss']:.6f} vs the reference step's "
+        f"{r0['widedeep dp x tp']['ref_loss']:.6f}; top-k payload "
+        f"{r0['compressed grad reduce']['payload']['compressed_bytes']}/"
+        f"{r0['compressed grad reduce']['payload']['dense_bytes']} B; mixed "
+        f"LR data plan {r0['mixed LR']['data_plan']!r} [{card}]")
+
+    # (c) the families at full size over ranks
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    try:
+        world = run_on_ranks(phase50_rank, FM_WORLD, FM_WORLD,
+                             device=DP_DEVICE, backend="gloo",
+                             timeout_s=FM_TIMEOUT_S)
+    except (RuntimeError, TimeoutError) as exc:
+        fail(f"phase 50 (c): the gloo world failed: {exc}")
+    log(f"phase 50 (c) world of {FM_WORLD} gloo ranks on the card: spawned "
+        f"and run in {time.perf_counter() - t0:.2f} s; peak GB a rank "
+        f"{[round(w['peak_gb'], 3) for w in world]}")
+
+    def report(what, key, err, tol, shape):
+        t = world[0][key]
+        log(f"phase 50 (c) {what}: max |rank - oracle| {err:.3e} (tolerance "
+            f"{tol}), {t['ms']:.3f} ms a call (rank 0, median of "
+            f"{FM_REPS}: {[round(m, 3) for m in t['all_ms']]}), "
+            f"{t['staged_bytes']} B staged through the host a rank a call; "
+            f"{shape} [{card}]")
+
+    q, k, v = fm_qkv(torch, dev)
+    s_blk = FM_ATT["s"] // FM_WORLD
+    shape = f"(b, s, h, d) {tuple(q.shape)} f32 on {{'seq': {FM_WORLD}}}"
+    for causal in (False, True):
+        errs = {"ring": 0.0, "ulysses": 0.0}
+        for r in range(FM_WORLD):
+            blk = slice(r * s_blk, (r + 1) * s_blk)
+            ref = attention_reference(q[:, blk], k, v, causal=causal,
+                                      q_offset=r * s_blk)
+            for name in errs:
+                got = torch.from_numpy(world[r][f"{name}_{causal}"]["out"]
+                                       ).to(dev)
+                errs[name] = max(errs[name],
+                                 float((got - ref).abs().max()))
+            del ref
+        for name, e in errs.items():
+            report(f"{name} attention, causal {causal}", f"{name}_{causal}",
+                   e, FM_ATT_TOL, shape)
+            if not e <= FM_ATT_TOL:
+                fail(f"phase 50 (c): {name} attention (causal {causal}) is "
+                     "off attention_reference")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    params, x = fm_moe_inputs(dev)
+    m = FM_MOE
+    half = m["tokens"] // 2
+    xt = torch.from_numpy(x).to(dev)
+    gates = torch.softmax(xt.reshape(-1, m["group"], m["d_model"])
+                          @ params.wg, dim=-1)
+    top2 = torch.topk(gates, 2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= FM_MOE_NEAR_TIE
+    near_groups = near.any(dim=1).cpu().numpy()
+    for dtype in ("float32", "bfloat16"):
+        want = moe_apply(params, xt.to(getattr(torch, dtype)),
+                         capacity_factor=m["capacity"],
+                         group_size=m["group"]).float().cpu().numpy()
+        tol = FM_MOE_TOL if dtype == "float32" else dict(
+            rtol=0, atol=2.0 ** -8 * float(np.abs(want).max()))
+        worst, off_groups = 0.0, set()
+        for r in range(FM_WORLD):
+            got = world[r][f"moe_{dtype}"]
+            if got["dtype"] != f"torch.{dtype}":
+                fail(f"phase 50 (c): MoE returned {got['dtype']} for "
+                     f"{dtype} tokens")
+            d_i = r // (FM_WORLD // 2)
+            ref = want[d_i * half:(d_i + 1) * half]
+            worst = max(worst, float(np.abs(got["out"] - ref).max()))
+            bad = ~np.all(np.isclose(got["out"], ref, **tol), axis=1)
+            off_groups |= set((np.nonzero(bad)[0] + d_i * half)
+                              // m["group"])
+        report(f"routed MoE {dtype} tokens (groups outside the tolerance "
+               f"{sorted(off_groups)}, groups holding a near-tie gate "
+               f"{int(near_groups.sum())})", f"moe_{dtype}", worst, tol,
+               f"{m['tokens']} tokens, d_model {m['d_model']}, d_hidden "
+               f"{m['d_hidden']}, {m['experts']} experts, group "
+               f"{m['group']}, capacity {m['capacity']} on {{'data': 2, "
+               f"'expert': 2}}")
+        if any(not near_groups[g] for g in off_groups):
+            fail(f"phase 50 (c): the routed MoE ({dtype}) is off "
+                 "moe_apply(mesh=None) in a group without a near-tie")
+    del params, xt
+    torch.cuda.empty_cache()
+
+    w, b, xp, yp = fm_pipe_inputs(dev)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    o = xp
+    for i in range(FM_PIPE["stages"]):
+        o = fm_stage((w[i], b[i]), o)
+    torch.mean((o - yp) ** 2).backward()
+    outs = {"out": (world[0]["pipe"]["out"], o.detach().cpu().numpy())}
+    for r in range(FM_WORLD):
+        outs[f"dw{r}"] = (world[r]["pipe"]["dw"], w.grad[r].cpu().numpy())
+        outs[f"db{r}"] = (world[r]["pipe"]["db"], b.grad[r].cpu().numpy())
+    worst = max(float(np.abs(a - b_).max()) / float(np.abs(b_).max())
+                for a, b_ in outs.values())
+    other = max(w_["pipe"]["dw_other"] for w_ in world)
+    p = FM_PIPE
+    report("pipeline forward + backward (relative to each array's max |.|)",
+           "pipe", worst, FM_PIPE_TOL,
+           f"{p['stages']} tanh stages d {p['d']}, batch {p['batch']}, "
+           f"n_micro {p['n_micro']} on {{'pipe': {FM_WORLD}}}; |grad| on "
+           f"other stages' rows {other}")
+    if not (worst <= FM_PIPE_TOL and other == 0.0):
+        fail("phase 50 (c): the pipeline is off the sequential stages")
+    log(f"phase 50: {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return launches
+
+
 def killing_at(wins, at, exc):
     """A live feed that dies handing out window ``at``."""
     for i, w in enumerate(wins):
@@ -9804,6 +10169,13 @@ def main():
     for entry in kernels:
         if entry["name"] in ranks:
             entry["ranks"] = {"launches": ranks[entry["name"]]}
+
+    # phase 50: the remaining parallel families and the entry points;
+    # the dryrun's B1/B2/B7 launches by rank land under "dryrun"
+    dryrun = families_phase(torch, dev, card)
+    for entry in kernels:
+        if entry["name"] in dryrun:
+            entry["dryrun"] = {"launches": dryrun[entry["name"]]}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,10 +1,13 @@
-"""Data parallelism over a ``torch.distributed`` process group, one rank
-a device: the port of the JAX package's ``parallel/`` as far as data
-parallelism needs it (the mesh of named axes, the dense and compressed
-collectives, the multi-process runtime and the configurable gradient
-reduction, ``grad_reduce``, and elastic fleets, ``elastic``, with
-``grad_reduce.reshard_state``).  ``moe``, ``pipeline_parallel``,
-``ring_attention`` and ``ulysses`` are not ported (ROADMAP A10)."""
+"""Parallelism over a ``torch.distributed`` process group, one rank a
+device: the port of the JAX package's ``parallel/``.  The mesh of named
+axes, the dense, compressed and differentiable collectives (with the ring
+permute and the all-to-all), the multi-process runtime, the configurable
+gradient reduction (``grad_reduce``) and elastic fleets (``elastic``, with
+``grad_reduce.reshard_state``); and the model-parallel families, each
+running per rank on its own shard: pipeline parallelism
+(``pipeline_parallel``), ring and Ulysses attention over a sequence axis
+(``ring_attention``, ``ulysses``) and the routed mixture of experts over an
+expert axis (``moe``)."""
 
 from .mesh import (  # noqa: F401
     DATA_AXIS,
@@ -33,3 +36,18 @@ from .elastic import (  # noqa: F401
     ResizeRequested,
     WorkerLease,
 )
+from .moe import (  # noqa: F401
+    EXPERT_AXIS,
+    MoEParams,
+    init_moe,
+    moe_apply,
+    moe_sharding,
+    shard_moe,
+)
+from .pipeline_parallel import (  # noqa: F401
+    PIPE_AXIS,
+    build_pipeline,
+    pipeline_apply,
+)
+from .ring_attention import attention_reference, ring_attention  # noqa: F401
+from .ulysses import ulysses_attention  # noqa: F401

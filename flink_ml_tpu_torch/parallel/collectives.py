@@ -13,9 +13,8 @@ The sums take one all-reduce of the group's backend (NCCL on the card,
 gloo between CPU processes, or gloo over CUDA tensors for ranks that
 share a card): its ring adds each element in one order for a given world
 and tensor size and copies the result to every rank, so every rank gets
-the same bits and a rerun repeats them.  ``reduce_scatter`` and
-``ppermute_ring`` are built from an all-reduce and an all-gather, the
-collectives every backend takes.
+the same bits and a rerun repeats them.  ``reduce_scatter`` is built
+from an all-reduce, the collective every backend takes.
 
 Tensor parallelism over an axis (the ``"model"`` axis of a ``("data",
 "model")`` mesh) differentiates through its collectives: Megatron's pairs
@@ -25,7 +24,14 @@ own slice, where the gathered value is used replicated);
 :func:`copy_to_axis` is the identity whose backward sums over the axis
 (a replicated input into a column-parallel layer); :func:`sum_over_axis`
 sums over the axis, its backward the identity (after a row-parallel
-layer).  Every sum is :func:`psum_ordered`'s, so the ranks of the axis hold
+layer, and the select-and-sum that ends a pipeline).  The sequence and
+pipeline families move blocks between ranks with two more:
+:func:`ppermute_ring` (a ring rotation whose backward rotates the
+cotangent back) and :func:`all_to_all` (``lax.all_to_all``'s exchange,
+whose backward is the exchange with the two axes swapped).  Every rank
+must take every collective in the same order, forward and backward, so
+their callers select with ``torch.where`` where the JAX bodies do and
+never branch on the rank around a collective.  Every sum is :func:`psum_ordered`'s, so the ranks of the axis hold
 the same bits forward and backward.  A gather of ``(ids, rows)`` needs no
 variable-length form: every rank of a data-parallel step holds the same
 row count (the epoch layout and ``shard_batch`` check it), so
@@ -41,7 +47,8 @@ receives host memory only (PyTorch documents its ``send``/``recv`` for
 CPU tensors), so for gloo ranks with CUDA tensors a pairwise round goes
 through host staging: the message is copied to the host, exchanged, and
 the received one copied back (counted in :data:`STAGED`).  NCCL ranks
-exchange device memory directly.  A scatter-add that sums several values
+exchange device memory directly; :func:`all_to_all` stages its chunks
+the same way.  A scatter-add that sums several values
 into one slot adds them in one fixed order on the card too
 (:func:`_add_at_`), so every rank and every rerun gets the same bits.
 """
@@ -60,7 +67,7 @@ __all__ = ["FILL_VEC_LEN", "STAGED", "psum", "psum_packed", "pmean", "pmax",
            "ppermute_ring", "axis_index", "axis_size", "sparse_all_reduce",
            "sparse_all_reduce_rd", "fixed_point_all_reduce",
            "quantized_all_reduce", "rd_topology", "reset_staged",
-           "gather_axis", "copy_to_axis", "sum_over_axis"]
+           "gather_axis", "copy_to_axis", "sum_over_axis", "all_to_all"]
 
 # Fixed layout of the per-call fill-in vector returned by
 # :func:`sparse_all_reduce_rd` (the JAX package's): the slot count is
@@ -203,14 +210,6 @@ def axis_size(axis: AxisSpec = DATA_AXIS, *, mesh: Optional[Mesh] = None
     return 1 if group is None else dist.get_world_size(group)
 
 
-def ppermute_ring(x: Any, axis: AxisSpec = DATA_AXIS, *, shift: int = 1,
-                  mesh: Optional[Mesh] = None) -> Any:
-    """Rotate shards around the ring of the axis: rank ``i`` receives rank
-    ``(i - shift) % size``'s shard (the KV rotation of ring attention)."""
-    group = _axis_group(axis, mesh)
-    n = axis_size(axis, mesh=mesh)
-    src = (axis_index(axis, mesh=mesh) - shift) % n
-    return _tree_map(lambda t: _gather(t, group)[src], x)
 
 
 # ---------------------------------------------------------------------------
@@ -336,6 +335,128 @@ def ppermute(x: Any, axis: AxisSpec, perm: Sequence[Tuple[int, int]], *,
             STAGED["bytes"] += (send.numel() * send.element_size()
                                 * len(peers_out))
         return recv.to(t.device) if peers_in else own
+
+    return _tree_map(one, x)
+
+
+# ---------------------------------------------------------------------------
+# ring permutes and all-to-alls that autograd differentiates (the pipeline,
+# ring and Ulysses attention)
+# ---------------------------------------------------------------------------
+
+
+def _ring_perm(n: int, shift: int):
+    return [(i, (i + shift) % n) for i in range(n)]
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, shift):
+        ctx.axis, ctx.mesh, ctx.shift = axis, mesh, shift
+        n = axis_size(axis, mesh=mesh)
+        return ppermute(x, axis, _ring_perm(n, shift), mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = axis_size(ctx.axis, mesh=ctx.mesh)
+        return (ppermute(g, ctx.axis, _ring_perm(n, -ctx.shift),
+                         mesh=ctx.mesh), None, None, None)
+
+
+def ppermute_ring(x: Any, axis: AxisSpec = DATA_AXIS, *, shift: int = 1,
+                  mesh: Optional[Mesh] = None) -> Any:
+    """Rotate shards around the ring of the axis: rank ``i`` receives rank
+    ``(i - shift) % size``'s shard (the KV rotation of ring attention, the
+    activation hop of the pipeline), one :func:`ppermute` a leaf.
+    Backward: the cotangent rotated by ``-shift``, back to the rank whose
+    shard it is."""
+    return _tree_map(lambda t: _RingPermute.apply(t, axis, mesh, shift), x)
+
+
+def _a2a_chunks(t: torch.Tensor, n: int, split_axis: int, tiled: bool):
+    if tiled:
+        if t.shape[split_axis] % n:
+            raise ValueError(
+                f"all_to_all: dim {split_axis} of size "
+                f"{t.shape[split_axis]} does not split over {n}")
+        return list(t.split(t.shape[split_axis] // n, dim=split_axis))
+    if t.shape[split_axis] != n:
+        raise ValueError(
+            f"all_to_all (tiled=False): dim {split_axis} has size "
+            f"{t.shape[split_axis]}, the axis {n}")
+    return [t.select(split_axis, j) for j in range(n)]
+
+
+def _exchange_chunks(chunks: list, group) -> list:
+    """One chunk to each rank of ``group`` (chunk ``j`` to rank ``j``) and
+    the chunks received, in rank order: one ``batch_isend_irecv`` of a send
+    and a receive a peer (gloo has no ``alltoall`` in every PyTorch build;
+    its point-to-point ops are), staged through the host for gloo with
+    CUDA tensors (:data:`STAGED`)."""
+    chunks = [c.detach().contiguous() for c in chunks]
+    if group is None:
+        return [c.clone() for c in chunks]
+    dev = chunks[0].device
+    me = dist.get_rank(group)
+    staged = _staged(group, chunks[0])
+    send = [c.cpu() for c in chunks] if staged else chunks
+    recv = [c.clone() if j == me else torch.empty_like(c)
+            for j, c in enumerate(send)]
+    ops = []
+    for j in range(len(send)):
+        if j != me:
+            peer = _global_rank(group, j)
+            ops.append(dist.P2POp(dist.isend, send[j], peer, group))
+            ops.append(dist.P2POp(dist.irecv, recv[j], peer, group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if staged:
+        STAGED["rounds"] += 1
+        STAGED["bytes"] += sum(c.numel() * c.element_size()
+                               for j, c in enumerate(send) if j != me)
+        recv = [c.to(dev) for c in recv]
+    return recv
+
+
+def _all_to_all_tensor(t, axis, mesh, split_axis, concat_axis, tiled):
+    group = _axis_group(axis, mesh)
+    n = axis_size(axis, mesh=mesh)
+    got = _exchange_chunks(_a2a_chunks(t, n, split_axis, tiled), group)
+    return torch.cat(got, dim=concat_axis) if tiled \
+        else torch.stack(got, dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh, split_axis, concat_axis, tiled):
+        ctx.args = (axis, mesh, split_axis, concat_axis, tiled)
+        return _all_to_all_tensor(x, axis, mesh, split_axis, concat_axis,
+                                  tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, mesh, split_axis, concat_axis, tiled = ctx.args
+        return (_all_to_all_tensor(g, axis, mesh, concat_axis, split_axis,
+                                   tiled), None, None, None, None, None)
+
+
+def all_to_all(x: Any, axis: AxisSpec, *, split_axis: int, concat_axis: int,
+               tiled: bool = True, mesh: Optional[Mesh] = None) -> Any:
+    """``lax.all_to_all`` over the axis, on each rank's tensors: ``tiled``
+    splits ``split_axis`` into ``size`` equal chunks, sends chunk ``j`` to
+    axis position ``j`` and concatenates what arrives along
+    ``concat_axis`` in axis order (no dimension added or removed);
+    untiled, ``split_axis`` must have the axis size, is removed, and the
+    arrivals stack on a new ``concat_axis`` (JAX's shape rule,
+    ``insert(delete(shape, split_axis), concat_axis, size)``).  One
+    ``batch_isend_irecv`` a leaf, through the host for gloo with CUDA
+    tensors (:data:`STAGED`).  Backward: the exchange with the two axes
+    swapped (Ulysses' heads-to-sequence hop is the transpose of its
+    sequence-to-heads hop)."""
+    def one(t):
+        return _AllToAll.apply(t, axis, mesh, split_axis % t.dim(),
+                               concat_axis % t.dim(), tiled)
 
     return _tree_map(one, x)
 

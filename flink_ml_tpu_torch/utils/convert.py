@@ -20,7 +20,8 @@ __all__ = ["params_from_jax", "model_from_jax_state", "softmax_model_from_jax",
            "ivf_index_from_jax", "feature_model_from_jax",
            "model_data_from_jax", "onevsrest_model_from_jax",
            "algo_operator_from_jax", "pipeline_model_from_jax",
-           "grad_reduce_state_from_jax"]
+           "grad_reduce_state_from_jax", "moe_params_from_jax",
+           "moe_shard_from_jax", "stage_params_from_jax"]
 
 
 def params_from_jax(params: Dict[str, np.ndarray], device="cuda"
@@ -366,3 +367,43 @@ def grad_reduce_state_from_jax(state, rank: int, config=None,
         else:
             raise ValueError(f"unknown reducer-state leaf {key!r}")
     return out
+
+
+def moe_params_from_jax(params, device="cuda"):
+    """The JAX package's ``MoEParams`` (``wg``, ``w_in``, ``w_out``; numpy
+    arrays or anything ``np.asarray`` takes) as the port's ``MoEParams``
+    of f32 tensors on ``device``."""
+    from ..parallel.moe import MoEParams
+
+    dev = resolve_device(device)
+    return MoEParams(*(torch.as_tensor(np.array(a, np.float32), device=dev)
+                       for a in (params.wg, params.w_in, params.w_out)))
+
+
+def moe_shard_from_jax(params, index: int, size: int, device="cuda"):
+    """Expert rank ``index``'s shard (of ``size``) of the JAX package's
+    ``MoEParams``: the router whole and its expert group of ``w_in`` and
+    ``w_out`` (``moe_sharding``'s placement), as f32 tensors on
+    ``device``."""
+    from ..parallel.moe import MoEParams, _expert_slice
+
+    full = moe_params_from_jax(params, device)
+    sl = _expert_slice(full.wg.shape[1], size, index)
+    return MoEParams(wg=full.wg, w_in=full.w_in[sl], w_out=full.w_out[sl])
+
+
+def stage_params_from_jax(stacked, device="cuda", stage=None):
+    """A pipeline's stacked stage parameters of the JAX package (a tree of
+    arrays with a leading stage dim: dict, list or tuple) as f32 tensors on
+    ``device``; with ``stage`` only that stage's slice (the leading dim
+    dropped), what a rank of the pipe axis runs."""
+    from ..parallel.mesh import _tree_map
+
+    dev = resolve_device(device)
+
+    def one(a):
+        arr = np.array(a, np.float32)
+        return torch.as_tensor(arr if stage is None else arr[stage],
+                               device=dev)
+
+    return _tree_map(one, stacked)

@@ -2410,3 +2410,135 @@ def test_streamed_kmeans_over_ranks_launches_b4(cuda_device, world,
             lambda: iter({"features": b} for b in mine), 16, max_iter=3,
             device=cuda_device)
         np.testing.assert_array_equal(out[0]["centroids"], want)
+
+
+@pytest.mark.cuda
+def test_entry_on_the_card_matches_the_host_forward(cuda_device):
+    """``entry()`` places the Wide&Deep forward's args on the card; its
+    scores equal the same forward on the host CPU (phase 50 (a))."""
+    from flink_ml_tpu_torch.entry import entry
+    from flink_ml_tpu_torch.models.common.adam import tree_map
+
+    fn, args = entry()
+    assert args[1].is_cuda and args[2].is_cuda
+    got = fn(*args)
+    want = fn(tree_map(lambda t: t.cpu(), args[0]), args[1].cpu(),
+              args[2].cpu())
+    assert tuple(got.shape) == (256,)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_the_card_launches_and_holds_b1_b2_b7(
+        cuda_device):
+    """``dryrun_multichip(4)`` on 4 gloo ranks sharing
+    the card (phase 50 (b)): every leg held to its oracle in the ranks;
+    B1 and B2 24 launches a rank in the sharded ELL fit, B7 24 in the
+    routed Wide&Deep fit, each equal to its plain version bit for bit."""
+    from flink_ml_tpu_torch.entry import dryrun_multichip
+
+    report = dryrun_multichip(4)
+    for rank in report["ranks"]:
+        mixed = rank["launches"]["mixed LR"]
+        assert mixed["ell_margin"] == mixed["ell_scatter_apply_fused"] == 24
+        assert rank["launches"]["widedeep routed grads"]["fold_runs"] == 24
+        for name in ("ell_margin", "ell_scatter_apply_fused", "fold_runs"):
+            held = rank["held"][name]
+            assert held["checked"] == 24 and held["unequal"] == 0
+
+
+def _rank_families(rank, world):
+    """Phase 50 (c) at small shapes on the card: ring and Ulysses attention
+    of this rank's block against ``attention_reference`` by query block,
+    the routed MoE of this rank's tokens and experts against
+    ``moe_apply(mesh=None)`` (f32 and bf16 tokens), and a tanh pipeline's
+    output and stage gradient against the sequential stages."""
+    from flink_ml_tpu_torch.parallel import collectives as C
+    from flink_ml_tpu_torch.parallel.mesh import device_mesh
+    from flink_ml_tpu_torch.parallel.moe import init_moe, moe_apply, shard_moe
+    from flink_ml_tpu_torch.parallel.pipeline_parallel import build_pipeline
+    from flink_ml_tpu_torch.parallel.ring_attention import (
+        attention_reference, ring_attention)
+    from flink_ml_tpu_torch.parallel.ulysses import ulysses_attention
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    q, k, v = (torch.randn((1, 64, 4, 8), generator=g, device=dev)
+               for _ in range(3))
+    s = 64 // world
+    blk = slice(rank * s, (rank + 1) * s)
+    seq = device_mesh({"seq": world})
+    out = {}
+    C.reset_staged()
+    for causal in (False, True):
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention)):
+            out[f"{name}_{causal}"] = fn(q[:, blk], k[:, blk], v[:, blk],
+                                         mesh=seq, axis="seq", causal=causal)
+        out[f"ref_{causal}"] = attention_reference(
+            q[:, blk], k, v, causal=causal, q_offset=rank * s)
+    out["staged"] = C.STAGED["rounds"]
+
+    data = 2 if world % 2 == 0 else 1
+    ep = device_mesh({"data": data, "expert": world // data})
+    rng = np.random.default_rng(4)
+    params = init_moe(rng, 16, 32, 4, device=dev)
+    x = torch.from_numpy(rng.normal(size=(256, 16)).astype(np.float32)).to(
+        dev)
+    rows = 256 // data
+    mine = slice((rank // (world // data)) * rows,
+                 (rank // (world // data) + 1) * rows)
+    for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(capacity_factor=1.25, group_size=32)
+        out[f"moe_{dtype}"] = moe_apply(shard_moe(params, ep),
+                                        x[mine].to(dtype), mesh=ep,
+                                        data_axis="data", **kw).float()
+        out[f"moe_ref_{dtype}"] = moe_apply(params, x.to(dtype),
+                                            **kw)[mine].float()
+
+    w = torch.from_numpy((rng.normal(size=(world, 16, 16)) / 4).astype(
+        np.float32)).to(dev).requires_grad_(True)
+    xp = torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32)).to(
+        dev)
+    fn = build_pipeline(lambda p, a: torch.tanh(a @ p),
+                        device_mesh({"pipe": world}), n_micro=8)
+    o = fn(w, xp)
+    torch.sum(o ** 2).backward()
+    out["pipe"], out["dw"] = o.detach(), w.grad[rank].clone()
+    w.grad = None
+    seq_o = xp
+    for i in range(world):
+        seq_o = torch.tanh(seq_o @ w[i])
+    torch.sum(seq_o ** 2).backward()
+    out["pipe_ref"], out["dw_ref"] = seq_o.detach(), w.grad[rank]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (4, "gloo")])
+def test_parallel_families_on_the_card(cuda_device, world, backend):
+    """The A10.5 families on the card over gloo ranks sharing it (the ring
+    permute and the all-to-all staged through the host) and in a one-rank
+    NCCL group, each rank held to its oracle on the card."""
+    from flink_ml_tpu_torch.utils.backend import run_on_ranks
+
+    out = run_on_ranks(_rank_families, world, world, device="cuda:0",
+                       backend=backend, timeout_s=240)
+    for got in out:
+        for causal in (False, True):
+            for name in ("ring", "ulysses"):
+                np.testing.assert_allclose(got[f"{name}_{causal}"],
+                                           got[f"ref_{causal}"], rtol=1e-5,
+                                           atol=1e-5)
+        assert (got["staged"] > 0) == (backend == "gloo")
+        np.testing.assert_allclose(got["moe_torch.float32"],
+                                   got["moe_ref_torch.float32"], rtol=1e-5,
+                                   atol=1e-6)
+        ref = got["moe_ref_torch.bfloat16"]
+        np.testing.assert_allclose(got["moe_torch.bfloat16"], ref, rtol=0,
+                                   atol=2.0 ** -8 * np.abs(ref).max())
+        np.testing.assert_allclose(got["pipe"], got["pipe_ref"], rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got["dw"], got["dw_ref"], rtol=1e-4,
+                                   atol=1e-5)
