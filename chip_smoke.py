@@ -532,6 +532,22 @@ line is printed):
     pipeline at d 1024, batch 4096, 8 microbatches on ``{"pipe": 4}``,
     forward and stage gradients against the sequential stages; each
     family's ms a call and bytes staged through the host.
+51. The control plane: (a) a cold build of ``ell_scatter.cu`` into a
+    fresh cache root (``kernels/aot.py``, set by ``aot.set_cache``; this
+    process never loaded from it): 1 nvcc run, 1 stored entry; (b) a
+    child process on that root (``FLINK_ML_TPU_AOT_CACHE_PATH``): 0 nvcc
+    runs, 1 load from the cache, B1 from the loaded library equal to its
+    plain version bit for bit at phase 3's shape; (c) at the same time,
+    on a copy of the root with one byte of the committed library
+    flipped: another child quarantines the entry, rebuilds it (1 nvcc
+    run) and gives B1's bits again; (d) GBT's
+    ``"auto"`` decision on phase 37's rows with the root set: the first
+    fit times both forms and records the winner, a second fit (a fresh
+    cache over the root) reloads it with no search, and both forests
+    equal phase 37's forest of the winning form bit for bit; (e) the
+    registry's pick for every op at a CUDA and a CPU signature (B1-B9 on
+    "cuda"/"cuda-pair" at the CUDA one, never "plain") and the ledger's
+    ``aot`` block.  Fails without nvcc, and if a child fails.
 
 The last lines are the kernel table (ten kernels: the three ELL kernels,
 each with its value variant's launches, error, times and bound under
@@ -5522,7 +5538,8 @@ def gbt_phase(torch, dev, card, timer):
         fail("GBT softmax: probabilities do not sum to 1 or it did not "
              "learn")
     log(f"phase 37: {time.perf_counter() - t_phase:.2f} s [{card}]")
-    return X, y, cfg, forest, losses
+    return X, y, cfg, forest, losses, {form: rs[0][0]
+                                       for form, rs in runs.items()}
 
 
 def gbt_stream_phase(torch, dev, card, X, y, cfg, incore, incore_losses):
@@ -9701,6 +9718,242 @@ def families_phase(torch, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 51: the control plane
+# ---------------------------------------------------------------------------
+
+CP_DIR = os.path.join(HERE, "scratch_aot")
+
+
+def phase51_child():
+    """One leg of phase 51 in a process that has loaded no library: B1 at
+    phase 3's shape through the library of the cache root the environment
+    names, against its plain version.  Prints one JSON line."""
+    import torch
+
+    from flink_ml_tpu_torch.kernels import aot, build
+    from flink_ml_tpu_torch.kernels.registry import kernel_stats, lookup
+    from flink_ml_tpu_torch.models.common import sgd as S
+    from flink_ml_tpu_torch.ops import ell_scatter as E
+
+    dev = torch.device("cuda")
+    runs0 = build.nvcc_runs()
+    _, cat1, _ = criteo_rows(BATCH, D_MAIN, seed=1)
+    lay = E.ell_layout(cat1[None], D_MAIN).to(dev)
+    rng = np.random.default_rng(2)
+    w = torch.from_numpy(rng.normal(size=D_MAIN).astype(np.float32)).to(dev)
+    route_w, _ = E.sample_routing(lay.src[0], lay.pos[0], lay.mask[0], BATCH)
+    m_len = S._ext_len(BATCH)
+    entry = lookup("ell_margin", sig=(D_MAIN // 128, "cuda"))
+    t0 = time.perf_counter()
+    got = E.ell_margin(w, route_w, m_len=m_len)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    want = E.ell_margin_plain(w, route_w, m_len)
+    print(json.dumps({
+        "root": aot.active_cache().root, "backend": entry.backend,
+        "library": E._kernels()._name, "nvcc_runs": build.nvcc_runs() - runs0,
+        "aot": kernel_stats.snapshot()["aot"],
+        "launches": E.LAUNCHES["ell_margin"],
+        "equal": bool(torch.equal(got, want)), "first_call_s": first_s}),
+        flush=True)
+
+
+def _phase51_start(root):
+    """A phase-51 child process on cache root ``root``."""
+    env = dict(os.environ, FLINK_ML_TPU_AOT_CACHE_PATH=root)
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         " import chip_smoke; chip_smoke.phase51_child()", HERE],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def _phase51_wait(root, what, started):
+    """Wait for the child of :func:`_phase51_start`; check that it loaded
+    from ``root`` and that B1 matched its plain version."""
+    t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"phase 51 ({what}): the child did not finish in 600 s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 51 ({what}): the child exited {proc.returncode}:\n"
+             f"{err[-3000:]}")
+    got = json.loads(out.strip().splitlines()[-1])
+    got["wall_s"] = wall
+    if got["root"] != root or not got["library"].startswith(
+            os.path.join(root, "exec")):
+        fail(f"phase 51 ({what}): the child loaded {got['library']}, not "
+             f"from the cache root {root}")
+    if not got["equal"] or got["launches"] != 1 or got["backend"] != "cuda":
+        fail(f"phase 51 ({what}): B1 from the loaded library is off its "
+             f"plain version, or did not launch once ({got})")
+    return got
+
+
+def control_plane_phase(torch, dev, card, X_gb, y_gb, cfg_gb, forms_gb):
+    """Phase 51: the library cache cold, warm and damaged (a fresh root,
+    two child processes), GBT's measured and reloaded "auto" decision,
+    and the registry's picks."""
+    import shutil
+
+    from flink_ml_tpu_torch.kernels import aot, build
+    from flink_ml_tpu_torch.kernels import registry as R
+    from flink_ml_tpu_torch.models.common import gbt as G
+
+    t_phase = time.perf_counter()
+    try:
+        nvcc = build.nvcc_path()
+    except RuntimeError as exc:
+        fail(f"phase 51: {exc}")
+    stats = R.kernel_stats
+    shutil.rmtree(CP_DIR, ignore_errors=True)
+    root = os.path.join(CP_DIR, "root")
+    name = "ell_scatter"
+
+    # (a) cold: a fresh root this process has not loaded from
+    aot.set_cache(aot.ExecutableCache(root))
+    a0, runs0 = dict(stats.snapshot()["aot"]), build.nvcc_runs()
+    t0 = time.perf_counter()
+    lib = build.load_library(name)
+    cold_s = time.perf_counter() - t0
+    a1 = stats.snapshot()["aot"]
+    cold = {k: a1[k] - a0[k] for k in ("hits", "misses", "stores",
+                                       "quarantined")}
+    target = build._target(name)
+    log(f"phase 51 (a) cold build of {name}.cu into a fresh cache root: "
+        f"{cold_s:.3f} s, nvcc runs {build.nvcc_runs() - runs0}, aot "
+        f"{cold}, entry {os.path.relpath(os.path.dirname(target), HERE)} "
+        f"({os.path.getsize(target)} B; {nvcc}) [{card}]")
+    if build.nvcc_runs() - runs0 != 1 or cold["misses"] != 1 \
+            or cold["stores"] != 1 or cold["hits"] or cold["quarantined"] \
+            or lib._name != target:
+        fail("phase 51 (a): the cold build did not run nvcc once and store "
+             "one entry")
+
+    # (b) warm: a child on the root loads the entry, no nvcc; (c) at once,
+    # a second child on a copy of the root whose committed library has one
+    # byte flipped (the flipped copy replaces the file) quarantines the
+    # entry and rebuilds it
+    flipped = os.path.join(CP_DIR, "flipped")
+    shutil.copytree(root, flipped)
+    bad_target = os.path.join(flipped, os.path.relpath(target, root))
+    with open(bad_target, "rb") as f:
+        blob = bytearray(f.read())
+    blob[len(blob) // 2] ^= 0xFF
+    with open(bad_target + ".flip", "wb") as f:
+        f.write(blob)
+    os.replace(bad_target + ".flip", bad_target)
+    t0 = time.perf_counter()
+    children = {"b": _phase51_start(root), "c": _phase51_start(flipped)}
+    warm = _phase51_wait(root, "b", children["b"])
+    bad = _phase51_wait(flipped, "c", children["c"])
+    both_s = time.perf_counter() - t0
+    log(f"phase 51 (b) warm load in a child: {warm['wall_s']:.3f} s of "
+        f"process wall (B1's first call {warm['first_call_s']:.3f} s), "
+        f"nvcc runs {warm['nvcc_runs']}, aot hits {warm['aot']['hits']} "
+        f"(load {warm['aot']['load_ms']} ms), misses "
+        f"{warm['aot']['misses']}; B1 equal to its plain version bit for "
+        f"bit [{card}]")
+    if warm["nvcc_runs"] != 0 or warm["aot"]["hits"] != 1 \
+            or warm["aot"]["misses"] != 0 or warm["library"] != target:
+        fail("phase 51 (b): the warm child did not load the committed "
+             "entry without nvcc")
+    corrupt = [n for n in os.listdir(os.path.join(flipped, "exec"))
+               if ".corrupt" in n]
+    log(f"phase 51 (c) flipped byte: the child quarantined "
+        f"{bad['aot']['quarantined']} entry ({corrupt}), nvcc runs "
+        f"{bad['nvcc_runs']}, stores {bad['aot']['stores']} (compile "
+        f"{bad['aot']['compile_ms']} ms), {bad['wall_s']:.3f} s; B1 equal "
+        f"to its plain version bit for bit; (b) and (c) together "
+        f"{both_s:.3f} s [{card}]")
+    if bad["aot"]["quarantined"] != 1 or bad["nvcc_runs"] != 1 \
+            or bad["aot"]["hits"] != 0 or bad["aot"]["stores"] != 1 \
+            or len(corrupt) != 1 or bad["library"] != bad_target:
+        fail("phase 51 (c): the flipped library was not quarantined and "
+             "rebuilt")
+
+    # (d) GBT's "auto" decision on phase 37's rows, measured then reloaded
+    op = "gbt_level_histograms"
+    stats.tuned_ops.pop(f"{op}|()", None)
+    if G.HIST_IMPL != "auto":
+        fail(f"phase 51 (d): HIST_IMPL is {G.HIST_IMPL!r}, not 'auto'")
+    t0 = time.perf_counter()
+    first = G.train_forest(X_gb, y_gb, gbt_grad_hess, 0.0, cfg_gb,
+                           device=dev)
+    first_s = time.perf_counter() - t0
+    measured = dict(stats.tuned_ops[f"{op}|()"])
+    aot.set_cache(aot.ExecutableCache(root))      # reloads from disk
+    won = G.resolve_hist_impl("auto")
+    t0 = time.perf_counter()
+    second = G.train_forest(X_gb, y_gb, gbt_grad_hess, 0.0, cfg_gb,
+                            device=dev)
+    second_s = time.perf_counter() - t0
+    reloaded = stats.tuned_ops[f"{op}|()"]
+    log(f"phase 51 (d) GBT 'auto' on phase 37's rows: measured "
+        f"{measured['timings_ms']} ms a level histogram (8192-row slice, 4 "
+        f"nodes) -> {measured['choice']} (search {measured['search_ms']} "
+        f"ms; fit {first_s:.3f} s); reloaded: {reloaded['source']}, search "
+        f"{reloaded['search_ms']} ms, {won} (fit {second_s:.3f} s); both "
+        f"forests equal phase 37's {won} forest bit for bit [{card}]")
+    if measured["source"] != "measured" or reloaded["source"] != "cache" \
+            or reloaded["search_ms"] != 0.0 or won != measured["choice"]:
+        fail("phase 51 (d): the decision was not measured once and "
+             "reloaded with no search")
+    if not (same_forest(first, forms_gb[won])
+            and same_forest(second, forms_gb[won])):
+        fail(f"phase 51 (d): the {won} forest through the decision is off "
+             "phase 37's")
+    aot.reset_cache()
+
+    # (e) the registry's picks at a CUDA and a CPU signature
+    n_km = N_KM
+    sigs = {
+        "ell_margin": (D_MAIN // 128,),
+        "ell_scatter_apply": (D_MAIN // 128,),
+        "ell_scatter_apply (pair grid)": (D_PAIR // 128,),
+        "kmeans_update_stats": (n_km, D_KM, K_KM, "euclidean"),
+        "kmeans_assign": ("euclidean",),
+        "kmeans_workset_update": (n_km, D_KM, K_KM, "euclidean", 1),
+        "routed_table_grad": ("gather", 3, WD_FIELDS * 8192),
+        "retrieve": (2, 10, 64, 0, 0, 256, 1024),
+        "retrieve (pq)": (2, 10, 64, 8, 16, 256, 1024),
+        "gbt_level_histograms": (),
+        "linear_margins": (),
+        "widedeep_scores": (),
+    }
+    want = {"ell_margin": "cuda", "ell_scatter_apply": "cuda",
+            "ell_scatter_apply (pair grid)": "cuda-pair",
+            "kmeans_update_stats": "cuda", "kmeans_assign": "cuda",
+            "kmeans_workset_update": "cuda", "routed_table_grad": "cuda",
+            "retrieve": "cuda", "retrieve (pq)": "cuda"}
+    table = {}
+    for label, sig in sigs.items():
+        op_name = label.split(" ")[0]
+        picks = []
+        for devtype in ("cuda", "cpu"):
+            full = sig + (devtype,) if sig else sig
+            picks.append(R.lookup(op_name, full).backend)
+        table[label] = picks
+        if label in want and (picks[0] != want[label] or picks[1] != "plain"):
+            fail(f"phase 51 (e): {label} resolves to {picks} at (CUDA, "
+                 f"CPU) signatures, expected [{want[label]!r}, 'plain']")
+    missing = set(R.ops()) - {label.split(" ")[0] for label in sigs}
+    if missing:
+        fail(f"phase 51 (e): ops without a row: {sorted(missing)}")
+    log(f"phase 51 (e) the registry's picks (CUDA signature, CPU "
+        f"signature): {table}; backends "
+        f"{ {o: R.backends(o) for o in R.ops()} }")
+    log(f"phase 51 (e) kernel_stats aot block {stats.snapshot()['aot']} "
+        f"[{card}]")
+    shutil.rmtree(CP_DIR, ignore_errors=True)
+    log(f"phase 51: {time.perf_counter() - t_phase:.2f} s [{card}]")
+
+
 def killing_at(wins, at, exc):
     """A live feed that dies handing out window ``at``."""
     for i, w in enumerate(wins):
@@ -10104,8 +10357,8 @@ def main():
 
     # phases 37-39: the boosted trees and the instance classifiers (no
     # kernel of the table: GBT's histograms are fixed-order PyTorch ops)
-    X_gb, y_gb, cfg_gb, forest_gb, losses_gb = gbt_phase(torch, dev, card,
-                                                         timer)
+    X_gb, y_gb, cfg_gb, forest_gb, losses_gb, forms_gb = gbt_phase(
+        torch, dev, card, timer)
     gbt_stream_phase(torch, dev, card, X_gb, y_gb, cfg_gb, forest_gb,
                      losses_gb)
     classifiers_phase(torch, dev, card)
@@ -10176,6 +10429,9 @@ def main():
     for entry in kernels:
         if entry["name"] in dryrun:
             entry["dryrun"] = {"launches": dryrun[entry["name"]]}
+
+    # phase 51: the control plane (library cache, registry, autotune)
+    control_plane_phase(torch, dev, card, X_gb, y_gb, cfg_gb, forms_gb)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -37,7 +37,10 @@ card and its output back.  This module removes that boundary:
   :attr:`ChainConfig.dtype` (f32) and integer/bool columns to int32 on
   the HOST, halving the copy for f64 inputs.
 
-:func:`dispatch_count` counts segment runs and single-stage runs.
+Segments and single-stage runs go through the kernel registry's
+dispatch surface (``kernels/registry.py::dispatch``), which counts them
+(:func:`dispatch_count`, re-exported from there) and keeps the
+compile / cache-hit accounting.
 
 A port of the JAX package's ``api/chain.py``, with its shared
 plan-static jit replaced by an eager run of the stage functions.
@@ -54,6 +57,7 @@ import numpy as np
 import torch
 
 from ..data.table import Table
+from ..kernels.registry import dispatch, dispatch_count
 from ..obs.trace import tracer
 from ..utils.device import resolve_device
 from ..utils.padding import DEFAULT_MIN_BUCKET, pad_rows_to_bucket
@@ -164,20 +168,6 @@ class chain_disabled:
         return False
 
 
-_DISPATCHES = [0]
-_DISPATCH_LOCK = threading.Lock()
-
-
-def dispatch_count() -> int:
-    """Segment runs plus single-stage kernel runs so far."""
-    return _DISPATCHES[0]
-
-
-def _count_dispatch() -> None:
-    with _DISPATCH_LOCK:
-        _DISPATCHES[0] += 1
-
-
 # --------------------------------------------------------------------------
 # exact f32 comparison surrogates
 # --------------------------------------------------------------------------
@@ -228,16 +218,6 @@ def params_to_device(params, dev: torch.device):
     return _tensor(params, dev)
 
 
-def _run_fns(plan, params_seq, cols: Dict[str, torch.Tensor]
-             ) -> Dict[str, torch.Tensor]:
-    _count_dispatch()
-    out = dict(cols)
-    with torch.no_grad():
-        for (fn, static), params in zip(plan, params_seq):
-            out.update(fn(static, params, out))
-    return out
-
-
 def _fetch(out: Dict[str, torch.Tensor], names, n: int
            ) -> Dict[str, np.ndarray]:
     """One device→host copy per fetched column, pad rows left behind."""
@@ -283,7 +263,8 @@ def run_normalized(kernel: StageKernel, host: Dict[str, np.ndarray], *,
     with tracer.span("device_execute", cat="kernel", op=op,
                      bucket=int(next(iter(cols.values())).shape[0])
                      if cols else 0):
-        out = _run_fns(((kernel.fn, kernel.static),), (params,), cols)
+        out = dispatch(((kernel.fn, kernel.static),), (params,), cols,
+                       op=op)
         fetched = _fetch(out, kernel.produces, n)
     if kernel.post is not None:
         fetched.update(kernel.post(fetched))
@@ -456,7 +437,7 @@ class CompiledSegment:
                     for name, a in zip(host, padded)}
         else:
             cols = {}
-        out = _run_fns(self.plan, self.params, cols)
+        out = dispatch(self.plan, self.params, cols)
         fetched = _fetch(out, self.fetch_cols, n)
         for post in self.posts:
             fetched.update(post(fetched))

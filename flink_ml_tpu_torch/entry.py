@@ -133,27 +133,58 @@ def _one_process_rows(parts, batch: int, seed: int):
 
 
 class _Held:
-    """The legs' kernel wrappers swapped for ones that also run the plain
-    version on the same inputs and compare bit for bit: ``checked`` and
-    ``unequal`` launches and the largest difference by kernel."""
+    """The legs' kernels swapped for ones that also run the plain version
+    on the same inputs and compare bit for bit: ``checked`` and
+    ``unequal`` calls and the largest difference by kernel.  The ELL
+    kernels are swapped in the kernel registry, where the trainers
+    resolve them: the ``"cuda"`` entries, and the ``"plain"`` entries for
+    CPU operands (what the legs run on CPU ranks; a plain oracle on the
+    card is not held).  The fold is swapped at its wrapper, which the
+    route's stages call."""
 
     def __init__(self):
         from .ops import ell_scatter as E
         from .ops import emb_grad as G
 
-        self.stats: Dict[str, Dict[str, float]] = {}
-        self._swaps = [(E, "ell_margin", E.ell_margin_plain),
-                       (E, "ell_scatter_apply_fused",
-                        E.ell_scatter_apply_fused_plain),
-                       (E, "ell_scatter_apply", E.ell_scatter_apply_plain),
-                       (G, "fold_runs", G.fold_runs_plain)]
-        self._saved = []
+        def scatter_name(args):
+            return ("ell_scatter_apply_fused"
+                    if args[2].shape[0] % E.FUSED_BLOCK_ROWS == 0
+                    else "ell_scatter_apply")
 
-    def _wrap(self, name, kernel, plain):
-        st = self.stats.setdefault(name, {"checked": 0, "unequal": 0,
-                                          "max_abs": 0.0})
+        self.stats: Dict[str, Dict[str, float]] = {}
+        self._entries = [
+            ("ell_margin", "cuda", lambda args: "ell_margin",
+             E.ell_margin_plain),
+            ("ell_margin", "plain", lambda args: "ell_margin",
+             E.ell_margin_plain),
+            ("ell_scatter_apply", "cuda",
+             lambda args: "ell_scatter_apply_fused",
+             E.ell_scatter_apply_fused_plain),
+            ("ell_scatter_apply", "cuda-pair",
+             lambda args: "ell_scatter_apply",
+             E.ell_scatter_apply_plain_entry),
+            ("ell_scatter_apply", "plain", scatter_name,
+             E.ell_scatter_apply_plain_entry),
+            # on CPU ranks the route's plain entry folds (fold_runs_plain)
+            ("routed_table_grad", "plain", lambda args: "fold_runs",
+             G.routed_apply_plain)]
+        self._swaps = [(G, "fold_runs", G.fold_runs_plain)]
+        self._saved = []
+        self._saved_entries = []
+
+    def _wrap(self, name_of, kernel, plain, cpu_only=False):
+        def on_cpu(args) -> bool:
+            if isinstance(args[0], torch.Tensor):
+                return args[0].device.type == "cpu"
+            # a route entry: (route, g_flat, *step_arrays); it folds only
+            # when the route has passes to fold
+            return args[1].device.type == "cpu" and args[0].fold_passes > 0
 
         def held(*args, **kwargs):
+            if cpu_only and not on_cpu(args):
+                return kernel(*args, **kwargs)
+            st = self.stats.setdefault(
+                name_of(args), {"checked": 0, "unequal": 0, "max_abs": 0.0})
             # the plain version reads copies taken before the launch
             before = [a.clone() if isinstance(a, torch.Tensor) else a
                       for a in args]
@@ -169,13 +200,32 @@ class _Held:
         return held
 
     def __enter__(self):
+        from .kernels import registry
+
+        for op, backend, name_of, plain in self._entries:
+            entry = registry.lookup(op, backend=backend)
+            self._saved_entries.append(entry)
+            registry.register_kernel(
+                op, backend,
+                self._wrap(name_of, entry.fn, plain,
+                           cpu_only=backend == "plain"),
+                priority=entry.priority, supports=entry.supports,
+                available=entry.available, convention=entry.convention)
         for mod, name, plain in self._swaps:
             kernel = getattr(mod, name)
             self._saved.append((mod, name, kernel))
-            setattr(mod, name, self._wrap(name, kernel, plain))
+            setattr(mod, name, self._wrap(lambda args, n=name: n, kernel,
+                                          plain))
         return self
 
     def __exit__(self, *exc):
+        from .kernels import registry
+
+        for e in self._saved_entries:
+            registry.register_kernel(
+                e.op, e.backend, e.fn, priority=e.priority,
+                supports=e.supports, available=e.available,
+                convention=e.convention)
         for mod, name, kernel in self._saved:
             setattr(mod, name, kernel)
 

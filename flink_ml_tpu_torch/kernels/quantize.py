@@ -159,7 +159,8 @@ def _q_widedeep(params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 #: op label -> calibration recipe; the keys are the serving ops with an
-#: int8 scoring function (``ops/int8_serving.py::INT8_FNS``)
+#: int8 scoring function (the ``"int8"`` registry entries of
+#: ``ops/int8_serving.py``)
 _RECIPES = {
     "linear_margins": _q_linear,
     "kmeans_assign": _q_kmeans,

@@ -383,10 +383,18 @@ class FitPlan:
 
 def _fit_plan(n: int, d: int, k: int, measure: DistanceMeasure, *,
               workset: bool = False, data_devs: int = 1) -> FitPlan:
-    """Plan by shape and measure only: the kernel path for n >= 65536 and
-    the euclidean measure, else the plain body.  On a data axis of more
-    than one device the workset fit plans the plain body, as the JAX
-    package does (its workset kernel is single-device)."""
+    """Plan by shape and measure only: the kernel route for n >= 65536
+    and the euclidean measure, else the plain body.  On a data axis of
+    more than one device the workset fit plans the plain body, as the JAX
+    package does (its workset kernel is single-device).
+
+    The plan decides the kernel route against the measure-generic body,
+    as ``sgd.plan_mixed_impl`` decides ELL against plain; which
+    implementation of the route's op runs is the kernel registry's
+    (:func:`_register_kmeans_kernels`): the route's wrappers resolve op
+    ``kmeans_update_stats`` (``kmeans_workset_update``) at a signature
+    ending in the device type, the kernel on the card and its plain twin
+    on the CPU, so the plan is the same on both devices."""
     kernel = measure.name == "euclidean" and n >= _KERNEL_MIN_ROWS
     if not kernel or (workset and data_devs > 1):
         return FitPlan("plain", k, d)
@@ -794,19 +802,37 @@ class KMeans(KMeansParams, Estimator["KMeansModel"]):
 
 
 def _kmeans_chain_kernel(static, params, cols):
-    """Nearest centroid of each row: on the card with the euclidean
-    measure the ``kmeans_assign_reduce`` kernel (B5), of which only the
-    assignments are kept; otherwise ``argmin`` of the measure's pairwise
-    distances."""
+    """Nearest centroid of each row: the stage of op ``kmeans_assign``
+    the kernel registry resolves at ``(measure, device)``: on the card
+    with the euclidean measure the ``kmeans_assign_reduce`` kernel (B5),
+    of which only the assignments are kept; otherwise ``argmin`` of the
+    measure's pairwise distances."""
+    from ...kernels.registry import lookup
+
+    (fcol, _acol, measure_name) = static
+    entry = lookup("kmeans_assign",
+                   sig=(measure_name, cols[fcol].device.type))
+    return entry.fn(static, params, cols)
+
+
+def _kmeans_assign_cuda(static, params, cols):
+    """Op ``kmeans_assign``, backend ``"cuda"`` (euclidean): the B5
+    kernel's assignments."""
+    (fcol, acol, _measure_name) = static
+    points = as_matrix(cols[fcol]).to(torch.float32).contiguous()
+    return {acol: kmeans_assign_reduce(points, params["centroids"])[0]}
+
+
+def _kmeans_assign_plain(static, params, cols):
+    """Op ``kmeans_assign``, backend ``"plain"``: ``argmin`` of the
+    measure's pairwise distances (any measure; the JAX package's
+    ``"xla"`` entry)."""
     (fcol, acol, measure_name) = static
     points = as_matrix(cols[fcol]).to(torch.float32).contiguous()
-    centroids = params["centroids"]
-    if points.device.type == "cuda" and measure_name == "euclidean":
-        assign = kmeans_assign_reduce(points, centroids)[0]
-    else:
-        measure = DistanceMeasure.get_instance(measure_name)
-        assign = torch.argmin(measure.pairwise(points, centroids), dim=1)
-    return {acol: assign}
+    measure = DistanceMeasure.get_instance(measure_name)
+    return {acol: torch.argmin(measure.pairwise(points,
+                                                params["centroids"]),
+                               dim=1)}
 
 
 class KMeansModel(KMeansModelParams, Model):
@@ -892,3 +918,56 @@ class KMeansModel(KMeansModelParams, Model):
         data = persist.load_model_arrays(path, "model")
         model._centroids = data["centroids"].astype(np.float32)
         return model
+
+
+# ---------------------------------------------------------------------------
+# kernel-registry entries (the JAX package registers these ops here too)
+# ---------------------------------------------------------------------------
+
+def _euclidean_cuda(sig: tuple) -> bool:
+    """``supports`` of the KMeans kernels at ``(n, d, k, measure, ...,
+    device)``: the euclidean measure on CUDA tensors (the kernels take
+    any row count; a workset signature also needs one data device)."""
+    from ...kernels.registry import on_cuda
+
+    if len(sig) == 6 and sig[4] != 1:
+        return False
+    return on_cuda(sig) and sig[3] == "euclidean"
+
+
+def _euclidean(sig: tuple) -> bool:
+    return len(sig) >= 4 and sig[3] == "euclidean"
+
+
+def _register_kmeans_kernels() -> None:
+    """Op ``kmeans_update_stats``: ``"cuda"`` and its twin ``"plain"`` take
+    ``fn(points, centroids, *, tie_policy, compute_dtype)``; ``"torch"``
+    is the measure-generic body, ``fn(measure, k, points, mask,
+    centroids)`` (the planning op's backends take different operands, as
+    in the JAX package).  Op ``kmeans_workset_update``: ``fn(points,
+    centroids, prev_assign, active, pad_mask)``.  Op ``kmeans_assign``:
+    the stage convention at ``(measure, device)``."""
+    from ...kernels.registry import cuda_only, on_cuda, register_kernel
+    from ...ops import kmeans as K
+
+    register_kernel("kmeans_assign", "cuda", _kmeans_assign_cuda,
+                    priority=10, convention="stage",
+                    supports=lambda sig: on_cuda(sig)
+                    and sig[0] == "euclidean", available=cuda_only)
+    register_kernel("kmeans_assign", "plain", _kmeans_assign_plain,
+                    convention="stage")
+    register_kernel("kmeans_update_stats", "cuda", K._update_stats_cuda,
+                    priority=10, supports=_euclidean_cuda,
+                    available=cuda_only)
+    register_kernel("kmeans_update_stats", "plain",
+                    K.kmeans_update_stats_plain, priority=5,
+                    supports=_euclidean)
+    register_kernel("kmeans_update_stats", "torch", _assign_stats)
+    register_kernel("kmeans_workset_update", "cuda",
+                    K._workset_update_cuda, priority=10,
+                    supports=_euclidean_cuda, available=cuda_only)
+    register_kernel("kmeans_workset_update", "plain",
+                    K.kmeans_workset_update_plain, supports=_euclidean)
+
+
+_register_kmeans_kernels()

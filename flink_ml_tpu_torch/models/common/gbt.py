@@ -24,13 +24,18 @@ turns on ``torch.backends.cuda.matmul.allow_tf32``).  Neither, nor the
 leaf sums, adds with atomics on the card (``index_add_`` does, in no
 fixed order), so a fit gives the same bits run after run and the
 streamed fit the same forest for any ``steps_per_dispatch``.
-``HIST_IMPL = "auto"`` resolves to ``"segsum"``: the JAX package's pick
-on the CPU, and on an H100 the faster form at every level of the bench
-shape (``chip_smoke.py`` phase 37 times both).  The JAX package's first-encounter autotune
-(``_maybe_autotune_hist``) and kernel-registry entries stand on
-``kernels/autotune.py`` and ``kernels/registry.py``, which are not ported
-(ROADMAP A11).  Every entry point runs on ``device`` (default ``"cuda"``;
-raises without a card unless ``"cpu"`` is asked for).
+The two forms register as op ``gbt_level_histograms`` of the kernel
+registry (backends ``"segsum"`` and ``"mxu"``), and ``HIST_IMPL = "auto"``
+resolves through ``registry.lookup``.  Its static priority picks
+``"segsum"``: the JAX package's pick on the CPU, and on an H100 the
+faster form at every level of the bench shape (``chip_smoke.py`` phase
+37 times both), where the JAX package gives ``"mxu"`` priority on the
+TPU.  With a cache root configured (``FLINK_ML_TPU_AOT_CACHE_PATH``),
+:func:`train_forest`'s first tree times both forms once on a slice of the
+real binned rows and persists the winner (``_maybe_autotune_hist``,
+``kernels/autotune.py``), which ``"auto"`` then resolves to in this and
+every later process.  Every entry point runs on ``device`` (default
+``"cuda"``; raises without a card unless ``"cpu"`` is asked for).
 """
 
 from __future__ import annotations
@@ -221,15 +226,17 @@ _HIST_IMPLS = {"segsum": _level_histograms_segsum,
 
 
 def resolve_hist_impl(name: str = None) -> str:
-    """Resolve a histogram impl name ("auto" -> "segsum"; "segsum"/"mxu"
-    force) to a concrete ``_HIST_IMPLS`` key.  "auto" is "segsum" on both
-    devices: on an H100 at the bench shape a level took 4.8-5.5 ms
-    "segsum" against 14.8-15.1 ms "mxu" (``chip_smoke.py`` phase 37,
-    PERF.md §6).  Unknown names raise KeyError — never a silent
-    fallback."""
+    """Resolve a histogram impl name ("auto" -> the kernel registry's pick;
+    "segsum"/"mxu" force) to a concrete ``_HIST_IMPLS`` key.  With no
+    recorded decision "auto" is "segsum" on both devices (its priority):
+    on an H100 at the bench shape a level took 4.8-5.5 ms "segsum"
+    against 14.8-15.1 ms "mxu" (``chip_smoke.py`` phase 37, PERF.md §6).
+    Unknown names raise KeyError — never a silent fallback."""
     name = HIST_IMPL if name is None else name
     if name == "auto":
-        return "segsum"
+        from ...kernels.registry import lookup
+
+        return lookup("gbt_level_histograms").backend
     if name not in _HIST_IMPLS:
         raise KeyError(name)
     return name
@@ -394,6 +401,36 @@ def _train_one_tree(binned, g, h, d: int, config: GBTConfig):
     return (*_rows_to_host(*rows), pred)
 
 
+def _maybe_autotune_hist(binned, g, h, d: int, bins: int) -> None:
+    """First-encounter autotune of the histogram form: with a cache root
+    configured and several registry backends available, time each on a
+    slice of at most 8192 rows of the real binned data (4 nodes) and
+    persist the winner; ``resolve_hist_impl("auto")`` then resolves to it
+    through ``registry.lookup`` in this and every later process.  A
+    recorded decision short-circuits (no search)."""
+    from ...kernels import autotune
+    from ...kernels.registry import backends, lookup
+
+    if HIST_IMPL != "auto" or not autotune.enabled():
+        return
+    avail = [b for b in backends("gbt_level_histograms")
+             if lookup("gbt_level_histograms", backend=b).is_available()]
+    if len(avail) < 2:
+        return
+    rows = min(int(binned.shape[0]), 8192)
+    bp, gp, hp = binned[:rows], g[:rows], h[:rows]
+    ids = torch.zeros((rows,), dtype=torch.int32, device=binned.device)
+
+    def runner(backend):
+        impl = lookup("gbt_level_histograms", backend=backend).fn
+        return lambda: impl(bp, ids, gp, hp, 4, d, bins)
+
+    autotune.choose("gbt_level_histograms", (),
+                    {b: runner(b) for b in avail},
+                    probe=f"real-data slice rows={rows} d={d} bins={bins} "
+                          "n_nodes=4")
+
+
 def train_forest(X: np.ndarray, y: np.ndarray,
                  grad_hess: Callable[[np.ndarray, np.ndarray],
                                      Tuple[np.ndarray, np.ndarray]],
@@ -416,6 +453,8 @@ def train_forest(X: np.ndarray, y: np.ndarray,
         g, h = grad_hess(y, pred)
         gd = torch.from_numpy(np.asarray(g, np.float32)).to(dev)
         hd = torch.from_numpy(np.asarray(h, np.float32)).to(dev)
+        if t == 0:
+            _maybe_autotune_hist(binned, gd, hd, d, config.max_bins)
         features[t], thresholds[t], values[t], tree_pred = _train_one_tree(
             binned, gd, hd, d, config)
         pred = pred + config.learning_rate * tree_pred.cpu().numpy().astype(
@@ -879,3 +918,20 @@ def predict_forest(X: np.ndarray, forest: Forest,
     for t in range(forest.feature.shape[0]):
         pred += forest.learning_rate * outs[t]
     return pred[:n]
+
+
+# ---------------------------------------------------------------------------
+# kernel-registry entries: op ``gbt_level_histograms``.  Both forms run on
+# both devices; "segsum" has the priority (module docstring), a recorded
+# autotune decision overrides it.
+# ---------------------------------------------------------------------------
+
+def _register_gbt_kernels() -> None:
+    from ...kernels.registry import register_kernel
+
+    register_kernel("gbt_level_histograms", "segsum",
+                    _level_histograms_segsum, priority=10)
+    register_kernel("gbt_level_histograms", "mxu", _level_histograms_mxu)
+
+
+_register_gbt_kernels()

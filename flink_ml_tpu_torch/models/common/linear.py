@@ -402,3 +402,18 @@ class LinearEstimatorBase(LinearEstimatorParams, Estimator):
         stage = persist.load_stage_param(path)
         stage.device = device
         return stage
+
+
+# ---------------------------------------------------------------------------
+# kernel-registry entry: op ``linear_margins`` (stage convention), one
+# PyTorch implementation on both devices (no hand kernel)
+# ---------------------------------------------------------------------------
+
+def _register_linear_kernels() -> None:
+    from ...kernels.registry import register_kernel
+
+    register_kernel("linear_margins", "torch", _linear_chain_kernel,
+                    convention="stage")
+
+
+_register_linear_kernels()

@@ -540,14 +540,20 @@ def _extended_r(r: torch.Tensor) -> torch.Tensor:
 def _ell_margin(w, batch, route_w, ovf_idx, ovf_src, heavy_idx, heavy_cnt,
                 route_val=None, ovf_val=None, plain=False):
     """Per-sample categorical margin ``sum_j v_j * w[idx_j]`` over the ELL
-    routing: the in-grid slots through the margin kernel over the sample
-    routing (:func:`~flink_ml_tpu_torch.ops.ell_scatter.sample_routing`),
-    the overflow through a short gather + scatter-add into the extended
-    table (pads carry ``ovf_src == batch`` and land in the discarded pad),
-    heavy hitters through one ``(H,) @ (H, batch)`` matvec.  ``plain`` runs
+    routing: the in-grid slots through the implementation of op
+    ``ell_margin`` the kernel registry resolves (the margin kernel on the
+    card, over the sample routing of
+    :func:`~flink_ml_tpu_torch.ops.ell_scatter.sample_routing`), the
+    overflow through a short gather + scatter-add into the extended table
+    (pads carry ``ovf_src == batch`` and land in the discarded pad), heavy
+    hitters through one ``(H,) @ (H, batch)`` matvec.  ``plain`` forces
     the kernel's plain version whatever the device."""
-    margin_fn = E.ell_margin_plain if plain else E.ell_margin
-    mext = margin_fn(w, route_w, m_len=_ext_len(batch), route_val=route_val)
+    from ...kernels.registry import lookup
+
+    entry = lookup("ell_margin", sig=(w.numel() // E.ELL_WIDTH,
+                                      w.device.type),
+                   backend="plain" if plain else None)
+    mext = entry.fn(w, route_w, m_len=_ext_len(batch), route_val=route_val)
     o = w[ovf_idx] if ovf_val is None else ovf_val * w[ovf_idx]
     mext = _overflow_scatter_(mext, ovf_src, o, ovf_src, batch)
     return mext[:batch] + w[heavy_idx] @ heavy_cnt.to(torch.float32)
@@ -556,21 +562,20 @@ def _ell_margin(w, batch, route_w, ovf_idx, ovf_src, heavy_idx, heavy_cnt,
 def _apply_ell_categorical(lr, w, r, r_ext, src, pos, mask, ovf_idx,
                            ovf_src, heavy_idx, heavy_cnt, val_ell=None,
                            ovf_val=None, plain=False):
-    """THE ELL gradient application: in-grid scatter kernel -> overflow
+    """THE ELL gradient application: in-grid scatter -> overflow
     scatter-add -> heavy-hitter matvec (padding entries carry zero counts
-    and add 0 at w[0]).  The fused kernel runs on grids whose row count
-    divides into 8-row blocks, the gather + pair kernel otherwise (the JAX
-    package's plan).  Returns a new tensor; the overflow and heavy legs
-    update it in place (:func:`_overflow_scatter_`)."""
-    if src.shape[0] % E.FUSED_BLOCK_ROWS == 0:
-        fused = E.ell_scatter_apply_fused_plain if plain \
-            else E.ell_scatter_apply_fused
-        w = fused(w, r_ext, src, pos, mask, lr=lr, val=val_ell)
-    else:
-        g = E.gather_weights(r_ext, src)
-        upd = (-lr) * (g if val_ell is None else val_ell * g)
-        pair = E.ell_scatter_apply_plain if plain else E.ell_scatter_apply
-        w = pair(w, upd, pos, mask)
+    and add 0 at w[0]).  The in-grid scatter is the implementation of op
+    ``ell_scatter_apply`` the kernel registry resolves: on the card the
+    fused kernel on grids whose row count divides into 8-row blocks, the
+    gather + pair kernel otherwise (the JAX package's plan); ``plain``
+    forces the plain version.  Returns a new tensor; the overflow and
+    heavy legs update it in place (:func:`_overflow_scatter_`)."""
+    from ...kernels.registry import lookup
+
+    entry = lookup("ell_scatter_apply", sig=(int(src.shape[0]),
+                                             w.device.type),
+                   backend="plain" if plain else None)
+    w = entry.fn(w, r_ext, src, pos, mask, lr=lr, val=val_ell)
     o = r_ext[ovf_src] if ovf_val is None else ovf_val * r_ext[ovf_src]
     _overflow_scatter_(w, ovf_idx, (-lr) * o, ovf_src, r.shape[0])
     # the heavy indices are distinct and their pads add zeros, so the
@@ -860,8 +865,8 @@ def plan_mixed_impl(num_features: int, steps: int,
     mesh admits it, else ``"plain"`` (direct gather/scatter): the JAX
     package's rule.  Where the JAX package asks for a TPU backend the port
     plans by shape and budget on every device, so the CPU and the card run
-    the same code (on a CPU tensor the kernel wrappers run their plain
-    versions).  The margin's sample routing does not enter it (it is built
+    the same code (the kernel registry resolves each op's plain version
+    for CPU tensors and its kernel for CUDA tensors).  The margin's sample routing does not enter it (it is built
     per chunk of steps where it outgrows its own budget).
 
     ``mesh`` (a :class:`~flink_ml_tpu_torch.parallel.mesh.Mesh`, default

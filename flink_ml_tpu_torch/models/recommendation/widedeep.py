@@ -1386,3 +1386,18 @@ class WideDeepModel(WideDeepParams, Model):
         }
         model._vocab_sizes = tuple(meta["vocabSizes"])
         return model
+
+
+# ---------------------------------------------------------------------------
+# kernel-registry entry: op ``widedeep_scores`` (stage convention), one
+# PyTorch implementation on both devices (no hand kernel)
+# ---------------------------------------------------------------------------
+
+def _register_widedeep_kernels() -> None:
+    from ...kernels.registry import register_kernel
+
+    register_kernel("widedeep_scores", "torch", _widedeep_chain_kernel,
+                    convention="stage")
+
+
+_register_widedeep_kernels()

@@ -14,9 +14,10 @@ and arrays normalized), and two writers hang off it:
   fsynced; a torn tail from a crash is detected and dropped by
   :func:`read_samples` (the WAL-tail stance, ``data/wal.py``).
 
-The ``kernels`` provider is :func:`kernel_stats`: the port's own
-counters (``api/chain.py``'s dispatches and each kernel's launches), in
-place of the JAX package's kernel-registry ledger.
+The ``kernels`` provider is :func:`kernel_stats`: the kernel registry's
+ledger (``kernels/registry.py::kernel_stats``: dispatches, compiles and
+cache hits, the library cache's ``aot`` block, tuned ops), with each
+CUDA kernel's launches beside it.
 """
 
 from __future__ import annotations
@@ -35,17 +36,14 @@ __all__ = ["MetricsTree", "default_tree", "kernel_stats", "prometheus_text",
 
 
 def kernel_stats() -> Dict[str, Any]:
-    """The port's dispatch surface as one snapshot: ``dispatches``
-    (segment and single-stage kernel runs, ``chain.dispatch_count``) and
-    ``launches`` (each CUDA kernel's launches since its module's last
-    ``reset_launch_counts``)."""
-    from ..api import chain
-    from ..ops import ell_scatter, emb_grad, kmeans, retrieve
+    """The kernel registry's ledger as one snapshot
+    (``KernelStats.snapshot``): ``dispatches`` (segment and single-stage
+    runs), ``compiles`` / ``cache_hits``, dispatch latency, the ``aot``
+    block, ``tuned_ops``, ``per_op`` and ``launches`` (each CUDA kernel's
+    launches since its module's last ``reset_launch_counts``)."""
+    from ..kernels.registry import kernel_stats as stats
 
-    launches: Dict[str, int] = {}
-    for module in (ell_scatter, kmeans, emb_grad, retrieve):
-        launches.update(module.LAUNCHES)
-    return {"dispatches": chain.dispatch_count(), "launches": launches}
+    return stats.snapshot()
 
 
 def _jsonable(value: Any) -> Any:

@@ -37,9 +37,17 @@ its header note says what bounds each on the H100 and how each is built):
 - :func:`ell_scatter_apply` — the same scatter of a precomputed ``upd``
   (the pair path, for grids whose row count is not a multiple of 8).
 
-Each wrapper takes its plain PyTorch version (``*_plain``) for tensors on
-the CPU, and launches its kernel for CUDA tensors or raises: it never falls
-back.  A launch adds one to :data:`LAUNCHES`.
+The kernel registry (``kernels/registry.py``) is the one place that
+picks between a kernel and its plain PyTorch version (``*_plain``): each
+wrapper checks its operands and resolves through ``registry.lookup`` with
+a signature ``(table_rows, device type)``, so tensors on the CPU take the
+plain version and CUDA tensors launch the kernel or raise: it never falls
+back.  The ops register here (:func:`_register_ell_kernels`): op
+``ell_margin`` (``"cuda"``, ``"plain"``) and op ``ell_scatter_apply``
+(``"cuda"``, the fused kernel on grids of whole 8-row blocks;
+``"cuda-pair"``, the gather + pair kernel on any grid; ``"plain"``), the
+trainers calling their entries with one signature.  A launch adds one to
+:data:`LAUNCHES`.
 
 A port of the JAX package's ``ops/ell_scatter.py`` (host layout, the
 device-side layout builder, kernels and their XLA twins).
@@ -56,6 +64,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.build import count_launch
+from ..kernels.registry import (cuda_only, kernel_or_plain, lookup, on_cuda,
+                                register_kernel)
 
 __all__ = ["EllLayout", "ell_layout", "ell_layout_device", "supported",
            "ELL_WIDTH",
@@ -735,15 +745,7 @@ def _launched(name: str, rc: int) -> None:
     count_launch(LAUNCHES, name)
 
 
-def ell_margin(w: torch.Tensor, route_w: torch.Tensor, *, m_len: int,
-               route_val: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Per-sample margin contributions of the in-grid slots over one
-    step's routing ``route_w (nnz, batch)`` (:func:`sample_routing`), as an
-    ``(m_len,)`` f32 table whose entries ``[batch:]`` are 0 (callers slice
-    ``[:batch]``).  Replaces the JAX package's ``ell_margin_fused``.  Sums
-    each sample in a fixed order: deterministic, and bit for bit its plain
-    version.  A route entry outside ``[0, w.numel())`` reads 0 there too:
-    the kernel bounds every gather by ``w``'s size."""
+def _check_margin(w, route_w, m_len, route_val) -> None:
     dev = w.device
     if route_w.dim() != 2:
         raise ValueError(f"route_w must be (nnz, batch), got shape "
@@ -756,15 +758,99 @@ def ell_margin(w: torch.Tensor, route_w: torch.Tensor, *, m_len: int,
         raise ValueError(f"m_len {m_len} < batch {batch}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if dev.type == "cpu":
-        return ell_margin_plain(w, route_w, m_len, route_val=route_val)
-    out = torch.empty(m_len, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+
+
+def _on_card(name: str, w: torch.Tensor) -> None:
+    if w.device.type != "cuda":
+        raise ValueError(f"the {name} kernel takes CUDA tensors, got "
+                         f"{w.device}")
+
+
+def _ell_margin_cuda(w: torch.Tensor, route_w: torch.Tensor, *, m_len: int,
+                     route_val: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Op ``ell_margin``, backend ``"cuda"``: one launch of the margin
+    kernel."""
+    _on_card("ell_margin", w)
+    nnz, batch = route_w.shape
+    out = torch.empty(m_len, dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
         rc = _kernels().ell_margin_launch(
             _ptr(w), w.numel(), _ptr(route_w), _ptr(route_val), _ptr(out),
             nnz, batch, m_len, torch.cuda.current_stream().cuda_stream)
     _launched("ell_margin", rc)
     return out
+
+
+def ell_margin(w: torch.Tensor, route_w: torch.Tensor, *, m_len: int,
+               route_val: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-sample margin contributions of the in-grid slots over one
+    step's routing ``route_w (nnz, batch)`` (:func:`sample_routing`), as an
+    ``(m_len,)`` f32 table whose entries ``[batch:]`` are 0 (callers slice
+    ``[:batch]``).  Replaces the JAX package's ``ell_margin_fused``.  Sums
+    each sample in a fixed order: deterministic, and bit for bit its plain
+    version.  A route entry outside ``[0, w.numel())`` reads 0 there too:
+    the kernel bounds every gather by ``w``'s size."""
+    _check_margin(w, route_w, m_len, route_val)
+    entry = lookup("ell_margin", sig=(w.numel() // _LANES, w.device.type))
+    return entry.fn(w, route_w, m_len=m_len, route_val=route_val)
+
+
+def _ell_scatter_fused_cuda(w: torch.Tensor, r_ext: torch.Tensor,
+                            src: torch.Tensor, pos: torch.Tensor,
+                            mask: torch.Tensor, *, lr: float,
+                            val: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Op ``ell_scatter_apply``, backend ``"cuda"``: one launch of the
+    fused gather + scatter kernel."""
+    _on_card("ell_scatter_apply_fused", w)
+    out = torch.empty_like(w)
+    with torch.cuda.device(w.device):
+        rc = _kernels().ell_scatter_fused_launch(
+            _ptr(w), _ptr(r_ext), r_ext.shape[0], _ptr(src), _ptr(pos),
+            _ptr(mask), _ptr(val), float(lr), _ptr(out), src.shape[0],
+            torch.cuda.current_stream().cuda_stream)
+    _launched("ell_scatter_apply_fused", rc)
+    return out
+
+
+def _ell_scatter_pair_cuda(w: torch.Tensor, upd: torch.Tensor,
+                           pos: torch.Tensor, mask: torch.Tensor
+                           ) -> torch.Tensor:
+    """One launch of the pair scatter kernel."""
+    _on_card("ell_scatter_apply", w)
+    out = torch.empty_like(w)
+    with torch.cuda.device(w.device):
+        rc = _kernels().ell_scatter_pair_launch(
+            _ptr(w), _ptr(upd), _ptr(pos), _ptr(mask), _ptr(out),
+            upd.shape[0], torch.cuda.current_stream().cuda_stream)
+    _launched("ell_scatter_apply", rc)
+    return out
+
+
+def _pair_update(r_ext, src, lr, val):
+    """The pair path's per-slot updates ``-lr * val * r_ext[src]``."""
+    g = gather_weights(r_ext, src)
+    return (-lr) * (g if val is None else val * g)
+
+
+def _ell_scatter_pair_entry(w, r_ext, src, pos, mask, *, lr, val=None):
+    """Op ``ell_scatter_apply``, backend ``"cuda-pair"``: the slot gather,
+    then one launch of the pair kernel (any grid)."""
+    return _ell_scatter_pair_cuda(w, _pair_update(r_ext, src, lr, val),
+                                  pos, mask)
+
+
+def ell_scatter_apply_plain_entry(w, r_ext, src, pos, mask, *, lr,
+                                  val=None):
+    """Op ``ell_scatter_apply``, backend ``"plain"``: the plain version of
+    the kernel the grid plans, the fused one on grids of whole
+    :data:`FUSED_BLOCK_ROWS`-row blocks, else the gather + pair one."""
+    if src.shape[0] % FUSED_BLOCK_ROWS == 0:
+        return ell_scatter_apply_fused_plain(w, r_ext, src, pos, mask,
+                                             lr=lr, val=val)
+    return ell_scatter_apply_plain(w, _pair_update(r_ext, src, lr, val),
+                                   pos, mask)
 
 
 def ell_scatter_apply_fused(w: torch.Tensor, r_ext: torch.Tensor,
@@ -779,17 +865,10 @@ def ell_scatter_apply_fused(w: torch.Tensor, r_ext: torch.Tensor,
     rows = _check_grid(w, src, pos, mask, val)
     _check("src", src, torch.int32, (rows, ELL_WIDTH), w.device)
     _check("r_ext", r_ext, torch.float32, (r_ext.shape[0],), w.device)
-    if w.device.type == "cpu":
-        return ell_scatter_apply_fused_plain(w, r_ext, src, pos, mask,
-                                             lr=lr, val=val)
-    out = torch.empty_like(w)
-    with torch.cuda.device(w.device):
-        rc = _kernels().ell_scatter_fused_launch(
-            _ptr(w), _ptr(r_ext), r_ext.shape[0], _ptr(src), _ptr(pos),
-            _ptr(mask), _ptr(val), float(lr), _ptr(out), rows,
-            torch.cuda.current_stream().cuda_stream)
-    _launched("ell_scatter_apply_fused", rc)
-    return out
+    fn = kernel_or_plain("ell_scatter_apply", (rows, w.device.type),
+                         _ell_scatter_fused_cuda,
+                         ell_scatter_apply_fused_plain)
+    return fn(w, r_ext, src, pos, mask, lr=lr, val=val)
 
 
 def ell_scatter_apply(w: torch.Tensor, upd: torch.Tensor,
@@ -799,12 +878,30 @@ def ell_scatter_apply(w: torch.Tensor, upd: torch.Tensor,
     ``ell_scatter_apply`` (the pair path).  Deterministic."""
     rows = _check_grid(w, upd, pos, mask, None)
     _check("upd", upd, torch.float32, (rows, ELL_WIDTH), w.device)
-    if w.device.type == "cpu":
-        return ell_scatter_apply_plain(w, upd, pos, mask)
-    out = torch.empty_like(w)
-    with torch.cuda.device(w.device):
-        rc = _kernels().ell_scatter_pair_launch(
-            _ptr(w), _ptr(upd), _ptr(pos), _ptr(mask), _ptr(out), rows,
-            torch.cuda.current_stream().cuda_stream)
-    _launched("ell_scatter_apply", rc)
-    return out
+    fn = kernel_or_plain("ell_scatter_apply", (rows, w.device.type),
+                         _ell_scatter_pair_cuda, ell_scatter_apply_plain)
+    return fn(w, upd, pos, mask)
+
+
+def _fused_blockable(sig: tuple) -> bool:
+    """The fused kernel's grid contract at ``sig = (table_rows, device)``:
+    CUDA tensors, rows in whole :data:`FUSED_BLOCK_ROWS`-row blocks (the
+    JAX package's rule, so both packages plan the same kernel)."""
+    return on_cuda(sig) and sig[0] % FUSED_BLOCK_ROWS == 0
+
+
+def _register_ell_kernels() -> None:
+    register_kernel("ell_margin", "cuda", _ell_margin_cuda, priority=20,
+                    supports=on_cuda, available=cuda_only)
+    register_kernel("ell_margin", "plain", ell_margin_plain)
+    register_kernel("ell_scatter_apply", "cuda", _ell_scatter_fused_cuda,
+                    priority=30, supports=_fused_blockable,
+                    available=cuda_only)
+    register_kernel("ell_scatter_apply", "cuda-pair",
+                    _ell_scatter_pair_entry, priority=20, supports=on_cuda,
+                    available=cuda_only)
+    register_kernel("ell_scatter_apply", "plain",
+                    ell_scatter_apply_plain_entry)
+
+
+_register_ell_kernels()

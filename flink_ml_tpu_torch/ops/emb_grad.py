@@ -39,10 +39,17 @@ the CPU, and launches the kernel for CUDA tensors or raises: it never falls
 back.  A launch adds one to :data:`LAUNCHES`.  The kernel equals the plain
 version bit for bit on every row.
 
+The choice is the kernel registry's (``kernels/registry.py``): op
+``routed_table_grad`` registers here (:func:`_register_emb_grad_kernels`)
+as ``"cuda"`` (the route's stages with the fold kernel) and ``"plain"``
+(with :func:`fold_runs_plain`), both taking ``fn(route, g_flat,
+*step_arrays)`` at the signature :meth:`EmbGradRoute.kernel_sig`
+``(placement, fold_passes, slots, device type)``; :meth:`EmbGradRoute.apply`
+and :func:`fold_runs` resolve through it.
+
 A port of the JAX package's ``ops/emb_grad.py`` and
-``ops/emb_grad_pallas.py``.  The kernel registry has no counterpart (the
-wrappers dispatch on the tensors' device); unlike the TPU kernel, the CUDA
-kernel has no block-divisibility rule, so it serves every ``S`` and both
+``ops/emb_grad_pallas.py``.  Unlike the TPU kernel, the CUDA kernel has
+no block-divisibility rule, so its entry serves every ``S`` and both
 placements.
 """
 
@@ -56,6 +63,8 @@ import numpy as np
 import torch
 
 from ..kernels.build import count_launch
+from ..kernels.registry import (cuda_only, kernel_or_plain, lookup, on_cuda,
+                                register_kernel)
 
 __all__ = ["EmbGradRoute", "emb_grad_route", "routed_table_grad",
            "routed_table_grad_gather", "fold_runs", "fold_runs_plain",
@@ -117,11 +126,25 @@ class EmbGradRoute:
                        pos_map=move(self.pos_map), out_pos=move(self.out_pos),
                        out_ids=move(self.out_ids))
 
+    def kernel_sig(self, device: str) -> tuple:
+        """The signature op ``routed_table_grad`` resolves at:
+        ``(placement, fold_passes, slots, device type)``."""
+        return (self.placement, self.fold_passes, int(self.order.shape[-1]),
+                device)
+
     def apply(self, g_flat: torch.Tensor, *step_arrays,
               plain: bool = False) -> torch.Tensor:
         """Dense table gradient from one step's route tensors (either
-        placement).  ``plain`` folds with the plain version whatever the
-        device (for comparisons on the card)."""
+        placement), through the implementation of op
+        ``routed_table_grad`` the kernel registry resolves.  ``plain``
+        forces the plain version whatever the device (for comparisons on
+        the card)."""
+        entry = lookup("routed_table_grad",
+                       sig=self.kernel_sig(g_flat.device.type),
+                       backend="plain" if plain else None)
+        return entry.fn(self, g_flat, *step_arrays)
+
+    def _apply(self, g_flat, step_arrays, plain: bool) -> torch.Tensor:
         if self.placement == "gather":
             order, sid, pos_map = step_arrays
             return routed_table_grad_gather(
@@ -246,38 +269,15 @@ def _kernels():
     return _LIB
 
 
-def fold_runs(g_sorted: torch.Tensor, sorted_ids: torch.Tensor,
-              fold_passes: int) -> torch.Tensor:
-    """All ``fold_passes >= 1`` fold passes of the sorted rows ``(S, E)``
-    f32 (or ``(S,)``) under ``sorted_ids (S,)`` int32, in one kernel call:
-    run starts end up holding their run sums.  Replaces the JAX package's
-    ``fold_runs_fused``.  Any ``S``; deterministic; equal bit for bit to
-    :func:`fold_runs_plain`."""
-    if fold_passes < 1:
-        raise ValueError(f"fold_runs needs fold_passes >= 1, got "
-                         f"{fold_passes} (nothing to fold)")
-    squeeze = g_sorted.dim() == 1
-    g = g_sorted[:, None] if squeeze else g_sorted
-    if g.dim() != 2:
-        raise ValueError(f"g_sorted must be (S,) or (S, E), got shape "
-                         f"{tuple(g_sorted.shape)}")
+def _fold_runs_cuda(g_sorted: torch.Tensor, sorted_ids: torch.Tensor,
+                    fold_passes: int) -> torch.Tensor:
+    """One call of the fold kernel (a launch a group of levels)."""
+    g = g_sorted[:, None] if g_sorted.dim() == 1 else g_sorted
     S, E = g.shape
     dev = g.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    if g.dtype != torch.float32:
-        raise TypeError(f"g_sorted must be torch.float32, got {g.dtype}")
-    if sorted_ids.dtype != torch.int32:
-        raise TypeError(f"sorted_ids must be torch.int32, got "
-                        f"{sorted_ids.dtype}")
-    if tuple(sorted_ids.shape) != (S,):
-        raise ValueError(f"sorted_ids must have shape {(S,)}, got "
-                         f"{tuple(sorted_ids.shape)}")
-    if sorted_ids.device != dev:
-        raise ValueError(f"sorted_ids is on {sorted_ids.device}, expected "
+    if dev.type != "cuda":
+        raise ValueError(f"the fold_runs kernel takes CUDA tensors, got "
                          f"{dev}")
-    if dev.type == "cpu":
-        return fold_runs_plain(g_sorted, sorted_ids, fold_passes)
     if not g.is_contiguous() or not sorted_ids.is_contiguous():
         raise ValueError("g_sorted and sorted_ids must be contiguous")
     res = torch.empty_like(g_sorted)
@@ -294,6 +294,43 @@ def fold_runs(g_sorted: torch.Tensor, sorted_ids: torch.Tensor,
         raise RuntimeError(f"fold_runs kernel launch failed: CUDA error {rc}")
     count_launch(LAUNCHES, "fold_runs")
     return res
+
+
+def fold_runs(g_sorted: torch.Tensor, sorted_ids: torch.Tensor,
+              fold_passes: int) -> torch.Tensor:
+    """All ``fold_passes >= 1`` fold passes of the sorted rows ``(S, E)``
+    f32 (or ``(S,)``) under ``sorted_ids (S,)`` int32, in one kernel call:
+    run starts end up holding their run sums.  Replaces the JAX package's
+    ``fold_runs_fused``.  Any ``S``; deterministic; equal bit for bit to
+    :func:`fold_runs_plain`.  Kernel or plain version as op
+    ``routed_table_grad`` resolves at ``(None, fold_passes, S, device
+    type)`` (the fold is the same for both placements)."""
+    if fold_passes < 1:
+        raise ValueError(f"fold_runs needs fold_passes >= 1, got "
+                         f"{fold_passes} (nothing to fold)")
+    g = g_sorted[:, None] if g_sorted.dim() == 1 else g_sorted
+    if g.dim() != 2:
+        raise ValueError(f"g_sorted must be (S,) or (S, E), got shape "
+                         f"{tuple(g_sorted.shape)}")
+    S = g.shape[0]
+    dev = g.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"g_sorted must be torch.float32, got {g.dtype}")
+    if sorted_ids.dtype != torch.int32:
+        raise TypeError(f"sorted_ids must be torch.int32, got "
+                        f"{sorted_ids.dtype}")
+    if tuple(sorted_ids.shape) != (S,):
+        raise ValueError(f"sorted_ids must have shape {(S,)}, got "
+                         f"{tuple(sorted_ids.shape)}")
+    if sorted_ids.device != dev:
+        raise ValueError(f"sorted_ids is on {sorted_ids.device}, expected "
+                         f"{dev}")
+    fold = kernel_or_plain("routed_table_grad",
+                           (None, fold_passes, S, dev.type),
+                           _fold_runs_cuda, fold_runs_plain)
+    return fold(g_sorted, sorted_ids, fold_passes)
 
 
 # ---------------------------------------------------------------------------
@@ -343,3 +380,26 @@ def routed_table_grad_gather(g_flat: torch.Tensor, order: torch.Tensor,
                                  plain)
     out = torch.index_select(g_ext, 0, pos_map)
     return out[:, 0] if squeeze else out
+
+
+# ---------------------------------------------------------------------------
+# kernel-registry entries: op ``routed_table_grad``
+# ---------------------------------------------------------------------------
+
+def routed_apply_cuda(route: EmbGradRoute, g_flat, *step_arrays):
+    """Backend ``"cuda"``: the route's stages with the fold kernel."""
+    return route._apply(g_flat, step_arrays, plain=False)
+
+
+def routed_apply_plain(route: EmbGradRoute, g_flat, *step_arrays):
+    """Backend ``"plain"``: the route's stages with the plain fold."""
+    return route._apply(g_flat, step_arrays, plain=True)
+
+
+def _register_emb_grad_kernels() -> None:
+    register_kernel("routed_table_grad", "cuda", routed_apply_cuda,
+                    priority=20, supports=on_cuda, available=cuda_only)
+    register_kernel("routed_table_grad", "plain", routed_apply_plain)
+
+
+_register_emb_grad_kernels()

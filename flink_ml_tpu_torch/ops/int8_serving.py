@@ -1,8 +1,8 @@
 """Int8 scoring functions of the serving ops.
 
 A port of the JAX package's ``ops/int8_serving.py``.  Each function is the
-int8 twin of a chain terminal's kernel function, keyed in
-:data:`INT8_FNS` by the servable's op label: params arrive as the
+int8 twin of a chain terminal's kernel function, registered as the
+``"int8"`` backend of the servable's op: params arrive as the
 ``{"q": int8, "s": f32}`` trees of
 :func:`~flink_ml_tpu_torch.kernels.quantize.quantize_stage_params`,
 dequantize on the device (one exact cast + one f32 multiply), then run
@@ -14,7 +14,9 @@ the f32 table never materializes on the device, the order the
 ``EmbeddingRowCache`` int8 pools use too.
 
 Only ``make_servable(..., precision="int8")`` builds the quantized param
-trees, so only a servable's bind reaches these functions.
+trees, so only a servable's bind reaches these functions: they register
+as the ``"int8"`` backends of their ops (:func:`_register_int8_kernels`),
+which only a forced ``lookup(op, backend="int8")`` returns.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..api.chain import as_matrix
 from ..kernels.quantize import (dequantize, dequantize_rows,
                                 dequantize_widedeep_rest)
 
-__all__ = ["INT8_FNS", "int8_linear_margins", "int8_kmeans_assign",
+__all__ = ["int8_linear_margins", "int8_kmeans_assign",
            "int8_widedeep_scores"]
 
 
@@ -71,10 +73,25 @@ def int8_widedeep_scores(static, params, cols):
                                    wide_rows, emb_rows)}
 
 
-#: op label -> int8 scoring function (the servable's executor swaps it in
-#: for the f32 kernel function)
-INT8_FNS = {
-    "linear_margins": int8_linear_margins,
-    "kmeans_assign": int8_kmeans_assign,
-    "widedeep_scores": int8_widedeep_scores,
-}
+
+def _quantized_params_only() -> bool:
+    """Availability gate that always refuses: the int8 entries consume
+    the quantized param trees only the servable bind path builds, so an
+    automatic pick (which would hand them f32 params) must never see
+    them.  A forced ``lookup(op, backend="int8")`` bypasses it, by the
+    registry's own contract."""
+    return False
+
+
+def _register_int8_kernels() -> None:
+    from ..kernels.registry import register_kernel
+
+    register_kernel("linear_margins", "int8", int8_linear_margins,
+                    convention="stage", available=_quantized_params_only)
+    register_kernel("kmeans_assign", "int8", int8_kmeans_assign,
+                    convention="stage", available=_quantized_params_only)
+    register_kernel("widedeep_scores", "int8", int8_widedeep_scores,
+                    convention="stage", available=_quantized_params_only)
+
+
+_register_int8_kernels()

@@ -41,13 +41,20 @@ zero pad rows too, as the JAX package's maskless contract has it: a zero
 row lands on the centroid(s) of least norm and adds nothing to ``sums``,
 and :func:`pad_correction` removes it from ``counts``.
 
-Each wrapper takes its plain version (``*_plain``) for tensors on the
-CPU, and launches its kernel for CUDA tensors or raises: it never falls
-back.  A launch adds one to :data:`LAUNCHES`.
+Each wrapper checks its operands and resolves through the kernel
+registry (``kernels/registry.py``; the entries register in
+``models/clustering/kmeans.py``, next to the model's plan): ops
+``kmeans_update_stats``, ``kmeans_assign`` and ``kmeans_workset_update``
+at a signature ending in the device type, so tensors on the CPU take
+the plain version (``*_plain``) and CUDA tensors launch the kernel or
+raise: it never falls back.  A launch adds one to :data:`LAUNCHES`.
 
 A port of the JAX package's ``ops/kmeans_pallas.py``.  The TPU block
 planning (``pick_block_n*``, ``supported``) has no counterpart: the
-kernels plan their own shared memory.  :func:`update_stats_sharded` runs
+kernels plan their own shared memory.  Nor does its measured block
+picker (``pick_block_n_measured``, autotuned through
+``kernels/autotune.py`` there): the CUDA kernels' tiles are fixed in
+their sources, so there is nothing to tune.  :func:`update_stats_sharded` runs
 the stats kernel on this rank's rows and sums ``(sums, counts)`` over the
 process group with one all-reduce (``parallel/collectives.py``).
 """
@@ -62,6 +69,7 @@ import torch
 
 from ..distance import DistanceMeasure
 from ..kernels.build import count_launch
+from ..kernels.registry import kernel_or_plain, lookup
 
 __all__ = ["kmeans_update_stats", "kmeans_update_stats_plain",
            "kmeans_assign_reduce", "kmeans_assign_reduce_plain",
@@ -425,6 +433,23 @@ def _launch_bf16(tie_policy: str, points: torch.Tensor,
     return sums, counts
 
 
+def _update_stats_cuda(points: torch.Tensor, centroids: torch.Tensor, *,
+                       tie_policy: str = "fast", compute_dtype=torch.float32
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Op ``kmeans_update_stats``, backend ``"cuda"``: one launch of
+    ``kmeans.cu`` (f32) or ``kmeans_bf16.cu`` (bf16)."""
+    _on_card("kmeans_update_stats", points)
+    if compute_dtype == torch.bfloat16:
+        return _launch_bf16(tie_policy, points, centroids)
+    return _launch("kmeans_update_stats", tie_policy, points, centroids)
+
+
+def _on_card(name: str, points: torch.Tensor) -> None:
+    if points.device.type != "cuda":
+        raise ValueError(f"the {name} kernel takes CUDA tensors, got "
+                         f"{points.device}")
+
+
 def kmeans_update_stats(points: torch.Tensor, centroids: torch.Tensor, *,
                         tie_policy: str = "fast",
                         compute_dtype=torch.float32
@@ -435,14 +460,11 @@ def kmeans_update_stats(points: torch.Tensor, centroids: torch.Tensor, *,
     ``kmeans_update_stats``.  Zero pad rows are counted; remove them with
     :func:`pad_correction`.  Deterministic."""
     _check_policy(tie_policy)
-    _check_problem(points, centroids, compute_dtype)
-    if points.device.type == "cpu":
-        return kmeans_update_stats_plain(points, centroids,
-                                         tie_policy=tie_policy,
-                                         compute_dtype=compute_dtype)
-    if compute_dtype == torch.bfloat16:
-        return _launch_bf16(tie_policy, points, centroids)
-    return _launch("kmeans_update_stats", tie_policy, points, centroids)
+    n, d, k = _check_problem(points, centroids, compute_dtype)
+    entry = lookup("kmeans_update_stats",
+                   (n, d, k, "euclidean", points.device.type))
+    return entry.fn(points, centroids, tie_policy=tie_policy,
+                    compute_dtype=compute_dtype)
 
 
 def update_stats_sharded(points: torch.Tensor, centroids: torch.Tensor,
@@ -463,18 +485,46 @@ def update_stats_sharded(points: torch.Tensor, centroids: torch.Tensor,
                        axis, mesh=mesh)
 
 
+def _assign_reduce_cuda(points: torch.Tensor, centroids: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of ``kmeans.cu`` in its assign mode (op
+    ``kmeans_assign``'s ``"cuda"`` stage runs it)."""
+    _on_card("kmeans_assign_reduce", points)
+    assign = torch.empty(points.shape[0], dtype=torch.int32,
+                         device=points.device)
+    sums, counts = _launch("kmeans_assign_reduce", "assign", points,
+                           centroids, assign=assign)
+    return assign, sums, counts
+
+
 def kmeans_assign_reduce(points: torch.Tensor, centroids: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Transform path: ``(assign (n,) int32, sums (k, d), counts (k,))``,
     first-index argmin.  Replaces the JAX package's
     ``kmeans_assign_reduce``.  Deterministic."""
-    n, _, _ = _check_problem(points, centroids)
-    if points.device.type == "cpu":
-        return kmeans_assign_reduce_plain(points, centroids)
-    assign = torch.empty(n, dtype=torch.int32, device=points.device)
-    sums, counts = _launch("kmeans_assign_reduce", "assign", points,
-                           centroids, assign=assign)
-    return assign, sums, counts
+    _check_problem(points, centroids)
+    fn = kernel_or_plain("kmeans_assign",
+                         ("euclidean", points.device.type),
+                         _assign_reduce_cuda, kmeans_assign_reduce_plain)
+    return fn(points, centroids)
+
+
+def _workset_update_cuda(points: torch.Tensor, centroids: torch.Tensor,
+                         prev_assign: torch.Tensor, active: torch.Tensor,
+                         pad_mask: torch.Tensor):
+    """Op ``kmeans_workset_update``, backend ``"cuda"``: one launch of
+    ``kmeans.cu`` in its workset mode."""
+    _on_card("kmeans_workset_update", points)
+    n = points.shape[0]
+    dev = points.device
+    assign = torch.empty(n, dtype=torch.int32, device=dev)
+    d_best = torch.empty(n, dtype=torch.float32, device=dev)
+    d_second = torch.empty(n, dtype=torch.float32, device=dev)
+    sums, counts = _launch("kmeans_workset_update", "workset", points,
+                           centroids, prev=prev_assign, active=active,
+                           pad_mask=pad_mask, assign=assign, d_best=d_best,
+                           d_second=d_second)
+    return assign, d_best, d_second, sums, counts
 
 
 def kmeans_workset_update(points: torch.Tensor, centroids: torch.Tensor,
@@ -487,19 +537,11 @@ def kmeans_workset_update(points: torch.Tensor, centroids: torch.Tensor,
     distances; the stats are weighted by ``pad_mask``.  Replaces the JAX
     package's ``kmeans_workset_update``.  Euclidean only.
     Deterministic."""
-    n, _, _ = _check_problem(points, centroids)
+    n, d, k = _check_problem(points, centroids)
     dev = points.device
     _check("prev_assign", prev_assign, torch.int32, (n,), dev)
     _check("active", active, torch.float32, (n,), dev)
     _check("pad_mask", pad_mask, torch.float32, (n,), dev)
-    if dev.type == "cpu":
-        return kmeans_workset_update_plain(points, centroids, prev_assign,
-                                           active, pad_mask)
-    assign = torch.empty(n, dtype=torch.int32, device=dev)
-    d_best = torch.empty(n, dtype=torch.float32, device=dev)
-    d_second = torch.empty(n, dtype=torch.float32, device=dev)
-    sums, counts = _launch("kmeans_workset_update", "workset", points,
-                           centroids, prev=prev_assign, active=active,
-                           pad_mask=pad_mask, assign=assign, d_best=d_best,
-                           d_second=d_second)
-    return assign, d_best, d_second, sums, counts
+    entry = lookup("kmeans_workset_update",
+                   (n, d, k, "euclidean", 1, dev.type))
+    return entry.fn(points, centroids, prev_assign, active, pad_mask)

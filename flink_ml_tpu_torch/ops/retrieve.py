@@ -36,8 +36,11 @@ ids equal, distance bits equal.  The JAX stage multiplies by a runtime
 1.0 (``runtime_one``) to pin XLA's fusion choices; ``x * 1.0f == x``
 exactly, so both sides here leave it out and no bit changes.
 
-Each wrapper takes its plain version for tensors on the CPU, and launches
-its kernel for CUDA tensors or raises: it never falls back.  A shape the
+Each wrapper checks its operands and resolves through the kernel
+registry (op ``retrieve``, registered in ``retrieval/ivf.py`` at the
+signature ``retrieve_sig + (device type,)``): tensors on the CPU take
+the plain version, CUDA tensors launch the kernel or raise: it never
+falls back.  A shape the
 kernel cannot take raises with the limit in its message
 (:func:`flat_plan`, :func:`pq_plan`).  A call on the card adds one to
 :data:`LAUNCHES`, whatever number of CUDA launches it takes.
@@ -52,6 +55,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 
 from ..kernels.build import count_launch
+from ..kernels.registry import kernel_or_plain
 
 __all__ = ["retrieve_flat", "retrieve_flat_plain", "retrieve_pq",
            "retrieve_pq_plain", "coarse_distances", "flat_distances",
@@ -460,6 +464,43 @@ def _probe_sizes(plan, b: int) -> tuple:
             plan.probe_rows, plan.probe_smem)
 
 
+def _on_card(name: str, q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"the {name} kernel takes CUDA tensors, got "
+                         f"{q.device}")
+
+
+def _retrieve_flat_cuda(q, centroids, ids, vecs, *, nprobe: int, k: int,
+                        nlist: int, block: int):
+    """The flat search kernel: one call (two CUDA launches)."""
+    _on_card("retrieve_flat", q)
+    b, d = q.shape
+    plan = flat_plan(d, k, nlist, block)
+    return _search(
+        "retrieve_flat", _kernels().retrieve_flat_launch,
+        tuple(t.data_ptr() for t in (q, centroids, ids, vecs)),
+        (b, d, nlist, block, nprobe, k, *_probe_sizes(plan, b),
+         plan.scan_rows, plan.scan_smem),
+        plan, b=b, nprobe=nprobe, k=k, nlist=nlist, block=block,
+        dev=q.device)
+
+
+def _retrieve_pq_cuda(q, centroids, ids, codes, cb_q, cb_s, *, nprobe: int,
+                      k: int, nlist: int, block: int, m: int):
+    """The IVF-PQ search kernel: one call (two CUDA launches)."""
+    _on_card("retrieve_pq", q)
+    b, d = q.shape
+    ksub = cb_q.shape[1]
+    plan = pq_plan(d, k, nlist, block, m, ksub)
+    return _search(
+        "retrieve_pq", _kernels().retrieve_pq_launch,
+        tuple(t.data_ptr() for t in (q, centroids, ids, codes, cb_q, cb_s)),
+        (b, d, nlist, block, nprobe, k, m, ksub, *_probe_sizes(plan, b),
+         plan.scan_rows, plan.scan_queries, plan.scan_smem),
+        plan, b=b, nprobe=nprobe, k=k, nlist=nlist, block=block,
+        dev=q.device)
+
+
 def retrieve_flat(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
                   vecs: torch.Tensor, *, nprobe: int, k: int, nlist: int,
                   block: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -468,16 +509,11 @@ def retrieve_flat(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
     b, d, dev = _check_common(q, centroids, ids, nprobe=nprobe, k=k,
                               nlist=nlist, block=block)
     _check("vecs", vecs, torch.float32, (nlist * block, d), dev)
-    if dev.type == "cpu":
-        return retrieve_flat_plain(q, centroids, ids, vecs, nprobe=nprobe,
-                                   k=k, nlist=nlist, block=block)
-    plan = flat_plan(d, k, nlist, block)
-    return _search(
-        "retrieve_flat", _kernels().retrieve_flat_launch,
-        tuple(t.data_ptr() for t in (q, centroids, ids, vecs)),
-        (b, d, nlist, block, nprobe, k, *_probe_sizes(plan, b),
-         plan.scan_rows, plan.scan_smem),
-        plan, b=b, nprobe=nprobe, k=k, nlist=nlist, block=block, dev=dev)
+    fn = kernel_or_plain("retrieve",
+                         (nprobe, k, d, 0, 0, nlist, block, dev.type),
+                         _retrieve_flat_cuda, retrieve_flat_plain)
+    return fn(q, centroids, ids, vecs, nprobe=nprobe, k=k, nlist=nlist,
+              block=block)
 
 
 def retrieve_pq(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
@@ -495,14 +531,8 @@ def retrieve_pq(q: torch.Tensor, centroids: torch.Tensor, ids: torch.Tensor,
     _check("codes", codes, torch.int8, (nlist * block, m), dev)
     _check("cb_q", cb_q, torch.int8, (m, ksub, d // m), dev)
     _check("cb_s", cb_s, torch.float32, (m, ksub), dev)
-    if dev.type == "cpu":
-        return retrieve_pq_plain(q, centroids, ids, codes, cb_q, cb_s,
-                                 nprobe=nprobe, k=k, nlist=nlist,
-                                 block=block, m=m)
-    plan = pq_plan(d, k, nlist, block, m, ksub)
-    return _search(
-        "retrieve_pq", _kernels().retrieve_pq_launch,
-        tuple(t.data_ptr() for t in (q, centroids, ids, codes, cb_q, cb_s)),
-        (b, d, nlist, block, nprobe, k, m, ksub, *_probe_sizes(plan, b),
-         plan.scan_rows, plan.scan_queries, plan.scan_smem),
-        plan, b=b, nprobe=nprobe, k=k, nlist=nlist, block=block, dev=dev)
+    fn = kernel_or_plain("retrieve",
+                         (nprobe, k, d, m, ksub, nlist, block, dev.type),
+                         _retrieve_pq_cuda, retrieve_pq_plain)
+    return fn(q, centroids, ids, codes, cb_q, cb_s, nprobe=nprobe, k=k,
+              nlist=nlist, block=block, m=m)

@@ -53,6 +53,7 @@ import torch
 from ..api.chain import StageKernel, numeric_entry, run_kernel
 from ..data.table import Table
 from ..kernels.quantize import quantize_rows
+from ..kernels.registry import cuda_only, lookup, on_cuda, register_kernel
 from ..ops import retrieve as R
 from ..utils.device import resolve_device
 from ..utils.padding import pad_rows_to_block, require_block_rows
@@ -77,13 +78,37 @@ def _scan(p: Dict[str, torch.Tensor], q: torch.Tensor, nprobe: int, k: int,
 
 
 def _ivf_chain_kernel(static, params, cols):
-    """Chain-terminal search: the retrieve wrappers ``search`` uses (the
-    B8/B9 kernels on the card), looked up at call time."""
+    """Chain-terminal search: the stage of op ``retrieve`` the kernel
+    registry resolves at ``retrieve_sig + (device type,)`` (the B8/B9
+    kernels on the card, their plain versions on the CPU)."""
+    (qcol, nprobe, k, nlist, block, m) = static
+    q = cols[qcol]
+    pq = m is not None
+    sig = retrieve_sig(nprobe, k, int(q.shape[1]), m if pq else 0,
+                       int(params["cb_q"].shape[1]) if pq else 0, nlist,
+                       block) + (q.device.type,)
+    return lookup("retrieve", sig).fn(static, params, cols)
+
+
+def _retrieve_stage(static, params, cols, flat_fn, pq_fn):
     (qcol, nprobe, k, nlist, block, m) = static
     q = cols[qcol].to(torch.float32).contiguous()
-    nn, dist = _scan(params, q, nprobe, k, nlist, block, m,
-                     R.retrieve_flat, R.retrieve_pq)
+    nn, dist = _scan(params, q, nprobe, k, nlist, block, m, flat_fn, pq_fn)
     return {_NN_STAGE: nn, _DIST_STAGE: dist}
+
+
+def _retrieve_stage_cuda(static, params, cols):
+    """Op ``retrieve``, backend ``"cuda"``: one call of the flat or IVF-PQ
+    search kernel (whose wrapper raises on a shape it cannot take)."""
+    return _retrieve_stage(static, params, cols, R._retrieve_flat_cuda,
+                           R._retrieve_pq_cuda)
+
+
+def _retrieve_stage_plain(static, params, cols):
+    """Op ``retrieve``, backend ``"plain"``: the kernels' plain versions
+    (the counterpart of the JAX package's ``"xla"`` stage)."""
+    return _retrieve_stage(static, params, cols, R.retrieve_flat_plain,
+                           R.retrieve_pq_plain)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,8 +124,9 @@ class PQConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SearchPlan:
-    """The planned search: the signature and the backend (``"cuda"``: the
-    kernel; ``"torch"``: its plain version on the CPU)."""
+    """The planned search: the signature and the backend of op
+    ``retrieve`` (``"cuda"``: the kernel; ``"plain"``: its plain version,
+    on the CPU)."""
 
     sig: tuple
     backend: str
@@ -257,12 +283,14 @@ class IVFIndex:
                             self.nlist, self.block)
 
     def search_plan(self) -> SearchPlan:
-        """The signature and the backend a search takes: ``"cuda"`` (the
-        kernel, whose wrapper raises on a shape it cannot take) on a CUDA
-        index, ``"torch"`` (the plain version) on the CPU."""
+        """The signature and the backend a search takes, as the kernel
+        registry resolves op ``retrieve`` at ``sig() + (device type,)``:
+        ``"cuda"`` (the kernel, whose wrapper raises on a shape it cannot
+        take) on a CUDA index, ``"plain"`` (the plain version) on the
+        CPU."""
         dev = resolve_device(self.device)
-        return SearchPlan(sig=self.sig(),
-                          backend="cuda" if dev.type == "cuda" else "torch")
+        entry = lookup("retrieve", self.sig() + (dev.type,))
+        return SearchPlan(sig=self.sig(), backend=entry.backend)
 
     def with_options(self, *, nprobe: Optional[int] = None,
                      k: Optional[int] = None) -> "IVFIndex":
@@ -679,3 +707,19 @@ def _encode_pq(resid: np.ndarray, cb_q: np.ndarray,
             (sub[:, None, :] - decoded[s][None, :, :]) ** 2, axis=-1)
         codes[:, s] = np.argmin(d2, axis=1).astype(np.int8)
     return codes
+
+
+# ---------------------------------------------------------------------------
+# kernel-registry entries: op ``retrieve`` (stage convention), the kernels'
+# launchers in ops/retrieve.py
+# ---------------------------------------------------------------------------
+
+def _register_retrieve_kernels() -> None:
+    register_kernel("retrieve", "cuda", _retrieve_stage_cuda, priority=10,
+                    supports=on_cuda, available=cuda_only,
+                    convention="stage")
+    register_kernel("retrieve", "plain", _retrieve_stage_plain,
+                    convention="stage")
+
+
+_register_retrieve_kernels()

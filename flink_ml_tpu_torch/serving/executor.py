@@ -163,25 +163,44 @@ class ServableModel:
         OFF the serving path, so a hot swap warms the incoming version
         while the old one keeps serving.
 
-        Populates :attr:`warmup_report` with the JAX package's keys.  The
-        port compiles no programs, so every bucket's ``source`` is
-        ``"untracked"`` and the ``compiled`` / ``aot_loaded`` /
-        ``cache_hits`` counts are 0."""
+        Populates :attr:`warmup_report` with the JAX package's keys: total
+        wall to ready plus, per bucket, whether it was the first run of
+        its ``(plan, shapes)`` key in the process (**compile**), loaded a
+        kernel library from the cache root (**aot**, ``kernels/aot.py``)
+        or reran a key already run (**cache**), diffed from the
+        registry's THIS-THREAD counters (``kernel_stats.thread_counts``),
+        so a hot swap warming on the deploy thread is never credited
+        with the old generation's concurrent dispatches.  Servables whose
+        predict does not go through the registry's dispatch (the generic
+        ``model.transform`` adapter) report ``untracked``."""
+        from ..kernels.registry import kernel_stats
+
         fault_point("serving.warm_up")
         report: dict = {"wall_s": None, "precision": self.precision,
                         "buckets": {}}
         t_start = time.perf_counter()
         for bucket in self.buckets:
+            compiles0, aot0, hits0 = kernel_stats.thread_counts()
             t0 = time.perf_counter()
             self._run(self._tiled_example(bucket))
             ms = (time.perf_counter() - t0) * 1e3
-            report["buckets"][bucket] = {"source": "untracked",
+            compiles1, aot1, hits1 = kernel_stats.thread_counts()
+            if compiles1 > compiles0:
+                source = "compile"
+            elif aot1 > aot0:
+                source = "aot"
+            elif hits1 > hits0:
+                source = "cache"
+            else:
+                source = "untracked"
+            report["buckets"][bucket] = {"source": source,
                                          "ms": round(ms, 3),
                                          "precision": self.precision}
         report["wall_s"] = round(time.perf_counter() - t_start, 4)
-        report["compiled"] = 0
-        report["aot_loaded"] = 0
-        report["cache_hits"] = 0
+        sources = [b["source"] for b in report["buckets"].values()]
+        report["compiled"] = sources.count("compile")
+        report["aot_loaded"] = sources.count("aot")
+        report["cache_hits"] = sources.count("cache")
         self.warmup_report = report
         self._ready = True
         return self
@@ -240,10 +259,11 @@ class _KernelServable(ServableModel):
             # bind on the clone, so scales always come from the params
             # they serve
             from ..kernels.quantize import quantize_stage_params
-            from ..ops.int8_serving import INT8_FNS
+            from ..kernels.registry import lookup
 
+            entry = lookup(self.op_label, backend="int8")
             kernel = dataclasses.replace(
-                kernel, fn=INT8_FNS[self.op_label],
+                kernel, fn=entry.fn,
                 params=quantize_stage_params(self.op_label, kernel.params))
         self._kernel = kernel
         # one synchronous copy on the current stream: the params are on

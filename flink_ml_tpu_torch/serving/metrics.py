@@ -6,8 +6,8 @@ MetricGroup`, so they flatten into the same ``snapshot()`` namespace as
 training metrics.  The latency quantiles come from a bounded ring buffer:
 O(window) memory for a process-lifetime endpoint, quantiles over the
 most recent ``window`` requests.  The ``kernels.*`` subtree re-exports
-the port's dispatch and launch counters (``obs/tree.py::kernel_stats``)
-where the JAX package re-exports its kernel registry's.
+the kernel registry's counters (``KernelStats.publish``: the JAX
+package's gauges plus each kernel's launches).
 """
 
 from __future__ import annotations
@@ -273,10 +273,9 @@ class ServingMetrics:
             self._last_expensive_publish = now
         stats = kernel_stats()
         if stats != self._kernel_published:
-            self._kernel_group.gauge("dispatches").set(stats["dispatches"])
-            launches = self._kernel_group.add_group("launches")
-            for name, count in stats["launches"].items():
-                launches.gauge(name).set(count)
+            from ..kernels.registry import kernel_stats as registry_stats
+
+            registry_stats.publish(self._kernel_group)
             self._kernel_published = stats
         count = self.latency.count
         if count == self._published_count:

@@ -33,10 +33,10 @@ class FrameworkConfig:
     compute_dtype: str = "float32"
     # INFO-log period for iteration metrics listeners (0 = silent)
     log_every_epochs: int = 0
-    # Root of a persistent compile cache.  Kept for the JAX package's
-    # field and environment variable (FLINK_ML_TPU_AOT_CACHE_PATH); no
-    # module of the port reads it yet (the port's kernels build through
-    # kernels/build.py, whose cache lives in the package's build dir).
+    # Root of the durable cache of the nvcc-built kernel libraries and the
+    # autotuner's decisions (kernels/aot.py; env
+    # FLINK_ML_TPU_AOT_CACHE_PATH).  None: the libraries build into the
+    # package's kernels/build/ and nothing is autotuned.
     aot_cache_path: Optional[str] = None
 
     @staticmethod

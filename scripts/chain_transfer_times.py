@@ -73,15 +73,15 @@ def main() -> None:
     rows["entry copy in, pinned"] = med(
         lambda: pinned_x.to(dev, non_blocking=True))
     cols = {"features": torch.from_numpy(X).to(dev)}
-    out = chain._run_fns(seg.plan, seg.params, cols)
+    out = chain.dispatch(seg.plan, seg.params, cols)
     rows["stage functions on the card"] = med(
-        lambda: chain._run_fns(seg.plan, seg.params, cols))
+        lambda: chain.dispatch(seg.plan, seg.params, cols))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     events = []
     for _ in range(REPS):
         start.record()
-        chain._run_fns(seg.plan, seg.params, cols)
+        chain.dispatch(seg.plan, seg.params, cols)
         end.record()
         torch.cuda.synchronize()
         events.append(start.elapsed_time(end))

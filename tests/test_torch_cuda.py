@@ -1372,13 +1372,13 @@ def test_load_library_from_four_threads_builds_once(cuda_device,
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(build, "_LOADED", {})
     calls = []
-    real = build.build_all
+    real = build._start_nvcc
 
-    def counting(names=None):
-        calls.append(tuple(names))
-        return real(names)
+    def counting(name, out_dir):
+        calls.append((name,))
+        return real(name, out_dir)
 
-    monkeypatch.setattr(build, "build_all", counting)
+    monkeypatch.setattr(build, "_start_nvcc", counting)
     gate = threading.Barrier(4, timeout=60)
     libs = []
 
@@ -1394,7 +1394,11 @@ def test_load_library_from_four_threads_builds_once(cuda_device,
     assert not any(t.is_alive() for t in threads)
     assert calls == [("kmeans",)]
     assert len(libs) == 4 and all(lib is libs[0] for lib in libs)
-    assert len([f for f in os.listdir(tmp_path) if f.endswith(".so")]) == 1
+    # one committed cache entry holds the one library
+    entries = os.listdir(os.path.join(tmp_path, "exec"))
+    assert len(entries) == 1
+    assert "libkmeans.so" in os.listdir(
+        os.path.join(tmp_path, "exec", entries[0]))
 
 
 @pytest.mark.cuda
@@ -2542,3 +2546,120 @@ def test_parallel_families_on_the_card(cuda_device, world, backend):
                                    atol=1e-5)
         np.testing.assert_allclose(got["dw"], got["dw_ref"], rtol=1e-4,
                                    atol=1e-5)
+
+
+# -- the control plane: registry picks and the library cache ------------------
+
+#: a CUDA signature of every op that holds one of the nine kernels, and the
+#: backend it must resolve to there
+_CUDA_PICKS = {
+    "ell_margin": ((128, "cuda"), "cuda"),
+    "ell_scatter_apply": ((128, "cuda"), "cuda"),
+    "ell_scatter_apply (pair)": ((1001, "cuda"), "cuda-pair"),
+    "kmeans_update_stats": ((1 << 16, 64, 256, "euclidean", "cuda"),
+                            "cuda"),
+    "kmeans_assign": (("euclidean", "cuda"), "cuda"),
+    "kmeans_workset_update": ((1 << 16, 64, 256, "euclidean", 1, "cuda"),
+                              "cuda"),
+    "routed_table_grad": (("scatter", 3, 1000, "cuda"), "cuda"),
+    "retrieve": ((2, 10, 32, 0, 0, 8, 96, "cuda"), "cuda"),
+    "retrieve (pq)": ((2, 10, 32, 8, 16, 8, 96, "cuda"), "cuda"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(_CUDA_PICKS))
+def test_registry_picks_the_kernels_at_cuda_signatures(cuda_device, label):
+    """With a card, a CUDA signature resolves to the kernel (B1-B9), never
+    to "plain", and the same signature on the CPU to "plain"."""
+    from flink_ml_tpu_torch.kernels import aot
+    from flink_ml_tpu_torch.kernels.registry import lookup
+
+    aot.set_cache(None)
+    try:
+        sig, want = _CUDA_PICKS[label]
+        op = label.split(" ")[0]
+        assert lookup(op, sig).backend == want
+        assert lookup(op, sig[:-1] + ("cpu",)).backend == "plain"
+    finally:
+        aot.reset_cache()
+
+
+_CP_CHILD = """
+import json, sys
+import numpy as np
+import torch
+from flink_ml_tpu_torch.kernels import aot, build
+from flink_ml_tpu_torch.kernels.registry import kernel_stats
+from flink_ml_tpu_torch.ops import ell_scatter as E
+
+rng = np.random.default_rng(17)
+cat = rng.integers(0, 128 * 128, size=(1, 200, 7)).astype(np.int32)
+lay = E.ell_layout(cat, 128 * 128).to("cuda")
+w = torch.from_numpy(rng.normal(size=128 * 128).astype(np.float32)).cuda()
+route_w, _ = E.sample_routing(lay.src[0], lay.pos[0], lay.mask[0], 200)
+got = E.ell_margin(w, route_w, m_len=256)
+want = E.ell_margin_plain(w, route_w, 256)
+print(json.dumps({"nvcc_runs": build.nvcc_runs(),
+                  "aot": kernel_stats.snapshot()["aot"],
+                  "library": E._kernels()._name,
+                  "equal": bool(torch.equal(got, want))}))
+"""
+
+
+def _cp_child(root):
+    import json
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, FLINK_ML_TPU_AOT_CACHE_PATH=root,
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    proc = subprocess.run([sys.executable, "-c", _CP_CHILD], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.cuda
+def test_library_cache_cold_warm_and_flipped_byte(cuda_device, tmp_path):
+    """Phase 51's (a)-(c) at a small shape: a cold build into a fresh root
+    runs nvcc once and stores one entry; a child process on the root loads
+    it with no nvcc; a flipped byte is quarantined and rebuilt in another
+    child; B1 from the loaded library equals its plain version bit for
+    bit each time."""
+    from flink_ml_tpu_torch.kernels import aot, build
+    from flink_ml_tpu_torch.kernels.registry import kernel_stats
+
+    root = str(tmp_path / "root")
+    aot.set_cache(aot.ExecutableCache(root))
+    try:
+        a0, runs0 = dict(kernel_stats.snapshot()["aot"]), build.nvcc_runs()
+        lib = build.load_library("ell_scatter")
+        a1 = kernel_stats.snapshot()["aot"]
+        target = build._target("ell_scatter")
+    finally:
+        aot.reset_cache()
+    assert build.nvcc_runs() - runs0 == 1
+    assert a1["misses"] - a0["misses"] == 1
+    assert a1["stores"] - a0["stores"] == 1
+    assert lib._name == target and target.startswith(root)
+
+    warm = _cp_child(root)
+    assert warm["equal"] and warm["library"] == target
+    assert warm["nvcc_runs"] == 0
+    assert warm["aot"]["hits"] == 1 and warm["aot"]["misses"] == 0
+
+    with open(target, "rb") as f:
+        blob = bytearray(f.read())
+    blob[len(blob) // 2] ^= 0xFF
+    with open(target + ".flip", "wb") as f:
+        f.write(blob)
+    os.replace(target + ".flip", target)
+    bad = _cp_child(root)
+    assert bad["equal"] and bad["nvcc_runs"] == 1
+    assert bad["aot"]["quarantined"] == 1 and bad["aot"]["stores"] == 1
+    assert bad["aot"]["hits"] == 0
+    assert len([n for n in os.listdir(os.path.join(root, "exec"))
+                if ".corrupt" in n]) == 1

@@ -352,7 +352,7 @@ def test_search_plan_and_option_views():
     X = _gaussian(n=200, d=16, seed=15)
     idx = _build(X, nlist=8, k=5, seed=7)
     plan = idx.search_plan()
-    assert plan.sig == idx.sig() and plan.backend == "torch"   # CPU index
+    assert plan.sig == idx.sig() and plan.backend == "plain"   # CPU index
     view = idx.with_options(nprobe=8, k=3)
     assert (view.nprobe, view.k) == (8, 3)
     assert view.params is idx.params

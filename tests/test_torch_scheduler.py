@@ -355,8 +355,10 @@ def test_cross_tenant_coalescing_on_shared_servable():
 
 def test_second_tenant_of_served_schema_builds_nothing_new(monkeypatch):
     """Tenant N+1 of an already-served schema: its admission loads no
-    kernel library, builds only its own kernel (one ``transform_kernel``
-    call, its bind) and its answers equal its model's transform."""
+    kernel library, runs no new ``(plan, shapes)`` key (every warm-up
+    bucket a ``cache`` hit, the JAX package's meaning), builds only its
+    own kernel (one ``transform_kernel`` call, its bind) and its answers
+    equal its model's transform."""
     from flink_ml_tpu_torch.kernels import build
 
     feats = _feats(seed=7)
@@ -384,8 +386,9 @@ def test_second_tenant_of_served_schema_builds_nothing_new(monkeypatch):
         assert plans == [model2]
         report = tenant.admission_report
         assert report is not None and report["compiled"] == 0
-        assert all(b["source"] == "untracked"
-                   for b in report["buckets"].values())
+        assert [b["source"] for b in report["buckets"].values()] == \
+            ["cache"] * len(report["buckets"])
+        assert report["cache_hits"] == len(report["buckets"])
         np.testing.assert_array_equal(out["rawPrediction"], ref2)
     finally:
         s.close()

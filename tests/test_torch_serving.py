@@ -269,11 +269,15 @@ def test_warmup_required_before_start():
 
 
 def test_warmup_report_keys_and_untracked_sources():
-    """The JAX report's keys; the port compiles nothing, so every bucket
-    is ``untracked`` and the three counts are 0."""
+    """The JAX report's keys, with the JAX meaning of ``source``: a
+    kernel-served warm-up's bucket is ``compile`` at the first run of its
+    ``(plan, shapes)`` key in the process and ``cache`` at a later one
+    (``aot`` where it loaded a library from the cache root), never
+    ``untracked``; a second warm-up of the same shapes is all cache
+    hits."""
     feats = _lr_table().drop("label")
-    rep = make_servable(_fit_lr(), feats.take(1),
-                        max_batch_rows=32).warm_up().warmup_report
+    servable = make_servable(_fit_lr(), feats.take(1), max_batch_rows=32)
+    rep = servable.warm_up().warmup_report
     jrep = JS.make_servable(
         JLR().set_max_iter(2).fit(_lr_table(pkg=J)),
         _lr_table(pkg=J).drop("label").take(1),
@@ -282,8 +286,14 @@ def test_warmup_report_keys_and_untracked_sources():
     assert set(rep["buckets"]) == set(jrep["buckets"]) == {8, 16, 32}
     for b in rep["buckets"].values():
         assert set(b) == {"source", "ms", "precision"}
-        assert b["source"] == "untracked"
-    assert rep["compiled"] == rep["aot_loaded"] == rep["cache_hits"] == 0
+        assert b["source"] in ("compile", "cache")
+    assert rep["compiled"] + rep["cache_hits"] == 3
+    assert rep["aot_loaded"] == 0
+    again = make_servable(_fit_lr(), feats.take(1),
+                          max_batch_rows=32).warm_up().warmup_report
+    assert [b["source"] for b in again["buckets"].values()] == ["cache"] * 3
+    assert again["compiled"] == again["aot_loaded"] == 0
+    assert again["cache_hits"] == 3
 
 
 # -- micro-batcher ----------------------------------------------------------
@@ -775,26 +785,34 @@ def test_metrics_publish_skips_quantiles_when_no_new_samples():
 
 # -- kernel loading and launch counting under threads -------------------------
 
-def test_concurrent_first_load_library_builds_once(monkeypatch):
+def test_concurrent_first_load_library_builds_once(monkeypatch, tmp_path):
     """Four threads reaching a kernel library for the first time at once
     (the serve thread and a deploy thread warming the next generation)
-    run ONE build and share one loaded library."""
+    run ONE build and share one loaded library.  The build is a stand-in
+    (a one-function C library from the host compiler in place of nvcc),
+    committed into the library cache at ``BUILD_DIR`` and loaded through
+    ``ctypes`` as the real ones are."""
+    import subprocess
     import sys
 
     from flink_ml_tpu_torch.kernels import build
 
+    stub = tmp_path / "stub.c"
+    stub.write_text("int stub_answer(void) { return 42; }\n")
     builds = []
-    gate = threading.Barrier(4, timeout=JOIN_S)
 
-    def slow_build(names):
-        builds.append(tuple(names))
+    def stand_in(name, out_dir):
+        builds.append((name,))
         threading.Event().wait(0.05)    # a build that takes a while
-        return 0.0
+        return subprocess.Popen(
+            ["cc", "-shared", "-fPIC", "-o",
+             os.path.join(out_dir, f"lib{name}.so"), str(stub)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     monkeypatch.setattr(build, "_LOADED", {})
-    monkeypatch.setattr(build, "build_all", slow_build)
-    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: object())
-    monkeypatch.setattr(build, "_target", lambda name: f"/lib{name}.so")
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "cache"))
+    monkeypatch.setattr(build, "_start_nvcc", stand_in)
+    gate = threading.Barrier(4, timeout=JOIN_S)
     got = []
 
     def first_use():
@@ -812,6 +830,7 @@ def test_concurrent_first_load_library_builds_once(monkeypatch):
         sys.setswitchinterval(old)
     assert builds == [("kmeans",)]
     assert len(got) == 4 and all(lib is got[0] for lib in got)
+    assert got[0].stub_answer() == 42
 
 
 def test_launch_counts_are_not_lost_under_threads(monkeypatch):
