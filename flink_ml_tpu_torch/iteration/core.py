@@ -39,6 +39,7 @@ from typing import Any, Callable, Iterator, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..obs.trace import null_span, tracer
 from .body import (
     EpochContext,
     IterationBodyResult,
@@ -461,11 +462,16 @@ def _iterate_fused(body: BodyFn, state, provider: _DataProvider,
     num_epochs = 0
     fracs, votes = [], []
     warned = False
+    # an "iterate.epoch" span around each body call, timed on the state's
+    # device (the recording test read once a loop)
+    span = tracer.recorder()
+    dev = None if span is null_span else _first_device(state)
     for epoch in range(config.max_epochs):
         if epoch == 0 and first is not None:
             res = first
         else:
-            res = _call_body(body, state, epoch, data)
+            with span("iterate.epoch", cat="train", device=dev, epoch=epoch):
+                res = _call_body(body, state, epoch, data)
         state = res.feedback
         num_epochs = epoch + 1
         if res.termination is None:

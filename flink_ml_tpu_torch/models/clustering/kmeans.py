@@ -53,6 +53,7 @@ from ...distance import DistanceMeasure
 from ...iteration import (IterationBodyResult, IterationConfig, Workset,
                           iterate)
 from ...linalg import stack_vectors
+from ...obs.trace import tracer
 from ...ops.kmeans import (
     kmeans_assign_reduce,
     kmeans_update_stats,
@@ -694,65 +695,80 @@ class KMeans(KMeansParams, Estimator["KMeansModel"]):
         grouped = mesh.group is not None
         k = self.get_k()
         measure = DistanceMeasure.get_instance(self.get_distance_measure())
-        host_points = stack_vectors(table[self.get_features_col()]).astype(
-            np.float32)
-        n, d = host_points.shape
-        n_for_plan = n
-        if grouped:
-            # One allgather of the raw row counts before any other
-            # collective, so every rank takes the same branches from the
-            # same facts: the plan from the global count (ranks planning
-            # apart would run different collectives and deadlock), rank
-            # 0's too-small shard raising on every rank (raising on one
-            # would strand the rest in the init broadcast), and the
-            # padded counts checked here.
-            rows = process_allgather(np.asarray([n], np.int64),
-                                     mesh=mesh).reshape(-1)
-            n_for_plan = int(rows.sum())
-            if rows[0] < k:
-                raise ValueError(
-                    f"multi-host KMeans selects initial centroids from "
-                    f"host 0's shard, which holds {int(rows[0])} rows "
-                    f"< k={k}; give host 0 at least k rows")
-        workset = self.get_workset()
-        plan = _fit_plan(n_for_plan, d, k, measure, workset=workset,
-                         data_devs=mesh.shape[DATA_AXIS])
-        self.planned_impl = plan.impl
-        points_t = torch.from_numpy(np.ascontiguousarray(host_points)).to(
-            dev)
-        mask_t = torch.ones(n, dtype=torch.float32, device=dev)
-        mode, seed = self.get_init_mode(), self.get_seed()
-        if grouped:
-            # the kernels take any row count: a rank pads to a multiple
-            # of one, so its padded count is its row count
-            multiple = local_axis_multiple(mesh)
-            padded_rows = -(-rows // multiple) * multiple
-            if not np.all(padded_rows == padded_rows[0]):
-                raise ValueError(
-                    "multi-host KMeans requires equal padded row counts "
-                    f"per process; got {padded_rows.tolist()}")
-            init_t = (_select_init(mode, host_points, points_t, k, seed)
-                      if axis_index(mesh=mesh) == 0 else
-                      torch.zeros((k, d), dtype=torch.float32, device=dev))
-            init_t = broadcast_from_host0(init_t, mesh=mesh)
-        else:
-            init_t = _select_init(mode, host_points, points_t, k, seed)
-        result = fit_centroids(points_t, mask_t, init_t, plan,
-                               measure=measure, max_iter=self.get_max_iter(),
-                               workset=workset,
-                               tie_policy=self.get_tie_policy(),
-                               compute_dtype=self.compute_dtype,
-                               mesh=mesh if grouped else None)
-        if workset:
-            self.last_workset_report = self._workset_report(
-                result, n_real=n_for_plan,
-                n_padded=int(padded_rows.sum()) if grouped else n)
-        centroids = result.state.cpu().numpy()
+        # the fit's host steps, copies and rounds, each a child span of
+        # "kmeans.fit"
+        span = tracer.recorder()
+        with span("kmeans.fit", cat="train", device=dev):
+            with span("kmeans.points", cat="train"):
+                host_points = stack_vectors(
+                    table[self.get_features_col()]).astype(np.float32)
+            n, d = host_points.shape
+            n_for_plan = n
+            if grouped:
+                # One allgather of the raw row counts before any other
+                # collective, so every rank takes the same branches from
+                # the same facts: the plan from the global count (ranks
+                # planning apart would run different collectives and
+                # deadlock), rank 0's too-small shard raising on every
+                # rank (raising on one would strand the rest in the init
+                # broadcast), and the padded counts checked here.
+                rows = process_allgather(np.asarray([n], np.int64),
+                                         mesh=mesh).reshape(-1)
+                n_for_plan = int(rows.sum())
+                if rows[0] < k:
+                    raise ValueError(
+                        f"multi-host KMeans selects initial centroids from "
+                        f"host 0's shard, which holds {int(rows[0])} rows "
+                        f"< k={k}; give host 0 at least k rows")
+            workset = self.get_workset()
+            plan = _fit_plan(n_for_plan, d, k, measure, workset=workset,
+                             data_devs=mesh.shape[DATA_AXIS])
+            self.planned_impl = plan.impl
+            with span("kmeans.copy_in", cat="train", device=dev):
+                points_t = torch.from_numpy(
+                    np.ascontiguousarray(host_points)).to(dev)
+                mask_t = torch.ones(n, dtype=torch.float32, device=dev)
+            mode, seed = self.get_init_mode(), self.get_seed()
+            with span("kmeans.init", cat="train", device=dev):
+                if grouped:
+                    # the kernels take any row count: a rank pads to a
+                    # multiple of one, so its padded count is its row
+                    # count
+                    multiple = local_axis_multiple(mesh)
+                    padded_rows = -(-rows // multiple) * multiple
+                    if not np.all(padded_rows == padded_rows[0]):
+                        raise ValueError(
+                            "multi-host KMeans requires equal padded row "
+                            f"counts per process; got "
+                            f"{padded_rows.tolist()}")
+                    init_t = (_select_init(mode, host_points, points_t, k,
+                                           seed)
+                              if axis_index(mesh=mesh) == 0 else
+                              torch.zeros((k, d), dtype=torch.float32,
+                                          device=dev))
+                    init_t = broadcast_from_host0(init_t, mesh=mesh)
+                else:
+                    init_t = _select_init(mode, host_points, points_t, k,
+                                          seed)
+            with span("kmeans.rounds", cat="train", device=dev):
+                result = fit_centroids(
+                    points_t, mask_t, init_t, plan, measure=measure,
+                    max_iter=self.get_max_iter(), workset=workset,
+                    tie_policy=self.get_tie_policy(),
+                    compute_dtype=self.compute_dtype,
+                    mesh=mesh if grouped else None)
+            with span("kmeans.copy_out", cat="train", device=dev):
+                if workset:
+                    self.last_workset_report = self._workset_report(
+                        result, n_real=n_for_plan,
+                        n_padded=int(padded_rows.sum()) if grouped else n)
+                centroids = result.state.cpu().numpy()
 
-        model = KMeansModel(device=self.device)
-        model.copy_params_from(self)
-        model.set_model_data(Table({"centroids": centroids[None, :, :]}))
-        model.planned_impl = plan.impl
+                model = KMeansModel(device=self.device)
+                model.copy_params_from(self)
+                model.set_model_data(
+                    Table({"centroids": centroids[None, :, :]}))
+                model.planned_impl = plan.impl
         return model
 
     def _workset_report(self, result, *, n_real: int, n_padded: int) -> dict:

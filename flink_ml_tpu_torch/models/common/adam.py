@@ -49,16 +49,19 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 def tree_unflatten(like, leaves) -> Any:
     """A tree shaped like ``like`` holding ``leaves`` (in
     :func:`tree_leaves` order)."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
 
-    return build(like)
+def _build(t, it) -> Any:
+    # a module-level recursion, not a closure over ``it``: a recursive
+    # closure is a reference cycle, which would hold ``leaves`` (a step's
+    # gradients, moments and parameters on the card) until Python's
+    # collector ran, and so move the peak memory with its timing
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree, *rest) -> Any:

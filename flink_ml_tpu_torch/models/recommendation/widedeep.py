@@ -59,6 +59,7 @@ from ...api.chain import (StageKernel, apply_kernel_or_none, numeric_entry,
 from ...api.stage import Estimator, Model
 from ...data.table import Table
 from ...iteration import IterationBodyResult, IterationConfig, iterate
+from ...obs.trace import null_span, tracer
 from ...ops.emb_grad import emb_grad_route
 from ...params.param import (
     BoolParam,
@@ -305,10 +306,14 @@ def _split(tree):
 
 def _make_train_ops(params, lr: float, lazy: bool, route=None,
                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                    plain: bool = False):
+                    plain: bool = False, span=null_span):
     """``(batch_step, opt_state0)`` for the Wide&Deep training loop;
     ``batch_step(params, opt_state, dense, cat_ids, labels, mask,
-    *route_arrays) -> (params, opt_state, loss)``.
+    *route_arrays) -> (params, opt_state, loss)``.  ``span`` (a
+    :meth:`~flink_ml_tpu_torch.obs.trace.SpanTracer.recorder`) spans a
+    step's parts, each timed on the params' device: ``wd_step.rows`` (the
+    routed step's row reads), ``wd_step.grad``, ``wd_step.fold`` (the
+    routed placement) and ``wd_step.adam``.
 
     ``lazy=False``: dense Adam over every parameter.  With ``route`` (an
     :class:`~flink_ml_tpu_torch.ops.emb_grad.EmbGradRoute` on the params'
@@ -325,6 +330,7 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
 
     Without ``route`` the table gradients come through
     :class:`_FixedOrderRows`: the same bits run after run on the card."""
+    dev = None if span is null_span else tree_leaves(params)[0].device
     if route is not None:
         if lazy:
             raise ValueError(
@@ -334,36 +340,42 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
         def batch_step(params, opt_state, dense, cat_ids, labels, mask,
                        *route_arrays):
             _, rest = _split(params)
-            emb_rows = _rows(params["emb"], cat_ids)
-            wide_rows = _rows(params["wide_cat"], cat_ids)
+            with span("wd_step.rows", cat="train", device=dev):
+                emb_rows = _rows(params["emb"], cat_ids)
+                wide_rows = _rows(params["wide_cat"], cat_ids)
 
             def loss_rows(rest, emb_rows, wide_rows):
                 return logistic_loss(
                     forward_from_rows(rest, dense, wide_rows, emb_rows),
                     labels, mask)
 
-            loss, (g_rest, g_emb, g_wide) = _value_and_grad(
-                loss_rows, rest, emb_rows, wide_rows)
+            with span("wd_step.grad", cat="train", device=dev):
+                loss, (g_rest, g_emb, g_wide) = _value_and_grad(
+                    loss_rows, rest, emb_rows, wide_rows)
             emb_dim = emb_rows.shape[-1]
-            grads = {
-                **g_rest,
-                "emb": route.apply(g_emb.reshape(-1, emb_dim), *route_arrays,
-                                   plain=plain),
-                "wide_cat": route.apply(g_wide.reshape(-1), *route_arrays,
-                                        plain=plain),
-            }
-            params, opt_state = adam_update(grads, opt_state, params, lr,
-                                            b1, b2, eps)
+            with span("wd_step.fold", cat="train", device=dev):
+                grads = {
+                    **g_rest,
+                    "emb": route.apply(g_emb.reshape(-1, emb_dim),
+                                       *route_arrays, plain=plain),
+                    "wide_cat": route.apply(g_wide.reshape(-1),
+                                            *route_arrays, plain=plain),
+                }
+            with span("wd_step.adam", cat="train", device=dev):
+                params, opt_state = adam_update(grads, opt_state, params,
+                                                lr, b1, b2, eps)
             return params, opt_state, loss
 
         return batch_step, adam_init(params)
     if not lazy:
         def batch_step(params, opt_state, dense, cat_ids, labels, mask):
-            loss, (grads,) = _value_and_grad(
-                lambda p: bce_loss(p, dense, cat_ids, labels, mask),
-                params)
-            params, opt_state = adam_update(grads, opt_state, params, lr,
-                                            b1, b2, eps)
+            with span("wd_step.grad", cat="train", device=dev):
+                loss, (grads,) = _value_and_grad(
+                    lambda p: bce_loss(p, dense, cat_ids, labels, mask),
+                    params)
+            with span("wd_step.adam", cat="train", device=dev):
+                params, opt_state = adam_update(grads, opt_state, params,
+                                                lr, b1, b2, eps)
             return params, opt_state, loss
 
         return batch_step, adam_init(params)
@@ -377,20 +389,23 @@ def _make_train_ops(params, lr: float, lazy: bool, route=None,
     }
 
     def batch_step(params, opt_state, dense, cat_ids, labels, mask):
-        loss, (grads,) = _value_and_grad(
-            lambda p: bce_loss(p, dense, cat_ids, labels, mask), params)
+        with span("wd_step.grad", cat="train", device=dev):
+            loss, (grads,) = _value_and_grad(
+                lambda p: bce_loss(p, dense, cat_ids, labels, mask), params)
         tables, rest = _split(params)
         g_tab, g_rest = _split(grads)
-        rest, rest_state = adam_update(g_rest, opt_state["rest"], rest, lr,
-                                       b1, b2, eps)
         t = opt_state["t"] + 1
-        # weight-0 rows (epoch padding) must not count as touched: their
-        # ids are dropped before the update (the JAX step sends them out of
-        # range so its scatters drop them)
-        ids = cat_ids[mask > 0].reshape(-1).long()
-        for k in _LAZY_TABLE_KEYS:
-            lazy_adam_rows(tables[k], opt_state["m"][k], opt_state["v"][k],
-                           g_tab[k], ids, t, lr, b1, b2, eps)
+        with span("wd_step.adam", cat="train", device=dev):
+            rest, rest_state = adam_update(g_rest, opt_state["rest"], rest,
+                                           lr, b1, b2, eps)
+            # weight-0 rows (epoch padding) must not count as touched:
+            # their ids are dropped before the update (the JAX step sends
+            # them out of range so its scatters drop them)
+            ids = cat_ids[mask > 0].reshape(-1).long()
+            for k in _LAZY_TABLE_KEYS:
+                lazy_adam_rows(tables[k], opt_state["m"][k],
+                               opt_state["v"][k], g_tab[k], ids, t, lr, b1,
+                               b2, eps)
         new_state = {"rest": rest_state, "m": opt_state["m"],
                      "v": opt_state["v"], "t": t}
         return {**rest, **tables}, new_state, loss
@@ -896,96 +911,114 @@ class WideDeep(WideDeepParams, Estimator["WideDeepModel"]):
 
             mesh = default_mesh()
         grouped = _mesh_ranks(mesh) > 1
+        # read once a fit: every span below, the steps' too, closes over it
+        span = tracer.recorder()
+        with span("widedeep.fit", cat="train", device=dev):
+            with span("widedeep.validate", cat="train"):
+                dense = np.asarray(table[self.DENSE_FEATURES_COL],
+                                   np.float32)
+                cat = np.asarray(table[self.CAT_FEATURES_COL], np.int32)
+                labels = np.asarray(table[self.get_label_col()], np.float32)
+                cat = _validate_cat_ids(cat, vocab_sizes)
 
-        dense = np.asarray(table[self.DENSE_FEATURES_COL], np.float32)
-        cat = np.asarray(table[self.CAT_FEATURES_COL], np.int32)
-        labels = np.asarray(table[self.get_label_col()], np.float32)
-        cat = _validate_cat_ids(cat, vocab_sizes)
+            n = dense.shape[0]
+            gbs = self.get_global_batch_size() or DEFAULT_GLOBAL_BATCH
+            with span("widedeep.layout", cat="train"):
+                if grouped:
+                    steps, batch, perm = _plan_epoch_layout_for_mesh(
+                        n, gbs, mesh, self.get_seed())
+                else:
+                    steps, batch, perm = plan_epoch_layout(n, gbs, 1,
+                                                           self.get_seed())
 
-        n = dense.shape[0]
-        gbs = self.get_global_batch_size() or DEFAULT_GLOBAL_BATCH
-        if grouped:
-            steps, batch, perm = _plan_epoch_layout_for_mesh(
-                n, gbs, mesh, self.get_seed())
-        else:
-            steps, batch, perm = plan_epoch_layout(n, gbs, 1,
-                                                   self.get_seed())
+                def layout(arr):
+                    return prepare_epoch_tensor(arr, perm, steps, batch)
 
-        def layout(arr):
-            return prepare_epoch_tensor(arr, perm, steps, batch)
+                C = layout(cat)
+                host = [layout(dense), C, layout(labels),
+                        layout(np.ones((n,), np.float32))]
+            with span("widedeep.copy_in", cat="train", device=dev):
+                data = tuple(torch.from_numpy(a).to(dev) for a in host)
+                del host
 
-        def put(arr):
-            return torch.from_numpy(arr).to(dev)
+            lazy = bool(self.LAZY_EMB_OPT)
+            routed_mode = self.get(WideDeepParams.ROUTED_EMB_GRAD)
+            route = None
+            if routed_mode == "on" or (routed_mode == "auto" and not lazy):
+                # the epoch tensor C is replayed every epoch, so the
+                # slot->row sort is static: built once here on the host
+                # ("auto": gather until the inverse map outgrows its
+                # budget, then scatter)
+                with span("widedeep.route", cat="train", device=dev):
+                    t0 = time.perf_counter()
+                    C_route = C
+                    if grouped:
+                        # the global epoch tensor: the ranks' local
+                        # batches of each step in rank order, the same on
+                        # every rank
+                        from ...parallel.distributed import process_allgather
 
-        mask = layout(np.ones((n,), np.float32))
-        C = layout(cat)
-        data = (put(layout(dense)), put(C), put(layout(labels)), put(mask))
+                        C_route = np.concatenate(list(process_allgather(
+                            C, mesh=mesh)), axis=1)
+                    route = emb_grad_route(C_route, int(np.sum(vocab_sizes)),
+                                           placement="auto")
+                    build_s = time.perf_counter() - t0
+                    route = route.to(dev)
+                    self.route_info = {
+                        "placement": route.placement,
+                        "fold_passes": route.fold_passes, "steps": steps,
+                        "slots_per_step": int(route.order.shape[1]),
+                        "build_s": build_s}
+                    data += route.stacked_arrays()
 
-        lazy = bool(self.LAZY_EMB_OPT)
-        routed_mode = self.get(WideDeepParams.ROUTED_EMB_GRAD)
-        route = None
-        if routed_mode == "on" or (routed_mode == "auto" and not lazy):
-            # the epoch tensor C is replayed every epoch, so the slot->row
-            # sort is static: built once here on the host ("auto": gather
-            # until the inverse map outgrows its budget, then scatter)
-            t0 = time.perf_counter()
-            C_route = C
-            if grouped:
-                # the global epoch tensor: the ranks' local batches of
-                # each step in rank order, the same on every rank
-                from ...parallel.distributed import process_allgather
+            with span("widedeep.init", cat="train"):
+                rng = np.random.default_rng(self.get_seed() + 1)  # init draws
+                host_params = init_params(rng, dense.shape[1], vocab_sizes,
+                                          self.EMBEDDING_DIM,
+                                          self.HIDDEN_UNITS)
+            with span("widedeep.params_to_device", cat="train", device=dev):
+                params = params_to_device(host_params, dev)
+                if grouped:
+                    step_fn, opt_state = _make_group_train_ops(
+                        params, self.LEARNING_RATE, lazy, mesh, route=route,
+                        plain=plain)
+                else:
+                    step_fn, opt_state = _make_train_ops(
+                        params, self.LEARNING_RATE, lazy, route=route,
+                        plain=plain, span=span)
 
-                C_route = np.concatenate(list(process_allgather(
-                    C, mesh=mesh)), axis=1)
-            route = emb_grad_route(C_route, int(np.sum(vocab_sizes)),
-                                   placement="auto")
-            build_s = time.perf_counter() - t0
-            route = route.to(dev)
-            self.route_info = {
-                "placement": route.placement,
-                "fold_passes": route.fold_passes, "steps": steps,
-                "slots_per_step": int(route.order.shape[1]),
-                "build_s": build_s}
-            data += route.stacked_arrays()
+            def epoch_body(state, epoch, data):
+                Xd, Cd, yd, md = data[:4]
+                rt = data[4:]
+                params, opt_state, loss_log = state
+                losses = []
+                for i in range(steps):
+                    with span("wd_step", cat="train", device=dev,
+                              step=epoch * steps + i):
+                        params, opt_state, loss = step_fn(
+                            params, opt_state, Xd[i], Cd[i], yd[i], md[i],
+                            *(a[i] for a in rt))
+                    losses.append(loss)
+                # stays on the device: the loop never waits for it
+                loss_log[epoch] = torch.stack(losses).mean()
+                return IterationBodyResult((params, opt_state, loss_log))
 
-        rng = np.random.default_rng(self.get_seed() + 1)  # init-draw stream
-        params = params_to_device(
-            init_params(rng, dense.shape[1], vocab_sizes,
-                        self.EMBEDDING_DIM, self.HIDDEN_UNITS), dev)
-        if grouped:
-            step_fn, opt_state = _make_group_train_ops(
-                params, self.LEARNING_RATE, lazy, mesh, route=route,
-                plain=plain)
-        else:
-            step_fn, opt_state = _make_train_ops(
-                params, self.LEARNING_RATE, lazy, route=route, plain=plain)
+            max_epochs = self.get_max_iter()
+            with span("widedeep.epochs", cat="train", device=dev):
+                init_state = (params, opt_state,
+                              torch.full((max_epochs,), float("nan"),
+                                         device=dev))
+                result = iterate(epoch_body, init_state, data,
+                                 max_epochs=max_epochs,
+                                 config=IterationConfig(mode="fused"))
+            fitted, _, loss_buf = result.state
 
-        def epoch_body(state, epoch, data):
-            Xd, Cd, yd, md = data[:4]
-            rt = data[4:]
-            params, opt_state, loss_log = state
-            losses = []
-            for i in range(steps):
-                params, opt_state, loss = step_fn(
-                    params, opt_state, Xd[i], Cd[i], yd[i], md[i],
-                    *(a[i] for a in rt))
-                losses.append(loss)
-            # stays on the device: the loop never waits for it
-            loss_log[epoch] = torch.stack(losses).mean()
-            return IterationBodyResult((params, opt_state, loss_log))
-
-        max_epochs = self.get_max_iter()
-        init_state = (params, opt_state,
-                      torch.full((max_epochs,), float("nan"), device=dev))
-        result = iterate(epoch_body, init_state, data, max_epochs=max_epochs,
-                         config=IterationConfig(mode="fused"))
-        fitted, _, loss_buf = result.state
-
-        model = WideDeepModel(device=self.device)
-        model.copy_params_from(self)
-        model._params = _params_to_host(fitted)
-        model._vocab_sizes = tuple(int(v) for v in vocab_sizes)
-        model._loss_log = list(loss_buf.cpu().numpy())
+            with span("widedeep.copy_out", cat="train", device=dev):
+                model = WideDeepModel(device=self.device)
+                model.copy_params_from(self)
+                model._params = _params_to_host(fitted)
+                model._vocab_sizes = tuple(int(v) for v in vocab_sizes)
+                model._loss_log = list(loss_buf.cpu().numpy())
         return model
 
     def fit_outofcore(self, make_reader, *, mesh=None,

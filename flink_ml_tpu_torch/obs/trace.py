@@ -1,13 +1,31 @@
-"""Span tracing: ring-buffered host spans with correlation ids.
+"""Span tracing: ring-buffered spans with correlation ids, on the host's
+clock and, while a ``torch.profiler`` session records, on the profiler's.
 
 :class:`SpanTracer` records spans that carry correlation ids, so one
-exported trace shows "checkpoint cut T -> chunk -> epoch" as nested or
-adjacent events on a shared timeline.
+exported trace shows "checkpoint cut T -> chunk -> epoch" or "fit ->
+epoch -> step -> Adam" as nested or adjacent events on a shared timeline.
 
-- **Off by default, near-free when off.**  Every instrumentation site
-  goes through :meth:`SpanTracer.span` (or guards on
-  :attr:`SpanTracer.enabled`); disabled, ``span()`` returns one shared
-  no-op context manager — no allocation, no lock, no clock read.
+- **One switch.**  The tracer records while :attr:`SpanTracer.recording`:
+  it is enabled (:meth:`SpanTracer.enable`), or a ``torch.profiler``
+  session is recording.  A span recorded under the profiler also enters
+  ``torch.profiler.record_function(name)``, so it is a
+  ``user_annotation`` in the profiler's own trace, on its clock, with
+  the device work the profiler ties to it; the ring holds it as well.
+  Retroactive :meth:`SpanTracer.add` and :meth:`SpanTracer.instant`
+  record only while enabled.
+- **Off by default, near-free when off.**  Not recording, ``span()``
+  returns one shared no-op context manager: no allocation, no lock, no
+  clock read.  A site that opens spans in a loop takes
+  :meth:`SpanTracer.recorder` once, so that each iteration skips even the
+  profiler test.
+- **Stream time without a fence.**  ``span(..., device=d)`` on a CUDA
+  device ``d`` records a timing ``torch.cuda.Event`` on the current
+  stream at entry and another at exit, while recording only.  The span's
+  ``stream_s`` (the stream's time between the two) is resolved when the
+  spans are read or exported; nothing synchronizes inside the traced
+  code, whose own host reads are the fence.  It counts every wait of
+  the stream for the host inside the span: the card's busy time under a
+  span is the profiler's (the kernels it ties to the annotation).
 - **Bounded memory.**  Completed spans land in a preallocated ring
   (default 64 Ki spans); the lock is held only for the slot bump +
   assignment — never across a clock read or an export.
@@ -15,18 +33,18 @@ adjacent events on a shared timeline.
   of well-known keys (:data:`CORRELATION_KEYS`); viewers nest by
   (tid, time) containment, and cross-thread causality rides the shared
   ids.
-- **Host clock only.**  A span that covers device work ends where the
-  host fenced it (a device-to-host read); nothing here synchronizes the
-  device.
 
 Exports: Chrome-trace JSON (the ``traceEvents`` array Perfetto and
 ``chrome://tracing`` load directly) and JSONL (one span per line).  Both
 writes are crash-atomic (tmp -> ``os.replace``).
 
-A copy of the JAX package's ``obs/trace.py`` (host-only).  The checkpoint
-manager (``checkpoint_write``) and the supervisor (``recovery_restart``)
-record on the process-wide :data:`tracer`, as do the streamed fit's
-``train_chunk`` and ``train_epoch`` spans.
+Recorded on the process-wide :data:`tracer`: the checkpoint manager
+(``checkpoint_write``), the supervisor (``recovery_restart``), the WAL,
+serving and the streamed fit (``train_chunk``, ``train_epoch``); the
+in-memory ``WideDeep.fit`` and ``KMeans.fit`` (``widedeep.*``,
+``kmeans.*``), fused ``iterate`` (``iterate.epoch``), the Wide&Deep step
+(``wd_step``, ``wd_step.*``) and the KMeans stats kernel
+(``kmeans.stats``).
 """
 
 from __future__ import annotations
@@ -38,7 +56,12 @@ import time
 
 from typing import Any, Dict, Iterator, List, Optional
 
-__all__ = ["Span", "SpanTracer", "tracer", "CORRELATION_KEYS"]
+import torch
+
+__all__ = ["Span", "SpanTracer", "tracer", "null_span", "CORRELATION_KEYS"]
+
+#: whether a ``torch.profiler`` session records (about 0.1 us a call)
+_profiling = torch._C._autograd._profiler_enabled
 
 #: the correlation-id contract: instrumentation sites only attach these
 #: keys (plus free-form strings prefixed ``x_`` for experiments), so a
@@ -54,12 +77,13 @@ CORRELATION_KEYS = ("request_id", "generation", "step", "window",
 
 class Span:
     """One completed (or instant) event: wall interval on this host's
-    ``perf_counter`` timebase plus the correlation-id dict."""
+    ``perf_counter`` timebase plus the correlation-id dict, and for a span
+    timed on a CUDA stream its :attr:`stream_s`."""
 
-    __slots__ = ("name", "cat", "t0", "dur", "tid", "ph", "ids")
+    __slots__ = ("name", "cat", "t0", "dur", "tid", "ph", "ids", "_device")
 
     def __init__(self, name: str, cat: str, t0: float, dur: float,
-                 tid: int, ph: str, ids: Dict[str, Any]):
+                 tid: int, ph: str, ids: Dict[str, Any], device=None):
         self.name = name
         self.cat = cat
         self.t0 = t0
@@ -67,11 +91,27 @@ class Span:
         self.tid = tid
         self.ph = ph            # "X" complete | "i" instant
         self.ids = ids
+        self._device = device   # None | (start, end) CUDA events | seconds
+
+    @property
+    def stream_s(self) -> Optional[float]:
+        """Seconds on the device's stream between the span's entry and
+        exit events, waits for the host included (None for a span not
+        timed on a device).  The first read waits for the exit event and
+        keeps the number."""
+        d = self._device
+        if isinstance(d, tuple):
+            start, end = d
+            end.synchronize()
+            d = self._device = start.elapsed_time(end) * 1e-3
+        return d
 
     def as_dict(self) -> Dict[str, Any]:
         out = {"name": self.name, "cat": self.cat,
                "t0_s": self.t0, "dur_s": self.dur,
                "tid": self.tid, "ph": self.ph}
+        if self._device is not None:
+            out["stream_s"] = self.stream_s
         out.update(self.ids)
         return out
 
@@ -95,28 +135,64 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+def null_span(name: str, cat: str = "host", *, device=None, **ids):
+    """What :meth:`SpanTracer.recorder` returns off the recording path:
+    ``span()``'s signature, always the shared no-op."""
+    return _NULL
+
+
+def _on_card(device) -> bool:
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def _stream_event(device):
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 class _LiveSpan:
     """One in-flight span; ``note(**ids)`` attaches correlation ids
     discovered mid-span (e.g. the generation captured after the batch
-    formed)."""
+    formed).  ``annotate``: also a ``record_function`` range (a profiler
+    session records); ``device``: a CUDA device whose current stream the
+    span times with two events."""
 
-    __slots__ = ("_tracer", "name", "cat", "ids", "_t0")
+    __slots__ = ("_tracer", "name", "cat", "ids", "_t0", "_annotation",
+                 "_device", "_start")
 
     def __init__(self, tracer: "SpanTracer", name: str, cat: str,
-                 ids: Dict[str, Any]):
+                 ids: Dict[str, Any], annotate: bool = False, device=None):
         self._tracer = tracer
         self.name = name
         self.cat = cat
         self.ids = ids
         self._t0 = 0.0
+        self._annotation = (torch.profiler.record_function(name)
+                            if annotate else None)
+        self._device = device if _on_card(device) else None
+        self._start = None
 
+    # the clock reads bracket the annotation, so that the ring's span
+    # holds whatever the profiler's range holds (its own pauses included)
     def __enter__(self) -> "_LiveSpan":
         self._t0 = time.perf_counter()
+        if self._annotation is not None:
+            self._annotation.__enter__()
+        if self._device is not None:
+            self._start = _stream_event(self._device)
         return self
 
     def __exit__(self, *exc) -> bool:
-        self._tracer.add(self.name, self._t0, time.perf_counter(),
-                         cat=self.cat, **self.ids)
+        events = (None if self._start is None else
+                  (self._start, _stream_event(self._device)))
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+        t1 = time.perf_counter()
+        self._tracer._commit(Span(self.name, self.cat, self._t0,
+                                  max(t1 - self._t0, 0.0),
+                                  threading.get_ident(), "X", self.ids,
+                                  events))
         return False
 
     def note(self, **ids) -> "_LiveSpan":
@@ -125,7 +201,7 @@ class _LiveSpan:
 
 
 class SpanTracer:
-    """Ring-buffered host span recorder (module doc).  One process-wide
+    """Ring-buffered span recorder (module doc).  One process-wide
     instance lives at :data:`tracer`; tests and benches may construct
     private ones."""
 
@@ -156,9 +232,15 @@ class SpanTracer:
         return self
 
     def disable(self) -> "SpanTracer":
-        """Stop recording; already-captured spans stay exportable."""
+        """Stop recording; already-captured spans stay exportable.  (A
+        ``torch.profiler`` session still records spans.)"""
         self.enabled = False
         return self
+
+    @property
+    def recording(self) -> bool:
+        """Enabled, or a ``torch.profiler`` session records."""
+        return self.enabled or _profiling()
 
     def clear(self) -> None:
         with self._lock:
@@ -167,13 +249,28 @@ class SpanTracer:
             self._dropped = 0
 
     # -- recording ----------------------------------------------------------
-    def span(self, name: str, cat: str = "host", **ids):
-        """Context manager timing a code region.  Disabled -> the shared
-        no-op (no allocation); enabled -> a live span committed to the
-        ring at exit."""
-        if not self.enabled:
-            return _NULL
-        return _LiveSpan(self, name, cat, ids)
+    def span(self, name: str, cat: str = "host", *, device=None, **ids):
+        """Context manager timing a code region.  Not :attr:`recording`
+        -> the shared no-op (no allocation); recording -> a live span
+        committed to the ring at exit, under a profiler session also a
+        ``record_function`` range.  ``device``: the device the region's
+        work runs on; on a CUDA device the span also gets ``stream_s``
+        (two timing events on its current stream)."""
+        return self.recorder()(name, cat, device=device, **ids)
+
+    def recorder(self):
+        """:meth:`span` with the recording test made now, for a site that
+        opens spans in a loop (a fit's steps): read once, the result
+        opens each span with no further test.  Not recording ->
+        :func:`null_span`."""
+        annotate = _profiling()
+        if not (self.enabled or annotate):
+            return null_span
+
+        def span(name: str, cat: str = "host", *, device=None, **ids):
+            return _LiveSpan(self, name, cat, ids, annotate, device)
+
+        return span
 
     def add(self, name: str, t0: float, t1: float, *, cat: str = "host",
             tid: Optional[int] = None, **ids) -> None:
@@ -251,6 +348,8 @@ class SpanTracer:
             }
             if s.ph == "X":
                 ev["dur"] = round(s.dur * 1e6, 3)
+                if s.stream_s is not None:
+                    ev["args"]["stream_s"] = s.stream_s
             else:
                 ev["s"] = "t"          # instant scope: thread
             events.append(ev)

@@ -70,6 +70,7 @@ import torch
 from ..distance import DistanceMeasure
 from ..kernels.build import count_launch
 from ..kernels.registry import kernel_or_plain, lookup
+from ..obs.trace import tracer
 
 __all__ = ["kmeans_update_stats", "kmeans_update_stats_plain",
            "kmeans_assign_reduce", "kmeans_assign_reduce_plain",
@@ -463,8 +464,10 @@ def kmeans_update_stats(points: torch.Tensor, centroids: torch.Tensor, *,
     n, d, k = _check_problem(points, centroids, compute_dtype)
     entry = lookup("kmeans_update_stats",
                    (n, d, k, "euclidean", points.device.type))
-    return entry.fn(points, centroids, tie_policy=tie_policy,
-                    compute_dtype=compute_dtype)
+    with tracer.span("kmeans.stats", cat="train", device=points.device,
+                     op=entry.backend):
+        return entry.fn(points, centroids, tie_policy=tie_policy,
+                        compute_dtype=compute_dtype)
 
 
 def update_stats_sharded(points: torch.Tensor, centroids: torch.Tensor,

@@ -330,17 +330,19 @@ def _leaves(tree) -> list:
 
 
 def _unflatten(like, leaves: list):
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            out = {k: build(t[k]) for k in sorted(t)}
-            return {k: out[k] for k in t}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
 
-    return build(like)
+def _build(t, it):
+    # a module-level recursion, not a recursive closure: the closure would
+    # be a reference cycle holding ``leaves`` (a step's reduced gradients
+    # on the card) until Python's collector ran
+    if isinstance(t, dict):
+        out = {k: _build(t[k], it) for k in sorted(t)}
+        return {k: out[k] for k in t}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build(v, it) for v in t)
+    return next(it)
 
 
 def _shape(x) -> Tuple[int, ...]:

@@ -648,6 +648,46 @@ def test_widedeep_fit_through_the_kernel(cuda_device):
                                1.0 / (1.0 + np.exp(-logit)), atol=1e-5)
 
 
+@pytest.mark.cuda
+def test_fit_spans_time_the_card(cuda_device):
+    """Under the tracer a routed Wide&Deep fit and a KMeans fit on B4 time
+    their spans on the card: ``stream_s`` positive on every
+    ``wd_step.adam`` and ``kmeans.stats`` (op ``cuda``), and a step's
+    parts sum to no more than the step's ``stream_s`` plus 5%."""
+    from flink_ml_tpu_torch.obs.trace import tracer
+
+    rng = np.random.default_rng(3)
+    n, vocab = 2048, [50, 30, 7]
+    cat = np.stack([rng.integers(0, v, size=n) for v in vocab], 1)
+    dense = rng.normal(size=(n, 5)).astype(np.float32)
+    y = ((cat[:, 0] % 2) ^ (dense[:, 0] > 0)).astype(np.int64)
+    points = rng.normal(size=(1 << 16, 8))
+    tracer.enable()
+    try:
+        wd = (T.WideDeep().set_vocab_sizes(vocab).set_max_iter(2)
+              .set_global_batch_size(256).set_seed(2))
+        wd.fit(T.Table({"denseFeatures": dense, "catFeatures": cat,
+                        "label": y}))
+        T.KMeans().set_k(16).set_max_iter(3).set_seed(1).fit(
+            T.Table({"features": points}))
+        spans = tracer.spans()
+    finally:
+        tracer.disable()
+        tracer.clear()
+    assert wd.route_info["placement"] == "gather"
+    adam = [s for s in spans if s.name == "wd_step.adam"]
+    assert len(adam) == 16 and all(s.stream_s > 0 for s in adam)
+    stats = [s for s in spans if s.name == "kmeans.stats"]
+    assert len(stats) == 3
+    assert all(s.ids["op"] == "cuda" and s.stream_s > 0 for s in stats)
+    parts = [s for s in spans if s.name.startswith("wd_step.")]
+    for step in (s for s in spans if s.name == "wd_step"):
+        mine = [p for p in parts if step.t0 <= p.t0
+                and p.t0 + p.dur <= step.t0 + step.dur]
+        assert len(mine) == 4
+        assert sum(p.stream_s for p in mine) <= 1.05 * step.stream_s
+
+
 # -- retrieve kernels --------------------------------------------------------
 
 def _retrieve_index(kind, seed=8):

@@ -953,3 +953,33 @@ def test_hosted_iterate_carries_reducer_state(tmp_path, cfg):
         assert full.state["gr"]["rung"].dtype == torch.int32
     if cfg.mode == "int8":
         assert full.state["gr"]["key"].tolist() == [0, 0, 8]
+
+
+@pytest.mark.parametrize("where", ["parallel.grad_reduce._unflatten",
+                                   "models.common.adam.tree_unflatten"])
+def test_unflatten_leaves_no_reference_cycle(where):
+    """A rebuilt tree's leaves are freed when its last reference goes, and
+    never wait in a reference cycle for Python's collector (on the card a
+    step's gradients would then stay allocated until it ran)."""
+    import gc
+    import importlib
+
+    mod, fn = where.rsplit(".", 1)
+    unflatten = getattr(importlib.import_module(
+        "flink_ml_tpu_torch." + mod), fn)
+    like = {"b": [torch.zeros(2), (torch.zeros(3),)], "a": torch.zeros(1)}
+    gc.collect()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        tree = unflatten(like, [torch.ones(1), torch.ones(2),
+                                torch.ones(3)])
+        assert tree["a"].shape == (1,) and tree["b"][1][0].shape == (3,)
+        del tree
+        gc.collect()
+        held = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert held == []

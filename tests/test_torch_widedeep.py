@@ -301,6 +301,33 @@ def test_save_load_across_packages(tmp_path):
                            device="cpu").get_max_iter() == 4
 
 
+@pytest.mark.parametrize("mode,lazy", [("auto", False), ("off", False),
+                                       ("auto", True)])
+def test_fit_leaves_no_tensor_in_a_reference_cycle(mode, lazy):
+    """Every tensor a fit's steps make is freed when its last reference
+    goes, never held in a reference cycle until Python's collector runs:
+    on the card the peak memory would then move with the collector's
+    timing (the trees of ``models/common/adam.py``)."""
+    import gc
+
+    cols = _ctr_cols()
+    est = (T.WideDeep(device="cpu").set_vocab_sizes([10, 7]).set_max_iter(2)
+           .set(T.WideDeep.ROUTED_EMB_GRAD, mode)
+           .set(T.WideDeep.LAZY_EMB_OPT, lazy))
+    gc.collect()
+    gc.disable()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        est.fit(T.Table(cols))
+        gc.collect()
+        held = [o for o in gc.garbage if isinstance(o, torch.Tensor)]
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+        gc.enable()
+    assert held == []
+
+
 def test_validation_errors():
     cols = _ctr_cols(n=64)
     with pytest.raises(ValueError, match="vocabSizes"):
